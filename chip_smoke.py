@@ -1,23 +1,47 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: build the hand-written
-kernel, hold it against its plain version, drive the tiled serving path.
+kernels, hold each against its plain version, drive the tiled serving path
+and the training path.
 
     python3 chip_smoke.py
 
 Phases (each prints its result; any failure raises and the exit code is
 not 0):
   1. the card's name and power limit (nvidia-smi);
-  2. the build of ``iswm_tpu_torch/csrc/int8_matmul.cu`` with nvcc, timed;
-  3. the kernel against its plain version, bit for bit (``torch.equal``),
-     at every routed shape of the slice (DeepLabV3+/ResNet-50, OS 16,
-     tile 512, batch 8, bf16) plus a ragged M, a saturating x, exact .5
-     ties and a float32 x; CUDA-event times of the kernel, the plain
-     version and a bf16 1x1 ``F.conv2d`` at each shape;
-  4. the slice: ``Predictor`` with ``serving_variant="int8_exec"`` and
-     seeded weights on two seeded uint8 scenes (1024x1536, 1100x1300)
+  2. the builds of ``iswm_tpu_torch/csrc/*.cu`` with nvcc, all started
+     together, timed;
+  3. ``int8_matmul`` against its plain version, bit for bit
+     (``torch.equal``), at every routed shape of the serving slice
+     (DeepLabV3+/ResNet-50, OS 16, tile 512, batch 8, bf16) plus a ragged
+     M, a saturating x, exact .5 ties and a float32 x; CUDA-event times of
+     the kernel, the plain version and a bf16 1x1 ``F.conv2d`` at each
+     shape;
+  4. the serving slice: ``Predictor`` with ``serving_variant="int8_exec"``
+     and seeded weights on two seeded uint8 scenes (1024x1536, 1100x1300)
      through ``predict_image``; the launch count must be 30 per chunk, the
      logits finite and equal to those of the same Predictor with its int8
      sites on the plain version (deterministic cuDNN); then tiles/s and
-     scene latency of ``bf16`` and ``int8_exec``.
+     scene latency of ``bf16`` and ``int8_exec``;
+  5. the fused binary CE kernels (forward sums, backward d_logits) against
+     their plain versions: the training slice's logits [8, 2, 512, 512] in
+     bf16 (NCHW and channels last) and f32, a ragged [3, 2, 97, 131] and an
+     all-ignored batch; forward sums within 1e-5 relative of the plain
+     version in float64 and bit-stable across launches, d_logits within
+     1e-6 * max|d_logits| in f32 and 1 bf16 ulp in bf16; device times
+     (profiler) and CUDA-event times of kernel and plain version at the
+     slice's shape;
+  6. the training slice at full width: ``Trainer`` on ResNet-50, OS 16,
+     bf16, crop 512, batch 8, ``ce_loss`` with ``fused_kernel="auto"``, from
+     32 seeded synthetic 640x640 scenes (8 for validation), for
+     ``TRAIN_STEPS`` steps, one validation and a best checkpoint; the fused
+     CE launch counts must equal the step count in each direction, every
+     logged loss be finite, and the checkpoint load ``strict=True`` into a
+     fresh model; one step through the kernel and one through
+     ``fused="never"`` from the same state, with deterministic algorithms,
+     agree: loss within 1e-5 relative, each parameter's gradient (a fresh
+     SGD's update is a fixed function of it) within 1e-2 * max|grad| in
+     f32 and 5e-2 in bf16 (bf16 rounding of the backward: the same bf16
+     step run twice with the default, atomics-based algorithms differs by
+     3.7e-2 * max|update|); then the median train step and train tiles/s.
 The line before the last is the kernel record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -25,16 +49,23 @@ and prints no result.
 
 from __future__ import annotations
 
+import copy
 import json
+import shutil
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 0
 SCENES = ((1024, 1536), (1100, 1300))
+TRAIN_STEPS = 12
+TRAIN_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 # (M, K, N) of every int8 site of one chunk (8 tiles of 512^2, OS 16), and
 # how many of the 30 routed sites run at it
 SLICE_SHAPES = {
@@ -77,6 +108,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time of fn() on the card: the kernels' own durations in a
+    ``torch.profiler`` trace of ``reps`` calls, without the host's launch
+    overhead (which bounds the CUDA-event time of a kernel this short)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == cuda)
+    check(total_us > 0, "the profiler recorded no device time")
+    return total_us / 1e3 / reps
+
+
 def phase_device() -> None:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,12 +136,20 @@ def phase_device() -> None:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
 
-def phase_build(k8):
+def phase_build(modules) -> None:
+    """Build every kernel library at once, one nvcc per source."""
+    def build(module):
+        t0 = time.perf_counter()
+        _, log = module.load_library()
+        return time.perf_counter() - t0, log
+
     t0 = time.perf_counter()
-    _, log = k8.load_library()
-    secs = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"[2] build int8_matmul.cu: {secs:.2f} s; ptxas: {' | '.join(ptxas)}")
+    with ThreadPoolExecutor(len(modules)) as pool:
+        results = list(pool.map(build, modules.values()))
+    for name, (secs, log) in zip(modules, results):
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"[2] build {name}.cu: {secs:.2f} s; ptxas: {' | '.join(ptxas)}")
+    print(f"[2] all builds: {time.perf_counter() - t0:.2f} s")
 
 
 def _case(m, k, n, kind, gen):
@@ -236,23 +293,236 @@ def phase_slice(k8) -> int:
     return launches
 
 
+def _ce_case(shape, dtype, gen, channels_last=False, all_ignored=False,
+             label_dtype=torch.int32):
+    """Logits [B, 2, H, W] ~ N(0, 3^2), labels ~10% foreground, ~5% 255."""
+    b, h, w = shape
+    logits = (torch.randn((b, 2, h, w), generator=gen, device="cuda") * 3).to(dtype)
+    if channels_last:
+        logits = logits.contiguous(memory_format=torch.channels_last)
+    u = torch.rand((2, b, h, w), generator=gen, device="cuda")
+    labels = (u[0] < 0.10).to(label_dtype)
+    labels[(u[1] < 0.05) | all_ignored] = 255
+    return logits, labels
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    mag = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def phase_fused_ce(ce) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cw = torch.tensor([1.0, 3.2], device="cuda")
+    slice_shape = (8, 512, 512)
+    cases = [
+        ("slice bf16 NCHW", slice_shape, torch.bfloat16, {}),
+        ("slice bf16 channels-last", slice_shape, torch.bfloat16, {"channels_last": True}),
+        ("slice f32 NCHW", slice_shape, torch.float32, {}),
+        ("ragged 3x97x131 bf16 uint8-labels", (3, 97, 131), torch.bfloat16,
+         {"label_dtype": torch.uint8}),
+        ("ragged 3x97x131 f32 channels-last int64-labels", (3, 97, 131), torch.float32,
+         {"channels_last": True, "label_dtype": torch.int64}),
+        ("all ignored bf16", slice_shape, torch.bfloat16, {"all_ignored": True}),
+    ]
+    fwd_err, bwd_err = 0.0, 0.0
+    grad = torch.tensor(1.0, device="cuda")
+    for name, shape, dtype, kw in cases:
+        logits, labels = _ce_case(shape, dtype, gen, **kw)
+        sums = ce.fused_binary_ce_fwd(logits, labels, cw)
+        again = ce.fused_binary_ce_fwd(logits, labels, cw)
+        want = ce.fused_binary_ce_fwd_plain(logits, labels, cw, dtype=torch.float64)
+        torch.cuda.synchronize()
+        check(torch.equal(sums, again), f"fused CE forward not bit-stable ({name}): "
+              f"{sums.tolist()} vs {again.tolist()}")
+        err = float((sums.double() - want).abs().max())
+        rel = float(((sums.double() - want).abs() / want.abs().clamp_min(1e-30)).max())
+        check(rel <= 1e-5 or err == 0.0,
+              f"fused CE forward ({name}): {sums.tolist()} vs float64 {want.tolist()}")
+        fwd_err = max(fwd_err, err)
+        w_sum = torch.clamp_min(sums[1], 1e-12)
+        d = ce.fused_binary_ce_bwd(logits, labels, cw, w_sum, grad)
+        d_plain = ce.fused_binary_ce_bwd_plain(logits, labels, cw, w_sum, grad)
+        torch.cuda.synchronize()
+        check(d.dtype == logits.dtype and d.stride() == logits.stride(),
+              f"d_logits {d.dtype} {d.stride()} vs logits {logits.dtype} {logits.stride()}")
+        diff = (d.float() - d_plain.float()).abs()
+        if dtype == torch.bfloat16:
+            ok, tol = bool((diff <= _bf16_ulp(d_plain)).all()), "1 bf16 ulp"
+        else:
+            bound = 1e-6 * float(d_plain.abs().max())
+            ok, tol = float(diff.max()) <= bound, "1e-6 * max|d_logits|"
+        if kw.get("all_ignored"):
+            ok = ok and float(sums[0]) == float(sums[1]) == 0.0 and not d.float().any()
+        check(ok, f"fused CE backward ({name}): max abs diff {float(diff.max())} ({tol})")
+        bwd_err = max(bwd_err, float(diff.max()))
+        print(f"[5] fused_binary_ce {name}: sums {[round(v, 3) for v in sums.tolist()]}, "
+              f"forward max abs err {err:.3e} vs float64 (rel 1e-5), bit-stable; "
+              f"backward max abs err {float(diff.max()):.3e} ({tol})")
+
+    # times at the training slice's shape and layout (channels-last bf16)
+    logits, labels = _ce_case(slice_shape, torch.bfloat16, gen, channels_last=True)
+    sums = ce.fused_binary_ce_fwd(logits, labels, cw)
+    w_sum = torch.clamp_min(sums[1], 1e-12)
+    calls = {
+        "fwd": lambda: ce.fused_binary_ce_fwd(logits, labels, cw),
+        "fwd_plain": lambda: ce.fused_binary_ce_fwd_plain(logits, labels, cw),
+        "bwd": lambda: ce.fused_binary_ce_bwd(logits, labels, cw, w_sum, grad),
+        "bwd_plain": lambda: ce.fused_binary_ce_bwd_plain(logits, labels, cw, w_sum, grad),
+    }
+    dev = {k: device_ms(f) for k, f in calls.items()}
+    host = {k: cuda_ms(f) for k, f in calls.items()}
+    moved = {"fwd": logits.numel() * logits.element_size() + labels.numel() * labels.element_size()}
+    moved["bwd"] = moved["fwd"] + logits.numel() * logits.element_size()
+    for d in ("fwd", "bwd"):
+        print(f"[5] fused_binary_ce {d} at [8, 2, 512, 512] bf16 channels-last: device time "
+              f"kernel {dev[d]:.4f} ms ({moved[d] / dev[d] / 1e6:.0f} GB/s), plain "
+              f"{dev[d + '_plain']:.4f} ms; CUDA events per call with the host's launch "
+              f"overhead: kernel {host[d]:.4f} ms, plain {host[d + '_plain']:.4f} ms")
+    return {d: {"max_abs_err": err, "ms": dev[d], "plain_ms": dev[d + "_plain"]}
+            for d, err in (("fwd", fwd_err), ("bwd", bwd_err))}
+
+
+def phase_train(ce) -> tuple:
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import ArrayDataset, augment_batch, batch_iterator, generate_scene
+    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import Trainer, TrainState, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(SEED)
+
+    def scenes(n):
+        images, masks = zip(*(generate_scene(rng, size=(640, 640)) for _ in range(n)))
+        return ArrayDataset(np.stack(images), np.stack(masks))
+
+    train_ds, val_ds = scenes(32), scenes(8)
+    cfg = Config()  # deeplabv3plus_resnet50, OS 16, bf16, ce_loss, fused auto, SGD cosine
+    cfg.data.crop_size, cfg.data.batch_size = 512, 8
+    cfg.train.total_itrs = cfg.train.val_interval = TRAIN_STEPS
+    cfg.train.print_interval = 4
+    cfg.train.save_val_results = False  # the PNG dump needs PIL
+    shutil.rmtree(TRAIN_OUT, ignore_errors=True)
+    for name in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
+        setattr(cfg.train, name, str(TRAIN_OUT / name))
+    trainer = Trainer(cfg, device="cuda", train_ds=train_ds, val_ds=val_ds)
+
+    ce.launches_fwd = ce.launches_bwd = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = (ce.launches_fwd, ce.launches_bwd)
+    check(launches == (TRAIN_STEPS, TRAIN_STEPS),
+          f"fused CE launches (fwd, bwd) {launches}, expected {TRAIN_STEPS} each")
+    losses = trainer.logger.history["train_loss"]
+    check(len(losses) == TRAIN_STEPS // cfg.train.print_interval
+          and all(np.isfinite(losses)), f"logged losses {losses}")
+    check(trainer.state.step == TRAIN_STEPS, f"step {trainer.state.step}")
+    check(trainer.best_path is not None, "no best checkpoint was written")
+    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
+    fresh = build_model(cfg.model)
+    fresh.load_state_dict(payload["model_state"], strict=True)
+    trained = trainer.state.model.state_dict()
+    check(payload["cur_itrs"] == TRAIN_STEPS
+          and all(torch.equal(v, trained[k].cpu()) for k, v in fresh.state_dict().items()),
+          "the checkpoint does not hold the trained model")
+    print(f"[6] training main path: {TRAIN_STEPS} steps + 1 validation + best checkpoint in "
+          f"{fit_s:.2f} s; fused CE launches fwd {launches[0]}, bwd {launches[1]}; "
+          f"losses {[round(v, 4) for v in losses]}; weighted score "
+          f"{trainer.best_weighted:.4f}; {Path(trainer.best_path).name} loads strict=True")
+
+    # one step through the kernel and one through the autograd loss, from one
+    # state, on one augmented batch, with one dropout mask and deterministic
+    # algorithms (cuDNN and the atomics-based backward ops), in bf16 as
+    # trained and in f32.  A fresh SGD's update is -lr (1 + m) (g + wd p), so
+    # the gradients are compared: (new - old) in f32 is quantized at ulp(p),
+    # 2% of a step-12 update of BatchNorm scales near 1.
+    images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+    model = trainer.state.model
+    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    factory, _ = make_optimizer(cfg.optim, cfg.train.total_itrs)
+    for dtype, grad_tol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-2)):
+        model.compute_dtype = dtype
+        steps = {}
+        for fused in ("auto", "never"):
+            model.load_state_dict(start)
+            state = TrainState(model, *factory(model.parameters()), 0)
+            step = make_train_step(make_loss_fn(cfg.loss.loss_type, fused=fused, device="cuda"))
+            torch.cuda.manual_seed(SEED)
+            with warnings.catch_warnings():  # ops without a deterministic version
+                warnings.simplefilter("ignore")
+                loss = float(step(state, x, y))
+            steps[fused] = (loss, {k: p.grad.float().clone() for k, p in model.named_parameters()})
+        (loss_k, g_k), (loss_p, g_p) = steps["auto"], steps["never"]
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        worst, name = max(
+            (float((g_k[k] - g_p[k]).abs().max() / g_p[k].abs().max().clamp_min(1e-30)), k)
+            for k in g_p)
+        check(rel <= 1e-5, f"{dtype}: kernel step loss {loss_k} vs plain step {loss_p}")
+        check(worst <= grad_tol, f"{dtype}: gradients of {name} differ by "
+              f"{worst:.2e} * max|grad| (limit {grad_tol})")
+        print(f"[6] one step through the kernel vs fused='never', {dtype}: loss {loss_k:.6f} "
+              f"vs {loss_p:.6f} (rel {rel:.2e}, limit 1e-5); worst parameter gradient "
+              f"{worst:.2e} * max|grad| at {name} (limit {grad_tol}) over {len(g_p)} tensors")
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    model.compute_dtype = trained_dtype
+    model.load_state_dict(start)
+
+    xu8, yu8 = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    times = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, xu8, yu8)
+        torch.cuda.synchronize()
+        if i >= 3:  # after warm-up
+            times.append(time.perf_counter() - t0)
+    step_s = float(np.median(times))
+    print(f"[6] train step (augment + forward + fused CE + backward + SGD), batch 8 at "
+          f"512^2: median {step_s * 1e3:.2f} ms of {len(times)} "
+          f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
+          f"{cfg.data.batch_size / step_s:.2f} train tiles/s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
               file=sys.stderr)
         return 1
+    from iswm_tpu_torch.ops.kernels import fused_ce as ce
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
     phase_device()
-    phase_build(k8)
+    phase_build({"int8_matmul": k8, "fused_ce": ce})
     record = phase_kernel(k8)
     launches = phase_slice(k8)
-    print(json.dumps({"kernels": [{
-        "name": "int8_matmul", "route": "cuda",
-        "source": "iswm_tpu_torch/csrc/int8_matmul.cu",
-        "replaces": "iswm_tpu/ops/pallas/int8_matmul.py:43",
-        "launches": launches, **record,
-    }]}))
+    ce_record = phase_fused_ce(ce)
+    ce_launches = phase_train(ce)
+    fused = "iswm_tpu/ops/pallas/fused_ce.py"
+    print(json.dumps({"kernels": [
+        {"name": "int8_matmul", "route": "cuda",
+         "source": "iswm_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "iswm_tpu/ops/pallas/int8_matmul.py:43",
+         "launches": launches, **record},
+        {"name": "fused_binary_ce_fwd", "route": "cuda",
+         "source": "iswm_tpu_torch/csrc/fused_ce.cu",
+         "replaces": f"{fused}:76 (_fwd_kernel, reached from fused_binary_ce {fused}:134)",
+         "launches": ce_launches[0], **ce_record["fwd"]},
+        {"name": "fused_binary_ce_bwd", "route": "cuda",
+         "source": "iswm_tpu_torch/csrc/fused_ce.cu",
+         "replaces": f"{fused}:117 (_bwd_kernel, reached from fused_binary_ce {fused}:134)",
+         "launches": ce_launches[1], **ce_record["bwd"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

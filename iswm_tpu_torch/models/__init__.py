@@ -14,7 +14,7 @@ import torch
 from ..config import ModelConfig, aspp_dilations
 
 from .deeplab import ASPP, DeepLabHeadV3Plus, DeepLabV3Model
-from .layers import init_weights
+from .layers import BatchNorm2d, init_weights
 from .resnet import ARCHS, ResNet, resnet_feature_channels
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -53,6 +53,10 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
         compute_dtype=DTYPES[cfg.compute_dtype],
     )
     init_weights(model, torch.Generator().manual_seed(seed))
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):  # flax momentum 0.9 is torch's 0.1
+            m.momentum = 1.0 - cfg.bn_momentum
+            m.eps = cfg.bn_epsilon
     return model.eval()
 
 

@@ -33,17 +33,43 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Inference BatchNorm computed in float32 on an activation of any
-    dtype, with the output in the activation's dtype (flax BatchNorm with
-    ``dtype=bf16`` and float32 statistics)."""
+    """BatchNorm computed in float32 on an activation of any dtype, with the
+    output in the activation's dtype: flax ``nn.BatchNorm`` with
+    ``dtype=bf16`` and float32 statistics.
+
+    In train mode it normalizes with the batch statistics over (N, H, W)
+    and updates the running ones as flax does, ``r = (1 - m) * r + m * batch``
+    with the BIASED batch variance (``nn.BatchNorm2d`` would take the
+    unbiased one).  ``momentum`` is torch's (``1 -`` flax's) and is set,
+    with ``eps``, from ``ModelConfig`` by ``build_model``.  One value per
+    channel (the ASPP pooling branch at batch 1) gives variance 0 and the
+    output ``bias``, as in flax, where ``nn.BatchNorm2d`` raises."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            return super().forward(x)
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight.float(),
-            self.bias.float(), False, 0.0, self.eps,
-        )
+        weight, bias = self.weight.float(), self.bias.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, weight, bias,
+                                False, 0.0, self.eps)
+        n = x.numel() // x.shape[1]
+        if n == 1:
+            xf = x.float()  # x - mean is exactly 0: output = bias, zero grads
+            mean, var = xf.detach().reshape(-1), torch.zeros_like(self.running_var)
+            out = (xf - xf.mean(dim=(0, 2, 3), keepdim=True)) * (
+                weight * self.eps ** -0.5
+            ).reshape(1, -1, 1, 1) + bias.reshape(1, -1, 1, 1)
+            out = out.to(x.dtype)
+        else:
+            # the batch mean and (unbiased) variance land in these with
+            # momentum 1; the output uses the biased one, as flax's does
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.zeros_like(self.running_var)
+            out = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
+            var = var * ((n - 1) / n)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,

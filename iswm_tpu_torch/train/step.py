@@ -1,0 +1,87 @@
+"""Train and eval steps, the counterpart of ``iswm_tpu/train/step.py``.
+
+One train step: uint8 -> /255 -> device augmentation (when given) ->
+forward in train mode -> loss -> backward -> optimizer step -> scheduler
+step.  PyTorch runs it eagerly; the step returns the loss as a device
+tensor and reads nothing back, so it makes no host sync.  Images enter
+channels last, [B, H, W, C], as in the JAX package; the NCHW view the model
+takes is a permute (channels-last memory, no copy).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..data.transforms import AugmentConfig, augment_batch, val_transform_batch
+
+
+@dataclass
+class TrainState:
+    """What a training run carries from step to step."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    step: int = 0
+
+
+def make_train_step(
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    augment: Optional[AugmentConfig] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Callable[[TrainState, torch.Tensor, torch.Tensor], torch.Tensor]:
+    """``train_step(state, images, labels) -> loss`` (0-d, on the device).
+
+    With ``augment``, images are raw uint8 (or [0, 1] float) and go through
+    scale/crop/flip/normalize drawn from ``generator`` (on the images'
+    device); without it they are used as given.  Updates ``state`` in
+    place."""
+    if augment is not None and generator is None:
+        raise ValueError("augmentation needs a torch.Generator")
+
+    def train_step(state: TrainState, images: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+        if augment is not None:
+            images, labels = augment_batch(images, labels, augment, generator)
+        state.model.train()
+        logits = state.model(images.permute(0, 3, 1, 2))
+        loss = loss_fn(logits, labels)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return loss.detach()
+
+    return train_step
+
+
+def make_eval_step(
+    model: torch.nn.Module,
+    normalize_input: bool = True,
+    want: Tuple[str, ...] = ("logits", "probs", "preds"),
+) -> Callable[[torch.Tensor], dict]:
+    """``eval_step(images [B, H, W, C]) -> dict``: ``logits`` and ``probs``
+    [B, C, H, W] (the model's layout), ``preds`` [B, H, W] int32 (argmax,
+    validation semantics), as ``want`` selects; uint8 images are
+    normalized first."""
+
+    @torch.no_grad()
+    def eval_step(images: torch.Tensor) -> dict:
+        if normalize_input and images.dtype == torch.uint8:
+            images = val_transform_batch(images)
+        model.eval()
+        logits = model(images.permute(0, 3, 1, 2))
+        out = {}
+        if "logits" in want:
+            out["logits"] = logits
+        if "probs" in want:
+            out["probs"] = torch.softmax(logits.float(), dim=1)
+        if "preds" in want:
+            out["preds"] = logits.argmax(dim=1).to(torch.int32)
+        return out
+
+    return eval_step

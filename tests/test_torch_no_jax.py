@@ -1,6 +1,7 @@
 """The port imports, and its predict CLI runs, with jax, flax and optax
 blocked: the machine with the card has none of them."""
 
+import os
 import subprocess
 import sys
 import textwrap
@@ -23,8 +24,10 @@ BLOCKER = textwrap.dedent("""
 
 
 def _run_blocked(body: str) -> subprocess.CompletedProcess:
+    # two threads: the suite's workers share the cores
+    env = dict(os.environ, OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable, "-c", BLOCKER + textwrap.dedent(body)],
-                          cwd=REPO, capture_output=True, text=True, timeout=300)
+                          cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
 
 
 def test_every_module_imports_without_jax():
@@ -40,6 +43,25 @@ def test_every_module_imports_without_jax():
     """)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 20
+
+
+def test_train_cli_on_synthetic_data(tmp_path):
+    proc = _run_blocked(f"""
+        from iswm_tpu_torch.cli.train import main
+        flags = ["--synthetic", "--device", "cpu", "--model", "deeplabv3plus_resnet18",
+                 "--compute_dtype", "float32", "--crop_size", "32", "--batch_size", "2",
+                 "--total_itrs", "4", "--val_interval", "2", "--print_interval", "2",
+                 "--sequence_length", "3", "--val_dump_limit", "1"]
+        for name in ("data_root", "checkpoints_dir", "val_results_dir",
+                     "metrics_plots_dir", "log_dir"):
+            flags += ["--" + name, {str(tmp_path)!r} + "/" + name]
+        code = main(flags)
+        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")]
+        sys.exit(code)
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert "it 4/4 loss" in proc.stdout and "done: best weighted score" in proc.stdout
+    assert len(list((tmp_path / "checkpoints_dir").glob("best_*.pth"))) == 1
 
 
 def test_predict_cli_on_png_directory(tmp_path):
