@@ -1,9 +1,9 @@
 """Weights into the port: from the JAX package's trees or a reference .pth;
 and the SGD momentum of a JAX training state, so that it continues here.
 
-Both go through the JAX package's jax-free reference-format bridge
-(``iswm_tpu.compat.torch_import``), whose key layout the port's modules
-reproduce, so the result loads with ``load_state_dict(strict=True)``.
+Both go through the reference-format bridge ``.torch_import`` (the port's
+copy of ``iswm_tpu/compat/torch_import.py``), whose key layout the port's
+modules reproduce, so the result loads with ``load_state_dict(strict=True)``.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from iswm_tpu.compat.torch_import import export_torch_state_dict, strip_module_prefix
+from .torch_import import export_torch_state_dict, strip_module_prefix
 
 
 def state_dict_from_jax(

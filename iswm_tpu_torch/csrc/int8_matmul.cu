@@ -6,7 +6,11 @@
 //
 // Replaces the TPU kernel iswm_tpu/ops/pallas/int8_matmul.py `int8_matmul`
 // (body `_kernel`), which serving runs for every eligible 1x1 conv
-// (iswm_tpu/infer/quantization.py, backend "pallas").
+// (iswm_tpu/infer/quantization.py, backend "pallas"), and, with x already
+// int8, `int8_matmul_prequant` (body `_kernel_prequant`) of the same file:
+// the kernel is a template on x's element type, and for int8_t the x-tile is
+// copied as it is, so that entry is this kernel without the quantize
+// prologue (its time beside the other's is what the prologue costs).
 //
 // What bounds it on this card: at the serving shapes (M = 8k..131k pixels,
 // K, N = 128..2048) the int8 tensor-core work is small next to the bytes
@@ -32,7 +36,7 @@
 // to right, (float(acc) * x_scale) * w_scale[n].
 //
 // Contract (checked by the Python wrapper): K % 128 == 0, N % 128 == 0,
-// x row-major [M, K] and 16-byte aligned, w_t = w^T row-major [N, K] int8,
+// x (bf16, f32 or int8 codes) row-major [M, K] and 16-byte aligned, w_t = w^T row-major [N, K] int8,
 // w_scale [N] f32, out [M, N] f32.  The launch is asynchronous on `stream`;
 // the C entry point returns cudaGetLastError().
 
@@ -83,6 +87,11 @@ __device__ __forceinline__ uint2 load_quantize8(const __nv_bfloat16* p,
   const float2 f3 = __bfloat1622float2(h[3]);
   return make_uint2(quantize4(f0.x, f0.y, f1.x, f1.y, s),
                     quantize4(f2.x, f2.y, f3.x, f3.y, s));
+}
+
+// Already int8: eight codes copied as they are (no prologue).
+__device__ __forceinline__ uint2 load_quantize8(const int8_t* p, float) {
+  return *reinterpret_cast<const uint2*>(p);
 }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
@@ -213,6 +222,20 @@ int iswm_int8_matmul(const void* x, int x_is_bf16, const void* w_t,
         static_cast<const float*>(w_scale), x_scale, static_cast<float*>(out),
         M, K, N);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x_q [M, K] int8, row-major and 16-byte aligned; the rest as above.
+int iswm_int8_matmul_prequant(const void* x_q, const void* w_t,
+                              const void* w_scale, float x_scale, void* out,
+                              int M, int K, int N, void* stream) {
+  const int m_tiles = (M + BM - 1) / BM;
+  const dim3 grid(m_tiles * (N / BN));
+  int8_matmul_kernel<int8_t>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(x_q), static_cast<const int8_t*>(w_t),
+          static_cast<const float*>(w_scale), x_scale,
+          static_cast<float*>(out), M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 

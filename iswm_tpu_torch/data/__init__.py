@@ -3,6 +3,7 @@ from .datasets import (
     IMG_EXTENSIONS,
     ArrayDataset,
     BinarySegmentation,
+    EvaluationDataset,
     batch_iterator,
     decode_target,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "ArrayDataset",
     "AugmentConfig",
     "BinarySegmentation",
+    "EvaluationDataset",
     "augment_batch",
     "augment_resample",
     "batch_iterator",

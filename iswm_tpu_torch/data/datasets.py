@@ -1,7 +1,7 @@
 """Datasets, a numpy copy of ``iswm_tpu/data/datasets.py`` (the JAX
 package's ``data`` package imports jax): ``BinarySegmentation`` over an
-``imgs/`` + ``masks/`` tree, an in-memory ``ArrayDataset`` with the same
-interface, and ``batch_iterator``.
+``imgs/`` + ``masks/`` tree, its ``EvaluationDataset`` variant, an
+in-memory ``ArrayDataset`` with the same interface, and ``batch_iterator``.
 
 A dataset exposes ``images`` (file names, whose sort order is time order),
 ``__len__`` and ``__getitem__`` -> (uint8 [H, W, 3] image, uint8 [H, W]
@@ -88,6 +88,21 @@ class BinarySegmentation:
         if self.cache:
             self._cache[idx] = (image, label)
         return image, label
+
+
+class EvaluationDataset(BinarySegmentation):
+    """Eval-only variant returning (image, mask, name, raw image) 4-tuples
+    (reference evaluate_quantization.py:34-79), read anew at every access.
+    The port's datasets apply no transform, so the first and the last
+    entry are the same array."""
+
+    def __getitem__(self, idx: int):  # type: ignore[override]
+        name = self.images[idx]
+        image = _load_image(str(self.img_dir / name))
+        mask_path = self._mask_path(name)
+        label = (np.zeros(image.shape[:2], dtype=np.uint8) if mask_path is None
+                 else _load_mask(str(mask_path)))
+        return image, label, name, image
 
 
 class ArrayDataset:

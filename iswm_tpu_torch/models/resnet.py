@@ -8,6 +8,12 @@ a stage trades its stride for dilation, its first block keeps the previous
 dilation for the 3x3 conv and later blocks use the doubled one.
 
 ``forward`` returns ``{'low_level': layer1 out (stride 4), 'out': layer4 out}``.
+
+Each ReLU that the JAX package keeps inside a ``ConvBN`` is a module of its
+own here (``relu1``, ``relu2``; the stem's ``relu``), so that the output of
+that ``ConvBN`` can be observed and fake-quantized by a forward hook
+(``infer/quantization.py``).  The ReLU after the residual add is ``relu``.
+ReLUs hold no parameters, so the key layout is unchanged.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ class BasicBlock(nn.Module):
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = conv(planes, planes, 3, 1, dilation)
         self.bn2 = BatchNorm2d(planes)
+        self.relu1 = nn.ReLU(inplace=True)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
             nn.Sequential(conv(in_ch, planes, 1, strides), BatchNorm2d(planes))
@@ -43,7 +50,7 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu1(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         return self.relu(out + identity)
 
@@ -66,6 +73,8 @@ class Bottleneck(nn.Module):
         self.bn2 = BatchNorm2d(width)
         self.conv3 = conv(width, out_ch, 1)
         self.bn3 = BatchNorm2d(out_ch)
+        self.relu1 = nn.ReLU(inplace=True)
+        self.relu2 = nn.ReLU(inplace=True)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
             nn.Sequential(conv(in_ch, out_ch, 1, strides), BatchNorm2d(out_ch))
@@ -74,8 +83,8 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.relu1(self.bn1(self.conv1(x)))
+        out = self.relu2(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))
         return self.relu(out + identity)
 

@@ -20,7 +20,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 
-from iswm_tpu.metrics.stream import weighted_score as _weighted_score
+from ..metrics.stream import weighted_score as _weighted_score
 
 _VAL_SERIES = (
     "val_miou",

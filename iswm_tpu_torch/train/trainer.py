@@ -5,8 +5,10 @@
 kernel + backward + optimizer + schedule) -> every ``val_interval`` a
 whole-set validation, sorted by file name and scored in
 ``sequence_length``-frame windows by the host ``StreamMetrics`` -> the best
-checkpoint (``.pth``) and a dump of validation images.  Losses stay on the
-device and are read once per ``print_interval``.
+checkpoint (``.pth``) and a dump of validation images.  Between validations,
+every ``quick_eval_interval`` a quick-eval scores the validation set from a
+confusion matrix kept on the device.  Losses stay on the device and are
+read once per ``print_interval``.
 
 What the port does not carry yet is refused with ``NotImplementedError``
 naming its ROADMAP item (``refuse_unported``).
@@ -21,7 +23,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from iswm_tpu.metrics import StreamMetrics
 
 from ..config import Config
 from ..data.class_weights import calculate_class_weights
@@ -29,6 +30,8 @@ from ..data.datasets import BinarySegmentation, batch_iterator, decode_target
 from ..data.loader import device_prefetch_iterator
 from ..data.synthetic import write_dataset, write_sequence_dataset
 from ..data.transforms import AugmentConfig
+from ..metrics import StreamMetrics
+from ..metrics.device import DeviceEvalAccumulator
 from ..models import build_model
 from ..ops.losses import make_loss_fn
 from . import checkpoint as ckpt_lib
@@ -42,9 +45,6 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not port."""
     q1 = "ROADMAP.md Queue 1"
     checks = (
-        (cfg.train.quick_eval_interval > 0,
-         f"quick_eval_interval needs the device metrics ({q1}, 'Device metrics "
-         "and confusion')"),
         (cfg.model.pretrained_backbone,
          f"pretrained_backbone is not ported yet ({q1}, 'Remaining zoo and feature maps')"),
         (bool(cfg.model.int8_training) or bool(cfg.train.int8_switch_iter),
@@ -225,6 +225,13 @@ class Trainer:
                     ckpt_lib.save_latest(cfg.train.checkpoints_dir, self.state,
                                          weighted_score=self.best_weighted,
                                          best_score=self.best_score or {})
+                if (cfg.train.quick_eval_interval
+                        and step % cfg.train.quick_eval_interval == 0
+                        and step % cfg.train.val_interval != 0):
+                    qm = self.quick_eval()
+                    self.logger.log_step(step, {f"quick_{k}": v for k, v in qm.items()})
+                    print(f"[quick-eval @ {step}] "
+                          + " ".join(f"{k} {v:.4f}" for k, v in qm.items()))
                 if step % cfg.train.val_interval == 0:
                     self.validate_and_save(step)
         finally:
@@ -257,6 +264,22 @@ class Trainer:
         return prof
 
     # ---------------------------------------------------------- validation
+    def quick_eval(self) -> Dict[str, float]:
+        """CM-only eval over the val set on the device (no per-image host
+        transfer, no front-tracking): miou/fiou/precision/recall/f1 from a
+        streaming confusion matrix (``metrics/device.py``; with two classes
+        each batch goes through the confusion kernel on the card).  Labels
+        and predictions stay on the device; the five floats come to the host
+        once.  This is the cheap monitor; the full ``StreamMetrics``
+        validation at ``val_interval`` keeps gating the best checkpoint."""
+        cfg = self.cfg
+        acc = DeviceEvalAccumulator(cfg.model.num_classes)
+        for images, labels in batch_iterator(self.val_ds, cfg.data.val_batch_size,
+                                             epochs=1):
+            preds = self.eval_step(torch.from_numpy(images).to(self.device))["preds"]
+            acc.update(torch.from_numpy(labels).to(self.device), preds)
+        return acc.results()
+
     def validate(self) -> Tuple[Dict[str, float], StreamMetrics, list]:
         """Whole-set validation -> sliding-window metrics."""
         cfg = self.cfg

@@ -16,7 +16,7 @@ import torch
 from iswm_tpu_torch.ops import losses as port_losses
 from iswm_tpu_torch.ops.kernels import fused_ce as port_ce
 
-from .test_torch_train import few_torch_threads  # noqa: F401  (an autouse fixture)
+from ._torch_threads import few_torch_threads  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -108,3 +108,22 @@ def test_cuda_kernel_bit_equals_plain(mkn):
     torch.cuda.synchronize()
     assert port_int8.launches == before + 1
     assert torch.equal(got, port_int8.int8_matmul_plain(xt, w_qt, w_st, x_scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cuda_conv1x1_takes_nchw_contiguous_pixels(batch):
+    """An NCHW-contiguous activation permuted to NHWC: at batch 1 its pixels
+    reshape to a transposed [M, K] view, which the wrapper must copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(batch, 256, 6, 5)).astype(np.float32)).cuda()
+    x = x.to(torch.bfloat16).permute(0, 2, 3, 1)  # NHWC view of NCHW memory
+    w_q, w_scale = _weights(rng, 256, 128)
+    w_oihw = torch.from_numpy(np.ascontiguousarray(w_q.T)).reshape(128, 256, 1, 1).cuda()
+    w_st = torch.from_numpy(w_scale).cuda()
+    got = port_int8.quantized_conv1x1(x, w_oihw, w_st, 0.05)
+    torch.cuda.synchronize()
+    assert got.shape == (batch, 6, 5, 128)
+    assert torch.equal(got, port_int8.quantized_conv1x1_plain(x, w_oihw, w_st, 0.05))

@@ -1,5 +1,7 @@
-"""The port imports, and its predict CLI runs, with jax, flax and optax
-blocked: the machine with the card has none of them."""
+"""The port imports, and its CLIs run, with jax, flax, optax and the JAX
+package ``iswm_tpu`` itself blocked: the machine with the card has none of
+the first three, and the port keeps its own copy of whatever it needs from
+the last."""
 
 import os
 import subprocess
@@ -16,10 +18,11 @@ BLOCKER = textwrap.dedent("""
 
     class _Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "iswm_tpu"):
                 raise ImportError(f"{name} is blocked")
 
     sys.meta_path.insert(0, _Block())
+    BLOCKED = ("jax", "flax", "optax", "iswm_tpu")
 """)
 
 
@@ -38,11 +41,25 @@ def test_every_module_imports_without_jax():
             iswm_tpu_torch.__path__, "iswm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         print(len(names), "modules")
     """)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 20
+    assert int(proc.stdout.split()[0]) >= 45
+
+
+def test_the_blocker_blocks_the_jax_package_only():
+    proc = _run_blocked("""
+        import importlib
+        for name in ("iswm_tpu", "iswm_tpu.config", "jax"):
+            try:
+                importlib.import_module(name)
+            except ImportError:
+                continue
+            raise SystemExit(f"{name} imported")
+        import iswm_tpu_torch.config
+    """)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_train_cli_on_synthetic_data(tmp_path):
@@ -56,7 +73,7 @@ def test_train_cli_on_synthetic_data(tmp_path):
                      "metrics_plots_dir", "log_dir"):
             flags += ["--" + name, {str(tmp_path)!r} + "/" + name]
         code = main(flags)
-        assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax")]
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         sys.exit(code)
     """)
     assert proc.returncode == 0, proc.stderr
@@ -75,13 +92,15 @@ def test_predict_cli_on_png_directory(tmp_path):
     out = tmp_path / "out"
     proc = _run_blocked(f"""
         from iswm_tpu_torch.cli.predict import main
-        sys.exit(main([
+        code = main([
             "--input_dir", {str(src)!r}, "--output_dir", {str(out)!r},
             "--device", "cpu", "--model", "deeplabv3plus_resnet18",
             "--compute_dtype", "float32", "--serving_variant", "int8_exec",
             "--tile_size", "64", "--tile_overlap", "16", "--tile_batch", "2",
             "--save_confidence", "--save_binary",
-        ]))
+        ])
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        sys.exit(code)
     """)
     assert proc.returncode == 0, proc.stderr
     assert "processed 2 images" in proc.stdout
@@ -89,3 +108,30 @@ def test_predict_cli_on_png_directory(tmp_path):
         for suffix in ("predict", "confidence", "binary_mask"):
             with Image.open(d / f"{stem}_{suffix}.png") as im:
                 assert im.size == (90, 70)
+
+
+def test_evaluate_quantization_cli_on_png_tree(tmp_path):
+    """All five ported variants over a flat imgs/ + masks/ tree of PNGs."""
+    from iswm_tpu_torch.data.synthetic import write_dataset
+
+    write_dataset(str(tmp_path), n_train=4, n_val=0, size=(48, 48), seed=3)
+    panels = tmp_path / "panels"
+    proc = _run_blocked(f"""
+        from iswm_tpu_torch.cli.evaluate_quantization import main
+        code = main([
+            "--data_dir", {str(tmp_path / "train")!r}, "--device", "cpu",
+            "--model", "deeplabv3plus_resnet18", "--compute_dtype", "float32",
+            "--variants", "f32,bf16,int8,int8_act,int8_exec",
+            "--sequence_length", "3", "--comparison_dir", {str(panels)!r},
+        ])
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        sys.exit(code)
+    """)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0].split() == ["variant", "lat", "ms", "size", "MB", "MIoU", "FIoU", "FF1",
+                                "dMIoU", "speedup", "agree", "verdict"]
+    assert [ln.split()[0] for ln in lines[1:6]] == [
+        "f32", "bf16", "int8", "int8_act", "int8_exec"]
+    assert "reference variant" in lines[1] and lines[6].startswith("note:")
+    assert (panels / "variant_comparison.png").exists()

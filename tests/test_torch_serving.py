@@ -126,9 +126,12 @@ def test_variants_match_jax(crossed, variant):
 
 def test_unported_variants_are_refused(crossed):
     model = crossed[2]
-    for name in ("int8_exec_xla", "int8_act"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pq.make_variant_fn(model, name)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pq.make_variant_fn(model, "int8_exec_xla")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pq.compare_variants(model, None, ("f32", "int8_exec_xla"))
+    with pytest.raises(ValueError, match="act_scales"):  # ported: needs its calibration
+        pq.make_variant_fn(model, "int8_act")
 
 
 @pytest.mark.parametrize("hw", [(100, 150), (20, 25)])  # ragged; under half a tile

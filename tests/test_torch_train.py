@@ -34,18 +34,8 @@ from iswm_tpu_torch.data.synthetic import generate_sequence
 from iswm_tpu_torch.models.layers import BatchNorm2d
 from iswm_tpu_torch.train import Trainer, make_optimizer, refuse_unported
 
+from ._torch_threads import few_torch_threads  # noqa: F401  (an autouse fixture)
 from .test_torch_models import crossed_models
-
-
-@pytest.fixture(autouse=True, scope="module")
-def few_torch_threads():
-    """Two intra-op threads while a module of these tests runs: the suite
-    runs six workers on shared cores, and torch's default of one thread
-    per core slows these small models tenfold there."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def assert_bn_stats_close(port_sd, jax_sd, tol=1e-5):
@@ -377,7 +367,6 @@ def test_dropout_rate_and_scaling():
 
 
 REFUSED = {
-    "quick_eval": (("train", "quick_eval_interval", 5), "Device metrics"),
     "pretrained": (("model", "pretrained_backbone", True), "Remaining zoo"),
     "int8_training": (("model", "int8_training", 64), "QAT"),
     "int8_switch": (("train", "int8_switch_iter", 10), "QAT"),
