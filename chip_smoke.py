@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: build the hand-written
 kernels, hold each against its plain version, drive the tiled serving path,
-the training path (with quick-evals) and the quantization comparison.
+the training path (with quick-evals), the quantization comparison, and
+training and serving with the fused stem.
 
     python3 chip_smoke.py
 
@@ -65,10 +66,49 @@ not 0):
      every variant has a finite latency and the five metrics, f32 is the
      reference, bf16 and int8 agree with it in the top two verdict tiers,
      int8_act has one scale per activation site and differs from int8,
-     int8_exec launches 30 kernels per image; the report table is printed.
+     int8_exec launches 30 kernels per image; the report table is printed;
+ 10. the four fused stem kernels (``stem_stats``, ``stem_norm_relu_pool``, the
+     two of ``stem_tail_bwd``) against their plain versions: the slice's
+     z [8, 64, 256, 256] in bf16 and f32, NHWC memory and NCHW, conv sides 32,
+     20 and 44 (whole and ragged 4 x 16 tiles), batch 1, an all-tie z (dbeta
+     equals sum dp) and an all-negative pre-activation (every gradient 0).
+     The pooled output equals the plain version bit for bit; the statistics,
+     s1 (dbeta), s2 (dgamma) and dW are within 1e-5 * max|tensor| of the plain
+     version summed in float64 (the kernels sum in float32, in another order)
+     and equal bit for bit across two launches; dW is held against the plain
+     contraction of the same rounded dz (the kernel's own s1 / N and s2 / N go
+     into both).  Device times with z out of the L2 cache: each kernel, its
+     plain version, and the unfused chain on the same tensors
+     (``F.batch_norm`` + ReLU + ``F.max_pool2d``; their autograd backward plus
+     the conv's cuDNN weight gradient);
+ 11. the fused stem at full width: phase 6's ``Trainer`` with
+     ``fused_stem="always"`` for ``STEM_STEPS`` steps, a quick-eval and a
+     validation; ``stem_stats`` and the two backward kernels are launched
+     once per step, ``stem_norm_relu_pool`` once per step and per eval
+     forward; every loss finite; the best ``.pth`` loads ``strict=True`` into
+     an unfused model; one step fused and one unfused from the same state with
+     deterministic algorithms: ``bn1``'s running statistics within 1e-5 (of
+     max|var|, and of max sqrt(var) for the mean), the loss within 1e-3
+     relative in f32 and 1e-2 in bf16 (the unfused BatchNorm rounds before
+     the ReLU and the pool, the fused one after, and takes another variance
+     formula); the stem's three gradients within 1e-2 * max|grad| in f32, and
+     in bf16 the median within 5e-2 and the worst within 2.5e-1 (phase 6's
+     bands), of the unfused chain's autograd on the fused step's own image,
+     parameters and pooled cotangent (in bf16 many pool windows tie, and
+     equal-split and first-index routing are two subgradients).  The
+     whole step's gradients are not held to phase 6's bands: a step of this
+     model is chaotic in its forward, so the median tensor's difference is
+     printed beside that of an unfused step whose pooled values were moved by
+     an ulp or two at one value in a million; the median train step of both,
+     and the stem kernels' share of a step's device time from a profiler
+     trace; then a
+     bf16 ``Predictor`` with the fused stem on the 1024x1536 scene:
+     ``stem_norm_relu_pool`` once per chunk, finite logits, mask agreement
+     with the unfused Predictor >= 0.999, scene latency of both.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
-(1,979 TOP/s int8 tensor core, 67 TFLOP/s float32), NVIDIA's data-sheet
+(1,979 TOP/s int8 tensor core, 67 TFLOP/s float32, where the stem's weight
+gradient runs: its FMAs are not on the tensor cores), NVIDIA's data-sheet
 rates for an H100 SXM.  The line before the last is the kernel record; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card it
 exits non-zero and prints no result.
@@ -96,6 +136,8 @@ QUICK_EVAL_INTERVAL = 4  # quick-evals at steps 4 and 8, the validation at 12
 VAL_SCENES = 8
 EVAL_SCENES = 8
 EVAL_VARIANTS = ("f32", "bf16", "int8", "int8_act", "int8_exec")
+STEM_STEPS = 4  # with a quick-eval at step 2 and the validation at 4
+STEM_SLICE = (8, 256)  # batch and conv-output side of the stem at crop 512
 # NVIDIA's data sheet for the H100 SXM, dense rates
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
@@ -147,12 +189,13 @@ class NoDeviceRecords(RuntimeError):
     pass
 
 
-def traced_ms(fn, reps: int, warmup: int) -> float:
-    """Device time of one fn() from a ``torch.profiler`` trace of ``reps``
-    calls.  A trace can come back short of its last records, or now and then
-    with none: so each kernel counts with the mean of the records it has,
-    times its launches in a call (records / reps, to the nearest whole
-    number), and an empty trace is taken again, five times at most."""
+def traced_kernels(fn, reps: int, warmup: int) -> dict:
+    """{kernel name: its device time in one fn(), ms} from a ``torch.profiler``
+    trace of ``reps`` calls.  A trace can come back short of its last records,
+    or now and then with none: so each kernel counts with the mean of the
+    records it has, times its launches in a call (records / reps, to the
+    nearest whole number), and an empty trace is taken again, five times at
+    most."""
     for _ in range(warmup):
         fn()
     cuda = torch.autograd.DeviceType.CUDA
@@ -165,9 +208,14 @@ def traced_ms(fn, reps: int, warmup: int) -> float:
         on_device = [e for e in prof.key_averages()
                      if e.device_type == cuda and e.count and e.self_device_time_total > 0]
         if on_device:
-            return sum(e.self_device_time_total / e.count * (round(e.count / reps) or e.count / reps)
-                       for e in on_device) / 1e3
+            return {e.key: e.self_device_time_total / e.count
+                    * (round(e.count / reps) or e.count / reps) / 1e3 for e in on_device}
     raise NoDeviceRecords(f"five traces of {reps} calls hold no device record")
+
+
+def traced_ms(fn, reps: int, warmup: int) -> float:
+    """Device time of one fn(): the sum of :func:`traced_kernels`."""
+    return sum(traced_kernels(fn, reps, warmup).values())
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -859,6 +907,442 @@ def phase_compare_variants(k8) -> None:
           f"int8_act differs from int8 by up to {diff:.4f} in the logits")
 
 
+STEM_KERNELS = ("stats_partial", "pool_fwd", "bwd_sums_partial", "bwd_wgrad_partial",
+                "sum_partials")
+
+
+def _stem_case(b, s, dtype, gen, channels_last=True, kind="random"):
+    """(z, x, dp, gamma, beta) of one stem case: the conv output z
+    [b, 64, s, s] with per-channel offsets, the image x [b, 3, 2s, 2s] and the
+    pooled cotangent dp, in ``dtype``."""
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    z = (rand(b, 64, s, s) * 1.5 + rand(1, 64, 1, 1) * 0.5).to(dtype)
+    gamma, beta = 1.0 + 0.5 * rand(64), 0.1 * rand(64)
+    if kind == "ties":  # constant z: every window is a 9-way (4- or 6-way at the rim) tie
+        z, gamma, beta = torch.ones_like(z), torch.ones(64, device="cuda"), beta + 5.0
+    elif kind == "negative":  # relu(bn(z)) = 0 everywhere
+        gamma, beta = gamma.abs(), beta - 100.0
+    x, dp = rand(b, 3, 2 * s, 2 * s).to(dtype), rand(b, 64, s // 2, s // 2).to(dtype)
+    if channels_last:
+        z, x, dp = (t.contiguous(memory_format=torch.channels_last) for t in (z, x, dp))
+    return z, x, dp, gamma, beta
+
+
+def _close(got, want, tol=1e-5):
+    """max |got - want| in float64, and whether it is within tol * max|want|."""
+    err = float((got.double() - want.double()).abs().max())
+    return err, err <= tol * float(want.double().abs().max())
+
+
+def _unfused_stem_chain(z, x, dp, gamma, beta):
+    """The unfused chain on the same tensors: (forward, backward) callables.
+    Another function than the kernels': first-index pool routing, BatchNorm's
+    output rounded to z's dtype, and the weight gradient through cuDNN."""
+    F = torch.nn.functional
+    weight, bias = gamma.to(z.dtype), beta.to(z.dtype)
+
+    def forward(leaf=z):
+        y = torch.relu(F.batch_norm(leaf, None, None, weight, bias, True, 0.0, 1e-5))
+        return F.max_pool2d(y, 3, 2, 1)
+
+    leaf = z.detach().requires_grad_()
+    pooled = forward(leaf)
+
+    def backward():
+        (dz,) = torch.autograd.grad(pooled, leaf, dp, retain_graph=True)
+        return torch.nn.grad.conv2d_weight(x, (64, 3, 7, 7), dz, stride=2, padding=3)
+
+    return forward, backward
+
+
+def phase_stem_kernels(fs) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, s = STEM_SLICE
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("slice bf16 NHWC", b, s, bf16, True, "random"),
+        ("slice bf16 NCHW", b, s, bf16, False, "random"),
+        ("slice f32 NHWC", b, s, f32, True, "random"),
+        ("slice f32 NCHW", b, s, f32, False, "random"),
+        ("S=32 bf16 (whole tiles)", 2, 32, bf16, True, "random"),
+        ("S=20 f32 (ragged tiles)", 2, 20, f32, True, "random"),
+        ("S=44 bf16 (ragged tiles)", 2, 44, bf16, False, "random"),
+        ("batch 1 S=32 f32", 1, 32, f32, True, "random"),
+        ("all-tie z, S=32 bf16", 2, 32, bf16, True, "ties"),
+        ("all-negative pre-activation, S=32 f32", 2, 32, f32, True, "negative"),
+    ]
+    errs = {"stats": 0.0, "pool": 0.0, "sums": 0.0, "wgrad": 0.0}
+    for name, bb, ss, dtype, channels_last, kind in cases:
+        z, x, dp, gamma, beta = _stem_case(bb, ss, dtype, gen, channels_last, kind)
+        n = bb * ss * ss
+        total, total_sq = fs.stem_stats(z)
+        again = fs.stem_stats(z)
+        want = fs.stem_stats_plain(z, dtype=torch.float64)
+        torch.cuda.synchronize()
+        check(torch.equal(total, again[0]) and torch.equal(total_sq, again[1]),
+              f"stem_stats not bit-stable ({name})")
+        e_stats = 0.0
+        for got, ref, what in ((total, want[0], "sum z"), (total_sq, want[1], "sum z^2")):
+            err, ok = _close(got, ref)
+            check(ok, f"stem_stats {what} ({name}): max abs err {err} vs float64")
+            e_stats = max(e_stats, err)
+        if kind == "ties":  # the JAX package's engineered case: statistics given
+            mean, sigma_inv = torch.zeros(64, device="cuda"), torch.ones(64, device="cuda")
+        else:
+            mean = total / n
+            sigma_inv = torch.rsqrt(torch.clamp_min(total_sq / n - mean * mean, 0.0) + 1e-5)
+        scale, bias = fs.fold_affine(gamma, beta, mean, sigma_inv)
+
+        pooled = fs.stem_norm_relu_pool(z, scale, bias)
+        pooled_plain = fs.stem_norm_relu_pool_plain(z, scale, bias)
+        torch.cuda.synchronize()
+        e_pool = float((pooled.float() - pooled_plain.float()).abs().max())
+        check(pooled.dtype == dtype and torch.equal(pooled, pooled_plain),
+              f"stem_norm_relu_pool != plain ({name}): max abs err {e_pool}")
+
+        args = (z, dp, scale, bias, mean, sigma_inv)
+        s1, s2 = fs.stem_bwd_sums(*args)
+        again = fs.stem_bwd_sums(*args)
+        want = fs.stem_bwd_sums_plain(*args, dtype=torch.float64)
+        torch.cuda.synchronize()
+        check(torch.equal(s1, again[0]) and torch.equal(s2, again[1]),
+              f"stem_tail_bwd sums not bit-stable ({name})")
+        e_sums = 0.0
+        for got, ref, what in ((s1, want[0], "s1 (dbeta)"), (s2, want[1], "s2 (dgamma)")):
+            err, ok = _close(got, ref)
+            check(ok or (kind == "negative" and err == 0.0),
+                  f"stem_tail_bwd {what} ({name}): max abs err {err} vs float64")
+            e_sums = max(e_sums, err)
+
+        wargs = (z, dp, x, scale, bias, mean, sigma_inv, s1 / n, s2 / n)
+        dw = fs.stem_bwd_wgrad(*wargs)
+        again = fs.stem_bwd_wgrad(*wargs)
+        want = fs.stem_bwd_wgrad_plain(*wargs, dtype=torch.float64)
+        torch.cuda.synchronize()
+        check(torch.equal(dw, again), f"stem_tail_bwd wgrad not bit-stable ({name})")
+        e_wgrad, ok = _close(dw, want)
+        check(tuple(dw.shape) == (64, 3, 7, 7) and (ok or (kind == "negative" and e_wgrad == 0.0)),
+              f"stem_tail_bwd dW ({name}): max abs err {e_wgrad} vs float64, "
+              f"max |dW| {float(want.abs().max())}")
+        note = ""
+        if kind == "ties":  # equal-split keeps every window's mass: dbeta = sum dp
+            mass = dp.double().sum(dim=(0, 2, 3))
+            err, ok = _close(s1, mass)
+            check(ok, f"all-tie z: dbeta differs from sum dp by {err}")
+            note = f"; dbeta = sum dp within {err:.2e}"
+        if kind == "negative":
+            check(not pooled.float().any() and not s1.any() and not s2.any() and not dw.any(),
+                  "all-negative pre-activation: a pooled value or a gradient is not 0")
+            note = "; pooled, dbeta, dgamma and dW all 0"
+        for key, err in (("stats", e_stats), ("pool", e_pool), ("sums", e_sums),
+                         ("wgrad", e_wgrad)):
+            errs[key] = max(errs[key], err)
+        print(f"[10] fused stem {name}: statistics max abs err {e_stats:.3e}, pooled equal bit "
+              f"for bit, s1/s2 {e_sums:.3e}, dW {e_wgrad:.3e} vs float64 (each within 1e-5 * "
+              f"max|tensor|), all bit-stable{note}")
+        del z, x, dp, pooled, pooled_plain, want, dw, again
+
+    # times at the training slice's shape and layout, z out of the L2 cache
+    z, x, dp, gamma, beta = _stem_case(b, s, bf16, gen)
+    n = b * s * s
+    total, total_sq = fs.stem_stats(z)
+    mean = total / n
+    sigma_inv = torch.rsqrt(torch.clamp_min(total_sq / n - mean * mean, 0.0) + 1e-5)
+    scale, bias = fs.fold_affine(gamma, beta, mean, sigma_inv)
+    args = (z, dp, scale, bias, mean, sigma_inv)
+    s1, s2 = fs.stem_bwd_sums(*args)
+    wargs = (z, dp, x, scale, bias, mean, sigma_inv, s1 / n, s2 / n)
+    chain_fwd, chain_bwd = _unfused_stem_chain(z, x, dp, gamma, beta)
+    calls = {
+        "stats": (lambda: fs.stem_stats(z), lambda: fs.stem_stats_plain(z)),
+        "pool": (lambda: fs.stem_norm_relu_pool(z, scale, bias),
+                 lambda: fs.stem_norm_relu_pool_plain(z, scale, bias)),
+        "sums": (lambda: fs.stem_bwd_sums(*args), lambda: fs.stem_bwd_sums_plain(*args)),
+        "wgrad": (lambda: fs.stem_bwd_wgrad(*wargs), lambda: fs.stem_bwd_wgrad_plain(*wargs)),
+    }
+    nbytes = {t: v.numel() * v.element_size() for t, v in (("z", z), ("x", x), ("dp", dp))}
+    vec = 64 * 4
+    taps = 7 * 7 * 3
+    # operations on these inputs, all float32: sums of z and z^2; affine, relu
+    # and the 9-way maximum (9 visits per pooled value); the same recomputed
+    # plus tie counts, shares and the two sums; the same plus dz and the
+    # 2 * 147 * 64 operations a conv pixel of the contraction
+    least = {
+        "stats": least_time(nbytes["z"] + 2 * vec, 3 * z.numel(), F32_OPS_PER_S),
+        "pool": least_time(nbytes["z"] + nbytes["dp"] + 2 * vec, 6 * z.numel(), F32_OPS_PER_S),
+        "sums": least_time(nbytes["z"] + nbytes["dp"] + 6 * vec, 16 * z.numel(), F32_OPS_PER_S),
+        "wgrad": least_time(nbytes["z"] + nbytes["dp"] + nbytes["x"] + 6 * vec + 64 * taps * 4,
+                            (16 + 2 * taps) * z.numel(), F32_OPS_PER_S),
+    }
+    chain = {"fwd": cold_device_ms(chain_fwd, reps=10), "bwd": cold_device_ms(chain_bwd, reps=10)}
+    records = {}
+    for key, (kernel, plain) in calls.items():
+        records[key] = {"max_abs_err": errs[key], "ms": cold_device_ms(kernel, reps=10),
+                        "plain_ms": cold_device_ms(plain, reps=5), **least[key],
+                        "library_ms": None}  # no single PyTorch call computes it
+        moved = least[key]["bound_ms"] if least[key]["bound_by"] == "bytes" else None
+        print(f"[10] stem {key} at z [8, 64, 256, 256] bf16 NHWC, inputs out of L2: device time "
+              f"kernel {records[key]['ms']:.4f} ms, plain {records[key]['plain_ms']:.4f} ms, "
+              f"bound {least[key]['bound_ms']:.4f} ms by {least[key]['bound_by']}"
+              + ("" if moved is None else
+                 f" ({moved * HBM_BYTES_PER_S / 1e9:.1f} MB)"))
+    for pair, keys in (("fwd", ("stats", "pool")), ("bwd", ("sums", "wgrad"))):
+        ours = sum(records[k]["ms"] for k in keys)
+        for k in keys:
+            records[k]["unfused_chain_ms"] = chain[pair]
+            records[k]["unfused_chain_of"] = "+".join(keys)
+        print(f"[10] stem {pair}: kernels {' + '.join(keys)} {ours:.4f} ms; the unfused chain on "
+              f"the same tensors (another function: "
+              + ("F.batch_norm train + ReLU + F.max_pool2d" if pair == "fwd" else
+                 "their autograd backward + the conv's cuDNN weight gradient")
+              + f") {chain[pair]:.4f} ms")
+    return records
+
+
+def phase_stem_slice(fs, ce) -> tuple:
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import ArrayDataset, augment_batch, batch_iterator, generate_scene
+    from iswm_tpu_torch.infer import Predictor, tile_origins
+    from iswm_tpu_torch.infer.quantization import logit_diff_verdict
+    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import Trainer, TrainState, make_optimizer, make_train_step
+
+    rng = np.random.default_rng(SEED)
+
+    def scenes(n):
+        images, masks = zip(*(generate_scene(rng, size=(640, 640)) for _ in range(n)))
+        return ArrayDataset(np.stack(images), np.stack(masks))
+
+    train_ds, val_ds = scenes(32), scenes(VAL_SCENES)
+    cfg = Config()  # phase 6's configuration, with the fused stem
+    cfg.model.fused_stem = "always"
+    cfg.data.crop_size, cfg.data.batch_size = 512, 8
+    cfg.train.total_itrs = cfg.train.val_interval = STEM_STEPS
+    cfg.train.quick_eval_interval = cfg.train.print_interval = STEM_STEPS // 2
+    cfg.train.save_val_results = False  # the PNG dump needs PIL
+    out = TRAIN_OUT.with_name("chip_smoke_stem")
+    shutil.rmtree(out, ignore_errors=True)
+    for name in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
+        setattr(cfg.train, name, str(out / name))
+    trainer = Trainer(cfg, device="cuda", train_ds=train_ds, val_ds=val_ds)
+
+    def counts():
+        return (fs.launches_stats, fs.launches_pool, fs.launches_bwd_sums,
+                fs.launches_bwd_wgrad)
+
+    fs.launches_stats = fs.launches_pool = fs.launches_bwd_sums = fs.launches_bwd_wgrad = 0
+    ce.launches_fwd = ce.launches_bwd = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    train_launches = counts()
+    eval_forwards = 2 * -(-len(val_ds) // cfg.data.val_batch_size)  # a quick-eval, a validation
+    want = (STEM_STEPS, STEM_STEPS + eval_forwards, STEM_STEPS, STEM_STEPS)
+    check(train_launches == want,
+          f"stem launches (stats, pool, bwd sums, bwd wgrad) {train_launches}, expected {want}: "
+          f"{STEM_STEPS} steps and {eval_forwards} eval forwards")
+    check((ce.launches_fwd, ce.launches_bwd) == (STEM_STEPS, STEM_STEPS),
+          f"fused CE launches {(ce.launches_fwd, ce.launches_bwd)} in {STEM_STEPS} steps")
+    losses = trainer.logger.history["train_loss"]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"logged losses {losses}")
+    check(trainer.best_path is not None, "no best checkpoint was written")
+    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
+    unfused_cfg = Config().model
+    check(unfused_cfg.fused_stem == "never", "fused_stem does not default to 'never'")
+    build_model(unfused_cfg).load_state_dict(payload["model_state"], strict=True)
+    print(f"[11] training with fused_stem='always': {STEM_STEPS} steps + 1 quick-eval + 1 "
+          f"validation in {fit_s:.2f} s; launches stats {train_launches[0]}, pool "
+          f"{train_launches[1]} ({STEM_STEPS} steps + {eval_forwards} eval forwards), bwd sums "
+          f"{train_launches[2]}, bwd wgrad {train_launches[3]}; losses "
+          f"{[round(v, 4) for v in losses]}; {Path(trainer.best_path).name} loads strict=True "
+          f"into an unfused model")
+
+    # one step fused and one unfused from one state, on one augmented batch,
+    # with one dropout mask and deterministic algorithms.  The two forwards
+    # differ in the last bit of some pooled values (the unfused BatchNorm
+    # rounds before the ReLU and the pool and takes another variance formula),
+    # and a whole step of this model answers any such difference with
+    # gradients that differ by a large part of their size: so the step's
+    # gradients are printed beside those of an unfused step whose pooled
+    # values were moved by an ulp or two (of bf16, or of the TF32 that float32
+    # convs read) at one value in a million, and the
+    # backward is held to the unfused chain where the two can agree: on the
+    # fused step's own image, parameters and pooled cotangent.
+    images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+    model = trainer.state.model
+    backbone = model.backbone
+    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    factory, _ = make_optimizer(cfg.optim, cfg.train.total_itrs)
+    step = make_train_step(make_loss_fn(cfg.loss.loss_type, fused="auto", device="cuda"))
+    stem = ("backbone.conv1.weight", "backbone.bn1.weight", "backbone.bn1.bias")
+    F = torch.nn.functional
+
+    def one_step(mode, hooked, hook):
+        """(loss, gradients, bn1's running mean and var) of one step from
+        ``start`` with ``hook`` on the forward of the module ``hooked``."""
+        backbone.fused_stem = mode
+        model.load_state_dict(start)
+        state = TrainState(model, *factory(model.parameters()), 0)
+        torch.cuda.manual_seed(SEED)
+        handle = hooked.register_forward_hook(hook)
+        with warnings.catch_warnings():  # ops without a deterministic version
+            warnings.simplefilter("ignore")
+            loss = float(step(state, x, y))
+        handle.remove()
+        return (loss, {k: p.grad.float().clone() for k, p in model.named_parameters()},
+                backbone.bn1.running_mean.clone(), backbone.bn1.running_var.clone())
+
+    def ratios_of(got, want):
+        return sorted((float((got[k] - want[k]).abs().max()
+                             / want[k].abs().max().clamp_min(1e-30)), k) for k in want)
+
+    def nudge(module, args, out):
+        """One pooled value in a million moved up by an ulp or two of what the
+        convs after it read: bf16, or TF32 from a float32 tensor."""
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        where = torch.rand(out.shape, generator=gen, device="cuda") < 1e-6
+        ulp = 2.0 ** (-7 if out.dtype == torch.bfloat16 else -10)
+        return torch.where(where, (out.double() * (1.0 + ulp)).to(out.dtype), out)
+
+    # phase 6's bands, over the stem's three tensors: (median, worst)
+    for dtype, loss_tol, grad_tol, worst_tol in ((torch.bfloat16, 1e-2, 5e-2, 2.5e-1),
+                                                 (torch.float32, 1e-3, 1e-2, 1e-2)):
+        model.compute_dtype = dtype
+        seen = {}
+
+        def grab(module, args, out):
+            seen["x"] = args[0].detach()
+            out.register_hook(lambda g: seen.__setitem__("dp", g.detach().clone()))
+
+        loss_k, g_k, mean_k, var_k = one_step("always", backbone.fused_stem_pool, grab)
+        loss_p, g_p, mean_p, var_p = one_step("never", backbone.maxpool, lambda *a: None)
+        _, g_n, _, _ = one_step("never", backbone.maxpool, nudge)
+        var_err = float((var_k - var_p).abs().max() / var_p.abs().max())
+        mean_err = float((mean_k - mean_p).abs().max() / var_p.sqrt().max())
+        check(var_err <= 1e-5 and mean_err <= 1e-5,
+              f"{dtype}: bn1 running statistics after one fused step differ from the unfused "
+              f"step's: var {var_err:.2e} * max|var|, mean {mean_err:.2e} * max sqrt(var)")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        check(rel <= loss_tol, f"{dtype}: fused step loss {loss_k} vs unfused {loss_p}")
+        # the unfused chain's autograd on the fused step's inputs and cotangent
+        leaves = [start[k].clone().requires_grad_() for k in stem]
+        z = F.conv2d(seen["x"], leaves[0].to(dtype), None, 2, 3)
+        bn = backbone.bn1
+        pooled = F.max_pool2d(torch.relu(F.batch_norm(
+            z, None, None, leaves[1], leaves[2], True, 0.0, bn.eps)), 3, 2, 1)
+        chain = dict(zip(stem, torch.autograd.grad(pooled, leaves, seen["dp"])))
+        own = ratios_of({k: g_k[k] for k in stem}, chain)
+        check(own[-1][0] <= worst_tol and own[1][0] <= grad_tol,
+              f"{dtype}: the fused stem's gradient of {own[-1][1]} differs from the unfused "
+              f"chain's on the same inputs by {own[-1][0]:.2e} * max|grad| (limit {worst_tol}), "
+              f"the median of the three by {own[1][0]:.2e} (limit {grad_tol})")
+        whole, floor = ratios_of(g_k, g_p), ratios_of(g_n, g_p)
+        print(f"[11] one step fused vs fused_stem='never', {dtype}: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f} (rel {rel:.2e}, limit {loss_tol}); bn1 running var {var_err:.2e}, "
+              f"mean {mean_err:.2e} (limit 1e-5); the stem's gradients against the unfused "
+              f"chain's autograd on the same image, parameters and cotangent: "
+              + ", ".join(f"{k.removeprefix('backbone.')} {r:.2e}" for r, k in own)
+              + f" * max|grad| (limits: median {grad_tol}, worst {worst_tol}); whole-step "
+              f"gradients, median tensor of "
+              f"{len(whole)}: fused vs unfused {whole[len(whole) // 2][0]:.2e}, unfused vs "
+              f"unfused with one pooled value in a million moved by an ulp or two "
+              f"{floor[len(floor) // 2][0]:.2e} (not held: the step is chaotic)")
+        del seen, chain, z, pooled
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    model.compute_dtype = trained_dtype
+    model.load_state_dict(start)
+
+    xu8, yu8 = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    step_ms, device_ms_of, stem_ms = {}, {}, 0.0
+    for mode in ("never", "always", "always", "never"):
+        model.backbone.fused_stem = mode
+        times = []
+        for i in range(11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(trainer.state, xu8, yu8)
+            torch.cuda.synchronize()
+            if i >= 3:  # after warm-up
+                times.append(time.perf_counter() - t0)
+        step_ms.setdefault(mode, []).extend(times)
+    for mode in ("never", "always"):
+        model.backbone.fused_stem = mode
+        kernels = traced_kernels(lambda: trainer.train_step(trainer.state, xu8, yu8), 3, 1)
+        device_ms_of[mode] = sum(kernels.values())
+        if mode == "always":
+            ours = {k: v for k, v in kernels.items() if any(n in k for n in STEM_KERNELS)}
+            check(len(ours) >= 5, f"the trace of a fused step names {sorted(ours)}")
+            stem_ms = sum(ours.values())
+    never, always = (float(np.median(step_ms[m])) * 1e3 for m in ("never", "always"))
+    rounds = {m: [round(float(np.median(step_ms[m][i:i + 8])) * 1e3, 2) for i in (0, 8)]
+              for m in step_ms}
+    print(f"[11] train step, batch 8 at 512^2, median of {len(step_ms['never'])} each (never, "
+          f"always, always, never): fused_stem='never' {never:.2f} ms, 'always' {always:.2f} ms "
+          f"(host-bound; by round of 8: never {rounds['never']}, always {rounds['always']}); "
+          f"device time of a step (profiler, per-kernel means): 'never' "
+          f"{device_ms_of['never']:.2f} ms, 'always' {device_ms_of['always']:.2f} ms, of which "
+          f"the stem kernels {stem_ms:.3f} ms ({100 * stem_ms / device_ms_of['always']:.2f}%); "
+          f"so the unfused stem tail is {device_ms_of['never'] - device_ms_of['always'] + stem_ms:.3f} "
+          f"ms of the unfused step (the difference of the two totals, plus the stem kernels)")
+    del trainer, model
+
+    # serving: the 1024x1536 scene through the tile engine, bf16
+    scene = np.random.default_rng(SEED).integers(0, 256, (*SCENES[0], 3), dtype=np.uint8)
+    predictors = {}
+    for mode in ("always", "never"):
+        pcfg = Config()
+        pcfg.model.fused_stem = mode
+        predictors[mode] = Predictor(pcfg, device="cuda")
+    p = pcfg.predict
+    tiles = (len(tile_origins(SCENES[0][0], p.tile_size, p.tile_size - p.tile_overlap))
+             * len(tile_origins(SCENES[0][1], p.tile_size, p.tile_size - p.tile_overlap)))
+    chunks = -(-tiles // p.tile_batch)
+    before = counts()
+    product = predictors["always"].predict_image(scene)
+    torch.cuda.synchronize()
+    serve_launches = tuple(a - b for a, b in zip(counts(), before))
+    check(serve_launches == (0, chunks, 0, 0),
+          f"serving launched (stats, pool, bwd sums, bwd wgrad) {serve_launches}, expected "
+          f"the pool kernel once for each of {chunks} chunks and no other")
+    check(product["mask"].shape == SCENES[0] and bool(np.isfinite(product["prob_fg"]).all()),
+          "the fused Predictor's products")
+    from iswm_tpu_torch.data import val_transform_batch
+
+    xs = val_transform_batch(torch.from_numpy(scene).cuda())
+    logits = {m: pr.engine.infer_scene(xs) for m, pr in predictors.items()}
+    check(bool(torch.isfinite(logits["always"]).all()), "fused scene logits not finite")
+    agree, verdict = logit_diff_verdict(logits["never"].cpu().numpy(),
+                                        logits["always"].cpu().numpy())
+    check(agree >= 0.999, f"fused vs unfused Predictor: mask agreement {agree} ({verdict})")
+    latency = {}
+    for mode in ("never", "always", "always", "never"):
+        predictors[mode].predict_image(scene)
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictors[mode].predict_image(scene)
+            torch.cuda.synchronize()
+            latency.setdefault(mode, []).append(time.perf_counter() - t0)
+    never, always = (float(np.median(latency[m])) * 1e3 for m in ("never", "always"))
+    print(f"[11] bf16 Predictor on the {SCENES[0][0]}x{SCENES[0][1]} scene ({tiles} tiles, "
+          f"{chunks} chunks): stem_norm_relu_pool launches {serve_launches[1]}, logits finite, "
+          f"mask agreement with the unfused Predictor {agree:.6f} ({verdict}); scene latency "
+          f"median of {len(latency['never'])}: fused_stem='never' {never:.2f} ms, 'always' "
+          f"{always:.2f} ms")
+    return tuple(a + b for a, b in zip(train_launches, serve_launches))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -866,10 +1350,11 @@ def main() -> int:
         return 1
     from iswm_tpu_torch.ops.kernels import confusion as cm
     from iswm_tpu_torch.ops.kernels import fused_ce as ce
+    from iswm_tpu_torch.ops.kernels import fused_stem as fs
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
     phase_device()
-    phase_build({"int8_matmul": k8, "fused_ce": ce, "confusion": cm})
+    phase_build({"int8_matmul": k8, "fused_ce": ce, "confusion": cm, "fused_stem": fs})
     record = phase_kernel(k8)
     # int8_matmul_prequant is on no main path (in the JAX package only tests
     # and benchmarks call it, and so here): its count over the three main
@@ -885,13 +1370,25 @@ def main() -> int:
     k8.launches_prequant = 0
     phase_compare_variants(k8)
     prequant_launches += k8.launches_prequant
+    stem_records = phase_stem_kernels(fs)
+    stem_launches = dict(zip(("stats", "pool", "sums", "wgrad"), phase_stem_slice(fs, ce)))
     for name, count in (("int8_matmul", launches), ("fused_binary_ce_fwd", ce_fwd),
-                        ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches)):
+                        ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches),
+                        *((f"stem {k}", v) for k, v in stem_launches.items())):
         check(count > 0, f"the main paths never launched {name}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("iswm_tpu", "jax", "flax"))
     check(not loaded, f"the port imported {loaded}")
     fused = "iswm_tpu/ops/pallas/fused_ce.py"
     matmul = "iswm_tpu/ops/pallas/int8_matmul.py"
+    stem = "iswm_tpu/ops/pallas/fused_stem.py"
+    stem_rows = (
+        ("stem_stats", "stats", f"{stem}:106 (stem_stats {stem}:98)"),
+        ("stem_norm_relu_pool", "pool", f"{stem}:168 (stem_norm_relu_pool {stem}:154)"),
+        ("stem_tail_bwd_sums", "sums",
+         f"{stem}:420 (_bwd_sums_kernel, first call of stem_tail_bwd {stem}:368)"),
+        ("stem_tail_bwd_wgrad", "wgrad",
+         f"{stem}:450 (_bwd_wgrad_kernel, second call of stem_tail_bwd {stem}:368)"),
+    )
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda",
          "source": "iswm_tpu_torch/csrc/int8_matmul.cu",
@@ -912,6 +1409,9 @@ def main() -> int:
          "source": "iswm_tpu_torch/csrc/confusion.cu",
          "replaces": "iswm_tpu/ops/pallas/confusion.py:54",
          "launches": cm_launches, **cm_record},
+        *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/fused_stem.cu",
+           "replaces": replaces, "launches": stem_launches[key], **stem_records[key]}
+          for name, key, replaces in stem_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,7 +126,9 @@ def activation_sites(model: nn.Module) -> Dict[str, nn.Module]:
     ``PackedStemConvBN`` modules (post-BN, post-ReLU where the ReLU is
     inside that module), each keyed by the name of its conv here:
 
-    - the stem: ``backbone.conv1`` -> the stem's ReLU;
+    - the stem: ``backbone.conv1`` -> the stem's ReLU, unless the model runs
+      the fused stem where its weights lie (``FusedStemPool`` is none of the
+      observed module types in the JAX package either: one site fewer);
     - a residual block: ``conv1`` (and a bottleneck's ``conv2``) -> their
       ReLUs, the last conv -> its BatchNorm (the ReLU after the residual
       add is outside), ``downsample.0`` -> ``downsample.1``;
@@ -139,7 +141,8 @@ def activation_sites(model: nn.Module) -> Dict[str, nn.Module]:
     sites: Dict[str, nn.Module] = {}
     for name, m in model.named_modules():
         if isinstance(m, ResNet):
-            sites[f"{name}.conv1"] = m.relu
+            if not m.fuses_stem_on(m.conv1.weight.device):
+                sites[f"{name}.conv1"] = m.relu
         elif isinstance(m, (Bottleneck, BasicBlock)):
             sites[f"{name}.conv1"] = m.relu1
             if isinstance(m, Bottleneck):

@@ -22,6 +22,19 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _ZOO_ITEM = "ROADMAP.md Queue 1, 'Remaining zoo and feature maps'"
 
 
+def _resolve_fused_mode(value: str, setting: str = "fused_blocks") -> str:
+    """Check a ModelConfig fused-kernel setting (fused_blocks / fused_stem).
+
+    ``"never"``: the unfused modules.  ``"always"``: the fused functions (the
+    kernel on a CUDA tensor).  ``"interpret"``: the fused functions through
+    their plain versions on any device, for tests.  ``"auto"`` stays
+    ``"auto"``: the model decides per input, fused on a CUDA tensor and
+    unfused on a CPU tensor (the port trains and serves on one device)."""
+    if value in ("never", "auto", "always", "interpret"):
+        return value
+    raise ValueError(f"unknown {setting} setting {value!r}")
+
+
 def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     """Build an eval-mode model from config, with seeded random weights.
 
@@ -47,7 +60,8 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     rswd = (False, True, True) if cfg.output_stride == 8 else (False, False, True)
     low_ch, out_ch = resnet_feature_channels(cfg.backbone)
     model = DeepLabV3Model(
-        ResNet(cfg.backbone, rswd, in_channels=cfg.in_channels),
+        ResNet(cfg.backbone, rswd, in_channels=cfg.in_channels,
+               fused_stem=_resolve_fused_mode(cfg.fused_stem, "fused_stem")),
         DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes,
                           aspp_dilations(cfg.output_stride)),
         compute_dtype=DTYPES[cfg.compute_dtype],

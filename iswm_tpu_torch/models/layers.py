@@ -7,7 +7,8 @@ The TPU lowering rewrites of the JAX package (``PackedStrided2Conv``,
 ``ShiftedDilatedConv``, ``ConcatConvBN``, ``BlockDiagConv``) compute the
 same math as a plain conv, so here each of them is one ``Conv2d``.
 ``max_pool_torch`` is ``nn.MaxPool2d(3, 2, 1)`` and ``global_avg_pool`` is
-``nn.AdaptiveAvgPool2d(1)``.
+``nn.AdaptiveAvgPool2d(1)``.  ``FusedStemPool`` runs the stem's conv, BatchNorm,
+ReLU and max-pool through the fused stem kernels (``ops/kernels/fused_stem``).
 """
 
 from __future__ import annotations
@@ -92,6 +93,49 @@ class ConvBN(nn.Sequential):
         if use_relu:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
+
+
+class FusedStemPool(nn.Module):
+    """The stem's conv + BatchNorm + ReLU + ``MaxPool2d(3, 2, 1)`` with the
+    chain after the conv fused (``ops/kernels/fused_stem.py``): statistics and
+    normalize + ReLU + pool forward, and a backward that recomputes the pool's
+    argmax and contracts dz straight into the conv's weight gradient.
+
+    It owns no parameter: ``forward`` takes the stem's own ``Conv2d`` and
+    ``BatchNorm2d``, so the state-dict keys are those of the unfused stem and
+    checkpoints interchange.  Pool-gradient ties are EQUAL-SPLIT and the image
+    gets no gradient (see the kernel module's docstring).  ``interpret`` runs
+    the kernels' plain versions on any device."""
+
+    def __init__(self, interpret: bool = False):
+        super().__init__()
+        self.interpret = interpret
+
+    def forward(self, x: torch.Tensor, conv1: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
+        from ..ops.kernels.fused_stem import stem_fused_eval, stem_fused_train
+
+        if (conv1.kernel_size, conv1.stride, conv1.padding) != ((7, 7), (2, 2), (3, 3)):
+            raise ValueError("FusedStemPool is specialized to the 7x7 / stride 2 / pad 3 stem")
+        if bn.training:
+            p, mean, var = stem_fused_train(x, conv1.weight, bn.weight, bn.bias, bn.eps,
+                                            self.interpret)
+            with torch.no_grad():  # flax's update: the biased batch variance
+                bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+                bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+                bn.num_batches_tracked.add_(1)
+            return p
+        sigma_inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+        scale = bn.weight.float() * sigma_inv
+        bias = bn.bias.float() - bn.running_mean.float() * scale
+        return stem_fused_eval(x, conv1.weight, scale, bias, self.interpret)
+
+
+def fused_stem_eligible(x_shape, kernel_size: int = 7) -> bool:
+    """The fused stem is specialized to the 7x7 / stride 2 stem and needs a
+    square NCHW input whose side is divisible by 4 (a conv output that the pool
+    halves) and at least 8."""
+    h, w = x_shape[2], x_shape[3]
+    return kernel_size == 7 and h % 4 == 0 and w % 4 == 0 and h == w and h >= 8
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -14,6 +14,10 @@ own here (``relu1``, ``relu2``; the stem's ``relu``), so that the output of
 that ``ConvBN`` can be observed and fake-quantized by a forward hook
 (``infer/quantization.py``).  The ReLU after the residual add is ``relu``.
 ReLUs hold no parameters, so the key layout is unchanged.
+
+``fused_stem`` other than ``"never"`` sends the stem (``conv1``, ``bn1``, ReLU,
+max-pool) through ``FusedStemPool``, which uses those same two modules: the
+keys are the same in every mode.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm2d, conv
+from .layers import BatchNorm2d, FusedStemPool, conv, fused_stem_eligible
 
 
 class BasicBlock(nn.Module):
@@ -115,9 +119,13 @@ class ResNet(nn.Module):
 
     def __init__(self, arch: str = "resnet50",
                  replace_stride_with_dilation: Sequence[bool] = (False, False, True),
-                 in_channels: int = 3):
+                 in_channels: int = 3, fused_stem: str = "never"):
         super().__init__()
+        if fused_stem not in ("never", "auto", "always", "interpret"):
+            raise ValueError(f"unknown fused_stem setting {fused_stem!r}")
         block, layer_sizes, groups, base_width = ARCHS[arch]
+        self.fused_stem = fused_stem
+        self.fused_stem_pool = FusedStemPool(interpret=fused_stem == "interpret")
         self.conv1 = conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
@@ -146,8 +154,18 @@ class ResNet(nn.Module):
                 in_ch = planes * block.expansion
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*layers))
 
+    def fuses_stem_on(self, device: torch.device) -> bool:
+        """Whether an eligible input on ``device`` takes the fused stem:
+        ``"auto"`` fuses on a CUDA device only."""
+        if self.fused_stem == "auto":
+            return device.type == "cuda"
+        return self.fused_stem != "never"
+
     def forward(self, x: torch.Tensor) -> dict:
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        if self.fuses_stem_on(x.device) and fused_stem_eligible(x.shape):
+            x = self.fused_stem_pool(x, self.conv1, self.bn1)
+        else:
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         low = self.layer1(x)
         out = self.layer4(self.layer3(self.layer2(low)))
         return {"low_level": low, "out": out}

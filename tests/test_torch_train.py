@@ -373,7 +373,6 @@ REFUSED = {
     "remat": (("parallel", "remat", True), "rematerialization"),
     "devices": (("parallel", "data_axis", 4), "Data-parallel"),
     "fused_blocks": (("model", "fused_blocks", "auto"), "Fused blocks"),
-    "fused_stem": (("model", "fused_stem", "always"), "Fused blocks"),
 }
 
 
@@ -387,6 +386,36 @@ def test_unported_options_are_refused(name):
         refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+
+
+def test_trainer_takes_steps_with_the_fused_stem(tmp_path):
+    """``fused_stem`` is refused no longer: two steps on resnet18 through the
+    fused stem's plain versions, finite losses, ``bn1``'s statistics moving."""
+    rng = np.random.default_rng(0)
+    images, masks = zip(*(generate_scene(rng, size=(40, 40)) for _ in range(6)))
+    dataset = ArrayDataset(np.stack(images), np.stack(masks))
+    cfg = Config()
+    cfg.model.backbone, cfg.model.compute_dtype = "resnet18", "float32"
+    cfg.model.fused_stem = "interpret"
+    cfg.data.crop_size, cfg.data.batch_size = 32, 2
+    cfg.train.total_itrs, cfg.train.val_interval, cfg.train.print_interval = 2, 2, 1
+    cfg.train.save_val_results = False
+    cfg.metrics.sequence_length = 3
+    for name in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
+        setattr(cfg.train, name, str(tmp_path / name))
+    trainer = Trainer(cfg, device="cpu", train_ds=dataset, val_ds=dataset)
+    stem = trainer.state.model.backbone
+    calls = []
+    stem.fused_stem_pool.register_forward_hook(lambda *a: calls.append(stem.training))
+    before = stem.bn1.running_mean.clone(), stem.conv1.weight.detach().clone()
+    trainer.fit()
+    assert trainer.state.step == 2 and int(stem.bn1.num_batches_tracked) == 2
+    assert len(trainer.logger.history["train_loss"]) == 2
+    assert all(np.isfinite(trainer.logger.history["train_loss"]))
+    assert calls[:2] == [True, True] and calls[2:] and not any(calls[2:])  # validation too
+    assert not torch.equal(stem.bn1.running_mean, before[0])
+    assert not torch.equal(stem.conv1.weight, before[1])
+    assert trainer.best_path is not None
 
 
 def test_cuda_is_not_silently_replaced_by_the_cpu():

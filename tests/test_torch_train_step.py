@@ -25,6 +25,11 @@ side is wrong).  The two batches here have no such flip at the 2 torch
 threads these tests pin.  Batch 8, not 2: at batch 2 the ASPP pooling
 branch's BatchNorm normalizes two values per channel, which makes every
 batch ill-conditioned.
+
+With ``fused_stem="interpret"`` on both sides (JAX's Pallas kernels in
+interpret mode, the port's plain versions) step 1 is compared once more, on
+``FUSED_BATCH``: the batch seeds were tried in order and the first without
+such a flip was kept.
 """
 
 import warnings
@@ -126,6 +131,55 @@ def runs(tmp_path_factory):
     return jax_losses, [jax_sd(s) for s in states], port
 
 
+FUSED_BATCH = 1
+
+
+@pytest.fixture(scope="module")
+def fused_runs(tmp_path_factory):
+    """Step 1 of both packages with the fused stem, from the crossed weights,
+    in the layout of ``runs``."""
+    import jax
+    import jax.numpy as jnp
+
+    from iswm_tpu.models import build_model as build_jax_model
+    from iswm_tpu.ops.pallas.fused_ce import fused_binary_ce
+    from iswm_tpu.train.optim import make_optimizer as jax_make_optimizer
+    from iswm_tpu.train.step import TrainState as JaxState
+    from iswm_tpu.train.step import make_train_step as jax_make_train_step
+
+    _, variables, unfused, _ = crossed_models(tmp_path_factory.mktemp("ckpt"), "resnet18", 16)
+    cfg = ModelConfig(backbone="resnet18", compute_dtype="float32")
+    cfg.fused_stem = "interpret"
+    jmodel, model = build_jax_model(cfg), build_model(cfg)
+    model.load_state_dict(unfused.state_dict(), strict=True)
+    tx, _ = jax_make_optimizer(OPTIM, TOTAL)
+    ones = jnp.ones(2, jnp.float32)
+    jstep = jax_make_train_step(
+        jmodel, tx, lambda lg, lb: fused_binary_ce(lg, lb, ones, 255, True),
+        augment=None, donate=False)
+    images, labels = _batch(FUSED_BATCH)
+    first = JaxState(step=jnp.zeros((), jnp.int32), params=variables["params"],
+                     batch_stats=variables["batch_stats"],
+                     opt_state=tx.init(variables["params"]))
+    with pytest.MonkeyPatch.context() as mp:
+        _no_dropout(mp, model)
+        state, metrics = jstep(first, jnp.asarray(images), jnp.asarray(labels),
+                               jax.random.key(0))
+    states = [first, jax.device_get(state)]
+    calls = []
+    model.backbone.fused_stem_pool.register_forward_hook(lambda *a: calls.append(1))
+    factory, _ = make_optimizer(OPTIM, TOTAL)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    train_state = TrainState(model, *factory(model.parameters()), 0)
+    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
+        train_state, torch.from_numpy(images), torch.from_numpy(labels))
+    assert calls == [1]
+    port = [(float(loss), before, {k: v.clone() for k, v in model.state_dict().items()},
+             train_state.step)]
+    sds = [state_dict_from_jax(s.params, s.batch_stats, backbone="resnet18") for s in states]
+    return [float(metrics["loss"])], sds, port
+
+
 def _check_step(runs, i):
     jax_losses, jax_sds, port = runs
     loss, before, after, count = port[i]
@@ -152,3 +206,7 @@ def test_first_train_step_matches_jax(runs):
 def test_second_train_step_from_bridged_state_matches_jax(runs):
     _check_step(runs, 1)
 
+
+
+def test_first_train_step_with_the_fused_stem_matches_jax(fused_runs):
+    _check_step(fused_runs, 0)
