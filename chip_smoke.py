@@ -89,13 +89,16 @@ not 0):
      an unfused model; one step fused and one unfused from the same state with
      deterministic algorithms: ``bn1``'s running statistics within 1e-5 (of
      max|var|, and of max sqrt(var) for the mean), the loss within 1e-3
-     relative in f32 and 1e-2 in bf16 (the unfused BatchNorm rounds before
+     relative in f32 and 2e-2 in bf16 (the unfused BatchNorm rounds before
      the ReLU and the pool, the fused one after, and takes another variance
-     formula); the stem's three gradients within 1e-2 * max|grad| in f32, and
-     in bf16 the median within 5e-2 and the worst within 2.5e-1 (phase 6's
-     bands), of the unfused chain's autograd on the fused step's own image,
-     parameters and pooled cotangent (in bf16 many pool windows tie, and
-     equal-split and first-index routing are two subgradients).  The
+     formula); the stem's three gradients against the unfused chain's
+     autograd on the fused step's own image, parameters and pooled cotangent:
+     in f32 conv1 within 5e-3 * max|grad| (the library's weight gradient
+     reads TF32) and bn1 within 1e-5, in bf16 conv1 within 1e-1 (many pool
+     windows tie, and equal-split and first-index routing are two
+     subgradients) and bn1 within 2e-2: limits of three to seven times
+     the largest reading of seven runs, whose readings spread by a factor of
+     two to fifteen.  The
      whole step's gradients are not held to phase 6's bands: a step of this
      model is chaotic in its forward, so the median tensor's difference is
      printed beside that of an unfused step whose pooled values were moved by
@@ -107,11 +110,14 @@ not 0):
      with the unfused Predictor >= 0.999, scene latency of both.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
-(1,979 TOP/s int8 tensor core, 67 TFLOP/s float32, where the stem's weight
-gradient runs: its FMAs are not on the tensor cores), NVIDIA's data-sheet
-rates for an H100 SXM.  The line before the last is the kernel record; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card it
-exits non-zero and prints no result.
+(1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
+float32 outside them), NVIDIA's data-sheet rates for an H100 SXM.  The stem's
+weight gradient contracts bf16 operands, so its bound takes the bf16
+tensor-core rate although the kernel uses float32 FMAs; its record says so
+and gives the time of its operations at the FMA rate beside the bound.  The
+line before the last is the kernel record; the last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA card it exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -141,7 +147,9 @@ STEM_SLICE = (8, 256)  # batch and conv-output side of the stem at crop 512
 # NVIDIA's data sheet for the H100 SXM, dense rates
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # tensor cores
+TF32_OPS_PER_S = 495e12  # tensor cores, from float32 operands
+F32_OPS_PER_S = 67e12  # outside the tensor cores
 TRAIN_OUT = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 # (M, K, N) of every int8 site of one chunk (8 tiles of 512^2, OS 16), and
 # how many of the 30 routed sites run at it
@@ -1065,17 +1073,25 @@ def phase_stem_kernels(fs) -> dict:
     nbytes = {t: v.numel() * v.element_size() for t, v in (("z", z), ("x", x), ("dp", dp))}
     vec = 64 * 4
     taps = 7 * 7 * 3
-    # operations on these inputs, all float32: sums of z and z^2; affine, relu
-    # and the 9-way maximum (9 visits per pooled value); the same recomputed
-    # plus tie counts, shares and the two sums; the same plus dz and the
-    # 2 * 147 * 64 operations a conv pixel of the contraction
+    # operations on these inputs: sums of z and z^2; affine, relu and the 9-way
+    # maximum (9 visits per pooled value); the same recomputed plus tie counts,
+    # shares and the two sums; the same plus dz, all float32 outside the tensor
+    # cores.  Then the contraction, 2 * 147 * 64 operations a conv pixel: its
+    # operands are dz and the image in z's dtype (bf16 here), so its peak is
+    # the tensor cores' for that type, whatever units the kernel uses.
+    contraction, elementwise = 2 * taps * z.numel(), 16 * z.numel()
+    tensor_ops_per_s = BF16_OPS_PER_S if z.dtype == bf16 else TF32_OPS_PER_S
     least = {
         "stats": least_time(nbytes["z"] + 2 * vec, 3 * z.numel(), F32_OPS_PER_S),
         "pool": least_time(nbytes["z"] + nbytes["dp"] + 2 * vec, 6 * z.numel(), F32_OPS_PER_S),
-        "sums": least_time(nbytes["z"] + nbytes["dp"] + 6 * vec, 16 * z.numel(), F32_OPS_PER_S),
+        "sums": least_time(nbytes["z"] + nbytes["dp"] + 6 * vec, elementwise, F32_OPS_PER_S),
+        # the two kinds of operation one after the other, as tensor-core operations
         "wgrad": least_time(nbytes["z"] + nbytes["dp"] + nbytes["x"] + 6 * vec + 64 * taps * 4,
-                            (16 + 2 * taps) * z.numel(), F32_OPS_PER_S),
+                            contraction + elementwise * tensor_ops_per_s / F32_OPS_PER_S,
+                            tensor_ops_per_s),
     }
+    # beside the bound, not in it: the kernel contracts with float32 FMAs
+    fma_ms = (contraction + elementwise) / F32_OPS_PER_S * 1e3
     chain = {"fwd": cold_device_ms(chain_fwd, reps=10), "bwd": cold_device_ms(chain_bwd, reps=10)}
     records = {}
     for key, (kernel, plain) in calls.items():
@@ -1087,7 +1103,11 @@ def phase_stem_kernels(fs) -> dict:
               f"kernel {records[key]['ms']:.4f} ms, plain {records[key]['plain_ms']:.4f} ms, "
               f"bound {least[key]['bound_ms']:.4f} ms by {least[key]['bound_by']}"
               + ("" if moved is None else
-                 f" ({moved * HBM_BYTES_PER_S / 1e9:.1f} MB)"))
+                 f" ({moved * HBM_BYTES_PER_S / 1e9:.1f} MB)")
+              + (f"; the kernel uses float32 FMAs, at whose peak rate its operations alone "
+                 f"would take {fma_ms:.4f} ms" if key == "wgrad" else ""))
+    records["wgrad"]["units"] = "f32 FMA, no tensor cores"
+    records["wgrad"]["f32_fma_ops_ms"] = fma_ms
     for pair, keys in (("fwd", ("stats", "pool")), ("bwd", ("sums", "wgrad"))):
         ours = sum(records[k]["ms"] for k in keys)
         for k in keys:
@@ -1213,9 +1233,16 @@ def phase_stem_slice(fs, ce) -> tuple:
         ulp = 2.0 ** (-7 if out.dtype == torch.bfloat16 else -10)
         return torch.where(where, (out.double() * (1.0 + ulp)).to(out.dtype), out)
 
-    # phase 6's bands, over the stem's three tensors: (median, worst)
-    for dtype, loss_tol, grad_tol, worst_tol in ((torch.bfloat16, 1e-2, 5e-2, 2.5e-1),
-                                                 (torch.float32, 1e-3, 1e-2, 1e-2)):
+    # limits on (loss, conv1's gradient, bn1's two gradients), from the
+    # readings of seven runs on an H100, which spread (the state after four
+    # steps differs between runs), so each limit stands at three to seven
+    # times the largest reading.  Loss: bf16 1.8e-4 to 2.8e-3, float32 3.3e-5
+    # to 1.5e-4 (the pooled values differ by an ulp here and there); bf16
+    # conv1 1.3e-2 to 3.1e-2 (tie routing) and bn1 1.3e-3 to 4.3e-3; float32
+    # conv1 5.9e-4 to 1.3e-3 (the library's weight gradient reads TF32) and
+    # bn1 up to 9e-7
+    for dtype, loss_tol, conv_tol, bn_tol in ((torch.bfloat16, 2e-2, 1e-1, 2e-2),
+                                              (torch.float32, 1e-3, 5e-3, 1e-5)):
         model.compute_dtype = dtype
         seen = {}
 
@@ -1241,17 +1268,18 @@ def phase_stem_slice(fs, ce) -> tuple:
             z, None, None, leaves[1], leaves[2], True, 0.0, bn.eps)), 3, 2, 1)
         chain = dict(zip(stem, torch.autograd.grad(pooled, leaves, seen["dp"])))
         own = ratios_of({k: g_k[k] for k in stem}, chain)
-        check(own[-1][0] <= worst_tol and own[1][0] <= grad_tol,
-              f"{dtype}: the fused stem's gradient of {own[-1][1]} differs from the unfused "
-              f"chain's on the same inputs by {own[-1][0]:.2e} * max|grad| (limit {worst_tol}), "
-              f"the median of the three by {own[1][0]:.2e} (limit {grad_tol})")
+        for ratio, key in own:
+            limit = conv_tol if key == stem[0] else bn_tol
+            check(ratio <= limit,
+                  f"{dtype}: the fused stem's gradient of {key} differs from the unfused "
+                  f"chain's on the same inputs by {ratio:.2e} * max|grad| (limit {limit})")
         whole, floor = ratios_of(g_k, g_p), ratios_of(g_n, g_p)
         print(f"[11] one step fused vs fused_stem='never', {dtype}: loss {loss_k:.6f} vs "
               f"{loss_p:.6f} (rel {rel:.2e}, limit {loss_tol}); bn1 running var {var_err:.2e}, "
               f"mean {mean_err:.2e} (limit 1e-5); the stem's gradients against the unfused "
               f"chain's autograd on the same image, parameters and cotangent: "
               + ", ".join(f"{k.removeprefix('backbone.')} {r:.2e}" for r, k in own)
-              + f" * max|grad| (limits: median {grad_tol}, worst {worst_tol}); whole-step "
+              + f" * max|grad| (limits: conv1 {conv_tol}, bn1 {bn_tol}); whole-step "
               f"gradients, median tensor of "
               f"{len(whole)}: fused vs unfused {whole[len(whole) // 2][0]:.2e}, unfused vs "
               f"unfused with one pooled value in a million moved by an ulp or two "

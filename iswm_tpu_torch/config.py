@@ -44,7 +44,8 @@ class ModelConfig:
     # auto | always | never | interpret (tests).
     fused_blocks: str = "never"
     # Fused stem tail (BN + ReLU + max-pool, forward and backward); same
-    # auto|always|never|interpret semantics.  Its pool gradient splits ties
+    # auto|always|never|interpret settings (interpret = always: a CPU tensor
+    # takes the kernels' plain versions either way).  Its pool gradient splits ties
     # equally and it propagates no gradient to the input image: keep
     # "never" for workflows that differentiate w.r.t. the image.
     fused_stem: str = "never"

@@ -22,12 +22,14 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 _ZOO_ITEM = "ROADMAP.md Queue 1, 'Remaining zoo and feature maps'"
 
 
-def _resolve_fused_mode(value: str, setting: str = "fused_blocks") -> str:
-    """Check a ModelConfig fused-kernel setting (fused_blocks / fused_stem).
+def _resolve_fused_mode(value: str, setting: str) -> str:
+    """Check a ModelConfig fused-kernel setting (the one place that does).
 
     ``"never"``: the unfused modules.  ``"always"``: the fused functions (the
-    kernel on a CUDA tensor).  ``"interpret"``: the fused functions through
-    their plain versions on any device, for tests.  ``"auto"`` stays
+    kernel on a CUDA tensor, its plain version on a CPU tensor).
+    ``"interpret"``: accepted as in the JAX package, where it runs the Pallas
+    kernels on the CPU; a CPU tensor takes the plain versions here under
+    ``"always"`` already, so it means the same.  ``"auto"`` stays
     ``"auto"``: the model decides per input, fused on a CUDA tensor and
     unfused on a CPU tensor (the port trains and serves on one device)."""
     if value in ("never", "auto", "always", "interpret"):

@@ -104,12 +104,8 @@ class FusedStemPool(nn.Module):
     It owns no parameter: ``forward`` takes the stem's own ``Conv2d`` and
     ``BatchNorm2d``, so the state-dict keys are those of the unfused stem and
     checkpoints interchange.  Pool-gradient ties are EQUAL-SPLIT and the image
-    gets no gradient (see the kernel module's docstring).  ``interpret`` runs
-    the kernels' plain versions on any device."""
-
-    def __init__(self, interpret: bool = False):
-        super().__init__()
-        self.interpret = interpret
+    gets no gradient (see the kernel module's docstring); the eval-mode forward
+    cannot be differentiated at all (its backward raises)."""
 
     def forward(self, x: torch.Tensor, conv1: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
         from ..ops.kernels.fused_stem import stem_fused_eval, stem_fused_train
@@ -117,8 +113,7 @@ class FusedStemPool(nn.Module):
         if (conv1.kernel_size, conv1.stride, conv1.padding) != ((7, 7), (2, 2), (3, 3)):
             raise ValueError("FusedStemPool is specialized to the 7x7 / stride 2 / pad 3 stem")
         if bn.training:
-            p, mean, var = stem_fused_train(x, conv1.weight, bn.weight, bn.bias, bn.eps,
-                                            self.interpret)
+            p, mean, var = stem_fused_train(x, conv1.weight, bn.weight, bn.bias, bn.eps)
             with torch.no_grad():  # flax's update: the biased batch variance
                 bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
                 bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
@@ -127,7 +122,7 @@ class FusedStemPool(nn.Module):
         sigma_inv = torch.rsqrt(bn.running_var.float() + bn.eps)
         scale = bn.weight.float() * sigma_inv
         bias = bn.bias.float() - bn.running_mean.float() * scale
-        return stem_fused_eval(x, conv1.weight, scale, bias, self.interpret)
+        return stem_fused_eval(x, conv1.weight, scale, bias)
 
 
 def fused_stem_eligible(x_shape, kernel_size: int = 7) -> bool:

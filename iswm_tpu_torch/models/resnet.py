@@ -121,11 +121,9 @@ class ResNet(nn.Module):
                  replace_stride_with_dilation: Sequence[bool] = (False, False, True),
                  in_channels: int = 3, fused_stem: str = "never"):
         super().__init__()
-        if fused_stem not in ("never", "auto", "always", "interpret"):
-            raise ValueError(f"unknown fused_stem setting {fused_stem!r}")
         block, layer_sizes, groups, base_width = ARCHS[arch]
         self.fused_stem = fused_stem
-        self.fused_stem_pool = FusedStemPool(interpret=fused_stem == "interpret")
+        self.fused_stem_pool = FusedStemPool()
         self.conv1 = conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)

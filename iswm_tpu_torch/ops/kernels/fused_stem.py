@@ -29,8 +29,10 @@ that saliency or adversarial code fails loudly; use ``fused_stem="never"``
 there).
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain version
-only for a CPU tensor, or where the caller asks for it (``interpret=True``,
-the counterpart of Pallas interpret mode).  The kernels read and write NHWC
+only for a CPU tensor (the counterpart of Pallas interpret mode; the setting
+``fused_stem="interpret"`` therefore means ``"always"``, and a test that
+wants the plain version on the card calls the ``*_plain`` functions).  The
+kernels read and write NHWC
 memory (``torch.channels_last``), which is how the Trainer and the Predictor
 keep the model on the card; a CUDA tensor in another layout is copied to it
 once by the wrapper.  ``launches_*`` count the wrapper calls that launched a
@@ -213,10 +215,10 @@ def _scratch(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=like.device)
 
 
-def stem_stats(z: torch.Tensor, interpret: bool = False):
+def stem_stats(z: torch.Tensor):
     """Per-channel (sum, sum of squares) of z [B, F, S, S] in float32."""
     _check(z)
-    if interpret or z.device.type == "cpu":
+    if z.device.type == "cpu":
         return stem_stats_plain(z)
     _cuda_check(z)
     z = _nhwc(z)
@@ -233,15 +235,15 @@ def stem_stats(z: torch.Tensor, interpret: bool = False):
     return out[:CHANNELS], out[CHANNELS:]
 
 
-def stem_norm_relu_pool(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                        interpret: bool = False) -> torch.Tensor:
+def stem_norm_relu_pool(z: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
     """``maxpool3x3/s2/p1(relu(z * scale + bias))``: z [B, F, S, S] ->
     [B, F, S/2, S/2] in z's dtype (NHWC memory from the kernel).
 
     ``scale`` / ``bias`` are the folded BN affine ([F] float32):
     ``scale = gamma * sigma_inv``, ``bias = beta - mean * scale``."""
     _check(z)
-    if interpret or z.device.type == "cpu":
+    if z.device.type == "cpu":
         return stem_norm_relu_pool_plain(z, scale, bias)
     _cuda_check(z)
     z, scale, bias = _nhwc(z), _vec(scale, z), _vec(bias, z)
@@ -259,10 +261,10 @@ def stem_norm_relu_pool(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
     return p
 
 
-def stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv, interpret: bool = False):
+def stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv):
     """(s1, s2) [F] float32 of the fused backward's first kernel."""
     _check(z, dp)
-    if interpret or z.device.type == "cpu":
+    if z.device.type == "cpu":
         return stem_bwd_sums_plain(z, dp, scale, bias, mean, sigma_inv)
     _cuda_check(z, dp)
     z, dp = _nhwc(z), _nhwc(dp)
@@ -281,12 +283,12 @@ def stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv, interpret: bool = False):
     return out[:CHANNELS], out[CHANNELS:]
 
 
-def stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, mean_s1, mean_s2,
-                   interpret: bool = False) -> torch.Tensor:
+def stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, mean_s1,
+                   mean_s2) -> torch.Tensor:
     """dW [F, 3, 7, 7] float32 of the fused backward's second kernel;
     ``mean_s1 = s1 / N``, ``mean_s2 = s2 / N`` with N = B * S * S."""
     _check(z, dp, x)
-    if interpret or z.device.type == "cpu":
+    if z.device.type == "cpu":
         return stem_bwd_wgrad_plain(z, dp, x, scale, bias, mean, sigma_inv,
                                     mean_s1, mean_s2)
     _cuda_check(z, dp, x)
@@ -316,7 +318,7 @@ def fold_affine(gamma, beta, mean, sigma_inv):
     return scale, beta.float() - mean * scale
 
 
-def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, interpret: bool = False):
+def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv):
     """Fused backward of ``pool(relu(bn(conv(x))))`` given d(pooled).
 
     z: the conv output [B, F, S, S] (the residual, in the compute dtype);
@@ -324,9 +326,9 @@ def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, interpret: bool = Fals
     gamma / beta: the BN affine [F]; mean / sigma_inv: the batch statistics
     [F] float32.  Returns (dW [F, 3, 7, 7] float32, dgamma [F], dbeta [F])."""
     scale, bias = fold_affine(gamma, beta, mean, sigma_inv)
-    s1, s2 = stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv, interpret)
+    s1, s2 = stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv)
     n = z.numel() // z.shape[1]
-    dw = stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, s1 / n, s2 / n, interpret)
+    dw = stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, s1 / n, s2 / n)
     return dw, s2, s1
 
 
@@ -345,17 +347,16 @@ class StemFusedTrain(torch.autograd.Function):
     running averages and carry no gradient."""
 
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta, eps, interpret):
+    def forward(ctx, x, weight, gamma, beta, eps):
         z = _stem_conv(x, weight)
         n = z.numel() // z.shape[1]
-        total, total_sq = stem_stats(z, interpret)
+        total, total_sq = stem_stats(z)
         mean = total / n
         var = torch.clamp_min(total_sq / n - mean * mean, 0.0)
         sigma_inv = torch.rsqrt(var + eps)
         scale, bias = fold_affine(gamma, beta, mean, sigma_inv)
-        p = stem_norm_relu_pool(z, scale, bias, interpret)
+        p = stem_norm_relu_pool(z, scale, bias)
         ctx.save_for_backward(z, x, gamma, beta, mean, sigma_inv)
-        ctx.interpret = interpret
         ctx.weight_dtype = weight.dtype
         ctx.mark_non_differentiable(mean, var)
         return p, mean, var
@@ -364,21 +365,40 @@ class StemFusedTrain(torch.autograd.Function):
     def backward(ctx, dp, _dmean, _dvar):
         z, x, gamma, beta, mean, sigma_inv = ctx.saved_tensors
         dw, dgamma, dbeta = stem_tail_bwd(z, x, dp.to(z.dtype), gamma, beta, mean,
-                                          sigma_inv, ctx.interpret)
+                                          sigma_inv)
         # d(image) is deliberately not computed: the stem is the first layer.
         # NaN and not zero, so that a caller who does ask for it fails loudly.
         dx = torch.full_like(x, float("nan")) if ctx.needs_input_grad[0] else None
         return (dx, dw.to(z.dtype).to(ctx.weight_dtype), dgamma.to(gamma.dtype),
-                dbeta.to(beta.dtype), None, None)
+                dbeta.to(beta.dtype), None)
 
 
-def stem_fused_train(x, weight, gamma, beta, eps: float, interpret: bool = False):
+def stem_fused_train(x, weight, gamma, beta, eps: float):
     """(pooled [B, F, S/2, S/2], batch mean [F], batch var [F]) of the image
     x [B, 3, 2S, 2S], the conv weight [F, 3, 7, 7] and the BN affine."""
-    return StemFusedTrain.apply(x, weight, gamma, beta, eps, interpret)
+    return StemFusedTrain.apply(x, weight, gamma, beta, eps)
 
 
-def stem_fused_eval(x, weight, scale, bias, interpret: bool = False) -> torch.Tensor:
+class StemFusedEval(torch.autograd.Function):
+    """``pool3x3s2p1(relu(conv(x, weight) * scale + bias))``, forward only.
+
+    The inference tail has no backward in the JAX package (differentiating
+    its kernel raises), and a ctypes launch records no autograd node: so the
+    backward raises here too, on either device, instead of leaving conv1 and
+    bn1 silently without a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, scale, bias):
+        return stem_norm_relu_pool(_stem_conv(x, weight), scale, bias)
+
+    @staticmethod
+    def backward(ctx, _dp):
+        raise RuntimeError(
+            "the fused stem's eval forward has no backward: differentiate in train mode, "
+            "or build the model with fused_stem='never'")
+
+
+def stem_fused_eval(x, weight, scale, bias) -> torch.Tensor:
     """The inference stem tail: conv, then the affine folded from the running
-    statistics + ReLU + pool."""
-    return stem_norm_relu_pool(_stem_conv(x, weight), scale, bias, interpret)
+    statistics + ReLU + pool.  Not differentiable (see :class:`StemFusedEval`)."""
+    return StemFusedEval.apply(x, weight, scale, bias)

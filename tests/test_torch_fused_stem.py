@@ -169,7 +169,17 @@ def test_image_cotangent_is_nan_when_asked_for_and_none_otherwise():
     p, _, _ = fs.stem_fused_train(x.detach(), weight, torch.from_numpy(gamma),
                                   torch.from_numpy(beta), EPS)
     grads = fs.StemFusedTrain.backward(p.grad_fn, _nchw(w), None, None)
-    assert grads[0] is None and grads[1].shape == weight.shape and grads[4:] == (None, None)
+    assert grads[0] is None and grads[1].shape == weight.shape and grads[4:] == (None,)
+
+
+def test_eval_forward_runs_with_grad_enabled_and_refuses_a_backward():
+    """As differentiating the JAX eval kernel raises: no silent zero gradient
+    for conv1 and bn1 of a model fine-tuned with bn1 in eval mode."""
+    model = build_model(_fused_cfg("always"))
+    out = model(torch.zeros(1, 3, 32, 32))
+    assert out.requires_grad and torch.isfinite(out).all()
+    with pytest.raises(RuntimeError, match="eval forward has no backward"):
+        out.sum().backward()
 
 
 def test_wrappers_run_plain_for_cpu_tensors_without_counting():
@@ -379,18 +389,30 @@ def test_cuda_fused_train_matches_its_plain_version_and_runs_in_the_model():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     image, kernel, gamma, beta, w = _inputs(32, seed=7)
     x = _nchw(image).cuda().contiguous(memory_format=torch.channels_last)
-    results = []
-    for interpret in (False, True):  # the kernels, then their plain versions
-        leaves = [t.cuda().requires_grad_() for t in (_oihw(kernel), torch.from_numpy(gamma),
-                                                      torch.from_numpy(beta))]
-        before = fs.launches_bwd_wgrad
-        p, mean, var = fs.stem_fused_train(x, *leaves, EPS, interpret)
-        (p * _nchw(w).cuda()).sum().backward()
-        assert fs.launches_bwd_wgrad - before == (not interpret)
-        results.append((p.detach(), mean, var, *(t.grad for t in leaves)))
+    leaves = [t.cuda().requires_grad_() for t in (_oihw(kernel), torch.from_numpy(gamma),
+                                                  torch.from_numpy(beta))]
+    dp = _nchw(w).cuda()
+    before = fs.launches_bwd_wgrad
+    p, mean, var = fs.stem_fused_train(x, *leaves, EPS)
+    (p * dp).sum().backward()
+    assert fs.launches_bwd_wgrad - before == 1
+    # the same chain through the plain versions, on the card
+    with torch.no_grad():
+        z = fs._stem_conv(x, leaves[0])
+        n = z.numel() // 64
+        total, total_sq = fs.stem_stats_plain(z)
+        mean_p = total / n
+        var_p = torch.clamp_min(total_sq / n - mean_p * mean_p, 0.0)
+        sigma_inv = torch.rsqrt(var_p + EPS)
+        scale, bias = fs.fold_affine(leaves[1], leaves[2], mean_p, sigma_inv)
+        p_p = fs.stem_norm_relu_pool_plain(z, scale, bias)
+        args = (scale, bias, mean_p, sigma_inv)
+        s1, s2 = fs.stem_bwd_sums_plain(z, dp, *args)
+        dw = fs.stem_bwd_wgrad_plain(z, dp, x, *args, s1 / n, s2 / n, dtype=torch.float64)
     # the two statistics are summed in another order, so scale and bias, and
     # with them every output, differ in the last bits
-    for got, want in zip(results[0], results[1]):
+    for got, want in zip((p.detach(), mean, var, *(t.grad for t in leaves)),
+                         (p_p, mean_p, var_p, dw, s2, s1)):
         assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
     model = build_model(_fused_cfg("always")).cuda().to(memory_format=torch.channels_last)
