@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA H100: build the hand-written
 kernels, hold each against its plain version, drive the tiled serving path,
-the training path (with quick-evals), the quantization comparison, and
-training and serving with the fused stem.
+the training path (with quick-evals), the quantization comparison, training
+and serving with the fused stem, and training with the fused bottleneck blocks.
 
     python3 chip_smoke.py
 
@@ -94,12 +94,12 @@ not 0):
      formula); the stem's three gradients against the unfused chain's
      autograd on the fused step's own image, parameters and pooled cotangent:
      in f32 conv1 within 5e-3 * max|grad| (the library's weight gradient
-     reads TF32) and bn1 within 1e-5, in bf16 conv1 within 1e-1 (many pool
-     windows tie, and equal-split and first-index routing are two
-     subgradients) and bn1 within 2e-2: limits of three to seven times
-     the largest reading of seven runs, whose readings spread by a factor of
-     two to fifteen.  The
-     whole step's gradients are not held to phase 6's bands: a step of this
+     reads TF32) and bn1 within 1e-2 (9e-7 as a rule; one element whose ReLU
+     or pool decision differs between the two moves it to 3e-3), in bf16 conv1
+     within 1e-1 (many pool windows tie, and equal-split and first-index
+     routing are two subgradients) and bn1 within 2e-2: limits of three to
+     seven times the largest reading of the runs, whose readings spread by a
+     factor of two to fifteen.  The whole step's gradients are not held to phase 6's bands: a step of this
      model is chaotic in its forward, so the median tensor's difference is
      printed beside that of an unfused step whose pooled values were moved by
      an ulp or two at one value in a million; the median train step of both,
@@ -107,7 +107,47 @@ not 0):
      trace; then a
      bf16 ``Predictor`` with the fused stem on the 1024x1536 scene:
      ``stem_norm_relu_pool`` once per chunk, finite logits, mask agreement
-     with the unfused Predictor >= 0.999, scene latency of both.
+     with the unfused Predictor >= 0.999, scene latency of both;
+ 12. the four fused bottleneck kernels (``matmul_bn_stats`` and
+     ``conv3x3_bn_stats``, forward and backward) against their plain versions
+     in bf16 and f32: every 1x1 (M, K, N) and every 3x3 shape of the slice's
+     12 fused blocks, with and without the normalize + ReLU prologue as the
+     model uses them, a ragged M (16 * 37), one tile, channel counts below a
+     tile, ragged 3x3 images, an all-negative prologue (every output and
+     gradient 0) and ds = dq = 0.  y and dx within one ulp of the compute
+     dtype of the plain version summed in float64 and rounded once (bf16;
+     the ulp taken at max(|y|, max|y| / 128)) or within 1e-5 * max (f32: a
+     float32 sum thousands of terms long in another order); s and q within
+     1e-5 * max of the float64 sums over the kernel's OWN y; dw, da, db
+     within 1e-5 * max of the plain version summed in float64 at f32 and
+     5e-5 * max at bf16; everything equal bit for bit across two launches.
+     Device times with the inputs out of L2 of each kernel, its plain version
+     and the unfused chain on the same tensors (conv + ``F.batch_norm`` train
+     + ReLU through the libraries, and their autograd backward: another
+     function), at each shape in bf16, summed over a train step's launches;
+ 13. the fused blocks at full width: phase 6's ``Trainer`` with
+     ``fused_blocks="always"`` for ``BLOCK_STEPS`` steps, a quick-eval and a
+     validation: 26 launches of the 1x1 and 12 of the 3x3 kernels per step in
+     each direction and none in evaluation, every loss finite, the best
+     ``.pth`` loads ``strict=True`` into an unfused model, the shapes the gate
+     passes equal phase 12's tables.  For ``layer1.0`` (with downsample),
+     ``layer2.1`` and ``layer4.0``, on the fused step's own input, parameters
+     and output cotangent: the fused block's output within 2e-2 * max in bf16
+     and 1e-4 in f32 of the block's arithmetic in float64, its running
+     statistics within 1e-4 (bf16) and 1e-5 (f32) of the unfused modules'.
+     dx (by its mean) and every parameter gradient (by its largest element)
+     are held against that float64 block: in f32 within 5e-2 (readings to
+     1.3e-2: flipped ReLU decisions; a wrong term shows as 0.3 or more); in
+     bf16 relative to the unfused library modules (deterministic, TF32 off),
+     which four steps from random weights lie as far from float64 as the fused
+     block does (0.03-0.6 * max): the fused block's worst tensor at most 5
+     times as far as the unfused modules' worst, its median tensor at most 4
+     times as far as their median.  The whole step's loss and gradients fused
+     against unfused are printed, not held (chaotic, as in
+     phase 11).  Then, with the card's name and power limit: the median train
+     step both ways, ``max_memory_allocated``, and from one profiler trace
+     each the device time per step, the kernel launches per step and the
+     device time by class (convs / BN / elementwise / the new kernels).
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -197,13 +237,13 @@ class NoDeviceRecords(RuntimeError):
     pass
 
 
-def traced_kernels(fn, reps: int, warmup: int) -> dict:
-    """{kernel name: its device time in one fn(), ms} from a ``torch.profiler``
-    trace of ``reps`` calls.  A trace can come back short of its last records,
-    or now and then with none: so each kernel counts with the mean of the
-    records it has, times its launches in a call (records / reps, to the
-    nearest whole number), and an empty trace is taken again, five times at
-    most."""
+def traced_records(fn, reps: int, warmup: int) -> dict:
+    """{kernel name: (its mean device time in us, its launches in one fn())}
+    from a ``torch.profiler`` trace of ``reps`` calls.  A trace can come back
+    short of its last records, or now and then with none: so each kernel counts
+    with the mean of the records it has and its launches in a call (records /
+    reps, to the nearest whole number), and an empty trace is taken again, five
+    times at most."""
     for _ in range(warmup):
         fn()
     cuda = torch.autograd.DeviceType.CUDA
@@ -216,9 +256,15 @@ def traced_kernels(fn, reps: int, warmup: int) -> dict:
         on_device = [e for e in prof.key_averages()
                      if e.device_type == cuda and e.count and e.self_device_time_total > 0]
         if on_device:
-            return {e.key: e.self_device_time_total / e.count
-                    * (round(e.count / reps) or e.count / reps) / 1e3 for e in on_device}
+            return {e.key: (e.self_device_time_total / e.count,
+                            round(e.count / reps) or e.count / reps) for e in on_device}
     raise NoDeviceRecords(f"five traces of {reps} calls hold no device record")
+
+
+def traced_kernels(fn, reps: int, warmup: int) -> dict:
+    """{kernel name: its device time in one fn(), ms}: the mean of its records
+    times its launches in a call (:func:`traced_records`)."""
+    return {k: us * n / 1e3 for k, (us, n) in traced_records(fn, reps, warmup).items()}
 
 
 def traced_ms(fn, reps: int, warmup: int) -> float:
@@ -268,19 +314,41 @@ def cold_device_ms(fn, reps: int = 20) -> float:
     """:func:`device_ms` of fn() with its inputs out of the 50 MB L2 cache:
     a 256 MB buffer is rewritten before every call, and the time of that
     rewrite alone is taken off."""
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    return ColdTimer(reps)(fn)
 
-    def flushed():
-        flush.zero_()
-        return fn()
 
-    # both times by the same clock, or their difference means nothing
-    try:
-        return traced_ms(flushed, reps, 3) - traced_ms(flush.zero_, reps, 3)
-    except NoDeviceRecords as e:
-        print(f"[profiler] {e}: CUDA-event times, launch overhead included, stand in",
-              file=sys.stderr)
-        return cuda_ms(flushed, reps) - cuda_ms(flush.zero_, reps)
+class ColdTimer:
+    """:func:`cold_device_ms` for many functions: one 256 MB flush buffer.
+    The rewrite's own kernel is found once by name in a trace of the rewrite
+    alone and left out of every function's sum, so no baseline is subtracted
+    (a baseline taken at another moment was off by 0.06 ms a call)."""
+
+    def __init__(self, reps: int = 20):
+        self.reps = reps
+        self.flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+        try:
+            self.flush_kernels = set(traced_records(self.flush.zero_, reps, 3))
+        except NoDeviceRecords as e:
+            print(f"[profiler] {e}: CUDA-event times, launch overhead included, stand in",
+                  file=sys.stderr)
+            self.flush_kernels = None
+            self.flush_ms = cuda_ms(self.flush.zero_, reps)
+
+    def __call__(self, fn, reps: int | None = None) -> float:
+        def flushed():
+            self.flush.zero_()
+            return fn()
+
+        reps = reps or self.reps
+        if self.flush_kernels is not None:
+            try:
+                records = traced_records(flushed, reps, 3)
+                return sum(us * n for k, (us, n) in records.items()
+                           if k not in self.flush_kernels) / 1e3
+            except NoDeviceRecords as e:
+                print(f"[profiler] {e}: CUDA-event times stand in", file=sys.stderr)
+                self.flush_ms = cuda_ms(self.flush.zero_, reps)
+        return cuda_ms(flushed, reps) - self.flush_ms
 
 
 def phase_device() -> None:
@@ -1121,14 +1189,13 @@ def phase_stem_kernels(fs) -> dict:
     return records
 
 
-def phase_stem_slice(fs, ce) -> tuple:
+def _fused_trainer(setting: str, steps: int) -> tuple:
+    """(Trainer, its Config, train set, validation set) of phase 6's
+    configuration with ``cfg.model.<setting> = "always"``, for ``steps`` steps
+    with a quick-eval halfway and a validation at the end."""
     from iswm_tpu_torch.config import Config
-    from iswm_tpu_torch.data import ArrayDataset, augment_batch, batch_iterator, generate_scene
-    from iswm_tpu_torch.infer import Predictor, tile_origins
-    from iswm_tpu_torch.infer.quantization import logit_diff_verdict
-    from iswm_tpu_torch.models import build_model
-    from iswm_tpu_torch.ops.losses import make_loss_fn
-    from iswm_tpu_torch.train import Trainer, TrainState, make_optimizer, make_train_step
+    from iswm_tpu_torch.data import ArrayDataset, generate_scene
+    from iswm_tpu_torch.train import Trainer
 
     rng = np.random.default_rng(SEED)
 
@@ -1137,17 +1204,29 @@ def phase_stem_slice(fs, ce) -> tuple:
         return ArrayDataset(np.stack(images), np.stack(masks))
 
     train_ds, val_ds = scenes(32), scenes(VAL_SCENES)
-    cfg = Config()  # phase 6's configuration, with the fused stem
-    cfg.model.fused_stem = "always"
+    cfg = Config()
+    setattr(cfg.model, setting, "always")
     cfg.data.crop_size, cfg.data.batch_size = 512, 8
-    cfg.train.total_itrs = cfg.train.val_interval = STEM_STEPS
-    cfg.train.quick_eval_interval = cfg.train.print_interval = STEM_STEPS // 2
+    cfg.train.total_itrs = cfg.train.val_interval = steps
+    cfg.train.quick_eval_interval = cfg.train.print_interval = steps // 2
     cfg.train.save_val_results = False  # the PNG dump needs PIL
-    out = TRAIN_OUT.with_name("chip_smoke_stem")
+    out = TRAIN_OUT.with_name(f"chip_smoke_{setting}")
     shutil.rmtree(out, ignore_errors=True)
     for name in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
         setattr(cfg.train, name, str(out / name))
-    trainer = Trainer(cfg, device="cuda", train_ds=train_ds, val_ds=val_ds)
+    return Trainer(cfg, device="cuda", train_ds=train_ds, val_ds=val_ds), cfg, train_ds, val_ds
+
+
+def phase_stem_slice(fs, ce) -> tuple:
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import augment_batch, batch_iterator
+    from iswm_tpu_torch.infer import Predictor, tile_origins
+    from iswm_tpu_torch.infer.quantization import logit_diff_verdict
+    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    trainer, cfg, train_ds, val_ds = _fused_trainer("fused_stem", STEM_STEPS)
 
     def counts():
         return (fs.launches_stats, fs.launches_pool, fs.launches_bwd_sums,
@@ -1240,9 +1319,12 @@ def phase_stem_slice(fs, ce) -> tuple:
     # to 1.5e-4 (the pooled values differ by an ulp here and there); bf16
     # conv1 1.3e-2 to 3.1e-2 (tie routing) and bn1 1.3e-3 to 4.3e-3; float32
     # conv1 5.9e-4 to 1.3e-3 (the library's weight gradient reads TF32) and
-    # bn1 up to 9e-7
+    # bn1 up to 9e-7 in a dozen runs but 3.0e-3 in one: the folded affine and
+    # F.batch_norm round y differently, and one element whose ReLU or pool
+    # decision goes the other way moves these sums by a whole cotangent (phase
+    # 10 holds the same sums to 1e-5 where both sides share the decisions)
     for dtype, loss_tol, conv_tol, bn_tol in ((torch.bfloat16, 2e-2, 1e-1, 2e-2),
-                                              (torch.float32, 1e-3, 5e-3, 1e-5)):
+                                              (torch.float32, 1e-3, 5e-3, 1e-2)):
         model.compute_dtype = dtype
         seen = {}
 
@@ -1371,18 +1453,613 @@ def phase_stem_slice(fs, ce) -> tuple:
     return tuple(a + b for a, b in zip(train_launches, serve_launches))
 
 
+# (M, K, N, prologue) of the fused blocks' 1x1 convs in one train step of the
+# slice (ResNet-50, OS 16, batch 8, crop 512), and how many of the 26 run at it
+BLOCK_MM_SHAPES = {
+    (131072, 64, 64, False): 1,     # layer1.0.conv1
+    (131072, 64, 256, False): 1,    # layer1.0.downsample.0
+    (131072, 64, 256, True): 3,     # layer1.*.conv3
+    (131072, 256, 64, False): 2,    # layer1.{1,2}.conv1
+    (32768, 512, 128, False): 3,    # layer2.{1,2,3}.conv1
+    (32768, 128, 512, True): 3,     # layer2.{1,2,3}.conv3
+    (8192, 1024, 256, False): 5,    # layer3.{1..5}.conv1
+    (8192, 256, 1024, True): 5,     # layer3.{1..5}.conv3
+    (8192, 1024, 512, False): 1,    # layer4.0.conv1
+    (8192, 512, 2048, True): 1,     # layer4.0.conv3
+    (8192, 1024, 2048, False): 1,   # layer4.0.downsample.0
+}
+# (B, H, W, C, N) of their 3x3 convs, and how many of the 12
+BLOCK_C3_SHAPES = {
+    (8, 128, 128, 64, 64): 3,       # layer1.*.conv2
+    (8, 64, 64, 128, 128): 3,       # layer2.{1,2,3}.conv2
+    (8, 32, 32, 256, 256): 5,       # layer3.{1..5}.conv2
+    (8, 32, 32, 512, 512): 1,       # layer4.0.conv2
+}
+BLOCK_STEPS = 4  # with a quick-eval at step 2 and the validation at 4
+# phase 13: how many times as far from the float64 block the fused block's
+# gradients may lie as the unfused modules' (the worst tensor of each, and the
+# median tensor of each), an unfused distance counting as at least the floor
+BLOCK_SLACK_WORST, BLOCK_SLACK_MEDIAN = 5.0, 4.0
+BLOCK_F32_LIMIT = 5e-2  # ... and, in float32, the fused block's own distance
+BLOCK_FLOOR = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::sum_partials(")
+
+
+def _rounding_error(got, want, dtype):
+    """(largest error in units of the tolerance, share of elements beyond it).
+    bf16: one ulp at max(|want|, max|want| / 128), since the float32
+    accumulator is far finer than a bf16 ulp and can cross one rounding
+    boundary at most; the floor keeps an output near 0 (a cancelling sum) to
+    the ulp of values 128 times smaller than the largest.  float32: 1e-5 *
+    max|want|, the summation-order error of a float32 sum thousands of terms
+    long against the float64 one (readings up to 1.1e-6)."""
+    err = (got.double() - want.double()).abs()
+    top = float(want.double().abs().max())
+    if dtype == torch.bfloat16:
+        tiny = torch.finfo(torch.bfloat16).tiny
+        mag = want.double().abs().clamp_min(max(top / 128, tiny))
+        unit = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    else:
+        unit = torch.full_like(err, max(1e-5 * top, torch.finfo(torch.float64).tiny))
+    ratio = err / unit
+    return float(ratio.max()), float((ratio > 1).double().mean())
+
+
+def _fb_inputs(kind, shape, dtype, gen):
+    """One fused-block case: the activation with per-channel offsets, the
+    weight, the folded affine (a, b) and the cotangents (dy, ds, dq)."""
+    def rand(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+
+    if kind == "mm":
+        m, k, n = shape
+        x = (rand(m, k) + 0.5 * rand(1, k)).to(dtype)
+        w = (rand(k, n) / k ** 0.5).to(dtype)
+        dy = rand(m, n).to(dtype)
+    else:
+        b, h, wd, k, n = shape
+        x = (rand(b, h, wd, k) + 0.5 * rand(1, 1, 1, k)).to(dtype)
+        w = rand(3, 3, k, n) / (9 * k) ** 0.5  # float32, cast inside
+        dy = rand(b, h, wd, n).to(dtype)
+    return x, w, 1.0 + 0.5 * rand(k), 0.1 * rand(k), dy, rand(n), 0.01 * rand(n)
+
+
+def _fb_calls(fb, kind, prologue, x, w, a, b):
+    """(forward, plain forward, backward, plain backward) of one case, the
+    plain ones taking the dtype they sum in."""
+    if kind == "mm":
+        return (lambda: fb.matmul_bn_stats_fwd(x, w, a, b, prologue),
+                lambda dt: fb.matmul_bn_stats_plain(x, w, a, b, prologue, dtype=dt),
+                lambda y, g: fb.matmul_bn_stats_bwd(x, w, a, b, y, *g, prologue),
+                lambda y, g, dt: fb.matmul_bn_stats_bwd_plain(x, w, a, b, y, *g, prologue,
+                                                              dtype=dt))
+    return (lambda: fb.conv3x3_bn_stats_fwd(x, a, b, w),
+            lambda dt: fb.conv3x3_bn_stats_plain(x, a, b, w, dtype=dt),
+            lambda y, g: fb.conv3x3_bn_stats_bwd(x, a, b, w, y, *g),
+            lambda y, g, dt: fb.conv3x3_bn_stats_bwd_plain(x, a, b, w, y, *g, dtype=dt))
+
+
+def _fb_bound(kind, shape, prologue, esize):
+    """(forward, backward) least times of one call: every input read once and
+    every output written once; the contraction at the bf16 tensor-core rate
+    (TF32's for float32 operands), whatever units the kernel uses."""
+    if kind == "mm":
+        m, k, n = shape
+        taps, w_in = 1, k * n * esize
+    else:
+        b, h, wd, k, n = shape
+        m, taps, w_in = b * h * wd, 9, 9 * k * n * 4
+    vec = 2 * k * 4 * bool(prologue)
+    rate = BF16_OPS_PER_S if esize == 2 else TF32_OPS_PER_S
+    flops = 2 * m * taps * k * n
+    fwd = least_time(m * k * esize + w_in + vec + m * n * esize + 2 * n * 4, flops, rate)
+    bwd = least_time(2 * m * k * esize + 2 * m * n * esize + w_in + taps * k * n * 4
+                     + 2 * vec + 2 * n * 4, 2 * flops, rate)
+    return fwd, bwd
+
+
+def _unfused_conv_chain(kind, shape, x, w, dy):
+    """The unfused modules' work for the same conv, another function than the
+    kernels' (BatchNorm after the conv, not before it; library kernels):
+    (forward, backward) callables of conv + ``F.batch_norm`` (train) + ReLU."""
+    F = torch.nn.functional
+    if kind == "mm":
+        m, k, n = shape
+        xc = x.reshape(1, m, 1, k).permute(0, 3, 1, 2)
+        wc = w.t().reshape(n, k, 1, 1).contiguous(memory_format=torch.channels_last)
+        g, pad = dy.reshape(1, m, 1, n).permute(0, 3, 1, 2), 0
+    else:
+        n = shape[4]
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        g, pad = dy.permute(0, 3, 1, 2), 1
+    gamma = torch.ones(n, device="cuda", dtype=x.dtype)
+    beta = torch.zeros(n, device="cuda", dtype=x.dtype)
+
+    def forward(leaves=(xc, wc, gamma, beta)):
+        xx, ww, ga, be = leaves
+        return torch.relu(F.batch_norm(F.conv2d(xx, ww, None, 1, pad), None, None, ga, be,
+                                       True, 0.0, 1e-5))
+
+    leaves = [t.detach().requires_grad_() for t in (xc, wc, gamma, beta)]
+    out = forward(leaves)
+    return forward, lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def phase_block_kernels(fb) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("mm", s[:3], s[3], "random") for s in BLOCK_MM_SHAPES]
+    cases += [("c3", s, True, "random") for s in BLOCK_C3_SHAPES]
+    cases += [
+        ("mm", (16 * 37, 64, 64), True, "random"),      # ragged M
+        ("mm", (16 * 37, 64, 64), False, "random"),
+        ("mm", (128, 64, 64), True, "random"),          # one tile
+        ("mm", (256, 16, 32), True, "random"),          # channels below a tile
+        ("mm", (2048, 128, 64), True, "negative"),      # relu(a x + b) = 0 everywhere
+        ("mm", (2048, 128, 64), True, "no stats cotangent"),
+        ("c3", (2, 16, 24, 8, 16), True, "random"),
+        ("c3", (1, 5, 7, 16, 8), True, "random"),       # ragged in every direction
+        ("c3", (2, 12, 12, 64, 64), True, "negative"),
+        ("c3", (2, 12, 12, 64, 64), True, "no stats cotangent"),
+    ]
+    names = ("mm_fwd", "mm_bwd", "c3_fwd", "c3_bwd")
+    errs = dict.fromkeys(names, 0.0)
+    for kind, shape, prologue, what in cases:
+        for dtype in (bf16, f32):
+            x, w, a, b, dy, ds, dq = _fb_inputs(kind, shape, dtype, gen)
+            if what == "negative":
+                a, b = a.abs(), b - 100.0
+            if what == "no stats cotangent":
+                ds, dq = torch.zeros_like(ds), torch.zeros_like(dq)
+            fwd, fwd_plain, bwd, bwd_plain = _fb_calls(fb, kind, prologue, x, w, a, b)
+            label = f"{kind} {shape} prologue={prologue} {what} {str(dtype).split('.')[1]}"
+            y, s, q = fwd()
+            again = fwd()
+            want_y = fwd_plain(torch.float64)[0]
+            axes = tuple(range(y.ndim - 1))
+            own = (y.double().sum(axes), (y.double() ** 2).sum(axes))
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip((y, s, q), again)),
+                  f"fused block forward not bit-stable ({label})")
+            worst, share = _rounding_error(y, want_y, dtype)
+            check(y.dtype == dtype and worst <= 1.0,
+                  f"fused block y ({label}): {worst:.3g} x the tolerance at its worst, "
+                  f"{share:.2e} of the elements beyond it")
+            e_fwd = float((y.double() - want_y.double()).abs().max())
+            for got, ref, nm in ((s, own[0], "s"), (q, own[1], "q")):
+                err, ok = _close(got, ref)
+                check(ok, f"fused block {nm} ({label}): max abs err {err} vs the float64 sum "
+                      f"over the kernel's own y")
+                e_fwd = max(e_fwd, err)
+            cot = (dy, ds, dq)
+            got = bwd(y, cot)
+            again = bwd(y, cot)
+            want = bwd_plain(y, cot, torch.float64)
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                  f"fused block backward not bit-stable ({label})")
+            worst_dx, share_dx = _rounding_error(got[0], want[0], dtype)
+            check(got[0].dtype == dtype and worst_dx <= 1.0,
+                  f"fused block dx ({label}): {worst_dx:.3g} x the tolerance at its worst, "
+                  f"{share_dx:.2e} of the elements beyond it")
+            # float32 sums of exact products in another order than float64's:
+            # 1e-5 * max at float32; at bf16 the tensor cores' accumulation and
+            # the float32 dz that da, db are summed from widen it (readings up
+            # to 5.8e-6), so 5e-5 * max
+            band = 5e-5 if dtype == bf16 else 1e-5
+            e_bwd = float((got[0].double() - want[0].double()).abs().max())
+            for g_, w_, nm in zip(got[1:], want[1:], ("dw", "da", "db")):
+                err, ok = _close(g_, w_, band)
+                check(g_.dtype == f32 and ok,
+                      f"fused block {nm} ({label}): max abs err {err} vs float64 "
+                      f"(limit {band} * max {float(w_.abs().max())})")
+                e_bwd = max(e_bwd, err)
+            if what == "negative":
+                check(not any(bool(t.float().any()) for t in (y, s, q, *got)),
+                      f"all-negative prologue ({label}): an output or a gradient is not 0")
+            errs[f"{kind}_fwd"] = max(errs[f"{kind}_fwd"], e_fwd)
+            errs[f"{kind}_bwd"] = max(errs[f"{kind}_bwd"], e_bwd)
+            print(f"[12] fused block {label}: y {worst:.2f} and dx {worst_dx:.2f} x their "
+                  f"tolerance (bf16: one ulp; f32: 1e-5 * max), none beyond; s, q within 1e-5 "
+                  f"* max of float64 over the kernel's y; dw, da, db within {band} * max; "
+                  f"max abs err fwd {e_fwd:.3e}, bwd {e_bwd:.3e}; all bit-stable"
+                  + ("; every output and gradient 0" if what == "negative" else ""))
+            del x, w, dy, y, again, want_y, got, want, own
+
+    # times at the slice's shapes in bf16, inputs out of L2, summed over a step
+    cold = ColdTimer(reps=5)
+    total = {k: {"ms": 0.0, "plain_ms": 0.0, "unfused_chain_ms": 0.0} for k in names}
+    bounds = {k: [] for k in names}
+    slice_cases = [("mm", s[:3], s[3], n) for s, n in BLOCK_MM_SHAPES.items()]
+    slice_cases += [("c3", s, True, n) for s, n in BLOCK_C3_SHAPES.items()]
+    for kind, shape, prologue, count in slice_cases:
+        x, w, a, b, dy, ds, dq = _fb_inputs(kind, shape, bf16, gen)
+        fwd, fwd_plain, bwd, bwd_plain = _fb_calls(fb, kind, prologue, x, w, a, b)
+        y = fwd()[0]
+        cot = (dy, ds, dq)
+        chain_fwd, chain_bwd = _unfused_conv_chain(kind, shape, x, w, dy)
+        times = {
+            "fwd": (cold(fwd), cold(lambda: fwd_plain(f32)), cold(chain_fwd)),
+            "bwd": (cold(lambda: bwd(y, cot)), cold(lambda: bwd_plain(y, cot, f32)),
+                    cold(chain_bwd)),
+        }
+        least = dict(zip(("fwd", "bwd"), _fb_bound(kind, shape, prologue, 2)))
+        flops = 2 * (shape[0] * shape[1] * shape[2] if kind == "mm"
+                     else shape[0] * shape[1] * shape[2] * 9 * shape[3] * shape[4])
+        for d in ("fwd", "bwd"):
+            rec = total[f"{kind}_{d}"]
+            for key, t in zip(("ms", "plain_ms", "unfused_chain_ms"), times[d]):
+                rec[key] += count * t
+            bounds[f"{kind}_{d}"] += [least[d]] * count
+            mult = 1 if d == "fwd" else 2
+            print(f"[12] fused block {kind} {d} {shape} prologue={prologue} bf16 (x{count} a "
+                  f"step), inputs out of L2: device time kernel {times[d][0]:.4f} ms "
+                  f"({mult * flops / times[d][0] / 1e9:.1f} TFLOP/s), plain {times[d][1]:.4f} "
+                  f"ms, unfused chain (conv + F.batch_norm train + ReLU"
+                  + ("" if d == "fwd" else ", autograd backward")
+                  + f"; another function) {times[d][2]:.4f} ms; bound "
+                  f"{least[d]['bound_ms']:.4f} ms by {least[d]['bound_by']}")
+        del x, w, dy, y, chain_fwd, chain_bwd
+    records = {}
+    for key in names:
+        least = sum_bounds(bounds[key])
+        # no single PyTorch call computes conv + statistics + prologue
+        records[key] = {"max_abs_err": errs[key], **total[key], **least, "library_ms": None,
+                        "unfused_chain_of": "conv2d + batch_norm(train) + relu"
+                        + ("" if key.endswith("fwd") else ", autograd backward")}
+        print(f"[12] one train step's {len(bounds[key])} launches of {key}: kernel "
+              f"{total[key]['ms']:.4f} ms, plain {total[key]['plain_ms']:.4f} ms, unfused chain "
+              f"{total[key]['unfused_chain_ms']:.4f} ms, bound {least['bound_ms']:.4f} ms by "
+              f"{least['bound_by']}")
+    return records
+
+
+def _bottleneck_f64(sd: dict, x: torch.Tensor, dout: torch.Tensor, eps: float) -> tuple:
+    """A stride-1 Bottleneck's unfused arithmetic in float64 under autograd,
+    from the block's state dict: conv -> batch statistics -> normalize ->
+    ReLU, three times, the optional projection, add, ReLU.  Returns (output,
+    dx, parameter gradients by key)."""
+    F = torch.nn.functional
+    p = {k: v.double().requires_grad_() for k, v in sd.items()
+         if v.is_floating_point() and "running_" not in k}
+    xin = x.double().requires_grad_()
+
+    def conv_bn(t, conv, bn, pad):
+        y = F.conv2d(t, p[conv + ".weight"], None, 1, pad)
+        mean = y.mean((0, 2, 3), keepdim=True)
+        var = y.var((0, 2, 3), unbiased=False, keepdim=True)
+        return ((y - mean) * torch.rsqrt(var + eps) * p[bn + ".weight"].view(1, -1, 1, 1)
+                + p[bn + ".bias"].view(1, -1, 1, 1))
+
+    out = torch.relu(conv_bn(xin, "conv1", "bn1", 0))
+    out = torch.relu(conv_bn(out, "conv2", "bn2", 1))
+    out = conv_bn(out, "conv3", "bn3", 0)
+    identity = (conv_bn(xin, "downsample.0", "downsample.1", 0)
+                if "downsample.0.weight" in p else xin)
+    out = torch.relu(out + identity)
+    grads = torch.autograd.grad(out, [xin, *p.values()], dout.double())
+    return out.detach(), grads[0], dict(zip(p, grads[1:]))
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in BLOCK_KERNELS):
+        return "fused block kernels"
+    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low or "batchnorm" in low:
+        return "BN"
+    if any(k in low for k in ("cudnn", "cutlass", "gemm", "xmma", "conv", "nchwtonhwc",
+                              "nhwctonchw", "wgrad", "dgrad", "cublas")):
+        return "convs"
+    if "elementwise" in low or "vectorized" in low or "reduce_kernel" in low:
+        return "elementwise"
+    return "other"
+
+
+def phase_block_slice(fb, ce) -> tuple:
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import augment_batch, batch_iterator
+    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.models.fused_block import fused_block_eligible
+    from iswm_tpu_torch.models.resnet import Bottleneck
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    trainer, cfg, train_ds, val_ds = _fused_trainer("fused_blocks", BLOCK_STEPS)
+    model = trainer.state.model
+    blocks = {name: m for name, m in model.backbone.named_modules()
+              if isinstance(m, Bottleneck)}
+
+    def set_mode(mode):
+        for m in blocks.values():
+            m.fused_mode = mode
+
+    def counts():
+        return (fb.launches_mm_fwd, fb.launches_c3_fwd, fb.launches_mm_bwd,
+                fb.launches_c3_bwd)
+
+    fb.launches_mm_fwd = fb.launches_c3_fwd = fb.launches_mm_bwd = fb.launches_c3_bwd = 0
+    ce.launches_fwd = ce.launches_bwd = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = counts()
+    per_step = (sum(BLOCK_MM_SHAPES.values()), sum(BLOCK_C3_SHAPES.values())) * 2
+    check(launches == tuple(BLOCK_STEPS * n for n in per_step),
+          f"fused block launches (1x1 fwd, 3x3 fwd, 1x1 bwd, 3x3 bwd) {launches} in "
+          f"{BLOCK_STEPS} steps, a quick-eval and a validation; expected {per_step} per train "
+          f"step and none in evaluation")
+    check((ce.launches_fwd, ce.launches_bwd) == (BLOCK_STEPS, BLOCK_STEPS),
+          f"fused CE launches {(ce.launches_fwd, ce.launches_bwd)} in {BLOCK_STEPS} steps")
+    losses = trainer.logger.history["train_loss"]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"logged losses {losses}")
+    check(trainer.best_path is not None, "no best checkpoint was written")
+    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
+    unfused_cfg = Config().model
+    check(unfused_cfg.fused_blocks == "never", "fused_blocks does not default to 'never'")
+    build_model(unfused_cfg).load_state_dict(payload["model_state"], strict=True)
+    print(f"[13] training with fused_blocks='always': {BLOCK_STEPS} steps + 1 quick-eval + 1 "
+          f"validation in {fit_s:.2f} s; launches 1x1 fwd {launches[0]}, 3x3 fwd {launches[1]}, "
+          f"1x1 bwd {launches[2]}, 3x3 bwd {launches[3]} ({per_step} per step, 0 in "
+          f"evaluation); losses {[round(v, 4) for v in losses]}; "
+          f"{Path(trainer.best_path).name} loads strict=True into an unfused model")
+
+    images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
+    # One block of each kind against the unfused modules' autograd, on the
+    # fused step's own input, parameters and output cotangent (a whole step
+    # fused against unfused is chaotic on this model: printed, not held).
+    # The reference runs without TF32, so that float32 can be held tightly.
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    factory, _ = make_optimizer(cfg.optim, cfg.train.total_itrs)
+    step = make_train_step(make_loss_fn(cfg.loss.loss_type, fused="auto", device="cuda"))
+    held = ("layer1.0", "layer2.1", "layer4.0")
+
+    def one_step(mode, grab=()):
+        set_mode(mode)
+        model.load_state_dict(start)
+        state = TrainState(model, *factory(model.parameters()), 0)
+        torch.cuda.manual_seed(SEED)
+        seen, handles = {}, []
+        for name in grab:
+            def pre(mod, args, name=name):
+                seen[name + ".x"] = args[0].detach()
+                if args[0].requires_grad:
+                    args[0].register_hook(
+                        lambda g, name=name: seen.__setitem__(name + ".dx", g.detach().clone()))
+
+            def post(mod, args, out, name=name):
+                seen[name + ".out"] = out.detach()
+                out.register_hook(
+                    lambda g, name=name: seen.__setitem__(name + ".dout", g.detach().clone()))
+            handles += [blocks[name].register_forward_pre_hook(pre),
+                        blocks[name].register_forward_hook(post)]
+        with warnings.catch_warnings():  # ops without a deterministic version
+            warnings.simplefilter("ignore")
+            loss = float(step(state, x, y))
+        for h in handles:
+            h.remove()
+        grads = {k: p.grad.float().clone() for k, p in model.named_parameters()}
+        buffers = {k: v.clone() for k, v in model.state_dict().items() if "running_" in k}
+        return loss, grads, buffers, seen
+
+    def ratio(got, want):
+        return float((got.double() - want.double()).abs().max()
+                     / want.double().abs().max().clamp_min(1e-30))
+
+    def mean_ratio(got, want):
+        """mean |got - want| / mean |want|: for dx, whose largest difference is
+        one element whose ReLU decision went the other way (as large as dx)."""
+        return float((got.double() - want.double()).abs().mean()
+                     / want.double().abs().mean().clamp_min(1e-30))
+
+    def run_unfused(name, xin, dout, dtype):
+        """The unfused modules of block ``name`` in ``dtype`` on the given
+        input and cotangent, from the ``start`` parameters: (output, dx,
+        parameter gradients, running statistics)."""
+        prefix = f"backbone.{name}."
+        ref = copy.deepcopy(blocks[name])
+        ref.fused_mode = "never"
+        ref.load_state_dict({k[len(prefix):]: v for k, v in start.items()
+                             if k.startswith(prefix)})
+        ref.train()
+        xin = xin.to(dtype).clone().requires_grad_()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            out = ref(xin)
+            out.backward(dout.to(dtype))
+        return (out.detach(), xin.grad, {k: p.grad for k, p in ref.named_parameters()},
+                {k: v for k, v in ref.state_dict().items() if "running_" in k})
+
+    def stat_error(got, want):
+        """Running statistics: the variance against max|var|, the mean against
+        the largest spread sqrt(var) (a mean near 0 says nothing of scale)."""
+        worst = 0.0
+        for k, v in want.items():
+            scale = v.abs().max() if "var" in k else want[k.replace("mean", "var")].sqrt().max()
+            worst = max(worst, float((got[k] - v).abs().max() / scale))
+        return worst
+
+    # Limits.  The gradients of this model, four steps from random weights,
+    # are residues of large cancelling sums (a BatchNorm follows every conv),
+    # so the unfused library modules in the same dtype are no reference: in
+    # bf16 they lie as far from the exact result as the fused block does (0.03
+    # to 0.6 * max|tensor|).  Both are therefore held against the block's
+    # arithmetic in float64 on the same input and cotangent, over every
+    # parameter gradient (max |difference| / max |gradient|) and dx (mean
+    # |difference| / mean |dx|: its largest difference is one flipped ReLU
+    # decision, as large as dx itself).  bf16: the fused block's worst tensor
+    # may be ``BLOCK_SLACK_WORST`` times as far from float64 as the unfused
+    # modules' worst (TF32 off), its median tensor ``BLOCK_SLACK_MEDIAN`` times
+    # as far as their median (readings 0.9-1.8 and 1.0-1.3; a single tensor's
+    # distance varies tenfold between two realisations of the rounding, and
+    # the fused backward rounds twice per conv, dx and then dyt, where the
+    # unfused BatchNorm rounds once, as in the JAX package).  float32: every
+    # tensor within ``BLOCK_F32_LIMIT`` of float64 (readings 8.6e-7 to 1.3e-2;
+    # a wrong term shows as 0.3 or more).  There the fused block can be five
+    # times as far as the unfused modules, and is where M is largest: its fast
+    # variance E[y^2] - E[y]^2, flax's, loses one to two digits that
+    # F.batch_norm's two-pass variance keeps when a channel's mean is large
+    # beside its spread, so more ReLU decisions within rounding of 0 go the
+    # other way, each moving a gradient by one pixel's share.  Output and
+    # running statistics have limits of their own (bf16 statistics: the two y
+    # differ by an ulp here and there).  See PERF.md for the readings.
+    failures = []
+    for dtype, out_tol, stat_tol in ((torch.bfloat16, 2e-2, 1e-4), (torch.float32, 1e-4, 1e-5)):
+        model.compute_dtype = dtype
+        loss_k, g_k, buf_k, seen = one_step("always", held)
+        loss_p, g_p, _, _ = one_step("never")
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        for name in held:
+            prefix = f"backbone.{name}."
+            xin, dout = seen[name + ".x"], seen[name + ".dout"]
+            fused = (seen[name + ".out"], seen[name + ".dx"],
+                     {k[len(prefix):]: v for k, v in g_k.items() if k.startswith(prefix)},
+                     {k[len(prefix):]: v for k, v in buf_k.items() if k.startswith(prefix)})
+            unfused = run_unfused(name, xin, dout, dtype)
+            truth = _bottleneck_f64({k[len(prefix):]: v for k, v in start.items()
+                                     if k.startswith(prefix)}, xin, dout, blocks[name].bn1.eps)
+            rows = {label: {"output": ratio(got[0], truth[0]), "dx": mean_ratio(got[1], truth[1]),
+                            **{k: ratio(got[2][k], truth[2][k]) for k in truth[2]}}
+                    for label, got in (("fused", fused), ("unfused", unfused))}
+            stats = stat_error(fused[3], unfused[3])
+            keys = [k for k in rows["fused"] if k != "output"]
+            floor = BLOCK_FLOOR[dtype]
+            far = {label: sorted(rows[label][k] for k in keys) for label in rows}
+            worst = far["fused"][-1] / max(far["unfused"][-1], floor)
+            median = far["fused"][len(keys) // 2] / max(far["unfused"][len(keys) // 2], floor)
+            ok = rows["fused"]["output"] <= out_tol and stats <= stat_tol
+            if dtype == torch.float32:
+                ok = ok and far["fused"][-1] <= BLOCK_F32_LIMIT
+            else:
+                ok = ok and worst <= BLOCK_SLACK_WORST and median <= BLOCK_SLACK_MEDIAN
+            text = (f"{dtype} {name}, on the fused step's own input, parameters and cotangent, "
+                    f"against the block in float64: fused output {rows['fused']['output']:.2e} "
+                    f"(limit {out_tol}; unfused {rows['unfused']['output']:.2e}), running "
+                    f"statistics fused vs unfused {stats:.2e} (limit {stat_tol}), dx (mean "
+                    f"|difference| / mean |dx|) and gradients (max |difference| / max "
+                    f"|gradient|), fused (unfused): "
+                    + ", ".join(f"{k} {rows['fused'][k]:.2e} ({rows['unfused'][k]:.2e})"
+                                for k in keys)
+                    + f"; the fused block's worst tensor {far['fused'][-1]:.2e}"
+                    + (f" (limit {BLOCK_F32_LIMIT})" if dtype == torch.float32 else "")
+                    + f", {worst:.3g} x as far as the unfused modules' worst, its median "
+                    f"tensor {median:.3g} x as far as their median"
+                    + ("" if dtype == torch.float32 else
+                       f" (limits {BLOCK_SLACK_WORST} and {BLOCK_SLACK_MEDIAN}; an unfused "
+                       f"distance counts as at least {floor})"))
+            print("[13] " + text)
+            if not ok:
+                failures.append(text)
+            del fused, unfused, truth
+        torch.backends.cudnn.allow_tf32 = tf32
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        ratios = sorted(ratio(g_k[k], g_p[k]) for k in g_p)
+        print(f"[13] one whole step fused vs fused_blocks='never', {dtype} (not held: the "
+              f"step is chaotic in its forward): loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+              f"{rel:.2e}); parameter gradients, median tensor of {len(ratios)} "
+              f"{ratios[len(ratios) // 2]:.2e}, worst {ratios[-1]:.2e} * max|grad|")
+        check(np.isfinite(loss_k), f"{dtype}: fused step loss {loss_k}")
+        del seen, g_k, g_p, buf_k
+    check(not failures, "; ".join(failures))
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    model.compute_dtype = trained_dtype
+    model.load_state_dict(start)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    xu8, yu8 = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    # the shapes the gate passes, against the tables phase 12 timed
+    seen_mm, seen_c3, handles = {}, {}, []
+
+    def note(mod, args):
+        b, c, h, w = args[0].shape
+        if not (mod.training and mod.fuses_on(args[0].device)
+                and fused_block_eligible(args[0].shape)):
+            return
+        p, rows = mod.conv1.out_channels, b * h * w
+        keys = [(rows, c, p, False), (rows, p, 4 * p, True)]
+        if mod.downsample is not None:
+            keys.append((rows, c, 4 * p, False))
+        for key in keys:
+            seen_mm[key] = seen_mm.get(key, 0) + 1
+        seen_c3[(b, h, w, p, p)] = seen_c3.get((b, h, w, p, p), 0) + 1
+
+    set_mode("always")
+    handles = [m.register_forward_pre_hook(note) for m in blocks.values()]
+    trainer.train_step(trainer.state, xu8, yu8)
+    for h in handles:
+        h.remove()
+    check(seen_mm == BLOCK_MM_SHAPES and seen_c3 == BLOCK_C3_SHAPES,
+          f"the gate passes {seen_mm} and {seen_c3}, phase 12 timed {BLOCK_MM_SHAPES} and "
+          f"{BLOCK_C3_SHAPES}")
+    step_ms, peak = {}, {}
+    for mode in ("never", "always", "always", "never"):
+        set_mode(mode)
+        times = []
+        for i in range(11):
+            if i == 3:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(trainer.state, xu8, yu8)
+            torch.cuda.synchronize()
+            if i >= 3:  # after warm-up
+                times.append(time.perf_counter() - t0)
+        peak[mode] = torch.cuda.max_memory_allocated() / 2**20
+        step_ms.setdefault(mode, []).extend(times)
+    never, always = (float(np.median(step_ms[m])) * 1e3 for m in ("never", "always"))
+    rounds = {m: [round(float(np.median(step_ms[m][i:i + 8])) * 1e3, 2) for i in (0, 8)]
+              for m in step_ms}
+    print(f"[13] {smi}: train step, batch 8 at 512^2, median of {len(step_ms['never'])} each "
+          f"(never, always, always, never): fused_blocks='never' {never:.2f} ms, 'always' "
+          f"{always:.2f} ms (by round of 8: never {rounds['never']}, always "
+          f"{rounds['always']}); torch.cuda.max_memory_allocated over the steps: 'never' "
+          f"{peak['never']:.0f} MiB, 'always' {peak['always']:.0f} MiB")
+    for mode in ("never", "always"):
+        set_mode(mode)
+        records = traced_records(lambda: trainer.train_step(trainer.state, xu8, yu8), 3, 1)
+        by_class, n_launches = {}, 0
+        for name, (us, n) in records.items():
+            cls = _kernel_class(name)
+            by_class[cls] = by_class.get(cls, 0.0) + us * n / 1e3
+            n_launches += n
+        total_ms = sum(by_class.values())
+        if mode == "always":
+            ours = [k for k in records if any(n in k for n in BLOCK_KERNELS)]
+            check(len(ours) >= 4, f"the trace of a fused step names {sorted(ours)}")
+        print(f"[13] {smi}: one step with fused_blocks='{mode}' (profiler, per-kernel means): "
+              f"device time {total_ms:.2f} ms in {n_launches:.0f} kernel launches; by class: "
+              + ", ".join(f"{c} {t:.2f} ms ({100 * t / total_ms:.1f}%)"
+                          for c, t in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    set_mode("always")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
               file=sys.stderr)
         return 1
     from iswm_tpu_torch.ops.kernels import confusion as cm
+    from iswm_tpu_torch.ops.kernels import fused_block as fb
     from iswm_tpu_torch.ops.kernels import fused_ce as ce
     from iswm_tpu_torch.ops.kernels import fused_stem as fs
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
     phase_device()
-    phase_build({"int8_matmul": k8, "fused_ce": ce, "confusion": cm, "fused_stem": fs})
+    phase_build({"int8_matmul": k8, "fused_ce": ce, "confusion": cm, "fused_stem": fs,
+                 "fused_block": fb})
     record = phase_kernel(k8)
     # int8_matmul_prequant is on no main path (in the JAX package only tests
     # and benchmarks call it, and so here): its count over the three main
@@ -1400,9 +2077,13 @@ def main() -> int:
     prequant_launches += k8.launches_prequant
     stem_records = phase_stem_kernels(fs)
     stem_launches = dict(zip(("stats", "pool", "sums", "wgrad"), phase_stem_slice(fs, ce)))
+    block_records = phase_block_kernels(fb)
+    block_launches = dict(zip(("mm_fwd", "c3_fwd", "mm_bwd", "c3_bwd"),
+                              phase_block_slice(fb, ce)))
     for name, count in (("int8_matmul", launches), ("fused_binary_ce_fwd", ce_fwd),
                         ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches),
-                        *((f"stem {k}", v) for k, v in stem_launches.items())):
+                        *((f"stem {k}", v) for k, v in stem_launches.items()),
+                        *((f"fused block {k}", v) for k, v in block_launches.items())):
         check(count > 0, f"the main paths never launched {name}")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("iswm_tpu", "jax", "flax"))
     check(not loaded, f"the port imported {loaded}")
@@ -1416,6 +2097,17 @@ def main() -> int:
          f"{stem}:420 (_bwd_sums_kernel, first call of stem_tail_bwd {stem}:368)"),
         ("stem_tail_bwd_wgrad", "wgrad",
          f"{stem}:450 (_bwd_wgrad_kernel, second call of stem_tail_bwd {stem}:368)"),
+    )
+    block = "iswm_tpu/ops/pallas/fused_block.py"
+    block_rows = (
+        ("matmul_bn_stats_fwd", "mm_fwd",
+         f"{block}:130 (_mm_fwd_kernel {block}:60, reached from matmul_bn_stats {block}:192)"),
+        ("matmul_bn_stats_bwd", "mm_bwd",
+         f"{block}:161 (_mm_bwd_kernel {block}:82, the VJP of matmul_bn_stats {block}:192)"),
+        ("conv3x3_bn_stats_fwd", "c3_fwd",
+         f"{block}:396 (_c3_fwd_kernel {block}:224, reached from conv3x3_bn_stats {block}:470)"),
+        ("conv3x3_bn_stats_bwd", "c3_bwd",
+         f"{block}:431 (_c3_bwd_kernel {block}:277, the VJP of conv3x3_bn_stats {block}:470)"),
     )
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda",
@@ -1440,6 +2132,9 @@ def main() -> int:
         *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/fused_stem.cu",
            "replaces": replaces, "launches": stem_launches[key], **stem_records[key]}
           for name, key, replaces in stem_rows),
+        *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/fused_block.cu",
+           "replaces": replaces, "launches": block_launches[key], **block_records[key]}
+          for name, key, replaces in block_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

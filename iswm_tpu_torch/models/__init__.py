@@ -2,7 +2,9 @@
 
 This slice builds the ResNet family with the DeepLabV3+ head.  The other
 backbones and the plain V3 head raise ``NotImplementedError`` until their
-ROADMAP item lands.
+ROADMAP item lands.  ``ModelConfig.fused_stem`` and ``ModelConfig.fused_blocks``
+(``never`` | ``auto`` | ``always`` | ``interpret``) choose the fused stem and
+the fused bottleneck blocks of the ResNet backbone.
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     low_ch, out_ch = resnet_feature_channels(cfg.backbone)
     model = DeepLabV3Model(
         ResNet(cfg.backbone, rswd, in_channels=cfg.in_channels,
-               fused_stem=_resolve_fused_mode(cfg.fused_stem, "fused_stem")),
+               fused_stem=_resolve_fused_mode(cfg.fused_stem, "fused_stem"),
+               fused_blocks=_resolve_fused_mode(cfg.fused_blocks, "fused_blocks")),
         DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes,
                           aspp_dilations(cfg.output_stride)),
         compute_dtype=DTYPES[cfg.compute_dtype],

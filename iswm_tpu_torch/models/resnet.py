@@ -18,6 +18,14 @@ ReLUs hold no parameters, so the key layout is unchanged.
 ``fused_stem`` other than ``"never"`` sends the stem (``conv1``, ``bn1``, ReLU,
 max-pool) through ``FusedStemPool``, which uses those same two modules: the
 keys are the same in every mode.
+
+``fused_blocks`` other than ``"never"`` sends every eligible ``Bottleneck`` in
+training mode through ``models/fused_block.py`` ``fused_bottleneck_apply``
+(convs that emit their BatchNorm statistics and apply the previous BatchNorm +
+ReLU on the way in, ``ops/kernels/fused_block.py``): stride 1, dilation 1,
+groups 1, base width 64 and an eligible shape; every other block, and every
+block in eval mode, runs its unfused modules.  The fused path uses the block's
+own modules, so the keys are the same there too.
 """
 
 from __future__ import annotations
@@ -67,8 +75,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_ch: int, planes: int, strides: int = 1,
                  dilation: int = 1, downsample: bool = False,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, fused_mode: str = "never"):
         super().__init__()
+        # what the fused path's gate reads
+        self.strides, self.dilation = strides, dilation
+        self.groups, self.base_width, self.fused_mode = groups, base_width, fused_mode
         width = int(planes * base_width / 64) * groups
         out_ch = planes * self.expansion
         self.conv1 = conv(in_ch, width, 1)
@@ -85,7 +96,21 @@ class Bottleneck(nn.Module):
             if downsample else None
         )
 
+    def fuses_on(self, device: torch.device) -> bool:
+        """Whether an eligible input on ``device`` takes the fused path in
+        training mode: ``"auto"`` fuses on a CUDA device only."""
+        if (self.strides, self.dilation, self.groups, self.base_width) != (1, 1, 1, 64):
+            return False
+        if self.fused_mode == "auto":
+            return device.type == "cuda"
+        return self.fused_mode != "never"
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.fuses_on(x.device):
+            from .fused_block import fused_block_eligible, fused_bottleneck_apply
+
+            if fused_block_eligible(x.shape):
+                return fused_bottleneck_apply(self, x)
         identity = x if self.downsample is None else self.downsample(x)
         out = self.relu1(self.bn1(self.conv1(x)))
         out = self.relu2(self.bn2(self.conv2(out)))
@@ -119,9 +144,12 @@ class ResNet(nn.Module):
 
     def __init__(self, arch: str = "resnet50",
                  replace_stride_with_dilation: Sequence[bool] = (False, False, True),
-                 in_channels: int = 3, fused_stem: str = "never"):
+                 in_channels: int = 3, fused_stem: str = "never",
+                 fused_blocks: str = "never"):
         super().__init__()
         block, layer_sizes, groups, base_width = ARCHS[arch]
+        # BasicBlock never fuses and takes no mode
+        fused_kw = {"fused_mode": fused_blocks} if block is Bottleneck else {}
         self.fused_stem = fused_stem
         self.fused_stem_pool = FusedStemPool()
         self.conv1 = conv(in_channels, 64, 7, 2)
@@ -147,7 +175,7 @@ class ResNet(nn.Module):
                     downsample=first and (
                         stride != 1 or in_ch != planes * block.expansion
                     ),
-                    groups=groups, base_width=base_width,
+                    groups=groups, base_width=base_width, **fused_kw,
                 ))
                 in_ch = planes * block.expansion
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*layers))

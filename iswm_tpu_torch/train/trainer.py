@@ -52,8 +52,6 @@ def refuse_unported(cfg: Config) -> None:
          "'int8_exec_xla and QAT')"),
         (cfg.parallel.remat,
          f"parallel.remat is not ported yet ({q1}, 'Activation rematerialization')"),
-        (cfg.model.fused_blocks != "never",
-         f"fused_blocks is not ported yet ({q1}, 'Fused blocks'); keep it 'never'"),
         (cfg.parallel.data_axis > 1 or cfg.parallel.model_axis > 1,
          f"training on more than one device is not ported yet ({q1}, "
          "'Data-parallel training'); the port trains on the one device it is given"),

@@ -372,7 +372,6 @@ REFUSED = {
     "int8_switch": (("train", "int8_switch_iter", 10), "QAT"),
     "remat": (("parallel", "remat", True), "rematerialization"),
     "devices": (("parallel", "data_axis", 4), "Data-parallel"),
-    "fused_blocks": (("model", "fused_blocks", "auto"), "Fused blocks"),
 }
 
 
@@ -416,6 +415,49 @@ def test_trainer_takes_steps_with_the_fused_stem(tmp_path):
     assert not torch.equal(stem.bn1.running_mean, before[0])
     assert not torch.equal(stem.conv1.weight, before[1])
     assert trainer.best_path is not None
+
+
+def test_trainer_takes_steps_with_the_fused_blocks(tmp_path):
+    """``fused_blocks`` is refused no longer: two steps on resnet50 through the
+    fused blocks' plain versions (layer1 and layer2.{1,2,3} at crop 32; the
+    4x4 and smaller maps of layer3 and layer4 are below the gate), finite
+    losses, statistics and weights moving, and a validation that runs the
+    unfused modules."""
+    from iswm_tpu_torch.models import fused_block as mfb
+
+    rng = np.random.default_rng(0)
+    images, masks = zip(*(generate_scene(rng, size=(40, 40)) for _ in range(6)))
+    dataset = ArrayDataset(np.stack(images), np.stack(masks))
+    cfg = Config()
+    cfg.model.compute_dtype = "float32"
+    cfg.model.fused_blocks = "interpret"
+    cfg.data.crop_size, cfg.data.batch_size = 32, 2
+    cfg.train.total_itrs, cfg.train.val_interval, cfg.train.print_interval = 2, 2, 1
+    cfg.train.save_val_results = False
+    cfg.metrics.sequence_length = 3
+    for name in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
+        setattr(cfg.train, name, str(tmp_path / name))
+    trainer = Trainer(cfg, device="cpu", train_ds=dataset, val_ds=dataset)
+    backbone = trainer.state.model.backbone
+    block = backbone.layer1[0]
+    calls, real = [], mfb.fused_bottleneck_apply
+    before = block.bn2.running_var.clone(), block.conv2.weight.detach().clone()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mfb, "fused_bottleneck_apply",
+                   lambda b, x: (calls.append(b.training), real(b, x))[1])
+        trainer.fit()
+    assert trainer.state.step == 2 and int(block.bn2.num_batches_tracked) == 2
+    assert len(calls) == 2 * 6 and all(calls)  # six blocks a step, none in validation
+    assert all(np.isfinite(trainer.logger.history["train_loss"]))
+    assert not torch.equal(block.bn2.running_var, before[0])
+    assert not torch.equal(block.conv2.weight, before[1])
+    assert trainer.best_path is not None
+    unfused = Config().model
+    unfused.compute_dtype = "float32"
+    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
+    from iswm_tpu_torch.models import build_model
+
+    build_model(unfused).load_state_dict(payload["model_state"], strict=True)
 
 
 def test_cuda_is_not_silently_replaced_by_the_cpu():
