@@ -2,6 +2,11 @@
 
 ``python -m iswm_tpu_torch.cli.train --synthetic [--device cuda] ...``
 
+Data-parallel on N processes (``nccl`` on N cards, ``gloo`` with
+``--device cpu``); ``--batch_size`` is the global batch:
+
+    torchrun --standalone --nproc_per_node=N -m iswm_tpu_torch.cli.train ...
+
 Accepts the reference's consumed argparse surface (reference
 train.py:272-351), so shell scripts written against the reference or
 against ``python -m iswm_tpu.cli.train`` work unchanged: the same flags and
@@ -194,11 +199,19 @@ def build_config(args: argparse.Namespace) -> Config:
 
 def main(argv=None) -> int:
     args = get_argparser().parse_args(argv)
-    cfg = build_config(args)
-    from ..train import Trainer
+    from ..parallel import destroy, maybe_initialize_distributed, rank
 
-    result = Trainer(cfg, device=args.device).fit()
-    print(f"done: best weighted score {result['best_weighted_score']:.4f}")
+    # "cuda" is this rank's card, cuda:LOCAL_RANK
+    maybe_initialize_distributed(device=None if args.device == "cuda" else args.device)
+    try:
+        cfg = build_config(args)
+        from ..train import Trainer
+
+        result = Trainer(cfg, device=args.device).fit()
+        if rank() == 0:
+            print(f"done: best weighted score {result['best_weighted_score']:.4f}")
+    finally:
+        destroy()
     return 0
 
 

@@ -136,10 +136,19 @@ def batch_iterator(
     drop_last: bool = False,
     seed: int = 0,
     epochs: Optional[int] = None,
+    shard: Tuple[int, int] = (0, 1),
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Host batch assembly: stacked (uint8 images [B, H, W, 3], int32 labels
     [B, H, W]), shuffled per epoch from ``seed``; ``epochs=None`` repeats
-    forever.  Images within a batch must share one size."""
+    forever.  Images within a batch must share one size.
+
+    ``shard=(rank, ranks)`` decodes and yields only that rank's rows of each
+    batch of ``batch_size`` (which must divide by ``ranks``): every rank runs
+    the same order and together they cover the global batch."""
+    rank, ranks = shard
+    if batch_size % ranks:
+        raise ValueError(f"batch_size {batch_size} not divisible by {ranks} ranks")
+    rows = batch_size // ranks
     rng = np.random.default_rng(seed)
     epoch = 0
     while epochs is None or epoch < epochs:
@@ -150,6 +159,8 @@ def batch_iterator(
             idxs = order[start:start + batch_size]
             if drop_last and len(idxs) < batch_size:
                 continue
+            if ranks > 1:
+                idxs = idxs[rank * rows:(rank + 1) * rows]
             imgs, lbls = zip(*(dataset[int(i)] for i in idxs))
             yield np.stack(imgs), np.stack(lbls).astype(np.int32)
         epoch += 1

@@ -14,6 +14,7 @@ from typing import Any
 import torch
 
 from ..config import ModelConfig, aspp_dilations
+from ..parallel.distributed import world_size
 
 from .deeplab import ASPP, DeepLabHeadV3Plus, DeepLabV3Model
 from .layers import BatchNorm2d, init_weights
@@ -22,6 +23,7 @@ from .resnet import ARCHS, ResNet, resnet_feature_channels
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 _ZOO_ITEM = "ROADMAP.md Queue 1, 'Remaining zoo and feature maps'"
+SHARDED_FUSED_ITEM = "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'"
 
 
 def _resolve_fused_mode(value: str, setting: str) -> str:
@@ -33,10 +35,21 @@ def _resolve_fused_mode(value: str, setting: str) -> str:
     kernels on the CPU; a CPU tensor takes the plain versions here under
     ``"always"`` already, so it means the same.  ``"auto"`` stays
     ``"auto"``: the model decides per input, fused on a CUDA tensor and
-    unfused on a CPU tensor (the port trains and serves on one device)."""
-    if value in ("never", "auto", "always", "interpret"):
-        return value
-    raise ValueError(f"unknown {setting} setting {value!r}")
+    unfused on a CPU tensor (the port trains and serves on one device).
+
+    In a process group of more than one rank ``"auto"`` is ``"never"``, as
+    the JAX package turns it off on more than one device, and ``"always"``
+    and ``"interpret"`` are refused: the fused kernels would take each rank's
+    own BatchNorm statistics where the JAX package takes the global batch's."""
+    if value not in ("never", "auto", "always", "interpret"):
+        raise ValueError(f"unknown {setting} setting {value!r}")
+    if world_size() > 1:
+        if value in ("always", "interpret"):
+            raise NotImplementedError(
+                f"{setting}={value!r} on {world_size()} ranks is not ported yet "
+                f"({SHARDED_FUSED_ITEM}); the fused kernels take one rank's statistics")
+        return "never"
+    return value
 
 
 def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:

@@ -9,6 +9,9 @@ same math as a plain conv, so here each of them is one ``Conv2d``.
 ``max_pool_torch`` is ``nn.MaxPool2d(3, 2, 1)`` and ``global_avg_pool`` is
 ``nn.AdaptiveAvgPool2d(1)``.  ``FusedStemPool`` runs the stem's conv, BatchNorm,
 ReLU and max-pool through the fused stem kernels (``ops/kernels/fused_stem``).
+In a process group, train-mode ``BatchNorm2d`` takes its statistics over every
+rank's rows (``CrossReplicaBatchNorm``), as the JAX package's does under a
+jit sharded over the data axis.
 """
 
 from __future__ import annotations
@@ -16,6 +19,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.distributed import is_initialized
+
+# all-reduces launched by the cross-replica BatchNorm, forward and backward
+cross_replica_all_reduces = 0
 
 
 def torch_conv_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -44,13 +52,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased one).  ``momentum`` is torch's (``1 -`` flax's) and is set,
     with ``eps``, from ``ModelConfig`` by ``build_model``.  One value per
     channel (the ASPP pooling branch at batch 1) gives variance 0 and the
-    output ``bias``, as in flax, where ``nn.BatchNorm2d`` raises."""
+    output ``bias``, as in flax, where ``nn.BatchNorm2d`` raises.
+
+    In a process group (of any size) train mode goes through
+    ``CrossReplicaBatchNorm``: the statistics of the global batch."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.weight.float(), self.bias.float()
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, weight, bias,
                                 False, 0.0, self.eps)
+        if is_initialized():
+            out, mean, var = CrossReplicaBatchNorm.apply(x, weight, bias, self.eps)
+            self._update_running(mean, var)
+            return out
         n = x.numel() // x.shape[1]
         if n == 1:
             xf = x.float()  # x - mean is exactly 0: output = bias, zero grads
@@ -66,11 +81,68 @@ class BatchNorm2d(nn.BatchNorm2d):
             var = torch.zeros_like(self.running_var)
             out = F.batch_norm(x, mean, var, weight, bias, True, 1.0, self.eps)
             var = var * ((n - 1) / n)
-        with torch.no_grad():
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+        self._update_running(mean, var)
         return out
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
+
+
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+    global cross_replica_all_reduces
+    cross_replica_all_reduces += 1
+    torch.distributed.all_reduce(t)
+    return t
+
+
+class CrossReplicaBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the rows of every rank of the default group,
+    flax's arithmetic on the global batch: one float32 all-reduce of
+    ``(sum x, sum x^2, n)`` per channel, ``mean = sum x / n``, the fast
+    variance ``max(sum x^2 / n - mean^2, 0)`` (biased, into the running
+    statistics too), ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``.
+    One value per channel in the whole group gives variance 0 and ``y = bias``.
+
+    The backward all-reduces ``(sum dy, sum dy * xhat)`` and forms ``dx`` from
+    the global sums; the gradients of ``weight`` and ``bias`` are this rank's
+    share, which the gradient reduction (a sum over ranks) completes.  Returns
+    (y in x's dtype, mean, var); the statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        xf = x.float()
+        dims = (0, 2, 3)
+        local_n = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32,
+                             device=x.device)
+        sums = _all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims), local_n]))
+        c = x.shape[1]
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
+        sigma_inv = torch.rsqrt(var + eps)
+        per_channel = (1, c, 1, 1)
+        out = ((xf - mean.reshape(per_channel)) * (sigma_inv * weight).reshape(per_channel)
+               + bias.reshape(per_channel))
+        ctx.save_for_backward(x, weight, mean, sigma_inv, n)
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, sigma_inv, n = ctx.saved_tensors
+        dims, per_channel = (0, 2, 3), (1, x.shape[1], 1, 1)
+        dyf = dy.float()
+        xhat = (x.float() - mean.reshape(per_channel)) * sigma_inv.reshape(per_channel)
+        local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+        dbias, dweight = local.chunk(2)
+        total = _all_reduce(local.clone())
+        sum_dy, sum_dy_xhat = (t.reshape(per_channel) / n for t in total.chunk(2))
+        dx = ((weight * sigma_inv).reshape(per_channel)
+              * (dyf - sum_dy - xhat * sum_dy_xhat))
+        return dx.to(x.dtype), dweight, dbias, None
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,

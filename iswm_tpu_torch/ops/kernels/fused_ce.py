@@ -21,6 +21,14 @@ Each wrapper launches its kernel for a CUDA tensor and uses the plain
 version only for a CPU tensor.  ``launches_fwd`` / ``launches_bwd`` count
 the wrapper calls that launched a kernel (the forward is one call of the
 two-stage reduction).
+
+The sharded CE (``make_sharded_fused_ce``, the counterpart of the JAX
+package's ``make_sharded_fused_ce``) runs on one rank's rows of the global
+batch in a process group: the forward kernel on the local logits, an
+all-reduce (sum) of the ``[2]`` pair, the loss from the global sums; the
+backward kernel on the local logits with the global ``w_sum``.  It has no
+kernel of its own: its collective is the process group's (NCCL on the card).
+``launches_sharded`` counts its forwards on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 
 launches_fwd = 0
 launches_bwd = 0
+launches_sharded = 0
 _lib = None
 _LABEL_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
 W_SUM_FLOOR = 1e-12
@@ -223,3 +232,56 @@ def fused_binary_ce(
 ) -> torch.Tensor:
     """Weighted mean binary CE of NCHW logits [B, 2, H, W] (0-d f32)."""
     return FusedBinaryCE.apply(logits, labels, class_weights, ignore_index)
+
+
+class ShardedFusedBinaryCE(torch.autograd.Function):
+    """:class:`FusedBinaryCE` over the rows of every rank of ``group``: the
+    forward sums of this rank's logits are all-reduced before the division,
+    and the backward uses the global clamped ``w_sum``.  Each rank's backward
+    starts from its own upstream gradient (1 for a loss), so each rank's
+    d_logits is its rows' share of the gradient of the global loss; the JAX
+    package's psum of the cotangent (which ``shard_map`` splits over the
+    shards) has no counterpart.  ``plain`` takes the plain versions on any
+    device."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, class_weights, ignore_index, group, plain):
+        fwd = fused_binary_ce_fwd_plain if plain else fused_binary_ce_fwd
+        sums = fwd(logits, labels, class_weights, ignore_index)
+        if logits.is_cuda and not plain:
+            global launches_sharded
+            launches_sharded += 1
+        torch.distributed.all_reduce(sums, group=group)
+        w_sum = torch.clamp_min(sums[1], W_SUM_FLOOR)
+        ctx.save_for_backward(logits, labels, class_weights, w_sum)
+        ctx.ignore_index, ctx.plain = ignore_index, plain
+        return sums[0] / w_sum
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, labels, class_weights, w_sum = ctx.saved_tensors
+        bwd = fused_binary_ce_bwd_plain if ctx.plain else fused_binary_ce_bwd
+        d_logits = bwd(logits, labels, class_weights, w_sum, grad, ctx.ignore_index)
+        return d_logits, None, None, None, None, None
+
+
+def make_sharded_fused_ce(group=None, ignore_index: int = 255):
+    """``loss_fn(logits, labels, class_weights)``: the weighted mean binary CE
+    of the global batch, from this rank's rows (0-d f32, the same value on
+    every rank of ``group``, the default group when None)."""
+
+    def loss_fn(logits, labels, class_weights):
+        return ShardedFusedBinaryCE.apply(logits, labels, class_weights, ignore_index,
+                                          group, False)
+
+    return loss_fn
+
+
+def sharded_fused_binary_ce_plain(
+    logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
+    ignore_index: int = 255, group=None,
+) -> torch.Tensor:
+    """:func:`make_sharded_fused_ce`'s loss through the plain versions and the
+    same all-reduce (differentiable)."""
+    return ShardedFusedBinaryCE.apply(logits, labels, class_weights, ignore_index,
+                                      group, True)

@@ -15,6 +15,16 @@ whatever the logits' dtype.
 ``make_loss_fn`` routes binary ``ce_loss`` / ``IWce_loss`` through the
 fused CE kernel (``ops/kernels/fused_ce.py``) as the JAX package routes
 them through its Pallas kernel.
+
+In a process group each rank holds its rows of the global batch, and every
+loss keeps the JAX package's global semantics (its jit sharded over the data
+axis divides by the whole batch's weights or pixels): the fused path takes
+the sharded CE, and the autograd losses (``sharded=True``) divide their
+local numerator by the all-reduced denominator.  Every loss then returns the
+global loss, the same value on every rank, with the gradient of this rank's
+share of it: the gradient reduction sums the shares over the ranks.  A group
+of one rank runs the same code as a group of many (and gives the numbers of
+one process), as the cross-replica BatchNorm does.
 """
 
 from __future__ import annotations
@@ -24,7 +34,36 @@ from typing import Callable, Optional
 
 import torch
 
-from .kernels.fused_ce import fused_binary_ce
+from ..parallel.distributed import is_initialized
+from .kernels.fused_ce import fused_binary_ce, make_sharded_fused_ce
+
+
+def _global_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of the default group (no gradient)."""
+    t = t.detach().clone()
+    torch.distributed.all_reduce(t)
+    return t
+
+
+class _GlobalValue(torch.autograd.Function):
+    """The sum of a rank's share of a loss over the ranks as the value, with
+    the gradient of the share alone (the gradient reduction adds the rest)."""
+
+    @staticmethod
+    def forward(ctx, share):
+        return _global_sum(share)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def _mean(numerator, denominator, floor, sharded):
+    """``numerator / max(denominator, floor)``, both summed over the ranks
+    when ``sharded`` (only the numerator differentiable)."""
+    if not sharded:
+        return numerator / torch.clamp_min(denominator, floor)
+    return _GlobalValue.apply(numerator / torch.clamp_min(_global_sum(denominator), floor))
 
 
 def _per_pixel_ce(logits, labels, class_weights, ignore_index):
@@ -41,28 +80,34 @@ def _per_pixel_ce(logits, labels, class_weights, ignore_index):
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
-                       ignore_index: int = 255) -> torch.Tensor:
+                       ignore_index: int = 255, sharded: bool = False) -> torch.Tensor:
     """Mean CE over non-ignored pixels ("ce_loss")."""
     ce, w = _per_pixel_ce(logits, labels, None, ignore_index)
-    return (ce * w).sum() / torch.clamp_min(w.sum(), 1.0)
+    return _mean((ce * w).sum(), w.sum(), 1.0, sharded)
 
 
 def weighted_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                                 class_weights: torch.Tensor, *,
-                                ignore_index: int = 255) -> torch.Tensor:
+                                ignore_index: int = 255,
+                                sharded: bool = False) -> torch.Tensor:
     """Class-weighted CE ("IWce_loss"): sum(w[y] * ce) / sum(w[y])."""
     ce, w = _per_pixel_ce(logits, labels, class_weights, ignore_index)
-    return (ce * w).sum() / torch.clamp_min(w.sum(), 1e-12)
+    return _mean((ce * w).sum(), w.sum(), 1e-12, sharded)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, *, alpha: float = 1.0,
                gamma: float = 0.0, class_weights: Optional[torch.Tensor] = None,
-               ignore_index: int = 255, size_average: bool = True) -> torch.Tensor:
+               ignore_index: int = 255, size_average: bool = True,
+               sharded: bool = False) -> torch.Tensor:
     """Focal loss; the mean runs over all pixels, ignored ones (0) included."""
     ce, w = _per_pixel_ce(logits, labels, class_weights, ignore_index)
     ce = ce * w
     fl = alpha * (1.0 - torch.exp(-ce)) ** gamma * ce
-    return fl.mean() if size_average else fl.sum()
+    if not sharded:
+        return fl.mean() if size_average else fl.sum()
+    if not size_average:
+        return _GlobalValue.apply(fl.sum())
+    return _mean(fl.sum(), torch.tensor(float(fl.numel()), device=fl.device), 1.0, True)
 
 
 def make_loss_fn(
@@ -85,6 +130,9 @@ def make_loss_fn(
     ``interpret`` is ``always`` (on a CPU tensor the fused path runs the
     kernel's plain version, the port's counterpart of the Pallas
     interpreter); ``never`` keeps the autograd path.
+
+    In a process group the fused path is the sharded CE and the autograd
+    losses divide by the global denominator.
     """
     if fused not in ("auto", "always", "never", "interpret"):
         raise ValueError(f"unknown fused mode {fused!r}")
@@ -97,18 +145,22 @@ def make_loss_fn(
         and (fused in ("always", "interpret")
              or (fused == "auto" and device.type == "cuda"))
     )
+    sharded = is_initialized()
     if want_fused:
         fused_cw = cw if cw is not None else torch.ones(2, device=device)
+        if sharded:
+            return partial(make_sharded_fused_ce(ignore_index=ignore_index),
+                           class_weights=fused_cw)
         return partial(fused_binary_ce, class_weights=fused_cw,
                        ignore_index=ignore_index)
     if loss_type == "ce_loss":
-        return partial(cross_entropy_loss, ignore_index=ignore_index)
+        return partial(cross_entropy_loss, ignore_index=ignore_index, sharded=sharded)
     if loss_type == "IWce_loss":
         if cw is None:
             raise ValueError("IWce_loss requires class_weights")
         return partial(weighted_cross_entropy_loss, class_weights=cw,
-                       ignore_index=ignore_index)
+                       ignore_index=ignore_index, sharded=sharded)
     if loss_type == "focal_loss":
         return partial(focal_loss, alpha=focal_alpha, gamma=focal_gamma,
-                       class_weights=cw, ignore_index=ignore_index)
+                       class_weights=cw, ignore_index=ignore_index, sharded=sharded)
     raise ValueError(f"unknown loss_type {loss_type!r}")

@@ -6,6 +6,12 @@ step.  PyTorch runs it eagerly; the step returns the loss as a device
 tensor and reads nothing back, so it makes no host sync.  Images enter
 channels last, [B, H, W, C], as in the JAX package; the NCHW view the model
 takes is a permute (channels-last memory, no copy).
+
+In a process group the step runs through ``data_parallel``'s
+``DistributedDataParallel`` wrapper, whose gradient reduction SUMS over the
+ranks (the JAX package's psum) where DDP's default averages: with the
+cross-replica BatchNorm and the global loss denominators each rank's
+gradient is its share of the global batch's, and the sum is that gradient.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..data.transforms import AugmentConfig, augment_batch, val_transform_batch
 
@@ -26,6 +34,29 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     step: int = 0
+    # the DistributedDataParallel wrapper of ``model`` the train step runs
+    # through in a process group (``data_parallel``)
+    replicated: Optional[torch.nn.Module] = None
+
+
+def _sum_gradients(group, bucket):
+    """DDP comm hook: all-reduce (sum) a ``dist.GradBucket``, without DDP's
+    division by the world size; returns a future of the bucket's tensor.
+    (DDP reads the hook's annotations at run time, so it has none.)"""
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
+def data_parallel(model: torch.nn.Module) -> DistributedDataParallel:
+    """Wrap ``model`` for the default process group: its gradients are
+    summed over the ranks; buffers are not broadcast (the cross-replica
+    BatchNorm gives every rank the same running statistics)."""
+    device = next(model.parameters()).device
+    ddp = DistributedDataParallel(
+        model, device_ids=[device] if device.type == "cuda" else None,
+        broadcast_buffers=False)
+    ddp.register_comm_hook(None, _sum_gradients)
+    return ddp
 
 
 def make_train_step(
@@ -46,8 +77,9 @@ def make_train_step(
                    labels: torch.Tensor) -> torch.Tensor:
         if augment is not None:
             images, labels = augment_batch(images, labels, augment, generator)
-        state.model.train()
-        logits = state.model(images.permute(0, 3, 1, 2))
+        net = state.model if state.replicated is None else state.replicated
+        net.train()
+        logits = net(images.permute(0, 3, 1, 2))
         loss = loss_fn(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

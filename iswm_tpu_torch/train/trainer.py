@@ -10,6 +10,11 @@ every ``quick_eval_interval`` a quick-eval scores the validation set from a
 confusion matrix kept on the device.  Losses stay on the device and are
 read once per ``print_interval``.
 
+In a process group (``parallel.maybe_initialize_distributed``) every rank
+runs this loop on its rows of each global batch of ``cfg.data.batch_size``,
+through the data-parallel step (``train/step.py``); validation, quick-eval,
+checkpoints, logs and plots run on rank 0 while the others wait.
+
 What the port does not carry yet is refused with ``NotImplementedError``
 naming its ROADMAP item (``refuse_unported``).
 """
@@ -22,7 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-
+import torch.distributed as dist
 
 from ..config import Config
 from ..data.class_weights import calculate_class_weights
@@ -34,11 +39,12 @@ from ..metrics import StreamMetrics
 from ..metrics.device import DeviceEvalAccumulator
 from ..models import build_model
 from ..ops.losses import make_loss_fn
+from ..parallel import SPATIAL_ITEM, is_initialized, local_device, make_mesh, rank
 from . import checkpoint as ckpt_lib
 from .best_score import is_best_score, update_best_score
 from .logging import MetricsLogger, try_setup_mlflow
 from .optim import make_optimizer
-from .step import TrainState, make_eval_step, make_train_step
+from .step import TrainState, data_parallel, make_eval_step, make_train_step
 
 
 def refuse_unported(cfg: Config) -> None:
@@ -52,17 +58,24 @@ def refuse_unported(cfg: Config) -> None:
          "'int8_exec_xla and QAT')"),
         (cfg.parallel.remat,
          f"parallel.remat is not ported yet ({q1}, 'Activation rematerialization')"),
-        (cfg.parallel.data_axis > 1 or cfg.parallel.model_axis > 1,
-         f"training on more than one device is not ported yet ({q1}, "
-         "'Data-parallel training'); the port trains on the one device it is given"),
+        (cfg.parallel.model_axis > 1,
+         f"parallel.model_axis > 1 is not ported yet ({SPATIAL_ITEM})"),
     )
     for refused, message in checks:
         if refused:
             raise NotImplementedError(message)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The seed of a rank's random streams (augmentation, dropout): ``seed``
+    on rank 0, so that one process draws as before, and apart on the others."""
+    return seed + (rank << 32)
+
+
 class Trainer:
-    """One training run on one device (``cuda``, ``cuda:1`` or ``cpu``).
+    """One training run on one device (``cuda``, ``cuda:1`` or ``cpu``), or
+    one rank of a data-parallel run in the default process group, where
+    ``cuda`` means this rank's card (``cuda:LOCAL_RANK``).
 
     Without ``train_ds`` / ``val_ds`` the data come from ``cfg.data``: the
     synthetic tree written under ``data_root/synthetic`` when
@@ -78,8 +91,19 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for, but no CUDA card is "
                                "available (pass device='cpu' to train on the CPU)")
+        self.mesh = make_mesh(cfg.parallel.data_axis, cfg.parallel.model_axis)
+        if cfg.data.batch_size % self.mesh.data != 0:
+            raise ValueError(
+                f"batch_size ({cfg.data.batch_size}) must be divisible by the "
+                f"mesh data axis ({self.mesh.data} devices); adjust batch_size "
+                f"or pass a smaller mesh")
+        if is_initialized() and self.device.type == "cuda" and self.device.index is None:
+            self.device = local_device()
+        self.rank = rank()
+        self.lead = self.rank == 0  # validates, checkpoints and logs
+        seed = rank_seed(cfg.train.random_seed, self.rank)
         # one seed for the default generators: dropout draws from them
-        torch.manual_seed(cfg.train.random_seed)
+        torch.manual_seed(seed)
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # autotuned convs, as XLA's
 
@@ -104,7 +128,8 @@ class Trainer:
             self.class_weights = calculate_class_weights(
                 lbl for _, lbl in batch_iterator(self.train_ds, cfg.data.batch_size,
                                                  epochs=1))
-            print(f"Class weights: {self.class_weights}")
+            if self.lead:
+                print(f"Class weights: {self.class_weights}")
         self.loss_fn = make_loss_fn(
             cfg.loss.loss_type, class_weights=self.class_weights,
             ignore_index=cfg.loss.ignore_index, focal_alpha=cfg.loss.focal_alpha,
@@ -115,14 +140,14 @@ class Trainer:
         # -------------------------------------------- optimizer and steps
         factory, self.schedule = make_optimizer(cfg.optim, cfg.train.total_itrs)
         optimizer, scheduler = factory(model.parameters())
-        self.state = TrainState(model, optimizer, scheduler, 0)
+        self.state = TrainState(model, optimizer, scheduler, 0,
+                                data_parallel(model) if is_initialized() else None)
         self.augment = AugmentConfig(
             crop_size=cfg.data.crop_size, scale_min=cfg.data.scale_range[0],
             scale_max=cfg.data.scale_range[1], hflip_prob=cfg.data.hflip_prob,
             mean=tuple(cfg.data.mean), std=tuple(cfg.data.std),
         )
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.train.random_seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.train_step = make_train_step(self.loss_fn, augment=self.augment,
                                           generator=self.generator)
         self.eval_step = make_eval_step(model, want=("preds",))
@@ -131,6 +156,20 @@ class Trainer:
         self.best_path: Optional[str] = None
 
         # --------------------------------------------------------- logging
+        self.logger = None
+        if self.lead:
+            self._start_logging()
+
+        # --------------------------------------------------------- restore
+        if cfg.train.ckpt:
+            self._restore(cfg.train.ckpt, continue_training=cfg.train.continue_training)
+        elif cfg.train.auto_resume:
+            latest = ckpt_lib.find_latest(cfg.train.checkpoints_dir)
+            if latest is not None:
+                self._restore(latest, continue_training=True)
+
+    def _start_logging(self) -> None:
+        cfg = self.cfg
         tag = cfg.train.experiment_tag or time.strftime("%Y%m%d_%H%M%S")
         exp_name = (f"DeepLabV3Plus_{cfg.model.backbone}_{cfg.loss.loss_type}_"
                     f"{cfg.optim.optimizer}_os{cfg.model.output_stride}_{tag}")
@@ -145,20 +184,12 @@ class Trainer:
             except Exception:
                 pass
 
-        # --------------------------------------------------------- restore
-        if cfg.train.ckpt:
-            self._restore(cfg.train.ckpt, continue_training=cfg.train.continue_training)
-        elif cfg.train.auto_resume:
-            latest = ckpt_lib.find_latest(cfg.train.checkpoints_dir)
-            if latest is not None:
-                self._restore(latest, continue_training=True)
-
     def _data_root(self) -> str:
         cfg = self.cfg
         if not cfg.data.synthetic:
             return cfg.data.data_root
         root = os.path.join(cfg.data.data_root, "synthetic")
-        if not os.path.isdir(os.path.join(root, "train")):
+        if self.lead and not os.path.isdir(os.path.join(root, "train")):
             size = (cfg.data.synthetic_image_size,) * 2
             sequence_val = cfg.data.synthetic_sequence_val
             write_dataset(root, n_train=cfg.data.synthetic_train_size,
@@ -170,7 +201,13 @@ class Trainer:
                     root, n_sequences=max(1, cfg.data.synthetic_val_size // length),
                     length=length, size=size, seed=cfg.train.random_seed + 1,
                     split="val")
+        self._sync()
         return root
+
+    def _sync(self) -> None:
+        """Wait for every rank of the process group (a no-op without one)."""
+        if is_initialized():
+            dist.barrier()
 
     def _restore(self, path: str, continue_training: bool) -> None:
         meta = ckpt_lib.restore(path, self.state, continue_training)
@@ -186,7 +223,8 @@ class Trainer:
         cfg = self.cfg
         it = device_prefetch_iterator(
             batch_iterator(self.train_ds, cfg.data.batch_size, shuffle=True,
-                           drop_last=True, seed=cfg.train.random_seed, epochs=None),
+                           drop_last=True, seed=cfg.train.random_seed, epochs=None,
+                           shard=(self.rank, self.mesh.data)),
             device=self.device, depth=cfg.data.num_workers // 2 or 2,
         )
         pending = []
@@ -207,44 +245,59 @@ class Trainer:
                 step = self.state.step
 
                 if step % cfg.train.print_interval == 0:
-                    losses = torch.stack(pending).float().cpu()  # one host sync
-                    avg = float(losses.mean())
-                    lr = self.schedule(step)
-                    self.logger.log_step(step, {
-                        "train_loss": avg, "lr": lr,
-                        "epoch": step * cfg.data.batch_size / len(self.train_ds),
-                    })
-                    rate = len(pending) * cfg.data.batch_size / (time.time() - t0)
-                    print(f"it {step}/{cfg.train.total_itrs} loss {avg:.4f} "
-                          f"lr {lr:.5f} ({rate:.1f} img/s)")
+                    # one host sync; the losses are the global batch's on every rank
+                    losses = torch.stack(pending).float().cpu()
+                    if self.lead:
+                        self._log_losses(step, float(losses.mean()), len(pending), t0)
                     pending, t0 = [], time.time()
                 if cfg.train.latest_interval and step % cfg.train.latest_interval == 0:
-                    ckpt_lib.save_latest(cfg.train.checkpoints_dir, self.state,
-                                         weighted_score=self.best_weighted,
-                                         best_score=self.best_score or {})
+                    if self.lead:
+                        ckpt_lib.save_latest(cfg.train.checkpoints_dir, self.state,
+                                             weighted_score=self.best_weighted,
+                                             best_score=self.best_score or {})
+                    self._sync()
                 if (cfg.train.quick_eval_interval
                         and step % cfg.train.quick_eval_interval == 0
                         and step % cfg.train.val_interval != 0):
-                    qm = self.quick_eval()
-                    self.logger.log_step(step, {f"quick_{k}": v for k, v in qm.items()})
-                    print(f"[quick-eval @ {step}] "
-                          + " ".join(f"{k} {v:.4f}" for k, v in qm.items()))
+                    if self.lead:
+                        qm = self.quick_eval()
+                        self.logger.log_step(step, {f"quick_{k}": v for k, v in qm.items()})
+                        print(f"[quick-eval @ {step}] "
+                              + " ".join(f"{k} {v:.4f}" for k, v in qm.items()))
+                    self._sync()
                 if step % cfg.train.val_interval == 0:
-                    self.validate_and_save(step)
+                    if self.lead:
+                        self.validate_and_save(step)
+                    self._sync()
         finally:
             it.close()  # stops the prefetch thread
             if profiler is not None:
                 profiler.stop()
-            self.logger.save_plots(cfg.train.metrics_plots_dir)
-            if self.logger.mlflow is not None:
-                try:
-                    self.logger.mlflow.log_metric("best_weighted_score", self.best_weighted)
-                    self.logger.mlflow.set_tag("status", "completed")
-                    self.logger.mlflow.end_run()
-                except Exception:
-                    pass
-            self.logger.close()
+            if self.logger is not None:
+                self._stop_logging()
         return {"best_weighted_score": self.best_weighted}
+
+    def _log_losses(self, step: int, avg: float, steps: int, t0: float) -> None:
+        cfg = self.cfg
+        lr = self.schedule(step)
+        self.logger.log_step(step, {
+            "train_loss": avg, "lr": lr,
+            "epoch": step * cfg.data.batch_size / len(self.train_ds),
+        })
+        rate = steps * cfg.data.batch_size / (time.time() - t0)
+        print(f"it {step}/{cfg.train.total_itrs} loss {avg:.4f} "
+              f"lr {lr:.5f} ({rate:.1f} img/s)")
+
+    def _stop_logging(self) -> None:
+        self.logger.save_plots(self.cfg.train.metrics_plots_dir)
+        if self.logger.mlflow is not None:
+            try:
+                self.logger.mlflow.log_metric("best_weighted_score", self.best_weighted)
+                self.logger.mlflow.set_tag("status", "completed")
+                self.logger.mlflow.end_run()
+            except Exception:
+                pass
+        self.logger.close()
 
     def _start_profiler(self):
         """``torch.profiler`` over ``profile_steps`` steps; the trace goes to

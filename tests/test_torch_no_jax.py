@@ -48,6 +48,17 @@ def test_every_module_imports_without_jax():
     assert int(proc.stdout.split()[0]) >= 45
 
 
+def test_the_parallel_package_imports_without_jax():
+    """``iswm_tpu_torch.parallel`` alone, as the data-parallel ranks import it."""
+    proc = _run_blocked("""
+        import iswm_tpu_torch.parallel
+        assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        print(iswm_tpu_torch.parallel.world_size())
+    """)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["1"]
+
+
 def test_the_blocker_blocks_the_jax_package_only():
     proc = _run_blocked("""
         import importlib

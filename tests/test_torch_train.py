@@ -371,7 +371,7 @@ REFUSED = {
     "int8_training": (("model", "int8_training", 64), "QAT"),
     "int8_switch": (("train", "int8_switch_iter", 10), "QAT"),
     "remat": (("parallel", "remat", True), "rematerialization"),
-    "devices": (("parallel", "data_axis", 4), "Data-parallel"),
+    "devices": (("parallel", "model_axis", 2), "Spatial model axis"),
 }
 
 
