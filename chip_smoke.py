@@ -127,6 +127,9 @@ not 0):
      and the unfused chain on the same tensors (conv + ``F.batch_norm`` train
      + ReLU through the libraries, and their autograd backward: another
      function), at each shape in bf16, summed over a train step's launches;
+     the 1x1 backward also in its two halves, each through its C entry with
+     its finishing sum (the data gradient, the weight gradient), beside the
+     whole call's bound;
  13. the fused blocks at full width: phase 6's ``Trainer`` with
      ``fused_blocks="always"`` for ``BLOCK_STEPS`` steps, a quick-eval and a
      validation: 26 launches of the 1x1 and 12 of the 3x3 kernels per step in
@@ -1567,7 +1570,8 @@ BLOCK_STEPS = 4  # with a quick-eval at step 2 and the validation at 4
 BLOCK_SLACK_WORST, BLOCK_SLACK_MEDIAN = 5.0, 4.0
 BLOCK_F32_LIMIT = 5e-2  # ... and, in float32, the fused block's own distance
 BLOCK_FLOOR = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::sum_partials(")
+BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::dgrad_1x1_bf16<",
+                 "::wgrad_1x1_bf16<", "::sum_partials(")
 
 
 def _rounding_error(got, want, dtype):
@@ -1641,6 +1645,36 @@ def _fb_bound(kind, shape, prologue, esize):
     bwd = least_time(2 * m * k * esize + 2 * m * n * esize + w_in + taps * k * n * 4
                      + 2 * vec + 2 * n * 4, 2 * flops, rate)
     return fwd, bwd
+
+
+def _mm_bwd_halves(lib, x, w, a, b, y, dy, ds, dq, prologue) -> tuple:
+    """(data gradient, weight gradient): callables for the two C entries of
+    one ``matmul_bn_stats`` backward, each with its finishing sum, on
+    outputs and scratch made here once (as ``fused_block._launch_bwd`` makes
+    them); ``lib`` is a library built from ``csrc/fused_block.cu``."""
+    m, k = x.shape
+    n = w.shape[1]
+    f32 = {"dtype": torch.float32, "device": x.device}
+    dx, dab = torch.empty_like(x), torch.zeros(2 * k, **f32)
+    sums = torch.empty(lib.iswm_fb_sums_scratch(m, k), **f32)
+    parts = torch.empty(lib.iswm_fb_wgrad_splits(m, k, n) * k * n, **f32)
+    dw = torch.empty(k, n, **f32)
+    ab = (a.data_ptr(), b.data_ptr()) if prologue else (None, None)
+    shape = (int(x.dtype == torch.bfloat16), 1, int(prologue), m, 1, m, k, n)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dgrad():
+        rc = lib.iswm_fb_dgrad(dy.data_ptr(), y.data_ptr(), ds.data_ptr(), dq.data_ptr(),
+                               w.data_ptr(), x.data_ptr(), *ab, dx.data_ptr(), sums.data_ptr(),
+                               dab.data_ptr(), *shape, stream)
+        check(rc == 0, f"iswm_fb_dgrad returned {rc}")
+
+    def wgrad():
+        rc = lib.iswm_fb_wgrad(x.data_ptr(), *ab, dy.data_ptr(), y.data_ptr(), ds.data_ptr(),
+                               dq.data_ptr(), parts.data_ptr(), dw.data_ptr(), *shape, stream)
+        check(rc == 0, f"iswm_fb_wgrad returned {rc}")
+
+    return dgrad, wgrad
 
 
 def _unfused_conv_chain(kind, shape, x, w, dy):
@@ -1755,7 +1789,9 @@ def phase_block_kernels(fb) -> dict:
     # times at the slice's shapes in bf16, inputs out of L2, summed over a step
     cold = ColdTimer(reps=5)
     total = {k: {"ms": 0.0, "plain_ms": 0.0, "unfused_chain_ms": 0.0} for k in names}
+    total["mm_bwd"].update(dgrad_ms=0.0, wgrad_ms=0.0)
     bounds = {k: [] for k in names}
+    lib, _ = fb.load_library()
     slice_cases = [("mm", s[:3], s[3], n) for s, n in BLOCK_MM_SHAPES.items()]
     slice_cases += [("c3", s, True, n) for s, n in BLOCK_C3_SHAPES.items()]
     for kind, shape, prologue, count in slice_cases:
@@ -1772,6 +1808,18 @@ def phase_block_kernels(fb) -> dict:
         least = dict(zip(("fwd", "bwd"), _fb_bound(kind, shape, prologue, 2)))
         flops = 2 * (shape[0] * shape[1] * shape[2] if kind == "mm"
                      else shape[0] * shape[1] * shape[2] * 9 * shape[3] * shape[4])
+        if kind == "mm":
+            # the backward's two C entries, each with its finish: each half does
+            # the forward's operations and is printed beside the whole call's bound
+            halves = [cold(f) for f in _mm_bwd_halves(lib, x, w, a, b, y, *cot, prologue)]
+            for key, t in zip(("dgrad_ms", "wgrad_ms"), halves):
+                total["mm_bwd"][key] += count * t
+            print(f"[12] fused block mm bwd {shape} prologue={prologue} bf16 (x{count} a step) "
+                  f"halves, inputs out of L2: data gradient {halves[0]:.4f} ms "
+                  f"({flops / halves[0] / 1e9:.1f} TFLOP/s), weight gradient {halves[1]:.4f} "
+                  f"ms ({flops / halves[1] / 1e9:.1f} TFLOP/s), whole call {times['bwd'][0]:.4f} "
+                  f"ms; bound of the whole call {least['bwd']['bound_ms']:.4f} ms by "
+                  f"{least['bwd']['bound_by']}")
         for d in ("fwd", "bwd"):
             rec = total[f"{kind}_{d}"]
             for key, t in zip(("ms", "plain_ms", "unfused_chain_ms"), times[d]):
@@ -1793,10 +1841,12 @@ def phase_block_kernels(fb) -> dict:
         records[key] = {"max_abs_err": errs[key], **total[key], **least, "library_ms": None,
                         "unfused_chain_of": "conv2d + batch_norm(train) + relu"
                         + ("" if key.endswith("fwd") else ", autograd backward")}
+        halves = (f" (data gradient {total[key]['dgrad_ms']:.4f} ms, weight gradient "
+                  f"{total[key]['wgrad_ms']:.4f} ms, each timed alone)" if key == "mm_bwd" else "")
         print(f"[12] one train step's {len(bounds[key])} launches of {key}: kernel "
-              f"{total[key]['ms']:.4f} ms, plain {total[key]['plain_ms']:.4f} ms, unfused chain "
-              f"{total[key]['unfused_chain_ms']:.4f} ms, bound {least['bound_ms']:.4f} ms by "
-              f"{least['bound_by']}")
+              f"{total[key]['ms']:.4f} ms{halves}, plain {total[key]['plain_ms']:.4f} ms, "
+              f"unfused chain {total[key]['unfused_chain_ms']:.4f} ms, bound "
+              f"{least['bound_ms']:.4f} ms by {least['bound_by']}")
     return records
 
 

@@ -54,6 +54,24 @@ _lib = None
 TAPS_3X3 = 9
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the C entries of a library
+    built from ``csrc/fused_block.cu``."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.iswm_fb_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+    lib.iswm_fb_dgrad.argtypes = [ptr] * 11 + [i32] * 8 + [ptr]
+    lib.iswm_fb_wgrad.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
+    lib.iswm_fb_sums_scratch.argtypes = [i32, i32]
+    lib.iswm_fb_sums_scratch.restype = ctypes.c_longlong
+    lib.iswm_fb_wgrad_splits.argtypes = [i32, i32, i32]
+    for fn in (lib.iswm_fb_fwd, lib.iswm_fb_dgrad, lib.iswm_fb_wgrad,
+               lib.iswm_fb_wgrad_splits):
+        fn.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load the kernels; returns (library, nvcc log)."""
     global _lib
@@ -62,19 +80,7 @@ def load_library() -> tuple[ctypes.CDLL, str]:
         from .build import load_library as build_and_load
 
         lib, log = build_and_load("fused_block")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.iswm_fb_fwd.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
-        lib.iswm_fb_dgrad.argtypes = [ptr] * 11 + [i32] * 8 + [ptr]
-        lib.iswm_fb_wgrad.argtypes = [ptr] * 9 + [i32] * 8 + [ptr]
-        lib.iswm_fb_sums_scratch.argtypes = [i32, i32]
-        lib.iswm_fb_sums_scratch.restype = ctypes.c_longlong
-        lib.iswm_fb_wgrad_splits.argtypes = [i32, i32, i32]
-        for fn in (lib.iswm_fb_fwd, lib.iswm_fb_dgrad, lib.iswm_fb_wgrad,
-                   lib.iswm_fb_wgrad_splits):
-            fn.restype = i32
-        lib.iswm_cuda_error_string.argtypes = [i32]
-        lib.iswm_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(lib)
     return _lib, log
 
 

@@ -575,7 +575,13 @@ def _sums_close(got, want, tol):
 
 
 CUDA_MM = [(16 * 37, 64, 64, True), (16 * 37, 64, 64, False), (128, 64, 64, True),
-           (256, 16, 32, True), (4096, 128, 256, True)]
+           (256, 16, 32, True), (4096, 128, 256, True),
+           # the bf16 backward's edges: C = 64 (the 64-row weight-gradient tile),
+           # C = 1024 with N = 2048 (eight dx tiles across C, 32 stages deep, and
+           # one weight-gradient split: dw written directly), and an M that
+           # divides into neither the 64-pixel stage nor the split length
+           (8192 + 16 * 37, 64, 64, False), (4096, 1024, 2048, True),
+           (8192 + 16 * 37, 512, 128, True)]
 
 
 @pytest.mark.cuda
