@@ -1571,7 +1571,8 @@ BLOCK_SLACK_WORST, BLOCK_SLACK_MEDIAN = 5.0, 4.0
 BLOCK_F32_LIMIT = 5e-2  # ... and, in float32, the fused block's own distance
 BLOCK_FLOOR = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::dgrad_1x1_bf16<",
-                 "::wgrad_1x1_bf16<", "::sum_partials(")
+                 "::wgrad_1x1_bf16<", "::dgrad_3x3_bf16<", "::wgrad_3x3_bf16<",
+                 "::sum_partials(")
 
 
 def _rounding_error(got, want, dtype):
@@ -1647,20 +1648,26 @@ def _fb_bound(kind, shape, prologue, esize):
     return fwd, bwd
 
 
-def _mm_bwd_halves(lib, x, w, a, b, y, dy, ds, dq, prologue) -> tuple:
+def _bwd_halves(lib, kind, x, w, a, b, y, dy, ds, dq, prologue) -> tuple:
     """(data gradient, weight gradient): callables for the two C entries of
-    one ``matmul_bn_stats`` backward, each with its finishing sum, on
-    outputs and scratch made here once (as ``fused_block._launch_bwd`` makes
-    them); ``lib`` is a library built from ``csrc/fused_block.cu``."""
-    m, k = x.shape
-    n = w.shape[1]
+    one backward, ``matmul_bn_stats``'s ("mm") or ``conv3x3_bn_stats``'s
+    ("c3"), each with its finishing sum, on outputs and scratch made here
+    once (as ``fused_block._launch_bwd`` makes them); ``lib`` is a library
+    built from ``csrc/fused_block.cu``."""
+    if kind == "mm":
+        (m, k), n = x.shape, w.shape[1]
+        taps, h, wd = 1, 1, m
+    else:
+        bsz, h, wd, k = x.shape
+        n, m, taps = w.shape[3], bsz * h * wd, 9
+        w = w.to(x.dtype).permute(2, 0, 1, 3).reshape(k, taps * n).contiguous()  # w_ckn
     f32 = {"dtype": torch.float32, "device": x.device}
     dx, dab = torch.empty_like(x), torch.zeros(2 * k, **f32)
     sums = torch.empty(lib.iswm_fb_sums_scratch(m, k), **f32)
-    parts = torch.empty(lib.iswm_fb_wgrad_splits(m, k, n) * k * n, **f32)
-    dw = torch.empty(k, n, **f32)
+    parts = torch.empty(lib.iswm_fb_wgrad_splits(m, taps * k, n) * taps * k * n, **f32)
+    dw = torch.empty(taps * k, n, **f32)
     ab = (a.data_ptr(), b.data_ptr()) if prologue else (None, None)
-    shape = (int(x.dtype == torch.bfloat16), 1, int(prologue), m, 1, m, k, n)
+    shape = (int(x.dtype == torch.bfloat16), taps, int(prologue), m, h, wd, k, n)
     stream = torch.cuda.current_stream().cuda_stream
 
     def dgrad():
@@ -1721,6 +1728,10 @@ def phase_block_kernels(fb) -> dict:
         ("c3", (1, 5, 7, 16, 8), True, "random"),       # ragged in every direction
         ("c3", (2, 12, 12, 64, 64), True, "negative"),
         ("c3", (2, 12, 12, 64, 64), True, "no stats cotangent"),
+        # C and N off the 64-deep stage, a 128-pixel block across two images,
+        # ragged image edges; then C off the 128-wide dx tile
+        ("c3", (3, 9, 11, 72, 40), True, "random"),
+        ("c3", (2, 16, 16, 192, 128), True, "random"),
     ]
     names = ("mm_fwd", "mm_bwd", "c3_fwd", "c3_bwd")
     errs = dict.fromkeys(names, 0.0)
@@ -1789,7 +1800,8 @@ def phase_block_kernels(fb) -> dict:
     # times at the slice's shapes in bf16, inputs out of L2, summed over a step
     cold = ColdTimer(reps=5)
     total = {k: {"ms": 0.0, "plain_ms": 0.0, "unfused_chain_ms": 0.0} for k in names}
-    total["mm_bwd"].update(dgrad_ms=0.0, wgrad_ms=0.0)
+    for key in ("mm_bwd", "c3_bwd"):
+        total[key].update(dgrad_ms=0.0, wgrad_ms=0.0)
     bounds = {k: [] for k in names}
     lib, _ = fb.load_library()
     slice_cases = [("mm", s[:3], s[3], n) for s, n in BLOCK_MM_SHAPES.items()]
@@ -1808,18 +1820,17 @@ def phase_block_kernels(fb) -> dict:
         least = dict(zip(("fwd", "bwd"), _fb_bound(kind, shape, prologue, 2)))
         flops = 2 * (shape[0] * shape[1] * shape[2] if kind == "mm"
                      else shape[0] * shape[1] * shape[2] * 9 * shape[3] * shape[4])
-        if kind == "mm":
-            # the backward's two C entries, each with its finish: each half does
-            # the forward's operations and is printed beside the whole call's bound
-            halves = [cold(f) for f in _mm_bwd_halves(lib, x, w, a, b, y, *cot, prologue)]
-            for key, t in zip(("dgrad_ms", "wgrad_ms"), halves):
-                total["mm_bwd"][key] += count * t
-            print(f"[12] fused block mm bwd {shape} prologue={prologue} bf16 (x{count} a step) "
-                  f"halves, inputs out of L2: data gradient {halves[0]:.4f} ms "
-                  f"({flops / halves[0] / 1e9:.1f} TFLOP/s), weight gradient {halves[1]:.4f} "
-                  f"ms ({flops / halves[1] / 1e9:.1f} TFLOP/s), whole call {times['bwd'][0]:.4f} "
-                  f"ms; bound of the whole call {least['bwd']['bound_ms']:.4f} ms by "
-                  f"{least['bwd']['bound_by']}")
+        # the backward's two C entries, each with its finish: each half does
+        # the forward's operations and is printed beside the whole call's bound
+        halves = [cold(f) for f in _bwd_halves(lib, kind, x, w, a, b, y, *cot, prologue)]
+        for key, t in zip(("dgrad_ms", "wgrad_ms"), halves):
+            total[f"{kind}_bwd"][key] += count * t
+        print(f"[12] fused block {kind} bwd {shape} prologue={prologue} bf16 (x{count} a "
+              f"step) halves, inputs out of L2: data gradient {halves[0]:.4f} ms "
+              f"({flops / halves[0] / 1e9:.1f} TFLOP/s), weight gradient {halves[1]:.4f} "
+              f"ms ({flops / halves[1] / 1e9:.1f} TFLOP/s), whole call {times['bwd'][0]:.4f} "
+              f"ms; bound of the whole call {least['bwd']['bound_ms']:.4f} ms by "
+              f"{least['bwd']['bound_by']}")
         for d in ("fwd", "bwd"):
             rec = total[f"{kind}_{d}"]
             for key, t in zip(("ms", "plain_ms", "unfused_chain_ms"), times[d]):
@@ -1842,7 +1853,8 @@ def phase_block_kernels(fb) -> dict:
                         "unfused_chain_of": "conv2d + batch_norm(train) + relu"
                         + ("" if key.endswith("fwd") else ", autograd backward")}
         halves = (f" (data gradient {total[key]['dgrad_ms']:.4f} ms, weight gradient "
-                  f"{total[key]['wgrad_ms']:.4f} ms, each timed alone)" if key == "mm_bwd" else "")
+                  f"{total[key]['wgrad_ms']:.4f} ms, each timed alone)" if key.endswith("bwd")
+                  else "")
         print(f"[12] one train step's {len(bounds[key])} launches of {key}: kernel "
               f"{total[key]['ms']:.4f} ms{halves}, plain {total[key]['plain_ms']:.4f} ms, "
               f"unfused chain {total[key]['unfused_chain_ms']:.4f} ms, bound "
@@ -2173,6 +2185,18 @@ def phase_block_slice(fb, ce) -> tuple:
         if mode == "always":
             ours = [k for k in records if any(n in k for n in BLOCK_KERNELS)]
             check(len(ours) >= 4, f"the trace of a fused step names {sorted(ours)}")
+            # the bf16 3x3 backward runs the pipelined kernels, never the first body
+            first = [k for k in ours if "::conv_dgrad<__nv_bfloat16" in k
+                     or "::conv_wgrad<__nv_bfloat16" in k]
+            piped = {n: sum(c for k, (_, c) in records.items() if n in k)
+                     for n in ("::dgrad_3x3_bf16<", "::wgrad_3x3_bf16<")}
+            check(not first and all(piped.values()),
+                  f"a fused step's bf16 3x3 backward: {piped} launches of the pipelined "
+                  f"kernels, first-body kernels {first}")
+            print(f"[13] the bf16 3x3 backward in a fused step's trace: launches "
+                  + ", ".join(f"{n.strip(':<')} {c}" for n, c in piped.items())
+                  + f" (the wrapper counts {sum(BLOCK_C3_SHAPES.values())} a step); no "
+                  f"first-body bf16 conv_dgrad / conv_wgrad")
         print(f"[13] {smi}: one step with fused_blocks='{mode}' (profiler, per-kernel means): "
               f"device time {total_ms:.2f} ms in {n_launches:.0f} kernel launches; by class: "
               + ", ".join(f"{c} {t:.2f} ms ({100 * t / total_ms:.1f}%)"

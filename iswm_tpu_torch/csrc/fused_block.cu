@@ -10,7 +10,9 @@
 //                                                  (pipelined, below the first version's kernels);
 //                                                  f32: conv_dgrad<f32, 1, *> + conv_wgrad<f32, 1, *>
 //   conv3x3_bn_stats forward  (`_c3_fwd_kernel`)  -> conv_fwd<T, 9, true>
-//   conv3x3_bn_stats backward (`_c3_bwd_kernel`)  -> conv_dgrad<T, 9, true> + conv_wgrad<T, 9, true>
+//   conv3x3_bn_stats backward (`_c3_bwd_kernel`)  -> bf16: dgrad_3x3_bf16 + wgrad_3x3_bf16
+//                                                  (pipelined the same way);
+//                                                  f32: conv_dgrad<f32, 9, true> + conv_wgrad<f32, 9, true>
 // each followed by sum_partials where it reduces over blocks.
 //
 // With x [M, C] the rows of an NHWC activation (M = B * H * W pixels), the
@@ -35,14 +37,14 @@
 // device memory, the widest 1x1 and every 3x3 by the tensor cores.  Two
 // designs live here.
 //
-// The bf16 1x1 backward (#7b, the main path's largest share) is pipelined:
-// cp.async stages, dyt and z formed in shared memory, ldmatrix fragments,
-// 128-wide data-gradient tiles and a weight-gradient split that keeps its
-// partials small; its own note stands above dgrad_1x1_bf16.
+// The bf16 backward, 1x1 (#7b) and 3x3 (#8b), is pipelined: cp.async
+// stages, dyt and z formed in shared memory, ldmatrix fragments, 128-wide
+// data-gradient tiles and a weight-gradient split that keeps its partials
+// small; its own note stands above dgrad_pipelined.
 //
-// Everything else (conv_fwd for #7a and #8a, the nine-tap backward #8b, and
-// every float32 instantiation) runs the first version's body, which is
-// simple and exact in its rounding points, not fast:
+// Everything else (conv_fwd for #7a and #8a, and every float32
+// instantiation) runs the first version's body, which is simple and exact in
+// its rounding points, not fast:
 //   - every kernel is one tiled GEMM, 128 x 64 outputs a block, 8 warps of
 //     32 x 32, a 32-deep step through shared memory; what differs is how the
 //     two operand tiles are produced ("loaders") and what happens to the
@@ -684,14 +686,17 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ============================================ bf16 1x1 backward, pipelined
+// ================================================ bf16 backward, pipelined
 //
 // Replaces, for bf16 and one tap, the TPU kernel `_mm_bwd_kernel`
 // (iswm_tpu/ops/pallas/fused_block.py:82, called at :161, the VJP of
 // matmul_bn_stats :192): dgrad_1x1_bf16 takes the place of
-// conv_dgrad<bf16, 1, *> and wgrad_1x1_bf16 that of conv_wgrad<bf16, 1, *>.
-// Same arithmetic, rounding points and outputs as those; only the order of
-// the float32 sums differs.
+// conv_dgrad<bf16, 1, *> and wgrad_1x1_bf16 that of conv_wgrad<bf16, 1, *>;
+// and for bf16 and nine taps `_c3_bwd_kernel` (:277, called at :431, the VJP
+// of conv3x3_bn_stats :470): wgrad_3x3_bf16 is wgrad_pipelined with
+// TAPS = 9 and dgrad_3x3_bf16 runs dgrad_3x3_rows, the same ring by kernel
+// rows.  Same arithmetic, rounding points and outputs as the first
+// version's body; only the order of the float32 sums differs.
 //
 // What bounds it: each half does 2 M C N operations and moves about
 // 2 (M C + M N) bf16 values (data gradient: dy, y in, dx out, and x with
@@ -731,8 +736,9 @@ __global__ void __launch_bounds__(THREADS)
 //     float32 partials, written and read once, stay within a tenth of the
 //     call's bytes, and the tile shrinks until the blocks fill about the
 //     card; with one split it writes dw itself, with no partials at all.
-// The epilogues are conv_dgrad's and conv_wgrad's: the mask on the float32 x a + b > 0,
-// dx = rd(dzm a), per-block partials of da, db that sum_partials adds in
+// The epilogues are conv_dgrad's and conv_wgrad's: the mask on the float32
+// x a + b > 0 (the 3x3's on the rounded z), dx = rd(dzm a), per-block
+// partials of da, db that sum_partials adds in
 // block order; no float atomics, so two launches give the same bits.
 // What the card showed (PERF.md; block_bwd_ab.py): twice as fast as the
 // first version's bf16 body over a train step, and 3.2 (data gradient) and
@@ -743,6 +749,32 @@ __global__ void __launch_bounds__(THREADS)
 // again for each block of columns (8 times at C = 1024), and of x for each
 // block of rows -- the case for larger tiles shared across blocks
 // (clusters, TMA multicast, wgmma), a later redesign.
+//
+// Nine taps (#8b): every slice shape is bound by the tensor cores (2 M 9 C N
+// operations a half on about the 1x1's bytes: 9.7 GFLOP a half at layer1 to
+// layer3, 38.7 at layer4.0), so here the design is about keeping them fed.
+// The same ring, with these differences:
+//   - the data gradient (dgrad_3x3_rows) runs over (kernel row, 32 output
+//     channels) stages.  The three taps of a kernel row read dyt at pixel
+//     rows that differ by one, so a stage copies the BM + 2 rows they share
+//     (from p - off(tap), with cp_async16's zero-fill outside [0, M)) and
+//     each tap reads them from its own row on: dyt is formed once for three
+//     taps and dy, y copied a third as often.  (Per-tap stages, 64 deep,
+//     took 1.68 ms a step against 1.29 in one block_bwd_ab.py call.)  A row
+//     is another pixel's dyt where a tap reads outside the image, so each
+//     lane keeps a 9-bit mask of the taps its accumulator rows read inside
+//     the image and zeroes the A fragments of the others after ldmatrix; a
+//     zero-filled row would otherwise count as ds.  The mask on dz is taken
+//     on the rounded z, as conv_dgrad's;
+//   - a weight-gradient block takes one tap's rows of dw: x is copied from
+//     p + off(tap), each round's image row and column stepped by 64 pixels
+//     a stage (no division in the loop), and a bit a round and stage records
+//     whether it lay inside the image, so that z is 0 there and not
+//     rd(relu(b)): the padding comes after the prologue.  Its chains are
+//     cut at every stage into a second float32 accumulator (see
+//     wgrad_pipelined);
+//   - plan_wgrad_3x3 takes the tile and the split from the shape, counting
+//     waves of blocks, not only whether they fill the card.
 
 constexpr int PK = 64;          // depth of one stage: output channels or pixels
 constexpr int RING = 4;         // stages in each ring (3 measured slower in both halves)
@@ -849,11 +881,72 @@ __device__ __forceinline__ void tile_column_sums(float (&u)[NF][2], float (&v)[N
   }
 }
 
+// The data gradient's epilogue over a block's accumulators (rows m0 + wm0 +
+// 16 i + g + 8 h, columns c0 + wn0 + 8 j + 2 t + e): the prologue's ReLU mask
+// (on the float32 x a + b > 0, or, with ROUNDED_Z as the nine-tap kernels, on
+// the rounded z), dx = rd(dzm a) and, with the prologue, the block's column
+// sums of dzm * x and dzm into partials[m tile][2][C] through `red`.
+template <bool ROUNDED_Z, bool PROLOGUE, int MF, int NF, int WARPS_M, int BNC>
+__device__ __forceinline__ void dgrad_epilogue(const float (&acc)[MF][NF][4],
+                                               const __nv_bfloat16* __restrict__ x,
+                                               const float* __restrict__ a,
+                                               const float* __restrict__ b,
+                                               __nv_bfloat16* __restrict__ dx,
+                                               float* __restrict__ partials, float* red, int M,
+                                               int C, int m0, int c0, int mt, int wm0, int wn0,
+                                               int warp_row) {
+  using bf16 = __nv_bfloat16;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float da[NF][2], db[NF][2];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    da[j][0] = da[j][1] = db[j][0] = db[j][1] = 0.f;
+    const int col = c0 + wn0 + j * 8 + t * 2;
+    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
+    if (PROLOGUE && col < C) {
+      a0 = a[col]; a1 = a[col + 1];
+      b0 = b[col]; b1 = b[col + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm0 + i * 16 + g + 8 * h;
+        if (row >= M || col >= C) continue;
+        float d0 = acc[i][j][2 * h], d1 = acc[i][j][2 * h + 1];
+        bf16* out = dx + static_cast<size_t>(row) * C + col;
+        if constexpr (PROLOGUE) {
+          const float2 xv = load2(x + static_cast<size_t>(row) * C + col);
+          const float z0 = affine(xv.x, a0, b0), z1 = affine(xv.y, a1, b1);
+          if constexpr (ROUNDED_Z) {  // as conv_dgrad<T, 9, true>
+            d0 = round_to<bf16>(fmaxf(z0, 0.f)) > 0.f ? d0 : 0.f;
+            d1 = round_to<bf16>(fmaxf(z1, 0.f)) > 0.f ? d1 : 0.f;
+          } else {
+            d0 = z0 > 0.f ? d0 : 0.f;
+            d1 = z1 > 0.f ? d1 : 0.f;
+          }
+          store2(out, __fmul_rn(d0, a0), __fmul_rn(d1, a1));
+          da[j][0] += d0 * xv.x;
+          da[j][1] += d1 * xv.y;
+          db[j][0] += d0;
+          db[j][1] += d1;
+        } else {
+          store2(out, d0, d1);
+        }
+      }
+  }
+  if constexpr (PROLOGUE) {
+    float* part = partials + static_cast<size_t>(mt) * 2 * C;
+    tile_column_sums<NF, WARPS_M, BNC>(da, db, warp_row, wn0, red, part, part + C, c0, C);
+  }
+}
+
 // The data gradient's block: BM pixels x BNC of dx's channels, 8 warps in
 // WARPS_M rows; a stage holds dy (then dyt) and y [BM][PK], w [BNC][PK] and
 // the stage's ds and dq [PK] in f32.
 template <int BM_, int BNC>
-struct Dgrad1x1 {
+struct DgradTile {
   static constexpr int BM = BM_;
   static constexpr int WARPS_M = BM / 32;         // 2 or 4
   static constexpr int WARPS_N = 8 / WARPS_M;
@@ -873,20 +966,20 @@ struct Dgrad1x1 {
 
 // dx = rd(mask(dyt w^T) * a) over BM pixels and BNC channels and, with the
 // prologue, the block's column sums of dzm * x and dzm into
-// partials[m tile][2][C].
+// partials[m tile][2][C]; stage k holds output channels 64 k.. of dy, y, w.
 template <int BM, int BNC, bool PROLOGUE>
-__global__ void __launch_bounds__(THREADS, BM * BNC <= 64 * 64 ? 2 : 1)
-    dgrad_1x1_bf16(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ y,
-                   const float* __restrict__ ds, const float* __restrict__ dq,
-                   const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ x,
-                   const float* __restrict__ a, const float* __restrict__ b,
-                   __nv_bfloat16* __restrict__ dx, float* __restrict__ partials, int M, int C,
-                   int N) {
+__device__ __forceinline__ void dgrad_pipelined(
+    const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ y,
+    const float* __restrict__ ds, const float* __restrict__ dq,
+    const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ x,
+    const float* __restrict__ a, const float* __restrict__ b, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ partials, const Geo geo, int C, int N) {
   using bf16 = __nv_bfloat16;
-  using D = Dgrad1x1<BM, BNC>;
+  using D = DgradTile<BM, BNC>;
   constexpr int CH = PK / G;  // 16-byte chunks in a stage row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int M = geo.M;
   const int c_tiles = (C + BNC - 1) / BNC;
   const int mt = blockIdx.x / c_tiles;
   const int m0 = mt * BM;
@@ -1017,52 +1110,259 @@ __global__ void __launch_bounds__(THREADS, BM * BNC <= 64 * 64 ? 2 : 1)
   cp_async_wait<0>();
   __syncthreads();  // the ring is free for the column sums
 
-  const int g = lane / 4, t = lane % 4;
-  float da[D::NF][2], db[D::NF][2];
-#pragma unroll
-  for (int j = 0; j < D::NF; ++j) {
-    da[j][0] = da[j][1] = db[j][0] = db[j][1] = 0.f;
-    const int col = c0 + wn0 + j * 8 + t * 2;
-    float a0 = 0.f, a1 = 0.f, b0 = 0.f, b1 = 0.f;
-    if (PROLOGUE && col < C) {
-      a0 = a[col]; a1 = a[col + 1];
-      b0 = b[col]; b1 = b[col + 1];
-    }
-#pragma unroll
-    for (int i = 0; i < D::MF; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm0 + i * 16 + g + 8 * h;
-        if (row >= M || col >= C) continue;
-        float d0 = acc[i][j][2 * h], d1 = acc[i][j][2 * h + 1];
-        bf16* out = dx + static_cast<size_t>(row) * C + col;
-        if constexpr (PROLOGUE) {
-          const float2 xv = load2(x + static_cast<size_t>(row) * C + col);
-          d0 = affine(xv.x, a0, b0) > 0.f ? d0 : 0.f;
-          d1 = affine(xv.y, a1, b1) > 0.f ? d1 : 0.f;
-          store2(out, __fmul_rn(d0, a0), __fmul_rn(d1, a1));
-          da[j][0] += d0 * xv.x;
-          da[j][1] += d1 * xv.y;
-          db[j][0] += d0;
-          db[j][1] += d1;
-        } else {
-          store2(out, d0, d1);
-        }
-      }
-  }
-  if constexpr (PROLOGUE) {
-    float* part = partials + static_cast<size_t>(mt) * 2 * C;
-    tile_column_sums<D::NF, D::WARPS_M, BNC>(da, db, warp_row, wn0,
-                                             reinterpret_cast<float*>(smem_raw), part,
-                                             part + C, c0, C);
-  }
+  dgrad_epilogue<false, PROLOGUE, D::MF, D::NF, D::WARPS_M, BNC>(
+      acc, x, a, b, dx, partials, reinterpret_cast<float*>(smem_raw), M, C, m0, c0, mt, wm0,
+      wn0, warp_row);
 }
 
-// The weight gradient's block: BC rows of dw (input channels) x BNW columns
-// (output channels), 8 warps of 32 x BNW / WARPS_N; a stage holds x (then z)
-// [PK][BC] and dy (then dyt) and y [PK][BNW], PK pixels as they lie in memory.
+// The nine-tap data gradient by kernel rows: a stage serves the three taps
+// of one kernel row ky (tap = 3 ky + kx) over PK3 output channels.  Pixel p's
+// taps in that row read dyt at p + (1 - ky) W + 1 - kx, so the stage holds
+// the BM + 2 rows from m0 + (1 - ky) W - 1 on, and tap kx reads them from
+// row 2 - kx on: dyt is formed once for three taps, where per-tap stages
+// form it for each, and dy and y are copied a third as often.
+constexpr int PK3 = 32;  // output channels of a row stage
+template <int BM_, int BNC>
+struct DgradRowTile {
+  static constexpr int BM = BM_;
+  static constexpr int WARPS_M = BM / 32;
+  static constexpr int WARPS_N = 8 / WARPS_M;
+  static constexpr int WM = BM / WARPS_M;
+  static constexpr int MF = WM / 16;
+  static constexpr int NF = BNC / WARPS_N / 8;
+  static constexpr int STAGES = RING;
+  static constexpr int LD = PK3 + PAD;  // 80-byte rows: ldmatrix's 8 rows hit 8 bank groups
+  static constexpr int CH = PK3 / G;    // 16-byte chunks in a row
+  static constexpr int RT = BM + 2;     // the block's pixels and one more on each side
+  static constexpr int TILE = RT * LD;
+  static constexpr int WTILE = BNC * LD;
+  static constexpr int STAGE = 2 * TILE + 3 * WTILE + 4 * PK3;  // bf16 elements: dy, y, 3 w, ds and dq
+  static constexpr int ROUNDS = (RT * CH + THREADS - 1) / THREADS;  // dyt chunks a thread forms, the last round in part
+  static constexpr int WROUNDS = 3 * BNC * CH / THREADS;
+  static constexpr int STEPS = 3 * (PK3 / 16);  // mma steps a stage: three taps
+  static_assert(WARPS_M * WARPS_N * 32 == THREADS && NF % 2 == 0, "8 warps, x4 B loads");
+  static_assert(WROUNDS * THREADS == 3 * BNC * CH && THREADS % CH == 0, "whole copy rounds");
+  static_assert(STEPS % ROUNDS == 0, "dyt rounds spread over the mma steps");
+  static_assert(TILE % 8 == 0 && WTILE % 8 == 0, "16-byte aligned tiles");
+};
+
+template <int BM, int BNC>
+__device__ __forceinline__ void dgrad_3x3_rows(
+    const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ y,
+    const float* __restrict__ ds, const float* __restrict__ dq,
+    const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ x,
+    const float* __restrict__ a, const float* __restrict__ b, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ partials, const Geo geo, int C, int N) {
+  using bf16 = __nv_bfloat16;
+  using D = DgradRowTile<BM, BNC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int M = geo.M;
+  const int c_tiles = (C + BNC - 1) / BNC;
+  const int mt = blockIdx.x / c_tiles;
+  const int m0 = mt * BM;
+  const int c0 = (blockIdx.x % c_tiles) * BNC;
+  const int row_steps = (N + PK3 - 1) / PK3;  // stages a kernel row
+  const int ksteps = 3 * row_steps;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int warp_row = warp / D::WARPS_N;
+  const int wm0 = warp_row * D::WM;
+  const int wn0 = (warp % D::WARPS_N) * (BNC / D::WARPS_N);
+  const int kc = (tid % D::CH) * G;  // a thread's chunk of output channels in every round
+
+  // bit `tap` of taps_in[i][h] is set where this lane's accumulator row
+  // wm0 + 16 i + lane / 4 + 8 h reads inside the image at that tap: a stage's
+  // rows are shared by three taps, so the A fragments of the others are zeroed
+  uint32_t taps_in[D::MF][2];
+#pragma unroll
+  for (int i = 0; i < D::MF; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = m0 + wm0 + 16 * i + lane / 4 + 8 * h;
+      uint32_t mask = 0;
+      if (p < M) {
+        const int pw = p % geo.W, ph = (p / geo.W) % geo.H;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const int hh = ph + 1 - tap / 3, ww = pw + 1 - tap % 3;
+          if (hh >= 0 && hh < geo.H && ww >= 0 && ww < geo.W) mask |= 1u << tap;
+        }
+      }
+      taps_in[i][h] = mask;
+    }
+  auto ky_of = [&](int k) { return k / row_steps; };
+  auto n0_of = [&](int k) { return (k % row_steps) * PK3; };
+  // the pixel of stage k's row j
+  auto pixel_of = [&](int k, int j) { return m0 + (1 - ky_of(k)) * geo.W - 1 + j; };
+  // whether round i's chunk of stage k is a row of the stage holding data
+  auto chunk_in = [&](int k, int i) {
+    const int j = (tid + i * THREADS) / D::CH;
+    const int q = pixel_of(k, j);
+    return q >= 0 && q < M && n0_of(k) + kc < N;
+  };
+  auto vectors = [&](int k) {
+    return reinterpret_cast<float*>(smem + (k % D::STAGES) * D::STAGE + 2 * D::TILE +
+                                    3 * D::WTILE);
+  };
+  auto load = [&](int k) {
+    bf16* sd = smem + (k % D::STAGES) * D::STAGE;
+    bf16* sy = sd + D::TILE;
+    bf16* sw = sy + D::TILE;
+    const int ky = ky_of(k), n0 = n0_of(k);
+#pragma unroll
+    for (int i = 0; i < D::ROUNDS; ++i) {
+      const int j = (tid + i * THREADS) / D::CH;
+      if (j < D::RT) {
+        const bool ok = chunk_in(k, i);
+        const size_t at = ok ? static_cast<size_t>(pixel_of(k, j)) * N + n0 + kc : 0;
+        cp_async16(sd + j * D::LD + kc, dy + at, ok);
+        cp_async16(sy + j * D::LD + kc, y + at, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D::WROUNDS; ++i) {  // w's rows of taps 3 ky .. 3 ky + 2
+      const int v = (tid + i * THREADS) / D::CH;
+      const int kx = v / BNC, r = v % BNC;
+      const bool ok = c0 + r < C && n0 + kc < N;
+      cp_async16(sw + v * D::LD + kc,
+                 w + (ok ? static_cast<size_t>(c0 + r) * 9 * N + (3 * ky + kx) * N + n0 + kc
+                         : 0),
+                 ok);
+    }
+    if (tid < PK3 / 2) {  // ds then dq, four floats a copy; zeros past N
+      const int n = n0 + (tid % (PK3 / 4)) * 4;
+      const float* v = tid < PK3 / 4 ? ds : dq;
+      cp_async16(vectors(k) + (tid / (PK3 / 4)) * PK3 + (tid % (PK3 / 4)) * 4,
+                 v + (n < N ? n : 0), n < N);
+    }
+  };
+
+  // dyt over stage k's dy tile, in place, as dgrad_pipelined's: zeros for
+  // rows outside [0, M) and channels past N
+  uint4 raw_dy[D::ROUNDS], raw_y[D::ROUNDS];
+  float s[G], q[G];
+  auto fetch_dyt = [&](int k) {
+    const bf16* sd = smem + (k % D::STAGES) * D::STAGE;
+    load8(vectors(k) + kc, s);
+    load8(vectors(k) + PK3 + kc, q);
+#pragma unroll
+    for (int i = 0; i < D::ROUNDS; ++i) {
+      const int j = (tid + i * THREADS) / D::CH;
+      if (j < D::RT) {
+        raw_dy[i] = raw8(sd + j * D::LD + kc);
+        raw_y[i] = raw8(sd + D::TILE + j * D::LD + kc);
+      }
+    }
+  };
+  auto form_dyt = [&](int k, int i) {
+    const int j = (tid + i * THREADS) / D::CH;
+    if (j >= D::RT) return;
+    bf16* sd = smem + (k % D::STAGES) * D::STAGE;
+    float f[G];
+    total_cotangent8(raw_dy[i], raw_y[i], s, q, f);
+    if (!chunk_in(k, i)) zero8(f);
+    store8(sd + j * D::LD + kc, f);
+  };
+  // fragments of tap kx's mma step kk: A = dyt rows from 2 - kx on, the rows
+  // whose pixel reads outside the image at this tap zeroed; B = w rows
+  auto fragments = [&](const bf16* sa, const bf16* sw, int tap, int kx, int kk,
+                       uint32_t (&af)[D::MF][4], uint32_t (&bfr)[D::NF][2]) {
+#pragma unroll
+    for (int i = 0; i < D::MF; ++i) {
+      ldsm_x4(af[i], sa + (wm0 + 16 * i + lane % 16 + 2 - kx) * D::LD + 16 * kk +
+                         (lane / 16) * 8);
+      if (!((taps_in[i][0] >> tap) & 1u)) af[i][0] = af[i][2] = 0u;
+      if (!((taps_in[i][1] >> tap) & 1u)) af[i][1] = af[i][3] = 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < D::NF; j += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, sw + (kx * BNC + wn0 + 8 * j + lane % 8 + (lane / 16) * 8) * D::LD + 16 * kk +
+                     ((lane / 8) % 2) * 8);
+      bfr[j][0] = r[0];
+      bfr[j][1] = r[1];
+      bfr[j + 1][0] = r[2];
+      bfr[j + 1][1] = r[3];
+    }
+  };
+
+  float acc[D::MF][D::NF][4];
+#pragma unroll
+  for (int i = 0; i < D::MF; ++i)
+#pragma unroll
+    for (int j = 0; j < D::NF; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  // the ring as in dgrad_pipelined, three taps a stage
+#pragma unroll
+  for (int st = 0; st < D::STAGES - 1; ++st) {
+    if (st < ksteps) load(st);
+    cp_async_commit();
+  }
+  cp_async_wait<D::STAGES - 2>();
+  __syncthreads();
+  fetch_dyt(0);
+#pragma unroll
+  for (int i = 0; i < D::ROUNDS; ++i) form_dyt(0, i);
+  for (int k = 0; k < ksteps; ++k) {
+    cp_async_wait<D::STAGES - 3>();
+    __syncthreads();
+    if (k + D::STAGES - 1 < ksteps) load(k + D::STAGES - 1);
+    cp_async_commit();
+    const bool next = k + 1 < ksteps;
+    if (next) fetch_dyt(k + 1);
+    const bf16* sa = smem + (k % D::STAGES) * D::STAGE;
+    const bf16* sw = sa + 2 * D::TILE;
+    const int tap0 = 3 * ky_of(k);
+#pragma unroll
+    for (int st = 0; st < D::STEPS; ++st) {
+      constexpr int EVERY = D::STEPS / D::ROUNDS;
+      if (next && st % EVERY == 0) form_dyt(k + 1, st / EVERY);
+      const int kx = st / (PK3 / 16), kk = st % (PK3 / 16);
+      uint32_t af[D::MF][4], bfr[D::NF][2];
+      fragments(sa, sw, tap0 + kx, kx, kk, af, bfr);
+#pragma unroll
+      for (int i = 0; i < D::MF; ++i)
+#pragma unroll
+        for (int j = 0; j < D::NF; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the column sums
+  dgrad_epilogue<true, true, D::MF, D::NF, D::WARPS_M, BNC>(
+      acc, x, a, b, dx, partials, reinterpret_cast<float*>(smem_raw), M, C, m0, c0, mt, wm0,
+      wn0, warp_row);
+}
+
+template <int BM, int BNC, bool PROLOGUE>
+__global__ void __launch_bounds__(THREADS, BM * BNC <= 64 * 64 ? 2 : 1)
+    dgrad_1x1_bf16(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ y,
+                   const float* __restrict__ ds, const float* __restrict__ dq,
+                   const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   __nv_bfloat16* __restrict__ dx, float* __restrict__ partials, const Geo geo,
+                   int C, int N) {
+  dgrad_pipelined<BM, BNC, PROLOGUE>(dy, y, ds, dq, w, x, a, b, dx, partials, geo, C, N);
+}
+
+template <int BM, int BNC>
+__global__ void __launch_bounds__(THREADS, BM * BNC <= 64 * 64 ? 2 : 1)
+    dgrad_3x3_bf16(const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ y,
+                   const float* __restrict__ ds, const float* __restrict__ dq,
+                   const __nv_bfloat16* __restrict__ w, const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   __nv_bfloat16* __restrict__ dx, float* __restrict__ partials, const Geo geo,
+                   int C, int N) {
+  dgrad_3x3_rows<BM, BNC>(dy, y, ds, dq, w, x, a, b, dx, partials, geo, C, N);
+}
+
+// The weight gradient's block: BC rows of dw (input channels of one tap) x
+// BNW columns (output channels), 8 warps of 32 x BNW / WARPS_N; a stage holds
+// x (then z) [PK][BC] and dy (then dyt) and y [PK][BNW], PK pixels as they
+// lie in memory.
 template <int BC, int BNW>
-struct Wgrad1x1 {
+struct WgradTile {
   static constexpr int WARPS_C = BC / 32;      // 2 or 4
   static constexpr int WARPS_N = 8 / WARPS_C;  // 4 or 2
   static constexpr int WN = BNW / WARPS_N;
@@ -1079,26 +1379,33 @@ struct Wgrad1x1 {
   static_assert(WARPS_C * WARPS_N * 32 == THREADS && NF % 2 == 0, "8 warps, x4 B loads");
   static_assert(XROUNDS * THREADS == PK * (BC / G) && GROUNDS * THREADS == PK * (BNW / G),
                 "whole copy rounds");
+  static_assert(STAGES * XROUNDS <= 32, "one bit a stage's x chunk in x_in");
 };
 
-// out[blockIdx.y][C][N] = z^T dyt over this split's pixels (out = dw itself
-// when there is one split).
-template <int BC, int BNW, bool PROLOGUE>
-__global__ void __launch_bounds__(THREADS, 1)
-    wgrad_1x1_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
-                   const float* __restrict__ b, const __nv_bfloat16* __restrict__ dy,
-                   const __nv_bfloat16* __restrict__ y, const float* __restrict__ ds,
-                   const float* __restrict__ dq, float* __restrict__ out, int M, int C,
-                   int N, int steps_per_split) {
+// out[blockIdx.y][taps * C][N] = z^T dyt over this split's pixels (out = dw
+// itself when there is one split).  Nine taps: a block's rows lie in one tap,
+// its x rows are read at p + off(tap), and z is 0 outside the image (the
+// padding comes after the prologue).
+template <int TAPS, int BC, int BNW, bool PROLOGUE>
+__device__ __forceinline__ void wgrad_pipelined(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ b, const __nv_bfloat16* __restrict__ dy,
+    const __nv_bfloat16* __restrict__ y, const float* __restrict__ ds,
+    const float* __restrict__ dq, float* __restrict__ out, const Geo geo, int C, int N,
+    int steps_per_split) {
   using bf16 = __nv_bfloat16;
-  using Wt = Wgrad1x1<BC, BNW>;
+  using Wt = WgradTile<BC, BNW>;
   constexpr int XCH = BC / G, GCH = BNW / G;  // 16-byte chunks in a stage row
   // z rounds (with the prologue) and dyt rounds, spread over the mma steps
   constexpr int UNITS = (PROLOGUE ? Wt::XROUNDS : 0) + Wt::GROUNDS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int M = geo.M;
   const int n_tiles = (N + BNW - 1) / BNW;
-  const int c0 = (blockIdx.x / n_tiles) * BC;
+  const int ct = blockIdx.x / n_tiles;  // (tap, channel tile)
+  const int c_tiles = (C + BC - 1) / BC;
+  const int tap = TAPS == 9 ? ct / c_tiles : 0;
+  const int c0 = (TAPS == 9 ? ct % c_tiles : ct) * BC;
   const int n0 = (blockIdx.x % n_tiles) * BNW;
   const long long begin = static_cast<long long>(blockIdx.y) * steps_per_split * PK;
   const long long stop = begin + static_cast<long long>(steps_per_split) * PK;
@@ -1127,6 +1434,23 @@ __global__ void __launch_bounds__(THREADS, 1)
     zero8(q);
   }
 
+  // Nine taps: the image row and column of each x round's pixel in the next
+  // stage to load, stepped by PK pixels a stage (load() runs over the stages
+  // in order), so no stage divides; bit (k % STAGES) * XROUNDS + i of x_in
+  // is set where round i's x chunk of stage k was read inside the image.
+  int xh[Wt::XROUNDS], xw[Wt::XROUNDS];
+  uint32_t x_in = 0;
+  const int dh = tap / 3 - 1, dw = tap % 3 - 1;  // off(tap)
+  const int step_w = TAPS == 9 ? PK % geo.W : 0, step_h = TAPS == 9 ? (PK / geo.W) % geo.H : 0;
+  if constexpr (TAPS == 9) {
+#pragma unroll
+    for (int i = 0; i < Wt::XROUNDS; ++i) {
+      const int p = p_begin + (tid + i * THREADS) / XCH;
+      xw[i] = p % geo.W;
+      xh[i] = (p / geo.W) % geo.H;
+    }
+  }
+
   auto load = [&](int k) {
     bf16* sx = smem + (k % Wt::STAGES) * Wt::STAGE;
     bf16* sd = sx + Wt::XT;
@@ -1135,9 +1459,24 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < Wt::XROUNDS; ++i) {
       const int r = (tid + i * THREADS) / XCH;
-      const bool ok = p0 + r < p_end && c_in;
+      bool ok = p0 + r < p_end && c_in;
+      int src = p0 + r;
+      if constexpr (TAPS == 9) {
+        const int hh = xh[i] + dh, ww = xw[i] + dw;
+        ok = ok && hh >= 0 && hh < geo.H && ww >= 0 && ww < geo.W;
+        src += dh * geo.W + dw;
+        const uint32_t bit = 1u << ((k % Wt::STAGES) * Wt::XROUNDS + i);
+        x_in = ok ? (x_in | bit) : (x_in & ~bit);
+        xw[i] += step_w;  // on to the next stage's pixel
+        xh[i] += step_h;
+        if (xw[i] >= geo.W) {
+          xw[i] -= geo.W;
+          ++xh[i];
+        }
+        if (xh[i] >= geo.H) xh[i] -= geo.H;
+      }
       cp_async16(sx + r * Wt::LDX + cc,
-                 x + (ok ? static_cast<size_t>(p0 + r) * C + c0 + cc : 0), ok);
+                 x + (ok ? static_cast<size_t>(src) * C + c0 + cc : 0), ok);
     }
 #pragma unroll
     for (int i = 0; i < Wt::GROUNDS; ++i) {
@@ -1150,8 +1489,9 @@ __global__ void __launch_bounds__(THREADS, 1)
   };
 
   // round u of stage k, in place: z over x (u < XROUNDS, with the prologue),
-  // else dyt over dy; zeros past the split's pixels and past C and N.
-  // fetch() reads every round's chunks at once, so their latencies overlap.
+  // else dyt over dy; zeros past the split's pixels, outside the image and
+  // past C and N.  fetch() reads every round's chunks at once, so their
+  // latencies overlap.
   uint4 raw_a[UNITS], raw_b[UNITS];  // x, or dy and y
   auto at_x = [&](int k, int u) {
     return smem + (k % Wt::STAGES) * Wt::STAGE + (tid + u * THREADS) / XCH * Wt::LDX + cc;
@@ -1181,7 +1521,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       unpack8(raw_a[u], f);
 #pragma unroll
       for (int e = 0; e < G; ++e) f[e] = fmaxf(affine(f[e], sa[e], sb[e]), 0.f);  // store8 rounds
-      if (p0 + r >= p_end || !c_in) zero8(f);
+      bool in;
+      if constexpr (TAPS == 9) {
+        in = (x_in >> ((k % Wt::STAGES) * Wt::XROUNDS + u)) & 1u;
+      } else {
+        in = p0 + r < p_end && c_in;
+      }
+      if (!in) zero8(f);
       store8(at_x(k, u), f);
     } else {
       const int r = (tid + (PROLOGUE ? u - Wt::XROUNDS : u) * THREADS) / GCH;
@@ -1213,15 +1559,21 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   };
 
-  float acc[Wt::MF][Wt::NF][4];
+  // Nine taps: acc holds one stage's products, and `sum` adds them up with
+  // IEEE adds.  The tensor cores' float32 accumulation truncates the products
+  // it adds, a bias toward zero that grows with the chain: a 16384-pixel
+  // split drifted 6.4e-5 * max from the float64 dw, so no chain runs longer
+  // than a stage's PK pixels.  (Adding every 4 or 16 stages measured the
+  // same within 3%.)  At one tap the chains are shorter.
+  float acc[Wt::MF][Wt::NF][4], sum[Wt::MF][Wt::NF][4];
 #pragma unroll
   for (int i = 0; i < Wt::MF; ++i)
 #pragma unroll
     for (int j = 0; j < Wt::NF; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = sum[i][j][r] = 0.f;
 
-  // the ring as in dgrad_1x1_bf16
+  // the ring as in dgrad_pipelined
 #pragma unroll
   for (int st = 0; st < Wt::STAGES - 1; ++st) {
     if (st < ksteps) load(st);
@@ -1256,11 +1608,30 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int j = 0; j < Wt::NF; ++j) mma_bf16(acc[i][j], af[kk % 2][i], bfr[kk % 2][j]);
     }
+    if constexpr (TAPS == 9) {
+#pragma unroll
+      for (int i = 0; i < Wt::MF; ++i)
+#pragma unroll
+        for (int j = 0; j < Wt::NF; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            sum[i][j][r] = __fadd_rn(sum[i][j][r], acc[i][j][r]);
+            acc[i][j][r] = 0.f;
+          }
+    }
   }
   cp_async_wait<0>();
+  if constexpr (TAPS == 9) {
+#pragma unroll
+    for (int i = 0; i < Wt::MF; ++i)
+#pragma unroll
+      for (int j = 0; j < Wt::NF; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = sum[i][j][r];
+  }
 
   const int g = lane / 4, t = lane % 4;
-  float* dst = out + static_cast<size_t>(blockIdx.y) * C * N;
+  float* dst = out + static_cast<size_t>(blockIdx.y) * TAPS * C * N;
 #pragma unroll
   for (int j = 0; j < Wt::NF; ++j) {
     const int col = n0 + wn0 + j * 8 + t * 2;
@@ -1270,11 +1641,32 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int h = 0; h < 2; ++h) {
         const int row = c0 + wc0 + i * 16 + g + 8 * h;
         if (row < C && col < N) {
-          store2(dst + static_cast<size_t>(row) * N + col, acc[i][j][2 * h],
+          store2(dst + static_cast<size_t>(tap * C + row) * N + col, acc[i][j][2 * h],
                  acc[i][j][2 * h + 1]);
         }
       }
   }
+}
+
+template <int BC, int BNW, bool PROLOGUE>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgrad_1x1_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ b, const __nv_bfloat16* __restrict__ dy,
+                   const __nv_bfloat16* __restrict__ y, const float* __restrict__ ds,
+                   const float* __restrict__ dq, float* __restrict__ out, const Geo geo, int C,
+                   int N, int steps_per_split) {
+  wgrad_pipelined<1, BC, BNW, PROLOGUE>(x, a, b, dy, y, ds, dq, out, geo, C, N,
+                                        steps_per_split);
+}
+
+template <int BC, int BNW>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgrad_3x3_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ a,
+                   const float* __restrict__ b, const __nv_bfloat16* __restrict__ dy,
+                   const __nv_bfloat16* __restrict__ y, const float* __restrict__ ds,
+                   const float* __restrict__ dq, float* __restrict__ out, const Geo geo, int C,
+                   int N, int steps_per_split) {
+  wgrad_pipelined<9, BC, BNW, true>(x, a, b, dy, y, ds, dq, out, geo, C, N, steps_per_split);
 }
 
 // ---------------------------------------------------------------- the host
@@ -1345,6 +1737,64 @@ WgradPlan plan_wgrad_1x1(int M, int C, int N) {
   return best;
 }
 
+// The bf16 nine-tap weight gradient's tile and split of the M pixels, from
+// the shape alone.  dw has 9 C N outputs and a block's rows lie in one tap.
+// The tile is 128x64, 64x128 or 64x64: the second accumulator of
+// wgrad_pipelined would give a 128x128 tile 128 floats a thread.
+// The partials (8 * 9 C N bytes a part, written and read once) stay within a
+// tenth of what the card moves in the call's least time: its bytes, as
+// plan_wgrad_1x1 caps them, or, where the call is bound by its operations
+// (every #8b shape is), what 3.35 TB/s moves while the tensor cores do them.
+// (Capped by the bytes alone, (32768, 128, 128) got 2 splits, 72 blocks, and
+// was no faster than the first version's body.)  Within the cap the plan
+// with the least estimated time wins, counted in waves: a block takes one
+// SM, WAVE_SMS blocks run at once, and a PK-pixel stage of a bc x bn tile
+// costs bc bn + 64 x 64: its products plus a share (copies, the transform,
+// the barrier) that does not shrink with the tile.  On the card a 64x64
+// stage took 0.70 of a 128x64 one (block_bwd_ab.py; the model says 0.67).
+// A wave that is partly full costs as much as a full one, so
+//   cost = ceil(tiles x splits / WAVE_SMS) x per x stage cost
+// prefers plans whose blocks fill their waves; a tie goes to the larger tile
+// and the fewer splits.  At the slice: 64x64 at 14 splits (126 blocks) for
+// (131072, 64, 64), 128x64 at 5 (90) for (32768, 128, 128), 128x64 at 1
+// (72) for (8192, 256, 256) and 128x64 at 1 (288, 2.2 waves) for (8192, 512,
+// 512), where 64x64 tiles take 4.4 waves and 128x128 tiles would give 144
+// blocks, a second wave 9% full.
+constexpr int WAVE_SMS = 132;
+
+constexpr double BYTES_PER_OP = 3.35e12 / 989e12;  // device memory rate / bf16 tensor peak
+
+WgradPlan plan_wgrad_3x3(int M, int C, int N) {
+  const double call = 4.0 * M * C + 4.0 * M * N + 6.0 * 9 * C * N;
+  const double ops = 2.0 * 2.0 * M * 9.0 * C * N;  // the two halves' products
+  const double least = call > ops * BYTES_PER_OP ? call : ops * BYTES_PER_OP;
+  const int steps = ceil_div(M, PK);
+  int cap = static_cast<int>(0.1 * least / (8.0 * 9 * C * N));
+  if (cap > MAX_SPLITS) cap = MAX_SPLITS;
+  if (cap > steps) cap = steps;
+  if (cap < 1) cap = 1;
+  WgradPlan best{64, 64, 1, steps};
+  double best_cost = -1.0;
+  const int sides[2] = {128, 64};
+  for (const int bc : sides) {
+    for (const int bn : sides) {
+      if ((bc == 128 && C <= 64) || (bn == 128 && N <= 64) || bc * bn > 128 * 64) continue;
+      const long long tiles = 9LL * ceil_div(C, bc) * ceil_div(N, bn);
+      for (int want = 1; want <= cap; ++want) {
+        const int per = ceil_div(steps, want);
+        const int splits = ceil_div(steps, per);  // no empty part
+        const long long waves = (tiles * splits + WAVE_SMS - 1) / WAVE_SMS;
+        const double cost = static_cast<double>(waves) * per * (bc * bn + 64.0 * 64.0);
+        if (best_cost < 0.0 || cost < best_cost) {
+          best = WgradPlan{bc, bn, splits, per};
+          best_cost = cost;
+        }
+      }
+    }
+  }
+  return best;
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory, which above 48 KB must
 // be asked for; asked before every launch, since the attribute is per device.
 template <typename Kernel>
@@ -1370,30 +1820,39 @@ struct DgradLaunch {
   }
 };
 
-// ... and the pipelined one for bf16 and one tap: 64 x 64 blocks, two an SM,
-// where C <= 64, else 128 x 128.
-template <bool PROLOGUE>
-struct DgradLaunch<__nv_bfloat16, 1, PROLOGUE> {
+// ... and the pipelined ones for bf16, one tap or nine: 64 x 64 blocks, two
+// an SM, where C <= 64, else 128 x 128.
+template <int TAPS, int BM, int BNC, bool PROLOGUE>
+auto dgrad_kernel() {
+  if constexpr (TAPS == 1) {
+    return dgrad_1x1_bf16<BM, BNC, PROLOGUE>;
+  } else {
+    static_assert(TAPS == 9 && PROLOGUE, "the 3x3 always has the prologue");
+    return dgrad_3x3_bf16<BM, BNC>;
+  }
+}
+
+template <int TAPS, bool PROLOGUE>
+struct DgradLaunch<__nv_bfloat16, TAPS, PROLOGUE> {
   template <int BMP, int BNC>
   static int go(const void* dy, const void* y, const void* ds, const void* dq,
                 const void* w_ckn, const void* x, const void* a, const void* b, void* dx,
-                float* part, int M, int C, int N, cudaStream_t s, int& rows) {
+                float* part, Geo geo, int C, int N, cudaStream_t s, int& rows) {
     using bf16 = __nv_bfloat16;
-    using D = Dgrad1x1<BMP, BNC>;
     static_assert(BMP >= SUMS_ROWS, "iswm_fb_sums_scratch's rows");
-    const int steps = ceil_div(N, PK);
-    const int bytes = static_cast<int>(sizeof(bf16)) * D::STAGE *
-                      (steps < D::STAGES ? steps : D::STAGES);
-    const cudaError_t err = allow_smem(dgrad_1x1_bf16<BMP, BNC, PROLOGUE>, bytes);
+    const int steps = TAPS == 1 ? ceil_div(N, PK) : 3 * ceil_div(N, PK3);
+    const int stage = TAPS == 1 ? DgradTile<BMP, BNC>::STAGE : DgradRowTile<BMP, BNC>::STAGE;
+    const int bytes = static_cast<int>(sizeof(bf16)) * stage * (steps < RING ? steps : RING);
+    const auto kernel = dgrad_kernel<TAPS, BMP, BNC, PROLOGUE>();
+    const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    rows = ceil_div(M, BMP);
-    dgrad_1x1_bf16<BMP, BNC, PROLOGUE>
-        <<<rows * ceil_div(C, BNC), THREADS, bytes, s>>>(
-            static_cast<const bf16*>(dy), static_cast<const bf16*>(y),
-            static_cast<const float*>(ds), static_cast<const float*>(dq),
-            static_cast<const bf16*>(w_ckn), static_cast<const bf16*>(x),
-            static_cast<const float*>(a), static_cast<const float*>(b),
-            static_cast<bf16*>(dx), part, M, C, N);
+    rows = ceil_div(geo.M, BMP);
+    kernel<<<rows * ceil_div(C, BNC), THREADS, bytes, s>>>(
+        static_cast<const bf16*>(dy), static_cast<const bf16*>(y),
+        static_cast<const float*>(ds), static_cast<const float*>(dq),
+        static_cast<const bf16*>(w_ckn), static_cast<const bf16*>(x),
+        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<bf16*>(dx),
+        part, geo, C, N);
     return 0;
   }
 
@@ -1401,8 +1860,8 @@ struct DgradLaunch<__nv_bfloat16, 1, PROLOGUE> {
                  const void* w_ckn, const void* x, const void* a, const void* b, void* dx,
                  float* part, Geo geo, int C, int N, cudaStream_t s, int& rows) {
     if (C <= 64)
-      return go<64, 64>(dy, y, ds, dq, w_ckn, x, a, b, dx, part, geo.M, C, N, s, rows);
-    return go<128, 128>(dy, y, ds, dq, w_ckn, x, a, b, dx, part, geo.M, C, N, s, rows);
+      return go<64, 64>(dy, y, ds, dq, w_ckn, x, a, b, dx, part, geo, C, N, s, rows);
+    return go<128, 128>(dy, y, ds, dq, w_ckn, x, a, b, dx, part, geo, C, N, s, rows);
   }
 };
 
@@ -1426,40 +1885,53 @@ struct WgradLaunch {
   }
 };
 
-// ... and the pipelined one for bf16 and one tap.
-template <bool PROLOGUE>
-struct WgradLaunch<__nv_bfloat16, 1, PROLOGUE> {
+// ... and the pipelined ones for bf16, one tap or nine.
+template <int TAPS, int BC, int BNW, bool PROLOGUE>
+auto wgrad_kernel() {
+  if constexpr (TAPS == 1) {
+    return wgrad_1x1_bf16<BC, BNW, PROLOGUE>;
+  } else {
+    static_assert(TAPS == 9 && PROLOGUE, "the 3x3 always has the prologue");
+    return wgrad_3x3_bf16<BC, BNW>;
+  }
+}
+
+template <int TAPS, bool PROLOGUE>
+struct WgradLaunch<__nv_bfloat16, TAPS, PROLOGUE> {
   template <int BC, int BNW>
   static int go(const void* x, const void* a, const void* b, const void* dy, const void* y,
-                const void* ds, const void* dq, float* out, int M, int C, int N, int splits,
+                const void* ds, const void* dq, float* out, Geo geo, int C, int N, int splits,
                 int per, cudaStream_t s) {
     using bf16 = __nv_bfloat16;
-    const int bytes = static_cast<int>(sizeof(bf16)) * Wgrad1x1<BC, BNW>::STAGE *
-                      (per < Wgrad1x1<BC, BNW>::STAGES ? per : Wgrad1x1<BC, BNW>::STAGES);
-    const cudaError_t err = allow_smem(wgrad_1x1_bf16<BC, BNW, PROLOGUE>, bytes);
+    using Wt = WgradTile<BC, BNW>;
+    const int bytes = static_cast<int>(sizeof(bf16)) * Wt::STAGE *
+                      (per < Wt::STAGES ? per : Wt::STAGES);
+    const auto kernel = wgrad_kernel<TAPS, BC, BNW, PROLOGUE>();
+    const cudaError_t err = allow_smem(kernel, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(ceil_div(C, BC) * ceil_div(N, BNW), splits);
-    wgrad_1x1_bf16<BC, BNW, PROLOGUE><<<grid, THREADS, bytes, s>>>(
-        static_cast<const bf16*>(x), static_cast<const float*>(a),
-        static_cast<const float*>(b), static_cast<const bf16*>(dy),
-        static_cast<const bf16*>(y), static_cast<const float*>(ds),
-        static_cast<const float*>(dq), out, M, C, N, per);
+    const dim3 grid(TAPS * ceil_div(C, BC) * ceil_div(N, BNW), splits);
+    kernel<<<grid, THREADS, bytes, s>>>(
+        static_cast<const bf16*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<const bf16*>(dy), static_cast<const bf16*>(y),
+        static_cast<const float*>(ds), static_cast<const float*>(dq), out, geo, C, N, per);
     return 0;
   }
 
   static int run(const void* x, const void* a, const void* b, const void* dy, const void* y,
                  const void* ds, const void* dq, float* part, void* dw, Geo geo, int C, int N,
                  cudaStream_t s, int& parts) {
-    const WgradPlan p = plan_wgrad_1x1(geo.M, C, N);
+    const WgradPlan p = TAPS == 1 ? plan_wgrad_1x1(geo.M, C, N) : plan_wgrad_3x3(geo.M, C, N);
     parts = p.splits > 1 ? p.splits : 0;
     float* out = parts ? part : static_cast<float*>(dw);
-    if (p.bc == 128 && p.bn == 128)
-      return go<128, 128>(x, a, b, dy, y, ds, dq, out, geo.M, C, N, p.splits, p.per, s);
+    if constexpr (TAPS == 1) {  // not planned for nine taps: see plan_wgrad_3x3
+      if (p.bc == 128 && p.bn == 128)
+        return go<128, 128>(x, a, b, dy, y, ds, dq, out, geo, C, N, p.splits, p.per, s);
+    }
     if (p.bc == 128)
-      return go<128, 64>(x, a, b, dy, y, ds, dq, out, geo.M, C, N, p.splits, p.per, s);
+      return go<128, 64>(x, a, b, dy, y, ds, dq, out, geo, C, N, p.splits, p.per, s);
     if (p.bn == 128)
-      return go<64, 128>(x, a, b, dy, y, ds, dq, out, geo.M, C, N, p.splits, p.per, s);
-    return go<64, 64>(x, a, b, dy, y, ds, dq, out, geo.M, C, N, p.splits, p.per, s);
+      return go<64, 128>(x, a, b, dy, y, ds, dq, out, geo, C, N, p.splits, p.per, s);
+    return go<64, 64>(x, a, b, dy, y, ds, dq, out, geo, C, N, p.splits, p.per, s);
   }
 };
 
@@ -1497,12 +1969,17 @@ extern "C" {
 long long iswm_fb_sums_scratch(int M, int width) {
   return static_cast<long long>(ceil_div(M, SUMS_ROWS)) * 2 * width;
 }
-// Parts of the weight gradient's scratch: enough for conv_wgrad and for
-// wgrad_1x1_bf16 (rows = taps * C).
+// Parts of the weight gradient's scratch (rows = taps * C): the most that
+// conv_wgrad, wgrad_1x1_bf16 and, where rows may be 9 C, wgrad_3x3_bf16 ask for.
 int iswm_fb_wgrad_splits(int M, int rows, int N) {
-  const int general = wgrad_splits(M, rows, N);
+  int parts = wgrad_splits(M, rows, N);
   const int piped = plan_wgrad_1x1(M, rows, N).splits;
-  return general > piped ? general : piped;
+  if (piped > parts) parts = piped;
+  if (rows % 9 == 0) {
+    const int nine = plan_wgrad_3x3(M, rows / 9, N).splits;
+    if (nine > parts) parts = nine;
+  }
+  return parts;
 }
 
 // y [M, N] in T and sq [2 N] f32 (s then q).  x [M, C]; w_nk [N][taps * C];

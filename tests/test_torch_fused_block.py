@@ -616,7 +616,11 @@ def test_cuda_matmul_kernels_match_plain(m, k, n, prologue, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("shape", [(2, 16, 24, 8, 16), (1, 5, 7, 16, 8), (2, 12, 12, 64, 64)])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 8, 16), (1, 5, 7, 16, 8), (2, 12, 12, 64, 64),
+                                   # the bf16 backward's edges: C and N off the 64-deep
+                                   # stage, a 128-pixel block across two images and
+                                   # ragged image edges; C off the 128-wide dx tile
+                                   (3, 9, 11, 72, 40), (2, 16, 16, 192, 128)])
 def test_cuda_conv3x3_kernels_match_plain(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
