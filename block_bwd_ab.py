@@ -1,24 +1,40 @@
-"""Time the bf16 backward of the fused blocks, the 1x1 (#7b, ``--kind mm``,
-the default) or the 3x3 (#8b, ``--kind c3``), of two builds of
-``iswm_tpu_torch/csrc/fused_block.cu`` in turns on one CUDA card.
+"""Time two builds of a kernel source in turns on one CUDA card: the bf16
+backward of the fused blocks, the 1x1 (#7b, ``--kind mm``, the default) or
+the 3x3 (#8b, ``--kind c3``) of ``iswm_tpu_torch/csrc/fused_block.cu``, or
+the int8 1x1 kernel (#1 and #2, ``--kind int8``) of
+``iswm_tpu_torch/csrc/int8_matmul.cu``.
 
-At every shape of ``chip_smoke.BLOCK_MM_SHAPES`` (or ``BLOCK_C3_SHAPES``) it
-times, with the inputs out of L2 (``chip_smoke.ColdTimer``), the two C
-entries of one backward, each with its finishing sum: the data gradient and
-the weight gradient.  The builds are the checkout's source ("head"), a base
-source given by path, and any number of edited copies of the head; each
-shape is timed base, head, edits..., then in the reverse order, and the
-summed train-step totals weight each shape by its launches a step.  Run from
+For ``mm`` and ``c3``, at every shape of ``chip_smoke.BLOCK_MM_SHAPES`` (or
+``BLOCK_C3_SHAPES``) it times, with the inputs out of L2
+(``chip_smoke.ColdTimer``), the two C entries of one backward, each with its
+finishing sum: the data gradient and the weight gradient.  For ``int8``, at
+every shape of ``chip_smoke.SLICE_SHAPES`` and at M = 1000, it times the two
+C entries, ``iswm_int8_matmul`` on bf16 x and ``iswm_int8_matmul_prequant``
+on the same x quantized, and checks that head and base give the same bits.
+The builds are the checkout's source ("head"), a base source given by path,
+and any number of edited copies of the head; each shape is timed base,
+head, edits..., then in the reverse order, and the summed totals weight each
+shape by its launches a train step (a serving chunk for ``int8``).  Run from
 the root of the checkout:
 
     git show <commit>:iswm_tpu_torch/csrc/fused_block.cu > build/fused_block_base.cu
     python3 block_bwd_ab.py --base build/fused_block_base.cu [--kind c3] \\
         [--edit NAME 'OLD=>NEW' ...] [--out build/block_bwd_ab.json]
 
+    git show <commit>:iswm_tpu_torch/csrc/int8_matmul.cu > build/int8_matmul_base.cu
+    python3 block_bwd_ab.py --kind int8 --base build/int8_matmul_base.cu [--edit ...]
+
+With ``--sweep`` (``--kind int8``, no base) it times instead the checkout's
+build under every plan that fits (rows of a strip, ring stages, N groups, K
+splits), at the same shapes and for both entries, beside the plan the
+kernel's planner picks:
+
+    python3 block_bwd_ab.py --kind int8 --sweep --out build/int8_sweep.json
+
 An edit replaces the text OLD of the head's source, which must occur once, by
 NEW: for example a stage of a kernel taken out, to see what it costs.  Such a
-build computes wrong values and is only timed; ``chip_smoke.py`` phase 12
-checks the head's values.
+build computes wrong values and is only timed; ``chip_smoke.py`` phases 3,
+7 and 12 check the head's values.
 """
 
 from __future__ import annotations
@@ -35,9 +51,10 @@ import torch
 import chip_smoke as cs
 from iswm_tpu_torch.ops.kernels import build
 from iswm_tpu_torch.ops.kernels import fused_block as fb
+from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
 
-def build_source(text: str, name: str) -> ctypes.CDLL:
+def build_source(text: str, name: str, bind=fb.bind) -> ctypes.CDLL:
     """Compile ``text`` as build/kernels/<name>.cu with the port's flags."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src, lib = build.BUILD_DIR / f"{name}.cu", build.BUILD_DIR / f"{name}.so"
@@ -46,7 +63,7 @@ def build_source(text: str, name: str) -> ctypes.CDLL:
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
-    return fb.bind(ctypes.CDLL(str(lib)))
+    return bind(ctypes.CDLL(str(lib)))
 
 
 def edited(head: str, edit: str) -> str:
@@ -67,29 +84,9 @@ def half_bounds(m: int, k: int, n: int, prologue: bool, taps: int = 1) -> tuple[
     return tuple(cs.least_time(b, ops, cs.BF16_OPS_PER_S)["bound_ms"] for b in (dgrad, wgrad))
 
 
-def main() -> None:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--base", required=True, type=Path, help="a fused_block.cu to compare")
-    parser.add_argument("--kind", choices=("mm", "c3"), default="mm",
-                        help="the 1x1 backward (#7b) or the 3x3 (#8b)")
-    parser.add_argument("--edit", nargs=2, action="append", default=[], metavar=("NAME", "EDIT"))
-    parser.add_argument("--reps", type=int, default=5)
-    parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
-    cs.phase_device()
-    head = (Path(fb.__file__).resolve().parents[2] / "csrc" / "fused_block.cu").read_text()
-    jobs = {"base": (args.base.read_text(), "ab_base")}
-    jobs.update((name, (edited(head, edit), f"ab_{name}")) for name, edit in args.edit)
-    with ThreadPoolExecutor(len(jobs) + 1) as pool:  # one nvcc a build, all at once
-        head_lib = pool.submit(fb.load_library)
-        futures = {name: pool.submit(build_source, *job) for name, job in jobs.items()}
-        libs = {"base": futures.pop("base").result(), "head": head_lib.result()[0]}
-        libs.update((name, future.result()) for name, future in futures.items())
-
+def time_blocks(args, libs: dict, cold) -> None:
+    """The fused-block backward (#7b or #8b) of every build at every shape."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cold = cs.ColdTimer(reps=args.reps)
     order = list(libs) + list(libs)[::-1]
     totals = {name: [0.0, 0.0] for name in libs}
     rows = []
@@ -135,6 +132,167 @@ def main() -> None:
               f"weight gradient {wgrad:.4f} ms, both {dgrad + wgrad:.4f} ms")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals}))
+
+
+def int8_calls(lib: ctypes.CDLL, x, x_q, w_t, w_scale, x_scale: float, out):
+    """The two C entries of an int8_matmul.cu build on one shape's tensors."""
+    m, k = x.shape
+    n = w_t.shape[0]
+
+    def call(rc):
+        if rc:
+            raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+        return out
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    return (
+        lambda: call(lib.iswm_int8_matmul(x.data_ptr(), 1, w_t.data_ptr(), w_scale.data_ptr(),
+                                          x_scale, out.data_ptr(), m, k, n, stream())),
+        lambda: call(lib.iswm_int8_matmul_prequant(x_q.data_ptr(), w_t.data_ptr(),
+                                                   w_scale.data_ptr(), x_scale, out.data_ptr(),
+                                                   m, k, n, stream())),
+    )
+
+
+def time_int8(args, libs: dict, cold) -> None:
+    """#1 (bf16 x) and #2 (int8 x) of every build at the serving shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    order = list(libs) + list(libs)[::-1]
+    entries = ("int8_matmul_ms", "prequant_ms")
+    totals = {name: [0.0, 0.0] for name in libs}
+    rows = []
+    cases = {**cs.SLICE_SHAPES, (1000, 256, 128): 0}
+    differ = []
+    for (m, k, n), count in cases.items():
+        x, w_q, w_scale, x_scale = cs._case(m, k, n, "bf16", gen)
+        xs = torch.tensor(x_scale, dtype=torch.float32, device="cuda")
+        x_q = torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
+        w_t = w_q.t().contiguous()
+        outs = {name: torch.empty((m, n), dtype=torch.float32, device="cuda") for name in libs}
+        calls = {name: int8_calls(lib, x, x_q, w_t, w_scale, x_scale, outs[name])
+                 for name, lib in libs.items()}
+        for entry, base_fn, head_fn in zip(entries, calls["base"], calls["head"]):
+            want = base_fn().clone()  # the same bits from both builds
+            got = head_fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                differ.append(f"{entry} at {(m, k, n)}: {int((got != want).sum())} values")
+        times = {name: ([], []) for name in libs}
+        for name in order:
+            for entry, fn in zip(times[name], calls[name]):
+                entry.append(cold(fn))
+        row = {"shape": [m, k, n], "count": count,
+               "bound_ms": [cs.matmul_bound(m, k, n, b)["bound_ms"] for b in (2, 1)],
+               "plan": [k8.plan(m, k, n, b) for b in (2, 1)]}
+        for name, (quant, pre) in times.items():
+            row[name] = dict(zip(entries, (quant, pre)))
+            totals[name][0] += count * sum(quant) / len(quant)
+            totals[name][1] += count * sum(pre) / len(pre)
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+        del x, x_q, w_t, outs, calls
+    bounds = [cs.sum_bounds([cs.matmul_bound(*shape, b) for shape, count in cases.items()
+                             for _ in range(count)])["bound_ms"] for b in (2, 1)]
+    sites = sum(cases.values())
+    for name, (quant, pre) in totals.items():
+        print(f"[ab] one chunk's {sites} sites, {name}: int8_matmul {quant:.4f} ms (bound "
+              f"{bounds[0]:.4f}), int8_matmul_prequant {pre:.4f} ms (bound {bounds[1]:.4f})")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
+                                    "head_differs_from_base": differ}))
+    if differ:
+        raise SystemExit("head and base differ: " + "; ".join(differ))
+
+
+def sweep_int8(args, lib, cold) -> None:
+    """Every plan that fits, at each serving shape and M = 1000, for bf16 x
+    and int8 x, through the head build's planned entry: cold times beside
+    the planner's own choice, each plan's output equal to the planner's."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    plans = [(bm, st, g, sp) for bm in (128, 64, 32) for st in (4, 3) for g in (1, 2)
+             for sp in (1, 2, 4)]
+    for (m, k, n), count in {**cs.SLICE_SHAPES, (1000, 256, 128): 0}.items():
+        x, w_q, w_scale, x_scale = cs._case(m, k, n, "bf16", gen)
+        xs = torch.tensor(x_scale, dtype=torch.float32, device="cuda")
+        x_q = torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
+        w_t = w_q.t().contiguous()
+        out = torch.empty((m, n), dtype=torch.float32, device="cuda")
+        for xv in (x, x_q):
+            nbytes = xv.element_size()
+            chosen = k8.plan(m, k, n, nbytes)
+            times = {}
+            want = None
+            for p in [tuple(chosen[key] for key in k8.PLAN_KEYS[:4])] + plans:
+                if p in times:
+                    continue
+                arr = (ctypes.c_int * 4)(*p)
+
+                def call():
+                    return lib.iswm_int8_matmul_planned(
+                        xv.data_ptr(), nbytes, w_t.data_ptr(), w_scale.data_ptr(), x_scale,
+                        out.data_ptr(), m, k, n, arr, torch.cuda.current_stream().cuda_stream)
+
+                if call():
+                    continue  # the plan does not fit the shape
+                torch.cuda.synchronize()
+                if want is None:
+                    want = out.clone()
+                elif not torch.equal(out, want):
+                    raise SystemExit(f"plan {p} at {(m, k, n)} x {xv.dtype} differs")
+                times[p] = cold(call)
+            best = min(times, key=times.get)
+            first = next(iter(times))
+            row = {"shape": [m, k, n], "count": count, "x_bytes": nbytes, "chosen": first,
+                   "chosen_ms": times[first], "best": best, "best_ms": times[best],
+                   "plans": {" ".join(map(str, p)): t for p, t in times.items()}}
+            rows.append(row)
+            print(f"[sweep] {(m, k, n)} x {nbytes} B: planned {first} {times[first]:.4f} ms, "
+                  f"best {best} {times[best]:.4f} ms of {len(times)} plans", flush=True)
+    for nbytes in (2, 1):
+        picked = sum(r["count"] * r["chosen_ms"] for r in rows if r["x_bytes"] == nbytes)
+        best = sum(r["count"] * r["best_ms"] for r in rows if r["x_bytes"] == nbytes)
+        print(f"[sweep] one chunk's sites, x of {nbytes} B: the planner's plans {picked:.4f} ms, "
+              f"the best plan at each shape {best:.4f} ms")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "int8 sweep", "shapes": rows}))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--base", type=Path,
+                        help="a fused_block.cu (or int8_matmul.cu) to compare; not with --sweep")
+    parser.add_argument("--kind", choices=("mm", "c3", "int8"), default="mm",
+                        help="the 1x1 backward (#7b), the 3x3 (#8b) or the int8 1x1 (#1, #2)")
+    parser.add_argument("--edit", nargs=2, action="append", default=[], metavar=("NAME", "EDIT"))
+    parser.add_argument("--sweep", action="store_true",
+                        help="with --kind int8: time every plan of the checkout's build instead")
+    parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    cs.phase_device()
+    module, stem = (k8, "int8_matmul") if args.kind == "int8" else (fb, "fused_block")
+    head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
+    if args.sweep != (args.base is None) or (args.sweep and args.kind != "int8"):
+        parser.error("give --base, or --sweep with --kind int8")
+    jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", module.bind)}
+    jobs.update((name, (edited(head, edit), f"ab_{stem}_{name}", module.bind))
+                for name, edit in args.edit)
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:  # one nvcc a build, all at once
+        head_lib = pool.submit(module.load_library)
+        futures = {name: pool.submit(build_source, *job) for name, job in jobs.items()}
+        libs = {"base": futures.pop("base").result()} if "base" in futures else {}
+        libs["head"] = head_lib.result()[0]
+        libs.update((name, future.result()) for name, future in futures.items())
+    cold = cs.ColdTimer(reps=args.reps)
+    if args.sweep:
+        sweep_int8(args, libs["head"], cold)
+    else:
+        (time_int8 if args.kind == "int8" else time_blocks)(args, libs, cold)
 
 
 if __name__ == "__main__":

@@ -29,6 +29,25 @@ launches_prequant = 0
 _lib = None
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the C entries of a library
+    built from ``csrc/int8_matmul.cu``."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.iswm_int8_matmul.argtypes = [ptr, i32, ptr, ptr, f32, ptr, i32, i32, i32, ptr]
+    lib.iswm_int8_matmul.restype = i32
+    lib.iswm_int8_matmul_prequant.argtypes = [ptr, ptr, ptr, f32, ptr, i32, i32, i32, ptr]
+    lib.iswm_int8_matmul_prequant.restype = i32
+    if hasattr(lib, "iswm_int8_matmul_plan"):  # not in the first version's source
+        lib.iswm_int8_matmul_plan.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+        lib.iswm_int8_matmul_plan.restype = i32
+        lib.iswm_int8_matmul_planned.argtypes = [ptr, i32, ptr, ptr, f32, ptr, i32, i32, i32,
+                                                 ctypes.POINTER(i32), ptr]
+        lib.iswm_int8_matmul_planned.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load the kernel; returns (library, nvcc log)."""
     global _lib
@@ -37,22 +56,24 @@ def load_library() -> tuple[ctypes.CDLL, str]:
         from .build import load_library as build_and_load
 
         lib, log = build_and_load("int8_matmul")
-        lib.iswm_int8_matmul.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.iswm_int8_matmul.restype = ctypes.c_int
-        lib.iswm_int8_matmul_prequant.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        lib.iswm_int8_matmul_prequant.restype = ctypes.c_int
-        lib.iswm_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.iswm_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(lib)
     return _lib, log
+
+
+PLAN_KEYS = ("bm", "stages", "groups", "splits", "blocks", "smem")
+
+
+def plan(m: int, k: int, n: int, x_bytes: int) -> dict:
+    """The kernel's plan for an [M, K] x [K, N] call with x of ``x_bytes``
+    a value (2 bf16, 4 f32, 1 int8 codes), as the C entries launch it: rows
+    of a block's strip (``bm``), ring ``stages``, N ``groups`` (each
+    quantizes x once), K ``splits``, ``blocks`` and dynamic shared memory
+    ``smem`` in bytes a block.  Needs the built library (a CUDA machine)."""
+    lib, _ = load_library()
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    if lib.iswm_int8_matmul_plan(m, k, n, x_bytes, out):
+        raise ValueError(f"no int8_matmul plan fits M={m} K={k} N={n}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def _check_shapes(x: torch.Tensor, w_q: torch.Tensor) -> tuple[int, int, int]:

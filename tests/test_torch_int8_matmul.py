@@ -92,22 +92,56 @@ def test_wrapper_rejects_k_or_n_not_multiple_of_128(k, n):
         port_int8.int8_matmul(x, w_q, torch.ones(n), 0.1)
 
 
+# One shape for each branch of the kernel's plan, and what the plan does
+# there, given x's bytes a value (2 bf16, 4 f32, 1 int8): a K split at
+# M = 8 and at a ragged M, two N groups at a ragged M, a 3-stage ring,
+# 32-row strips (mma.sync), 128-row strips (wgmma, as the 64-row ones)
+PLAN_BRANCHES = {
+    "k_split_m8": ((8, 2048, 256), lambda p, xb: p["splits"] > 1),
+    "k_split_ragged_m": ((200, 2048, 512), lambda p, xb: p["splits"] > 1),
+    "n_groups_ragged_m": ((4001, 256, 1024),
+                          lambda p, xb: p["bm"] == 64 and p["groups"] == 2 and p["splits"] == 1),
+    "three_stages": ((32768, 512, 256), lambda p, xb: p["stages"] == 3 or xb != 4),
+    "rows_32": ((1000, 1024, 512), lambda p, xb: p["bm"] == 32 and p["splits"] == 1),
+    "rows_128": ((8192, 1024, 2048), lambda p, xb: p["bm"] == 128 or xb != 1),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mkn", [(1000, 256, 128), (8, 2048, 256)])
-def test_cuda_kernel_bit_equals_plain(mkn):
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("branch", sorted(PLAN_BRANCHES))
+def test_cuda_kernel_bit_equals_plain(branch, dtype):
+    """int8_matmul (bf16, f32 x) and int8_matmul_prequant (int8 x) against
+    their plain versions, bit for bit, at a shape of each branch of the
+    plan; the plan must be in shared memory and take that branch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
-    m, k, n = mkn
+    (m, k, n), reaches = PLAN_BRANCHES[branch]
     rng = np.random.default_rng(5)
     x, x_scale = _inputs("saturate", rng, m, k)
     w_q, w_scale = _weights(rng, k, n)
-    xt = torch.from_numpy(x).cuda().to(torch.bfloat16)
     w_qt, w_st = torch.from_numpy(w_q).cuda(), torch.from_numpy(w_scale).cuda()
-    before = port_int8.launches
-    got = port_int8.int8_matmul(xt, w_qt, w_st, x_scale)
+    xt = torch.from_numpy(x).cuda()
+    x_bytes = {"bfloat16": 2, "float32": 4, "int8": 1}[dtype]
+    plan = port_int8.plan(m, k, n, x_bytes)
+    assert reaches(plan, x_bytes), plan
+    assert plan["smem"] <= 227 * 1024
+    if dtype == "int8":
+        xs = torch.tensor(x_scale, dtype=torch.float32, device="cuda")
+        xt = torch.clamp(torch.round(xt / xs), -127, 127).to(torch.int8)
+        before = port_int8.launches_prequant
+        got = port_int8.int8_matmul_prequant(xt, w_qt, w_st, x_scale)
+        want = port_int8.int8_matmul_prequant_plain(xt, w_qt, w_st, x_scale)
+        count = port_int8.launches_prequant
+    else:
+        xt = xt.to(getattr(torch, dtype))
+        before = port_int8.launches
+        got = port_int8.int8_matmul(xt, w_qt, w_st, x_scale)
+        want = port_int8.int8_matmul_plain(xt, w_qt, w_st, x_scale)
+        count = port_int8.launches
     torch.cuda.synchronize()
-    assert port_int8.launches == before + 1
-    assert torch.equal(got, port_int8.int8_matmul_plain(xt, w_qt, w_st, x_scale))
+    assert count == before + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -127,3 +161,29 @@ def test_cuda_conv1x1_takes_nchw_contiguous_pixels(batch):
     torch.cuda.synchronize()
     assert got.shape == (batch, 6, 5, 128)
     assert torch.equal(got, port_int8.quantized_conv1x1_plain(x, w_oihw, w_st, 0.05))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_scale", [0.25, 0.012345, 3.7e-3, 1e-30, 3e-39, 1e30])
+def test_cuda_quantize_every_bf16_value(x_scale):
+    """Every bf16 value (NaN aside) and float32 values within three ulps of
+    a rounding tie of x / x_scale give the plain version's codes: the IEEE
+    division, rounding half to even, clipping; also at scales whose
+    reciprocal is not a normal float."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    bits = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16).reshape(512, 128).cuda()
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    rng = np.random.default_rng(7)
+    s32 = float(np.float32(x_scale))
+    ties = ((rng.integers(-130, 130, size=(512, 128)) + 0.5) * s32).astype(np.float32)
+    for _ in range(3):
+        step = rng.integers(-1, 2, size=ties.shape)
+        ties = np.nextafter(ties, (ties + step * np.abs(ties)).astype(np.float32))
+    w_q, w_scale = _weights(rng, 128, 128)
+    w_qt, w_st = torch.from_numpy(w_q).cuda(), torch.from_numpy(w_scale).cuda()
+    for xt in (x, torch.from_numpy(ties.astype(np.float32)).cuda()):
+        got = port_int8.int8_matmul(xt, w_qt, w_st, x_scale)
+        torch.cuda.synchronize()
+        assert torch.equal(got, port_int8.int8_matmul_plain(xt, w_qt, w_st, x_scale))
