@@ -1,13 +1,17 @@
 """Time two builds of a kernel source in turns on one CUDA card: the bf16
 backward of the fused blocks, the 1x1 (#7b, ``--kind mm``, the default) or
-the 3x3 (#8b, ``--kind c3``) of ``iswm_tpu_torch/csrc/fused_block.cu``, or
-the int8 1x1 kernel (#1 and #2, ``--kind int8``) of
+the 3x3 (#8b, ``--kind c3``), or their bf16 forward (#7a ``--kind mm_fwd``,
+#8a ``--kind c3_fwd``) of ``iswm_tpu_torch/csrc/fused_block.cu``, or the
+int8 1x1 kernel (#1 and #2, ``--kind int8``) of
 ``iswm_tpu_torch/csrc/int8_matmul.cu``.
 
 For ``mm`` and ``c3``, at every shape of ``chip_smoke.BLOCK_MM_SHAPES`` (or
 ``BLOCK_C3_SHAPES``) it times, with the inputs out of L2
 (``chip_smoke.ColdTimer``), the two C entries of one backward, each with its
-finishing sum: the data gradient and the weight gradient.  For ``int8``, at
+finishing sum: the data gradient and the weight gradient.  For ``mm_fwd``
+and ``c3_fwd`` it times there ``iswm_fb_fwd`` with its finishing sum, and
+says at which shapes the builds give the same y bits (the 1x1's products
+run in the same order in both bodies).  For ``int8``, at
 every shape of ``chip_smoke.SLICE_SHAPES`` and at M = 1000, it times the two
 C entries, ``iswm_int8_matmul`` on bf16 x and ``iswm_int8_matmul_prequant``
 on the same x quantized, and checks that head and base give the same bits.
@@ -24,12 +28,15 @@ the root of the checkout:
     git show <commit>:iswm_tpu_torch/csrc/int8_matmul.cu > build/int8_matmul_base.cu
     python3 block_bwd_ab.py --kind int8 --base build/int8_matmul_base.cu [--edit ...]
 
-With ``--sweep`` (``--kind int8``, no base) it times instead the checkout's
-build under every plan that fits (rows of a strip, ring stages, N groups, K
-splits), at the same shapes and for both entries, beside the plan the
-kernel's planner picks:
+With ``--sweep`` (``--kind int8``, ``mm_fwd`` or ``c3_fwd``, no base) it
+times instead the checkout's build under every plan that fits (int8: rows
+of a strip, ring stages, N groups, K splits, for both entries; the forward:
+its tiles and, for the 1x1, the column tiles a block walks), at the same
+shapes, beside the plan the kernel's planner
+picks, and checks that every plan gives the planner's y:
 
     python3 block_bwd_ab.py --kind int8 --sweep --out build/int8_sweep.json
+    python3 block_bwd_ab.py --kind c3_fwd --sweep --out build/c3_fwd_sweep.json
 
 An edit replaces the text OLD of the head's source, which must occur once, by
 NEW: for example a stage of a kernel taken out, to see what it costs.  Such a
@@ -132,6 +139,141 @@ def time_blocks(args, libs: dict, cold) -> None:
               f"weight gradient {wgrad:.4f} ms, both {dgrad + wgrad:.4f} ms")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals}))
+
+
+FWD_TILES = ((128, 128), (64, 128), (128, 64), (64, 64))  # the 3x3 takes the 128-row ones
+FWD_NT = (1, 2, 4, 8)  # column tiles a 1x1 block walks
+
+
+def fwd_cases(kind: str) -> dict:
+    """{(shape, prologue): launches a train step} of the forward ``kind``."""
+    if kind == "mm_fwd":
+        return {(shape[:3], shape[3]): count for shape, count in cs.BLOCK_MM_SHAPES.items()}
+    return {(shape, True): count for shape, count in cs.BLOCK_C3_SHAPES.items()}
+
+
+def fwd_entry(lib: ctypes.CDLL, kind: str, x, w, a, b, prologue: bool, plan=None):
+    """``iswm_fb_fwd`` of a build on one case with its finishing sum (or, with
+    ``plan`` = (BM, BN, nt), ``iswm_fb_fwd_planned``), on outputs and scratch made
+    here once, as ``fused_block._launch_fwd`` makes them: a callable that
+    returns (y, sq)."""
+    if kind == "mm_fwd":
+        (m, k), n = x.shape, w.shape[1]
+        taps, h, wd, w_nk = 1, 1, m, w.t().contiguous()
+    else:
+        bsz, h, wd, k = x.shape
+        n, m, taps = w.shape[3], bsz * h * wd, 9
+        w_nk = w.to(x.dtype).permute(3, 0, 1, 2).reshape(n, taps * k).contiguous()
+    f32 = {"dtype": torch.float32, "device": x.device}
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    scratch, sq = torch.empty(lib.iswm_fb_sums_scratch(m, n), **f32), torch.empty(2 * n, **f32)
+    ab = (a.data_ptr(), b.data_ptr()) if prologue else (None, None)
+    head = (x.data_ptr(), w_nk.data_ptr(), *ab, y.data_ptr(), scratch.data_ptr(), sq.data_ptr())
+    plan = None if plan is None else (ctypes.c_int * 3)(*plan)
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan is None:
+            rc = lib.iswm_fb_fwd(*head, int(x.dtype == torch.bfloat16), taps, int(prologue), m,
+                                 h, wd, k, n, stream)
+        else:
+            rc = lib.iswm_fb_fwd_planned(*head, taps, int(prologue), m, h, wd, k, n, plan, stream)
+        if rc:
+            raise RuntimeError(f"iswm_fb_fwd: {lib.iswm_cuda_error_string(rc).decode()}")
+        return y, sq
+
+    return run
+
+
+def fwd_gemm(kind: str, shape) -> tuple:
+    """(M, C, N, taps, GFLOP) of a forward case."""
+    if kind == "mm_fwd":
+        m, k, n = shape
+        return m, k, n, 1, 2 * m * k * n / 1e9
+    bsz, h, wd, k, n = shape
+    return bsz * h * wd, k, n, 9, 2 * bsz * h * wd * 9 * k * n / 1e9
+
+
+def time_forward(args, libs: dict, cold) -> None:
+    """The fused-block forward (#7a or #8a) of every build at every shape."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    order = list(libs) + list(libs)[::-1]
+    totals = dict.fromkeys(libs, 0.0)
+    rows, bounds = [], []
+    kind = args.kind[:2]
+    cases = fwd_cases(args.kind)
+    for (shape, prologue), count in cases.items():
+        x, w, a, b, *_ = cs._fb_inputs(kind, shape, torch.bfloat16, gen)
+        calls = {name: fwd_entry(lib, args.kind, x, w, a, b, prologue)
+                 for name, lib in libs.items()}
+        ys = {name: fn()[0].clone() for name, fn in calls.items()}
+        times = {name: [] for name in libs}
+        for name in order:
+            times[name].append(cold(calls[name]))
+        m, c, n, taps, gflop = fwd_gemm(args.kind, shape)
+        bound = cs._fb_bound(kind, shape, prologue, 2)[0]
+        bounds += [bound] * count
+        row = {"shape": [*shape, prologue], "count": count, "bound_ms": bound["bound_ms"],
+               "bound_by": bound["bound_by"], "gflop": gflop,
+               "y_equal_to_base": bool(torch.equal(ys["base"], ys["head"]))}
+        if hasattr(libs["head"], "iswm_fb_fwd_plan"):
+            row["plan"] = fb.plan_fwd(m, c, n, taps, prologue)
+        for name, ts in times.items():
+            row[name] = ts
+            totals[name] += count * sum(ts) / len(ts)
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+        del x, w, calls, ys
+    least = cs.sum_bounds(bounds)
+    launches = sum(cases.values())
+    for name, total in totals.items():
+        print(f"[ab] one train step's {launches} launches of {args.kind}, {name}: {total:.4f} ms "
+              f"(bound {least['bound_ms']:.4f} ms by {least['bound_by']})")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
+                                    "bound": least}))
+
+
+def sweep_forward(args, lib, cold) -> None:
+    """Every plan of the bf16 forward at each slice shape (its tiles and, for
+    the 1x1, the column tiles a block walks), through the head build's
+    planned entry: cold times beside the planner's own plan, every plan's y
+    equal to the planner's (the products run in the same order)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    kind = args.kind[:2]
+    for (shape, prologue), count in fwd_cases(args.kind).items():
+        x, w, a, b, *_ = cs._fb_inputs(kind, shape, torch.bfloat16, gen)
+        m, c, n, taps, _ = fwd_gemm(args.kind, shape)
+        chosen = fb.plan_fwd(m, c, n, taps, prologue)
+        want = fwd_entry(lib, args.kind, x, w, a, b, prologue)()[0].clone()
+        first = (chosen["bm"], chosen["bn"], chosen["nt"])
+        plans = [first] + [(bm, bn, nt) for bm, bn in FWD_TILES if kind == "mm" or bm == 128
+                           for nt in (FWD_NT if kind == "mm" else (1,)) if nt <= -(-n // bn)]
+        times = {}
+        for plan in plans:
+            if plan in times:
+                continue
+            call = fwd_entry(lib, args.kind, x, w, a, b, prologue, plan)
+            got = call()[0]
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"plan {plan} at {shape} gives another y than the planner's")
+            times[plan] = cold(call)
+        best = min(times, key=times.get)
+        rows.append({"shape": [*shape, prologue], "count": count, "chosen": first,
+                     "chosen_ms": times[first], "best": best, "best_ms": times[best],
+                     "plans": {" ".join(map(str, p)): v for p, v in times.items()}})
+        print(f"[sweep] {args.kind} {shape}: planned {first} {times[first]:.4f} ms, best {best} "
+              f"{times[best]:.4f} ms; " + ", ".join(f"{p} {v:.4f}" for p, v in times.items()),
+              flush=True)
+        del x, w, want
+    picked = sum(r["count"] * r["chosen_ms"] for r in rows)
+    best = sum(r["count"] * r["best_ms"] for r in rows)
+    print(f"[sweep] one train step's {args.kind}: the planner's plans {picked:.4f} ms, the best "
+          f"plan at each shape {best:.4f} ms")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": f"{args.kind} sweep", "shapes": rows}))
 
 
 def int8_calls(lib: ctypes.CDLL, x, x_q, w_t, w_scale, x_scale: float, out):
@@ -264,11 +406,13 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path,
                         help="a fused_block.cu (or int8_matmul.cu) to compare; not with --sweep")
-    parser.add_argument("--kind", choices=("mm", "c3", "int8"), default="mm",
-                        help="the 1x1 backward (#7b), the 3x3 (#8b) or the int8 1x1 (#1, #2)")
+    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8"), default="mm",
+                        help="the 1x1 backward (#7b), the 3x3 (#8b), their forwards (#7a, "
+                             "#8a) or the int8 1x1 (#1, #2)")
     parser.add_argument("--edit", nargs=2, action="append", default=[], metavar=("NAME", "EDIT"))
     parser.add_argument("--sweep", action="store_true",
-                        help="with --kind int8: time every plan of the checkout's build instead")
+                        help="with --kind int8, mm_fwd or c3_fwd: time every plan of the "
+                             "checkout's build instead")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
     args = parser.parse_args()
@@ -277,8 +421,8 @@ def main() -> None:
     cs.phase_device()
     module, stem = (k8, "int8_matmul") if args.kind == "int8" else (fb, "fused_block")
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
-    if args.sweep != (args.base is None) or (args.sweep and args.kind != "int8"):
-        parser.error("give --base, or --sweep with --kind int8")
+    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3")):
+        parser.error("give --base, or --sweep with --kind int8, mm_fwd or c3_fwd")
     jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", module.bind)}
     jobs.update((name, (edited(head, edit), f"ab_{stem}_{name}", module.bind))
                 for name, edit in args.edit)
@@ -289,8 +433,11 @@ def main() -> None:
         libs["head"] = head_lib.result()[0]
         libs.update((name, future.result()) for name, future in futures.items())
     cold = cs.ColdTimer(reps=args.reps)
+    forward = args.kind.endswith("_fwd")
     if args.sweep:
-        sweep_int8(args, libs["head"], cold)
+        (sweep_forward if forward else sweep_int8)(args, libs["head"], cold)
+    elif forward:
+        time_forward(args, libs, cold)
     else:
         (time_int8 if args.kind == "int8" else time_blocks)(args, libs, cold)
 

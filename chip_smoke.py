@@ -294,13 +294,13 @@ class NoDeviceRecords(RuntimeError):
     pass
 
 
-def traced_records(fn, reps: int, warmup: int) -> dict:
+def traced_records(fn, reps: int, warmup: int, exclude=frozenset()) -> dict:
     """{kernel name: (its mean device time in us, its launches in one fn())}
     from a ``torch.profiler`` trace of ``reps`` calls.  A trace can come back
     short of its last records, or now and then with none: so each kernel counts
     with the mean of the records it has and its launches in a call (records /
-    reps, to the nearest whole number), and an empty trace is taken again, five
-    times at most."""
+    reps, to the nearest whole number), and a trace with no record of a kernel
+    outside ``exclude`` is taken again, five times at most."""
     for _ in range(warmup):
         fn()
     cuda = torch.autograd.DeviceType.CUDA
@@ -312,10 +312,11 @@ def traced_records(fn, reps: int, warmup: int) -> dict:
             torch.cuda.synchronize()
         on_device = [e for e in prof.key_averages()
                      if e.device_type == cuda and e.count and e.self_device_time_total > 0]
-        if on_device:
+        if any(e.key not in exclude for e in on_device):
             return {e.key: (e.self_device_time_total / e.count,
                             round(e.count / reps) or e.count / reps) for e in on_device}
-    raise NoDeviceRecords(f"five traces of {reps} calls hold no device record")
+    raise NoDeviceRecords(f"five traces of {reps} calls hold no device record"
+                          + (f" outside {sorted(exclude)}" if exclude else ""))
 
 
 def traced_kernels(fn, reps: int, warmup: int) -> dict:
@@ -399,7 +400,9 @@ class ColdTimer:
         reps = reps or self.reps
         if self.flush_kernels is not None:
             try:
-                records = traced_records(flushed, reps, 3)
+                # a trace can hold the rewrite's records and none of fn's:
+                # it is taken again, as an empty one is
+                records = traced_records(flushed, reps, 3, exclude=self.flush_kernels)
                 return sum(us * n for k, (us, n) in records.items()
                            if k not in self.flush_kernels) / 1e3
             except NoDeviceRecords as e:
@@ -1681,9 +1684,12 @@ BLOCK_STEPS = 4  # with a quick-eval at step 2 and the validation at 4
 BLOCK_SLACK_WORST, BLOCK_SLACK_MEDIAN = 5.0, 4.0
 BLOCK_F32_LIMIT = 5e-2  # ... and, in float32, the fused block's own distance
 BLOCK_FLOOR = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
-BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::dgrad_1x1_bf16<",
-                 "::wgrad_1x1_bf16<", "::dgrad_3x3_bf16<", "::wgrad_3x3_bf16<",
-                 "::sum_partials(")
+BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::fwd_1x1_bf16<",
+                 "::fwd_3x3_bf16<", "::dgrad_1x1_bf16<", "::wgrad_1x1_bf16<",
+                 "::dgrad_3x3_bf16<", "::wgrad_3x3_bf16<", "::sum_partials(")
+# the tiles (BM, BN) of the bf16 forward's planner, each reached by a phase-12 case
+BLOCK_FWD_TILES = {"mm": {(128, 128), (64, 128), (128, 64), (64, 64)},
+                   "c3": {(128, 128), (128, 64)}}
 
 
 def _rounding_error(got, want, dtype):
@@ -1843,10 +1849,26 @@ def phase_block_kernels(fb) -> dict:
         # ragged image edges; then C off the 128-wide dx tile
         ("c3", (3, 9, 11, 72, 40), True, "random"),
         ("c3", (2, 16, 16, 192, 128), True, "random"),
+        # the bf16 forward's plans beyond the slice's: the 1x1 at 64 x 128 where
+        # 128 x 128 would leave the card half idle, at N = 192 off the 128-wide
+        # tile with C off the 64-deep stage, at 128 x 64 walking 2 column tiles
+        # a block (the last block 1, M ragged), at 64 x 64 with M = 8192; the
+        # 3x3 at 128 x 128 with N = 192 and C off the 32-deep stage, and at
+        # 128 x 64 with C = 16
+        ("mm", (4096, 128, 256), True, "random"),
+        ("mm", (16384, 72, 192), True, "random"),
+        ("mm", (65536 - 16 * 37, 64, 192), True, "random"),
+        ("mm", (8192, 64, 64), False, "random"),
+        ("c3", (4, 64, 64, 72, 192), True, "random"),
+        ("c3", (2, 128, 128, 16, 64), True, "random"),
     ]
     names = ("mm_fwd", "mm_bwd", "c3_fwd", "c3_bwd")
     errs = dict.fromkeys(names, 0.0)
+    tiles = {"mm": set(), "c3": set()}
     for kind, shape, prologue, what in cases:
+        m, c, n = shape if kind == "mm" else (shape[0] * shape[1] * shape[2], *shape[3:])
+        plan = fb.plan_fwd(m, c, n, 1 if kind == "mm" else 9, prologue)
+        tiles[kind].add((plan["bm"], plan["bn"]))
         for dtype in (bf16, f32):
             x, w, a, b, dy, ds, dq = _fb_inputs(kind, shape, dtype, gen)
             if what == "negative":
@@ -1855,6 +1877,8 @@ def phase_block_kernels(fb) -> dict:
                 ds, dq = torch.zeros_like(ds), torch.zeros_like(dq)
             fwd, fwd_plain, bwd, bwd_plain = _fb_calls(fb, kind, prologue, x, w, a, b)
             label = f"{kind} {shape} prologue={prologue} {what} {str(dtype).split('.')[1]}"
+            if dtype == bf16:
+                label += f" (forward tile {plan['bm']}x{plan['bn']}, {plan['nt']} a block)"
             y, s, q = fwd()
             again = fwd()
             want_y = fwd_plain(torch.float64)[0]
@@ -1907,6 +1931,8 @@ def phase_block_kernels(fb) -> dict:
                   f"max abs err fwd {e_fwd:.3e}, bwd {e_bwd:.3e}; all bit-stable"
                   + ("; every output and gradient 0" if what == "negative" else ""))
             del x, w, dy, y, again, want_y, got, want, own
+    check(tiles == BLOCK_FWD_TILES,
+          f"the bf16 forward's cases reached the tiles {tiles}, not all of {BLOCK_FWD_TILES}")
 
     # times at the slice's shapes in bf16, inputs out of L2, summed over a step
     cold = ColdTimer(reps=5)
@@ -2371,18 +2397,23 @@ def phase_block_slice(fb, ce) -> tuple:
         if mode == "always":
             ours = [k for k in records if any(n in k for n in BLOCK_KERNELS)]
             check(len(ours) >= 4, f"the trace of a fused step names {sorted(ours)}")
-            # the bf16 3x3 backward runs the pipelined kernels, never the first body
-            first = [k for k in ours if "::conv_dgrad<__nv_bfloat16" in k
-                     or "::conv_wgrad<__nv_bfloat16" in k]
-            piped = {n: sum(c for k, (_, c) in records.items() if n in k)
-                     for n in ("::dgrad_3x3_bf16<", "::wgrad_3x3_bf16<")}
+            # the bf16 forwards and the 3x3 backward run the pipelined kernels,
+            # never the first body
+            first = [k for k in ours if any(f"::{body}<__nv_bfloat16" in k
+                                            for body in ("conv_fwd", "conv_dgrad", "conv_wgrad"))]
+            piped = {label: sum(c for k, (_, c) in records.items() if any(n in k for n in names))
+                     for label, names in (("1x1 forward", ("::fwd_1x1_bf16<",)),
+                                          ("3x3 forward", ("::fwd_3x3_bf16<",)),
+                                          ("3x3 data gradient", ("::dgrad_3x3_bf16<",)),
+                                          ("3x3 weight gradient", ("::wgrad_3x3_bf16<",)))}
             check(not first and all(piped.values()),
-                  f"a fused step's bf16 3x3 backward: {piped} launches of the pipelined "
-                  f"kernels, first-body kernels {first}")
-            print(f"[13] the bf16 3x3 backward in a fused step's trace: launches "
-                  + ", ".join(f"{n.strip(':<')} {c}" for n, c in piped.items())
-                  + f" (the wrapper counts {sum(BLOCK_C3_SHAPES.values())} a step); no "
-                  f"first-body bf16 conv_dgrad / conv_wgrad")
+                  f"a fused step's bf16 forwards and 3x3 backward: {piped} launches of the "
+                  f"pipelined kernels, first-body kernels {first}")
+            print(f"[13] the bf16 forwards and 3x3 backward in a fused step's trace: launches "
+                  + ", ".join(f"{label} {c}" for label, c in piped.items())
+                  + f" (the wrapper counts {sum(BLOCK_MM_SHAPES.values())} 1x1 and "
+                  f"{sum(BLOCK_C3_SHAPES.values())} 3x3 calls a step); no first-body bf16 "
+                  f"conv_fwd / conv_dgrad / conv_wgrad")
         print(f"[13] {smi}: one step with fused_blocks='{mode}' (profiler, per-kernel means): "
               f"device time {total_ms:.2f} ms in {n_launches:.0f} kernel launches; by class: "
               + ", ".join(f"{c} {t:.2f} ms ({100 * t / total_ms:.1f}%)"

@@ -5,13 +5,16 @@
 // mask, the data gradient, the prologue's gradients and the weight gradient.
 //
 // Replaces the TPU kernels of iswm_tpu/ops/pallas/fused_block.py:
-//   matmul_bn_stats forward   (`_mm_fwd_kernel`)  -> conv_fwd<T, 1, *>
+//   matmul_bn_stats forward   (`_mm_fwd_kernel`)  -> bf16: fwd_1x1_bf16 (pipelined, below
+//                                                  the first version's kernels);
+//                                                  f32: conv_fwd<f32, 1, *>
 //   matmul_bn_stats backward  (`_mm_bwd_kernel`)  -> bf16: dgrad_1x1_bf16 + wgrad_1x1_bf16
-//                                                  (pipelined, below the first version's kernels);
-//                                                  f32: conv_dgrad<f32, 1, *> + conv_wgrad<f32, 1, *>
-//   conv3x3_bn_stats forward  (`_c3_fwd_kernel`)  -> conv_fwd<T, 9, true>
-//   conv3x3_bn_stats backward (`_c3_bwd_kernel`)  -> bf16: dgrad_3x3_bf16 + wgrad_3x3_bf16
 //                                                  (pipelined the same way);
+//                                                  f32: conv_dgrad<f32, 1, *> + conv_wgrad<f32, 1, *>
+//   conv3x3_bn_stats forward  (`_c3_fwd_kernel`)  -> bf16: fwd_3x3_bf16 (pipelined, wgmma);
+//                                                  f32: conv_fwd<f32, 9, true>
+//   conv3x3_bn_stats backward (`_c3_bwd_kernel`)  -> bf16: dgrad_3x3_bf16 + wgrad_3x3_bf16
+//                                                  (pipelined);
 //                                                  f32: conv_dgrad<f32, 9, true> + conv_wgrad<f32, 9, true>
 // each followed by sum_partials where it reduces over blocks.
 //
@@ -37,25 +40,25 @@
 // device memory, the widest 1x1 and every 3x3 by the tensor cores.  Two
 // designs live here.
 //
-// The bf16 backward, 1x1 (#7b) and 3x3 (#8b), is pipelined: cp.async
-// stages, dyt and z formed in shared memory, ldmatrix fragments, 128-wide
-// data-gradient tiles and a weight-gradient split that keeps its partials
-// small; its own note stands above dgrad_pipelined.
+// Every bf16 kernel is pipelined: cp.async stages, the prologue's z and the
+// backward's dyt formed in shared memory, ldmatrix fragments, tiles and
+// splits planned from the shape.  The backward (1x1 #7b, 3x3 #8b) has its
+// note above dgrad_pipelined, the forward (1x1 #7a, 3x3 #8a, the 3x3 on
+// wgmma) above fwd_pipelined.
 //
-// Everything else (conv_fwd for #7a and #8a, and every float32
-// instantiation) runs the first version's body, which is simple and exact in
-// its rounding points, not fast:
+// Every float32 instantiation (conv_fwd, conv_dgrad, conv_wgrad) runs the
+// first version's body, which is simple and exact in its rounding points,
+// not fast:
 //   - every kernel is one tiled GEMM, 128 x 64 outputs a block, 8 warps of
 //     32 x 32, a 32-deep step through shared memory; what differs is how the
 //     two operand tiles are produced ("loaders") and what happens to the
 //     accumulators ("epilogue").  The 3x3 is an implicit GEMM over (tap,
 //     channel): a loader gathers the shifted pixel and writes zeros outside
 //     the image, so there is no halo buffer and any H, W works;
-//   - bf16 runs `mma.sync.aligned.m16n8k16` with f32 accumulators (inline
-//     PTX; no copy is in flight during the math, and wgmma and TMA are for
-//     the versions that make it fast); f32 runs FMAs on the same
-//     accumulator layout, so the loaders and epilogues are shared;
-//   - loaders move 8 neighbouring channels a thread (16 bytes in bf16) and
+//   - the products are FMAs in the accumulator layout of mma.sync (which
+//     this body ran in bf16 before the pipelined kernels took bf16 over), no
+//     copy in flight during the math;
+//   - loaders move 8 neighbouring channels a thread and
 //     apply the prologue, or form dyt, in registers on the way to shared
 //     memory.  The weight gradient reduces over pixels, so its loaders write
 //     the tiles transposed;
@@ -81,6 +84,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int BM = 128;  // output rows of a block
@@ -100,10 +105,9 @@ constexpr int MAX_SPLITS = 1024;
 static_assert(WARPS_M * WARPS_N * 32 == THREADS, "8 warps");
 static_assert(BK % 16 == 0 && BK % G == 0, "whole mma steps and chunks");
 
-// Row pitch of a shared tile: 80 bytes in bf16 and 144 in f32, so that the
-// fragment loads of a warp hit 32 different banks.
+// Row pitch of a shared tile: 144 bytes in f32, so that the fragment loads
+// of a warp hit 32 different banks.
 template <typename T> struct Tile;
-template <> struct Tile<__nv_bfloat16> { static constexpr int LD = BK + 8; };
 template <> struct Tile<float> { static constexpr int LD = BK + 4; };
 
 struct Geo {
@@ -126,16 +130,6 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[G]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[G]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < G / 2; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
 __device__ __forceinline__ void zero8(float (&v)[G]) {
 #pragma unroll
   for (int i = 0; i < G; ++i) v[i] = 0.f;
@@ -155,9 +149,6 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[G]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 // Two neighbouring values (an even column) rounded to T.
 __device__ __forceinline__ void store2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
@@ -372,38 +363,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// acc += As (rows x BK) . Bs (columns x BK)^T on the tensor cores.
-__device__ __forceinline__ void tile_product(float (&acc)[MF][NF][4],
-                                             const __nv_bfloat16* As,
-                                             const __nv_bfloat16* Bs,
-                                             const Lane& ln) {
-  constexpr int LD = Tile<__nv_bfloat16>::LD;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[MF][4];
-    uint32_t b[NF][2];
-#pragma unroll
-    for (int i = 0; i < MF; ++i) {
-      const __nv_bfloat16* p = As + (ln.wm0 + i * 16 + ln.g) * LD + kk + ln.t * 2;
-      a[i][0] = *reinterpret_cast<const uint32_t*>(p);
-      a[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LD);
-      a[i][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      a[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LD + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const __nv_bfloat16* p = Bs + (ln.wn0 + j * 8 + ln.g) * LD + kk + ln.t * 2;
-      b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-      b[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
-    }
-#pragma unroll
-    for (int i = 0; i < MF; ++i)
-#pragma unroll
-      for (int j = 0; j < NF; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-  }
-}
-
-// The same in full float32 with FMAs, on the same accumulator layout.
+// acc += As (rows x BK) . Bs (columns x BK)^T in full float32 with FMAs, in
+// the mma.sync accumulator layout.
 __device__ __forceinline__ void tile_product(float (&acc)[MF][NF][4],
                                              const float* As, const float* Bs,
                                              const Lane& ln) {
@@ -1669,6 +1630,610 @@ __global__ void __launch_bounds__(THREADS, 1)
   wgrad_pipelined<9, BC, BNW, true>(x, a, b, dy, y, ds, dq, out, geo, C, N, steps_per_split);
 }
 
+// ================================================= bf16 forward, pipelined
+//
+// Replaces, for bf16, the TPU kernels `_mm_fwd_kernel`
+// (iswm_tpu/ops/pallas/fused_block.py:60, called at :130, reached from
+// matmul_bn_stats :192) with fwd_1x1_bf16 and `_c3_fwd_kernel` (:224,
+// called at :396, reached from conv3x3_bn_stats :470) with fwd_3x3_bf16,
+// in the place of conv_fwd<bf16, *, *>.  Same arithmetic and rounding
+// points as conv_fwd: z = rd(relu(x a + b)) with ActLoader::fetch's IEEE
+// multiply and add, the padding after the prologue, y = rd(sum z w), s and q
+// over the rounded y; only the order of the float32 sums differs.
+//
+// What bounds it: the 1x1 does 2 M C N operations on M C + M N bf16 values,
+// so eight of the slice's 11 shapes are bound by bytes and layer4.0's three
+// by the tensor cores; every 3x3 shape does nine times the operations on the
+// same bytes and is bound by the tensor cores.  Each is the data gradient of
+// its backward turned around, with x in the place of dy and y:
+//   - fwd_pipelined (1x1) runs dgrad_pipelined's ring: 4 stages of
+//     cp.async.cg, PK = 64 input channels deep, bring the raw x tile, w's
+//     rows and the stage's a, b straight into shared memory; with the
+//     prologue, z is formed in place one stage ahead (each thread over the
+//     chunks it copied, one barrier a stage), rows past M zeroed there so
+//     that relu(b) does not enter s and q; without it a stage is a copy.
+//     Fragments by ldmatrix, products by mma.sync; a block may walk several
+//     column tiles through one ring (see plan_fwd).  (The same body on
+//     wgmma measured no faster: 128 x 128 tiles 1-2% faster, 128 x 64 ones
+//     3-12% slower; block_bwd_ab.py --kind mm_fwd);
+//   - fwd_3x3_rows runs dgrad_3x3_rows's ring over (kernel row ky, PK3 = 32
+//     input channels) stages.  Pixel p's three taps in row ky read z at
+//     p + (ky - 1) W + kx - 1, so a stage copies the BM + 2 raw x rows from
+//     m0 + (ky - 1) W - 1 on, with the three w tiles of taps 3 ky + kx, and
+//     tap kx reads them from row kx on: z is formed once for three taps,
+//     where conv_fwd recomputed it for all nine.  A row is another pixel's
+//     (or a zero-filled row's relu(b)) where a tap reads outside the image,
+//     so each lane keeps a 9-bit mask of the taps its accumulator rows read
+//     inside the image and zeroes the A fragments of the others after
+//     ldmatrix: the padding stays after the prologue.  The products are
+//     wgmma's, A (those masked fragments) from registers, B (w) from shared
+//     memory in the 64-byte swizzle (see Fwd3x3Stage): 0.9104 -> 0.7945 ms a
+//     step against the same body on mma.sync (block_bwd_ab.py);
+//   - a block covers up to 128 x 128 outputs, so x is read and transformed
+//     ceil(N / 128) times where conv_fwd read it ceil(N / 64) times;
+//   - fwd_epilogue rounds the accumulators to bf16, stages the tile through
+//     free shared memory and writes y in coalesced 16-byte stores, and takes
+//     the column sums of the rounded values into partials[m tile][2][N]
+//     (tile_column_sums; finish() adds them in block order: no atomics, so
+//     two launches give the same bits);
+//   - plan_fwd takes the tile from the shape alone, counting waves of blocks
+//     on 132 SMs.
+
+// A 1x1 forward block: BM pixels x BN output channels, 8 warps of 32 rows in
+// BM / 32 rows of warps.
+template <int BM_, int BN_>
+struct FwdTile {
+  static constexpr int BM = BM_;
+  static constexpr int BN = BN_;
+  static constexpr int WARPS_M = BM / 32;
+  static constexpr int WARPS_N = 8 / WARPS_M;
+  static constexpr int NF = BN / WARPS_N / 8;
+  static_assert(WARPS_M * WARPS_N * 32 == THREADS && NF % 2 == 0, "8 warps, x4 B loads");
+};
+
+// The 1x1 stage: x (then z) [BM][PK], w [BN][PK], a and b [PK] f32.
+template <int BM, int BN>
+struct Fwd1x1Stage {
+  static constexpr int LD = PK + PAD;
+  static constexpr int CH = PK / G;  // 16-byte chunks in a row
+  static constexpr int XT = BM * LD;
+  static constexpr int ELEMS = XT + BN * LD + 4 * PK;  // bf16 elements
+  static constexpr int ROUNDS = BM * CH / THREADS;     // x chunks a thread copies (and forms)
+  static constexpr int WROUNDS = BN * CH / THREADS;
+  static constexpr int STEPS = PK / 16;
+  static_assert(ROUNDS * THREADS == BM * CH && WROUNDS * THREADS == BN * CH, "whole rounds");
+  static_assert(STEPS % ROUNDS == 0 && ELEMS % 8 == 0, "z rounds spread over the mma steps");
+};
+
+// A block's accumulators (rows m0 + wm0 + 16 i + g + 8 h, columns n0 + wn0 +
+// 8 j + 2 t + e; WARPS_M rows of warps) rounded to bf16: staged in shared
+// memory at `region`, written to y in 16-byte rows of chunks, and their
+// column sums and sums of squares into partials[m tile][2][N].  Rows past M
+// and columns past N hold zeros (the stages zero them), so they add nothing
+// to the sums.  The region (epilogue_bytes) must be free.
+template <int BM, int BN, int WARPS_M>
+constexpr int epilogue_bytes() {
+  return BM * (BN + PAD) * 2 + 2 * WARPS_M * BN * 4;
+}
+
+template <int BM, int BN, int MF, int NF, int WARPS_M>
+__device__ __forceinline__ void fwd_epilogue(const float (&acc)[MF][NF][4],
+                                             unsigned char* region,
+                                             __nv_bfloat16* __restrict__ y,
+                                             float* __restrict__ partials, int M, int N,
+                                             int m0, int n0, int mt, int wm0, int wn0,
+                                             int warp_row) {
+  using bf16 = __nv_bfloat16;
+  constexpr int OUT_LD = BN + PAD;
+  static_assert(BM * OUT_LD * 2 % 16 == 0, "16-byte aligned column sums");
+  bf16* out = reinterpret_cast<bf16*>(region);
+  float* red = reinterpret_cast<float*>(region + BM * OUT_LD * 2);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  float cs[NF][2], cq[NF][2];
+#pragma unroll
+  for (int j = 0; j < NF; ++j) {
+    cs[j][0] = cs[j][1] = cq[j][0] = cq[j][1] = 0.f;
+    const int col = wn0 + j * 8 + t * 2;
+#pragma unroll
+    for (int i = 0; i < MF; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm0 + i * 16 + g + 8 * h;
+        const float v0 = round_to<bf16>(acc[i][j][2 * h]);
+        const float v1 = round_to<bf16>(acc[i][j][2 * h + 1]);
+        store2(out + row * OUT_LD + col, v0, v1);
+        cs[j][0] += v0;
+        cs[j][1] += v1;
+        cq[j][0] += v0 * v0;
+        cq[j][1] += v1 * v1;
+      }
+  }
+  float* part = partials + static_cast<size_t>(mt) * 2 * N;
+  // its barrier also publishes the staged tile
+  tile_column_sums<NF, WARPS_M, BN>(cs, cq, warp_row, wn0, red, part, part + N, n0, N);
+  constexpr int CH = BN / G;
+  for (int v = threadIdx.x; v < BM * CH; v += THREADS) {
+    const int r = v / CH, c = (v % CH) * G;
+    if (m0 + r < M && n0 + c < N) {
+      *reinterpret_cast<uint4*>(y + static_cast<size_t>(m0 + r) * N + n0 + c) =
+          raw8(out + r * OUT_LD + c);
+    }
+  }
+}
+
+// y = rd(z w^T) over BM pixels and the block's NT (or fewer) column tiles of
+// BN output channels, one after another through one ring, and each tile's
+// column sums of y and y^2.  Stage k holds input channels 64 (k % kper).. of
+// x and of column tile t0 + k / kper's w (kper stages a tile), so the next
+// tile's copies are in flight while a tile's epilogue runs; that epilogue
+// then stages y in a region of its own after the ring.
+template <int BM, int BN, bool PROLOGUE>
+__device__ __forceinline__ void fwd_pipelined(const __nv_bfloat16* __restrict__ x,
+                                              const __nv_bfloat16* __restrict__ w,
+                                              const float* __restrict__ a,
+                                              const float* __restrict__ b,
+                                              __nv_bfloat16* __restrict__ y,
+                                              float* __restrict__ partials, int M, int C, int N,
+                                              int nt) {
+  using bf16 = __nv_bfloat16;
+  using F = FwdTile<BM, BN>;
+  using S = Fwd1x1Stage<BM, BN>;
+  constexpr int LD = S::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int n_tiles = (N + BN - 1) / BN;
+  const int groups = (n_tiles + nt - 1) / nt;
+  const int mt = blockIdx.x / groups;
+  const int m0 = mt * BM;
+  const int t0 = (blockIdx.x % groups) * nt;  // the block's first column tile
+  const int tiles = n_tiles - t0 < nt ? n_tiles - t0 : nt;
+  const int kper = (C + PK - 1) / PK;  // stages a column tile
+  const int ksteps = tiles * kper;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int warp_row = warp / F::WARPS_N;
+  const int wm0 = warp_row * 32;
+  const int wn0 = (warp % F::WARPS_N) * (BN / F::WARPS_N);
+  const int kc = (tid % S::CH) * G;  // a thread's chunk of channels in every round
+  auto n0_of = [&](int k) { return (t0 + k / kper) * BN; };
+  auto k0_of = [&](int k) { return (k % kper) * PK; };
+
+  auto stage = [&](int k) { return smem + (k % RING) * S::ELEMS; };
+  auto vectors = [&](int k) { return reinterpret_cast<float*>(stage(k) + S::XT + BN * LD); };
+  auto load = [&](int k) {
+    bf16* sx = stage(k);
+    bf16* sw = sx + S::XT;
+    const int k0 = k0_of(k), n0 = n0_of(k);
+    const bool c_in = k0 + kc < C;
+#pragma unroll
+    for (int i = 0; i < S::ROUNDS; ++i) {
+      const int r = (tid + i * THREADS) / S::CH;
+      const bool ok = m0 + r < M && c_in;
+      cp_async16(sx + r * LD + kc, x + (ok ? static_cast<size_t>(m0 + r) * C + k0 + kc : 0), ok);
+    }
+#pragma unroll
+    for (int i = 0; i < S::WROUNDS; ++i) {
+      const int r = (tid + i * THREADS) / S::CH;
+      const bool ok = n0 + r < N && c_in;
+      cp_async16(sw + r * LD + kc, w + (ok ? static_cast<size_t>(n0 + r) * C + k0 + kc : 0), ok);
+    }
+    if (PROLOGUE && tid < PK / 2) {  // a then b, four floats a copy; zeros past C
+      const int c = k0 + (tid % (PK / 4)) * 4;
+      const float* v = tid < PK / 4 ? a : b;
+      cp_async16(vectors(k) + (tid / (PK / 4)) * PK + (tid % (PK / 4)) * 4, v + (c < C ? c : 0),
+                 c < C);
+    }
+  };
+
+  // z over stage k's x tile, in place, in rounds, as dgrad_pipelined forms
+  // dyt: fetch_z reads every round's chunk and the chunk's a, b at once;
+  // form_z writes round i, zeros past M and C
+  uint4 raw[S::ROUNDS];
+  float sa[G], sb[G];
+  auto fetch_z = [&](int k) {
+    const bf16* sx = stage(k);
+    load8(vectors(k) + kc, sa);
+    load8(vectors(k) + PK + kc, sb);
+#pragma unroll
+    for (int i = 0; i < S::ROUNDS; ++i) raw[i] = raw8(sx + (tid + i * THREADS) / S::CH * LD + kc);
+  };
+  auto form_z = [&](int k, int i) {
+    const int r = (tid + i * THREADS) / S::CH;
+    float f[G];
+    unpack8(raw[i], f);
+#pragma unroll
+    for (int e = 0; e < G; ++e) f[e] = fmaxf(affine(f[e], sa[e], sb[e]), 0.f);  // store8 rounds
+    if (m0 + r >= M || k0_of(k) + kc >= C) zero8(f);
+    store8(stage(k) + r * LD + kc, f);
+  };
+  auto fragments = [&](const bf16* sx, const bf16* sw, int kk, uint32_t (&af)[2][4],
+                       uint32_t (&bfr)[F::NF][2]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      ldsm_x4(af[i], sx + (wm0 + 16 * i + lane % 16) * LD + 16 * kk + (lane / 16) * 8);
+    }
+#pragma unroll
+    for (int j = 0; j < F::NF; j += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, sw + (wn0 + 8 * j + lane % 8 + (lane / 16) * 8) * LD + 16 * kk +
+                     ((lane / 8) % 2) * 8);
+      bfr[j][0] = r[0];
+      bfr[j][1] = r[1];
+      bfr[j + 1][0] = r[2];
+      bfr[j + 1][1] = r[3];
+    }
+  };
+
+  float acc[2][F::NF][4];
+  auto clear = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < F::NF; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+  };
+  clear();
+
+  // The ring as in dgrad_pipelined: with the prologue, stage k is multiplied
+  // while stage k + 1's z is formed and stages k + 2 .. k + RING - 1 are in
+  // flight; without it, stage k is multiplied while k + 1 .. k + RING - 1 are.
+#pragma unroll
+  for (int st = 0; st < RING - 1; ++st) {
+    if (st < ksteps) load(st);
+    cp_async_commit();
+  }
+  if constexpr (PROLOGUE) {
+    cp_async_wait<RING - 2>();
+    __syncthreads();
+    fetch_z(0);
+#pragma unroll
+    for (int i = 0; i < S::ROUNDS; ++i) form_z(0, i);
+  }
+  for (int k = 0; k < ksteps; ++k) {
+    if constexpr (PROLOGUE) {
+      cp_async_wait<RING - 3>();  // stage k + 1 has landed
+    } else {
+      cp_async_wait<RING - 2>();  // stage k has landed
+    }
+    __syncthreads();  // ... for every thread; stage k's z is whole; k - 1 is free
+    if (k + RING - 1 < ksteps) load(k + RING - 1);
+    cp_async_commit();
+    const bool next = PROLOGUE && k + 1 < ksteps;
+    if (next) fetch_z(k + 1);
+    const bf16* sx = stage(k);
+    const bf16* sw = sx + S::XT;
+#pragma unroll
+    for (int kk = 0; kk < S::STEPS; ++kk) {
+      constexpr int EVERY = S::STEPS / S::ROUNDS;
+      if (next && kk % EVERY == 0) form_z(k + 1, kk / EVERY);
+      uint32_t af[2][4], bfr[F::NF][2];
+      fragments(sx, sw, kk, af, bfr);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < F::NF; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+    }
+    if (tiles > 1 && k % kper == kper - 1) {  // a column tile is whole
+      const int ring = ksteps < RING ? ksteps : RING;
+      fwd_epilogue<BM, BN, 2, F::NF, F::WARPS_M>(acc, smem_raw + ring * S::ELEMS * 2, y,
+                                                 partials, M, N, m0, n0_of(k), mt, wm0, wn0,
+                                                 warp_row);
+      clear();
+    }
+  }
+  if (tiles == 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free for the epilogue
+    fwd_epilogue<BM, BN, 2, F::NF, F::WARPS_M>(acc, smem_raw, y, partials, M, N, m0, n0_of(0),
+                                               mt, wm0, wn0, warp_row);
+  }
+}
+
+// ---------------------------------------------------- wgmma for the 3x3
+
+// A K-major wgmma operand in shared memory with the 64-byte swizzle: rows of
+// 64 bytes whose 16-byte chunk c sits at c ^ ((row / 2) % 4), in atoms of 8
+// rows (512 bytes, 512-byte aligned), `sbo` bytes apart along N.
+__device__ __forceinline__ uint64_t smem_desc_sw64(const void* p, int sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | uint64_t{1} << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | uint64_t{2} << 62;
+}
+// Byte offset of byte `kbyte` (< 64) of row r of such an operand.
+__device__ __forceinline__ int sw64(int r, int kbyte) {
+  return r * 64 + ((((kbyte >> 4) & 3) ^ ((r >> 1) & 3)) << 4) + (kbyte & 15);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Makes this thread's shared-memory writes (landed cp.async copies) visible
+// to wgmma's reads, which go through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving the accumulators across an async wgmma.
+template <int NF>
+__device__ __forceinline__ void fence_operands(float (&d)[NF][4]) {
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+// D[64 x 128] f32 += A[64 x 16] bf16 x B[128 x 16]^T bf16, one warpgroup: A from
+// registers, each warp's 16 rows in mma_bf16's A layout; B K-major in shared
+// memory; D in mma_bf16's accumulator layout of each warp's 16 rows, n8
+// block j in d[j].
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16][4], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+// D[64 x 64] f32 += A[64 x 16] bf16 x B[64 x 16]^T bf16, one warpgroup: A from
+// registers, each warp's 16 rows in mma_bf16's A layout; B K-major in shared
+// memory; D in mma_bf16's accumulator layout of each warp's 16 rows, n8
+// block j in d[j].
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8][4], const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// The 3x3 stage of kernel row ky: the three w tiles of taps 3 ky + kx
+// [3][BN][PK3] in wgmma's 64-byte swizzle (a PK3-deep row is 64 bytes), then
+// the BM + 2 x (then z) rows [BM + 2][PK3 + PAD] for ldmatrix, then a and b
+// [PK3] f32.  A block is 128 pixels x BN; warp v holds rows 16 v .. 16 v +
+// 15 and all BN columns, its warpgroup's 64 rows multiplied by m64nBNk16
+// wgmma.  A stage's six products are issued at once and run while stage
+// k + 1's z is formed; at BN = 128 they also run on over the next stage's
+// barrier, copies and fragments (one group in flight, a fifth ring slot for
+// it: 0.7825 -> 0.7699 ms a step); at BN = 64 a ring of five would not fit
+// two blocks an SM, so each group is waited for within its stage.
+template <int BN>
+struct Fwd3x3Stage {
+  static constexpr int BM = 128;
+  static constexpr bool OVERLAP = BN == 128;  // a stage's group still in flight over the next
+  static constexpr int SLOTS = OVERLAP ? RING + 1 : RING;
+  static constexpr int AHEAD = RING - 1;  // stages copied ahead of the one multiplied
+  static constexpr int LD = PK3 + PAD;  // 80-byte rows: ldmatrix's 8 rows hit 8 bank groups
+  static constexpr int CH = PK3 / G;    // 16-byte chunks in a row
+  static constexpr int RT = BM + 2;     // the block's pixels and one more on each side
+  static constexpr int WBYTES = BN * PK3 * 2;       // one tap's swizzled w tile
+  static constexpr int XOFF = 3 * WBYTES;           // the z rows' byte offset
+  static constexpr int VOFF = XOFF + RT * LD * 2;   // a's and b's
+  static constexpr int BYTES = (VOFF + 2 * PK3 * 4 + 511) / 512 * 512;  // whole swizzle atoms
+  static constexpr int ROUNDS = (RT * CH + THREADS - 1) / THREADS;  // the last round in part
+  static constexpr int WROUNDS = 3 * BN * CH / THREADS;
+  static constexpr int NF = BN / 8;
+  static_assert(PK3 * 2 == 64, "a w row is one 64-byte swizzle row");
+  static_assert(WROUNDS * THREADS == 3 * BN * CH && THREADS % CH == 0, "whole copy rounds");
+  static_assert(XOFF % 16 == 0 && VOFF % 16 == 0, "16-byte aligned rows");
+};
+
+// y = rd(sum_tap z[p + off(tap)] w[tap]) over 128 pixels and BN output
+// channels, and the block's column sums of y and y^2; see the note above.
+template <int BN>
+__device__ __forceinline__ void fwd_3x3_rows(const __nv_bfloat16* __restrict__ x,
+                                             const __nv_bfloat16* __restrict__ w,
+                                             const float* __restrict__ a,
+                                             const float* __restrict__ b,
+                                             __nv_bfloat16* __restrict__ y,
+                                             float* __restrict__ partials, const Geo geo, int C,
+                                             int N) {
+  using bf16 = __nv_bfloat16;
+  using S = Fwd3x3Stage<BN>;
+  constexpr int BM = S::BM, LD = S::LD, NF = S::NF;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];  // whole swizzle atoms
+  const int M = geo.M;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int mt = blockIdx.x / n_tiles;
+  const int m0 = mt * BM;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int row_steps = (C + PK3 - 1) / PK3;
+  const int ksteps = 3 * row_steps;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm0 = warp * 16;
+  const int kc = (tid % S::CH) * G;
+
+  // bit `tap` of taps_in[h] is set where this lane's accumulator row
+  // wm0 + lane / 4 + 8 h reads z inside the image at that tap
+  uint32_t taps_in[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = m0 + wm0 + lane / 4 + 8 * h;
+    uint32_t mask = 0;
+    if (p < M) {
+      const int pw = p % geo.W, ph = (p / geo.W) % geo.H;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int hh = ph + tap / 3 - 1, ww = pw + tap % 3 - 1;
+        if (hh >= 0 && hh < geo.H && ww >= 0 && ww < geo.W) mask |= 1u << tap;
+      }
+    }
+    taps_in[h] = mask;
+  }
+  auto ky_of = [&](int k) { return k / row_steps; };
+  auto c0_of = [&](int k) { return (k % row_steps) * PK3; };
+  auto pixel_of = [&](int k, int j) { return m0 + (ky_of(k) - 1) * geo.W - 1 + j; };
+  auto chunk_in = [&](int k, int i) {
+    const int q = pixel_of(k, (tid + i * THREADS) / S::CH);
+    return q >= 0 && q < M && c0_of(k) + kc < C;
+  };
+  auto stage = [&](int k) { return smem_wg + (k % S::SLOTS) * S::BYTES; };
+  auto zrows = [&](int k) { return reinterpret_cast<bf16*>(stage(k) + S::XOFF); };
+  auto vectors = [&](int k) { return reinterpret_cast<float*>(stage(k) + S::VOFF); };
+  auto load = [&](int k) {
+    const int ky = ky_of(k), c0 = c0_of(k);
+#pragma unroll
+    for (int i = 0; i < S::ROUNDS; ++i) {
+      const int j = (tid + i * THREADS) / S::CH;
+      if (j < S::RT) {
+        const bool ok = chunk_in(k, i);
+        const size_t at = ok ? static_cast<size_t>(pixel_of(k, j)) * C + c0 + kc : 0;
+        cp_async16(zrows(k) + j * LD + kc, x + at, ok);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < S::WROUNDS; ++i) {  // w's rows of taps 3 ky .. 3 ky + 2, swizzled
+      const int v = (tid + i * THREADS) / S::CH;
+      const int kx = v / BN, r = v % BN;
+      const bool ok = n0 + r < N && c0 + kc < C;
+      cp_async16(stage(k) + kx * S::WBYTES + sw64(r, kc * 2),
+                 w + (ok ? static_cast<size_t>(n0 + r) * 9 * C + (3 * ky + kx) * C + c0 + kc
+                         : 0),
+                 ok);
+    }
+    if (tid < PK3 / 2) {  // a then b, four floats a copy; zeros past C
+      const int c = c0 + (tid % (PK3 / 4)) * 4;
+      const float* v = tid < PK3 / 4 ? a : b;
+      cp_async16(vectors(k) + (tid / (PK3 / 4)) * PK3 + (tid % (PK3 / 4)) * 4,
+                 v + (c < C ? c : 0), c < C);
+    }
+  };
+
+  // z over stage k's x rows, in place, as fwd_pipelined's: zeros for rows
+  // outside [0, M) and channels past C
+  uint4 raw[S::ROUNDS];
+  float sa[G], sb[G];
+  auto fetch_z = [&](int k) {
+    load8(vectors(k) + kc, sa);
+    load8(vectors(k) + PK3 + kc, sb);
+#pragma unroll
+    for (int i = 0; i < S::ROUNDS; ++i) {
+      const int j = (tid + i * THREADS) / S::CH;
+      if (j < S::RT) raw[i] = raw8(zrows(k) + j * LD + kc);
+    }
+  };
+  auto form_z = [&](int k, int i) {
+    const int j = (tid + i * THREADS) / S::CH;
+    if (j >= S::RT) return;
+    float f[G];
+    unpack8(raw[i], f);
+#pragma unroll
+    for (int e = 0; e < G; ++e) f[e] = fmaxf(affine(f[e], sa[e], sb[e]), 0.f);  // store8 rounds
+    if (!chunk_in(k, i)) zero8(f);
+    store8(zrows(k) + j * LD + kc, f);
+  };
+
+  float acc[1][NF][4];
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) acc[0][j][r] = 0.f;
+
+  // The ring: stage k is multiplied while stage k + 1's z is formed and
+  // stages k + 2 .. k + AHEAD are in flight.  Stage k + AHEAD's copies go
+  // into the slot of stage k - 2 (k - 1 without the overlap), whose wgmma
+  // group the barrier has seen waited for.
+#pragma unroll
+  for (int st = 0; st < S::AHEAD; ++st) {
+    if (st < ksteps) load(st);
+    cp_async_commit();
+  }
+  cp_async_wait<S::AHEAD - 1>();
+  fence_proxy_async();  // this thread's landed w copies, for wgmma
+  __syncthreads();
+  fetch_z(0);
+#pragma unroll
+  for (int i = 0; i < S::ROUNDS; ++i) form_z(0, i);
+  uint32_t af[S::OVERLAP ? 2 : 1][6][4];  // a stage's A fragments, two stages' while one is in flight
+  for (int k = 0; k < ksteps; ++k) {
+    cp_async_wait<S::AHEAD - 2>();  // stage k + 1 has landed
+    fence_proxy_async();
+    __syncthreads();  // stage k's z is whole, its w visible to wgmma; its copies' slot is free
+    if (k + S::AHEAD < ksteps) load(k + S::AHEAD);
+    cp_async_commit();
+    const bool next = k + 1 < ksteps;
+    if (next) fetch_z(k + 1);
+    const int tap0 = 3 * ky_of(k);
+    uint32_t (&fr)[6][4] = af[S::OVERLAP ? k % 2 : 0];
+    // the stage's A fragments: tap kx = st / 2, k16 step st % 2; the rows
+    // whose pixel reads outside the image at that tap zeroed
+#pragma unroll
+    for (int st = 0; st < 6; ++st) {
+      const int kx = st / 2, kk = st % 2;
+      ldsm_x4(fr[st], zrows(k) + (wm0 + lane % 16 + kx) * LD + 16 * kk + (lane / 16) * 8);
+      if (!((taps_in[0] >> (tap0 + kx)) & 1u)) fr[st][0] = fr[st][2] = 0u;
+      if (!((taps_in[1] >> (tap0 + kx)) & 1u)) fr[st][1] = fr[st][3] = 0u;
+    }
+    fence_operands(acc[0]);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < 6; ++st) {
+      const int kx = st / 2, kk = st % 2;
+      wgmma_bf16(acc[0], fr[st], smem_desc_sw64(stage(k) + kx * S::WBYTES + kk * 32, 512));
+    }
+    wgmma_commit();
+    if (next) {
+#pragma unroll
+      for (int i = 0; i < S::ROUNDS; ++i) form_z(k + 1, i);
+    }
+    if constexpr (S::OVERLAP) {
+      wgmma_wait<1>();  // stage k - 1's group is done: its fragments and slot are free
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_operands(acc[0]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc[0]);
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the epilogue
+  fwd_epilogue<BM, BN, 1, NF, 8>(acc, smem_wg, y, partials, M, N, m0, n0, mt, wm0, 0, warp);
+}
+
+// Tiles of 128 x 64 outputs or fewer run two blocks an SM (layer1's 3x3 at
+// 128 x 64 on mma.sync: 0.1067 -> 0.0789 ms, block_bwd_ab.py); 128 x 128 one.
+template <int BN>
+__global__ void __launch_bounds__(THREADS, BN == 64 ? 2 : 1)
+    fwd_3x3_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ a, const float* __restrict__ b,
+                 __nv_bfloat16* __restrict__ y, float* __restrict__ partials, const Geo geo,
+                 int C, int N, int /*nt: one column tile a block*/) {
+  fwd_3x3_rows<BN>(x, w, a, b, y, partials, geo, C, N);
+}
+
+template <int BM, int BN, bool PROLOGUE>
+__global__ void __launch_bounds__(THREADS, BM * BN <= 128 * 64 ? 2 : 1)
+    fwd_1x1_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ a, const float* __restrict__ b,
+                 __nv_bfloat16* __restrict__ y, float* __restrict__ partials, const Geo geo,
+                 int C, int N, int nt) {
+  fwd_pipelined<BM, BN, PROLOGUE>(x, w, a, b, y, partials, geo.M, C, N, nt);
+}
+
 // ---------------------------------------------------------------- the host
 
 int ceil_div(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
@@ -1935,6 +2500,176 @@ struct WgradLaunch<__nv_bfloat16, TAPS, PROLOGUE> {
   }
 };
 
+// The bf16 forward's plan, from the shape alone.  The 1x1's tile: 128 x
+// 128, or 64 x 128 or 128 x 64 at two blocks an SM, or, where N <= 64, 64 x
+// 64 at two; the 3x3's (fwd_3x3_rows's 128 rows): 128 x 128, or 128 x 64 at
+// two.  A wave is the blocks that run at once (132 SMs times the blocks an
+// SM holds, which is one where the blocks do not fill the card once); it
+// costs, for each stage, the products of the blocks an SM holds plus a share
+// of 64 x 64 (copies, the transform, the barrier) that two blocks on one SM
+// hide once.  The tile with the fewest waves x cost wins, which separates
+// the tiles only where M is small; at the slice's shapes they tie, and the
+// order below, fitted to block_bwd_ab.py --sweep on the card, decides:
+//   - the 3x3, and the 1x1 without the prologue where a column tile takes
+//     several stages: 128 x 128 first (the fewest L2 re-reads of x and w),
+//     then 64 x 128, 128 x 64, 64 x 64;
+//   - the 1x1 with the prologue: 64 x 128 first, whose sixteen warps an SM
+//     hide the transform (0.0401 against 0.0452 ms at (8192, 256, 1024));
+//   - the 1x1 without it and one stage a column tile (C <= 64): 128 x 64.
+// Where a 1x1 column tile is one stage, a block walks two of them (nt = 2)
+// if that still gives a wave of blocks, so that one tile's fill and epilogue
+// overlap the other's copies ((131072, 64, 256): 0.0787 -> 0.0572 ms; more
+// tiles, or more stages a tile, measured slower).  At the slice: 128 x 64
+// where N = 64; else the 3x3 128 x 128, the 1x1 with the prologue 64 x 128
+// (two tiles a block at C = 64), without it 128 x 128 (128 x 64 and two
+// tiles at C = 64).
+struct FwdPlan {
+  int bm, bn, nt;
+};
+
+constexpr int FWD_MAX_NT = 8;  // column tiles a 1x1 block may walk (the planned entry)
+
+int fwd_fit(int bm, int bn) { return bm * bn <= 128 * 64 ? 2 : 1; }
+
+FwdPlan plan_fwd(int M, int C, int N, int taps, bool prologue) {
+  const bool one_stage = taps == 1 && C <= PK;
+  FwdPlan order[4] = {{128, 128, 1}, {64, 128, 1}, {128, 64, 1}, {64, 64, 1}};
+  if (taps == 1 && prologue) {
+    order[0] = {64, 128, 1};
+    order[1] = {128, 128, 1};
+  } else if (one_stage) {
+    order[0] = {128, 64, 1};
+    order[1] = {128, 128, 1};
+    order[2] = {64, 128, 1};
+  }
+  FwdPlan best{0, 0, 1};
+  double best_cost = -1.0;
+  for (const FwdPlan& p : order) {
+    if ((p.bn == 128 && N <= 64) || (p.bm * p.bn == 64 * 64 && N > 64) ||
+        (taps == 9 && p.bm == 64)) {
+      continue;
+    }
+    const long long blocks = static_cast<long long>(ceil_div(M, p.bm)) * ceil_div(N, p.bn);
+    const int held = blocks > WAVE_SMS ? fwd_fit(p.bm, p.bn) : 1;
+    const long long waves = (blocks + WAVE_SMS * held - 1) / (WAVE_SMS * held);
+    const double cost = static_cast<double>(waves) * (held * p.bm * p.bn + 64.0 * 64.0);
+    if (best_cost < 0.0 || cost < best_cost) {
+      best = p;
+      best_cost = cost;
+    }
+  }
+  const int n_tiles = ceil_div(N, best.bn);
+  if (one_stage && n_tiles >= 2 &&
+      static_cast<long long>(ceil_div(M, best.bm)) * ceil_div(n_tiles, 2) >=
+          WAVE_SMS * fwd_fit(best.bm, best.bn)) {
+    best.nt = 2;
+  }
+  return best;
+}
+
+// Dynamic shared memory of a forward block: its ring, and the epilogue's
+// staged tile and column sums, after the ring where a block walks several
+// column tiles, else in it where they are smaller.
+template <int TAPS, int BM, int BN>
+int fwd_smem_bytes(int C, int nt) {
+  const int steps = TAPS == 1 ? nt * ceil_div(C, PK) : 3 * ceil_div(C, PK3);
+  const int stage = TAPS == 1 ? 2 * Fwd1x1Stage<BM, BN>::ELEMS : Fwd3x3Stage<BN>::BYTES;
+  const int slots = TAPS == 1 ? RING : Fwd3x3Stage<BN>::SLOTS;
+  const int ring = stage * (steps < slots ? steps : slots);
+  const int epilogue = TAPS == 1 ? epilogue_bytes<BM, BN, FwdTile<BM, BN>::WARPS_M>()
+                                 : epilogue_bytes<BM, BN, 8>();
+  if (nt > 1) return ring + epilogue;
+  return ring > epilogue ? ring : epilogue;
+}
+
+template <int TAPS, int BM, int BN, bool PROLOGUE>
+auto fwd_kernel() {
+  if constexpr (TAPS == 1) {
+    return fwd_1x1_bf16<BM, BN, PROLOGUE>;
+  } else {
+    static_assert(TAPS == 9 && PROLOGUE && BM == 128, "the 3x3: the prologue, 128 rows");
+    return fwd_3x3_bf16<BN>;
+  }
+}
+
+// One bf16 forward launch under a tile; m_tiles: the rows of partials.
+template <int TAPS, bool PROLOGUE>
+struct FwdLaunch {
+  template <int BM, int BN>
+  static int go(const void* x, const void* w_nk, const void* a, const void* b, void* y,
+                float* part, Geo geo, int C, int N, int nt, cudaStream_t s, int& m_tiles) {
+    using bf16 = __nv_bfloat16;
+    static_assert(BM >= SUMS_ROWS, "iswm_fb_sums_scratch's rows");
+    if (nt < 1 || nt > FWD_MAX_NT || (TAPS == 9 && nt != 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int bytes = fwd_smem_bytes<TAPS, BM, BN>(C, nt);
+    const auto kernel = fwd_kernel<TAPS, BM, BN, PROLOGUE>();
+    const cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    m_tiles = ceil_div(geo.M, BM);
+    kernel<<<m_tiles * ceil_div(ceil_div(N, BN), nt), THREADS, bytes, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w_nk),
+        static_cast<const float*>(a), static_cast<const float*>(b), static_cast<bf16*>(y), part,
+        geo, C, N, nt);
+    return 0;
+  }
+
+  static int run(FwdPlan p, const void* x, const void* w_nk, const void* a, const void* b,
+                 void* y, float* part, Geo geo, int C, int N, cudaStream_t s, int& m_tiles) {
+    if (p.bm == 128 && p.bn == 128)
+      return go<128, 128>(x, w_nk, a, b, y, part, geo, C, N, p.nt, s, m_tiles);
+    if (p.bm == 128 && p.bn == 64)
+      return go<128, 64>(x, w_nk, a, b, y, part, geo, C, N, p.nt, s, m_tiles);
+    if constexpr (TAPS == 1) {
+      if (p.bm == 64 && p.bn == 128)
+        return go<64, 128>(x, w_nk, a, b, y, part, geo, C, N, p.nt, s, m_tiles);
+      if (p.bm == 64 && p.bn == 64)
+        return go<64, 64>(x, w_nk, a, b, y, part, geo, C, N, p.nt, s, m_tiles);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+};
+
+// The forward: the bf16 kernels under plan `p`, or, for float32, conv_fwd
+// (the first version's body, which ignores p); then the finishing sum.
+int forward(FwdPlan p, const void* x, const void* w_nk, const void* a, const void* b, void* y,
+            float* part, void* sq, bool bf16, int taps, bool prologue, Geo geo, int C, int N,
+            cudaStream_t s) {
+  int err = 0, m_tiles = 0;
+  if (bf16) {
+    if (taps == 9 && prologue) {
+      err = FwdLaunch<9, true>::run(p, x, w_nk, a, b, y, part, geo, C, N, s, m_tiles);
+    } else if (taps == 1) {
+      err = prologue ? FwdLaunch<1, true>::run(p, x, w_nk, a, b, y, part, geo, C, N, s, m_tiles)
+                     : FwdLaunch<1, false>::run(p, x, w_nk, a, b, y, part, geo, C, N, s, m_tiles);
+    } else {
+      err = static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    auto launch = [&](auto taps_c, auto prologue_c) {
+      constexpr int TAPS = decltype(taps_c)::value;
+      constexpr bool PROLOGUE = decltype(prologue_c)::value;
+      ActLoader<float, TAPS, PROLOGUE> A{static_cast<const float*>(x),
+                                         static_cast<const float*>(a),
+                                         static_cast<const float*>(b), geo, C};
+      MatrixLoader<float, BN> Bw{static_cast<const float*>(w_nk), N, TAPS * C};
+      m_tiles = ceil_div(geo.M, BM);
+      conv_fwd<float, TAPS, PROLOGUE><<<m_tiles * ceil_div(N, BN), THREADS, 0, s>>>(
+          A, Bw, static_cast<float*>(y), part, N);
+    };
+    if (taps == 9 && prologue) {
+      launch(std::integral_constant<int, 9>{}, std::true_type{});
+    } else if (taps == 1) {
+      if (prologue) launch(std::integral_constant<int, 1>{}, std::true_type{});
+      else launch(std::integral_constant<int, 1>{}, std::false_type{});
+    } else {
+      err = static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (err) return err;
+  return finish(part, m_tiles, 2 * N, sq, s);
+}
+
 }  // namespace
 
 // Runs the statement with T, TAPS and PROLOGUE bound to one of the six
@@ -1984,21 +2719,34 @@ int iswm_fb_wgrad_splits(int M, int rows, int N) {
 
 // y [M, N] in T and sq [2 N] f32 (s then q).  x [M, C]; w_nk [N][taps * C];
 // a, b [C] f32 (unused without prologue).  M = B * H * W; the 1x1 ignores H, W.
+// bf16 runs fwd_1x1_bf16 / fwd_3x3_bf16 under plan_fwd's tile, float32 conv_fwd.
 int iswm_fb_fwd(const void* x, const void* w_nk, const void* a, const void* b,
                 void* y, void* scratch, void* sq, int bf16, int taps, int prologue,
                 int M, int H, int W, int C, int N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(scratch);
-  const Geo geo{H, W, M};
-  const int m_tiles = ceil_div(M, BM);
-  const int blocks = m_tiles * ceil_div(N, BN);
-  ISWM_FB_DISPATCH(bf16, taps, prologue, {
-    ActLoader<T, TAPS, PROLOGUE> A{static_cast<const T*>(x), static_cast<const float*>(a),
-                                   static_cast<const float*>(b), geo, C};
-    MatrixLoader<T, BN> Bw{static_cast<const T*>(w_nk), N, TAPS * C};
-    conv_fwd<T, TAPS, PROLOGUE><<<blocks, THREADS, 0, s>>>(A, Bw, static_cast<T*>(y), part, N);
-  })
-  return finish(part, m_tiles, 2 * N, sq, s);
+  return forward(plan_fwd(M, C, N, taps, prologue != 0), x, w_nk, a, b, y, static_cast<float*>(scratch), sq,
+                 bf16 != 0, taps, prologue != 0, Geo{H, W, M}, C, N,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The same in bf16 under the plan given as plan[0..2] = BM, BN (128 or 64
+// each; BM = 128 for the 3x3) and, for the 1x1, the column tiles a block
+// walks (1 .. 8; 1 for the 3x3), for timing plans against each other
+// (block_bwd_ab.py --sweep); any other plan returns cudaErrorInvalidValue.
+int iswm_fb_fwd_planned(const void* x, const void* w_nk, const void* a, const void* b,
+                        void* y, void* scratch, void* sq, int taps, int prologue, int M, int H,
+                        int W, int C, int N, const int* plan, void* stream) {
+  return forward(FwdPlan{plan[0], plan[1], plan[2]}, x, w_nk, a, b, y, static_cast<float*>(scratch), sq,
+                 true, taps, prologue != 0, Geo{H, W, M}, C, N,
+                 static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 forward's plan: plan[0..3] = BM, BN, column tiles a block, blocks.
+void iswm_fb_fwd_plan(int M, int C, int N, int taps, int prologue, int* plan) {
+  const FwdPlan p = plan_fwd(M, C, N, taps, prologue != 0);
+  plan[0] = p.bm;
+  plan[1] = p.bn;
+  plan[2] = p.nt;
+  plan[3] = ceil_div(M, p.bm) * ceil_div(ceil_div(N, p.bn), p.nt);
 }
 
 // dx [M, C] in T and dab [2 C] f32 (da then db; written only with prologue).

@@ -64,6 +64,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iswm_fb_sums_scratch.argtypes = [i32, i32]
     lib.iswm_fb_sums_scratch.restype = ctypes.c_longlong
     lib.iswm_fb_wgrad_splits.argtypes = [i32, i32, i32]
+    if hasattr(lib, "iswm_fb_fwd_plan"):  # not in the sources before the pipelined forward
+        lib.iswm_fb_fwd_planned.argtypes = [ptr] * 7 + [i32] * 7 + [ctypes.POINTER(i32), ptr]
+        lib.iswm_fb_fwd_planned.restype = i32
+        lib.iswm_fb_fwd_plan.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        lib.iswm_fb_fwd_plan.restype = None
     for fn in (lib.iswm_fb_fwd, lib.iswm_fb_dgrad, lib.iswm_fb_wgrad,
                lib.iswm_fb_wgrad_splits):
         fn.restype = i32
@@ -82,6 +87,20 @@ def load_library() -> tuple[ctypes.CDLL, str]:
         lib, log = build_and_load("fused_block")
         _lib = bind(lib)
     return _lib, log
+
+
+FWD_PLAN_KEYS = ("bm", "bn", "nt", "blocks")
+
+
+def plan_fwd(m: int, c: int, n: int, taps: int, prologue: bool) -> dict:
+    """The bf16 forward's plan for M pixels, C input and N output channels,
+    ``taps`` (1 or 9) and ``prologue``, as ``iswm_fb_fwd`` launches it: the
+    tile (``bm`` x ``bn``), the column tiles a block walks (``nt``) and the
+    ``blocks``.  Needs the built library (a CUDA machine)."""
+    lib, _ = load_library()
+    out = (ctypes.c_int * len(FWD_PLAN_KEYS))()
+    lib.iswm_fb_fwd_plan(m, c, n, taps, int(prologue), out)
+    return dict(zip(FWD_PLAN_KEYS, out))
 
 
 # ------------------------------------------------------------ plain versions

@@ -581,7 +581,12 @@ CUDA_MM = [(16 * 37, 64, 64, True), (16 * 37, 64, 64, False), (128, 64, 64, True
            # one weight-gradient split: dw written directly), and an M that
            # divides into neither the 64-pixel stage nor the split length
            (8192 + 16 * 37, 64, 64, False), (4096, 1024, 2048, True),
-           (8192 + 16 * 37, 512, 128, True)]
+           (8192 + 16 * 37, 512, 128, True),
+           # the bf16 forward's plans (plan_fwd): 64 x 64 above (N <= 64), 128 x 64
+           # at (8192 + 16 * 37, 64, 64), 64 x 128 at every other shape above;
+           # 128 x 128 without the prologue, and 128 x 64 walking 2 column tiles a
+           # block at N = 192, the last block 1, M ragged
+           (32768, 128, 256, False), (65536 - 16 * 37, 64, 192, True)]
 
 
 @pytest.mark.cuda
@@ -620,7 +625,11 @@ def test_cuda_matmul_kernels_match_plain(m, k, n, prologue, dtype):
                                    # the bf16 backward's edges: C and N off the 64-deep
                                    # stage, a 128-pixel block across two images and
                                    # ragged image edges; C off the 128-wide dx tile
-                                   (3, 9, 11, 72, 40), (2, 16, 16, 192, 128)])
+                                   (3, 9, 11, 72, 40), (2, 16, 16, 192, 128),
+                                   # the bf16 forward's tiles (plan_fwd): 128 x 64 at the
+                                   # shapes above; 128 x 128 at N = 192 with C off the
+                                   # 32-deep stage, and 128 x 64 at M = 32768 with C = 16
+                                   (4, 64, 64, 72, 192), (2, 128, 128, 16, 64)])
 def test_cuda_conv3x3_kernels_match_plain(shape, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
@@ -630,6 +639,8 @@ def test_cuda_conv3x3_kernels_match_plain(shape, dtype):
     a, b = _t(d["a"]).cuda(), _t(d["b"]).cuda()
     cot = (_t(d["dy"], tdt).cuda(), _t(d["ds"]).cuda(), _t(d["dq"]).cuda())
     y, s, q = fb.conv3x3_bn_stats_fwd(y1, a, b, w)
+    again = fb.conv3x3_bn_stats_fwd(y1, a, b, w)
+    assert all(torch.equal(u, v) for u, v in zip((y, s, q), again))  # bit-stable
     want = fb.conv3x3_bn_stats_plain(y1, a, b, w, dtype=torch.float64)
     assert y.dtype == tdt and _ulp_error(y, want[0], tdt) <= 1.0
     assert _sums_close(s, y.double().sum((0, 1, 2)), 1e-5)
