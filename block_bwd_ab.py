@@ -1,9 +1,10 @@
 """Time two builds of a kernel source in turns on one CUDA card: the bf16
 backward of the fused blocks, the 1x1 (#7b, ``--kind mm``, the default) or
 the 3x3 (#8b, ``--kind c3``), or their bf16 forward (#7a ``--kind mm_fwd``,
-#8a ``--kind c3_fwd``) of ``iswm_tpu_torch/csrc/fused_block.cu``, or the
+#8a ``--kind c3_fwd``) of ``iswm_tpu_torch/csrc/fused_block.cu``, the
 int8 1x1 kernel (#1 and #2, ``--kind int8``) of
-``iswm_tpu_torch/csrc/int8_matmul.cu``.
+``iswm_tpu_torch/csrc/int8_matmul.cu``, or the fused stem's bf16 backward
+(#11a and #11b, ``--kind stem``) of ``iswm_tpu_torch/csrc/fused_stem.cu``.
 
 For ``mm`` and ``c3``, at every shape of ``chip_smoke.BLOCK_MM_SHAPES`` (or
 ``BLOCK_C3_SHAPES``) it times, with the inputs out of L2
@@ -15,6 +16,12 @@ run in the same order in both bodies).  For ``int8``, at
 every shape of ``chip_smoke.SLICE_SHAPES`` and at M = 1000, it times the two
 C entries, ``iswm_int8_matmul`` on bf16 x and ``iswm_int8_matmul_prequant``
 on the same x quantized, and checks that head and base give the same bits.
+For ``stem``, at the slice's z [8, 64, 256, 256] bf16 NHWC
+(``chip_smoke.STEM_SLICE``), it times the two C entries of ``stem_tail_bwd``,
+``iswm_stem_bwd_sums`` (#11a) and ``iswm_stem_bwd_wgrad`` (#11b), each with
+its finishing sum, and checks that every build is within phase 10's limits
+(1e-5 * max|tensor| of the plain version summed in float64) and gives the
+same bits in two launches.
 The builds are the checkout's source ("head"), a base source given by path,
 and any number of edited copies of the head; each shape is timed base,
 head, edits..., then in the reverse order, and the summed totals weight each
@@ -28,20 +35,28 @@ the root of the checkout:
     git show <commit>:iswm_tpu_torch/csrc/int8_matmul.cu > build/int8_matmul_base.cu
     python3 block_bwd_ab.py --kind int8 --base build/int8_matmul_base.cu [--edit ...]
 
-With ``--sweep`` (``--kind int8``, ``mm_fwd`` or ``c3_fwd``, no base) it
-times instead the checkout's build under every plan that fits (int8: rows
-of a strip, ring stages, N groups, K splits, for both entries; the forward:
-its tiles and, for the 1x1, the column tiles a block walks), at the same
-shapes, beside the plan the kernel's planner
-picks, and checks that every plan gives the planner's y:
+    git show <commit>:iswm_tpu_torch/csrc/fused_stem.cu > build/fused_stem_base.cu
+    python3 block_bwd_ab.py --kind stem --base build/fused_stem_base.cu [--edit ...]
+
+With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd`` or ``stem``, no
+base) it times instead the checkout's build under every plan that fits (int8:
+rows of a strip, ring stages, N groups, K splits, for both entries; the
+forward: its tiles and, for the 1x1, the column tiles a block walks; the
+stem: the conv-pixel tiles of ``STEM_TILES`` for both kernels), at the same
+shapes, beside the plan the kernel's planner (the stem: its built-in tiles)
+picks, and checks that every plan gives the planner's y (the stem: that
+every tile is within the float64 limits and bit-stable, at the slice and at
+a side ragged against every tile):
 
     python3 block_bwd_ab.py --kind int8 --sweep --out build/int8_sweep.json
     python3 block_bwd_ab.py --kind c3_fwd --sweep --out build/c3_fwd_sweep.json
+    python3 block_bwd_ab.py --kind stem --sweep --out build/stem_sweep.json
 
 An edit replaces the text OLD of the head's source, which must occur once, by
-NEW: for example a stage of a kernel taken out, to see what it costs.  Such a
-build computes wrong values and is only timed; ``chip_smoke.py`` phases 3,
-7 and 12 check the head's values.
+NEW (``--edit NAME 'OLD=>NEW' ['OLD2=>NEW2' ...]`` makes each replacement in
+one build): for example a stage of a kernel taken out, to see what it costs.
+Such a build computes wrong values and is only timed; ``chip_smoke.py``
+phases 3, 7, 10 and 12 check the head's values.
 """
 
 from __future__ import annotations
@@ -58,6 +73,7 @@ import torch
 import chip_smoke as cs
 from iswm_tpu_torch.ops.kernels import build
 from iswm_tpu_torch.ops.kernels import fused_block as fb
+from iswm_tpu_torch.ops.kernels import fused_stem as fs
 from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
 
@@ -73,11 +89,13 @@ def build_source(text: str, name: str, bind=fb.bind) -> ctypes.CDLL:
     return bind(ctypes.CDLL(str(lib)))
 
 
-def edited(head: str, edit: str) -> str:
-    old, new = edit.split("=>")
-    if head.count(old) != 1:
-        raise ValueError(f"the edit's text occurs {head.count(old)} times, not once: {old!r}")
-    return head.replace(old, new)
+def edited(head: str, edits: list) -> str:
+    for edit in edits:
+        old, new = edit.split("=>")
+        if head.count(old) != 1:
+            raise ValueError(f"the edit's text occurs {head.count(old)} times, not once: {old!r}")
+        head = head.replace(old, new)
+    return head
 
 
 def half_bounds(m: int, k: int, n: int, prologue: bool, taps: int = 1) -> tuple[float, float]:
@@ -402,30 +420,176 @@ def sweep_int8(args, lib, cold) -> None:
     args.out.write_text(json.dumps({"kind": "int8 sweep", "shapes": rows}))
 
 
+STEM_TILES = ((8, 16), (8, 32), (16, 16), (4, 32))  # the tiles fused_stem.cu builds
+STEM_RAGGED = (2, 36)  # batch and side of a case ragged against every tile
+
+
+def stem_case(b: int, s: int, gen) -> tuple:
+    """(z, x, dp, the sums' vectors, the weight gradient's vectors) of the bf16
+    backward at batch b and side s, made as phase 10 makes them; s1 and s2 for
+    the weight gradient come from the checkout's build."""
+    z, x, dp, gamma, beta = cs._stem_case(b, s, torch.bfloat16, gen)
+    n = b * s * s
+    total, total_sq = fs.stem_stats(z)
+    mean = total / n
+    sigma_inv = torch.rsqrt(torch.clamp_min(total_sq / n - mean * mean, 0.0) + 1e-5)
+    vecs = (*fs.fold_affine(gamma, beta, mean, sigma_inv), mean, sigma_inv)
+    s1, s2 = fs.stem_bwd_sums(z, dp, *vecs)
+    return z, x, dp, vecs, (*vecs, s1 / n, s2 / n)
+
+
+def stem_calls(lib: ctypes.CDLL, z, x, dp, vecs, wvecs, tiles=None) -> tuple:
+    """(sums(), wgrad()): the two bf16 C entries of a fused_stem.cu build with
+    their finishing sums (with ``tiles`` = (rows, columns), the tiled entries),
+    on outputs and scratch made here once."""
+    f32 = {"dtype": torch.float32, "device": z.device}
+    reduce_scratch = torch.empty(lib.iswm_stem_reduce_scratch(), **f32)
+    wgrad_scratch = torch.empty(lib.iswm_stem_wgrad_scratch(), **f32)
+    sums, dw = torch.empty(128, **f32), torch.empty((64, 3, 7, 7), **f32)
+    b, s = z.shape[0], z.shape[2]
+    v, w = [t.data_ptr() for t in vecs], [t.data_ptr() for t in wvecs]
+
+    def done(rc, out):
+        if rc:
+            raise RuntimeError(f"stem backward: {lib.iswm_cuda_error_string(rc).decode()}")
+        return out
+
+    def run_sums():
+        stream = torch.cuda.current_stream().cuda_stream
+        if tiles is None:
+            rc = lib.iswm_stem_bwd_sums(z.data_ptr(), dp.data_ptr(), 1, b, s, *v,
+                                        reduce_scratch.data_ptr(), sums.data_ptr(), stream)
+        else:
+            rc = lib.iswm_stem_bwd_sums_tiled(z.data_ptr(), dp.data_ptr(), b, s, *v,
+                                              reduce_scratch.data_ptr(), sums.data_ptr(),
+                                              *tiles, stream)
+        return done(rc, sums)
+
+    def run_wgrad():
+        stream = torch.cuda.current_stream().cuda_stream
+        if tiles is None:
+            rc = lib.iswm_stem_bwd_wgrad(z.data_ptr(), dp.data_ptr(), x.data_ptr(), 1, b, s, *w,
+                                         wgrad_scratch.data_ptr(), dw.data_ptr(), stream)
+        else:
+            rc = lib.iswm_stem_bwd_wgrad_tiled(z.data_ptr(), dp.data_ptr(), x.data_ptr(), b, s,
+                                               *w, wgrad_scratch.data_ptr(), dw.data_ptr(),
+                                               *tiles, stream)
+        return done(rc, dw)
+
+    return run_sums, run_wgrad
+
+
+def stem_check(calls, want) -> dict:
+    """Errors of (s1, s2, dW) against ``want`` in float64, within phase 10's
+    1e-5 * max|tensor|, and whether two launches give the same bits."""
+    sums, dw = (fn().clone() for fn in calls)
+    again = [fn().clone() for fn in calls]
+    torch.cuda.synchronize()
+    out = {"bit_stable": bool(torch.equal(sums, again[0]) and torch.equal(dw, again[1]))}
+    ok = out["bit_stable"]
+    for key, got, ref in (("s1", sums[:64], want[0]), ("s2", sums[64:], want[1]),
+                          ("dw", dw, want[2])):
+        err, within = cs._close(got, ref)
+        out[f"{key}_err"] = err
+        ok = ok and within
+    out["ok"] = ok
+    return out
+
+
+def stem_reference(z, x, dp, vecs, wvecs) -> tuple:
+    """(s1, s2, dW) of the plain versions summed in float64."""
+    return (*fs.stem_bwd_sums_plain(z, dp, *vecs, dtype=torch.float64),
+            fs.stem_bwd_wgrad_plain(z, dp, x, *wvecs, dtype=torch.float64))
+
+
+def time_stem(args, libs: dict, cold) -> None:
+    """#11a and #11b of every build at the slice's shape, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, s = cs.STEM_SLICE
+    z, x, dp, vecs, wvecs = stem_case(b, s, gen)
+    want = stem_reference(z, x, dp, vecs, wvecs)
+    calls = {name: stem_calls(lib, z, x, dp, vecs, wvecs) for name, lib in libs.items()}
+    checks = {name: stem_check(fns, want) for name, fns in calls.items()}
+    times = {name: ([], []) for name in libs}
+    for name in list(libs) + list(libs)[::-1]:
+        for half, fn in zip(times[name], calls[name]):
+            half.append(cold(fn))
+    least = cs.stem_bounds(z, x, dp)[0]
+    bound = {k: least[k]["bound_ms"] for k in ("sums", "wgrad")}
+    row = {"shape": [b, 64, s, s], "bound_ms": bound,
+           "bound_by": {k: least[k]["bound_by"] for k in bound}, "checks": checks,
+           "tiles": fs.bwd_tiles()}
+    for name, (sums, wgrad) in times.items():
+        row[name] = {"sums_ms": sums, "wgrad_ms": wgrad}
+        ms = {"sums": sum(sums) / len(sums), "wgrad": sum(wgrad) / len(wgrad)}
+        print(f"[ab] stem backward, {name}: #11a sums {ms['sums']:.4f} ms "
+              f"({100 * bound['sums'] / ms['sums']:.1f}% of its bound), #11b wgrad "
+              f"{ms['wgrad']:.4f} ms ({100 * bound['wgrad'] / ms['wgrad']:.1f}%); "
+              f"checks {checks[name]}", flush=True)
+    print("[ab] " + json.dumps(row), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "stem", "shapes": [row]}))
+    failed = [name for name, c in checks.items() if not c["ok"]]
+    if failed:
+        raise SystemExit(f"builds outside phase 10's limits or not bit-stable: {failed}")
+
+
+def sweep_stem(args, lib, cold) -> None:
+    """Every tile of ``STEM_TILES`` for both kernels: checked at the slice and
+    at ``STEM_RAGGED``, timed at the slice, beside the built-in tiles."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, bad = [], []
+    for b, s in (cs.STEM_SLICE, STEM_RAGGED):
+        z, x, dp, vecs, wvecs = stem_case(b, s, gen)
+        want = stem_reference(z, x, dp, vecs, wvecs)
+        for tile in STEM_TILES:
+            calls = stem_calls(lib, z, x, dp, vecs, wvecs, tile)
+            check = stem_check(calls, want)
+            row = {"shape": [b, 64, s, s], "tile": tile, "check": check}
+            if not check["ok"]:
+                bad.append(row)
+            if (b, s) == cs.STEM_SLICE:
+                row["sums_ms"], row["wgrad_ms"] = (cold(fn) for fn in calls)
+            rows.append(row)
+            print("[sweep] " + json.dumps(row), flush=True)
+        del z, x, dp, want
+    timed = [r for r in rows if "sums_ms" in r]
+    best = {k: min(timed, key=lambda r: r[f"{k}_ms"])["tile"] for k in ("sums", "wgrad")}
+    print(f"[sweep] stem backward: built-in tiles {fs.bwd_tiles()}, fastest {best}")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "stem sweep", "rows": rows, "fastest": best}))
+    if bad:
+        raise SystemExit(f"tiles outside phase 10's limits or not bit-stable: {bad}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path,
-                        help="a fused_block.cu (or int8_matmul.cu) to compare; not with --sweep")
-    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8"), default="mm",
+                        help="a fused_block.cu (int8_matmul.cu, fused_stem.cu) to compare; "
+                             "not with --sweep")
+    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem"),
+                        default="mm",
                         help="the 1x1 backward (#7b), the 3x3 (#8b), their forwards (#7a, "
-                             "#8a) or the int8 1x1 (#1, #2)")
-    parser.add_argument("--edit", nargs=2, action="append", default=[], metavar=("NAME", "EDIT"))
+                             "#8a), the int8 1x1 (#1, #2) or the stem's backward (#11a, #11b)")
+    parser.add_argument("--edit", nargs="+", action="append", default=[],
+                        metavar=("NAME", "EDIT"), help="a name, then one or more OLD=>NEW")
     parser.add_argument("--sweep", action="store_true",
-                        help="with --kind int8, mm_fwd or c3_fwd: time every plan of the "
-                             "checkout's build instead")
+                        help="with --kind int8, mm_fwd, c3_fwd or stem: time every plan of "
+                             "the checkout's build instead")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     cs.phase_device()
-    module, stem = (k8, "int8_matmul") if args.kind == "int8" else (fb, "fused_block")
+    module, stem = {"int8": (k8, "int8_matmul"), "stem": (fs, "fused_stem")}.get(
+        args.kind, (fb, "fused_block"))
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
     if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3")):
-        parser.error("give --base, or --sweep with --kind int8, mm_fwd or c3_fwd")
+        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd or stem")
     jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", module.bind)}
-    jobs.update((name, (edited(head, edit), f"ab_{stem}_{name}", module.bind))
-                for name, edit in args.edit)
+    jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", module.bind))
+                for name, *edits in args.edit)
     with ThreadPoolExecutor(len(jobs) + 1) as pool:  # one nvcc a build, all at once
         head_lib = pool.submit(module.load_library)
         futures = {name: pool.submit(build_source, *job) for name, job in jobs.items()}
@@ -435,11 +599,12 @@ def main() -> None:
     cold = cs.ColdTimer(reps=args.reps)
     forward = args.kind.endswith("_fwd")
     if args.sweep:
-        (sweep_forward if forward else sweep_int8)(args, libs["head"], cold)
+        sweep = sweep_stem if args.kind == "stem" else sweep_forward if forward else sweep_int8
+        sweep(args, libs["head"], cold)
     elif forward:
         time_forward(args, libs, cold)
     else:
-        (time_int8 if args.kind == "int8" else time_blocks)(args, libs, cold)
+        {"int8": time_int8, "stem": time_stem}.get(args.kind, time_blocks)(args, libs, cold)
 
 
 if __name__ == "__main__":

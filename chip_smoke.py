@@ -85,8 +85,11 @@ not 0):
  10. the four fused stem kernels (``stem_stats``, ``stem_norm_relu_pool``, the
      two of ``stem_tail_bwd``) against their plain versions: the slice's
      z [8, 64, 256, 256] in bf16 and f32, NHWC memory and NCHW, conv sides 32,
-     20 and 44 (whole and ragged 4 x 16 tiles), batch 1, an all-tie z (dbeta
-     equals sum dp) and an all-negative pre-activation (every gradient 0).
+     20 and 44 (whole and ragged 4 x 16 tiles of the float32 body), 36 and 40
+     (ragged against the bf16 body's 8 x 32 tiles in rows and columns, and
+     in columns alone), batch 1, batch 3 at side 64 (16 tiles an image), an
+     all-tie z (dbeta equals sum dp) and an all-negative pre-activation
+     (every gradient 0).
      The pooled output equals the plain version bit for bit; the statistics,
      s1 (dbeta), s2 (dgamma) and dW are within 1e-5 * max|tensor| of the plain
      version summed in float64 (the kernels sum in float32, in another order)
@@ -1182,6 +1185,32 @@ def _unfused_stem_chain(z, x, dp, gamma, beta):
     return forward, backward
 
 
+def stem_bounds(z, x, dp) -> tuple:
+    """({kernel: least time} of the four stem kernels on these inputs, and the
+    weight gradient's operations at the float32 FMA rate in ms)."""
+    nbytes = {t: v.numel() * v.element_size() for t, v in (("z", z), ("x", x), ("dp", dp))}
+    vec = 64 * 4
+    taps = 7 * 7 * 3
+    # operations on these inputs: sums of z and z^2; affine, relu and the 9-way
+    # maximum (9 visits per pooled value); the same recomputed plus tie counts,
+    # shares and the two sums; the same plus dz, all float32 outside the tensor
+    # cores.  Then the contraction, 2 * 147 * 64 operations a conv pixel: its
+    # operands are dz and the image in z's dtype (bf16 here), so its peak is
+    # the tensor cores' for that type, whatever units the kernel uses.
+    contraction, elementwise = 2 * taps * z.numel(), 16 * z.numel()
+    tensor_ops_per_s = BF16_OPS_PER_S if z.dtype == torch.bfloat16 else TF32_OPS_PER_S
+    least = {
+        "stats": least_time(nbytes["z"] + 2 * vec, 3 * z.numel(), F32_OPS_PER_S),
+        "pool": least_time(nbytes["z"] + nbytes["dp"] + 2 * vec, 6 * z.numel(), F32_OPS_PER_S),
+        "sums": least_time(nbytes["z"] + nbytes["dp"] + 6 * vec, elementwise, F32_OPS_PER_S),
+        # the two kinds of operation one after the other, as tensor-core operations
+        "wgrad": least_time(nbytes["z"] + nbytes["dp"] + nbytes["x"] + 6 * vec + 64 * taps * 4,
+                            contraction + elementwise * tensor_ops_per_s / F32_OPS_PER_S,
+                            tensor_ops_per_s),
+    }
+    return least, (contraction + elementwise) / F32_OPS_PER_S * 1e3
+
+
 def phase_stem_kernels(fs) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     b, s = STEM_SLICE
@@ -1194,6 +1223,9 @@ def phase_stem_kernels(fs) -> dict:
         ("S=32 bf16 (whole tiles)", 2, 32, bf16, True, "random"),
         ("S=20 f32 (ragged tiles)", 2, 20, f32, True, "random"),
         ("S=44 bf16 (ragged tiles)", 2, 44, bf16, False, "random"),
+        ("S=36 bf16 (ragged 8x32 tiles, rows and columns)", 2, 36, bf16, True, "random"),
+        ("S=40 bf16 NCHW (ragged 8x32 tiles, columns)", 2, 40, bf16, False, "random"),
+        ("batch 3 S=64 bf16 (16 tiles an image)", 3, 64, bf16, True, "random"),
         ("batch 1 S=32 f32", 1, 32, f32, True, "random"),
         ("all-tie z, S=32 bf16", 2, 32, bf16, True, "ties"),
         ("all-negative pre-activation, S=32 f32", 2, 32, f32, True, "negative"),
@@ -1287,28 +1319,7 @@ def phase_stem_kernels(fs) -> dict:
         "sums": (lambda: fs.stem_bwd_sums(*args), lambda: fs.stem_bwd_sums_plain(*args)),
         "wgrad": (lambda: fs.stem_bwd_wgrad(*wargs), lambda: fs.stem_bwd_wgrad_plain(*wargs)),
     }
-    nbytes = {t: v.numel() * v.element_size() for t, v in (("z", z), ("x", x), ("dp", dp))}
-    vec = 64 * 4
-    taps = 7 * 7 * 3
-    # operations on these inputs: sums of z and z^2; affine, relu and the 9-way
-    # maximum (9 visits per pooled value); the same recomputed plus tie counts,
-    # shares and the two sums; the same plus dz, all float32 outside the tensor
-    # cores.  Then the contraction, 2 * 147 * 64 operations a conv pixel: its
-    # operands are dz and the image in z's dtype (bf16 here), so its peak is
-    # the tensor cores' for that type, whatever units the kernel uses.
-    contraction, elementwise = 2 * taps * z.numel(), 16 * z.numel()
-    tensor_ops_per_s = BF16_OPS_PER_S if z.dtype == bf16 else TF32_OPS_PER_S
-    least = {
-        "stats": least_time(nbytes["z"] + 2 * vec, 3 * z.numel(), F32_OPS_PER_S),
-        "pool": least_time(nbytes["z"] + nbytes["dp"] + 2 * vec, 6 * z.numel(), F32_OPS_PER_S),
-        "sums": least_time(nbytes["z"] + nbytes["dp"] + 6 * vec, elementwise, F32_OPS_PER_S),
-        # the two kinds of operation one after the other, as tensor-core operations
-        "wgrad": least_time(nbytes["z"] + nbytes["dp"] + nbytes["x"] + 6 * vec + 64 * taps * 4,
-                            contraction + elementwise * tensor_ops_per_s / F32_OPS_PER_S,
-                            tensor_ops_per_s),
-    }
-    # beside the bound, not in it: the kernel contracts with float32 FMAs
-    fma_ms = (contraction + elementwise) / F32_OPS_PER_S * 1e3
+    least, fma_ms = stem_bounds(z, x, dp)
     chain = {"fwd": cold_device_ms(chain_fwd, reps=10), "bwd": cold_device_ms(chain_bwd, reps=10)}
     records = {}
     for key, (kernel, plain) in calls.items():
@@ -1321,10 +1332,14 @@ def phase_stem_kernels(fs) -> dict:
               f"bound {least[key]['bound_ms']:.4f} ms by {least[key]['bound_by']}"
               + ("" if moved is None else
                  f" ({moved * HBM_BYTES_PER_S / 1e9:.1f} MB)")
-              + (f"; the kernel uses float32 FMAs, at whose peak rate its operations alone "
-                 f"would take {fma_ms:.4f} ms" if key == "wgrad" else ""))
-    records["wgrad"]["units"] = "f32 FMA, no tensor cores"
-    records["wgrad"]["f32_fma_ops_ms"] = fma_ms
+              + (f"; the bf16 kernel contracts on the tensor cores (mma.sync), the float32 "
+                 f"one on the FMA units, at whose peak rate these operations alone would take "
+                 f"{fma_ms:.4f} ms" if key == "wgrad" else ""))
+    records["wgrad"]["units"] = {  # what the contraction runs on, by z's dtype
+        "bfloat16": "tensor cores (mma.sync.m16n8k16 bf16 -> f32, IEEE adds between 64-pixel "
+                    "chains)",
+        "float32": "f32 FMA units (no tensor cores)"}
+    records["wgrad"]["f32_fma_ops_ms"] = fma_ms  # what the float32 body's units would need
     for pair, keys in (("fwd", ("stats", "pool")), ("bwd", ("sums", "wgrad"))):
         ours = sum(records[k]["ms"] for k in keys)
         for k in keys:

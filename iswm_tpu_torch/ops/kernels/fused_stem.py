@@ -16,7 +16,8 @@ everything after it, and the conv's weight gradient, is here:
   (dbeta) and ``s2 = sum d_bn * yhat`` (dgamma).  The second recomputes again,
   forms ``dz = gamma * sigma_inv * (d_bn - s1/N - yhat * s2/N)`` rounded to
   z's dtype and contracts it with the image's 7x7x3 windows into dW
-  [64, 3, 7, 7] in float32; dz never reaches device memory.
+  [64, 3, 7, 7] in float32 (bf16 on the tensor cores, float32 on the FMA
+  units); dz never reaches device memory.
 - ``stem_fused_train`` / ``stem_fused_eval``: the entry points the model uses.
 
 Semantics, as the JAX kernels': float32 statistics with the fast variance
@@ -55,6 +56,30 @@ CHANNELS = 64  # the kernels are built for the stem's 64 channels
 KERNEL_SIZE, STRIDE, PADDING = 7, 2, 3
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the C entries of a library
+    built from ``csrc/fused_stem.cu``."""
+    ll, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    lib.iswm_stem_stats.argtypes = [ptr, i32, ll, ptr, ptr, ptr]
+    lib.iswm_stem_pool_fwd.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
+    lib.iswm_stem_bwd_sums.argtypes = [ptr, ptr, i32, i32, i32] + [ptr] * 7
+    lib.iswm_stem_bwd_wgrad.argtypes = [ptr, ptr, ptr, i32, i32, i32] + [ptr] * 9
+    entries = [lib.iswm_stem_stats, lib.iswm_stem_pool_fwd, lib.iswm_stem_bwd_sums,
+               lib.iswm_stem_bwd_wgrad, lib.iswm_stem_reduce_scratch, lib.iswm_stem_wgrad_scratch]
+    if hasattr(lib, "iswm_stem_bwd_tiles"):  # not in the sources before the staged bf16 body
+        lib.iswm_stem_bwd_sums_tiled.argtypes = [ptr, ptr, i32, i32] + [ptr] * 6 + [i32, i32, ptr]
+        lib.iswm_stem_bwd_wgrad_tiled.argtypes = ([ptr, ptr, ptr, i32, i32] + [ptr] * 8
+                                                  + [i32, i32, ptr])
+        lib.iswm_stem_bwd_tiles.argtypes = [ctypes.POINTER(i32)]
+        lib.iswm_stem_bwd_tiles.restype = None
+        entries += [lib.iswm_stem_bwd_sums_tiled, lib.iswm_stem_bwd_wgrad_tiled]
+    for fn in entries:
+        fn.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> tuple[ctypes.CDLL, str]:
     """Build (at first use) and load the kernels; returns (library, nvcc log)."""
     global _lib
@@ -63,19 +88,16 @@ def load_library() -> tuple[ctypes.CDLL, str]:
         from .build import load_library as build_and_load
 
         lib, log = build_and_load("fused_stem")
-        ll, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        lib.iswm_stem_stats.argtypes = [ptr, i32, ll, ptr, ptr, ptr]
-        lib.iswm_stem_pool_fwd.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
-        lib.iswm_stem_bwd_sums.argtypes = [ptr, ptr, i32, i32, i32] + [ptr] * 7
-        lib.iswm_stem_bwd_wgrad.argtypes = [ptr, ptr, ptr, i32, i32, i32] + [ptr] * 9
-        for fn in (lib.iswm_stem_stats, lib.iswm_stem_pool_fwd, lib.iswm_stem_bwd_sums,
-                   lib.iswm_stem_bwd_wgrad, lib.iswm_stem_reduce_scratch,
-                   lib.iswm_stem_wgrad_scratch):
-            fn.restype = i32
-        lib.iswm_cuda_error_string.argtypes = [i32]
-        lib.iswm_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(lib)
     return _lib, log
+
+
+def bwd_tiles() -> dict:
+    """The conv-pixel tiles (rows, columns) of the bf16 backward's two kernels
+    (the built library, so the card's machine)."""
+    out = (ctypes.c_int * 4)()
+    load_library()[0].iswm_stem_bwd_tiles(out)
+    return {"sums": (out[0], out[1]), "wgrad": (out[2], out[3])}
 
 
 # ------------------------------------------------------------ plain versions

@@ -90,14 +90,15 @@ def test_forward_matches_pallas(s):
     assert not mean.requires_grad and not var.requires_grad
 
 
-def test_gradients_match_jax_grad_through_the_packed_path():
+@pytest.mark.parametrize("s", [32, 20])  # 20: ragged against every tile of the CUDA kernels
+def test_gradients_match_jax_grad_through_the_packed_path(s):
     import jax
     import jax.numpy as jnp
 
     from iswm_tpu.models.layers import pack_stem_kernel
     from iswm_tpu.ops.pallas.fused_stem import stem_fused_train
 
-    image, kernel, gamma, beta, w = _inputs(32)
+    image, kernel, gamma, beta, w = _inputs(s)
     xp_pad, _ = _jax_packed(image, kernel)
 
     def loss(kernel, gamma, beta):
@@ -346,14 +347,17 @@ def _cuda_case(s, dtype, channels_last, b=2, seed=5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,dtype,channels_last", [
-    (32, torch.bfloat16, True), (20, torch.float32, True), (44, torch.bfloat16, False),
-    (8, torch.float32, False),
+@pytest.mark.parametrize("s,dtype,channels_last,b", [
+    (32, torch.bfloat16, True, 2), (20, torch.float32, True, 2), (44, torch.bfloat16, False, 2),
+    (8, torch.float32, False, 2),
+    # the bf16 body's 8 x 32 tiles: ragged in rows and columns, in columns alone,
+    # and 16 tiles an image
+    (36, torch.bfloat16, True, 2), (40, torch.bfloat16, False, 2), (64, torch.bfloat16, True, 3),
 ])
-def test_cuda_kernels_match_plain(s, dtype, channels_last):
+def test_cuda_kernels_match_plain(s, dtype, channels_last, b):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    z, x, dp, gamma, beta = _cuda_case(s, dtype, channels_last)
+    z, x, dp, gamma, beta = _cuda_case(s, dtype, channels_last, b=b)
     n = z.numel() // 64
     before = (fs.launches_stats, fs.launches_pool, fs.launches_bwd_sums, fs.launches_bwd_wgrad)
 
