@@ -16,6 +16,12 @@ run in the same order in both bodies).  For ``int8``, at
 every shape of ``chip_smoke.SLICE_SHAPES`` and at M = 1000, it times the two
 C entries, ``iswm_int8_matmul`` on bf16 x and ``iswm_int8_matmul_prequant``
 on the same x quantized, and checks that head and base give the same bits.
+For ``ce``, at the training slice's logits [8, 2, 512, 512] bf16
+channels-last with int32 labels (``chip_smoke.CE_SLICE``), it times the two
+C entries of ``iswm_tpu_torch/csrc/fused_ce.cu``, the forward and the
+backward (#4), with the inputs out of L2 and also from L2, checks that each
+build's forward is bit-stable and within 1e-5 relative of the plain version
+in float64, and that every build's backward gives the base's bits.
 For ``stem``, at the slice's z [8, 64, 256, 256] bf16 NHWC
 (``chip_smoke.STEM_SLICE``), it times the two C entries of ``stem_tail_bwd``,
 ``iswm_stem_bwd_sums`` (#11a) and ``iswm_stem_bwd_wgrad`` (#11b), each with
@@ -38,19 +44,26 @@ the root of the checkout:
     git show <commit>:iswm_tpu_torch/csrc/fused_stem.cu > build/fused_stem_base.cu
     python3 block_bwd_ab.py --kind stem --base build/fused_stem_base.cu [--edit ...]
 
-With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd`` or ``stem``, no
-base) it times instead the checkout's build under every plan that fits (int8:
-rows of a strip, ring stages, N groups, K splits, for both entries; the
-forward: its tiles and, for the 1x1, the column tiles a block walks; the
-stem: the conv-pixel tiles of ``STEM_TILES`` for both kernels), at the same
-shapes, beside the plan the kernel's planner (the stem: its built-in tiles)
-picks, and checks that every plan gives the planner's y (the stem: that
-every tile is within the float64 limits and bit-stable, at the slice and at
-a side ragged against every tile):
+    git show <commit>:iswm_tpu_torch/csrc/fused_ce.cu > build/fused_ce_base.cu
+    python3 block_bwd_ab.py --kind ce --base build/fused_ce_base.cu [--edit ...]
+
+With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem`` or
+``ce``, no base) it times instead the checkout's build under every plan that
+fits (int8: rows of a strip, ring stages, N groups, K splits, for both
+entries; the forward: its tiles and, for the 1x1, the column tiles a block
+walks; the stem: the conv-pixel tiles of ``STEM_TILES`` for both kernels;
+ce: vectors a thread and blocks of ``CE_PLANS``), at the same shapes, beside
+the plan the kernel's planner (the stem: its built-in tiles) picks, and
+checks that every plan gives the planner's y (the stem: that every tile is
+within the float64 limits and bit-stable, at the slice and at a side ragged
+against every tile; ce: forward sums within those limits and bit-stable,
+d_logits equal to the built-in plan's); ``--kind ce --sweep`` also counts
+the SASS instructions of the slice's instantiations (``cuobjdump``):
 
     python3 block_bwd_ab.py --kind int8 --sweep --out build/int8_sweep.json
     python3 block_bwd_ab.py --kind c3_fwd --sweep --out build/c3_fwd_sweep.json
     python3 block_bwd_ab.py --kind stem --sweep --out build/stem_sweep.json
+    python3 block_bwd_ab.py --kind ce --sweep --out build/ce_sweep.json
 
 An edit replaces the text OLD of the head's source, which must occur once, by
 NEW (``--edit NAME 'OLD=>NEW' ['OLD2=>NEW2' ...]`` makes each replacement in
@@ -64,6 +77,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -73,6 +87,7 @@ import torch
 import chip_smoke as cs
 from iswm_tpu_torch.ops.kernels import build
 from iswm_tpu_torch.ops.kernels import fused_block as fb
+from iswm_tpu_torch.ops.kernels import fused_ce as ce
 from iswm_tpu_torch.ops.kernels import fused_stem as fs
 from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
@@ -562,31 +577,274 @@ def sweep_stem(args, lib, cold) -> None:
         raise SystemExit(f"tiles outside phase 10's limits or not bit-stable: {bad}")
 
 
+CE_PLANS = {"fwd": [(v, nb) for v in (1, 2, 4) for nb in (256, 512, 1024)],
+            "bwd": [(v, nb) for v in (1, 2, 4) for nb in (1024, 2048, 4096, 8192)]}
+
+
+def ce_case():
+    """The slice's logits (bf16 channels-last), int32 labels and class weights."""
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    logits, labels = cs._ce_case(cs.CE_SLICE, torch.bfloat16, gen, channels_last=True)
+    return logits, labels, torch.tensor(cs.CE_WEIGHTS, device="cuda")
+
+
+def ce_calls(lib: ctypes.CDLL, logits, labels, cw, plans=((0, 0), (0, 0))) -> tuple:
+    """(fwd(), bwd()): the two C entries of a fused_ce.cu build on the slice,
+    with its own outputs and workspace; ``plans`` gives (vectors, blocks) of
+    each, (0, 0) for the built-in.  A source from before the layouts (no
+    workspace entry) takes its own arguments."""
+    f32 = {"dtype": torch.float32, "device": logits.device}
+    out, d_logits = torch.empty(2, **f32), torch.empty_like(logits)
+    grad, w_sum = torch.tensor(1.0, **f32), torch.tensor(float((labels != 255).sum()), **f32)
+    b, _, h, w = logits.shape
+    geom = (b, h, w, *logits.stride())
+    ptrs = (logits.data_ptr(), 1, labels.data_ptr(), 1, cw.data_ptr())
+    new = hasattr(lib, "iswm_fused_ce_workspace_bytes")
+    if new:
+        ws = torch.zeros(lib.iswm_fused_ce_workspace_bytes() // 4, dtype=torch.int32,
+                         device=logits.device)
+        layout = ce.choose_layout(logits.shape, logits.stride(),
+                                  (logits.data_ptr(), labels.data_ptr(), d_logits.data_ptr()),
+                                  d_logits.stride())
+    else:
+        ws = torch.empty(2 * lib.iswm_fused_ce_max_partials(), **f32)
+
+    def done(rc, result):
+        if rc:
+            raise RuntimeError(f"fused CE: {lib.iswm_cuda_error_string(rc).decode()}")
+        return result
+
+    def fwd():
+        stream = torch.cuda.current_stream().cuda_stream
+        if new:
+            return done(ce.launch_fwd(lib, logits, labels, cw, 255, layout, ws, out, stream,
+                                      *plans[0]), out)
+        return done(lib.iswm_fused_ce_fwd(*ptrs, 255, *geom, ws.data_ptr(), out.data_ptr(),
+                                          stream), out)
+
+    def bwd():
+        stream = torch.cuda.current_stream().cuda_stream
+        if new:
+            return done(ce.launch_bwd(lib, logits, labels, cw, grad, w_sum, 255, layout,
+                                      d_logits, stream, *plans[1]), d_logits)
+        return done(lib.iswm_fused_ce_bwd(*ptrs, grad.data_ptr(), w_sum.data_ptr(), 255, *geom,
+                                          d_logits.data_ptr(), *d_logits.stride(), stream),
+                    d_logits)
+
+    return fwd, bwd
+
+
+def ce_check(calls, want, d_want=None) -> dict:
+    """The forward sums' relative error from ``want`` (float64, limit 1e-5)
+    and their bits in two launches; whether d_logits equals ``d_want``."""
+    sums, again = calls[0]().clone(), calls[0]().clone()
+    d = calls[1]().clone()
+    torch.cuda.synchronize()
+    rel = float(((sums.double() - want).abs() / want.abs()).max())
+    out = {"sums": sums.tolist(), "fwd_rel_err": rel, "bit_stable": bool(torch.equal(sums, again))}
+    out["ok"] = rel <= 1e-5 and out["bit_stable"]
+    if d_want is not None:
+        out["bwd_bits_equal"] = bool(torch.equal(d, d_want))
+        out["ok"] = out["ok"] and out["bwd_bits_equal"]
+    return out, d
+
+
+def ce_bounds(logits, labels) -> dict:
+    """Phase 5's least times of the forward and the backward."""
+    moved = logits.numel() * logits.element_size() + labels.numel() * labels.element_size()
+    least = {"fwd": moved, "bwd": moved + logits.numel() * logits.element_size()}
+    return {k: cs.least_time(b, 12 * labels.numel(), cs.F32_OPS_PER_S) for k, b in least.items()}
+
+
+def graph_ms(fn, flush=None, calls: int = 20, reps: int = 5) -> float:
+    """Per-call time of fn() replayed in a CUDA graph of ``calls`` calls, by
+    CUDA events: the gaps between dependent kernels count, the host's launch
+    overhead does not.  With ``flush`` (a call that evicts L2), each call
+    follows one, and the graph time of the flushes alone is taken off."""
+    def per_call(body):
+        body()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                body()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * calls)
+
+    if flush is None:
+        return per_call(fn)
+    return per_call(lambda: (flush(), fn())) - per_call(flush)
+
+
+def read_flush(cold):
+    """An L2 eviction that leaves clean lines: a sum over ``cold``'s 256 MB
+    buffer (its rewrite leaves 50 MB of dirty lines, whose write-back the
+    next kernel's reads pay for)."""
+    words, out = cold.flush.view(torch.float32), torch.zeros((), device="cuda")
+    return lambda: torch.sum(words, 0, out=out)
+
+
+def time_ce(args, libs: dict, cold) -> None:
+    """#4's forward and backward of every build at the slice, in turns, with
+    the inputs out of L2 (cold) and from L2 (warm)."""
+    logits, labels, cw = ce_case()
+    want = ce.fused_binary_ce_fwd_plain(logits, labels, cw, dtype=torch.float64)
+    calls = {name: ce_calls(lib, logits, labels, cw) for name, lib in libs.items()}
+    checks, d_base = {}, None
+    for name, fns in calls.items():  # "base" first where there is one
+        checks[name], d = ce_check(fns, want, d_base)
+        d_base = d if d_base is None else d_base
+    kinds = ("", "_warm", "_graph", "_graph_clean", "_graph_warm")
+    times = {name: {d + kind: [] for kind in kinds for d in ("fwd", "bwd")} for name in libs}
+    clean = read_flush(cold)
+    for name in list(libs) + list(libs)[::-1]:
+        for key, fn in zip(("fwd", "bwd"), calls[name]):
+            times[name][key].append(cold(fn))
+            times[name][key + "_warm"].append(cs.device_ms(fn, reps=args.reps * 4))
+            times[name][key + "_graph"].append(graph_ms(fn, cold.flush.zero_))
+            times[name][key + "_graph_clean"].append(graph_ms(fn, clean))
+            times[name][key + "_graph_warm"].append(graph_ms(fn))
+    least = ce_bounds(logits, labels)
+    row = {"shape": [*logits.shape], "layout": "channels_last bf16, int32 labels",
+           "bound_ms": {k: v["bound_ms"] for k, v in least.items()}, "checks": checks}
+    for name, t in times.items():
+        row[name] = t
+        ms = {k: sum(v) / len(v) for k, v in t.items()}
+        print(f"[ab] fused CE, {name}: forward {ms['fwd']:.4f} ms cold, {ms['fwd_warm']:.4f} "
+              f"from L2 ({100 * least['fwd']['bound_ms'] / ms['fwd']:.1f}% of its bound); "
+              f"backward {ms['bwd']:.4f} cold, {ms['bwd_warm']:.4f} from L2 "
+              f"({100 * least['bwd']['bound_ms'] / ms['bwd']:.1f}%); in a CUDA graph (kernel "
+              f"gaps included) forward {ms['fwd_graph']:.4f} cold, {ms['fwd_graph_clean']:.4f} "
+              f"after a clean eviction, {ms['fwd_graph_warm']:.4f} from L2, backward "
+              f"{ms['bwd_graph']:.4f}, {ms['bwd_graph_clean']:.4f}, {ms['bwd_graph_warm']:.4f}; "
+              f"checks {checks[name]}", flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "ce", "shapes": [row]}))
+    failed = [name for name, c in checks.items() if not c["ok"]]
+    if failed:
+        raise SystemExit(f"builds outside the limits, not bit-stable or with other "
+                         f"backward bits than the base's: {failed}")
+
+
+def sass_counts(lib: ctypes.CDLL, keep: str = "") -> tuple[list, str]:
+    """Per ``ce_`` kernel of the build: its registers, its SASS instructions,
+    those of its longest loop (from a backward branch's target to the
+    branch) and its MUFU (transcendental unit) instructions, by cuobjdump;
+    and the SASS of the kernels whose name holds ``keep``."""
+    tools = Path(build.find_nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    usage = subprocess.run([str(tools / "cuobjdump"), "-res-usage", lib._name],
+                           capture_output=True, text=True, check=True).stdout
+    registers = dict(re.findall(r"Function (\S+):\s*REG:(\d+)", usage))
+    rows, kept = [], []
+    for part in sass.split("Function : ")[1:]:
+        name = part.splitlines()[0].strip()
+        demangled = subprocess.run([str(tools / "cu++filt"), name], capture_output=True,
+                                   text=True).stdout.strip() or name
+        if "ce_" not in demangled:
+            continue
+        if keep and keep in demangled:
+            kept.append(f"Function : {demangled}\n{part}")
+        instrs, labels, pending = {}, {}, []
+        for line in part.splitlines():
+            line = line.strip()
+            label = re.fullmatch(r"(\.L_x_\d+):", line)
+            if label:
+                pending.append(label.group(1))
+            found = re.match(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if found:
+                addr = int(found.group(1), 16)
+                instrs[addr] = found.group(2)
+                labels.update((name_, addr) for name_ in pending)
+                pending = []
+        loop = 0
+        for addr, text in instrs.items():
+            if "BRA" not in text.split():
+                continue
+            target = re.search(r"(\.L_x_\d+)|0x([0-9a-f]+)", text.split("BRA", 1)[1])
+            if target is None:
+                continue
+            to = labels.get(target.group(1)) if target.group(1) else int(target.group(2), 16)
+            if to is not None and to < addr:
+                loop = max(loop, sum(1 for a in instrs if to <= a <= addr))
+        rows.append({"kernel": demangled, "registers": int(registers.get(name, -1)),
+                     "instructions": len(instrs), "loop": loop,
+                     "mufu": sum(1 for t in instrs.values() if "MUFU" in t)})
+    return rows, "".join(kept)
+
+
+def sweep_ce(args, lib, cold) -> None:
+    """#4 under every (vectors, blocks) of ``CE_PLANS`` beside the built-in
+    plan, at the slice: cold and warm times, the forward's limits and the
+    backward's bits against the built-in plan's; then the SASS counts."""
+    logits, labels, cw = ce_case()
+    want = ce.fused_binary_ce_fwd_plain(logits, labels, cw, dtype=torch.float64)
+    builtin = ce_calls(lib, logits, labels, cw)
+    _, d_want = ce_check(builtin, want)
+    plans = (ctypes.c_int * 2)(), (ctypes.c_int * 2)()
+    for backward, out in enumerate(plans):
+        lib.iswm_fused_ce_plan(backward, 2, 1, labels.numel(), out)
+    least = ce_bounds(logits, labels)
+    rows, bad = [], []
+    for key, index in (("fwd", 0), ("bwd", 1)):
+        for plan in [(0, 0)] + CE_PLANS[key]:
+            both = [(0, 0), (0, 0)]
+            both[index] = plan
+            calls = ce_calls(lib, logits, labels, cw, tuple(both))
+            check, _ = ce_check(calls, want, d_want)
+            row = {"kernel": key, "plan": list(plan) if plan != (0, 0) else
+                   ["built-in", *plans[index]], "check": check,
+                   "ms": cold(calls[index]), "warm_ms": cs.device_ms(calls[index], reps=40),
+                   "graph_ms": graph_ms(calls[index], cold.flush.zero_),
+                   "graph_warm_ms": graph_ms(calls[index]), "bound_ms": least[key]["bound_ms"]}
+            rows.append(row)
+            if not check["ok"]:
+                bad.append(row)
+            print("[sweep] " + json.dumps(row), flush=True)
+    # the slice's instantiations: bf16 logits, int32 labels, channels-last, 32-bit
+    counts, text = sass_counts(lib, keep="<__nv_bfloat16, int, (int)2, unsigned int,")
+    for c in counts:
+        print("[sass] " + json.dumps(c), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.with_suffix(".sass.txt").write_text(text)
+    args.out.write_text(json.dumps({"kind": "ce sweep", "rows": rows, "sass": counts}))
+    if bad:
+        raise SystemExit(f"plans outside the limits or with other backward bits: {bad}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path,
                         help="a fused_block.cu (int8_matmul.cu, fused_stem.cu) to compare; "
                              "not with --sweep")
-    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem"),
+    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem", "ce"),
                         default="mm",
                         help="the 1x1 backward (#7b), the 3x3 (#8b), their forwards (#7a, "
-                             "#8a), the int8 1x1 (#1, #2) or the stem's backward (#11a, #11b)")
+                             "#8a), the int8 1x1 (#1, #2), the stem's backward (#11a, #11b) "
+                             "or the fused CE (#4)")
     parser.add_argument("--edit", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then one or more OLD=>NEW")
     parser.add_argument("--sweep", action="store_true",
-                        help="with --kind int8, mm_fwd, c3_fwd or stem: time every plan of "
-                             "the checkout's build instead")
+                        help="with --kind int8, mm_fwd, c3_fwd, stem or ce: time every plan "
+                             "of the checkout's build instead")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     cs.phase_device()
-    module, stem = {"int8": (k8, "int8_matmul"), "stem": (fs, "fused_stem")}.get(
-        args.kind, (fb, "fused_block"))
+    module, stem = {"int8": (k8, "int8_matmul"), "stem": (fs, "fused_stem"),
+                    "ce": (ce, "fused_ce")}.get(args.kind, (fb, "fused_block"))
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
     if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3")):
-        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd or stem")
+        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem or ce")
     jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", module.bind)}
     jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", module.bind))
                 for name, *edits in args.edit)
@@ -599,12 +857,14 @@ def main() -> None:
     cold = cs.ColdTimer(reps=args.reps)
     forward = args.kind.endswith("_fwd")
     if args.sweep:
-        sweep = sweep_stem if args.kind == "stem" else sweep_forward if forward else sweep_int8
+        sweep = {"stem": sweep_stem, "ce": sweep_ce}.get(
+            args.kind, sweep_forward if forward else sweep_int8)
         sweep(args, libs["head"], cold)
     elif forward:
         time_forward(args, libs, cold)
     else:
-        {"int8": time_int8, "stem": time_stem}.get(args.kind, time_blocks)(args, libs, cold)
+        {"int8": time_int8, "stem": time_stem, "ce": time_ce}.get(args.kind, time_blocks)(
+            args, libs, cold)
 
 
 if __name__ == "__main__":

@@ -37,18 +37,25 @@ not 0):
      kernel's share of it and the device's idle share; then tiles/s and
      scene latency of ``bf16`` and ``int8_exec``;
   5. the fused binary CE kernels (forward sums, backward d_logits) against
-     their plain versions: the training slice's logits [8, 2, 512, 512] in
-     bf16 (NCHW and channels last) and f32, a ragged [3, 2, 97, 131] and an
-     all-ignored batch; forward sums within 1e-5 relative of the plain
-     version in float64 and bit-stable across launches, d_logits within
-     1e-6 * max|d_logits| in f32 and 1 bf16 ulp in bf16; device times
-     (profiler) and CUDA-event times of kernel and plain version at the
-     slice's shape;
+     their plain versions, each case through the body the wrapper must pick
+     (``launches_by_layout``): the training slice's logits [8, 2, 512, 512]
+     in bf16 and f32, NCHW (``nchw``) and channels last (``channels_last``),
+     a ragged H*W [3, 2, 97, 131] (``strided``) and the same channels last
+     (the vector body's tail), a slice of a larger tensor and channels-last
+     strides at a misaligned offset (``strided``), uint8, int32 and int64
+     labels, and all-ignored batches, after which the channels-last slice's
+     forward must give its bits again (the ticket was reset); forward sums
+     within 1e-5 relative of the plain version in float64 and bit-stable
+     across launches, d_logits within 1e-6 * max|d_logits| in f32 and 1 bf16
+     ulp in bf16; device times (profiler) with the inputs out of L2 and from
+     L2, each with its share of the bound, and CUDA-event times of kernel and
+     plain version at the slice's shape and layout;
   6. the training slice at full width: ``Trainer`` on ResNet-50, OS 16,
      bf16, crop 512, batch 8, ``ce_loss`` with ``fused_kernel="auto"``, from
      32 seeded synthetic 640x640 scenes (8 for validation), for
      ``TRAIN_STEPS`` steps, one validation and a best checkpoint; the fused
-     CE launch counts must equal the step count in each direction, every
+     CE launch counts must equal the step count in each direction, all of
+     them through the ``channels_last`` body (``launches_by_layout``), every
      logged loss be finite, and the checkpoint load ``strict=True`` into a
      fresh model; one step through the kernel and one through
      ``fused="never"`` from the same state, with deterministic algorithms,
@@ -184,7 +191,8 @@ not 0):
      1e-5 relative and d_logits within 1 bf16 ulp / 1e-6 * max of the sharded
      plain version; device times (profiler) and CUDA-event times of one
      forward + backward, its plain version, kernel #4 unsharded and the
-     all-reduce alone.  Then two spawned ranks in a ``gloo`` group, both on
+     all-reduce alone, and the sharded call's forward and backward kernels
+     apart.  Then two spawned ranks in a ``gloo`` group, both on
      cuda:0 (NCCL takes one rank a card), four rows each: the same loss on
      both ranks within 1e-6 relative of kernel #4 on all eight rows, the
      concatenated d_logits within 1 bf16 ulp / 1e-6 * max;
@@ -682,24 +690,55 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def _ce_view(logits: torch.Tensor, kind: str) -> torch.Tensor:
+    """The same values as ``logits`` through another layout: ``view``, a
+    slice of a larger tensor (strides that no vector body takes); ``offset``,
+    dense channels-last strides 2 bytes past a 16-byte boundary."""
+    b, _, h, w = logits.shape
+    if kind == "view":
+        big = torch.zeros((b, 3, h + 2, w + 5), dtype=logits.dtype, device=logits.device)
+        big[:, 1:, 1:h + 1, 2:w + 2] = logits
+        return big[:, 1:, 1:h + 1, 2:w + 2]
+    flat = torch.empty(logits.numel() + 8, dtype=logits.dtype, device=logits.device)
+    out = flat[1:1 + logits.numel()].view(b, h, w, 2).permute(0, 3, 1, 2)
+    out.copy_(logits)
+    return out
+
+
 def phase_fused_ce(ce) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cw = torch.tensor([1.0, 3.2], device="cuda")
     slice_shape = (8, 512, 512)
+    # (name, shape, dtype, _ce_case options, the layout the wrapper must pick)
     cases = [
-        ("slice bf16 NCHW", slice_shape, torch.bfloat16, {}),
-        ("slice bf16 channels-last", slice_shape, torch.bfloat16, {"channels_last": True}),
-        ("slice f32 NCHW", slice_shape, torch.float32, {}),
-        ("ragged 3x97x131 bf16 uint8-labels", (3, 97, 131), torch.bfloat16,
-         {"label_dtype": torch.uint8}),
+        ("slice bf16 NCHW", slice_shape, torch.bfloat16, {}, "nchw"),
+        ("slice bf16 channels-last", slice_shape, torch.bfloat16, {"channels_last": True},
+         "channels_last"),
+        ("slice f32 NCHW", slice_shape, torch.float32, {}, "nchw"),
+        ("slice f32 channels-last uint8-labels", slice_shape, torch.float32,
+         {"channels_last": True, "label_dtype": torch.uint8}, "channels_last"),
+        ("ragged H*W 3x97x131 bf16 uint8-labels", (3, 97, 131), torch.bfloat16,
+         {"label_dtype": torch.uint8}, "strided"),
         ("ragged 3x97x131 f32 channels-last int64-labels", (3, 97, 131), torch.float32,
-         {"channels_last": True, "label_dtype": torch.int64}),
-        ("all ignored bf16", slice_shape, torch.bfloat16, {"all_ignored": True}),
+         {"channels_last": True, "label_dtype": torch.int64}, "channels_last"),
+        ("strided view 4x256x256 bf16", (4, 256, 256), torch.bfloat16, {"view": "view"},
+         "strided"),
+        ("misaligned offset 4x256x256 bf16 channels-last int64-labels", (4, 256, 256),
+         torch.bfloat16, {"view": "offset", "label_dtype": torch.int64}, "strided"),
+        ("all ignored bf16 channels-last", slice_shape, torch.bfloat16,
+         {"all_ignored": True, "channels_last": True}, "channels_last"),
+        ("all ignored bf16", slice_shape, torch.bfloat16, {"all_ignored": True}, "nchw"),
     ]
     fwd_err, bwd_err = 0.0, 0.0
     grad = torch.tensor(1.0, device="cuda")
-    for name, shape, dtype, kw in cases:
+    kept = None  # the channels-last slice's inputs and sums, taken again after all-ignored
+    for name, shape, dtype, kw, layout in cases:
+        kw = dict(kw)
+        view = kw.pop("view", None)
         logits, labels = _ce_case(shape, dtype, gen, **kw)
+        if view:
+            logits = _ce_view(logits, view)
+        before = dict(ce.launches_by_layout)
         sums = ce.fused_binary_ce_fwd(logits, labels, cw)
         again = ce.fused_binary_ce_fwd(logits, labels, cw)
         want = ce.fused_binary_ce_fwd_plain(logits, labels, cw, dtype=torch.float64)
@@ -715,7 +754,9 @@ def phase_fused_ce(ce) -> dict:
         d = ce.fused_binary_ce_bwd(logits, labels, cw, w_sum, grad)
         d_plain = ce.fused_binary_ce_bwd_plain(logits, labels, cw, w_sum, grad)
         torch.cuda.synchronize()
-        check(d.dtype == logits.dtype and d.stride() == logits.stride(),
+        # a slice of a larger tensor has no dense layout to keep: d_logits is then contiguous
+        strides = torch.empty_like(logits).stride() if view == "view" else logits.stride()
+        check(d.dtype == logits.dtype and d.stride() == strides,
               f"d_logits {d.dtype} {d.stride()} vs logits {logits.dtype} {logits.stride()}")
         diff = (d.float() - d_plain.float()).abs()
         if dtype == torch.bfloat16:
@@ -727,9 +768,22 @@ def phase_fused_ce(ce) -> dict:
             ok = ok and float(sums[0]) == float(sums[1]) == 0.0 and not d.float().any()
         check(ok, f"fused CE backward ({name}): max abs diff {float(diff.max())} ({tol})")
         bwd_err = max(bwd_err, float(diff.max()))
-        print(f"[5] fused_binary_ce {name}: sums {[round(v, 3) for v in sums.tolist()]}, "
-              f"forward max abs err {err:.3e} vs float64 (rel 1e-5), bit-stable; "
-              f"backward max abs err {float(diff.max()):.3e} ({tol})")
+        took = {k: v - before[k] for k, v in ce.launches_by_layout.items() if v != before[k]}
+        check(took == {layout: 3}, f"fused CE ({name}): launches by layout {took}, "
+              f"expected 3 through {layout}")
+        print(f"[5] fused_binary_ce {name}: {layout} body; sums "
+              f"{[round(v, 3) for v in sums.tolist()]}, forward max abs err {err:.3e} vs "
+              f"float64 (rel 1e-5), bit-stable; backward max abs err {float(diff.max()):.3e} "
+              f"({tol})")
+        if name == "slice bf16 channels-last":
+            kept = (logits, labels, sums)
+        elif kw.get("all_ignored"):  # the last block reset the ticket
+            again = ce.fused_binary_ce_fwd(*kept[:2], cw)
+            torch.cuda.synchronize()
+            check(torch.equal(again, kept[2]), f"fused CE forward after {name}: "
+                  f"{again.tolist()} vs {kept[2].tolist()} before it")
+            print(f"[5] fused_binary_ce after {name}: the channels-last slice's sums again, "
+                  f"bit for bit")
 
     # times at the training slice's shape and layout (channels-last bf16)
     logits, labels = _ce_case(slice_shape, torch.bfloat16, gen, channels_last=True)
@@ -760,27 +814,31 @@ def phase_fused_ce(ce) -> dict:
     check(bool(torch.isfinite(lib_sums).all()), f"F.cross_entropy's sums {lib_sums.tolist()}")
     print(f"[5] F.cross_entropy(weight, ignore_index, 'sum') + weight sum, the library's call "
           f"for the forward: within {rel:.2e} relative of the kernel's sums (bf16 math)")
+    before = dict(ce.launches_by_layout)
     dev = {k: device_ms(f) for k, f in calls.items()}
     host = {k: cuda_ms(f) for k, f in calls.items() if not k.endswith("library")}
     pixels = labels.numel()
     moved = {"fwd": logits.numel() * logits.element_size() + labels.numel() * labels.element_size()}
     moved["bwd"] = moved["fwd"] + logits.numel() * logits.element_size()
     # about a dozen float32 operations a pixel each way (max, exp, log1p,
-    # sigmoid, selects, products): far under the bytes
+    # sigmoid, selects, products): under the bytes
     least = {d: least_time(moved[d], 12 * pixels, F32_OPS_PER_S) for d in moved}
     cold = {d: cold_device_ms(calls[d]) for d in ("fwd", "bwd")}
-    print(f"[5] with the logits and labels out of the L2 cache (the step's logits were just "
-          f"written, so the times below are the path's): kernel forward {cold['fwd']:.4f} ms, "
-          f"backward {cold['bwd']:.4f} ms")
+    took = {k: v - before[k] for k, v in ce.launches_by_layout.items() if v != before[k]}
+    check(set(took) == {"channels_last"}, f"the timed fused CE calls went through {took}")
+    print(f"[5] the timed calls' launches by layout: {took}")
     for d in ("fwd", "bwd"):
-        print(f"[5] fused_binary_ce {d} at [8, 2, 512, 512] bf16 channels-last: device time "
-              f"kernel {dev[d]:.4f} ms ({moved[d] / dev[d] / 1e6:.0f} GB/s), plain "
-              f"{dev[d + '_plain']:.4f} ms, F.cross_entropy {dev[d + '_library']:.4f} ms, "
-              f"bound {least[d]['bound_ms']:.4f} ms by {least[d]['bound_by']} "
-              f"({moved[d]} bytes); CUDA events per call with the host's launch "
-              f"overhead: kernel {host[d]:.4f} ms, plain {host[d + '_plain']:.4f} ms")
-    return {d: {"max_abs_err": err, "ms": dev[d], "plain_ms": dev[d + "_plain"], **least[d],
-                "library_ms": dev[d + "_library"]}
+        print(f"[5] fused_binary_ce {d} at [8, 2, 512, 512] bf16 channels-last, int32 labels: "
+              f"device time kernel {cold[d]:.4f} ms with the inputs out of L2 "
+              f"({100 * least[d]['bound_ms'] / cold[d]:.1f}% of the bound), {dev[d]:.4f} ms "
+              f"from L2 ({100 * least[d]['bound_ms'] / dev[d]:.1f}%, "
+              f"{moved[d] / dev[d] / 1e6:.0f} GB/s), plain {dev[d + '_plain']:.4f} ms, "
+              f"F.cross_entropy {dev[d + '_library']:.4f} ms, bound "
+              f"{least[d]['bound_ms']:.4f} ms by {least[d]['bound_by']} ({moved[d]} bytes); "
+              f"CUDA events per call with the host's launch overhead: kernel "
+              f"{host[d]:.4f} ms, plain {host[d + '_plain']:.4f} ms")
+    return {d: {"max_abs_err": err, "ms": dev[d], "cold_ms": cold[d],
+                "plain_ms": dev[d + "_plain"], **least[d], "library_ms": dev[d + "_library"]}
             for d, err in (("fwd", fwd_err), ("bwd", bwd_err))}
 
 
@@ -810,13 +868,18 @@ def phase_train(ce, cm) -> tuple:
     trainer = Trainer(cfg, device="cuda", train_ds=train_ds, val_ds=val_ds)
 
     ce.launches_fwd = ce.launches_bwd = cm.launches = 0
+    ce.launches_by_layout = dict.fromkeys(ce.LAYOUTS, 0)
     t0 = time.perf_counter()
     trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = (ce.launches_fwd, ce.launches_bwd, cm.launches)
+    by_layout = dict(ce.launches_by_layout)
     check(launches[:2] == (TRAIN_STEPS, TRAIN_STEPS),
           f"fused CE launches (fwd, bwd) {launches[:2]}, expected {TRAIN_STEPS} each")
+    check(by_layout == {**dict.fromkeys(ce.LAYOUTS, 0), "channels_last": 2 * TRAIN_STEPS},
+          f"fused CE launches by layout {by_layout}: every step's forward and backward "
+          f"must take the channels_last body")
     losses = trainer.logger.history["train_loss"]
     check(len(losses) == TRAIN_STEPS // cfg.train.print_interval
           and all(np.isfinite(losses)), f"logged losses {losses}")
@@ -831,7 +894,8 @@ def phase_train(ce, cm) -> tuple:
           "the checkpoint does not hold the trained model")
     print(f"[6] training main path: {TRAIN_STEPS} steps + "
           f"{TRAIN_STEPS // QUICK_EVAL_INTERVAL - 1} quick-evals + 1 validation + best "
-          f"checkpoint in {fit_s:.2f} s; fused CE launches fwd {launches[0]}, bwd {launches[1]}; "
+          f"checkpoint in {fit_s:.2f} s; fused CE launches fwd {launches[0]}, bwd {launches[1]}, "
+          f"by layout {by_layout}; "
           f"losses {[round(v, 4) for v in losses]}; weighted score "
           f"{trainer.best_weighted:.4f}; {Path(trainer.best_path).name} loads strict=True")
 
@@ -2668,6 +2732,11 @@ def phase_sharded_ce(ce) -> dict:
     dev = {k: device_ms(f) for k, f in calls.items()}
     host = {k: cuda_ms(f) for k, f in calls.items()}
     host["all_reduce"] = cuda_ms(all_reduce)
+    try:  # the sharded call's two kernels (#4's) apart
+        parts = traced_kernels(calls["sharded"], 20, 3)
+        split = {d: sum(ms for k, ms in parts.items() if f"ce_{d}" in k) for d in ("fwd", "bwd")}
+    except NoDeviceRecords:
+        split = {"fwd": None, "bwd": None}
     try:  # NCCL may reduce one rank's data on the host side, without a kernel
         dev["all_reduce"] = traced_ms(all_reduce, 20, 3)
     except NoDeviceRecords:
@@ -2687,6 +2756,9 @@ def phase_sharded_ce(ce) -> dict:
           + (" (no kernel in five traces)" if not dev["all_reduce"] else "")
           + f" | {host['all_reduce']:.4f} ms; bound {bound['bound_ms']:.4f} ms (#4's two kernels "
           f"{kernels['bound_ms']:.4f} ms by {kernels['bound_by']} + the all-reduce's device time)")
+    print(f"[14] the sharded call's kernels apart (profiler device time, from L2): forward "
+          + (f"{split['fwd']:.4f} ms, backward {split['bwd']:.4f} ms" if split["fwd"] is not None
+             else "not measured (no device record in five traces)"))
     destroy()
 
     # two ranks (gloo, both on cuda:0), four rows each, against kernel #4 on all eight
@@ -2710,7 +2782,8 @@ def phase_sharded_ce(ce) -> dict:
     return {"max_abs_err": err, "ms": dev["sharded"], "plain_ms": dev["plain"], **bound,
             "library_ms": None, "all_reduce_ms": dev["all_reduce"],
             "all_reduce_host_ms": host["all_reduce"],
-            "unsharded_ms": dev["unsharded"], "two_rank_max_abs_err": two_rank_err}
+            "unsharded_ms": dev["unsharded"], "fwd_ms": split["fwd"], "bwd_ms": split["bwd"],
+            "two_rank_max_abs_err": two_rank_err}
 
 
 def _dp_batch():

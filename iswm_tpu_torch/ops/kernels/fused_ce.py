@@ -18,9 +18,14 @@ strides, so NCHW-contiguous and channels-last logits both go in without a
 copy.
 
 Each wrapper launches its kernel for a CUDA tensor and uses the plain
-version only for a CPU tensor.  ``launches_fwd`` / ``launches_bwd`` count
-the wrapper calls that launched a kernel (the forward is one call of the
-two-stage reduction).
+version only for a CPU tensor.  Before the launch it picks the kernel's body
+from the layout (:func:`choose_layout`): ``channels_last`` (dense
+channels-last strides, the training step's), ``nchw`` (contiguous, H * W a
+multiple of 8) or ``strided`` (any other view, or pointers not 16-byte
+aligned).  The choice follows from the tensors alone; no body stands in
+for another on an error.  ``launches_fwd`` / ``launches_bwd`` count the
+wrapper calls that launched a kernel (the forward is one launch), and
+``launches_by_layout`` counts both wrappers' launches by layout.
 
 The sharded CE (``make_sharded_fused_ce``, the counterpart of the JAX
 package's ``make_sharded_fused_ce``) runs on one rank's rows of the global
@@ -34,15 +39,47 @@ kernel of its own: its collective is the process group's (NCCL on the card).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
+LAYOUTS = ("strided", "nchw", "channels_last")  # the C entries' layout codes
+NCHW_PIXELS = 8  # H * W a multiple of this for ``nchw`` (the bf16 vector)
 launches_fwd = 0
 launches_bwd = 0
 launches_sharded = 0
+launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 _lib = None
+_workspaces: dict = {}
 _LABEL_KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
 W_SUM_FLOOR = 1e-12
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the argument and result types of the C entries of a library
+    built from ``csrc/fused_ce.cu`` (also of the first source, whose entries
+    took no layout and no plan, for comparing the two on the card)."""
+    ll, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    geom = [ll] * 7  # B, H, W and the logits' four strides
+    if hasattr(lib, "iswm_fused_ce_workspace_bytes"):
+        plan = [i32] * 4  # layout, index64, vectors, blocks
+        lib.iswm_fused_ce_fwd.argtypes = ([ptr, i32, ptr, i32, ptr, ll] + geom + plan
+                                          + [ptr, ptr, ptr])
+        lib.iswm_fused_ce_bwd.argtypes = ([ptr, i32, ptr, i32, ptr, ptr, ptr, ll] + geom
+                                          + [ptr, ll, ll, ll, ll] + plan + [ptr])
+        lib.iswm_fused_ce_workspace_bytes.restype = i32
+        lib.iswm_fused_ce_plan.argtypes = [i32, i32, i32, ll, ctypes.POINTER(i32)]
+        lib.iswm_fused_ce_plan.restype = None
+    else:
+        lib.iswm_fused_ce_fwd.argtypes = [ptr, i32, ptr, i32, ptr, ll] + geom + [ptr, ptr, ptr]
+        lib.iswm_fused_ce_bwd.argtypes = ([ptr, i32, ptr, i32, ptr, ptr, ptr, ll] + geom
+                                          + [ptr, ll, ll, ll, ll, ptr])
+        lib.iswm_fused_ce_max_partials.restype = i32
+    lib.iswm_fused_ce_fwd.restype = i32
+    lib.iswm_fused_ce_bwd.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def load_library() -> tuple[ctypes.CDLL, str]:
@@ -53,21 +90,49 @@ def load_library() -> tuple[ctypes.CDLL, str]:
         from .build import load_library as build_and_load
 
         lib, log = build_and_load("fused_ce")
-        ll, ptr, i32 = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        lib.iswm_fused_ce_fwd.argtypes = [
-            ptr, i32, ptr, i32, ptr, ll, ll, ll, ll, ll, ll, ll, ll, ptr, ptr, ptr,
-        ]
-        lib.iswm_fused_ce_bwd.argtypes = [
-            ptr, i32, ptr, i32, ptr, ptr, ptr, ll, ll, ll, ll, ll, ll, ll, ll,
-            ptr, ll, ll, ll, ll, ptr,
-        ]
-        lib.iswm_fused_ce_fwd.restype = i32
-        lib.iswm_fused_ce_bwd.restype = i32
-        lib.iswm_fused_ce_max_partials.restype = i32
-        lib.iswm_cuda_error_string.argtypes = [i32]
-        lib.iswm_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(lib)
     return _lib, log
+
+
+class Layout(NamedTuple):
+    """A call's kernel body: its layout (one of :data:`LAYOUTS`) and whether
+    its indices are 64-bit (always for ``strided``)."""
+
+    name: str
+    index64: bool
+
+
+def choose_layout(shape, strides, pointers, d_strides=None) -> Layout:
+    """The body for logits of ``shape`` [B, 2, H, W] and element ``strides``
+    whose data (logits, labels and, for the backward, d_logits) start at the
+    addresses ``pointers``, with d_logits in ``d_strides``.
+
+    ``channels_last``: strides (2HW, 1, 2W, 2); ``nchw``: (2HW, HW, W, 1)
+    with H * W a multiple of :data:`NCHW_PIXELS`; either also needs every
+    pointer 16-byte aligned and d_logits in the logits' strides.  Anything
+    else is ``strided``.  The vector bodies index in 32 bits while
+    2 * B * H * W < 2^31."""
+    b, _, h, w = shape
+    strides, hw = tuple(strides), h * w
+    name = "strided"
+    if (all(p % 16 == 0 for p in pointers)
+            and (d_strides is None or tuple(d_strides) == strides)):
+        if strides == (2 * hw, 1, 2 * w, 2):
+            name = "channels_last"
+        elif strides == (2 * hw, hw, w, 1) and hw % NCHW_PIXELS == 0:
+            name = "nchw"
+    return Layout(name, name == "strided" or 2 * b * hw >= 2**31)
+
+
+def workspace(lib, device: torch.device, stream: int) -> torch.Tensor:
+    """The forward's workspace (per-block partials and the last-block
+    ticket) of ``stream`` on ``device``: made zeroed at its first use and
+    kept, so that launches on other streams never share a ticket."""
+    key = (device, stream)
+    if key not in _workspaces:
+        _workspaces[key] = torch.zeros(lib.iswm_fused_ce_workspace_bytes() // 4,
+                                       dtype=torch.int32, device=device)
+    return _workspaces[key]
 
 
 def _check(logits: torch.Tensor, labels: torch.Tensor) -> None:
@@ -125,7 +190,7 @@ def fused_binary_ce_bwd_plain(
 
 
 def _cuda_args(logits, labels, class_weights):
-    """Check a CUDA call and return (labels, cw, label kind, geometry)."""
+    """Check a CUDA call and return (contiguous labels, f32 cw)."""
     if logits.device.type != "cuda":
         raise ValueError(f"fused_binary_ce runs on CUDA or CPU, not {logits.device}")
     if logits.dtype not in (torch.bfloat16, torch.float32):
@@ -136,12 +201,39 @@ def _cuda_args(logits, labels, class_weights):
         raise ValueError("logits and labels must be on one device")
     if torch.cuda.get_device_capability(logits.device) != (9, 0):
         raise RuntimeError("the fused_ce kernels are built for sm_90a (H100/H200)")
-    labels = labels.contiguous()
     cw = class_weights.to(device=logits.device, dtype=torch.float32).contiguous()
     if cw.numel() != 2:
         raise ValueError(f"class_weights must have 2 entries, got {cw.numel()}")
+    return labels.contiguous(), cw
+
+
+def _call_args(logits, labels, cw, ignore_index):
     b, _, h, w = logits.shape
-    return labels, cw, _LABEL_KINDS[labels.dtype], (b, h, w, *logits.stride())
+    return (logits.data_ptr(), int(logits.dtype == torch.bfloat16), labels.data_ptr(),
+            _LABEL_KINDS[labels.dtype], cw.data_ptr(), int(ignore_index), b, h, w,
+            *logits.stride())
+
+
+def _plan_args(layout: Layout, vectors: int, blocks: int) -> tuple:
+    return LAYOUTS.index(layout.name), int(layout.index64), vectors, blocks
+
+
+def launch_fwd(lib, logits, labels, cw, ignore_index, layout: Layout, ws, out, stream: int,
+               vectors: int = 0, blocks: int = 0) -> int:
+    """The forward's C entry on checked arguments (``vectors`` a thread and
+    ``blocks``: 0 for the kernel's own plan); returns its error code."""
+    return lib.iswm_fused_ce_fwd(*_call_args(logits, labels, cw, ignore_index),
+                                 *_plan_args(layout, vectors, blocks), ws.data_ptr(),
+                                 out.data_ptr(), stream)
+
+
+def launch_bwd(lib, logits, labels, cw, g, ws_sum, ignore_index, layout: Layout, d_logits,
+               stream: int, vectors: int = 0, blocks: int = 0) -> int:
+    """The backward's C entry on checked arguments; see :func:`launch_fwd`."""
+    a = _call_args(logits, labels, cw, ignore_index)
+    return lib.iswm_fused_ce_bwd(*a[:5], g.data_ptr(), ws_sum.data_ptr(), *a[5:],
+                                 d_logits.data_ptr(), *d_logits.stride(),
+                                 *_plan_args(layout, vectors, blocks), stream)
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -158,20 +250,18 @@ def fused_binary_ce_fwd(
     _check(logits, labels)
     if logits.device.type == "cpu":
         return fused_binary_ce_fwd_plain(logits, labels, class_weights, ignore_index)
-    labels, cw, kind, geom = _cuda_args(logits, labels, class_weights)
+    labels, cw = _cuda_args(logits, labels, class_weights)
     lib, _ = load_library()
-    partials = torch.empty(2 * lib.iswm_fused_ce_max_partials(), dtype=torch.float32,
-                           device=logits.device)
     out = torch.empty(2, dtype=torch.float32, device=logits.device)
+    layout = choose_layout(logits.shape, logits.stride(),
+                           (logits.data_ptr(), labels.data_ptr()))
     global launches_fwd
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
+        ws = workspace(lib, logits.device, stream)
         launches_fwd += 1
-        rc = lib.iswm_fused_ce_fwd(
-            logits.data_ptr(), int(logits.dtype == torch.bfloat16), labels.data_ptr(),
-            kind, cw.data_ptr(), int(ignore_index), *geom, partials.data_ptr(),
-            out.data_ptr(), stream,
-        )
+        launches_by_layout[layout.name] += 1
+        rc = launch_fwd(lib, logits, labels, cw, ignore_index, layout, ws, out, stream)
     _raise_on(lib, rc, "fused_binary_ce forward")
     return out
 
@@ -187,20 +277,21 @@ def fused_binary_ce_bwd(
     if logits.device.type == "cpu":
         return fused_binary_ce_bwd_plain(logits, labels, class_weights, w_sum, grad,
                                          ignore_index)
-    labels, cw, kind, geom = _cuda_args(logits, labels, class_weights)
+    labels, cw = _cuda_args(logits, labels, class_weights)
     g = grad.to(device=logits.device, dtype=torch.float32).contiguous()
-    ws = w_sum.to(device=logits.device, dtype=torch.float32).contiguous()
-    d_logits = torch.empty_like(logits)  # keeps the logits' strides
+    ws_sum = w_sum.to(device=logits.device, dtype=torch.float32).contiguous()
+    d_logits = torch.empty_like(logits)  # keeps the logits' strides where dense
+    layout = choose_layout(logits.shape, logits.stride(),
+                           (logits.data_ptr(), labels.data_ptr(), d_logits.data_ptr()),
+                           d_logits.stride())
     lib, _ = load_library()
     global launches_bwd
     with torch.cuda.device(logits.device):
         stream = torch.cuda.current_stream(logits.device).cuda_stream
         launches_bwd += 1
-        rc = lib.iswm_fused_ce_bwd(
-            logits.data_ptr(), int(logits.dtype == torch.bfloat16), labels.data_ptr(),
-            kind, cw.data_ptr(), g.data_ptr(), ws.data_ptr(), int(ignore_index), *geom,
-            d_logits.data_ptr(), *d_logits.stride(), stream,
-        )
+        launches_by_layout[layout.name] += 1
+        rc = launch_bwd(lib, logits, labels, cw, g, ws_sum, ignore_index, layout, d_logits,
+                        stream)
     _raise_on(lib, rc, "fused_binary_ce backward")
     return d_logits
 

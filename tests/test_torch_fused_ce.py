@@ -188,6 +188,40 @@ def test_make_loss_fn_routing(fused, device, want_fused):
     assert focal.func is port_losses.focal_loss  # the kernel is binary CE only
 
 
+def _cl_strides(b, h, w):
+    return (2 * h * w, 1, 2 * w, 2)
+
+
+@pytest.mark.parametrize("shape,strides,pointers,d_strides,want", [
+    # the training step's channels-last logits (d_logits alike)
+    ((8, 2, 512, 512), _cl_strides(8, 512, 512), (0, 4096, 8192), _cl_strides(8, 512, 512),
+     ("channels_last", False)),
+    # contiguous NCHW with H * W a multiple of 8 (the forward: no d_logits)
+    ((2, 2, 24, 40), (2 * 960, 960, 40, 1), (512, 1024), None, ("nchw", False)),
+    # an odd H * W
+    ((3, 2, 17, 23), (2 * 391, 391, 23, 1), (0, 0, 0), (2 * 391, 391, 23, 1),
+     ("strided", True)),
+    # channels-last strides 2 bytes past a 16-byte boundary (a storage offset of 1)
+    ((4, 2, 64, 64), _cl_strides(4, 64, 64), (4096 + 2, 0), None, ("strided", True)),
+    # labels at an offset that is not a multiple of 16 bytes
+    ((4, 2, 64, 64), _cl_strides(4, 64, 64), (0, 8, 0), _cl_strides(4, 64, 64),
+     ("strided", True)),
+    # d_logits in other strides than the logits
+    ((4, 2, 64, 64), _cl_strides(4, 64, 64), (0, 0, 0), (8192, 4096, 64, 1),
+     ("strided", True)),
+    # a slice of a larger tensor
+    ((2, 2, 16, 16), (3 * 18 * 21, 18 * 21, 21, 1), (0, 0), None, ("strided", True)),
+    # 2 * B * H * W = 2^31 elements: the vector body with 64-bit indices
+    ((2**14, 2, 256, 256), _cl_strides(2**14, 256, 256), (0, 0, 0),
+     _cl_strides(2**14, 256, 256), ("channels_last", True)),
+    ((2**14 - 1, 2, 256, 256), (2 * 65536, 65536, 256, 1), (0, 0), None, ("nchw", False)),
+])
+def test_choose_layout(shape, strides, pointers, d_strides, want):
+    """The wrapper's choice of body, from shapes, strides and addresses
+    alone (nothing is allocated)."""
+    assert tuple(port_ce.choose_layout(shape, strides, pointers, d_strides)) == want
+
+
 def _cuda_case(name, dtype, channels_last=False):
     logits, labels, cw = _case(name, seed=11)
     x = torch.from_numpy(logits).cuda().to(dtype)
@@ -222,3 +256,74 @@ def test_cuda_kernels_match_plain(name, dtype, channels_last):
         assert err <= 2 ** -7 * d_plain.float().abs().max()
     else:
         assert err <= 1e-6 * d_plain.abs().max()
+
+
+def _layout_case(layout, dtype, label_dtype, seed):
+    """Logits that the wrapper sends through ``layout`` (``strided``: a
+    slice of a larger tensor), and labels of ``label_dtype`` with ~10%
+    ignored and a few 2s."""
+    logits, labels, cw = _case("weighted", seed=seed)
+    x = torch.from_numpy(logits).cuda().to(dtype)
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    elif layout == "strided":
+        big = torch.zeros((x.shape[0], 3, x.shape[2] + 1, x.shape[3] + 3), dtype=dtype,
+                          device="cuda")
+        big[:, 1:, 1:, 3:] = x
+        x = big[:, 1:, 1:, 3:]
+    labels[0, 0, :4] = 2
+    return x, torch.from_numpy(labels).cuda().to(label_dtype), torch.from_numpy(cw).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["channels_last", "nchw", "strided"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("label_dtype", [torch.uint8, torch.int32, torch.int64])
+def test_cuda_every_layout_matches_plain(layout, dtype, label_dtype):
+    """Each body against the plain versions: the forward within 1e-5
+    relative of float64 and bit-stable, the backward within 1 bf16 ulp or
+    1e-6 * max, through the body the layout calls for."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    x, lbl, cw = _layout_case(layout, dtype, label_dtype, seed=21)
+    before = dict(port_ce.launches_by_layout)
+    sums = port_ce.fused_binary_ce_fwd(x, lbl, cw)
+    again = port_ce.fused_binary_ce_fwd(x, lbl, cw)
+    want = port_ce.fused_binary_ce_fwd_plain(x, lbl, cw, dtype=torch.float64)
+    w_sum, g = torch.clamp_min(sums[1], 1e-12), torch.tensor(0.7, device="cuda")
+    d = port_ce.fused_binary_ce_bwd(x, lbl, cw, w_sum, g)
+    d_plain = port_ce.fused_binary_ce_bwd_plain(x, lbl, cw, w_sum, g)
+    torch.cuda.synchronize()
+    took = {k: v - before[k] for k, v in port_ce.launches_by_layout.items() if v != before[k]}
+    assert took == {layout: 3}
+    assert torch.equal(sums, again)
+    assert torch.allclose(sums.double(), want, rtol=1e-5, atol=0)
+    err = (d.float() - d_plain.float()).abs()
+    if dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(d_plain.float().abs().clamp_min(1e-38))) - 7)
+        assert bool((err <= ulp).all())
+    else:
+        assert err.max() <= 1e-6 * d_plain.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_vector_and_strided_backward_bit_equal(dtype):
+    """The vector bodies keep the strided body's operations: the same values
+    through ``channels_last``, ``nchw`` and ``strided`` give the same
+    d_logits bits; and a forward after an all-ignored one gives its bits
+    again (the last block reset the ticket)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    out = {}
+    for layout in ("channels_last", "nchw", "strided"):
+        x, lbl, cw = _layout_case(layout, dtype, torch.int32, seed=22)
+        d = port_ce.fused_binary_ce_bwd(x, lbl, cw, torch.tensor(97.0, device="cuda"),
+                                        torch.tensor(1.0, device="cuda"))
+        out[layout] = (port_ce.fused_binary_ce_fwd(x, lbl, cw), d)
+    torch.cuda.synchronize()
+    assert torch.equal(out["channels_last"][1], out["strided"][1])
+    assert torch.equal(out["nchw"][1], out["strided"][1])
+    x, lbl, cw = _layout_case("channels_last", dtype, torch.int32, seed=22)
+    assert not port_ce.fused_binary_ce_fwd(x, torch.full_like(lbl, 255), cw).any()
+    assert torch.equal(port_ce.fused_binary_ce_fwd(x, lbl, cw), out["channels_last"][0])
