@@ -2,7 +2,7 @@
 kernels, hold each against its plain version, drive the tiled serving path,
 the training path (with quick-evals), the quantization comparison, training
 and serving with the fused stem, training with the fused bottleneck blocks,
-and data-parallel training in a process group.
+data-parallel training in a process group, and the rest of the model zoo.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-stat-starts 16   # phase 13's statistics
@@ -216,6 +216,27 @@ not 0):
      one-process step whose pooled values were moved by an ulp of what the
      convs read at one in a million (the whole step is chaotic, as in
      phase 11).
+ 16. the rest of the zoo at full width (OS 16, bf16, seeded weights):
+     ``int8_matmul`` bit for bit against its plain version at Xception's
+     shapes that phase 3 does not take (M = 512,072 and 129,032 among them),
+     timed out of L2 beside its bound and cuDNN's bf16 1x1;
+     ``deeplabv3plus_xception`` and ``deeplabv3plus_mobilenet`` through
+     ``Predictor`` on phase 4's two scenes in ``int8_exec`` (8 and 1 routed
+     sites at the shapes of ``ZOO_SHAPES``, launches = sites x chunks, scene
+     logits finite and equal bit for bit to the plain int8 path) and in bf16;
+     one chunk of ``deeplabv3_resnet50`` and of ``deeplabv3plus_resnet50``
+     with ``separable_conv`` in bf16 and ``int8_exec`` (30 and 34 routed
+     sites, one launch each, finite logits); each model's and variant's chunk
+     device time and scene latency beside the card's name and power limit;
+     Xception's feature maps (``extract_feature_maps``: the three labels,
+     finite, in [0, 1]); phase 6's training for ``ZOO_STEPS`` steps on
+     Xception and MobileNetV2 (#4 once per step each way, #6 once per
+     validation batch of the quick-eval, finite losses, a quick-eval equal to
+     the plain confusion matrix's metrics, the median train step); a seeded
+     torchvision-layout ``resnet50.pth`` in ``ISWM_PRETRAINED_DIR``: with
+     ``pretrained_backbone`` the Trainer's backbone on the card equals the
+     file's and its head is the seeded one.
+     The kernel record's launches of #1, #4 and #6 add this phase's.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -232,6 +253,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -422,11 +444,15 @@ class ColdTimer:
         return cuda_ms(flushed, reps) - self.flush_ms
 
 
-def phase_device() -> None:
-    line = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_device() -> None:
+    line = _smi()
     print(line)
     print(f"[1] device: {torch.cuda.get_device_name(0)}; nvidia-smi: {line}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -549,7 +575,7 @@ def phase_kernel(k8) -> dict:
             "int_mm_ms": total["int_mm_ms"]}
 
 
-def _chunk_profile(name: str, fn) -> None:
+def _chunk_profile(name: str, fn, phase: int = 4) -> None:
     """One serving chunk: its time on the host's clock (synchronized, median
     of 10) and, from a profiler trace, its device time, that of the int8
     kernel (and its finishing pass) and of the rest, and the device's idle
@@ -567,8 +593,8 @@ def _chunk_profile(name: str, fn) -> None:
     kernels = traced_kernels(fn, reps=5, warmup=1)
     busy = sum(kernels.values())
     int8 = sum(v for k, v in kernels.items() if "int8_strip_kernel" in k or "finish_split" in k)
-    print(f"[4] {name} chunk of 8 x 512^2: {wall:.3f} ms on the host's clock (median of 10), "
-          f"{8 / wall * 1e3:.1f} tiles/s; device time {busy:.3f} ms (profiler): int8_matmul "
+    print(f"[{phase}] {name} chunk of 8 x 512^2: {wall:.3f} ms on the host's clock (median of "
+          f"10), {8 / wall * 1e3:.1f} tiles/s; device time {busy:.3f} ms (profiler): int8_matmul "
           f"{int8:.3f} ms, the rest {busy - int8:.3f} ms; device idle share "
           f"{max(0.0, 1 - busy / wall):.3f}")
 
@@ -2412,9 +2438,7 @@ def phase_block_slice(fb, ce) -> tuple:
     model.compute_dtype = trained_dtype
     model.load_state_dict(start)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     xu8, yu8 = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
     # the shapes the gate passes, against the tables phase 12 timed
     seen_mm, seen_c3, handles = {}, {}, []
@@ -2901,9 +2925,7 @@ def phase_dp_slice(ce, cm) -> int:
     from iswm_tpu_torch.parallel import destroy
     from iswm_tpu_torch.train import TrainState, make_train_step
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     # phase 6's step in one process, timed before the group opens and after it closes
     single, cfg, train_ds, _ = _slice_trainer(DP_STEPS, "chip_smoke_single")
     images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
@@ -3043,6 +3065,295 @@ def phase_dp_slice(ce, cm) -> int:
     return launches[0]
 
 
+# ------------------------------------------------------------------ the zoo
+# (M, K, N) of every int8 site of one chunk (8 tiles of 512^2, OS 16) of each
+# new serving model, and how many of its routed sites run at it
+ZOO_SHAPES = {
+    "deeplabv3plus_xception": {
+        (512072, 128, 128): 1,   # block1.rep.3.pointwise, 253^2 after the VALID stems
+        (129032, 128, 256): 1,   # block2.rep.1.pointwise, 127^2
+        (129032, 256, 256): 1,   # block2.rep.4.pointwise
+        (8192, 1024, 1536): 1,   # conv3.pointwise
+        (8192, 1536, 2048): 1,   # conv4.pointwise
+        (8192, 2048, 256): 1,    # aspp.convs.0
+        (8, 2048, 256): 1,       # aspp.convs.4 (pool)
+        (8192, 1280, 256): 1,    # aspp.project
+    },
+    "deeplabv3plus_mobilenet": {(8192, 1280, 256): 1},  # aspp.project
+}
+# routed sites of one chunk of the V3 head and of the separable V3+ head on
+# ResNet-50: the 30 of phase 4 (the V3+ low-level projection is no site), and
+# the separable head's pointwise halves of aspp.convs.{1,2,3} and classifier.3
+ZOO_HEADS = {"deeplabv3_resnet50": ({}, 30),
+             "deeplabv3plus_resnet50": ({"separable_conv": True}, 34)}
+ZOO_STEPS = 4  # a quick-eval at step 2 and the validation at 4
+
+
+def _zoo_config(name: str, variant: str = "bf16"):
+    from iswm_tpu_torch.config import Config
+
+    cfg = Config()  # OS 16, bf16, tile 512 / overlap 64 / batch 8
+    head, _, backbone = name.partition("_")
+    cfg.model.name = head
+    cfg.model.backbone = "mobilenetv2" if backbone == "mobilenet" else backbone
+    cfg.predict.serving_variant = variant
+    return cfg
+
+
+def phase_zoo_kernel(k8) -> dict:
+    """Kernel #1 at the Xception shapes phase 3 does not take: bit-exact, and
+    timed with the inputs out of L2 beside its bound and cuDNN's bf16 1x1."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cold = ColdTimer(reps=10)
+    shapes = [s for s in ZOO_SHAPES["deeplabv3plus_xception"] if s not in SLICE_SHAPES]
+    rows = []
+    for m, k, n in shapes:
+        x, w_q, w_scale, x_scale = _case(m, k, n, "bf16", gen)
+        got = k8.int8_matmul(x, w_q, w_scale, x_scale)
+        want = k8.int8_matmul_plain(x, w_q, w_scale, x_scale)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"kernel != plain at Xception's {(m, k, n)}: max abs err "
+                                      f"{float((got - want).abs().max())}")
+        plan = k8.plan(m, k, n, x.element_size())
+        ms = cold(lambda: k8.int8_matmul(x, w_q, w_scale, x_scale))
+        plain_ms = cuda_ms(lambda: k8.int8_matmul_plain(x, w_q, w_scale, x_scale), reps=5)
+        xc = x.reshape(1, m, 1, k).permute(0, 3, 1, 2)
+        wc = w_q.t().to(torch.bfloat16).reshape(n, k, 1, 1).contiguous(
+            memory_format=torch.channels_last)
+        conv_ms = cold(lambda: torch.nn.functional.conv2d(xc, wc))
+        least = matmul_bound(m, k, n, x.element_size())
+        rows.append({"m": m, "k": k, "n": n, "ms": ms, "plain_ms": plain_ms, "conv_ms": conv_ms,
+                     **least})
+        print(f"[16] int8_matmul M={m} K={k} N={n} (Xception): bit-exact (torch.equal); plan "
+              + " ".join(f"{key}={plan[key]}" for key in k8.PLAN_KEYS)
+              + f"; kernel {ms:.4f} ms with the inputs out of L2 ({least['bound_ms'] / ms:.1%} of "
+              f"the bound {least['bound_ms']:.4f} ms by {least['bound_by']}); plain "
+              f"{plain_ms:.4f} ms; bf16 conv2d (cuDNN, no quantization) {conv_ms:.4f} ms")
+    return {"xception_shapes": rows}
+
+
+def _chunk(scene: np.ndarray, tile: int = 512) -> torch.Tensor:
+    """8 tiles of a scene, normalized NHWC on the card, as phase 4 takes them."""
+    from iswm_tpu_torch.data import val_transform_batch
+
+    x = val_transform_batch(torch.from_numpy(scene).cuda())
+    return torch.stack([x[oy:oy + tile, ox:ox + tile]
+                        for oy in (0, 448) for ox in (0, 384, 768, 1024)])
+
+
+def _scene_latency(predictor, scene, reps: int = 5) -> float:
+    predictor.predict_image(scene)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor.predict_image(scene)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_zoo_serving(k8, smi: str) -> int:
+    """Xception and MobileNetV2 through ``Predictor`` in int8_exec (launches,
+    routed shapes, bit-equal to the plain int8 path) and bf16; the V3 head and
+    the separable head on ResNet-50 for one chunk each way; feature maps.
+    Returns the int8 launches of the counted runs."""
+    from iswm_tpu_torch.infer import Predictor, tile_origins
+    from iswm_tpu_torch.infer.quantization import (
+        Int8Conv1x1, calibrate_conv_inputs, logit_diff_verdict, make_variant_fn)
+    from iswm_tpu_torch.models import build_model_by_name
+    from iswm_tpu_torch.data import val_transform_batch
+    from iswm_tpu_torch.ops.kernels.int8_matmul import quantized_conv1x1_plain
+
+    rng = np.random.default_rng(SEED)
+    scenes = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in SCENES]
+    xs = [val_transform_batch(torch.from_numpy(s).cuda()) for s in scenes]
+    chunks = sum(-(-(len(tile_origins(h, 512, 448)) * len(tile_origins(w, 512, 448))) // 8)
+                 for h, w in SCENES)
+    total = 0
+    for name, shapes in ZOO_SHAPES.items():
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        pred = Predictor(_zoo_config(name, "int8_exec"), device="cuda")
+        k8.launches = 0
+        products = [pred.predict_image(s) for s in scenes]
+        torch.cuda.synchronize()
+        launches, routed = k8.launches, pred.engine.model_fn.routed_sites
+        total += launches
+        sites = sum(shapes.values())
+        print(f"[16] {name} int8_exec: {len(routed)} routed sites {sorted(routed)}; "
+              f"int8_matmul launches {launches} over {chunks} chunks")
+        check(len(routed) == sites, f"{name}: {len(routed)} routed sites, expected {sites}")
+        check(launches == sites * chunks,
+              f"{name}: int8_matmul launched {launches} times, expected {sites} x {chunks}")
+        int8_sites = [m for m in pred.engine.model_fn.model.modules()
+                      if isinstance(m, Int8Conv1x1)]
+        seen = set()
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: seen.add((args[0].shape[0] * args[0].shape[2] * args[0].shape[3],
+                                        mod.w_q.shape[1], mod.w_q.shape[0])))
+            for m in int8_sites]
+        logits = [pred.engine.infer_scene(x) for x in xs]
+        for h in hooks:
+            h.remove()
+        check(seen == set(shapes), f"{name}: routed shapes {sorted(seen)} != {sorted(shapes)}")
+        for (h, w), lg, prod in zip(SCENES, logits, products):
+            check(tuple(lg.shape) == (h, w, 2) and bool(torch.isfinite(lg).all()),
+                  f"{name}: logits of the {h}x{w} scene: {tuple(lg.shape)} or not finite")
+            check(np.array_equal(torch.softmax(lg, -1)[..., 1].cpu().numpy(), prod["prob_fg"]),
+                  f"{name}: the rerun's logits differ from the counted run's")
+        for m in int8_sites:
+            m.conv_fn = quantized_conv1x1_plain
+        plain = [pred.engine.infer_scene(x) for x in xs]
+        for m in int8_sites:
+            del m.conv_fn
+        diff = max(float((a - b).abs().max()) for a, b in zip(logits, plain))
+        check(all(torch.equal(a, b) for a, b in zip(logits, plain)),
+              f"{name}: scene logits differ from the plain int8 path: max abs diff {diff}")
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+        bf16 = Predictor(_zoo_config(name), device="cuda")
+        agree, verdict = logit_diff_verdict(bf16.engine.infer_scene(xs[0]).cpu().numpy(),
+                                            logits[0].cpu().numpy())
+        print(f"[16] {name}: int8_exec scene logits finite and equal to the plain int8 path "
+              f"(max abs diff {diff}); mask agreement with bf16 {agree:.6f} ({verdict})")
+        chunk = _chunk(scenes[0])
+        for variant, predictor in (("bf16", bf16), ("int8_exec", pred)):
+            fn = predictor.engine.model_fn
+            _chunk_profile(f"{name} {variant} ({smi})", lambda: fn(chunk), phase=16)
+            for (h, w), scene in zip(SCENES, scenes):
+                print(f"[16] {name} {variant} {h}x{w} ({smi}): scene latency "
+                      f"{_scene_latency(predictor, scene):.2f} ms (median of 5)")
+        if name == "deeplabv3plus_xception":
+            maps = bf16.extract_feature_maps(scenes[0])
+            want = {"backbone_low_level": (127, 127), "backbone_out": (32, 32), "aspp": (32, 32)}
+            check(list(maps) == list(want), f"feature map labels {list(maps)}")
+            for label, fmap in maps.items():
+                check(fmap.shape == want[label] and bool(np.isfinite(fmap).all())
+                      and fmap.min() >= 0.0 and fmap.max() <= 1.0,
+                      f"feature map {label}: {fmap.shape}, range [{fmap.min()}, {fmap.max()}]")
+            print(f"[16] {name} feature maps on the card: "
+                  + ", ".join(f"{k} {v.shape[0]}x{v.shape[1]}" for k, v in maps.items())
+                  + ", finite, in [0, 1]")
+        del pred, bf16
+
+    chunk = _chunk(scenes[0])
+    for name, (model_kw, sites) in ZOO_HEADS.items():
+        model = build_model_by_name(name, **model_kw).to("cuda", memory_format=torch.channels_last)
+        scales = calibrate_conv_inputs(model, [chunk.permute(0, 3, 1, 2)], wide=True)
+        fns = {"bf16": make_variant_fn(model, "bf16"),
+               "int8_exec": make_variant_fn(model, "int8_exec", conv_scales=scales)}
+        k8.launches = 0
+        out = {k: fn(chunk) for k, fn in fns.items()}
+        torch.cuda.synchronize()
+        launches = k8.launches
+        total += launches
+        routed = fns["int8_exec"].routed_sites
+        check(len(routed) == sites and launches == sites,
+              f"{name} {model_kw}: {len(routed)} routed sites and {launches} launches in one "
+              f"chunk, expected {sites}")
+        check(all(bool(torch.isfinite(v).all()) and tuple(v.shape) == (8, 512, 512, 2)
+                  for v in out.values()), f"{name} {model_kw}: logits not finite")
+        agree, verdict = logit_diff_verdict(out["bf16"].cpu().numpy(),
+                                            out["int8_exec"].cpu().numpy())
+        print(f"[16] {name} {model_kw}: one chunk in bf16 and int8_exec, finite logits; "
+              f"{len(routed)} routed sites, int8_matmul launches {launches}; int8_exec vs bf16 "
+              f"mask agreement {agree:.6f} ({verdict})")
+        for variant, fn in fns.items():
+            _chunk_profile(f"{name} {model_kw} {variant} ({smi})", lambda: fn(chunk), phase=16)
+        del model, fns
+    return total
+
+
+def phase_zoo_train(ce, cm, smi: str) -> tuple:
+    """Phase 6's training for ``ZOO_STEPS`` steps on Xception and
+    MobileNetV2 (CE through #4, a quick-eval through #6, held against the
+    plain confusion matrix), and a pretrained ResNet-50 backbone from a
+    seeded cache file.  Returns the (#4 forward, #4 backward, #6) launches
+    of the two fits."""
+    from iswm_tpu_torch.data import batch_iterator
+    from iswm_tpu_torch.metrics.device import foreground_metrics_from_cm
+    from iswm_tpu_torch.models import build_model, build_model_by_name
+
+    counts = [0, 0, 0]
+    for backbone in ("xception", "mobilenetv2"):
+        trainer, cfg, train_ds, val_ds = _slice_trainer(ZOO_STEPS, f"chip_smoke_{backbone}",
+                                                        backbone=backbone)
+        ce.launches_fwd = ce.launches_bwd = cm.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = (ce.launches_fwd, ce.launches_bwd, cm.launches)
+        counts = [a + b for a, b in zip(counts, launches)]
+        batches = -(-len(val_ds) // cfg.data.val_batch_size)
+        losses = trainer.logger.history["train_loss"]
+        check(launches == (ZOO_STEPS, ZOO_STEPS, batches),
+              f"{backbone}: (#4 fwd, #4 bwd, #6) launches {launches}, expected "
+              f"({ZOO_STEPS}, {ZOO_STEPS}, {batches}: one quick-eval)")
+        check(len(losses) == 2 and all(np.isfinite(losses)), f"{backbone}: losses {losses}")
+        check(trainer.best_path is not None, f"{backbone}: no best checkpoint")
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        got = trainer.quick_eval()
+        total = torch.zeros((2, 2), device="cuda")
+        for images, labels in batch_iterator(val_ds, cfg.data.val_batch_size, epochs=1):
+            preds = trainer.eval_step(torch.from_numpy(images).cuda())["preds"]
+            total += cm.binary_confusion_matrix_plain(torch.from_numpy(labels).cuda(), preds)
+        want = {k: float(v) for k, v in foreground_metrics_from_cm(total).items()}
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+        worst = max(abs(got[k] - want[k]) for k in want)
+        check(sorted(got) == sorted(want) and worst <= 1e-6,
+              f"{backbone}: quick_eval {got} vs the plain confusion matrix's {want}")
+        images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+        step_ms = _median_step_ms(trainer, torch.from_numpy(images).cuda(),
+                                  torch.from_numpy(labels).cuda(), steps=5)
+        print(f"[16] training deeplabv3plus_{backbone}: {ZOO_STEPS} steps + 1 quick-eval + 1 "
+              f"validation in {fit_s:.2f} s; #4 launches fwd {launches[0]}, bwd {launches[1]}; "
+              f"#6 launches {launches[2]}; losses {[round(v, 4) for v in losses]}; quick_eval "
+              f"equal to the plain confusion matrix's metrics (max abs diff {worst:.1e}, limit "
+              f"1e-6); {smi}: train step batch 8 at 512^2 median {np.median(step_ms):.2f} ms "
+              f"of {len(step_ms)}")
+        del trainer
+
+    # a seeded random torchvision-layout ResNet-50 file in the cache directory
+    out = TRAIN_OUT.with_name("chip_smoke_pretrained")
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(SEED)
+    file_sd = {}
+    for key, t in build_model_by_name("deeplabv3plus_resnet50").backbone.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            file_sd[key] = (torch.rand(t.shape, generator=gen) + 0.5 if key.endswith("running_var")
+                            else torch.randn(t.shape, generator=gen))
+    file_sd.update({"fc.weight": torch.randn(1000, 2048, generator=gen),
+                    "fc.bias": torch.randn(1000, generator=gen)})
+    torch.save(file_sd, out / "resnet50.pth")
+    before = os.environ.get("ISWM_PRETRAINED_DIR")
+    os.environ["ISWM_PRETRAINED_DIR"] = str(out)
+    try:
+        trainer, cfg, _, _ = _slice_trainer(ZOO_STEPS, "chip_smoke_pretrained_run",
+                                            pretrained_backbone=True)
+    finally:
+        if before is None:
+            del os.environ["ISWM_PRETRAINED_DIR"]
+        else:
+            os.environ["ISWM_PRETRAINED_DIR"] = before
+    model = trainer.state.model
+    loaded = {k: v for k, v in model.backbone.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    check(all(v.is_cuda for v in loaded.values())
+          and all(torch.equal(v.cpu(), file_sd[k]) for k, v in loaded.items()),
+          "pretrained_backbone: the backbone on the card is not the file's")
+    seeded = build_model(cfg.model, seed=cfg.train.random_seed).classifier.state_dict()
+    check(all(torch.equal(v.cpu(), seeded[k]) for k, v in model.classifier.state_dict().items()),
+          "pretrained_backbone: the head is not the seeded one")
+    print(f"[16] pretrained_backbone on cuda: {len(loaded)} backbone tensors equal to the cached "
+          f"resnet50.pth, the head as seeded")
+    return tuple(counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -3084,6 +3395,12 @@ def main() -> int:
                               phase_block_slice(fb, ce)))
     sharded_record = phase_sharded_ce(ce)
     sharded_launches = phase_dp_slice(ce, cm)
+    # the zoo's main paths: serving (#1) and training with a quick-eval (#4, #6)
+    smi = _smi()
+    record.update(phase_zoo_kernel(k8))
+    launches += phase_zoo_serving(k8, smi)
+    zoo_fwd, zoo_bwd, zoo_cm = phase_zoo_train(ce, cm, smi)
+    ce_fwd, ce_bwd, cm_launches = ce_fwd + zoo_fwd, ce_bwd + zoo_bwd, cm_launches + zoo_cm
     for name, count in (("int8_matmul", launches), ("fused_binary_ce_fwd", ce_fwd),
                         ("sharded_fused_binary_ce", sharded_launches),
                         ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches),

@@ -42,7 +42,8 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--max_prob", type=float, default=None)
     p.add_argument("--enable_wave_processing", action="store_true")
     p.add_argument("--save_feature_maps", action="store_true",
-                   help="not ported yet: refused")
+                   help="also write channel-mean heatmaps of the backbone taps "
+                        "and the ASPP output ({name}_fmap_{label}.png)")
     p.add_argument("--serving_variant", type=str, default=None,
                    choices=["bf16", "int8", "int8_exec", "int8_exec_xla"],
                    help="serving precision (int8_exec: 1x1 convs in int8 "
@@ -63,7 +64,7 @@ def build_config(args: argparse.Namespace) -> Config:
     if args.model:
         head, _, backbone = args.model.partition("_")
         cfg.model.name = head
-        cfg.model.backbone = backbone
+        cfg.model.backbone = "mobilenetv2" if backbone == "mobilenet" else backbone
     if args.output_stride is not None:
         cfg.model.output_stride = args.output_stride
     if args.num_classes is not None:

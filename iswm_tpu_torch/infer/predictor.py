@@ -6,7 +6,9 @@ writes ``{name}_predict.png`` (+ optional ``_confidence.png`` and
 ``_binary_mask.png``) per image; scenes go through the batched
 sliding-window TileEngine.  Serving variants: ``bf16`` (the model in its
 compute dtype), ``int8`` (weight-only) and ``int8_exec`` (1x1 convs in
-int8 through the hand-written kernel, calibrated on the first scene).
+int8 through the hand-written kernel, calibrated on the first scene).  With
+``save_feature_maps``, also ``{name}_fmap_{label}.png``: channel-mean
+heatmaps of the backbone's two taps and the ASPP output on the centre tile.
 """
 
 from __future__ import annotations
@@ -22,22 +24,23 @@ from ..compat.bridge import load_checkpoint
 from ..config import Config
 from ..data.datasets import IMG_EXTENSIONS, decode_target
 from ..data.transforms import val_transform_batch
-from ..models import build_model
+from ..models import ASPP, build_model
 from .products import binarize_confidence_map, confidence_map, prob_to_mask
 from .quantization import ServingFn, calibrate_conv_inputs, make_variant_fn
 from .tiling import TileEngine
 
-_FEATURE_MAPS_ITEM = "ROADMAP.md Queue 1, 'Remaining zoo and feature maps'"
+
+def _channel_mean(feats: torch.Tensor) -> np.ndarray:
+    """[1, c, h, w] activations -> [h, w] channel mean scaled to [0, 1]."""
+    arr = feats[0].float().mean(dim=0).cpu().numpy()
+    lo, hi = arr.min(), arr.max()
+    return (arr - lo) / (hi - lo + 1e-8)
 
 
 class Predictor:
     def __init__(self, cfg: Config, ckpt_path: Optional[str] = None,
                  device: str = "cuda"):
         cfg.validate()
-        if cfg.predict.save_feature_maps:
-            raise NotImplementedError(
-                f"--save_feature_maps is not ported yet ({_FEATURE_MAPS_ITEM})"
-            )
         variant = cfg.predict.serving_variant
         if (variant == "int8_exec_xla" or cfg.predict.int8_grouped
                 or cfg.predict.int8_stem):
@@ -113,6 +116,35 @@ class Predictor:
             "rgb": decode_target(mask),
         }
 
+    def extract_feature_maps(self, image: np.ndarray) -> Dict[str, np.ndarray]:
+        """uint8 [H, W, 3] image -> {label: [h, w] float map in [0, 1]}: the
+        channel means of ``backbone_low_level``, ``backbone_out`` and
+        ``aspp`` (the ASPP's output) on the centre tile, reflect-padded to
+        the tile size where the image is smaller, through the model in its
+        compute dtype (the JAX package's ``extract_feature_maps``)."""
+        t = self.cfg.predict.tile_size
+        h, w = image.shape[:2]
+        top, left = max(0, (h - t) // 2), max(0, (w - t) // 2)
+        tile = image[top:top + t, left:left + t]
+        if tile.shape[0] < t or tile.shape[1] < t:
+            tile = np.pad(tile, ((0, t - tile.shape[0]), (0, t - tile.shape[1]), (0, 0)),
+                          mode="reflect")
+        x = val_transform_batch(torch.as_tensor(np.ascontiguousarray(tile), device=self.device))
+        taps: Dict[str, torch.Tensor] = {}
+        aspp = next(m for m in self.model.modules() if isinstance(m, ASPP))
+        hooks = [
+            self.model.backbone.register_forward_hook(
+                lambda m, args, out: taps.update({f"backbone_{k}": v for k, v in out.items()})),
+            aspp.register_forward_hook(lambda m, args, out: taps.update(aspp=out)),
+        ]
+        try:
+            with torch.inference_mode():
+                self.model(x[None].permute(0, 3, 1, 2))
+        finally:
+            for hook in hooks:
+                hook.remove()
+        return {label: _channel_mean(v) for label, v in taps.items()}
+
     def process_images(self, input_dir: str, output_dir: str) -> int:
         """Walk input_dir (and one level of subdirs); write products.
         Returns the number of images processed."""
@@ -154,6 +186,10 @@ class Predictor:
                         synthetic_ratio=cfg.synthetic_damage_ratio,
                     )
                     Image.fromarray(binary).save(out_dir / f"{stem}_binary_mask.png")
+                if cfg.save_feature_maps:
+                    for label, fmap in self.extract_feature_maps(image).items():
+                        Image.fromarray((fmap * 255).astype(np.uint8)).save(
+                            out_dir / f"{stem}_fmap_{label}.png")
                 count += 1
             except (OSError, ValueError) as e:  # skip unreadable images
                 print(f"skipping {src}: {e}")

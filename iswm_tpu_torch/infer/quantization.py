@@ -44,9 +44,11 @@ import torch.nn as nn
 
 from ..data.transforms import val_transform_batch
 from ..metrics import StreamMetrics
-from ..models.deeplab import ASPP, ASPPPooling, DeepLabHeadV3Plus
-from ..models.layers import ConvBN
+from ..models.deeplab import ASPP, ASPPPooling, DeepLabHead, DeepLabHeadV3Plus
+from ..models.layers import AtrousSeparableConv, ConvBN, SeparableConvBN
+from ..models.mobilenetv2 import INVERTED_RESIDUAL_SETTINGS, ConvBNReLU6, InvertedResidual
 from ..models.resnet import BasicBlock, Bottleneck, ResNet
+from ..models.xception import XCEPTION_BLOCKS, Block, SeparableConv2d, Xception
 from ..ops.kernels.int8_matmul import quantized_conv1x1
 
 _INT8_XLA_ITEM = "ROADMAP.md Queue 1, 'int8_exec_xla and QAT'"
@@ -123,21 +125,29 @@ def activation_sites(model: nn.Module) -> Dict[str, nn.Module]:
     """{site key: the module whose output is the site's tensor}.
 
     The sites are the outputs of the JAX package's ``ConvBN`` /
-    ``PackedStemConvBN`` modules (post-BN, post-ReLU where the ReLU is
-    inside that module), each keyed by the name of its conv here:
+    ``PackedStemConvBN`` / ``SeparableConvBN`` / ``SepConvBN`` modules
+    (post-BN, post-ReLU where the ReLU is inside that module), each keyed by
+    the name of its conv here (a separable conv's module for the last two):
 
-    - the stem: ``backbone.conv1`` -> the stem's ReLU, unless the model runs
-      the fused stem where its weights lie (``FusedStemPool`` is none of the
-      observed module types in the JAX package either: one site fewer);
+    - the ResNet stem: ``backbone.conv1`` -> the stem's ReLU, unless the model
+      runs the fused stem where its weights lie (``FusedStemPool`` is none of
+      the observed module types in the JAX package either: one site fewer);
     - a residual block: ``conv1`` (and a bottleneck's ``conv2``) -> their
       ReLUs, the last conv -> its BatchNorm (the ReLU after the residual
       add is outside), ``downsample.0`` -> ``downsample.1``;
-    - the head's ``ConvBN``s (low-level projection, ASPP branches) -> their
-      ReLU; the pooling branch, the ASPP projection and the second
-      classifier conv likewise.
+    - MobileNetV2: each ``ConvBNReLU6`` -> its BatchNorm (ReLU6 is outside
+      the JAX ``ConvBN``), a block's projection conv -> its BatchNorm;
+    - Xception: the stems -> their ReLUs, each separable conv -> the
+      BatchNorm after it (``SepConvBN`` has no activation), ``skip`` ->
+      ``skipbn``;
+    - the head's ``ConvBN``s and ``SeparableConvBN``s (low-level projection,
+      ASPP branches) -> their ReLU; the pooling branch, the ASPP projection,
+      the V3 head's 3x3 conv and the V3+ head's second classifier conv
+      likewise.
 
-    The first classifier conv is no site: the JAX package builds it as a
-    ``ConcatConvBN``, which its calibration does not observe."""
+    The V3+ head's first classifier conv is a site only when separable: the
+    JAX package builds the plain one as a ``ConcatConvBN``, which its
+    calibration does not observe."""
     sites: Dict[str, nn.Module] = {}
     for name, m in model.named_modules():
         if isinstance(m, ResNet):
@@ -152,14 +162,31 @@ def activation_sites(model: nn.Module) -> Dict[str, nn.Module]:
                 sites[f"{name}.conv2"] = m.bn2
             if m.downsample is not None:
                 sites[f"{name}.downsample.0"] = m.downsample[1]
+        elif isinstance(m, ConvBNReLU6):
+            sites[f"{name}.0"] = m[1]
+        elif isinstance(m, InvertedResidual):
+            sites[f"{name}.conv.{len(m.conv) - 2}"] = m.conv[-1]
+        elif isinstance(m, Xception):
+            sites.update({f"{name}.conv1": m.relu1, f"{name}.conv2": m.relu2,
+                          f"{name}.conv3": m.bn3, f"{name}.conv4": m.bn4})
+        elif isinstance(m, Block):
+            for i, layer in enumerate(m.rep):
+                if isinstance(layer, SeparableConv2d):
+                    sites[f"{name}.rep.{i}"] = m.rep[i + 1]
+            if m.skip is not None:
+                sites[f"{name}.skip"] = m.skipbn
         elif isinstance(m, ASPPPooling):
             sites[f"{name}.1"] = m[3]
-        elif isinstance(m, ConvBN):
+        elif isinstance(m, (ConvBN, SeparableConvBN)):
             sites[f"{name}.0"] = m[-1]
         elif isinstance(m, ASPP):
             sites[f"{name}.project.0"] = m.project[2]
         elif isinstance(m, DeepLabHeadV3Plus):
             sites[f"{name}.classifier.3"] = m.classifier[5]
+            if isinstance(m.classifier[0], AtrousSeparableConv):
+                sites[f"{name}.classifier.0"] = m.classifier[2]
+        elif isinstance(m, DeepLabHead):
+            sites[f"{name}.classifier.1"] = m.classifier[3]
     return sites
 
 
@@ -274,38 +301,85 @@ def calibrate_conv_inputs(
     return _scales_from_absmax(absmax)
 
 
-_JAX_SITES = (
-    (r"backbone/stem", "backbone.conv1"),
-    (r"backbone/layer(\d+)_(\d+)/downsample", r"backbone.layer\1.\2.downsample.0"),
-    (r"backbone/layer(\d+)_(\d+)/conv(\d+)", r"backbone.layer\1.\2.conv\3"),
-    (r"head/project", "classifier.project.0"),
-    (r"head/aspp/b(\d+)", r"classifier.aspp.convs.\1.0"),
-    (r"head/aspp/pool", "classifier.aspp.convs.4.1"),
-    (r"head/aspp/project", "classifier.aspp.project.0"),
-    (r"head/cls0", "classifier.classifier.0"),
-    (r"head/cls1", "classifier.classifier.3"),
-    (r"head/cls_out", "classifier.classifier.6"),
-)
+def _mobilenetv2_site(m: re.Match) -> str:
+    stage, block = int(m[1]), int(m[2])
+    index = 1 + sum(n for _, _, n, _ in INVERTED_RESIDUAL_SETTINGS[:stage]) + block
+    parts = ("expand_conv", "depthwise", "project")[stage == 0:]  # stage 0 has no expansion
+    i = parts.index(m[3])
+    return f"backbone.features.{index}.conv.{i}" + ("" if m[3] == "project" else ".0")
 
 
-def port_site_key(jax_key: str) -> str:
-    """A JAX conv site key (flax path such as ``backbone/layer2_0/conv1/conv``;
-    ``head/cls0#p1`` for a part of a concat conv) -> the port's module name
-    (``backbone.layer2.0.conv1``; ``classifier.classifier.0``)."""
+def _xception_site(m: re.Match) -> str:
+    n, i = int(m[1]), int(m[2])
+    return f"backbone.block{n}.rep.{3 * i + int(XCEPTION_BLOCKS[n][1])}"
+
+
+_BACKBONE_SITES = {
+    "resnet": (
+        (r"backbone/stem", "backbone.conv1"),
+        (r"backbone/layer(\d+)_(\d+)/downsample", r"backbone.layer\1.\2.downsample.0"),
+        (r"backbone/layer(\d+)_(\d+)/conv(\d+)", r"backbone.layer\1.\2.conv\3"),
+    ),
+    "mobilenetv2": (
+        (r"backbone/stem", "backbone.features.0.0"),
+        (r"backbone/stage(\d+)_(\d+)/(expand_conv|depthwise|project)", _mobilenetv2_site),
+    ),
+    "xception": (
+        (r"backbone/stem(\d)", r"backbone.conv\1"),
+        (r"backbone/block(\d+)/sep(\d+)", _xception_site),
+        (r"backbone/block(\d+)/skip", r"backbone.block\1.skip"),
+        (r"backbone/conv([34])", r"backbone.conv\1"),
+    ),
+}
+# a separable conv's two convs: Xception's SeparableConv2d, the head's
+# AtrousSeparableConv
+_SEPARABLE_PARTS = {"backbone": {"depthwise": ".conv1", "pointwise": ".pointwise"},
+                    "head": {"depthwise": ".body.0", "pointwise": ".body.1"}}
+
+
+def _head_sites(head: str) -> tuple:
+    if head == "deeplabv3plus":
+        aspp, cls = "classifier.aspp", {"cls0": 0, "cls1": 3, "cls_out": 6}
+        project = ((r"head/project", "classifier.project.0"),)
+    else:
+        aspp, cls, project = "classifier.classifier.0", {"cls0": 1, "cls_out": 4}, ()
+    return project + (
+        (r"head/aspp/b(\d+)", rf"{aspp}.convs.\1.0"),
+        (r"head/aspp/pool", f"{aspp}.convs.4.1"),
+        (r"head/aspp/project", f"{aspp}.project.0"),
+        *((rf"head/{k}", f"classifier.classifier.{i}") for k, i in cls.items()),
+    )
+
+
+def port_site_key(jax_key: str, backbone: str = "resnet50", head: str = "deeplabv3plus") -> str:
+    """A JAX conv site key of a ``backbone`` / ``head`` model (flax path such
+    as ``backbone/layer2_0/conv1/conv``; ``head/cls0#p1`` for a part of a
+    concat conv; ``backbone/block2/sep0/pointwise`` for a separable conv's
+    half) -> the port's module name (``backbone.layer2.0.conv1``;
+    ``classifier.classifier.0``; ``backbone.block2.rep.1.pointwise``)."""
     path = re.sub(r"#p\d+$", "", jax_key)
     path = re.sub(r"/conv$", "", path)
-    for pattern, name in _JAX_SITES:
+    family = ("mobilenetv2" if backbone in ("mobilenetv2", "mobilenet")
+              else "xception" if backbone == "xception" else "resnet")
+    part = ""  # (MobileNetV2's ConvBN named ``depthwise`` is a whole site)
+    if path.endswith(("/depthwise", "/pointwise")) and (
+            family == "xception" or path.startswith("head/")):
+        path, _, part = path.rpartition("/")
+    for pattern, name in _BACKBONE_SITES[family] + _head_sites(head):
         if re.fullmatch(pattern, path):
-            return re.sub(pattern, name, path)
-    raise KeyError(f"no port site for JAX site {jax_key!r}")
+            key = re.sub(pattern, name, path)
+            return key + (_SEPARABLE_PARTS[path.split("/")[0]][part] if part else "")
+    raise KeyError(f"no port site for JAX site {jax_key!r} of {head}_{backbone}")
 
 
-def port_act_site_key(jax_key: str) -> str:
-    """A JAX activation site key (the flax path of a ``ConvBN``, such as
-    ``backbone/layer2_0/conv1`` or ``head/aspp/pool``) -> the port's site
-    key, the name of that module's conv (``backbone.layer2.0.conv1``;
-    ``classifier.aspp.convs.4.1``), as :func:`activation_sites` keys it."""
-    return port_site_key(jax_key)
+def port_act_site_key(jax_key: str, backbone: str = "resnet50",
+                      head: str = "deeplabv3plus") -> str:
+    """A JAX activation site key (the flax path of a ``ConvBN`` or a
+    separable one, such as ``backbone/layer2_0/conv1``, ``head/aspp/pool``
+    or ``backbone/block2/sep0``) -> the port's site key, the name of that
+    module's conv (``backbone.layer2.0.conv1``; ``classifier.aspp.convs.4.1``;
+    ``backbone.block2.rep.1``), as :func:`activation_sites` keys it."""
+    return port_site_key(jax_key, backbone, head)
 
 
 class Int8Conv1x1(nn.Module):

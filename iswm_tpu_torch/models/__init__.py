@@ -1,10 +1,10 @@
 """Model factory, the counterpart of ``iswm_tpu/models/__init__.py``.
 
-This slice builds the ResNet family with the DeepLabV3+ head.  The other
-backbones and the plain V3 head raise ``NotImplementedError`` until their
-ROADMAP item lands.  ``ModelConfig.fused_stem`` and ``ModelConfig.fused_blocks``
-(``never`` | ``auto`` | ``always`` | ``interpret``) choose the fused stem and
-the fused bottleneck blocks of the ResNet backbone.
+Every backbone of ``BACKBONES`` under either head of ``HEADS``, with
+``separable_conv`` for the head's 3x3 convs.  ``ModelConfig.fused_stem`` and
+``ModelConfig.fused_blocks`` (``never`` | ``auto`` | ``always`` |
+``interpret``) choose the fused stem and the fused bottleneck blocks of a
+ResNet backbone; the other backbones have neither.
 """
 
 from __future__ import annotations
@@ -16,13 +16,16 @@ import torch
 from ..config import ModelConfig, aspp_dilations
 from ..parallel.distributed import world_size
 
-from .deeplab import ASPP, DeepLabHeadV3Plus, DeepLabV3Model
+from .deeplab import ASPP, DeepLabHead, DeepLabHeadV3Plus, DeepLabV3Model
 from .layers import BatchNorm2d, init_weights
+from .mobilenetv2 import MobileNetV2
 from .resnet import ARCHS, ResNet, resnet_feature_channels
+from .xception import Xception
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
-_ZOO_ITEM = "ROADMAP.md Queue 1, 'Remaining zoo and feature maps'"
+BACKBONES = tuple(ARCHS) + ("mobilenetv2", "xception")
+HEADS = ("deeplabv3plus", "deeplabv3")
 SHARDED_FUSED_ITEM = "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'"
 
 
@@ -55,35 +58,43 @@ def _resolve_fused_mode(value: str, setting: str) -> str:
 def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     """Build an eval-mode model from config, with seeded random weights.
 
-    OS=8 dilates ResNet layers 3 and 4 with ASPP rates (12, 24, 36); OS=16
-    dilates layer 4 only, with (6, 12, 18)."""
-    if cfg.name != "deeplabv3plus":
-        raise NotImplementedError(f"head {cfg.name!r} is not ported yet ({_ZOO_ITEM})")
-    if cfg.backbone not in ARCHS:
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet ({_ZOO_ITEM})"
-        )
-    if cfg.separable_conv:
-        raise NotImplementedError(f"separable_conv is not ported yet ({_ZOO_ITEM})")
+    OS=8 dilates ResNet layers 3 and 4 (Xception's block3, middle flow and
+    block12) with ASPP rates (12, 24, 36); OS=16 dilates layer 4 (block12)
+    only, with (6, 12, 18).  MobileNetV2 trades strides for dilation once it
+    reaches the output stride."""
+    if cfg.name not in HEADS:
+        raise ValueError(f"unknown model name {cfg.name!r}; expected one of {HEADS}")
+    if cfg.backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {cfg.backbone!r}; expected one of {BACKBONES}")
     if cfg.int8_training:
         raise NotImplementedError(
             "int8_training (QAT) is not ported yet (ROADMAP.md Queue 1, "
             "'int8_exec_xla and QAT')"
         )
     if cfg.param_dtype != "float32":
-        raise NotImplementedError("the port keeps float32 parameters")
+        raise NotImplementedError(
+            f"param_dtype={cfg.param_dtype!r} is not ported yet (ROADMAP.md "
+            "Queue 1, 'Low-precision parameters')")
     if cfg.output_stride not in (8, 16):
         raise ValueError("output_stride must be 8 or 16")
-    rswd = (False, True, True) if cfg.output_stride == 8 else (False, False, True)
-    low_ch, out_ch = resnet_feature_channels(cfg.backbone)
-    model = DeepLabV3Model(
-        ResNet(cfg.backbone, rswd, in_channels=cfg.in_channels,
-               fused_stem=_resolve_fused_mode(cfg.fused_stem, "fused_stem"),
-               fused_blocks=_resolve_fused_mode(cfg.fused_blocks, "fused_blocks")),
-        DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes,
-                          aspp_dilations(cfg.output_stride)),
-        compute_dtype=DTYPES[cfg.compute_dtype],
-    )
+    os8 = cfg.output_stride == 8
+    if cfg.backbone in ARCHS:
+        backbone = ResNet(
+            cfg.backbone, (False, True, True) if os8 else (False, False, True),
+            in_channels=cfg.in_channels,
+            fused_stem=_resolve_fused_mode(cfg.fused_stem, "fused_stem"),
+            fused_blocks=_resolve_fused_mode(cfg.fused_blocks, "fused_blocks"))
+    elif cfg.backbone == "mobilenetv2":
+        backbone = MobileNetV2(cfg.output_stride, in_channels=cfg.in_channels)
+    else:  # over (block1, block2, block3 + the middle flow, block12)
+        backbone = Xception((False, False, True, True) if os8 else (False, False, False, True),
+                            in_channels=cfg.in_channels)
+    low_ch, out_ch = backbone.feature_channels
+    rates = aspp_dilations(cfg.output_stride)
+    head = (DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes, rates, cfg.separable_conv)
+            if cfg.name == "deeplabv3plus"
+            else DeepLabHead(out_ch, cfg.num_classes, rates, cfg.separable_conv))
+    model = DeepLabV3Model(backbone, head, compute_dtype=DTYPES[cfg.compute_dtype])
     init_weights(model, torch.Generator().manual_seed(seed))
     for m in model.modules():
         if isinstance(m, BatchNorm2d):  # flax momentum 0.9 is torch's 0.1
@@ -96,8 +107,11 @@ def build_model_by_name(
     factory_name: str, num_classes: int = 2, output_stride: int = 16,
     **overrides: Any,
 ) -> DeepLabV3Model:
-    """Reference-style factory: e.g. ``deeplabv3plus_resnet50``."""
+    """Reference-style factory: e.g. ``deeplabv3plus_resnet50``,
+    ``deeplabv3_xception``; ``mobilenet`` names ``mobilenetv2``."""
     head, _, backbone = factory_name.partition("_")
+    if backbone == "mobilenet":
+        backbone = "mobilenetv2"
     cfg = ModelConfig(name=head, backbone=backbone, num_classes=num_classes,
                       output_stride=output_stride)
     for k, v in overrides.items():
@@ -107,10 +121,15 @@ def build_model_by_name(
 
 __all__ = [
     "ASPP",
+    "BACKBONES",
     "DTYPES",
+    "DeepLabHead",
     "DeepLabHeadV3Plus",
     "DeepLabV3Model",
+    "HEADS",
+    "MobileNetV2",
     "ResNet",
+    "Xception",
     "build_model",
     "build_model_by_name",
     "resnet_feature_channels",

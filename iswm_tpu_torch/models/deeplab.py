@@ -1,24 +1,35 @@
-"""DeepLabV3+ head and the full segmentation model, the counterpart of
-``iswm_tpu/models/deeplab.py``.
+"""DeepLabV3+ and DeepLabV3 heads and the full segmentation model, the
+counterpart of ``iswm_tpu/models/deeplab.py``.
 
 Attribute names reproduce the reference key layout that
-``iswm_tpu.compat.torch_import.export_torch_state_dict`` writes
-(``classifier.project``, ``classifier.aspp.convs.{0..4}``,
-``classifier.aspp.project``, ``classifier.classifier.{0,1,3,4,6}``), so a
-JAX-initialised or reference-trained model loads with ``strict=True``.
-The ASPP runs in its inference form: broadcast pool + concat + one 1x1
-projection.
+``iswm_tpu.compat.torch_import.export_torch_state_dict`` writes (V3+:
+``classifier.project``, ``classifier.aspp.convs.{0..4}``,
+``classifier.aspp.project``, ``classifier.classifier.{0,1,3,4,6}``; V3:
+``classifier.classifier.0`` the ASPP, ``.1``/``.2`` the 3x3 conv and its
+BatchNorm, ``.4`` the output conv), so a JAX-initialised or reference-trained
+model loads with ``strict=True``.  The ASPP runs in its inference form:
+broadcast pool + concat + one 1x1 projection.
+
+``separable`` makes every 3x3 conv of the head (the ASPP's atrous branches,
+the classifier's 3x3s) a ``SeparableConvBN``: its depthwise and pointwise
+convs sit at ``<conv>.body.0`` and ``<conv>.body.1``, where the plain conv's
+weight was.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
-from .layers import BatchNorm2d, ConvBN, conv
+from .layers import BatchNorm2d, ConvBN, SeparableConvBN, conv
+
+
+def _conv3x3(separable: bool):
+    return SeparableConvBN if separable else functools.partial(ConvBN, kernel_size=3)
 
 
 class ASPPPooling(nn.Sequential):
@@ -35,10 +46,12 @@ class ASPP(nn.Module):
     pooling branch, concat to 5*256 channels, 1x1 projection (+ dropout)."""
 
     def __init__(self, in_ch: int, atrous_rates: Sequence[int],
-                 out_channels: int = 256, dropout_rate: float = 0.1):
+                 out_channels: int = 256, dropout_rate: float = 0.1,
+                 separable: bool = False):
         super().__init__()
+        conv3 = _conv3x3(separable)
         branches = [ConvBN(in_ch, out_channels, 1)]
-        branches += [ConvBN(in_ch, out_channels, 3, dilation=r) for r in atrous_rates]
+        branches += [conv3(in_ch, out_channels, dilation=r) for r in atrous_rates]
         branches.append(ASPPPooling(in_ch, out_channels))
         self.convs = nn.ModuleList(branches)
         n = len(branches)
@@ -58,12 +71,13 @@ class DeepLabHeadV3Plus(nn.Module):
     bilinear upsample, concat (304 ch), 3x3 / 3x3 / 1x1 classifier."""
 
     def __init__(self, in_ch: int, low_level_ch: int, num_classes: int,
-                 atrous_rates: Sequence[int]):
+                 atrous_rates: Sequence[int], separable: bool = False):
         super().__init__()
+        conv3 = _conv3x3(separable)
         self.project = ConvBN(low_level_ch, 48, 1)
-        self.aspp = ASPP(in_ch, atrous_rates)
+        self.aspp = ASPP(in_ch, atrous_rates, separable=separable)
         self.classifier = nn.Sequential(
-            *ConvBN(48 + 256, 256, 3), *ConvBN(256, 256, 3),
+            *conv3(48 + 256, 256), *conv3(256, 256),
             conv(256, num_classes, 1, bias=True),
         )
 
@@ -72,6 +86,23 @@ class DeepLabHeadV3Plus(nn.Module):
         out = self.aspp(features["out"])
         out = resize_bilinear(out, (low.shape[2], low.shape[3]))
         return self.classifier(torch.cat([low, out.to(low.dtype)], dim=1))
+
+
+class DeepLabHead(nn.Module):
+    """Plain V3 head: ASPP on the deep feature, 3x3 conv, 1x1 classifier,
+    all in ``classifier.classifier``."""
+
+    def __init__(self, in_ch: int, num_classes: int, atrous_rates: Sequence[int],
+                 separable: bool = False):
+        super().__init__()
+        self.classifier = nn.Sequential(
+            ASPP(in_ch, atrous_rates, separable=separable),
+            *_conv3x3(separable)(256, 256),
+            conv(256, num_classes, 1, bias=True),
+        )
+
+    def forward(self, features: dict) -> torch.Tensor:
+        return self.classifier(features["out"])
 
 
 class DeepLabV3Model(nn.Module):

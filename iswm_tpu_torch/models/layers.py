@@ -146,10 +146,13 @@ class CrossReplicaBatchNorm(torch.autograd.Function):
 
 
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-         dilation: int = 1, groups: int = 1, bias: bool = False) -> Conv2d:
-    """Conv2d with torch geometry (padding (k//2)*d)."""
-    return Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                  padding=torch_conv_padding(kernel_size, dilation),
+         dilation: int = 1, groups: int = 1, bias: bool = False,
+         padding: int | None = None) -> Conv2d:
+    """Conv2d with torch geometry (padding (k//2)*d) unless ``padding``
+    (per side) is given, as Xception's VALID stems give 0."""
+    if padding is None:
+        padding = torch_conv_padding(kernel_size, dilation)
+    return Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
                   dilation=dilation, groups=groups, bias=bias)
 
 
@@ -165,6 +168,33 @@ class ConvBN(nn.Sequential):
         if use_relu:
             layers.append(nn.ReLU(inplace=True))
         super().__init__(*layers)
+
+
+class AtrousSeparableConv(nn.Module):
+    """Depthwise 3x3 conv (``dilation``, torch padding) then a 1x1 pointwise
+    conv, as ``body.0`` and ``body.1``: the key layout of the reference's
+    ``AtrousSeparableConvolution``."""
+
+    def __init__(self, in_ch: int, features: int, dilation: int = 1):
+        super().__init__()
+        self.body = nn.Sequential(
+            conv(in_ch, in_ch, 3, dilation=dilation, groups=in_ch),
+            conv(in_ch, features, 1),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.body(x)
+
+
+class SeparableConvBN(nn.Sequential):
+    """The head's atrous separable 3x3 conv + BatchNorm + ReLU, as children
+    ``0`` (``AtrousSeparableConv``), ``1``, ``2``: the JAX package's
+    ``SeparableConvBN`` in ``ConvBN``'s key layout.  Depthwise convs run
+    through cuDNN (``groups=``)."""
+
+    def __init__(self, in_ch: int, features: int, dilation: int = 1):
+        super().__init__(AtrousSeparableConv(in_ch, features, dilation),
+                         BatchNorm2d(features), nn.ReLU(inplace=True))
 
 
 class FusedStemPool(nn.Module):

@@ -148,6 +148,7 @@ class ResNet(nn.Module):
                  fused_blocks: str = "never"):
         super().__init__()
         block, layer_sizes, groups, base_width = ARCHS[arch]
+        self.feature_channels = resnet_feature_channels(arch)  # (low_level, out)
         # BasicBlock never fuses and takes no mode
         fused_kw = {"fused_mode": fused_blocks} if block is Bottleneck else {}
         self.fused_stem = fused_stem

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..compat.pretrained import apply_pretrained_backbone
 from ..config import Config
 from ..data.class_weights import calculate_class_weights
 from ..data.datasets import BinarySegmentation, batch_iterator, decode_target
@@ -51,8 +52,6 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not port."""
     q1 = "ROADMAP.md Queue 1"
     checks = (
-        (cfg.model.pretrained_backbone,
-         f"pretrained_backbone is not ported yet ({q1}, 'Remaining zoo and feature maps')"),
         (bool(cfg.model.int8_training) or bool(cfg.train.int8_switch_iter),
          f"int8_training / int8_switch_iter (QAT) are not ported yet ({q1}, "
          "'int8_exec_xla and QAT')"),
@@ -118,6 +117,11 @@ class Trainer:
 
         # ----------------------------------------------------------- model
         model = build_model(cfg.model, seed=cfg.train.random_seed)
+        if cfg.model.pretrained_backbone:
+            # the reference's default: ImageNet backbone, fresh head
+            src = apply_pretrained_backbone(model, cfg.model.backbone, cfg.model.in_channels)
+            if src and self.lead:
+                print(f"initialized {cfg.model.backbone} backbone from {src}")
         memory_format = (torch.channels_last if self.device.type == "cuda"
                          else torch.preserve_format)
         model.to(self.device, memory_format=memory_format)

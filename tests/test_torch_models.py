@@ -22,10 +22,11 @@ from iswm_tpu_torch.compat import load_checkpoint, state_dict_from_jax
 from iswm_tpu_torch.models import build_model, build_model_by_name
 
 
-def jax_init(backbone, output_stride, seed=0):
-    """A JAX model and its (params, batch_stats) at init, float32."""
+def jax_init(backbone, output_stride, seed=0, **model):
+    """A JAX model and its (params, batch_stats) at init, float32; ``model``
+    sets further ``ModelConfig`` fields (``name``, ``separable_conv``)."""
     cfg = ModelConfig(backbone=backbone, output_stride=output_stride,
-                      compute_dtype="float32")
+                      compute_dtype="float32", **model)
     model = build_jax_model(cfg)
     v = jax.jit(lambda: model.init({"params": jax.random.key(seed)},
                                    jnp.zeros((1, 32, 32, 3)), train=False))()
@@ -34,6 +35,13 @@ def jax_init(backbone, output_stride, seed=0):
 
 def perturbed_checkpoint(path, params, batch_stats, backbone, seed=0):
     """Write a .pth of the JAX trees with BN scale/bias/mean/var perturbed."""
+    params, batch_stats = perturbed_trees(params, batch_stats, seed)
+    save_reference_checkpoint(str(path), params, batch_stats, backbone=backbone)
+    return str(path)
+
+
+def perturbed_trees(params, batch_stats, seed=0):
+    """The JAX trees (numpy leaves) with BN scale/bias/mean/var perturbed."""
     rng = np.random.default_rng(seed)
 
     def perturb(tree, leaf_fn):
@@ -53,10 +61,7 @@ def perturbed_checkpoint(path, params, batch_stats, backbone, seed=0):
             return (0.1 * rng.normal(size=x.shape)).astype(np.float32)
         return (0.5 + rng.random(size=x.shape)).astype(np.float32)
 
-    params = perturb(params, bn_param)
-    batch_stats = perturb(batch_stats, bn_stat)
-    save_reference_checkpoint(str(path), params, batch_stats, backbone=backbone)
-    return str(path)
+    return perturb(params, bn_param), perturb(batch_stats, bn_stat)
 
 
 def crossed_models(tmp_path, backbone, output_stride):
@@ -97,10 +102,16 @@ def test_logits_match_jax(tmp_path, backbone, output_stride):
 
 
 def test_unported_backbone_and_head_are_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model_by_name("deeplabv3plus_mobilenet")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model_by_name("deeplabv3_resnet50")
+    """Every backbone and head builds; what stays refused names its ROADMAP
+    item, and unknown names are errors as in the JAX package."""
+    with pytest.raises(NotImplementedError, match="'int8_exec_xla and QAT'"):
+        build_model_by_name("deeplabv3plus_mobilenet", int8_training=64)
+    with pytest.raises(NotImplementedError, match="'Low-precision parameters'"):
+        build_model_by_name("deeplabv3_resnet50", param_dtype="bfloat16")
+    with pytest.raises(ValueError, match="unknown backbone"):
+        build_model_by_name("deeplabv3plus_vgg16")
+    with pytest.raises(ValueError, match="unknown model name"):
+        build_model_by_name("fcn_resnet50")
 
 
 def test_orbax_directory_is_refused(tmp_path):

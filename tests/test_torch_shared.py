@@ -171,7 +171,7 @@ def test_mask_primitives_equal_jax(make):
 
 
 # ------------------------------------------------------------ weight bridge
-@pytest.mark.parametrize("backbone", ["resnet18", "resnet50"])
+@pytest.mark.parametrize("backbone", ["mobilenetv2", "resnet18", "resnet50", "xception"])
 def test_state_dict_bridge_equals_jax(backbone):
     _, _, params, stats = jax_init(backbone, 16, seed=3)
     params, stats = jax.device_get(params), jax.device_get(stats)
@@ -207,14 +207,11 @@ def test_reference_checkpoint_loads_as_jax(tmp_path):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("backbone", ["mobilenetv2", "xception"])
-def test_bridge_refuses_the_unported_zoo(backbone):
+def test_bridge_refuses_an_unknown_backbone():
     for fn, args in ((port_bridge.export_torch_state_dict, ({}, {})),
                      (port_bridge.import_torch_state_dict, ({},))):
-        with pytest.raises(NotImplementedError, match="Remaining zoo and feature maps"):
-            fn(*args, backbone=backbone)
-    with pytest.raises(ValueError, match="unknown backbone"):
-        port_bridge.export_torch_state_dict({}, {}, backbone="vgg16")
+        with pytest.raises(ValueError, match="unknown backbone"):
+            fn(*args, backbone="vgg16")
 
 
 # --------------------------------------------------------------- train CLI

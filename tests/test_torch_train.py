@@ -31,6 +31,7 @@ from iswm_tpu_torch.data import (
 )
 from iswm_tpu_torch.data.loader import device_prefetch_iterator
 from iswm_tpu_torch.data.synthetic import generate_sequence
+from iswm_tpu_torch.models import build_model_by_name
 from iswm_tpu_torch.models.layers import BatchNorm2d
 from iswm_tpu_torch.train import Trainer, make_optimizer, refuse_unported
 
@@ -367,7 +368,6 @@ def test_dropout_rate_and_scaling():
 
 
 REFUSED = {
-    "pretrained": (("model", "pretrained_backbone", True), "Remaining zoo"),
     "int8_training": (("model", "int8_training", 64), "QAT"),
     "int8_switch": (("train", "int8_switch_iter", 10), "QAT"),
     "remat": (("parallel", "remat", True), "rematerialization"),
@@ -385,6 +385,54 @@ def test_unported_options_are_refused(name):
         refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+
+
+def imagenet_file(path, backbone, seed=0):
+    """A random ImageNet state dict in the file layout of ``backbone``
+    (the port's backbone keys, which are torchvision's, plus the ImageNet
+    head the importers skip), written to ``path``."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for key, t in build_model_by_name(f"deeplabv3plus_{backbone}").backbone.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(7)
+        elif key.endswith("running_var"):
+            sd[key] = torch.from_numpy((0.5 + rng.random(t.shape)).astype(np.float32))
+        else:
+            sd[key] = torch.from_numpy(rng.normal(size=t.shape).astype(np.float32))
+    head = ({"fc.weight": (1000, 512), "fc.bias": (1000,)} if backbone == "resnet18"
+            else {"features.18.0.weight": (1280, 320, 1, 1), "classifier.1.weight": (1000, 1280)})
+    for key, shape in head.items():
+        sd[key] = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    torch.save(sd, str(path))
+    return sd
+
+
+def test_trainer_loads_a_cached_pretrained_backbone(tmp_path, monkeypatch):
+    """``pretrained_backbone`` is refused no longer: the Trainer overlays a
+    cached torchvision-layout file on the backbone after the seeded init and
+    keeps the seeded head, and the optimizer holds the loaded tensors."""
+    from iswm_tpu_torch.models import build_model
+
+    sd = imagenet_file(tmp_path / "resnet18-f37072fd.pth", "resnet18")
+    monkeypatch.setenv("ISWM_PRETRAINED_DIR", str(tmp_path))
+    cfg = Config()
+    cfg.model.backbone, cfg.model.pretrained_backbone = "resnet18", True
+    cfg.data.crop_size, cfg.data.batch_size = 32, 2
+    for name in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
+        setattr(cfg.train, name, str(tmp_path / name))
+    rng = np.random.default_rng(0)
+    dataset = ArrayDataset(*map(np.stack, zip(*(generate_scene(rng, size=(40, 40))
+                                                 for _ in range(2)))))
+    trainer = Trainer(cfg, device="cpu", train_ds=dataset, val_ds=dataset)
+    model = trainer.state.model
+    for key, value in model.backbone.state_dict().items():
+        if not key.endswith("num_batches_tracked"):
+            assert torch.equal(value, sd[key]), key
+    seeded = build_model(cfg.model, seed=cfg.train.random_seed).classifier.state_dict()
+    assert all(torch.equal(v, seeded[k]) for k, v in model.classifier.state_dict().items())
+    held = {id(p) for group in trainer.state.optimizer.param_groups for p in group["params"]}
+    assert id(model.backbone.conv1.weight) in held
 
 
 def test_trainer_takes_steps_with_the_fused_stem(tmp_path):
