@@ -2,7 +2,8 @@
 kernels, hold each against its plain version, drive the tiled serving path,
 the training path (with quick-evals), the quantization comparison, training
 and serving with the fused stem, training with the fused bottleneck blocks,
-data-parallel training in a process group, and the rest of the model zoo.
+data-parallel training in a process group, the rest of the model zoo, and
+``int8_exec_xla`` serving on the int8 convs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-stat-starts 16   # phase 13's statistics
@@ -237,6 +238,28 @@ not 0):
      ``pretrained_backbone`` the Trainer's backbone on the card equals the
      file's and its head is the seeded one.
      The kernel record's launches of #1, #4 and #6 add this phase's.
+ 17. ``int8_exec_xla`` (work the JAX package leaves to XLA; the kernels of
+     ``csrc/int8_conv.cu``): ``quantize_s8`` over every bf16 value, in bf16
+     and f32, contiguous and as a channel slice of wider rows, at four
+     scales; ``conv_s8_igemm`` at each of the 19 dense shapes of a ResNet-50
+     chunk (the 3x3s, the 64-input and strided 1x1s, the ASPP branches at
+     d = 6 / 12 / 18, both parts of the decoder's concat conv, N = 48 and
+     N = 2 with its bias), the stem (K = 147) and M = 8; ``conv_s8_direct`` at
+     MobileNetV2's nine depthwise shapes: each bit for bit (``torch.equal``)
+     against its plain version, timed with the inputs out of L2 beside its
+     bound (only the taps inside the input count as work), the plain version,
+     cuDNN's bf16 conv (another function) and, where it takes the shape,
+     ``torch._int_mm`` over the unfolded codes; the sums over a chunk.  Then
+     ``Predictor`` with ``int8_exec_xla`` on phase 4's two scenes for
+     ResNet-50, ResNet-50 with ``int8_stem`` and MobileNetV2 with
+     ``int8_grouped``: routed sites (62, 63, 51), launches counted from 0 (per
+     chunk 30 of #1 and 33 quantizes and dense convs, 34 with the stem),
+     the routed dense shapes equal to the table, scene logits equal
+     (``torch.equal``, deterministic cuDNN) to the same Predictor's with
+     every routed module on the plain versions, the mask agreement with bf16;
+     a chunk's host time, device time, int8 kernels' share and idle share for
+     bf16, int8_exec and int8_exec_xla, and their scene latencies; and
+     ``compare_variants`` with the six variants (33 dense convs an image).
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -327,29 +350,75 @@ class NoDeviceRecords(RuntimeError):
     pass
 
 
+# Each traced call ends with a marker kernel, and one more leads the trace.
+# A trace on the H100 often lacks records at its start (most often only the
+# first; up to a few calls' worth after the training phases), so launches are
+# counted only between the first and the last marker recorded, over the calls
+# those markers close.
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
+TRACES = {"whole": 0, "retaken": 0, "estimated": 0, "takes": 0, "short": 0}
+
+
+def _count_between_markers(prof, reps: int) -> tuple:
+    """(calls closed, {kernel: (mean device us, records between the first
+    and the last marker)}) of one trace: every record of a kernel counts
+    toward its mean, only those between the markers toward its launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events()
+              if e.device_type == cuda and e.self_device_time_total > 0]
+    marks = sorted(e.time_range.start for e in events if MARKER in e.name)
+    TRACES["short"] += len(marks) < reps + 1
+    if len(marks) < 2:
+        return 0, {}
+    total, count = {}, {}
+    for e in events:
+        if MARKER in e.name:
+            continue
+        total[e.name] = total.get(e.name, 0.0) + e.self_device_time_total
+        count.setdefault(e.name, [0, 0])[0] += 1
+        count[e.name][1] += marks[0] < e.time_range.start < marks[-1]
+    return len(marks) - 1, {k: (total[k] / n, between) for k, (n, between) in count.items()}
+
+
 def traced_records(fn, reps: int, warmup: int, exclude=frozenset()) -> dict:
     """{kernel name: (its mean device time in us, its launches in one fn())}
-    from a ``torch.profiler`` trace of ``reps`` calls.  A trace can come back
-    short of its last records, or now and then with none: so each kernel counts
-    with the mean of the records it has and its launches in a call (records /
-    reps, to the nearest whole number), and a trace with no record of a kernel
-    outside ``exclude`` is taken again, five times at most."""
+    from a ``torch.profiler`` trace of ``reps`` calls, counted between
+    markers (:func:`_count_between_markers`).  A trace is whole when every
+    kernel has a whole number of records a call closed; one that is not, or
+    that holds no record outside ``exclude``, is taken again, five times at
+    most.  Where none of the five is whole, the one that closed the most
+    calls stands in, each kernel counted at its records over those calls (at
+    least one launch), and a line on stderr says so."""
     for _ in range(warmup):
         fn()
-    cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(5):
+    best = None
+    for take in range(5):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
             for _ in range(reps):
                 fn()
+                torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        on_device = [e for e in prof.key_averages()
-                     if e.device_type == cuda and e.count and e.self_device_time_total > 0]
-        if any(e.key not in exclude for e in on_device):
-            return {e.key: (e.self_device_time_total / e.count,
-                            round(e.count / reps) or e.count / reps) for e in on_device}
-    raise NoDeviceRecords(f"five traces of {reps} calls hold no device record"
-                          + (f" outside {sorted(exclude)}" if exclude else ""))
+        TRACES["takes"] += 1
+        calls, records = _count_between_markers(prof, reps)
+        if not any(k not in exclude for k in records):
+            continue
+        if calls and all(c % calls == 0 for _, c in records.values()):
+            TRACES["retaken" if take else "whole"] += 1
+            return {k: (us, c // calls) for k, (us, c) in records.items()}
+        if calls and (best is None or calls > best[0]):
+            best = (calls, records)
+    if best is None:
+        raise NoDeviceRecords(f"five traces of {reps} calls hold no device record"
+                              + (f" outside {sorted(exclude)}" if exclude else ""))
+    calls, records = best
+    TRACES["estimated"] += 1
+    odd = {k[:60]: c for k, (_, c) in records.items() if c % calls}
+    print(f"[profiler] no whole trace of {reps} calls in five: the best closed {calls} calls, "
+          f"records between its markers not whole a call: {odd}; launches a call estimated "
+          "as records / calls", file=sys.stderr)
+    return {k: (us, max(1, round(c / calls))) for k, (us, c) in records.items()}
 
 
 def traced_kernels(fn, reps: int, warmup: int) -> dict:
@@ -3354,6 +3423,410 @@ def phase_zoo_train(ce, cm, smi: str) -> tuple:
     return tuple(counts)
 
 
+# ---------------------------------------------------------- int8_exec_xla
+# (B, H, W, C, N, k, stride, pad, dilation): how many of the 33 dense int8
+# conv launches of one int8_exec_xla chunk (8 tiles of 512^2, OS 16) of
+# ResNet-50 run at it (the other 30 routed sites are phase 3's 1x1s on #1);
+# the V3+ decoder's first classifier conv is two of them, one a part
+XLA_IGEMM_SHAPES = {
+    (8, 128, 128, 64, 64, 1, 1, 0, 1): 1,       # layer1.0.conv1
+    (8, 128, 128, 64, 64, 3, 1, 1, 1): 3,       # layer1.*.conv2
+    (8, 128, 128, 64, 256, 1, 1, 0, 1): 4,      # layer1.*.conv3, layer1.0.downsample
+    (8, 128, 128, 256, 64, 1, 1, 0, 1): 2,      # layer1.{1,2}.conv1
+    (8, 128, 128, 128, 128, 3, 2, 1, 1): 1,     # layer2.0.conv2
+    (8, 128, 128, 256, 512, 1, 2, 0, 1): 1,     # layer2.0.downsample
+    (8, 64, 64, 128, 128, 3, 1, 1, 1): 3,       # layer2.{1,2,3}.conv2
+    (8, 64, 64, 256, 256, 3, 2, 1, 1): 1,       # layer3.0.conv2
+    (8, 64, 64, 512, 1024, 1, 2, 0, 1): 1,      # layer3.0.downsample
+    (8, 32, 32, 256, 256, 3, 1, 1, 1): 5,       # layer3.{1..5}.conv2
+    (8, 32, 32, 512, 512, 3, 1, 1, 1): 1,       # layer4.0.conv2
+    (8, 32, 32, 512, 512, 3, 1, 2, 2): 2,       # layer4.{1,2}.conv2
+    (8, 32, 32, 2048, 256, 3, 1, 6, 6): 1,      # aspp.convs.1
+    (8, 32, 32, 2048, 256, 3, 1, 12, 12): 1,    # aspp.convs.2
+    (8, 32, 32, 2048, 256, 3, 1, 18, 18): 1,    # aspp.convs.3
+    (8, 128, 128, 256, 48, 1, 1, 0, 1): 1,      # project (N = 48)
+    (8, 128, 128, 48, 256, 3, 1, 1, 1): 1,      # classifier.0, part 0 (K = 432)
+    (8, 128, 128, 256, 256, 3, 1, 1, 1): 2,     # classifier.0 part 1, classifier.3
+    (8, 128, 128, 256, 2, 1, 1, 0, 1): 1,       # classifier.6 (N = 2, with its bias)
+}
+XLA_STEM_SHAPE = (8, 512, 512, 3, 64, 7, 2, 3, 1)  # with int8_stem (K = 147)
+XLA_ODD_SHAPES = ((8, 1, 1, 2048, 256, 1, 1, 0, 1),   # M = 8 (MobileNetV2's pool: 320)
+                  (8, 1, 1, 320, 256, 1, 1, 0, 1))
+# (B, H, W, C, stride, pad, dilation) of MobileNetV2's depthwise 3x3s with
+# int8_grouped (groups = C = N), and how many of one chunk's 16 run at it
+XLA_DEPTHWISE_SHAPES = {
+    (8, 256, 256, 96, 2, 1, 1): 1,
+    (8, 128, 128, 144, 1, 1, 1): 1,
+    (8, 128, 128, 144, 2, 1, 1): 1,
+    (8, 64, 64, 192, 1, 1, 1): 2,
+    (8, 64, 64, 192, 2, 1, 1): 1,
+    (8, 32, 32, 384, 1, 1, 1): 4,
+    (8, 32, 32, 576, 1, 1, 1): 2,
+    (8, 32, 32, 576, 1, 2, 2): 1,
+    (8, 32, 32, 960, 1, 2, 2): 3,
+}
+XLA_VARIANTS = EVAL_VARIANTS + ("int8_exec_xla",)
+INT8_CONV_KERNELS = ("igemm_kernel", "quantize_kernel", "direct_kernel")
+
+
+def _valid_taps(n: int, out: int, k: int, stride: int, pad: int, dil: int) -> int:
+    """Taps of one axis, summed over its output positions, that land inside
+    the input (the others multiply the zero padding: no work)."""
+    return sum(sum(0 <= o * stride - pad + t * dil < n for t in range(k)) for o in range(out))
+
+
+def conv_bound(b, h, w, c, n, k, stride, pad, dil, groups=1, bias=False) -> dict:
+    """int8 codes x [B, H, W, C] + w [N, k, k, C / groups] + w_scale (+ bias)
+    in, out [B, Ho, Wo, N] f32; 2 N C / groups operations a valid tap of an
+    output pixel, on the tensor cores (int8) for a dense conv and on the CUDA
+    cores (int32 multiply-adds, counted at the float32 rate) for a grouped."""
+    ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
+    taps = _valid_taps(h, ho, k, stride, pad, dil) * _valid_taps(w, wo, k, stride, pad, dil)
+    nbytes = b * h * w * c + n * k * k * c // groups + 4 * n * (1 + bias) + 4 * b * ho * wo * n
+    ops = 2 * b * taps * n * (c // groups)
+    return {"bytes": nbytes, "ops": ops,
+            **least_time(nbytes, ops, INT8_OPS_PER_S if groups == 1 else F32_OPS_PER_S)}
+
+
+def _work(bounds) -> str:
+    """The bytes and operations of calls made one after another."""
+    return (f"{sum(b['bytes'] for b in bounds) / 1e9:.3f} GB, "
+            f"{sum(b['ops'] for b in bounds) / 1e9:.2f} GOP")
+
+
+def _conv_case(shape, gen, groups=1):
+    b, h, w, c, n, k = shape[:6]
+    x_q = torch.randint(-127, 128, (b, h, w, c), generator=gen, device="cuda").to(torch.int8)
+    w_q = torch.randint(-127, 128, (n, k, k, c // groups), generator=gen,
+                        device="cuda").to(torch.int8)
+    w_scale = torch.rand((n,), generator=gen, device="cuda") * 0.01 + 1e-4
+    bias = torch.randn((n,), generator=gen, device="cuda") if n == 2 else None
+    return x_q, w_q, w_scale, bias
+
+
+def _conv_row(kc, shape, gen, cold, groups=1) -> dict:
+    """One shape of a conv entry: bit-equal to its plain version, its device
+    time with the inputs out of L2, its plain version's, cuDNN's bf16 conv's
+    (another function: no quantization) and, where it takes the shape,
+    ``torch._int_mm``'s over the unfolded codes (the int32 product alone)."""
+    b, h, w, c, n, k, stride, pad, dil = shape
+    x_q, w_q, w_scale, bias = _conv_case(shape, gen, groups)
+    geo = dict(stride=stride, padding=pad, dilation=dil)
+    if groups == 1:
+        def run():
+            return kc.conv_s8_igemm(x_q, w_q, w_scale, 0.0123, bias, **geo)
+    else:
+        def run():
+            return kc.conv_s8_direct(x_q, w_q, w_scale, 0.0123, bias, groups=groups, **geo)
+
+    def plain():
+        return kc.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, groups=groups, **geo)
+
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"int8 conv != plain at {shape} groups {groups}: max abs "
+                                  f"err {err}")
+    row = {"max_abs_err": err, "ms": cold(run),
+           "plain_ms": cuda_ms(plain, reps=2, warmup=1),
+           **conv_bound(b, h, w, c, n, k, stride, pad, dil, groups, bias is not None)}
+    xc = x_q.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels-last NCHW view
+    wc = w_q.to(torch.bfloat16).permute(0, 3, 1, 2)
+    row["library_ms"] = cold(lambda: torch.nn.functional.conv2d(
+        xc, wc, None if bias is None else bias.to(torch.bfloat16), stride, pad, dil, groups))
+    row["int_mm_ms"] = None
+    kk = k * k * c
+    if groups == 1 and kk % 8 == 0 and n % 8 == 0 and got.numel() // n > 16:
+        cols = torch.nn.functional.unfold(xc.contiguous(), k, dil, pad, stride)
+        a = cols.transpose(1, 2).reshape(-1, kk).to(torch.int8).contiguous()
+        wm = w_q.permute(0, 3, 1, 2).reshape(n, kk).t()  # [K, N], (c, kh, kw) as unfold's
+        del cols
+        int_mm = _int_mm(a, wm)
+        row["int_mm_ms"] = cold(int_mm) if int_mm else None
+    return row
+
+
+def phase_int8_xla_kernels(kc, smi: str) -> dict:
+    """The int8_conv kernels against their plain versions, bit for bit: the
+    quantize over every bf16 value (contiguous and as a channel slice), the
+    dense conv at every shape of the slice's chunk, the stem and M = 8, the
+    grouped conv at MobileNetV2's depthwise shapes; device times beside the
+    bounds and cuDNN's bf16 conv, summed over a chunk."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cold = ColdTimer(reps=10)
+    bits = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16)
+    every = bits.view(torch.bfloat16).reshape(256, 256).cuda()
+    every = torch.where(torch.isnan(every), torch.zeros_like(every), every)
+    for x_scale in (0.25, 0.012345, 3e-39, 1e30):
+        for xt in (every, every.float(), every[:, 16:64], every[:, 3:10]):
+            check(torch.equal(kc.quantize_s8(xt, x_scale), kc.quantize_s8_plain(xt, x_scale)),
+                  f"quantize_s8 != plain over the bf16 values at x_scale {x_scale}, "
+                  f"{tuple(xt.shape)} {xt.dtype}")
+    print("[17] quantize_s8: every bf16 value (NaN aside) in bf16 and f32, contiguous and as "
+          "channel slices, at 4 scales: bit-exact (torch.equal)")
+    records = {}
+    # the quantize at each dense site's input (bf16 activations, NHWC)
+    q = dict.fromkeys(("ms", "plain_ms", "bound_ms"), 0.0)
+    bounds = []
+    for shape, count in XLA_IGEMM_SHAPES.items():
+        b, h, w, c = shape[:4]
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+        ms = cold(lambda: kc.quantize_s8(x, 0.05))
+        plain_ms = cuda_ms(lambda: kc.quantize_s8_plain(x, 0.05), reps=3)
+        least = {"bytes": 3 * x.numel(), "ops": x.numel(),
+                 **least_time(3 * x.numel(), x.numel(), F32_OPS_PER_S)}
+        q["ms"] += count * ms
+        q["plain_ms"] += count * plain_ms
+        bounds += [least] * count
+    records["quantize"] = {"max_abs_err": 0.0, "ms": q["ms"], "plain_ms": q["plain_ms"],
+                           **sum_bounds(bounds), "library_ms": None}
+    print(f"[17] quantize_s8 over one chunk's 33 dense-site inputs ({smi}): {q['ms']:.4f} ms with "
+          f"the inputs out of L2, plain {q['plain_ms']:.4f} ms, bound "
+          f"{records['quantize']['bound_ms']:.4f} ms by bytes ({_work(bounds)})")
+
+    for name, table, groups in (("igemm", XLA_IGEMM_SHAPES, None),
+                                ("direct", XLA_DEPTHWISE_SHAPES, "C")):
+        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "int_mm_ms"), 0.0)
+        bounds, err = [], 0.0
+        extra = (XLA_STEM_SHAPE, *XLA_ODD_SHAPES) if name == "igemm" else ()
+        for shape in (*table, *extra):
+            if name == "direct":  # (B, H, W, C, stride, pad, dil), C = N = groups
+                b, h, w, c, stride, pad, dil = shape
+                shape, g = (b, h, w, c, c, 3, stride, pad, dil), c
+            else:
+                g = 1
+            row = _conv_row(kc, shape, gen, cold, g)
+            count = table.get(shape, 0) if name == "igemm" else table[(*shape[:4], *shape[6:])]
+            err = max(err, row["max_abs_err"])
+            for key in total:
+                total[key] += count * (row[key] or 0.0)
+            bounds += [row] * count
+            b, h, w, c, n, k, stride, pad, dil = shape
+            print(f"[17] conv_s8_{name} B={b} H={h} W={w} C={c} N={n} k={k} s={stride} p={pad} "
+                  f"d={dil} groups={g} ({smi}): bit-exact (torch.equal); kernel {row['ms']:.4f} "
+                  f"ms with the inputs out of L2 ({row['bound_ms'] / row['ms']:.1%} of the bound "
+                  f"{row['bound_ms']:.4f} ms by {row['bound_by']}); plain {row['plain_ms']:.4f} "
+                  f"ms; bf16 conv2d (cuDNN, no quantization) {row['library_ms']:.4f} ms"
+                  + (f"; torch._int_mm over the unfolded codes (the int32 product alone) "
+                     f"{row['int_mm_ms']:.4f} ms" if row["int_mm_ms"] else "")
+                  + ("" if count else " (not in the chunk's sum)"))
+        least = sum_bounds(bounds)
+        records[name] = {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain_ms"],
+                         **least, "library_ms": total["library_ms"],
+                         "library_call": "F.conv2d in bf16 (cuDNN): another function, no "
+                                         "quantization"}
+        sites = sum(table.values())
+        what = "ResNet-50's dense" if name == "igemm" else "MobileNetV2's depthwise"
+        print(f"[17] conv_s8_{name}, one chunk's {sites} {what} int8 convs ({smi}): kernel "
+              f"{total['ms']:.4f} ms with the inputs out of L2 ({least['bound_ms'] / total['ms']:.1%} "
+              f"of the bound {least['bound_ms']:.4f} ms by {least['bound_by']}; "
+              f"{_work(bounds)}); plain "
+              f"{total['plain_ms']:.4f} ms; cuDNN bf16 {total['library_ms']:.4f} ms"
+              + (f"; torch._int_mm at the shapes it takes {total['int_mm_ms']:.4f} ms"
+                 if name == "igemm" else ""))
+    return records
+
+
+def _xla_profile(name: str, fn, k8, kc) -> None:
+    """A chunk's device time (profiler), the int8 kernels' share and the
+    device's idle share against the host's clock (median of 10).  The trace's
+    launches of each int8 kernel a chunk are held to the wrappers' counters
+    over one call; where the trace misses them, no device time is given."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    wall = float(np.median(times)) * 1e3
+    k8.launches = kc.launches_quantize = kc.launches_igemm = kc.launches_direct = 0
+    fn()
+    counted = {"int8_strip_kernel": k8.launches, "quantize_kernel": kc.launches_quantize,
+               "igemm_kernel": kc.launches_igemm, "direct_kernel": kc.launches_direct}
+    records = traced_records(fn, reps=5, warmup=1)
+    traced = {n: sum(c for k, (_, c) in records.items() if n in k) for n in counted}
+    if traced != counted:
+        print(f"[17] {name} chunk of 8 x 512^2: {wall:.3f} ms on the host's clock (median of "
+              f"10); device time not measured: the trace counted int8 launches {traced} a "
+              f"chunk, the counters {counted}")
+        return
+    kernels = {k: us * c / 1e3 for k, (us, c) in records.items()}
+    busy = sum(kernels.values())
+    matmul = sum(v for k, v in kernels.items() if "int8_strip_kernel" in k or "finish_split" in k)
+    conv = sum(v for k, v in kernels.items() if any(n in k for n in INT8_CONV_KERNELS))
+    print(f"[17] {name} chunk of 8 x 512^2: {wall:.3f} ms on the host's clock (median of 10), "
+          f"{8 / wall * 1e3:.1f} tiles/s; device time {busy:.3f} ms (profiler; launches a "
+          f"chunk equal to the counters: {counted}): int8_matmul {matmul:.3f} ms, int8_conv "
+          f"{conv:.3f} ms, the rest {busy - matmul - conv:.3f} ms; device idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}")
+
+
+def _plain_int8(model, on: bool) -> None:
+    """Point the routed modules of ``model`` at the plain versions (on) or
+    back at the kernels: the 1x1 modules' ``conv_fn`` and the kernels that
+    ``ops/int8_xla.py``'s ``int8_conv``, which the other routed modules run,
+    calls."""
+    from iswm_tpu_torch.infer.quantization import Int8Conv1x1
+    from iswm_tpu_torch.ops import int8_xla
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
+    from iswm_tpu_torch.ops.kernels.int8_matmul import quantized_conv1x1_plain
+
+    for name, plain in (("quantize_s8", kc.quantize_s8_plain),
+                        ("conv_s8_igemm", kc.conv_s8_plain), ("conv_s8_direct", kc.conv_s8_plain)):
+        setattr(int8_xla, name, plain if on else getattr(kc, name))
+    for m in model.modules():
+        if isinstance(m, Int8Conv1x1):
+            if on:
+                m.conv_fn = quantized_conv1x1_plain
+            else:
+                del m.conv_fn
+
+
+def phase_int8_xla_serving(k8, kc, smi: str) -> dict:
+    """int8_exec_xla through ``Predictor`` on phase 4's two scenes: ResNet-50,
+    ResNet-50 with int8_stem, MobileNetV2 with int8_grouped.  Each run's
+    launches, counted from 0, and its scene logits equal (torch.equal) to the
+    same Predictor's with every routed module on the plain versions
+    (deterministic cuDNN for the rest); chunk profiles of bf16, int8_exec and
+    int8_exec_xla; the mask agreement with bf16.  Returns the launches."""
+    from iswm_tpu_torch.infer import Predictor, tile_origins
+    from iswm_tpu_torch.infer.quantization import (
+        Int8ConcatConvBN, Int8Conv, logit_diff_verdict)
+    from iswm_tpu_torch.data import val_transform_batch
+
+    rng = np.random.default_rng(SEED)
+    scenes = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in SCENES]
+    xs = [val_transform_batch(torch.from_numpy(s).cuda()) for s in scenes]
+    chunks = sum(-(-(len(tile_origins(h, 512, 448)) * len(tile_origins(w, 512, 448))) // 8)
+                 for h, w in SCENES)
+    dense = sum(XLA_IGEMM_SHAPES.values())
+    runs = (  # name, model, flags, routed sites, per chunk: #1, quantize, dense, grouped
+        ("deeplabv3plus_resnet50", {}, 62, (30, dense, dense, 0)),
+        ("deeplabv3plus_resnet50", {"int8_stem": True}, 63, (30, dense + 1, dense + 1, 0)),
+        ("deeplabv3plus_mobilenet", {"int8_grouped": True}, 51, None),
+    )
+    launches = dict.fromkeys(("matmul", "quantize", "igemm", "direct"), 0)
+    preds = {}
+    for name, flags, sites, per_chunk in runs:
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        cfg = _zoo_config(name, "int8_exec_xla")
+        for key, value in flags.items():
+            setattr(cfg.predict, key, value)
+        pred = Predictor(cfg, device="cuda")
+        k8.launches = kc.launches_quantize = kc.launches_igemm = kc.launches_direct = 0
+        products = [pred.predict_image(s) for s in scenes]
+        torch.cuda.synchronize()
+        got = {"matmul": k8.launches, "quantize": kc.launches_quantize,
+               "igemm": kc.launches_igemm, "direct": kc.launches_direct}
+        fn = pred.engine.model_fn
+        label = f"{name} int8_exec_xla {flags or ''}".strip()
+        print(f"[17] {label}: {len(scenes)} scenes, {chunks} chunks, {len(fn.routed_sites)} "
+              f"routed sites; launches {got}")
+        check(len(fn.routed_sites) == sites, f"{label}: {len(fn.routed_sites)} routed sites, "
+                                             f"expected {sites}")
+        if per_chunk:
+            want = dict(zip(("matmul", "quantize", "igemm", "direct"),
+                            (n * chunks for n in per_chunk)))
+            check(got == want, f"{label}: launches {got}, expected {want}")
+        else:
+            check(got["direct"] > 0 and got["igemm"] > 0 and got["quantize"] > 0,
+                  f"{label}: launches {got}")
+        for key in launches:
+            launches[key] += got[key]
+        seen = set()
+        if not flags:
+            def record(mod, args):
+                b, c, h, w = args[0].shape
+                if isinstance(mod, Int8ConcatConvBN):
+                    seen.update((b, h, w, p, 256, 3, 1, 1, 1) for p in mod.widths)
+                else:
+                    n, k = mod.w_q.shape[:2]
+                    g = mod.geometry
+                    seen.add((b, h, w, c, n, k, g["stride"][0], g["padding"][0],
+                              g["dilation"][0]))
+
+            hooks = [m.register_forward_pre_hook(record) for m in fn.model.modules()
+                     if isinstance(m, (Int8Conv, Int8ConcatConvBN))]
+        logits = [pred.engine.infer_scene(x) for x in xs]
+        if not flags:
+            for h in hooks:
+                h.remove()
+            check(seen == set(XLA_IGEMM_SHAPES),
+                  f"routed dense shapes {sorted(seen)} != {sorted(XLA_IGEMM_SHAPES)}")
+        for (h, w), lg, prod in zip(SCENES, logits, products):
+            check(tuple(lg.shape) == (h, w, 2) and bool(torch.isfinite(lg).all()),
+                  f"{label}: logits of the {h}x{w} scene: {tuple(lg.shape)} or not finite")
+            check(np.array_equal(torch.softmax(lg, -1)[..., 1].cpu().numpy(), prod["prob_fg"]),
+                  f"{label}: the rerun's logits differ from the counted run's")
+        _plain_int8(fn.model, True)
+        plain = [pred.engine.infer_scene(x) for x in xs]
+        _plain_int8(fn.model, False)
+        diff = max(float((a - b).abs().max()) for a, b in zip(logits, plain))
+        check(all(torch.equal(a, b) for a, b in zip(logits, plain)),
+              f"{label}: scene logits differ from the plain int8 path: max abs diff {diff}")
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = True
+        bf16 = Predictor(_zoo_config(name), device="cuda")
+        agree, verdict = logit_diff_verdict(bf16.engine.infer_scene(xs[0]).cpu().numpy(),
+                                            logits[0].cpu().numpy())
+        print(f"[17] {label}: scene logits finite and equal to the plain int8 path (max abs "
+              f"diff {diff}); mask agreement with bf16 {agree:.6f} ({verdict})")
+        if not flags:
+            preds = {"bf16": bf16, "int8_exec_xla": pred}
+        else:
+            del pred, bf16
+    preds["int8_exec"] = Predictor(_zoo_config("deeplabv3plus_resnet50", "int8_exec"),
+                                   device="cuda")
+    preds["int8_exec"].predict_image(scenes[0])
+    chunk = _chunk(scenes[0])
+    for variant in ("bf16", "int8_exec", "int8_exec_xla"):
+        fn = preds[variant].engine.model_fn
+        _xla_profile(f"deeplabv3plus_resnet50 {variant} ({smi})", lambda: fn(chunk), k8, kc)
+    for variant in ("bf16", "int8_exec", "int8_exec_xla"):
+        for (h, w), scene in zip(SCENES, scenes):
+            print(f"[17] deeplabv3plus_resnet50 {variant} {h}x{w} ({smi}): scene latency "
+                  f"{_scene_latency(preds[variant], scene):.2f} ms (median of 5)")
+    return launches
+
+
+def phase_int8_xla_compare(kc) -> None:
+    """``compare_variants`` with the six variants on phase 9's scenes."""
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import ArrayDataset, generate_scene
+    from iswm_tpu_torch.infer import quantization as q
+    from iswm_tpu_torch.models import build_model
+
+    rng = np.random.default_rng(SEED)
+    images, masks = zip(*(generate_scene(rng, size=(512, 512)) for _ in range(EVAL_SCENES)))
+    dataset = ArrayDataset(np.stack(images), np.stack(masks))
+    model = build_model(Config().model, seed=SEED).to("cuda", memory_format=torch.channels_last)
+    kc.launches_igemm = 0
+    t0 = time.perf_counter()
+    report = q.compare_variants(model, dataset, XLA_VARIANTS, sequence_length=7)
+    torch.cuda.synchronize()
+    compare_s = time.perf_counter() - t0
+    print(q.format_report(report))
+    check(list(report) == list(XLA_VARIANTS), f"variants reported: {list(report)}")
+    for name, r in report.items():
+        numbers = [r[k] for k in ("avg_latency_ms", "miou", "fiou", "ff1", "weighted",
+                                  "size_mb", "mask_agreement")]
+        check(bool(np.isfinite(numbers).all()) and r["avg_latency_ms"] > 0,
+              f"{name}: latency or metrics not finite: {r}")
+    dense = sum(XLA_IGEMM_SHAPES.values())
+    check(kc.launches_igemm == dense * (EVAL_SCENES + 1),
+          f"int8_exec_xla launched {kc.launches_igemm} dense convs, expected {dense} for each "
+          f"of {EVAL_SCENES} images and the probe")
+    print(f"[17] compare_variants, ResNet-50 / OS 16 / bf16, {EVAL_SCENES} scenes of 512x512, "
+          f"{len(XLA_VARIANTS)} variants in {compare_s:.2f} s; int8_exec_xla dense conv "
+          f"launches {kc.launches_igemm} = {dense} x ({EVAL_SCENES} images + 1 probe); "
+          f"int8_exec_xla vs f32 mask agreement {report['int8_exec_xla']['mask_agreement']:.6f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -3363,6 +3836,7 @@ def main() -> int:
     from iswm_tpu_torch.ops.kernels import fused_block as fb
     from iswm_tpu_torch.ops.kernels import fused_ce as ce
     from iswm_tpu_torch.ops.kernels import fused_stem as fs
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
     if sys.argv[1:2] == ["--block-stat-starts"]:
@@ -3372,7 +3846,7 @@ def main() -> int:
         return 0
     phase_device()
     phase_build({"int8_matmul": k8, "fused_ce": ce, "confusion": cm, "fused_stem": fs,
-                 "fused_block": fb})
+                 "fused_block": fb, "int8_conv": kc})
     record = phase_kernel(k8)
     # int8_matmul_prequant is on no main path (in the JAX package only tests
     # and benchmarks call it, and so here): its count over the three main
@@ -3401,12 +3875,23 @@ def main() -> int:
     launches += phase_zoo_serving(k8, smi)
     zoo_fwd, zoo_bwd, zoo_cm = phase_zoo_train(ce, cm, smi)
     ce_fwd, ce_bwd, cm_launches = ce_fwd + zoo_fwd, ce_bwd + zoo_bwd, cm_launches + zoo_cm
+    # int8_exec_xla: the int8 convs (#1 serves its 1x1 sites there too)
+    xla_records = phase_int8_xla_kernels(kc, smi)
+    xla_launches = phase_int8_xla_serving(k8, kc, smi)
+    launches += xla_launches["matmul"]
+    phase_int8_xla_compare(kc)
     for name, count in (("int8_matmul", launches), ("fused_binary_ce_fwd", ce_fwd),
                         ("sharded_fused_binary_ce", sharded_launches),
                         ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches),
                         *((f"stem {k}", v) for k, v in stem_launches.items()),
-                        *((f"fused block {k}", v) for k, v in block_launches.items())):
+                        *((f"fused block {k}", v) for k, v in block_launches.items()),
+                        *((f"int8_conv {k}", xla_launches[k])
+                          for k in ("quantize", "igemm", "direct"))):
         check(count > 0, f"the main paths never launched {name}")
+    print(f"[profiler] traces of the run: {TRACES['whole']} whole at the first take, "
+          f"{TRACES['retaken']} whole after a retake, {TRACES['estimated']} never whole "
+          f"(launches estimated; each said so on stderr); {TRACES['short']} of "
+          f"{TRACES['takes']} takes lacked one marker or more")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("iswm_tpu", "jax", "flax"))
     check(not loaded, f"the port imported {loaded}")
     fused = "iswm_tpu/ops/pallas/fused_ce.py"
@@ -3430,6 +3915,15 @@ def main() -> int:
          f"{block}:396 (_c3_fwd_kernel {block}:224, reached from conv3x3_bn_stats {block}:470)"),
         ("conv3x3_bn_stats_bwd", "c3_bwd",
          f"{block}:431 (_c3_bwd_kernel {block}:277, the VJP of conv3x3_bn_stats {block}:470)"),
+    )
+    xla = "iswm_tpu/ops/int8_xla.py"
+    xla_rows = (  # work the JAX package leaves to XLA (no pallas_call)
+        ("int8_quantize_s8", "quantize",
+         f"{xla}:66 (quantized_conv_xla's quantize_activations {xla}:23)"),
+        ("int8_conv_s8_igemm", "igemm",
+         f"{xla}:66 (quantized_conv_xla, dense; int8_packed_stem_conv {xla}:107, "
+         f"int8_shifted_dilated_conv {xla}:158)"),
+        ("int8_conv_s8_direct", "direct", f"{xla}:66 (quantized_conv_xla, feature_group_count > 1)"),
     )
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda",
@@ -3464,6 +3958,10 @@ def main() -> int:
         *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/fused_block.cu",
            "replaces": replaces, "launches": block_launches[key], **block_records[key]}
           for name, key, replaces in block_rows),
+        *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/int8_conv.cu",
+           "replaces": replaces, "pallas_call": False, "launches": xla_launches[key],
+           **xla_records[key]}
+          for name, key, replaces in xla_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

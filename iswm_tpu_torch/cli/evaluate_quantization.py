@@ -3,7 +3,7 @@
 
 ``python -m iswm_tpu_torch.cli.evaluate_quantization --data_dir <imgs/ +
 masks/ tree> [--ckpt model.pth] [--device cuda] [--variants
-f32,bf16,int8,int8_act,int8_exec]``
+f32,bf16,int8,int8_act,int8_exec,int8_exec_xla] [--int8_grouped] [--int8_stem]``
 
 Compares serving variants on an ``imgs/`` + ``masks/`` evaluation tree and
 prints the latency / size / metric-delta table with tiered verdicts
@@ -11,6 +11,9 @@ prints the latency / size / metric-delta table with tiered verdicts
 CLI's, with ``--device`` in place of ``--platform``.  ``--ckpt`` takes a
 reference-format .pth (``python -m iswm_tpu.cli.export_torch`` writes one
 from an Orbax checkpoint); without it the model has seeded random weights.
+``--int8_grouped`` and ``--int8_stem`` (not in the JAX CLI, whose
+comparison never routes those sites) pass to the ``int8_exec_xla`` variant
+as ``Predictor`` takes them.
 """
 
 from __future__ import annotations
@@ -35,15 +38,21 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["bfloat16", "float32"])
     p.add_argument("--variants", type=str, default="f32,bf16,int8",
-                   # also available: int8_act (fake-quant PTQ simulation) and
+                   # also available: int8_act (fake-quant PTQ simulation),
                    # int8_exec (eligible 1x1 convs in int8 through the CUDA
-                   # kernel); int8_exec_xla is not ported yet and is refused
+                   # matmul) and int8_exec_xla (every dense conv of >= 64
+                   # input channels in int8 through the CUDA int8 convs)
                    help="comma-separated: "
                         "f32,bf16,int8,int8_act,int8_exec,int8_exec_xla")
     p.add_argument("--max_images", type=int, default=None)
     p.add_argument("--sequence_length", type=int, default=7)
     p.add_argument("--comparison_dir", type=str, default=None,
                    help="write per-variant comparison panels here")
+    p.add_argument("--int8_grouped", action="store_true",
+                   help="with int8_exec_xla: also run the grouped and "
+                        "depthwise convs in int8")
+    p.add_argument("--int8_stem", action="store_true",
+                   help="with int8_exec_xla: also run the stem conv in int8")
     return p
 
 
@@ -89,6 +98,8 @@ def main(argv=None) -> int:
         sequence_length=args.sequence_length,
         max_images=args.max_images,
         comparison_dir=args.comparison_dir,
+        grouped=args.int8_grouped,
+        stem=args.int8_stem,
     )
     print(format_report(report))
     return 0

@@ -1,7 +1,8 @@
 """Prediction CLI of the port, the counterpart of ``iswm_tpu/cli/predict.py``.
 
 ``python -m iswm_tpu_torch.cli.predict --input_dir ... --ckpt model.pth
---output_dir ... [--device cuda] [--serving_variant int8_exec]``
+--output_dir ... [--device cuda] [--serving_variant int8_exec_xla
+[--int8_grouped] [--int8_stem]]``
 
 The flags are the JAX CLI's, with ``--device`` in place of ``--platform``.
 ``--ckpt`` takes a reference-format .pth (``python -m
@@ -47,12 +48,14 @@ def get_argparser() -> argparse.ArgumentParser:
     p.add_argument("--serving_variant", type=str, default=None,
                    choices=["bf16", "int8", "int8_exec", "int8_exec_xla"],
                    help="serving precision (int8_exec: 1x1 convs in int8 "
-                        "through the CUDA kernel; int8_exec_xla: not ported "
-                        "yet, refused)")
+                        "through the CUDA matmul; int8_exec_xla: every dense "
+                        "conv of >= 64 input channels in int8 through the "
+                        "CUDA int8 convs)")
     p.add_argument("--int8_grouped", action="store_true",
-                   help="with int8_exec_xla: not ported yet, refused")
+                   help="with int8_exec_xla: also run the grouped and "
+                        "depthwise convs in int8")
     p.add_argument("--int8_stem", action="store_true",
-                   help="with int8_exec_xla: not ported yet, refused")
+                   help="with int8_exec_xla: also run the stem conv in int8")
     p.add_argument("--tile_size", type=int, default=None)
     p.add_argument("--tile_overlap", type=int, default=None)
     p.add_argument("--tile_batch", type=int, default=None)

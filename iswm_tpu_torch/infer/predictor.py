@@ -5,8 +5,11 @@ Walks an input directory (top level + one level of subdirectories) and
 writes ``{name}_predict.png`` (+ optional ``_confidence.png`` and
 ``_binary_mask.png``) per image; scenes go through the batched
 sliding-window TileEngine.  Serving variants: ``bf16`` (the model in its
-compute dtype), ``int8`` (weight-only) and ``int8_exec`` (1x1 convs in
-int8 through the hand-written kernel, calibrated on the first scene).  With
+compute dtype), ``int8`` (weight-only), ``int8_exec`` (1x1 convs in int8
+through the hand-written matmul) and ``int8_exec_xla`` (every dense conv of
+>= 64 input channels in int8 through the hand-written int8 convs; with
+``int8_grouped`` / ``int8_stem`` the grouped convs / the stem too); both
+``int8_exec`` variants calibrate on the first scene.  With
 ``save_feature_maps``, also ``{name}_fmap_{label}.png``: channel-mean
 heatmaps of the backbone's two taps and the ASPP output on the centre tile.
 """
@@ -42,13 +45,7 @@ class Predictor:
                  device: str = "cuda"):
         cfg.validate()
         variant = cfg.predict.serving_variant
-        if (variant == "int8_exec_xla" or cfg.predict.int8_grouped
-                or cfg.predict.int8_stem):
-            raise NotImplementedError(
-                "int8_exec_xla (with int8_grouped / int8_stem) is not ported "
-                "yet (ROADMAP.md Queue 1, 'int8_exec_xla and QAT')"
-            )
-        if variant not in ("bf16", "int8", "int8_exec"):
+        if variant not in ("bf16", "int8", "int8_exec", "int8_exec_xla"):
             raise ValueError(f"unknown serving_variant {variant!r}")
         self.cfg = cfg
         self.device = torch.device(device)
@@ -57,10 +54,10 @@ class Predictor:
             self.model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
         self.model.to(self.device, memory_format=torch.channels_last)
 
-        self._needs_calibration = variant == "int8_exec"
+        self._needs_calibration = variant.startswith("int8_exec")
         if variant == "int8":
             fn = make_variant_fn(self.model, "int8")
-        else:  # bf16, and int8_exec until the first scene calibrates it
+        else:  # bf16, and int8_exec* until the first scene calibrates it
             fn = ServingFn(self.model, dict(self.model.named_parameters()))
         self.engine = self._make_engine(fn)
 
@@ -86,12 +83,18 @@ class Predictor:
             tiles = [torch.nn.functional.pad(
                 tile, (0, 0, 0, t - tile.shape[1], 0, t - tile.shape[0])
             )[None]]
+        p = self.cfg.predict
         conv_scales = calibrate_conv_inputs(
-            self.model, [x.permute(0, 3, 1, 2) for x in tiles], wide=True
+            self.model, [x.permute(0, 3, 1, 2) for x in tiles], wide=True,
+            grouped=p.int8_grouped, stem=p.int8_stem,
         )
-        self.engine = self._make_engine(
-            make_variant_fn(self.model, "int8_exec", conv_scales=conv_scales)
-        )
+        # The JAX Predictor lets a QAT checkpoint's learned input amaxes
+        # (conv_scales_from_quant) override these; that waits for ROADMAP.md
+        # Queue 1, 'Quantization-aware training'.
+        self.engine = self._make_engine(make_variant_fn(
+            self.model, p.serving_variant, conv_scales=conv_scales,
+            grouped=p.int8_grouped, stem=p.int8_stem,
+        ))
         self._needs_calibration = False
 
     def predict_image(self, image: np.ndarray) -> Dict[str, np.ndarray]:

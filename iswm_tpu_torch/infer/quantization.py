@@ -6,21 +6,33 @@ bf16 is the serving dtype; ``int8`` is weight-only per-output-channel
 symmetric quantization (4x smaller at rest, dequantized to bf16 once at
 build); ``int8_act`` adds fake-quantized activations at the calibrated
 ``ConvBN`` outputs (the numerics of an int8 engine, compute in bf16);
-``int8_exec`` executes the eligible 1x1 convs in int8.  The harness
+``int8_exec`` executes the eligible 1x1 convs in int8, ``int8_exec_xla``
+every dense conv with >= 64 input channels.  The harness
 (``compare_variants``, ``format_report``) reports the reference's table:
 avg latency ms / model size MB / MIoU / FIoU / FF1 and their deltas, with
 a tiered mask-agreement verdict against the first variant.
 
-``int8_exec`` keeps the JAX package's semantics (its Pallas backend):
+``int8_exec`` and ``int8_exec_xla`` keep the JAX package's semantics (its
+``pallas`` and ``xla`` backends, here ``cuda`` and ``xla``):
 
 - every conv weight, routed or not, is rounded to int8 per output channel
   and dequantized to bf16; the convs that are not routed run on those
   dequantized weights;
-- a conv is routed when it is a plain 1x1 conv with stride 1 and groups 1,
-  Cin % 128 == 0, Cout % 128 == 0 and its site is in ``conv_scales``; it
-  runs as ``quantized_conv1x1`` (the hand-written CUDA kernel on the card),
-  and its float32 output is cast back to the activation dtype before the
-  BatchNorm.
+- ``int8_exec`` routes a plain 1x1 conv with stride 1 and groups 1,
+  Cin % 128 == 0, Cout % 128 == 0 whose site is in ``conv_scales``; it runs
+  as ``quantized_conv1x1`` (the hand-written int8 matmul on the card);
+- ``int8_exec_xla`` routes every dense conv whose input has >= 64 channels
+  (3x3s, strided, dilated, the classifier with its bias), the ResNeXt grouped
+  convs that the JAX package runs block-diagonal (as one dense conv on the
+  block-diagonal int8 kernel), and the V3+ decoder's first classifier conv as
+  the JAX package's ``ConcatConvBN``: one int8 conv per part of its input (48
+  low-level, 256 ASPP channels) with one input scale per part, summed, then the
+  inference BatchNorm and ReLU in float32.  ``grouped`` also routes the other
+  grouped and depthwise convs, ``stem`` the ResNet stem.  A 1x1 site that the
+  int8 matmul takes goes through it; every other site through the int8 convs
+  of ``ops/int8_xla.py`` (hand-written CUDA on the card);
+- a routed conv's float32 output is cast back to the activation dtype after
+  its bias, before the BatchNorm.
 
 Site keys are module names (``backbone.layer2.0.conv1``);
 :func:`port_site_key` maps the JAX package's flax paths onto them.  An
@@ -49,9 +61,8 @@ from ..models.layers import AtrousSeparableConv, ConvBN, SeparableConvBN
 from ..models.mobilenetv2 import INVERTED_RESIDUAL_SETTINGS, ConvBNReLU6, InvertedResidual
 from ..models.resnet import BasicBlock, Bottleneck, ResNet
 from ..models.xception import XCEPTION_BLOCKS, Block, SeparableConv2d, Xception
+from ..ops.int8_xla import int8_conv
 from ..ops.kernels.int8_matmul import quantized_conv1x1
-
-_INT8_XLA_ITEM = "ROADMAP.md Queue 1, 'int8_exec_xla and QAT'"
 
 # Tiers applied at the decision level: the fraction of output pixels whose
 # argmax class agrees with the reference variant.
@@ -256,12 +267,31 @@ def make_act_quant_fn(model: nn.Module, scales: Dict[str, float]) -> "ServingFn"
 
 
 # ------------------------------------------------------- executed int8
-def _int8_exec_eligible(module: nn.Module, wide: bool = False) -> bool:
-    """int8-executable conv sites.  Default: 1x1 stride-1 dense convs whose
-    input channels tile by 128 (what ``quantized_conv1x1`` executes).
-    ``wide`` (calibration only): every dense conv with >= 64 input
-    channels, the JAX package's superset for its XLA backend."""
-    if not isinstance(module, nn.Conv2d) or module.groups != 1:
+def _block_diagonal(module: nn.Conv2d, blockdiag_max: int) -> bool:
+    """A grouped conv that the JAX package builds as ``BlockDiagConv`` (one
+    dense conv on a block-diagonal kernel): input channels within the
+    backbone's gate and at least 4 a group (``iswm_tpu/models/layers.py``)."""
+    return (module.groups > 1 and 0 < module.in_channels <= blockdiag_max
+            and module.in_channels // module.groups >= 4)
+
+
+def _int8_exec_eligible(module: nn.Module, wide: bool = False, grouped: bool = False,
+                        stem: bool = False, *, is_stem: bool = False,
+                        blockdiag_max: int = 0) -> bool:
+    """int8-executable conv sites.
+
+    Default (``int8_exec``): 1x1 stride-1 dense convs whose input channels
+    tile by 128 (what ``quantized_conv1x1`` executes).  ``wide``
+    (``int8_exec_xla``): every dense conv with >= 64 input channels, the
+    grouped convs built block-diagonal (``blockdiag_max``, the model's gate),
+    with ``grouped`` every other grouped conv of >= 64 input channels, and
+    with ``stem`` the ResNet stem (``is_stem``), whose 3-channel input passes
+    no channel gate."""
+    if not isinstance(module, nn.Conv2d):
+        return False
+    if wide and is_stem:
+        return stem
+    if module.groups != 1 and not (wide and (grouped or _block_diagonal(module, blockdiag_max))):
         return False
     if wide:
         return module.in_channels >= 64
@@ -272,25 +302,54 @@ def _int8_exec_eligible(module: nn.Module, wide: bool = False) -> bool:
     )
 
 
+def _exec_sites(model: nn.Module, wide: bool, grouped: bool = False, stem: bool = False,
+                ) -> Tuple[Dict[str, nn.Conv2d], Dict[str, Tuple[int, ...]]]:
+    """({site: its conv} of the executable sites, {site: channels of each
+    part} of the sites that run as per-part convs).  With ``wide`` the V3+
+    head's plain first classifier conv is a site of two parts, the 48
+    low-level and the ASPP channels of its concatenated input (the JAX
+    package's ``ConcatConvBN``); a fused stem is no site."""
+    stems, parts = set(), {}
+    for name, m in model.named_modules():
+        if isinstance(m, ResNet) and not m.fuses_stem_on(m.conv1.weight.device):
+            stems.add(f"{name}.conv1")
+        elif (wide and isinstance(m, DeepLabHeadV3Plus)
+              and isinstance(m.classifier[0], nn.Conv2d)):
+            low = m.project[0].out_channels
+            parts[f"{name}.classifier.0"] = (low, m.classifier[0].in_channels - low)
+    gate = getattr(model, "grouped_blockdiag_max", 0)
+    sites = {name: m for name, m in model.named_modules()
+             if name in parts or _int8_exec_eligible(
+                 m, wide, grouped, stem, is_stem=name in stems, blockdiag_max=gate)}
+    return sites, parts
+
+
 def calibrate_conv_inputs(
-    model: nn.Module, batches: Iterable[torch.Tensor], wide: bool = False
+    model: nn.Module, batches: Iterable[torch.Tensor], wide: bool = False,
+    grouped: bool = False, stem: bool = False,
 ) -> Dict[str, float]:
     """Per-conv input absmax/127 scales at the int8-executable sites, from
-    forward pre-hooks over the model's run on ``batches`` (NCHW)."""
+    forward pre-hooks over the model's run on ``batches`` (NCHW).  A site of
+    parts gets one scale a part, keyed ``<site>#p{i}``, as the JAX package's
+    ``ConcatConvBN`` parts are."""
     absmax: Dict[str, torch.Tensor] = {}
 
-    def observer(name):
+    def record(key, x):
+        v = x.detach().float().abs().amax()
+        absmax[key] = v if key not in absmax else torch.maximum(absmax[key], v)
+
+    def observer(name, widths):
         def hook(module, args):
-            v = args[0].detach().float().abs().amax()
-            absmax[name] = v if name not in absmax else torch.maximum(absmax[name], v)
+            if not widths:
+                return record(name, args[0])
+            for i, part in enumerate(torch.split(args[0], widths, dim=1)):
+                record(f"{name}#p{i}", part)
 
         return hook
 
-    handles = [
-        m.register_forward_pre_hook(observer(name))
-        for name, m in model.named_modules()
-        if _int8_exec_eligible(m, wide)
-    ]
+    sites, parts = _exec_sites(model, wide, grouped, stem)
+    handles = [m.register_forward_pre_hook(observer(name, parts.get(name)))
+               for name, m in sites.items()]
     try:
         with torch.inference_mode():
             for images in batches:
@@ -356,19 +415,21 @@ def port_site_key(jax_key: str, backbone: str = "resnet50", head: str = "deeplab
     as ``backbone/layer2_0/conv1/conv``; ``head/cls0#p1`` for a part of a
     concat conv; ``backbone/block2/sep0/pointwise`` for a separable conv's
     half) -> the port's module name (``backbone.layer2.0.conv1``;
-    ``classifier.classifier.0``; ``backbone.block2.rep.1.pointwise``)."""
-    path = re.sub(r"#p\d+$", "", jax_key)
+    ``classifier.classifier.0#p1``, the part's calibration key;
+    ``backbone.block2.rep.1.pointwise``)."""
+    path, sep, part = jax_key.partition("#")  # a concat conv's part keeps "#p{i}"
     path = re.sub(r"/conv$", "", path)
     family = ("mobilenetv2" if backbone in ("mobilenetv2", "mobilenet")
               else "xception" if backbone == "xception" else "resnet")
-    part = ""  # (MobileNetV2's ConvBN named ``depthwise`` is a whole site)
+    half = ""  # (MobileNetV2's ConvBN named ``depthwise`` is a whole site)
     if path.endswith(("/depthwise", "/pointwise")) and (
             family == "xception" or path.startswith("head/")):
-        path, _, part = path.rpartition("/")
+        path, _, half = path.rpartition("/")
     for pattern, name in _BACKBONE_SITES[family] + _head_sites(head):
         if re.fullmatch(pattern, path):
             key = re.sub(pattern, name, path)
-            return key + (_SEPARABLE_PARTS[path.split("/")[0]][part] if part else "")
+            key += _SEPARABLE_PARTS[path.split("/")[0]][half] if half else ""
+            return key + sep + part
     raise KeyError(f"no port site for JAX site {jax_key!r} of {head}_{backbone}")
 
 
@@ -404,6 +465,74 @@ class Int8Conv1x1(nn.Module):
         return out.permute(0, 3, 1, 2).to(x.dtype)
 
 
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> the NHWC view, copied only where the view is not contiguous
+    (a channels-last x gives it as it is)."""
+    x = x.permute(0, 2, 3, 1)
+    return x if x.is_contiguous() else x.contiguous()
+
+
+class Int8Conv(nn.Module):
+    """A routed conv of any kernel, stride, padding, dilation and groups:
+    ``ops/int8_xla.py``'s :func:`int8_conv` on the input's NHWC view with its
+    calibrated scale, int8 OHWI weights laid out once with per-O scales and
+    the optional float32 bias.  NCHW in, NCHW out in the input's dtype."""
+
+    def __init__(self, conv: nn.Conv2d, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 x_scale: float, groups: Optional[int] = None):
+        super().__init__()
+        if isinstance(conv.padding, str):
+            raise ValueError(f"padding {conv.padding!r}: the routed conv needs explicit pads")
+        self.register_buffer("w_q", w_q.permute(0, 2, 3, 1).contiguous())
+        self.register_buffer("w_scale", w_scale.reshape(-1).float())
+        self.register_buffer("bias", None if conv.bias is None else conv.bias.detach().float())
+        self.x_scale = float(x_scale)
+        self.groups = conv.groups if groups is None else groups
+        self.geometry = dict(stride=conv.stride, padding=conv.padding, dilation=conv.dilation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = int8_conv(_nhwc(x), self.w_q, self.w_scale, self.x_scale, self.bias,
+                        groups=self.groups, **self.geometry)
+        return out.permute(0, 3, 1, 2).to(x.dtype)
+
+
+class Int8ConcatConvBN(nn.Module):
+    """The V3+ decoder's first classifier conv, BatchNorm and ReLU, routed
+    as the JAX package routes its ``ConcatConvBN`` (eval only): one
+    :func:`int8_conv` a part of the concatenated input (a channel slice, its
+    own input scale, the same per-O weight scales, the weight's slice of
+    input channels), the float32 outputs summed in part order, then ``(acc -
+    mean) * rsqrt(var + eps) * gamma + beta`` from the running statistics and
+    the ReLU in float32, cast to the input's dtype."""
+
+    def __init__(self, conv: nn.Conv2d, bn: nn.BatchNorm2d, w_q: torch.Tensor,
+                 w_scale: torch.Tensor, widths: Sequence[int], x_scales: Sequence[float]):
+        super().__init__()
+        w = w_q.permute(0, 2, 3, 1)  # OHWI
+        bounds = np.cumsum([0, *widths])
+        for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+            self.register_buffer(f"w_q{i}", w[..., lo:hi].contiguous())
+        self.widths = tuple(int(c) for c in widths)
+        self.x_scales = tuple(float(s) for s in x_scales)
+        self.register_buffer("w_scale", w_scale.reshape(-1).float())
+        self.padding = conv.padding
+        self.register_buffer("mean", bn.running_mean.detach().float())
+        self.register_buffer("inv", torch.rsqrt(bn.running_var.detach().float() + bn.eps))
+        self.register_buffer("gamma", bn.weight.detach().float())
+        self.register_buffer("beta", bn.bias.detach().float())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xh = _nhwc(x)
+        acc, off = None, 0
+        for i, (c, xs) in enumerate(zip(self.widths, self.x_scales)):
+            t = int8_conv(xh[..., off:off + c], getattr(self, f"w_q{i}"), self.w_scale, xs,
+                          padding=self.padding)
+            acc = t if acc is None else acc + t
+            off += c
+        y = torch.relu((acc - self.mean) * self.inv * self.gamma + self.beta)
+        return y.permute(0, 3, 1, 2).to(x.dtype)
+
+
 class ServingFn:
     """A variant's model as the tile engine calls it: normalized NHWC float
     images -> NHWC float32 logits.  The NHWC input, permuted, is a
@@ -428,23 +557,70 @@ def _serving_copy(model: nn.Module) -> nn.Module:
     return copy.deepcopy(model).eval().to(memory_format=torch.channels_last)
 
 
-def make_int8_exec_fn(model: nn.Module, conv_scales: Dict[str, float]) -> ServingFn:
-    """EXECUTED int8: eligible 1x1 convs run as int8 x int8 -> int32
-    matmuls with calibrated input scales; every other conv runs on its
-    int8-rounded weights dequantized to bf16."""
+def _block_diagonal_kernel(w_q: torch.Tensor, groups: int) -> torch.Tensor:
+    """Grouped OIHW [Cout, Cin / G, k, k] -> the dense block-diagonal
+    [Cout, Cin, k, k], zero off the blocks (exact in int8: a zero is code 0,
+    and each output channel's scale is that of its one block)."""
+    cout, cg = w_q.shape[:2]
+    og = cout // groups
+    dense = w_q.new_zeros((cout, cg * groups, *w_q.shape[2:]))
+    for g in range(groups):
+        dense[g * og:(g + 1) * og, g * cg:(g + 1) * cg] = w_q[g * og:(g + 1) * og]
+    return dense
+
+
+def _matmul_site(m: nn.Conv2d) -> bool:
+    """A conv that the int8 matmul #1 executes: 1x1, stride 1, no padding,
+    groups 1, Cin and Cout multiples of 128."""
+    return (m.kernel_size == (1, 1) and m.stride == (1, 1) and m.padding == (0, 0)
+            and m.groups == 1 and m.in_channels % 128 == 0 and m.out_channels % 128 == 0)
+
+
+def make_int8_exec_fn(model: nn.Module, conv_scales: Dict[str, float], backend: str = "cuda",
+                      grouped: bool = False, stem: bool = False) -> ServingFn:
+    """EXECUTED int8: eligible convs run as int8 x int8 -> int32 products with
+    calibrated input scales; every other conv runs on its int8-rounded
+    weights dequantized to bf16.
+
+    ``backend`` ``"cuda"`` (``int8_exec``) routes the 1x1 sites through the
+    int8 matmul; ``"xla"`` (``int8_exec_xla``, the JAX package's name for its
+    XLA-lowered backend) routes every wide site (see the module docstring),
+    with ``grouped`` and ``stem`` as there; ``"cuda"`` ignores those two, as
+    the JAX package's 1x1 backend does.  Calibrate with the same flags
+    (``wide=True`` for ``"xla"``).  A site of parts with a part's scale
+    missing keeps its unrouted modules."""
+    if backend not in ("cuda", "xla"):
+        raise ValueError(f"unknown int8 backend {backend!r}; expected 'cuda' or 'xla'")
+    wide = backend == "xla"
     model = _serving_copy(model)
     params = dict(model.named_parameters())
     q, s = quantize_params_int8(params)
     _load_params(model, dequantize_params(q, s, torch.bfloat16))
+    sites, parts = _exec_sites(model, wide, grouped, stem)
+    gate = getattr(model, "grouped_blockdiag_max", 0)
     routed = []
-    for name, m in list(model.named_modules()):
-        if (_int8_exec_eligible(m) and name in conv_scales
-                and m.out_channels % 128 == 0):
-            parent, _, child = name.rpartition(".")
-            model.get_submodule(parent).add_module(child, Int8Conv1x1(
-                q[f"{name}.weight"], s[f"{name}.weight"], conv_scales[name], m.bias,
-            ))
-            routed.append(name)
+    for name, m in sites.items():
+        w_q, w_scale = q[f"{name}.weight"], s[f"{name}.weight"]
+        parent, _, child = name.rpartition(".")
+        holder = model.get_submodule(parent)
+        if name in parts:
+            keys = [f"{name}#p{i}" for i in range(len(parts[name]))]
+            if not all(k in conv_scales for k in keys):
+                continue  # a part without its scale: the modules stay
+            i = int(child)
+            holder[i] = Int8ConcatConvBN(m, holder[i + 1], w_q, w_scale, parts[name],
+                                         [conv_scales[k] for k in keys])
+            holder[i + 1], holder[i + 2] = nn.Identity(), nn.Identity()
+        elif name not in conv_scales or not (wide or m.out_channels % 128 == 0):
+            continue
+        elif not wide or _matmul_site(m):
+            holder.add_module(child, Int8Conv1x1(w_q, w_scale, conv_scales[name], m.bias))
+        elif m.groups > 1 and _block_diagonal(m, gate):
+            holder.add_module(child, Int8Conv(m, _block_diagonal_kernel(w_q, m.groups),
+                                              w_scale, conv_scales[name], groups=1))
+        else:
+            holder.add_module(child, Int8Conv(m, w_q, w_scale, conv_scales[name]))
+        routed.append(name)
     return ServingFn(model, q, tuple(routed))
 
 
@@ -452,24 +628,26 @@ def make_variant_fn(
     model: nn.Module, name: str,
     act_scales: Optional[Dict[str, float]] = None,
     conv_scales: Optional[Dict[str, float]] = None,
+    grouped: bool = False, stem: bool = False,
 ) -> ServingFn:
     """Build a serving fn for ``name`` in {'f32', 'bf16', 'int8', 'int8_act',
-    'int8_exec'}.  'int8' stores int8 conv weights and serves them
-    dequantized to bf16 (weight-only); 'int8_act' additionally
+    'int8_exec', 'int8_exec_xla'}.  'int8' stores int8 conv weights and
+    serves them dequantized to bf16 (weight-only); 'int8_act' additionally
     fake-quantizes activations at the calibrated sites and needs
     ``act_scales`` from :func:`calibrate_activations`; 'int8_exec' executes
-    the eligible 1x1 convs in int8 and needs ``conv_scales`` from
-    :func:`calibrate_conv_inputs`."""
-    if name == "int8_exec_xla":
-        raise NotImplementedError(f"int8_exec_xla is not ported yet ({_INT8_XLA_ITEM})")
+    the eligible 1x1 convs in int8, 'int8_exec_xla' every wide site (with
+    ``grouped`` / ``stem`` the grouped convs / the stem too); both need
+    ``conv_scales`` from :func:`calibrate_conv_inputs`."""
     if name == "int8_act":
         if act_scales is None:
             raise ValueError("int8_act requires act_scales (run calibration)")
         return make_act_quant_fn(model, act_scales)
-    if name == "int8_exec":
+    if name in ("int8_exec", "int8_exec_xla"):
         if conv_scales is None:
-            raise ValueError("int8_exec requires conv_scales (run calibration)")
-        return make_int8_exec_fn(model, conv_scales)
+            raise ValueError(f"{name} requires conv_scales (run calibration)")
+        return make_int8_exec_fn(model, conv_scales,
+                                 backend="xla" if name.endswith("_xla") else "cuda",
+                                 grouped=grouped, stem=stem)
     model = _serving_copy(model)
     params = dict(model.named_parameters())
     if name in ("f32", "bf16"):
@@ -575,16 +753,19 @@ def compare_variants(
     max_images: Optional[int] = None,
     comparison_dir: Optional[str] = None,
     calibration_batches: int = 25,
+    grouped: bool = False,
+    stem: bool = False,
 ) -> Dict[str, Dict[str, float]]:
     """The FP32-vs-quantized comparison report (reference
     evaluate_quantization.py:301-354 table: latency / size / metric deltas)
     of ``model`` (eval mode, on its device) over ``dataset``.  With
     ``comparison_dir``, a comparison panel of the first image is written.
-    The 'int8_act' and 'int8_exec' variants calibrate on the first
-    <= ``calibration_batches`` images (reference :130-141).  The first
-    variant is the reference the others are compared with."""
-    if "int8_exec_xla" in variants:
-        raise NotImplementedError(f"int8_exec_xla is not ported yet ({_INT8_XLA_ITEM})")
+    The 'int8_act' and 'int8_exec*' variants calibrate on the first
+    <= ``calibration_batches`` images (reference :130-141); with
+    'int8_exec_xla' among the variants the conv inputs calibrate wide (with
+    ``grouped`` / ``stem``, which that variant takes), and 'int8_exec' takes
+    its subset.  The first variant is the reference the others are compared
+    with."""
     device = next(model.parameters()).device
     report: Dict[str, Dict[str, float]] = {}
     probe = None
@@ -595,13 +776,17 @@ def compare_variants(
             yield _model_input(dataset[i][0], device).permute(0, 3, 1, 2)
 
     act_scales = conv_scales = None
+    xla = "int8_exec_xla" in variants
     if "int8_act" in variants:
         act_scales = calibrate_activations(model, calib_iter(), calibration_batches)
-    if "int8_exec" in variants:
-        conv_scales = calibrate_conv_inputs(model, calib_iter())
+    if any(v.startswith("int8_exec") for v in variants):
+        conv_scales = calibrate_conv_inputs(model, calib_iter(), wide=xla,
+                                            grouped=xla and grouped, stem=xla and stem)
 
     for name in variants:
-        fn = make_variant_fn(model, name, act_scales=act_scales, conv_scales=conv_scales)
+        flags = dict(grouped=grouped, stem=stem) if name == "int8_exec_xla" else {}
+        fn = make_variant_fn(model, name, act_scales=act_scales, conv_scales=conv_scales,
+                             **flags)
         stats = evaluate_variant(
             fn, dataset, sequence_length=sequence_length, max_images=max_images
         )

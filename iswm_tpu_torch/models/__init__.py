@@ -27,6 +27,21 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 BACKBONES = tuple(ARCHS) + ("mobilenetv2", "xception")
 HEADS = ("deeplabv3plus", "deeplabv3")
 SHARDED_FUSED_ITEM = "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'"
+# the auto grouped_blockdiag gate of each grouped backbone, as the JAX package
+# sets it (iswm_tpu/models/__init__.py)
+_GROUPED_BACKBONES = {"resnext50_32x4d": 256, "resnext101_32x8d": 512}
+
+
+def grouped_blockdiag_max(cfg: ModelConfig) -> int:
+    """The input-channel gate of the grouped convs that the JAX package runs
+    block-diagonal: ``grouped_blockdiag`` -1 (auto) is the backbone's own
+    (0 for a backbone without grouped convs), True 256, 0 off."""
+    gb = cfg.grouped_blockdiag
+    if gb is True:
+        return 256
+    if gb in (-1, None):
+        return _GROUPED_BACKBONES.get(cfg.backbone, 0)
+    return int(gb or 0)
 
 
 def _resolve_fused_mode(value: str, setting: str) -> str:
@@ -69,7 +84,7 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     if cfg.int8_training:
         raise NotImplementedError(
             "int8_training (QAT) is not ported yet (ROADMAP.md Queue 1, "
-            "'int8_exec_xla and QAT')"
+            "'Quantization-aware training')"
         )
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
@@ -94,7 +109,8 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     head = (DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes, rates, cfg.separable_conv)
             if cfg.name == "deeplabv3plus"
             else DeepLabHead(out_ch, cfg.num_classes, rates, cfg.separable_conv))
-    model = DeepLabV3Model(backbone, head, compute_dtype=DTYPES[cfg.compute_dtype])
+    model = DeepLabV3Model(backbone, head, compute_dtype=DTYPES[cfg.compute_dtype],
+                           grouped_blockdiag_max=grouped_blockdiag_max(cfg))
     init_weights(model, torch.Generator().manual_seed(seed))
     for m in model.modules():
         if isinstance(m, BatchNorm2d):  # flax momentum 0.9 is torch's 0.1

@@ -109,14 +109,20 @@ class DeepLabV3Model(nn.Module):
     """backbone -> head -> bilinear upsample to the input size.
 
     NCHW in, NCHW logits out, in ``compute_dtype`` (the input is cast to
-    it; float32 parameters are cast per conv)."""
+    it; float32 parameters are cast per conv).  ``grouped_blockdiag_max``
+    is the gate below which the JAX package runs a grouped conv as one dense
+    conv on a block-diagonal kernel: the same numbers, so here it only
+    decides which grouped convs ``int8_exec_xla`` routes without
+    ``int8_grouped``."""
 
     def __init__(self, backbone: nn.Module, classifier: nn.Module,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 grouped_blockdiag_max: int = 0):
         super().__init__()
         self.backbone = backbone
         self.classifier = classifier
         self.compute_dtype = compute_dtype
+        self.grouped_blockdiag_max = grouped_blockdiag_max
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         input_hw = (x.shape[2], x.shape[3])

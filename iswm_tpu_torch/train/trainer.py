@@ -54,7 +54,7 @@ def refuse_unported(cfg: Config) -> None:
     checks = (
         (bool(cfg.model.int8_training) or bool(cfg.train.int8_switch_iter),
          f"int8_training / int8_switch_iter (QAT) are not ported yet ({q1}, "
-         "'int8_exec_xla and QAT')"),
+         "'Quantization-aware training')"),
         (cfg.parallel.remat,
          f"parallel.remat is not ported yet ({q1}, 'Activation rematerialization')"),
         (cfg.parallel.model_axis > 1,

@@ -283,12 +283,13 @@ def test_visualizer_writes_panels(tmp_path):
         assert (tmp_path / "vis").joinpath(p.rsplit("/", 1)[1]).stat().st_size > 0
 
 
-def test_cli_flags_and_refusals(tmp_path):
+def test_cli_flags_and_refusals(tmp_path, capsys):
     import iswm_tpu.cli.evaluate_quantization as jax_cli
 
     def actions(parser):
         return {a.dest: (a.option_strings, a.default, a.type, a.choices, a.required)
-                for a in parser._actions if a.dest not in ("help", "platform", "device")}
+                for a in parser._actions if a.dest not in (
+                    "help", "platform", "device", "int8_grouped", "int8_stem")}
 
     assert actions(cli.get_argparser()) == actions(jax_cli.get_argparser())
     assert cli.get_argparser().parse_args(["--data_dir", "x"]).device == "cuda"
@@ -302,9 +303,10 @@ def test_cli_flags_and_refusals(tmp_path):
     with pytest.raises(ValueError, match="iswm_tpu.cli.export_torch"):
         cli.main(["--data_dir", data, "--device", "cpu", "--ckpt", str(orbax),
                   "--model", "deeplabv3plus_resnet18"])
-    with pytest.raises(NotImplementedError, match="int8_exec_xla and QAT"):
-        cli.main(["--data_dir", data, "--device", "cpu", "--variants", "f32,int8_exec_xla",
-                  "--model", "deeplabv3plus_resnet18", "--compute_dtype", "float32"])
+    assert cli.main(["--data_dir", data, "--device", "cpu", "--variants", "f32,int8_exec_xla",
+                     "--model", "deeplabv3plus_resnet18", "--compute_dtype", "float32",
+                     "--int8_stem", "--sequence_length", "3"]) == 0
+    assert "int8_exec_xla" in capsys.readouterr().out
 
 
 # ------------------------------------------------------------------ quick-eval

@@ -104,7 +104,7 @@ def test_logits_match_jax(tmp_path, backbone, output_stride):
 def test_unported_backbone_and_head_are_refused():
     """Every backbone and head builds; what stays refused names its ROADMAP
     item, and unknown names are errors as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="'int8_exec_xla and QAT'"):
+    with pytest.raises(NotImplementedError, match="'Quantization-aware training'"):
         build_model_by_name("deeplabv3plus_mobilenet", int8_training=64)
     with pytest.raises(NotImplementedError, match="'Low-precision parameters'"):
         build_model_by_name("deeplabv3_resnet50", param_dtype="bfloat16")

@@ -59,18 +59,15 @@ def test_port_site_key_maps_jax_paths():
     assert pq.port_site_key("backbone/layer4_0/downsample/conv") == (
         "backbone.layer4.0.downsample.0")
     assert pq.port_site_key("head/aspp/pool/conv") == "classifier.aspp.convs.4.1"
-    assert pq.port_site_key("head/cls0#p1") == "classifier.classifier.0"
+    assert pq.port_site_key("head/cls0#p1") == "classifier.classifier.0#p1"
     assert pq.port_site_key("head/cls_out") == "classifier.classifier.6"
 
 
 def test_calibration_scales_match_jax(crossed, calib_images, jax_scales):
     _, _, model, _ = crossed
     got = pq.calibrate_conv_inputs(model, [_nchw(x) for x in calib_images], wide=True)
-    want = {}
-    for key, scale in jax_scales.items():  # concat-conv parts merge by max
-        name = pq.port_site_key(key)
-        want[name] = max(want.get(name, 0.0), scale)
-    assert set(got) == set(want)
+    want = {pq.port_site_key(key): scale for key, scale in jax_scales.items()}
+    assert set(got) == set(want) and "classifier.classifier.0#p1" in got  # a part each
     for name, scale in want.items():
         np.testing.assert_allclose(got[name], scale, rtol=1e-5, err_msg=name)
 
@@ -125,13 +122,32 @@ def test_variants_match_jax(crossed, variant):
 
 
 def test_unported_variants_are_refused(crossed):
+    """int8_exec_xla is ported: make_variant_fn and compare_variants run it;
+    what stays refused or needs its calibration says so."""
     model = crossed[2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 32, 32, 3)).astype(np.float32))
+    scales = pq.calibrate_conv_inputs(model, [x.permute(0, 3, 1, 2)], wide=True)
+    fn = pq.make_variant_fn(model, "int8_exec_xla", conv_scales=scales)
+    assert len(fn.routed_sites) == 29 and torch.isfinite(fn(x)).all()
+    from .test_torch_evaluate_quantization import _scenes
+
+    report = pq.compare_variants(model, _scenes(2, seed=9), ("f32", "int8_exec_xla"),
+                                 sequence_length=3)
+    r = report["int8_exec_xla"]
+    assert np.isfinite([r[k] for k in ("avg_latency_ms", "miou", "mask_agreement")]).all()
+    assert r["size_mb"] == pq.param_bytes(fn.stored_params) / 1e6
+    with pytest.raises(ValueError, match="conv_scales"):
         pq.make_variant_fn(model, "int8_exec_xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pq.compare_variants(model, None, ("f32", "int8_exec_xla"))
+    # int8_exec ignores int8_grouped / int8_stem, as the JAX package does
+    assert pq.make_variant_fn(model, "int8_exec", conv_scales=scales, grouped=True,
+                              stem=True).routed_sites == pq.make_variant_fn(
+        model, "int8_exec", conv_scales=scales).routed_sites
     with pytest.raises(ValueError, match="act_scales"):  # ported: needs its calibration
         pq.make_variant_fn(model, "int8_act")
+    with pytest.raises(NotImplementedError, match="'Quantization-aware training'"):
+        from iswm_tpu_torch.models import build_model_by_name
+
+        build_model_by_name("deeplabv3plus_resnet18", int8_training=64)
 
 
 @pytest.mark.parametrize("hw", [(100, 150), (20, 25)])  # ragged; under half a tile

@@ -368,8 +368,8 @@ def test_dropout_rate_and_scaling():
 
 
 REFUSED = {
-    "int8_training": (("model", "int8_training", 64), "QAT"),
-    "int8_switch": (("train", "int8_switch_iter", 10), "QAT"),
+    "int8_training": (("model", "int8_training", 64), "Quantization-aware training"),
+    "int8_switch": (("train", "int8_switch_iter", 10), "Quantization-aware training"),
     "remat": (("parallel", "remat", True), "rematerialization"),
     "devices": (("parallel", "model_axis", 2), "Spatial model axis"),
 }

@@ -110,10 +110,8 @@ def test_quantization_sites_match_jax(zoo, case):
 
     jax_scales = jq.calibrate_conv_inputs(jmodel, v["params"], v["batch_stats"], images,
                                           wide=True)
-    want = {}
-    for key, scale in jax_scales.items():  # concat-conv parts merge by max
-        name = pq.port_site_key(key, **keys)
-        want[name] = max(want.get(name, 0.0), scale)
+    want = {pq.port_site_key(key, **keys): scale  # a concat conv's parts as "#p{i}"
+            for key, scale in jax_scales.items()}
     got = pq.calibrate_conv_inputs(model, [_nchw(x) for x in images], wide=True)
     assert set(got) == set(want)
     for name, scale in want.items():
