@@ -3,8 +3,10 @@ backward of the fused blocks, the 1x1 (#7b, ``--kind mm``, the default) or
 the 3x3 (#8b, ``--kind c3``), or their bf16 forward (#7a ``--kind mm_fwd``,
 #8a ``--kind c3_fwd``) of ``iswm_tpu_torch/csrc/fused_block.cu``, the
 int8 1x1 kernel (#1 and #2, ``--kind int8``) of
-``iswm_tpu_torch/csrc/int8_matmul.cu``, or the fused stem's bf16 backward
-(#11a and #11b, ``--kind stem``) of ``iswm_tpu_torch/csrc/fused_stem.cu``.
+``iswm_tpu_torch/csrc/int8_matmul.cu``, the fused stem's bf16 backward
+(#11a and #11b, ``--kind stem``) of ``iswm_tpu_torch/csrc/fused_stem.cu``, or
+the int8 convs of ``int8_exec_xla`` (``--kind igemm``: ``conv_s8_igemm``;
+``--kind direct``: ``conv_s8_direct``) of ``iswm_tpu_torch/csrc/int8_conv.cu``.
 
 For ``mm`` and ``c3``, at every shape of ``chip_smoke.BLOCK_MM_SHAPES`` (or
 ``BLOCK_C3_SHAPES``) it times, with the inputs out of L2
@@ -28,6 +30,16 @@ For ``stem``, at the slice's z [8, 64, 256, 256] bf16 NHWC
 its finishing sum, and checks that every build is within phase 10's limits
 (1e-5 * max|tensor| of the plain version summed in float64) and gives the
 same bits in two launches.
+For ``igemm``, at every dense shape of a ResNet-50 ``int8_exec_xla`` chunk
+(``chip_smoke.XLA_IGEMM_SHAPES``, and, outside the chunk's sums, the stem and
+``XLA_ODD_SHAPES``), and for ``direct`` at MobileNetV2's depthwise shapes
+(``XLA_DEPTHWISE_SHAPES``), it times the C entry of each build with the
+inputs out of L2: the base in float32 (the PR-15 entries have no other
+output), every other build in float32 and in each site's dtype (bf16, but
+float32 for the concat conv's parts, ``chip_smoke.XLA_F32_SITES``); it checks
+that every build's float32 output has the base's bits, its bf16 output the
+base's rounded, and the head's the plain version's.  A base source without
+the ``out_bf16`` argument (PR 15's) is bound with its own signatures.
 The builds are the checkout's source ("head"), a base source given by path,
 and any number of edited copies of the head; each shape is timed base,
 head, edits..., then in the reverse order, and the summed totals weight each
@@ -47,12 +59,18 @@ the root of the checkout:
     git show <commit>:iswm_tpu_torch/csrc/fused_ce.cu > build/fused_ce_base.cu
     python3 block_bwd_ab.py --kind ce --base build/fused_ce_base.cu [--edit ...]
 
-With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem`` or
-``ce``, no base) it times instead the checkout's build under every plan that
-fits (int8: rows of a strip, ring stages, N groups, K splits, for both
+    git show 8bdb19b:iswm_tpu_torch/csrc/int8_conv.cu > build/int8_conv_base.cu
+    python3 block_bwd_ab.py --kind igemm --base build/int8_conv_base.cu [--edit ...]
+    python3 block_bwd_ab.py --kind direct --base build/int8_conv_base.cu
+
+With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem``, ``ce``
+or ``igemm``, no base) it times instead the checkout's build under every plan
+that fits (int8: rows of a strip, ring stages, N groups, K splits, for both
 entries; the forward: its tiles and, for the 1x1, the column tiles a block
 walks; the stem: the conv-pixel tiles of ``STEM_TILES`` for both kernels;
-ce: vectors a thread and blocks of ``CE_PLANS``), at the same shapes, beside
+ce: vectors a thread and blocks of ``CE_PLANS``; igemm: the block's tile
+width, BN and ring slots of ``DENSE_PLANS`` and the K splits, in the site's
+output dtype), at the same shapes, beside
 the plan the kernel's planner (the stem: its built-in tiles) picks, and
 checks that every plan gives the planner's y (the stem: that every tile is
 within the float64 limits and bit-stable, at the slice and at a side ragged
@@ -64,6 +82,7 @@ the SASS instructions of the slice's instantiations (``cuobjdump``):
     python3 block_bwd_ab.py --kind c3_fwd --sweep --out build/c3_fwd_sweep.json
     python3 block_bwd_ab.py --kind stem --sweep --out build/stem_sweep.json
     python3 block_bwd_ab.py --kind ce --sweep --out build/ce_sweep.json
+    python3 block_bwd_ab.py --kind igemm --sweep --out build/igemm_sweep.json
 
 An edit replaces the text OLD of the head's source, which must occur once, by
 NEW (``--edit NAME 'OLD=>NEW' ['OLD2=>NEW2' ...]`` makes each replacement in
@@ -76,6 +95,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -89,6 +109,7 @@ from iswm_tpu_torch.ops.kernels import build
 from iswm_tpu_torch.ops.kernels import fused_block as fb
 from iswm_tpu_torch.ops.kernels import fused_ce as ce
 from iswm_tpu_torch.ops.kernels import fused_stem as fs
+from iswm_tpu_torch.ops.kernels import int8_conv as kc
 from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
 
@@ -819,21 +840,228 @@ def sweep_ce(args, lib, cold) -> None:
         raise SystemExit(f"plans outside the limits or with other backward bits: {bad}")
 
 
+def bind_conv(lib: ctypes.CDLL, pr15: bool = False) -> ctypes.CDLL:
+    """An int8_conv.cu build: the checkout's signatures, or PR 15's (float32
+    out, no plan) for a source whose entries take no ``out_bf16``."""
+    if not pr15:
+        lib = kc.bind(lib)
+        lib.pr15 = False
+        return lib
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ints = ctypes.POINTER(i32)
+    lib.iswm_int8_conv_igemm.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, ints, ptr]
+    lib.iswm_int8_conv_direct.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, ints, i32, ptr]
+    for fn in (lib.iswm_int8_conv_igemm, lib.iswm_int8_conv_direct):
+        fn.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    lib.pr15 = True
+    return lib
+
+
+def conv_shapes(kind: str) -> dict:
+    """{(B, H, W, C, N, k, stride, pad, dil, groups): launches a chunk}."""
+    if kind == "igemm":
+        extra = {s: 0 for s in (cs.XLA_STEM_SHAPE, *cs.XLA_ODD_SHAPES)}
+        return {(*s, 1): n for s, n in {**cs.XLA_IGEMM_SHAPES, **extra}.items()}
+    return {(b, h, w, c, c, 3, s, p, d, c): n
+            for (b, h, w, c, s, p, d), n in cs.XLA_DEPTHWISE_SHAPES.items()}
+
+
+def conv_call(lib, shape, case, dtype=torch.float32, plan=None):
+    """A call of ``lib``'s conv entry on one shape's tensors -> its output;
+    ``plan`` (``plan_igemm``'s keys) overrides the planner's for the wgmma
+    body."""
+    b, h, w, c, n, k, stride, pad, dil, groups = shape
+    x_q, w_q, w_scale, bias = case
+    g = kc.conv_geometry(x_q.shape, w_q.shape, stride, pad, dil, groups)
+    kk = w_q[0].numel()
+    wt = kc._weight_rows(w_q) if groups == 1 else w_q.contiguous()
+    out = torch.empty((b, g["Ho"], g["Wo"], n), dtype=dtype, device="cuda")
+    bf16 = int(dtype == torch.bfloat16)
+    head = (x_q.data_ptr(), wt.data_ptr(), w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), 0.0123, out.data_ptr())
+    partial = None
+    if groups == 1 and not lib.pr15:
+        g, arr = kc.dense_launch(g, dtype, plan)
+        if arr[4] > 1:
+            partial = torch.empty(arr[4] * out.numel(), dtype=torch.int32, device="cuda")
+        arr = (ctypes.c_int * 6)(*arr)
+    geom = (ctypes.c_int * 17)(*(g[key] for key in kc.GEOM_KEYS), kk, wt.shape[1])
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        if lib.pr15:
+            rc = (lib.iswm_int8_conv_igemm(*head, geom, stream) if groups == 1 else
+                  lib.iswm_int8_conv_direct(*head, geom, groups, stream))
+        elif groups == 1:
+            rc = lib.iswm_int8_conv_igemm(*head, bf16, geom, arr,
+                                          None if partial is None else partial.data_ptr(), stream)
+        else:
+            body = 0 if kc.direct_body(g, groups) == "tiled" else 1
+            rc = lib.iswm_int8_conv_direct(*head, bf16, geom, groups, body, stream)
+        if rc:
+            raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+        return out
+
+    call.keep = (wt, partial)  # the padded weight rows and the partials live with the call
+    return call
+
+
+def site_dtype(shape, count: int) -> dict:
+    """{output dtype: launches a chunk} of a dense shape's sites."""
+    f32 = cs.XLA_F32_SITES.get(shape[:9], 0) if shape[9] == 1 else 0
+    return {torch.bfloat16: count - f32, torch.float32: f32}
+
+
+def gmma_counts(lib: ctypes.CDLL) -> dict:
+    """{kernel of the build whose name holds "igemm": its warpgroup MMA
+    instructions (SASS ``IGMMA`` / ``HGMMA``) and its ``HMMA`` / ``IMMA``
+    ones}, by cuobjdump."""
+    tools = Path(build.find_nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", lib._name], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.splitlines()[0].strip()
+        if "igemm" not in name:
+            continue
+        demangled = subprocess.run([str(tools / "cu++filt"), name], capture_output=True,
+                                   text=True).stdout.strip() or name
+        ops = re.findall(r"\b([A-Z]+MMA)\b", part)
+        counts[demangled] = {op: ops.count(op) for op in sorted(set(ops))}
+    return counts
+
+
+def time_conv(args, libs: dict, cold) -> None:
+    """conv_s8_igemm (or conv_s8_direct) of every build at the chunk's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    order = list(libs) + list(libs)[::-1]
+    totals = {name: {"f32": 0.0, "site": 0.0} for name in libs}
+    rows, differ = [], []
+    for shape, count in conv_shapes(args.kind).items():
+        groups = shape[9]
+        case = cs._conv_case(shape[:9], gen, groups)
+        plain = kc.conv_s8_plain(case[0], case[1], case[2], 0.0123, case[3], shape[6],
+                                 shape[7], shape[8], groups)
+        dtypes = site_dtype(shape, count)
+        calls = {}
+        for name, lib in libs.items():
+            calls[name] = {"f32": conv_call(lib, shape, case)}
+            if not lib.pr15:
+                calls[name]["bf16"] = conv_call(lib, shape, case, torch.bfloat16)
+        base = calls["base"]["f32"]().clone()
+        torch.cuda.synchronize()
+        if not torch.equal(base, plain):
+            differ.append(f"base at {shape} differs from the plain version")
+        for name, entries in calls.items():
+            for key, fn in entries.items():
+                got = fn()
+                torch.cuda.synchronize()
+                want = base if key == "f32" else base.to(torch.bfloat16)
+                if not torch.equal(got, want):
+                    differ.append(f"{name} {key} at {shape}: {int((got != want).sum())} values")
+        times = {name: {key: [] for key in entries} for name, entries in calls.items()}
+        for name in order:
+            for key, fn in calls[name].items():
+                times[name][key].append(cold(fn))
+        b, h, w, c, n, k, stride, pad, dil, _ = shape
+        row = {"shape": list(shape), "count": count,
+               "bound_ms": {key: cs.conv_bound(b, h, w, c, n, k, stride, pad, dil, groups,
+                                               case[3] is not None, nb)["bound_ms"]
+                            for key, nb in (("f32", 4), ("bf16", 2))}}
+        if groups == 1 and kc.igemm_body(kc.conv_geometry(case[0].shape, case[1].shape, stride,
+                                                          pad, dil)) == "wgmma":
+            row["plan"] = kc.plan_igemm(kc.as_rows(kc.conv_geometry(
+                case[0].shape, case[1].shape, stride, pad, dil)), 2)
+        for name, entries in times.items():
+            row[name] = {key: sum(v) / len(v) for key, v in entries.items()}
+            totals[name]["f32"] += count * row[name]["f32"]
+            site = sum(n_sites * row[name]["bf16" if d == torch.bfloat16 and "bf16" in row[name]
+                                           else "f32"] for d, n_sites in dtypes.items())
+            totals[name]["site"] += site
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+        del case, plain, base, calls
+    sass = {}
+    if args.kind == "igemm":
+        for name, lib in libs.items():
+            sass[name] = gmma_counts(lib)
+            for kernel, ops in sass[name].items():
+                print(f"[sass] {name} {kernel[:90]}: {ops}", flush=True)
+    sites = sum(conv_shapes(args.kind).values())
+    for name, total in totals.items():
+        print(f"[ab] one chunk's {sites} {args.kind} launches, {name}: {total['f32']:.4f} ms in "
+              f"float32, {total['site']:.4f} ms in each site's output dtype")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
+                                    "sass": sass, "differs": differ}))
+    if differ:
+        raise SystemExit("builds differ: " + "; ".join(differ))
+
+
+def sweep_igemm(args, lib, cold) -> None:
+    """Every plan of the wgmma body (``kc.DENSE_PLANS`` x ``kc.TILE_WIDTHS``
+    x ``kc.SPLITS``) at each dense shape, in the site's output dtype, beside
+    the planner's: cold times, each plan's output equal to the planner's."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for shape, count in conv_shapes("igemm").items():
+        b, h, w, c, n, k, stride, pad, dil, _ = shape
+        case = cs._conv_case(shape[:9], gen)
+        g = kc.conv_geometry(case[0].shape, case[1].shape, stride, pad, dil)
+        if kc.igemm_body(g) != "wgmma":
+            continue
+        dtype = torch.float32 if site_dtype(shape, count)[torch.float32] else torch.bfloat16
+        chosen = kc.plan_igemm(kc.as_rows(g), 2 if dtype == torch.bfloat16 else 4)
+        keys = ("tw", "bn", "slots", "splits", "tma")
+        first = tuple(chosen[key] for key in keys)
+        want = conv_call(lib, shape, case, dtype)().clone()
+        times = {}
+        for plan in [first] + [(tw, bn, slots, sp, tma) for bn, slots in kc.DENSE_PLANS
+                               for tw in kc.TILE_WIDTHS for sp in kc.SPLITS
+                               for tma in ((False, True) if c % 64 == 0 else (False,))]:
+            bn = plan[1]
+            if plan in times or (bn == 8 and n > 8) or bn > 2 * max(n, 64):
+                continue
+            fn = conv_call(lib, shape, case, dtype, dict(zip(keys, plan)))
+            got = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f"plan {plan} at {shape} differs from the planner's")
+            times[plan] = cold(fn)
+        best = min(times, key=times.get)
+        row = {"shape": list(shape), "count": count, "dtype": str(dtype), "chosen": first,
+               "chosen_ms": times[first], "best": best, "best_ms": times[best],
+               "plans": {" ".join(map(str, p)): t for p, t in times.items()}}
+        rows.append(row)
+        print(f"[sweep] {shape} {dtype}: planned {first} {times[first]:.4f} ms, best {best} "
+              f"{times[best]:.4f} ms of {len(times)} plans", flush=True)
+        del case, want
+    picked = sum(r["count"] * r["chosen_ms"] for r in rows)
+    best = sum(r["count"] * r["best_ms"] for r in rows)
+    print(f"[sweep] one chunk's dense launches: the planner's plans {picked:.4f} ms, the best "
+          f"plan at each shape {best:.4f} ms")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "igemm sweep", "shapes": rows}))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path,
                         help="a fused_block.cu (int8_matmul.cu, fused_stem.cu) to compare; "
                              "not with --sweep")
-    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem", "ce"),
+    parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem", "ce",
+                                           "igemm", "direct"),
                         default="mm",
                         help="the 1x1 backward (#7b), the 3x3 (#8b), their forwards (#7a, "
-                             "#8a), the int8 1x1 (#1, #2), the stem's backward (#11a, #11b) "
-                             "or the fused CE (#4)")
+                             "#8a), the int8 1x1 (#1, #2), the stem's backward (#11a, #11b), "
+                             "the fused CE (#4) or int8_exec_xla's dense or grouped int8 conv")
     parser.add_argument("--edit", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then one or more OLD=>NEW")
     parser.add_argument("--sweep", action="store_true",
-                        help="with --kind int8, mm_fwd, c3_fwd, stem or ce: time every plan "
-                             "of the checkout's build instead")
+                        help="with --kind int8, mm_fwd, c3_fwd, stem, ce or igemm: time every "
+                             "plan of the checkout's build instead")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
     args = parser.parse_args()
@@ -841,30 +1069,37 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
     cs.phase_device()
     module, stem = {"int8": (k8, "int8_matmul"), "stem": (fs, "fused_stem"),
-                    "ce": (ce, "fused_ce")}.get(args.kind, (fb, "fused_block"))
+                    "ce": (ce, "fused_ce"), "igemm": (kc, "int8_conv"),
+                    "direct": (kc, "int8_conv")}.get(args.kind, (fb, "fused_block"))
+    bind = bind_conv if module is kc else module.bind
+    base_bind = bind
+    if module is kc and args.base is not None and "out_bf16" not in args.base.read_text():
+        base_bind = functools.partial(bind_conv, pr15=True)
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
-    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3")):
-        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem or ce")
-    jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", module.bind)}
-    jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", module.bind))
+    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct")):
+        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem, ce or igemm")
+    jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", base_bind)}
+    jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", bind))
                 for name, *edits in args.edit)
     with ThreadPoolExecutor(len(jobs) + 1) as pool:  # one nvcc a build, all at once
         head_lib = pool.submit(module.load_library)
         futures = {name: pool.submit(build_source, *job) for name, job in jobs.items()}
         libs = {"base": futures.pop("base").result()} if "base" in futures else {}
         libs["head"] = head_lib.result()[0]
+        if module is kc:
+            libs["head"].pr15 = False
         libs.update((name, future.result()) for name, future in futures.items())
     cold = cs.ColdTimer(reps=args.reps)
     forward = args.kind.endswith("_fwd")
     if args.sweep:
-        sweep = {"stem": sweep_stem, "ce": sweep_ce}.get(
+        sweep = {"stem": sweep_stem, "ce": sweep_ce, "igemm": sweep_igemm}.get(
             args.kind, sweep_forward if forward else sweep_int8)
         sweep(args, libs["head"], cold)
     elif forward:
         time_forward(args, libs, cold)
     else:
-        {"int8": time_int8, "stem": time_stem, "ce": time_ce}.get(args.kind, time_blocks)(
-            args, libs, cold)
+        {"int8": time_int8, "stem": time_stem, "ce": time_ce, "igemm": time_conv,
+         "direct": time_conv}.get(args.kind, time_blocks)(args, libs, cold)
 
 
 if __name__ == "__main__":

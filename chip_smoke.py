@@ -3465,8 +3465,18 @@ XLA_DEPTHWISE_SHAPES = {
     (8, 32, 32, 576, 1, 2, 2): 1,
     (8, 32, 32, 960, 1, 2, 2): 3,
 }
+# of those dense launches, the ones whose site keeps float32 outputs: the
+# V3+ decoder's concat conv's two parts, summed before its BatchNorm (the
+# other 31 are Int8Conv sites, written in the input's bf16 by the epilogue)
+XLA_F32_SITES = {(8, 128, 128, 48, 256, 3, 1, 1, 1): 1, (8, 128, 128, 256, 256, 3, 1, 1, 1): 1}
 XLA_VARIANTS = EVAL_VARIANTS + ("int8_exec_xla",)
-INT8_CONV_KERNELS = ("igemm_kernel", "quantize_kernel", "direct_kernel")
+# the int8_conv.cu kernels by the entry that launches them (a trace's names
+# hold these), and the finishing pass of a K split, part of an igemm launch
+INT8_CONV_ENTRIES = {"quantize": ("quantize_kernel",),
+                     "igemm": ("igemm_wgmma_kernel", "igemm_bytes_kernel"),
+                     "direct": ("direct_tiled_kernel", "direct_kernel")}
+INT8_CONV_KERNELS = (*(n for names in INT8_CONV_ENTRIES.values() for n in names),
+                     "igemm_split_finish")
 
 
 def _valid_taps(n: int, out: int, k: int, stride: int, pad: int, dil: int) -> int:
@@ -3475,15 +3485,18 @@ def _valid_taps(n: int, out: int, k: int, stride: int, pad: int, dil: int) -> in
     return sum(sum(0 <= o * stride - pad + t * dil < n for t in range(k)) for o in range(out))
 
 
-def conv_bound(b, h, w, c, n, k, stride, pad, dil, groups=1, bias=False) -> dict:
+def conv_bound(b, h, w, c, n, k, stride, pad, dil, groups=1, bias=False,
+               out_bytes=4) -> dict:
     """int8 codes x [B, H, W, C] + w [N, k, k, C / groups] + w_scale (+ bias)
-    in, out [B, Ho, Wo, N] f32; 2 N C / groups operations a valid tap of an
-    output pixel, on the tensor cores (int8) for a dense conv and on the CUDA
-    cores (int32 multiply-adds, counted at the float32 rate) for a grouped."""
+    in, out [B, Ho, Wo, N] f32 (out_bytes 4) or bf16 (2); 2 N C / groups
+    operations a valid tap of an output pixel, on the tensor cores (int8) for
+    a dense conv and on the CUDA cores (int32 multiply-adds, counted at the
+    float32 rate) for a grouped."""
     ho = (h + 2 * pad - dil * (k - 1) - 1) // stride + 1
     wo = (w + 2 * pad - dil * (k - 1) - 1) // stride + 1
     taps = _valid_taps(h, ho, k, stride, pad, dil) * _valid_taps(w, wo, k, stride, pad, dil)
-    nbytes = b * h * w * c + n * k * k * c // groups + 4 * n * (1 + bias) + 4 * b * ho * wo * n
+    nbytes = (b * h * w * c + n * k * k * c // groups + 4 * n * (1 + bias)
+              + out_bytes * b * ho * wo * n)
     ops = 2 * b * taps * n * (c // groups)
     return {"bytes": nbytes, "ops": ops,
             **least_time(nbytes, ops, INT8_OPS_PER_S if groups == 1 else F32_OPS_PER_S)}
@@ -3505,39 +3518,51 @@ def _conv_case(shape, gen, groups=1):
     return x_q, w_q, w_scale, bias
 
 
-def _conv_row(kc, shape, gen, cold, groups=1) -> dict:
-    """One shape of a conv entry: bit-equal to its plain version, its device
-    time with the inputs out of L2, its plain version's, cuDNN's bf16 conv's
-    (another function: no quantization) and, where it takes the shape,
+def _conv_row(kc, shape, gen, cold, groups=1, timed=(torch.bfloat16,)) -> dict:
+    """One shape of a conv entry: bit-equal to its plain version in float32
+    and in bf16; for each output dtype of ``timed`` its device time with the
+    inputs out of L2 and its bound (``ms``, ``bound_ms``, ... of the first,
+    ``f32`` / ``bf16`` of each); its plain version's time, cuDNN's bf16
+    conv's (another function: no quantization) and, where it takes the shape,
     ``torch._int_mm``'s over the unfolded codes (the int32 product alone)."""
     b, h, w, c, n, k, stride, pad, dil = shape
     x_q, w_q, w_scale, bias = _conv_case(shape, gen, groups)
     geo = dict(stride=stride, padding=pad, dilation=dil)
-    if groups == 1:
-        def run():
-            return kc.conv_s8_igemm(x_q, w_q, w_scale, 0.0123, bias, **geo)
-    else:
-        def run():
-            return kc.conv_s8_direct(x_q, w_q, w_scale, 0.0123, bias, groups=groups, **geo)
 
-    def plain():
-        return kc.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, groups=groups, **geo)
+    def run(dtype):
+        if groups == 1:
+            return kc.conv_s8_igemm(x_q, w_q, w_scale, 0.0123, bias, out_dtype=dtype, **geo)
+        return kc.conv_s8_direct(x_q, w_q, w_scale, 0.0123, bias, groups=groups,
+                                 out_dtype=dtype, **geo)
 
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"int8 conv != plain at {shape} groups {groups}: max abs "
-                                  f"err {err}")
-    row = {"max_abs_err": err, "ms": cold(run),
-           "plain_ms": cuda_ms(plain, reps=2, warmup=1),
-           **conv_bound(b, h, w, c, n, k, stride, pad, dil, groups, bias is not None)}
+    def plain(dtype=torch.float32):
+        return kc.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, groups=groups,
+                                out_dtype=dtype, **geo)
+
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        got, want = run(dtype), plain(dtype)
+        torch.cuda.synchronize()
+        diff = float((got.float() - want.float()).abs().max())
+        err = max(err, diff)
+        check(got.dtype == dtype and torch.equal(got, want),
+              f"int8 conv != plain at {shape} groups {groups} in {dtype}: max abs err {diff}")
+    pixels = got.numel() // n
+    del got, want
+    row = {"max_abs_err": err, "plain_ms": cuda_ms(plain, reps=2, warmup=1)}
+    for dtype in timed:
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        row[key] = {"ms": cold(lambda: run(dtype)),
+                    **conv_bound(b, h, w, c, n, k, stride, pad, dil, groups, bias is not None,
+                                 2 if dtype == torch.bfloat16 else 4)}
+    row.update(row["bf16" if timed[0] == torch.bfloat16 else "f32"])
     xc = x_q.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels-last NCHW view
     wc = w_q.to(torch.bfloat16).permute(0, 3, 1, 2)
     row["library_ms"] = cold(lambda: torch.nn.functional.conv2d(
         xc, wc, None if bias is None else bias.to(torch.bfloat16), stride, pad, dil, groups))
     row["int_mm_ms"] = None
     kk = k * k * c
-    if groups == 1 and kk % 8 == 0 and n % 8 == 0 and got.numel() // n > 16:
+    if groups == 1 and kk % 8 == 0 and n % 8 == 0 and pixels > 16:
         cols = torch.nn.functional.unfold(xc.contiguous(), k, dil, pad, stride)
         a = cols.transpose(1, 2).reshape(-1, kk).to(torch.int8).contiguous()
         wm = w_q.permute(0, 3, 1, 2).reshape(n, kk).t()  # [K, N], (c, kh, kw) as unfold's
@@ -3551,7 +3576,8 @@ def phase_int8_xla_kernels(kc, smi: str) -> dict:
     """The int8_conv kernels against their plain versions, bit for bit: the
     quantize over every bf16 value (contiguous and as a channel slice), the
     dense conv at every shape of the slice's chunk, the stem and M = 8, the
-    grouped conv at MobileNetV2's depthwise shapes; device times beside the
+    grouped conv at MobileNetV2's depthwise shapes, both convs in float32 and
+    in bf16 output; device times in each site's output dtype beside the
     bounds and cuDNN's bf16 conv, summed over a chunk."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cold = ColdTimer(reps=10)
@@ -3596,21 +3622,40 @@ def phase_int8_xla_kernels(kc, smi: str) -> dict:
                 shape, g = (b, h, w, c, c, 3, stride, pad, dil), c
             else:
                 g = 1
-            row = _conv_row(kc, shape, gen, cold, g)
             count = table.get(shape, 0) if name == "igemm" else table[(*shape[:4], *shape[6:])]
+            # each launch timed in its site's output dtype (bits checked in both)
+            f32 = XLA_F32_SITES.get(shape, 0) if name == "igemm" else 0
+            counts = {"bf16": count - f32, "f32": f32}
+            timed = tuple(d for d, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))
+                          if counts[key] or (key == "bf16" and not count))
+            row = _conv_row(kc, shape, gen, cold, g, timed)
             err = max(err, row["max_abs_err"])
-            for key in total:
+            for key in ("plain_ms", "library_ms", "int_mm_ms"):
                 total[key] += count * (row[key] or 0.0)
-            bounds += [row] * count
+            for key, n_sites in counts.items():
+                if n_sites:
+                    total["ms"] += n_sites * row[key]["ms"]
+                    bounds += [row[key]] * n_sites
             b, h, w, c, n, k, stride, pad, dil = shape
+            geom = kc.conv_geometry((b, h, w, c), (n, k, k, c // g), stride, pad, dil, g)
+            if name == "igemm":
+                body = kc.igemm_body(geom)
+                plan = (f" {kc.plan_igemm(kc.as_rows(geom), 2)}" if body == "wgmma" else "")
+            else:
+                body, plan = kc.direct_body(geom, g), ""
+            times = "; ".join(
+                f"{key} out {row[key]['ms']:.4f} ms ({row[key]['bound_ms'] / row[key]['ms']:.1%} "
+                f"of the bound {row[key]['bound_ms']:.4f} ms by {row[key]['bound_by']})"
+                for key in ("bf16", "f32") if key in row)
             print(f"[17] conv_s8_{name} B={b} H={h} W={w} C={c} N={n} k={k} s={stride} p={pad} "
-                  f"d={dil} groups={g} ({smi}): bit-exact (torch.equal); kernel {row['ms']:.4f} "
-                  f"ms with the inputs out of L2 ({row['bound_ms'] / row['ms']:.1%} of the bound "
-                  f"{row['bound_ms']:.4f} ms by {row['bound_by']}); plain {row['plain_ms']:.4f} "
-                  f"ms; bf16 conv2d (cuDNN, no quantization) {row['library_ms']:.4f} ms"
+                  f"d={dil} groups={g} ({smi}): body {body}{plan}; bit-exact (torch.equal) in "
+                  f"float32 and bf16; kernel with the inputs out of L2: {times}; plain "
+                  f"{row['plain_ms']:.4f} ms; bf16 conv2d (cuDNN, no quantization) "
+                  f"{row['library_ms']:.4f} ms"
                   + (f"; torch._int_mm over the unfolded codes (the int32 product alone) "
                      f"{row['int_mm_ms']:.4f} ms" if row["int_mm_ms"] else "")
-                  + ("" if count else " (not in the chunk's sum)"))
+                  + (f"; {counts['bf16']} bf16 + {counts['f32']} float32 launches a chunk"
+                     if count else " (not in the chunk's sum)"))
         least = sum_bounds(bounds)
         records[name] = {"max_abs_err": err, "ms": total["ms"], "plain_ms": total["plain_ms"],
                          **least, "library_ms": total["library_ms"],
@@ -3645,10 +3690,15 @@ def _xla_profile(name: str, fn, k8, kc) -> None:
     wall = float(np.median(times)) * 1e3
     k8.launches = kc.launches_quantize = kc.launches_igemm = kc.launches_direct = 0
     fn()
-    counted = {"int8_strip_kernel": k8.launches, "quantize_kernel": kc.launches_quantize,
-               "igemm_kernel": kc.launches_igemm, "direct_kernel": kc.launches_direct}
+    counted = {"int8_strip_kernel": k8.launches, "quantize": kc.launches_quantize,
+               "igemm": kc.launches_igemm, "direct": kc.launches_direct}
+    names = {"int8_strip_kernel": ("int8_strip_kernel",), **INT8_CONV_ENTRIES}
     records = traced_records(fn, reps=5, warmup=1)
-    traced = {n: sum(c for k, (_, c) in records.items() if n in k) for n in counted}
+    traced = {n: sum(c for k, (_, c) in records.items() if any(p in k for p in names[n]))
+              for n in counted}
+    # float32 -> bf16: PyTorch's bf16 copy kernel on a float argument
+    casts = sum(c for k, (_, c) in records.items()
+                if "bfloat16_copy_kernel" in k and "(float)" in k)
     if traced != counted:
         print(f"[17] {name} chunk of 8 x 512^2: {wall:.3f} ms on the host's clock (median of "
               f"10); device time not measured: the trace counted int8 launches {traced} a "
@@ -3662,7 +3712,7 @@ def _xla_profile(name: str, fn, k8, kc) -> None:
           f"{8 / wall * 1e3:.1f} tiles/s; device time {busy:.3f} ms (profiler; launches a "
           f"chunk equal to the counters: {counted}): int8_matmul {matmul:.3f} ms, int8_conv "
           f"{conv:.3f} ms, the rest {busy - matmul - conv:.3f} ms; device idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}")
+          f"{max(0.0, 1 - busy / wall):.3f}; {casts} float32 -> bf16 casts a chunk")
 
 
 def _plain_int8(model, on: bool) -> None:
@@ -3710,6 +3760,7 @@ def phase_int8_xla_serving(k8, kc, smi: str) -> dict:
         ("deeplabv3plus_mobilenet", {"int8_grouped": True}, 51, None),
     )
     launches = dict.fromkeys(("matmul", "quantize", "igemm", "direct"), 0)
+    bodies = dict.fromkeys(kc.launches_by_body, 0)  # which body of each conv ran
     preds = {}
     for name, flags, sites, per_chunk in runs:
         torch.backends.cudnn.benchmark = False
@@ -3719,14 +3770,17 @@ def phase_int8_xla_serving(k8, kc, smi: str) -> dict:
             setattr(cfg.predict, key, value)
         pred = Predictor(cfg, device="cuda")
         k8.launches = kc.launches_quantize = kc.launches_igemm = kc.launches_direct = 0
+        kc.launches_by_body.update(dict.fromkeys(kc.launches_by_body, 0))
         products = [pred.predict_image(s) for s in scenes]
         torch.cuda.synchronize()
         got = {"matmul": k8.launches, "quantize": kc.launches_quantize,
                "igemm": kc.launches_igemm, "direct": kc.launches_direct}
+        for key, count in kc.launches_by_body.items():
+            bodies[key] += count
         fn = pred.engine.model_fn
         label = f"{name} int8_exec_xla {flags or ''}".strip()
         print(f"[17] {label}: {len(scenes)} scenes, {chunks} chunks, {len(fn.routed_sites)} "
-              f"routed sites; launches {got}")
+              f"routed sites; launches {got}, by body {kc.launches_by_body}")
         check(len(fn.routed_sites) == sites, f"{label}: {len(fn.routed_sites)} routed sites, "
                                              f"expected {sites}")
         if per_chunk:
@@ -3791,7 +3845,7 @@ def phase_int8_xla_serving(k8, kc, smi: str) -> dict:
         for (h, w), scene in zip(SCENES, scenes):
             print(f"[17] deeplabv3plus_resnet50 {variant} {h}x{w} ({smi}): scene latency "
                   f"{_scene_latency(preds[variant], scene):.2f} ms (median of 5)")
-    return launches
+    return {**launches, "bodies": bodies}
 
 
 def phase_int8_xla_compare(kc) -> None:
@@ -3886,7 +3940,9 @@ def main() -> int:
                         *((f"stem {k}", v) for k, v in stem_launches.items()),
                         *((f"fused block {k}", v) for k, v in block_launches.items()),
                         *((f"int8_conv {k}", xla_launches[k])
-                          for k in ("quantize", "igemm", "direct"))):
+                          for k in ("quantize", "igemm", "direct")),
+                        *((f"int8_conv's {b} body", xla_launches["bodies"][b])
+                          for b in ("wgmma", "bytes", "tiled"))):
         check(count > 0, f"the main paths never launched {name}")
     print(f"[profiler] traces of the run: {TRACES['whole']} whole at the first take, "
           f"{TRACES['retaken']} whole after a retake, {TRACES['estimated']} never whole "
@@ -3919,11 +3975,12 @@ def main() -> int:
     xla = "iswm_tpu/ops/int8_xla.py"
     xla_rows = (  # work the JAX package leaves to XLA (no pallas_call)
         ("int8_quantize_s8", "quantize",
-         f"{xla}:66 (quantized_conv_xla's quantize_activations {xla}:23)"),
+         f"{xla}:66 (quantized_conv_xla's quantize_activations {xla}:23)", ()),
         ("int8_conv_s8_igemm", "igemm",
          f"{xla}:66 (quantized_conv_xla, dense; int8_packed_stem_conv {xla}:107, "
-         f"int8_shifted_dilated_conv {xla}:158)"),
-        ("int8_conv_s8_direct", "direct", f"{xla}:66 (quantized_conv_xla, feature_group_count > 1)"),
+         f"int8_shifted_dilated_conv {xla}:158)", ("wgmma", "bytes")),
+        ("int8_conv_s8_direct", "direct", f"{xla}:66 (quantized_conv_xla, feature_group_count > 1)",
+         ("tiled", "generic")),
     )
     print(json.dumps({"kernels": [
         {"name": "int8_matmul", "route": "cuda",
@@ -3960,8 +4017,10 @@ def main() -> int:
           for name, key, replaces in block_rows),
         *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/int8_conv.cu",
            "replaces": replaces, "pallas_call": False, "launches": xla_launches[key],
+           **({"launches_by_body": {b: xla_launches["bodies"][b] for b in bodies}}
+              if bodies else {}),
            **xla_records[key]}
-          for name, key, replaces in xla_rows),
+          for name, key, replaces, bodies in xla_rows),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 // conv on the CUDA cores.
 //
 //   quantize:  x_q = clip(rint(x / x_scale), -127, 127)      (x: bf16 or f32)
-//   conv:      out[b, oy, ox, n] f32 = (float(acc) * x_scale) * w_scale[n]
-//                                      (+ bias[n])
+//   conv:      out[b, oy, ox, n] = (float(acc) * x_scale) * w_scale[n]
+//                                  (+ bias[n]), stored as float32 or as its
+//                                  bf16 rounding (__float2bfloat16_rn)
 //              acc = sum over (kh, kw, c) of x_q[b, iy, ix, c] * w_q[n, kh, kw, c]
 //              iy = oy * sh - ph + kh * dh, ix = ox * sw - pw + kw * dw
 //
@@ -17,53 +18,88 @@
 // split of an atrous 3x3): here both are this conv at their own geometry, with
 // the same numbers, since a tap in the zero padding adds 0.
 //
-// What bounds it on this card: at the serving slice's 3x3 shapes (ResNet-50,
-// OS 16, 8 tiles of 512^2) the int8 work is 2 M N K = 77 GOP an ASPP branch
-// (M = 8192, K = 18,432, N = 256), 0.04 ms at 1,979 TOP/s against 0.005 ms to
-// move its 16 MB of codes, so the dense conv is bound by the tensor cores; the
-// quantize and the grouped conv move bytes and do little else.  This first
-// design is simple:
-//   - `igemm_kernel`: a block owns a 128 x 64 output tile and walks K = (tap,
-//     channel) in steps of 64 through a 3-stage cp.async ring of the A tile
-//     [128 rows, 64 bytes] (gathered from the NHWC codes: a row is an output
-//     pixel, a 16-byte chunk one tap's run of 16 channels, zero-filled where the
-//     tap lies in the padding or past K) and the B tile [64 rows of w, 64
-//     bytes]; 8 warps of 32 x 32 take ldmatrix fragments into
-//     `mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32` (rows of 80 bytes, so
-//     ldmatrix's 8 rows of 16 bytes hit 8 distinct bank groups).  A channel
-//     count that is no multiple of 16 (the stem's 3) gathers byte by byte
-//     through registers into the same ring.  The epilogue writes float32 from
-//     the accumulators.  No wgmma, no TMA, no split of K: a later redesign;
-//   - `direct_kernel`: one thread an output value, the output channel fastest
-//     (a depthwise conv's neighbouring threads read neighbouring channels), int32
-//     multiply-adds, four channels a `dp4a` where the group's channels allow;
+// What bounds each kernel on this card, at the serving slice's shapes
+// (ResNet-50 and MobileNetV2, OS 16, 8 tiles of 512^2; block_bwd_ab.py --kind
+// igemm / direct, edits taking parts out, PERF.md):
+//   - the dense conv: its operations bound the 3x3s and the ASPP branches on
+//     paper (77 GOP an ASPP branch: 0.04 ms at 1,979 TOP/s), but a 128 x BN
+//     tile must bring (128 + BN) x 128 bytes from L2 a K stage, and at those
+//     shapes the copies, the products and the stores each take a share of
+//     the time: the copies come to about 4-5 TB/s out of L2 (their bytes
+//     over the measured times).  The 1x1s (K = 64-512, 131,072 pixels) are
+//     bound by a block's prologue and epilogue;
+//   - the depthwise conv (9 multiply-adds an output value) by bytes;
+//   - the quantize by bytes.
+//
+// The kernels, and which shapes each takes (the wrapper,
+// ops/kernels/int8_conv.py, picks the body and the plan and counts each):
+//   - `igemm_wgmma_kernel` (dense, C % 16 == 0: every serving site but the
+//     stem).  A block owns a rectangle of 128 output pixels of one image
+//     (TH x TW, TW = 128 ... 8) and BN output channels (256, 128, 64 or 8),
+//     the plan's (a cost model fitted to every plan's time, in the wrapper).
+//     K runs as (tap, channel) in stages of 128 bytes through a ring of 3-4
+//     slots in dynamic shared memory, each slot the A tile [128 rows][128
+//     bytes] and the B tile [BN rows][128 bytes] in wgmma's 64-byte swizzle,
+//     copied one or two stages ahead.  A: gathered by 16-byte cp.async, each
+//     thread's (tap, channel) place advanced by counting (no division after
+//     the block's first).  B: where C % 64 == 0 and K >= 1,024, two TMA boxes
+//     of 64 bytes x BN rows a stage, completed on an mbarrier (a quarter of
+//     the copy cost of the same bytes by cp.async at the 3x3s and the ASPP
+//     branches); else cp.async.  The two warpgroups (64 rows each) issue four
+//     `wgmma.mma_async m64nBNk32 .s32.s8.s8` a stage and keep one group in
+//     flight, while the same threads issue the next stages' copies.
+//     Tile-level tap skipping: a block lists the taps that read inside the
+//     input for at least one pixel of its rectangle (the tile form of the
+//     JAX package's valid-tap split; exact, a padding tap adds 0) and walks
+//     only their K: at 32^2 the ASPP branches keep 0.92 / 0.75 / 0.44 of
+//     their K (d = 6 / 12 / 18).  The epilogue dequantizes in registers,
+//     stages the values in the output type through shared memory and writes
+//     16-byte rows of float32 or bf16.  Where the tiles give the card too few
+//     blocks (the ASPP branches, M = 8), K is split across blocks: each
+//     writes its exact int32 partial to a workspace slice, and
+//     `igemm_split_finish` adds them in order and runs the epilogue once;
+//   - `igemm_bytes_kernel` (dense, C % 16 != 0: the --int8_stem 7x7, C = 3,
+//     K = 147): 128 consecutive output pixels x 64 channels, K gathered byte
+//     by byte through registers (a tap's 3 channels fill no 16-byte chunk)
+//     into a 3-stage ring of mma.sync m16n8k32 tiles;
+//   - `direct_tiled_kernel` (depthwise 3x3, C = N = groups, C % 16 == 0,
+//     stride and dilation 1 or 2 on both axes: MobileNetV2's 16 sites).  A
+//     block owns TH x 16 output pixels x CB channels (CB = 64, 32 or 16, the
+//     largest that divides C), stages the input window (tile and halo) into
+//     shared memory by 16-byte cp.async, zeros in the padding; a thread holds
+//     its 4 channels' 3x3 weights in registers, one byte a word per channel,
+//     and computes 4 consecutive output pixels with one __dp4a a channel and
+//     tap, each window word read once for the taps and pixels that use it;
+//     16-byte float32 stores, or bf16 pairs of neighbouring threads joined
+//     by a shuffle into 16-byte stores;
+//   - `direct_kernel` (every other grouped conv, Cg > 1 or another kernel
+//     size): one thread an output value, `dp4a` where the group's channels
+//     allow;
 //   - `quantize_kernel`: 16 bytes of x a thread where the row allows, over
 //     rows of any stride (a channel slice of an NHWC tensor).
 //
 // Exactness: the int32 sums are exact in any order (|acc| <= K 127^2 < 2^31
-// for K < 133,000); every float step matches the plain version bit for bit: a
-// true IEEE division (__fdiv_rn; do not build with --use_fast_math), rounding
-// half to even (rintf), and the epilogue as __fmul_rn / __fadd_rn, which the
-// compiler never contracts into an FMA.
+// for K < 133,000), so skipped padding taps, K splits and any product order
+// give the same sums; every float step matches the plain version bit for
+// bit: a true IEEE division (__fdiv_rn; do not build with --use_fast_math),
+// rounding half to even (rintf), the epilogue as __fmul_rn / __fadd_rn,
+// which the compiler never contracts into an FMA, and the bf16 store as
+// __float2bfloat16_rn of that float32 value (the plain version's .to()).
 //
-// Contract (checked by the Python wrapper, ops/kernels/int8_conv.py): x_q NHWC
-// int8 contiguous and 16-byte aligned; w_q [N, ldw] int8 rows of (kh, kw, c)
-// with ldw >= K a multiple of 16, zero past K; w_scale [N] f32; bias [N] f32
-// or null; out [B, Ho, Wo, N] f32 contiguous.  Launches are asynchronous on
-// `stream`; each C entry returns cudaGetLastError().
+// Contract (checked by the Python wrapper): x_q NHWC int8 contiguous and
+// 16-byte aligned; w_q [N, ldw] int8 rows of (kh, kw, c) with ldw >= K a
+// multiple of 16, zero past K; w_scale [N] f32; bias [N] f32 or null; out
+// [B, Ho, Wo, N] f32 or bf16 contiguous; a workspace of splits * M * N int32
+// where the plan splits K.  Launches are asynchronous on `stream`; each C
+// entry returns cudaGetLastError().
 
+#include <cuda.h>  // CUtensorMap and its enums (the function is found at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int BM = 128;     // output pixels of a tile
-constexpr int BN = 64;      // output channels of a tile
-constexpr int BK = 64;      // K bytes of a stage
-constexpr int LDS = BK + 16;  // bytes of a shared-memory row
-constexpr int STAGES = 3;
-constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N, 32 x 32 each
 
 struct Geom {
   int B, H, W, C, Ho, Wo, N, KH, KW, sh, sw, ph, pw, dh, dw, K, ldw;
@@ -100,8 +136,44 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The epilogue of every conv: (float(acc) * x_scale) * w_scale (+ bias).
 __device__ __forceinline__ float dequant(int acc, float xs, float ws) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), xs), ws);
+}
+__device__ __forceinline__ float epilogue(int acc, float xs, float ws, const float* bias, int n) {
+  const float v = dequant(acc, xs, ws);
+  return bias ? __fadd_rn(v, bias[n]) : v;
+}
+template <typename OutT>
+__device__ __forceinline__ OutT to_out(float v);
+template <>
+__device__ __forceinline__ float to_out<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+// 16 bytes of output values: 4 float32 or 8 bf16.
+template <typename OutT>
+__device__ __forceinline__ void store16(OutT* dst, const float* v);
+template <>
+__device__ __forceinline__ void store16<float>(float* dst, const float* v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __halves2bfloat162(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+// 2 output values, 8- or 4-byte aligned.
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+template <>
+__device__ __forceinline__ void store16<__nv_bfloat16>(__nv_bfloat16* dst, const float* v) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
 }
 
 // ------------------------------------------------------------------ quantize
@@ -146,63 +218,523 @@ __global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, 
   }
 }
 
-// ----------------------------------------------------------- implicit GEMM
+// ------------------------------------------------------ dense conv on wgmma
+// A wgmma operand in shared memory, K-major with the 64-byte swizzle: rows
+// of 64 bytes whose 16-byte chunk c sits at c ^ ((row / 2) % 4), in atoms
+// of 8 rows (512 bytes, 512-byte aligned) `sbo` bytes apart along M (or N).
+__device__ __forceinline__ uint64_t smem_desc_sw64(const void* p, int sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | uint64_t{1} << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | uint64_t{2} << 62;
+}
+__device__ __forceinline__ int sw64(int row, int kbyte) {
+  return row * 64 + ((((kbyte >> 4) & 3) ^ ((row >> 1) & 3)) << 4) + (kbyte & 15);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+// Makes this thread's shared-memory writes (landed cp.async copies) visible
+// to wgmma's reads, which go through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving the accumulators across an async wgmma.
+template <int R>
+__device__ __forceinline__ void fence_operands(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// mbarriers and the tensor memory accelerator (TMA): a 2-D box of the
+// weights [N rows][ldw bytes] copied into shared memory in the 64-byte
+// swizzle, its bytes counted on an mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// D[64 x N] s32 += A[64 x 32] s8 x B[N x 32]^T s8, both K-major in shared
+// memory, one warpgroup; D in the mma.sync layout of each warp's 16 rows, n8
+// block i in d[4 i .. 4 i + 3].  One overload a tile width N.
+__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma_s8(int (&d)[4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(a), "l"(b));
+}
+
+namespace dense {
+
+constexpr int BM = 128;        // output pixels of a tile: two warpgroups of 64 rows
+constexpr int BK = 128;        // K bytes of a stage: two 64-byte swizzle blocks
+constexpr int THREADS = 256;
+constexpr int MAX_TAPS = 64;   // KH KW (checked by the wrapper)
+
+__host__ __device__ constexpr int stage_bytes(int bn) { return (BM + bn) * BK; }
+// values of a staged epilogue row (int32, float or bf16): 16-byte rows whose
+// fragment stores spread over the banks
+__host__ __device__ constexpr int tile_ld(int bn) { return bn + 8; }
+// Dynamic shared memory of a block: the ring, which the epilogue's staged
+// int32 tile reuses.
+__host__ __device__ constexpr int smem_bytes(int bn, int slots) {
+  return slots * stage_bytes(bn) > BM * tile_ld(bn) * 4 ? slots * stage_bytes(bn)
+                                                        : BM * tile_ld(bn) * 4;
+}
+
+// Whether some o in [o0, o1] has 0 <= o s + off < n: the output positions a
+// tap offset `off` reads inside the input are ceil(-off / s) .. floor((n - 1
+// - off) / s).
+__device__ __forceinline__ bool axis_hits(int o0, int o1, int s, int off, int n) {
+  const int lo = off >= 0 ? 0 : (-off + s - 1) / s;
+  if (n - 1 - off < 0) return false;
+  const int hi = (n - 1 - off) / s;
+  return (lo > o0 ? lo : o0) <= (hi < o1 ? hi : o1);
+}
+
+// One block: output rectangle `tile` (TH x TW pixels of image b) x channels
+// [n0, n0 + BN), over the K stages [s0, s1) of its split.  Stage s of the
+// block is K' bytes [s BK, (s + 1) BK) of its valid taps' K, K' = taps C:
+// thread t copies 16-byte chunk column j = t % 8 of it (tap v, channel c) for
+// A rows t / 8 + 32 i and B rows t / 8 + 32 i.
+// Blocks an SM can hold by shared memory (1 KB reserved a block; the static
+// tables take at most 4 KB): the register cap of __launch_bounds__.
+__host__ __device__ constexpr int min_blocks(int bn, int slots) {
+  return 2 * (smem_bytes(bn, slots) + 4096 + 1024) <= 233472 ? 2 : 1;
+}
+
+template <int BN, int SLOTS, bool TMA_B, typename OutT>
+__global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
+    igemm_wgmma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                       const __grid_constant__ CUtensorMap w_map,
+                       const float* __restrict__ w_scale, const float* __restrict__ bias,
+                       float xs, OutT* __restrict__ out, int* __restrict__ partial, Geom g,
+                       int tw_log2, int splits) {
+  static_assert(SLOTS >= 3, "a slot multiplied, one in flight, one loading");
+  constexpr int STAGE = stage_bytes(BN);
+  constexpr int LD = tile_ld(BN);
+  constexpr int AROWS = BM / 32;             // A rows a thread copies
+  constexpr int BROWS = (BN + 31) / 32;      // B rows a thread copies (some idle at BN 8)
+  extern __shared__ __align__(1024) unsigned char smem[];  // whole swizzle atoms
+  __shared__ int4 taps[MAX_TAPS];  // a valid tap: dy, dx, its K offset, its x offset
+  __shared__ int tap_count;
+  __shared__ __align__(8) uint64_t full[SLOTS];  // TMA_B: a slot's weights have landed
+  __shared__ __align__(16) float s_scale[BN];
+  __shared__ __align__(16) float s_bias[BN];
+
+  const int t = threadIdx.x;
+  const int TW = 1 << tw_log2, TH = BM >> tw_log2;
+  const int NT = (g.N + BN - 1) / BN;
+  const int tiles_x = (g.Wo + TW - 1) >> tw_log2, tiles_y = (g.Ho + TH - 1) / TH;
+  int bid = blockIdx.x;
+  const int nt = bid % NT;
+  bid /= NT;
+  const int split = bid % splits;
+  bid /= splits;
+  const int tx = bid % tiles_x;
+  bid /= tiles_x;
+  const int ty = bid % tiles_y;
+  const int b = bid / tiles_y;
+  const int oy0 = ty * TH, ox0 = tx * TW, n0 = nt * BN;
+
+  if (t < 32) {  // warp 0: lane l judges taps l and l + 32, a ballot orders them
+    const int oy1 = min(oy0 + TH, g.Ho) - 1, ox1 = min(ox0 + TW, g.Wo) - 1;
+    int before = 0;
+#pragma unroll
+    for (int half = 0; half < MAX_TAPS / 32; ++half) {
+      const int tap = t + 32 * half;
+      const int kh = tap / g.KW, kw = tap - kh * g.KW;
+      const bool hit = tap < g.KH * g.KW &&
+                       axis_hits(oy0, oy1, g.sh, kh * g.dh - g.ph, g.H) &&
+                       axis_hits(ox0, ox1, g.sw, kw * g.dw - g.pw, g.W);
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (hit)
+        taps[before + __popc(mask & ((1u << t) - 1))] =
+            make_int4(kh * g.dh, kw * g.dw, tap * g.C, (kh * g.dh * g.W + kw * g.dw) * g.C);
+      before += __popc(mask);
+    }
+    if (t == 0) tap_count = before;
+  }
+  if constexpr (TMA_B) {
+    if (t == 0) {
+      for (int i = 0; i < SLOTS; ++i) mbar_init(&full[i], 2);  // threads 0 and 4 arrive
+      mbar_fence_init();
+    }
+  }
+  __syncthreads();
+  const int ntaps = tap_count;
+  const int steps_all = (ntaps * g.C + BK - 1) / BK;
+  const int s0 = static_cast<int>(static_cast<long long>(split) * steps_all / splits);
+  const int s1 = static_cast<int>(static_cast<long long>(split + 1) * steps_all / splits);
+  const int steps = s1 - s0;
+
+  // this thread's A rows: where each output pixel's tap (0, 0) lies
+  const int j = t & 7, row0 = t >> 3;
+  const int8_t* rp[AROWS];
+  int iy0[AROWS], ix0[AROWS];
+  bool mv[AROWS];
+#pragma unroll
+  for (int i = 0; i < AROWS; ++i) {
+    const int r = row0 + 32 * i;
+    const int oy = oy0 + (r >> tw_log2), ox = ox0 + (r & (TW - 1));
+    mv[i] = oy < g.Ho && ox < g.Wo;
+    iy0[i] = oy * g.sh - g.ph;
+    ix0[i] = ox * g.sw - g.pw;
+    rp[i] = x + (static_cast<long long>(b * g.H + iy0[i]) * g.W + ix0[i]) * g.C;
+  }
+  // this thread's place in K': valid tap v, channel c of chunk column j
+  int kp = s0 * BK + 16 * j;
+  int v = kp / g.C;
+  int c = kp - v * g.C;
+  auto advance = [&]() {
+    c += BK;
+    while (c >= g.C) {
+      c -= g.C;
+      ++v;
+    }
+  };
+  auto load = [&](int slot) {
+    unsigned char* sa = smem + slot * STAGE;
+    unsigned char* sb = sa + BM * BK;
+    const bool kv = v < ntaps;
+    const int4 tap = kv ? taps[v] : make_int4(0, 0, 0, 0);
+    const int kb = j >> 2, kc = (j & 3) * 16;
+#pragma unroll
+    for (int i = 0; i < AROWS; ++i) {
+      const int iy = iy0[i] + tap.x, ix = ix0[i] + tap.y;
+      const bool ok = kv && mv[i] && static_cast<unsigned>(iy) < static_cast<unsigned>(g.H) &&
+                      static_cast<unsigned>(ix) < static_cast<unsigned>(g.W);
+      cp_async16(sa + kb * (BM * 64) + sw64(row0 + 32 * i, kc), ok ? rp[i] + tap.w + c : x, ok);
+    }
+    if constexpr (TMA_B) {
+      // threads 0 and 4 (chunk columns 0 and 4) copy the stage's two 64-byte
+      // K halves of the BN weight rows, each within one tap (C % 64 == 0);
+      // rows past N land as zeros; a half past K is left as it was (its A is 0)
+      if ((t & ~4) == 0) {
+        if (kv) {
+          mbar_arrive_tx(&full[slot], BN * 64);
+          tma_load_2d(sb + kb * (BN * 64), &w_map, tap.z + c, n0, &full[slot]);
+        } else {
+          mbar_arrive(&full[slot]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BROWS; ++i) {
+        const int r = row0 + 32 * i;
+        if (BN % 32 == 0 || r < BN) {
+          const int n = n0 + r;
+          const bool ok = kv && n < g.N;
+          cp_async16(sb + kb * (BN * 64) + sw64(r, kc),
+                     ok ? w + static_cast<long long>(n) * g.ldw + tap.z + c : w, ok);
+        }
+      }
+    }
+  };
+
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  const int wg = t >> 7;
+  auto products = [&](int slot) {
+    const unsigned char* sa = smem + slot * STAGE + wg * (64 * 64);
+    const unsigned char* sb = smem + slot * STAGE + BM * BK;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {  // K advances inside the swizzle's rows by the address
+      wgmma_s8(acc, smem_desc_sw64(sa + (kk >> 1) * (BM * 64) + (kk & 1) * 32, 512),
+               smem_desc_sw64(sb + (kk >> 1) * (BN * 64) + (kk & 1) * 32, 512));
+    }
+    wgmma_commit();
+  };
+
+  // The ring: stage s in slot s % SLOTS, copied SLOTS - 2 stages ahead, one
+  // cp.async group a stage (empty past the end).  At the top of stage i the
+  // group of stage i is the (i + 1)-th of (SLOTS - 2) + i, and the slot the
+  // next copy fills last held stage i - 2, whose products are done (the wait
+  // for one group in flight at the end of stage i - 1, then the barrier).
+#pragma unroll
+  for (int st = 0; st < SLOTS - 2; ++st) {
+    if (st < steps) {
+      load(st);
+      advance();
+    }
+    cp_async_commit();
+  }
+  // the epilogue's scales, while the first stages are in flight (the first
+  // barrier of the loop, or the one before the epilogue, publishes them)
+  for (int i = t; i < BN; i += THREADS) {
+    const int n = n0 + i;
+    s_scale[i] = n < g.N ? w_scale[n] : 0.0f;
+    s_bias[i] = bias && n < g.N ? bias[n] : 0.0f;
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<SLOTS - 3>();
+    fence_proxy_async();
+    __syncthreads();
+    if constexpr (TMA_B) mbar_wait(&full[i % SLOTS], (i / SLOTS) & 1);
+    if (i + SLOTS - 2 < steps) {
+      load((i + SLOTS - 2) % SLOTS);
+      advance();
+    }
+    cp_async_commit();
+    products(i % SLOTS);
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+  cp_async_wait<0>();
+  __syncthreads();  // every warpgroup done with the ring: it becomes the staged tile
+
+  // out (or the split's partial) row of tile row r: -1 where r lies outside
+  // the output
+  auto out_row = [&](int r) -> long long {
+    const int oy = oy0 + (r >> tw_log2), ox = ox0 + (r & (TW - 1));
+    if (oy >= g.Ho || ox >= g.Wo) return -1;
+    return (static_cast<long long>(b) * g.Ho + oy) * g.Wo + ox;
+  };
+  // The tile goes out through shared memory as rows of LD values: warp w's
+  // 16 rows of its warpgroup, n8 block q in acc[4 q ..]: rows lane / 4 (+ 8),
+  // columns 8 q + 2 (lane % 4) (+ 1).  Whole: the epilogue's values in OutT,
+  // then 16-byte copies of the rows.  Split: the int32 sums, then int4
+  // copies into the split's slice of the partials.
+  const int warp = t >> 5, lane = t & 31;
+  const int frow = wg * 64 + (warp & 3) * 16 + (lane >> 2), fcol = 2 * (lane & 3);
+  if (splits == 1) {
+    OutT* tile = reinterpret_cast<OutT*>(smem);
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int col = 8 * q + fcol;
+      const float2 ws = *reinterpret_cast<const float2*>(s_scale + col);
+      const float2 bs = *reinterpret_cast<const float2*>(s_bias + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = dequant(acc[4 * q + 2 * h], xs, ws.x);
+        float v1 = dequant(acc[4 * q + 2 * h + 1], xs, ws.y);
+        if (bias) {
+          v0 = __fadd_rn(v0, bs.x);
+          v1 = __fadd_rn(v1, bs.y);
+        }
+        store2(tile + (frow + 8 * h) * LD + col, v0, v1);
+      }
+    }
+    __syncthreads();
+    constexpr int V = 16 / static_cast<int>(sizeof(OutT));  // values a 16-byte copy
+    if (g.N % V == 0) {  // 16-byte aligned rows of out
+      constexpr int CPR = BN / V;
+      for (int q = t; q < BM * CPR; q += THREADS) {
+        const int r = q / CPR, cc = (q - r * CPR) * V;
+        const long long m = out_row(r);
+        if (m < 0 || n0 + cc >= g.N) continue;
+        *reinterpret_cast<uint4*>(out + m * g.N + n0 + cc) =
+            *reinterpret_cast<const uint4*>(tile + r * LD + cc);
+      }
+    } else {
+      for (int q = t; q < BM * BN; q += THREADS) {
+        const int r = q / BN, cc = q - r * BN;
+        const long long m = out_row(r);
+        if (m < 0 || n0 + cc >= g.N) continue;
+        out[m * g.N + n0 + cc] = tile[r * LD + cc];
+      }
+    }
+  } else {
+    int* tile = reinterpret_cast<int*>(smem);
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      *reinterpret_cast<int2*>(tile + frow * LD + 8 * q + fcol) =
+          make_int2(acc[4 * q], acc[4 * q + 1]);
+      *reinterpret_cast<int2*>(tile + (frow + 8) * LD + 8 * q + fcol) =
+          make_int2(acc[4 * q + 2], acc[4 * q + 3]);
+    }
+    __syncthreads();
+    int* part = partial + static_cast<long long>(split) * g.B * g.Ho * g.Wo * g.N;
+    if (g.N % 4 == 0) {
+      constexpr int CPR = BN / 4;
+      for (int q = t; q < BM * CPR; q += THREADS) {
+        const int r = q / CPR, cc = (q - r * CPR) * 4;
+        const long long m = out_row(r);
+        if (m < 0 || n0 + cc >= g.N) continue;
+        *reinterpret_cast<int4*>(part + m * g.N + n0 + cc) =
+            *reinterpret_cast<const int4*>(tile + r * LD + cc);
+      }
+    } else {
+      for (int q = t; q < BM * BN; q += THREADS) {
+        const int r = q / BN, cc = q - r * BN;
+        const long long m = out_row(r);
+        if (m < 0 || n0 + cc >= g.N) continue;
+        part[m * g.N + n0 + cc] = tile[r * LD + cc];
+      }
+    }
+  }
+}
+
+// After a K split: the splits' int32 partials [splits][M N], added in split
+// order (exact), then the epilogue once.
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+    igemm_split_finish(const int* __restrict__ partial, int splits, int mn, int N,
+                       const float* __restrict__ w_scale, const float* __restrict__ bias,
+                       float xs, OutT* __restrict__ out) {
+  for (int i = blockIdx.x * 256 + threadIdx.x; i < mn; i += gridDim.x * 256) {
+    int acc = 0;
+    for (int s = 0; s < splits; ++s) acc += partial[static_cast<long long>(s) * mn + i];
+    const int n = i % N;
+    out[i] = to_out<OutT>(epilogue(acc, xs, w_scale[n], bias, n));
+  }
+}
+
+}  // namespace dense
+
+// ------------------------------------------- dense conv, bytewise gather
+// For C % 16 != 0 (the stem's C = 3): a block owns 128 consecutive output
+// pixels x 64 channels and walks K in steps of 64 bytes through a 3-stage
+// ring; each thread gathers its chunk of 16 K bytes byte by byte through
+// registers, and 8 warps of 32 x 32 take ldmatrix fragments into mma.sync
+// m16n8k32 (rows of 80 bytes, so that ldmatrix's 8 rows of 16 bytes hit 8
+// distinct bank groups).
+namespace bytewise {
+
+constexpr int BM = 128;
+constexpr int BN = 64;
+constexpr int BK = 64;
+constexpr int LDS = BK + 16;
+constexpr int STAGES = 3;
+constexpr int THREADS = 256;  // 8 warps: 4 along M x 2 along N, 32 x 32 each
+
 // The A tile of K step kt into `sa` [BM][LDS]: thread t gathers chunk column
-// t % 4 of rows t / 4 and t / 4 + 64.  VEC (C % 16 == 0): a chunk is 16
-// channels of one tap, one cp.async; else byte by byte through registers.
-template <bool VEC>
+// t % 4 of rows t / 4 and t / 4 + 64.
 __device__ __forceinline__ void load_a(int8_t* sa, const int8_t* __restrict__ x, const Geom& g,
                                        int kt, const long long (&base)[2], const int (&iy0)[2],
                                        const int (&ix0)[2], const bool (&mv)[2]) {
   const int t = threadIdx.x;
   const int c16 = t & 3;
   const int k = kt * BK + c16 * 16;
-  if constexpr (VEC) {
-    const bool kv = k < g.K;
-    int tap = 0, ci = 0, kh = 0, kw = 0;
-    if (kv) {
-      tap = k / g.C;
-      ci = k - tap * g.C;
-      kh = tap / g.KW;
-      kw = tap - kh * g.KW;
-    }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = (t >> 2) + 64 * r;
+  for (int r = 0; r < 2; ++r) {
+    const int row = (t >> 2) + 64 * r;
+    int tap = k / g.C;
+    int ci = k - tap * g.C;
+    int kh = tap / g.KW;
+    int kw = tap - kh * g.KW;
+    uint32_t words[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
       const int iy = iy0[r] + kh * g.dh, ix = ix0[r] + kw * g.dw;
-      const bool valid = kv && mv[r] && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W;
-      const int8_t* src =
-          valid ? x + base[r] + (static_cast<long long>(iy) * g.W + ix) * g.C + ci : x;
-      cp_async16(sa + row * LDS + c16 * 16, src, valid);
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = (t >> 2) + 64 * r;
-      int tap = k / g.C;
-      int ci = k - tap * g.C;
-      int kh = tap / g.KW;
-      int kw = tap - kh * g.KW;
-      uint32_t words[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int iy = iy0[r] + kh * g.dh, ix = ix0[r] + kw * g.dw;
-        if (k + j < g.K && mv[r] && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
-          const uint8_t v = static_cast<uint8_t>(
-              x[base[r] + (static_cast<long long>(iy) * g.W + ix) * g.C + ci]);
-          words[j >> 2] |= static_cast<uint32_t>(v) << (8 * (j & 3));
-        }
-        if (++ci == g.C) {
-          ci = 0;
-          if (++kw == g.KW) {
-            kw = 0;
-            ++kh;
-          }
+      if (k + j < g.K && mv[r] && iy >= 0 && iy < g.H && ix >= 0 && ix < g.W) {
+        const uint8_t v = static_cast<uint8_t>(
+            x[base[r] + (static_cast<long long>(iy) * g.W + ix) * g.C + ci]);
+        words[j >> 2] |= static_cast<uint32_t>(v) << (8 * (j & 3));
+      }
+      if (++ci == g.C) {
+        ci = 0;
+        if (++kw == g.KW) {
+          kw = 0;
+          ++kh;
         }
       }
-      *reinterpret_cast<uint4*>(sa + row * LDS + c16 * 16) =
-          make_uint4(words[0], words[1], words[2], words[3]);
     }
+    *reinterpret_cast<uint4*>(sa + row * LDS + c16 * 16) =
+        make_uint4(words[0], words[1], words[2], words[3]);
   }
 }
 
@@ -218,11 +750,11 @@ __device__ __forceinline__ void load_b(int8_t* sb, const int8_t* __restrict__ w,
              valid ? w + static_cast<long long>(n) * g.ldw + k : w, valid);
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS) igemm_kernel(
+template <typename OutT>
+__global__ void __launch_bounds__(THREADS) igemm_bytes_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ w_scale, const float* __restrict__ bias, float xs,
-    float* __restrict__ out, Geom g) {
+    OutT* __restrict__ out, Geom g) {
   __shared__ __align__(128) int8_t smem[STAGES][(BM + BN) * LDS];
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
@@ -259,7 +791,7 @@ __global__ void __launch_bounds__(THREADS) igemm_kernel(
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < KT) {
-      load_a<VEC>(smem[s], x, g, s, base, iy0, ix0, mv);
+      load_a(smem[s], x, g, s, base, iy0, ix0, mv);
       load_b(smem[s] + BM * LDS, w, g, s, n0);
     }
     cp_async_commit();
@@ -269,7 +801,7 @@ __global__ void __launch_bounds__(THREADS) igemm_kernel(
     __syncthreads();
     const int nt = kt + STAGES - 1;
     if (nt < KT) {
-      load_a<VEC>(smem[nt % STAGES], x, g, nt, base, iy0, ix0, mv);
+      load_a(smem[nt % STAGES], x, g, nt, base, iy0, ix0, mv);
       load_b(smem[nt % STAGES] + BM * LDS, w, g, nt, n0);
     }
     cp_async_commit();
@@ -307,41 +839,174 @@ __global__ void __launch_bounds__(THREADS) igemm_kernel(
     if (n >= g.N) continue;
     const bool two = n + 1 < g.N;
     const float ws0 = w_scale[n], ws1 = two ? w_scale[n + 1] : 0.0f;
-    const float b0 = bias ? bias[n] : 0.0f, b1 = bias && two ? bias[n + 1] : 0.0f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + wm * 32 + 16 * i + (lane >> 2) + 8 * h;
         if (m >= M) continue;
-        float v0 = dequant(acc[i][j][2 * h], xs, ws0);
-        float v1 = dequant(acc[i][j][2 * h + 1], xs, ws1);
-        if (bias) {
-          v0 = __fadd_rn(v0, b0);
-          v1 = __fadd_rn(v1, b1);
+        const float v0 = epilogue(acc[i][j][2 * h], xs, ws0, bias, n);
+        OutT* o = out + static_cast<long long>(m) * g.N + n;
+        if (!two) {
+          o[0] = to_out<OutT>(v0);
+          continue;
         }
-        float* o = out + static_cast<long long>(m) * g.N + n;
-        if (two && (g.N & 1) == 0) {
-          *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+        const float v1 = epilogue(acc[i][j][2 * h + 1], xs, ws1, bias, n + 1);
+        if (g.N & 1) {
+          o[0] = to_out<OutT>(v0);
+          o[1] = to_out<OutT>(v1);
         } else {
-          o[0] = v0;
-          if (two) o[1] = v1;
+          store2(o, v0, v1);
         }
       }
     }
   }
 }
 
+}  // namespace bytewise
+
 // ------------------------------------------------------- grouped / direct
-// One thread an output value (m, n), n fastest, 32-bit indices (the wrapper
-// keeps M N < 2^31).  w rows [N, KH KW Cg] of (kh, kw, c); Cg = C / groups,
-// group of n = n / (N / groups).  DP4A: Cg % 4 == 0 and C % 4 == 0 (4-byte
-// aligned words of x and w).
-template <bool DP4A>
+namespace direct {
+
+// Depthwise 3x3 (C = N = groups), stride S and dilation D on both axes, C a
+// multiple of CB.  A block: output pixels TH x 16 of one image x channels
+// [c0, c0 + CB).  Thread t: channels c0 + 4 (t % G) .. + 3 and pixels 4 lx ..
+// 4 lx + 3 of tile row ly (lane t / G = ly * 4 + lx).  The window of the
+// block's input rows and columns (tile and halo), CB bytes a pixel, is staged
+// once by cp.async, zeros in the padding.
+template <int S, int D, int CB, typename OutT>
+__global__ void __launch_bounds__(256) direct_tiled_kernel(
+    const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ w_scale, const float* __restrict__ bias, float xs,
+    OutT* __restrict__ out, Geom g) {
+  constexpr int G = CB / 4;          // channel quads
+  constexpr int LANES = 256 / G;     // pixel lanes
+  constexpr int P = 4;               // pixels a thread, consecutive along x
+  constexpr int TW = 16, LX = TW / P;
+  constexpr int TH = LANES / LX;     // 4 (CB 64), 8 (32), 16 (16)
+  constexpr int WH = (TH - 1) * S + 2 * D + 1, WW = (TW - 1) * S + 2 * D + 1;
+  constexpr int CHUNKS = CB / 16;    // 16-byte chunks a window pixel
+  constexpr int NC = (P - 1) * S + 2 * D + 1;  // window columns a thread's pixels read in a row
+  __shared__ __align__(16) int8_t win[WH * WW * CB];
+
+  const int cblocks = g.C / CB;
+  const int tiles_x = (g.Wo + TW - 1) / TW, tiles_y = (g.Ho + TH - 1) / TH;
+  int bid = blockIdx.x;
+  const int cb = bid % cblocks;
+  bid /= cblocks;
+  const int tx = bid % tiles_x;
+  bid /= tiles_x;
+  const int ty = bid % tiles_y;
+  const int b = bid / tiles_y;
+  const int c0 = cb * CB, oy0 = ty * TH, ox0 = tx * TW;
+  const int iy_base = oy0 * S - g.ph, ix_base = ox0 * S - g.pw;
+  const int t = threadIdx.x;
+
+  for (int q = t; q < WH * WW * CHUNKS; q += 256) {
+    const int pix = q / CHUNKS, cc = q - pix * CHUNKS;
+    const int wy = pix / WW, wx = pix - wy * WW;
+    const int iy = iy_base + wy, ix = ix_base + wx;
+    const bool ok = static_cast<unsigned>(iy) < static_cast<unsigned>(g.H) &&
+                    static_cast<unsigned>(ix) < static_cast<unsigned>(g.W);
+    cp_async16(win + pix * CB + cc * 16,
+               ok ? x + (static_cast<long long>(b * g.H + iy) * g.W + ix) * g.C + c0 + cc * 16
+                  : x,
+               ok);
+  }
+  cp_async_commit();
+
+  // this thread's weights, while the window lands: tap k of channel c0 + 4
+  // gq + e as byte e of wm[k][e], the other bytes 0, so that one __dp4a
+  // multiply-adds one channel
+  const int gq = t % G, lane = t / G;
+  const int ly = lane / LX, lx = lane - ly * LX;
+  const int n = c0 + 4 * gq;
+  int wm[9][4];
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      wm[k][e] = static_cast<int>(static_cast<uint32_t>(static_cast<uint8_t>(w[(n + e) * 9 + k]))
+                                  << (8 * e));
+  cp_async_wait<0>();
+  __syncthreads();
+
+  int acc[P][4];
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0;
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const int8_t* rowp = win + ((ly * S + kh * D) * WW + lx * P * S) * CB + 4 * gq;
+    int xv[NC];
+#pragma unroll
+    for (int q = 0; q < NC; ++q) xv[q] = *reinterpret_cast<const int*>(rowp + q * CB);
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][e] = __dp4a(xv[i * S + kw * D], wm[kh * 3 + kw][e], acc[i][e]);
+  }
+
+  float ws[4], bs[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    ws[e] = w_scale[n + e];
+    bs[e] = bias ? bias[n + e] : 0.0f;
+  }
+  const int oy = oy0 + ly;
+  OutT* orow = out + (static_cast<long long>(b) * g.Ho + oy) * g.Wo * g.C;
+  float v[P][4];
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[i][e] = dequant(acc[i][e], xs, ws[e]);
+      if (bias) v[i][e] = __fadd_rn(v[i][e], bs[e]);
+    }
+  if constexpr (sizeof(OutT) == 4) {
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const int ox = ox0 + lx * P + i;
+      if (oy < g.Ho && ox < g.Wo) store16(orow + static_cast<long long>(ox) * g.C + n, v[i]);
+    }
+  } else {
+    // bf16: neighbouring threads (channel quads 2 h, 2 h + 1) join their 4
+    // values of a pixel into 8 channels, 16 bytes: the even thread stores
+    // pixel i, the odd pixel i + 1
+    const bool odd = gq & 1;
+#pragma unroll
+    for (int i = 0; i < P; i += 2) {
+      const uint2 mine[2] = {make_uint2(pack_bf16(v[i][0], v[i][1]), pack_bf16(v[i][2], v[i][3])),
+                             make_uint2(pack_bf16(v[i + 1][0], v[i + 1][1]),
+                                        pack_bf16(v[i + 1][2], v[i + 1][3]))};
+      const uint2 send = odd ? mine[0] : mine[1];
+      uint2 got;
+      got.x = __shfl_xor_sync(0xffffffffu, send.x, 1);
+      got.y = __shfl_xor_sync(0xffffffffu, send.y, 1);
+      const int ox = ox0 + lx * P + i + (odd ? 1 : 0);
+      if (oy < g.Ho && ox < g.Wo) {
+        const uint4 word = odd ? make_uint4(got.x, got.y, mine[1].x, mine[1].y)
+                               : make_uint4(mine[0].x, mine[0].y, got.x, got.y);
+        *reinterpret_cast<uint4*>(orow + static_cast<long long>(ox) * g.C + n - (odd ? 4 : 0)) =
+            word;
+      }
+    }
+  }
+}
+
+// Every other grouped conv: one thread an output value (m, n), n fastest,
+// 32-bit indices (the wrapper keeps M N < 2^31).  w rows [N, KH KW Cg] of
+// (kh, kw, c); Cg = C / groups, group of n = n / (N / groups).  DP4A: Cg % 4
+// == 0 and C % 4 == 0 (4-byte aligned words of x and w).
+template <bool DP4A, typename OutT>
 __global__ void __launch_bounds__(256) direct_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const float* __restrict__ w_scale, const float* __restrict__ bias, float xs,
-    float* __restrict__ out, Geom g, int groups) {
+    OutT* __restrict__ out, Geom g, int groups) {
   const int total = g.B * g.Ho * g.Wo * g.N;
   const int cg = g.C / groups, ng = g.N / groups;
   const int kw_len = g.KH * g.KW * cg;
@@ -372,15 +1037,152 @@ __global__ void __launch_bounds__(256) direct_kernel(
         }
       }
     }
-    float v = dequant(acc, xs, w_scale[n]);
-    if (bias) v = __fadd_rn(v, bias[n]);
-    out[i] = v;
+    out[i] = to_out<OutT>(epilogue(acc, xs, w_scale[n], bias, n));
   }
 }
+
+}  // namespace direct
 
 int grid_for(long long work) {
   long long blocks = (work + 255) / 256;
   return static_cast<int>(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
+Geom geom_of(const int* geom) {
+  return Geom{geom[0], geom[1],  geom[2],  geom[3],  geom[4],  geom[5],  geom[6],  geom[7], geom[8],
+              geom[9], geom[10], geom[11], geom[12], geom[13], geom[14], geom[15], geom[16]};
+}
+
+template <typename OutT>
+using DenseKernel = void (*)(const int8_t*, const int8_t*, const CUtensorMap, const float*,
+                             const float*, float, OutT*, int*, Geom, int, int);
+
+// The built (BN, slots) pairs, with the weights by cp.async or by TMA; null
+// for another.
+template <bool TMA_B, typename OutT>
+DenseKernel<OutT> dense_kernel_of(int bn, int slots) {
+  using namespace dense;
+  if (bn == 256 && slots == 4) return igemm_wgmma_kernel<256, 4, TMA_B, OutT>;
+  if (bn == 128 && slots == 3) return igemm_wgmma_kernel<128, 3, TMA_B, OutT>;
+  if (bn == 128 && slots == 4) return igemm_wgmma_kernel<128, 4, TMA_B, OutT>;
+  if (bn == 64 && slots == 4) return igemm_wgmma_kernel<64, 4, TMA_B, OutT>;
+  if (bn == 8 && slots == 4) return igemm_wgmma_kernel<8, 4, TMA_B, OutT>;
+  return nullptr;
+}
+template <typename OutT>
+DenseKernel<OutT> dense_kernel(int bn, int slots, bool tma) {
+  return tma ? dense_kernel_of<true, OutT>(bn, slots) : dense_kernel_of<false, OutT>(bn, slots);
+}
+
+// The weights [N rows][ldw bytes] as a TMA map of boxes of 64 bytes x BN
+// rows in the 64-byte swizzle, zeros outside.  cuTensorMapEncodeTiled is a
+// libcuda entry: found by dlsym in the libcuda.so.1 the process has loaded,
+// so that the build links nothing more.
+int weight_map(CUtensorMap* map, const int8_t* w, int N, int ldw, int bn) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (lib != nullptr) encode = reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled"));
+    if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ldw), static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldw)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(bn)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename OutT>
+int run_dense(const Geom& g, const int* plan, const int8_t* x, const int8_t* w, const float* ws,
+              const float* bs, float xs, OutT* out, int* partial, cudaStream_t s) {
+  if (plan[0] == 1) {  // the bytewise body
+    const int M = g.B * g.Ho * g.Wo;
+    const dim3 grid((g.N + bytewise::BN - 1) / bytewise::BN, (M + bytewise::BM - 1) / bytewise::BM);
+    bytewise::igemm_bytes_kernel<OutT><<<grid, bytewise::THREADS, 0, s>>>(x, w, ws, bs, xs, out, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int tw_log2 = plan[1], bn = plan[2], slots = plan[3], splits = plan[4];
+  const bool tma = plan[5] != 0;
+  const DenseKernel<OutT> kernel = dense_kernel<OutT>(bn, slots, tma);
+  if (kernel == nullptr || tw_log2 < 3 || tw_log2 > 7 || splits < 1 ||
+      g.KH * g.KW > dense::MAX_TAPS || g.C % (tma ? 64 : 16) || (splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map{};  // unused by the cp.async body
+  if (tma) {
+    const int rc = weight_map(&map, w, g.N, g.ldw, bn);
+    if (rc) return rc;
+  }
+  const int tw = 1 << tw_log2, th = dense::BM >> tw_log2;
+  const long long blocks = static_cast<long long>(g.B) * ((g.Ho + th - 1) / th) *
+                           ((g.Wo + tw - 1) / tw) * splits * ((g.N + bn - 1) / bn);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // above 48 KB dynamic shared memory must be asked for; the attribute is per
+  // device, so it is asked before every launch
+  const int smem = dense::smem_bytes(bn, slots);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), dense::THREADS, smem, s>>>(x, w, map, ws, bs, xs, out,
+                                                                     partial, g, tw_log2, splits);
+  if (splits > 1) {
+    const int mn = g.B * g.Ho * g.Wo * g.N;
+    dense::igemm_split_finish<OutT><<<grid_for(mn), 256, 0, s>>>(partial, splits, mn, g.N, ws, bs,
+                                                                 xs, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int run_direct(const Geom& g, int groups, int body, const int8_t* x, const int8_t* w,
+               const float* ws, const float* bs, float xs, OutT* out, cudaStream_t s) {
+  using namespace direct;
+  if (body == 1) {
+    const int grid = grid_for(static_cast<long long>(g.B) * g.Ho * g.Wo * g.N);
+    const int cg = g.C / groups;
+    if (cg % 4 == 0 && g.C % 4 == 0)
+      direct_kernel<true, OutT><<<grid, 256, 0, s>>>(x, w, ws, bs, xs, out, g, groups);
+    else
+      direct_kernel<false, OutT><<<grid, 256, 0, s>>>(x, w, ws, bs, xs, out, g, groups);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the tiled depthwise body: 3x3, C = N = groups, C % 16 == 0, stride and
+  // dilation 1 or 2, the same on both axes
+  if (!(groups == g.C && g.N == g.C && g.C % 16 == 0 && g.KH == 3 && g.KW == 3 &&
+        g.sh == g.sw && g.dh == g.dw && (g.sh == 1 || g.sh == 2) && (g.dh == 1 || g.dh == 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cb = g.C % 64 == 0 ? 64 : g.C % 32 == 0 ? 32 : 16;
+  const int th = 256 / cb;  // 256 / (cb / 4) lanes of 4 pixels, 4 lanes a row of 16
+  const long long blocks = static_cast<long long>(g.B) * ((g.Ho + th - 1) / th) *
+                           ((g.Wo + 15) / 16) * (g.C / cb);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = void (*)(const int8_t*, const int8_t*, const float*, const float*, float, OutT*,
+                          Geom);
+  const int code = (g.sh - 1) * 2 + (g.dh - 1);
+  Kernel kernel;
+  switch (cb) {
+#define ISWM_PICK(CB)                                                          \
+  case CB:                                                                     \
+    kernel = code == 0   ? direct_tiled_kernel<1, 1, CB, OutT>                 \
+             : code == 1 ? direct_tiled_kernel<1, 2, CB, OutT>                 \
+             : code == 2 ? direct_tiled_kernel<2, 1, CB, OutT>                 \
+                         : direct_tiled_kernel<2, 2, CB, OutT>;                \
+    break;
+    ISWM_PICK(64)
+    ISWM_PICK(32)
+    default:
+    ISWM_PICK(16)
+#undef ISWM_PICK
+  }
+  kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(x, w, ws, bs, xs, out, g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -411,45 +1213,40 @@ int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, i
 }
 
 // geom[17] = B, H, W, C, Ho, Wo, N, KH, KW, sh, sw, ph, pw, dh, dw, K, ldw.
-// Dense conv (groups 1): x_q [B, H, W, C], w_q [N, ldw], bias may be null.
+// Dense conv (groups 1): x_q [B, H, W, C], w_q [N, ldw], bias may be null;
+// out f32 (out_bf16 0) or bf16 (1).  plan[6] = body (0 wgmma, 1 bytewise),
+// log2 of the tile's width, BN, ring slots, K splits, weights by TMA (1, for
+// C % 64 == 0) or by cp.async (0) (the last five for the wgmma body);
+// `partial` holds splits * M * N int32 where splits > 1.
 int iswm_int8_conv_igemm(const void* x_q, const void* w_q, const void* w_scale,
-                         const void* bias, float x_scale, void* out, const int* geom,
-                         void* stream) {
-  const Geom g{geom[0], geom[1], geom[2], geom[3],  geom[4],  geom[5],  geom[6],  geom[7], geom[8],
-               geom[9], geom[10], geom[11], geom[12], geom[13], geom[14], geom[15], geom[16]};
-  const int M = g.B * g.Ho * g.Wo;
-  const dim3 grid((g.N + BN - 1) / BN, (M + BM - 1) / BM);
+                         const void* bias, float x_scale, void* out, int out_bf16,
+                         const int* geom, const int* plan, void* partial, void* stream) {
+  const Geom g = geom_of(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const int8_t*>(x_q);
   const auto* w = static_cast<const int8_t*>(w_q);
   const auto* ws = static_cast<const float*>(w_scale);
   const auto* bs = static_cast<const float*>(bias);
-  auto* o = static_cast<float*>(out);
-  if (g.C % 16 == 0) igemm_kernel<true><<<grid, THREADS, 0, s>>>(x, w, ws, bs, x_scale, o, g);
-  else igemm_kernel<false><<<grid, THREADS, 0, s>>>(x, w, ws, bs, x_scale, o, g);
-  return static_cast<int>(cudaGetLastError());
+  int* part = static_cast<int*>(partial);
+  if (out_bf16)
+    return run_dense(g, plan, x, w, ws, bs, x_scale, static_cast<__nv_bfloat16*>(out), part, s);
+  return run_dense(g, plan, x, w, ws, bs, x_scale, static_cast<float*>(out), part, s);
 }
 
-// Grouped conv: as above with w_q [N, KH KW C / groups] (ldw unused).
+// Grouped conv: as above with w_q [N, KH KW C / groups] (ldw unused); body 0
+// the tiled depthwise 3x3, 1 the one-thread-an-output body.
 int iswm_int8_conv_direct(const void* x_q, const void* w_q, const void* w_scale,
-                          const void* bias, float x_scale, void* out, const int* geom,
-                          int groups, void* stream) {
-  const Geom g{geom[0], geom[1], geom[2], geom[3],  geom[4],  geom[5],  geom[6],  geom[7], geom[8],
-               geom[9], geom[10], geom[11], geom[12], geom[13], geom[14], geom[15], geom[16]};
-  const long long total = static_cast<long long>(g.B) * g.Ho * g.Wo * g.N;
-  const int grid = grid_for(total);
+                          const void* bias, float x_scale, void* out, int out_bf16,
+                          const int* geom, int groups, int body, void* stream) {
+  const Geom g = geom_of(geom);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* x = static_cast<const int8_t*>(x_q);
   const auto* w = static_cast<const int8_t*>(w_q);
   const auto* ws = static_cast<const float*>(w_scale);
   const auto* bs = static_cast<const float*>(bias);
-  auto* o = static_cast<float*>(out);
-  const int cg = g.C / groups;
-  if (cg % 4 == 0 && g.C % 4 == 0)
-    direct_kernel<true><<<grid, 256, 0, s>>>(x, w, ws, bs, x_scale, o, g, groups);
-  else
-    direct_kernel<false><<<grid, 256, 0, s>>>(x, w, ws, bs, x_scale, o, g, groups);
-  return static_cast<int>(cudaGetLastError());
+  if (out_bf16)
+    return run_direct(g, groups, body, x, w, ws, bs, x_scale, static_cast<__nv_bfloat16*>(out), s);
+  return run_direct(g, groups, body, x, w, ws, bs, x_scale, static_cast<float*>(out), s);
 }
 
 const char* iswm_cuda_error_string(int code) {

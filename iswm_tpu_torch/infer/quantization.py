@@ -476,7 +476,9 @@ class Int8Conv(nn.Module):
     """A routed conv of any kernel, stride, padding, dilation and groups:
     ``ops/int8_xla.py``'s :func:`int8_conv` on the input's NHWC view with its
     calibrated scale, int8 OHWI weights laid out once with per-O scales and
-    the optional float32 bias.  NCHW in, NCHW out in the input's dtype."""
+    the optional float32 bias.  NCHW in, NCHW out in the input's dtype, which
+    the conv's epilogue writes (a bf16 input gets the float32 result rounded
+    to bf16 there, not in a pass of its own)."""
 
     def __init__(self, conv: nn.Conv2d, w_q: torch.Tensor, w_scale: torch.Tensor,
                  x_scale: float, groups: Optional[int] = None):
@@ -492,8 +494,8 @@ class Int8Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = int8_conv(_nhwc(x), self.w_q, self.w_scale, self.x_scale, self.bias,
-                        groups=self.groups, **self.geometry)
-        return out.permute(0, 3, 1, 2).to(x.dtype)
+                        groups=self.groups, out_dtype=x.dtype, **self.geometry)
+        return out.permute(0, 3, 1, 2)
 
 
 class Int8ConcatConvBN(nn.Module):

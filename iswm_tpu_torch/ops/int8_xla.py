@@ -77,17 +77,18 @@ def _padding(padding):
 
 def int8_conv(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor, x_scale: float,
               bias: torch.Tensor | None = None, *, stride=1, padding=0, dilation=1,
-              groups: int = 1) -> torch.Tensor:
+              groups: int = 1, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """x [B, H, W, Cin] float (on the card, rows of contiguous channels: a
     channel slice of an NHWC tensor will do), w [Cout, kh, kw, Cin / groups]
-    int8 (OHWI) -> [B, Ho, Wo, Cout] float32: x quantized with ``x_scale``,
-    then a dense conv on the tensor cores (``conv_s8_igemm``) or a grouped or
-    depthwise one on the CUDA cores (``conv_s8_direct``), its epilogue
-    ``(acc * x_scale) * w_scale (+ bias)``.  Each output channel contracts
-    only its group's inputs, and the per-tensor x scale times the per-O w
-    scale factors out of the group's sum as out of the dense one."""
+    int8 (OHWI) -> [B, Ho, Wo, Cout] in ``out_dtype`` (float32, or its bf16
+    rounding): x quantized with ``x_scale``, then a dense conv on the tensor
+    cores (``conv_s8_igemm``) or a grouped or depthwise one on the CUDA cores
+    (``conv_s8_direct``), its epilogue ``(acc * x_scale) * w_scale (+
+    bias)``.  Each output channel contracts only its group's inputs, and the
+    per-tensor x scale times the per-O w scale factors out of the group's sum
+    as out of the dense one."""
     x_q = quantize_s8(x, x_scale)
-    geometry = dict(stride=stride, padding=padding, dilation=dilation)
+    geometry = dict(stride=stride, padding=padding, dilation=dilation, out_dtype=out_dtype)
     if groups == 1:
         return conv_s8_igemm(x_q, w, w_scale, x_scale, bias, **geometry)
     return conv_s8_direct(x_q, w, w_scale, x_scale, bias, groups=groups, **geometry)

@@ -17,8 +17,14 @@
   the port's own calibration gives the JAX scales site by site within 1e-6
   relative (an absmax of float32 activations summed in another order).
 
+- The plain conv's ``out_dtype`` (bf16 is float32 rounded), the serving
+  modules' output dtypes (``Int8Conv`` writes its input's dtype, giving the
+  bits of the float32 result cast after; ``Int8ConcatConvBN``'s parts stay
+  float32) and the dense kernel's tap-skipping rule (``tile_taps``: a tap it
+  skips reads only padding for every pixel of the block) and plans.
+
 The ``cuda`` cases hold each kernel bit-equal to its plain version on the
-card, where this file runs alone without jax:
+card, in float32 and in bf16, where this file runs alone without jax:
 ``python -m pytest --noconftest tests/test_torch_int8_xla.py -m cuda``.
 """
 
@@ -144,6 +150,126 @@ def test_plain_conv_bias_and_asymmetric_padding():
     got = k8c.conv_s8_igemm(x_q, w_ohwi, torch.from_numpy(w_scale), 0.01,
                             torch.from_numpy(bias), stride=(2, 1), padding=pad)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------- output dtypes and the plan
+@pytest.mark.parametrize("case", ["conv_k3_d2_n128", "conv_g4", "conv_k7_s2_c3"])
+def test_plain_out_dtype_bf16_is_rounded_float32(case):
+    _, c, h, w, k, stride, dil, groups, n, _ = CONV_CASES[case]
+    rng = np.random.default_rng([len(case), 7])
+    x_q = _codes(rng, (2, h, w, c))
+    w_q = _codes(rng, (n, k, k, c // groups))
+    w_scale = torch.from_numpy(rng.random(n).astype(np.float32) * 0.01 + 1e-4)
+    bias = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    kw = dict(stride=stride, padding=k // 2 * dil, dilation=dil, groups=groups)
+    f32 = k8c.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, **kw)
+    bf16 = k8c.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, out_dtype=torch.bfloat16, **kw)
+    assert f32.dtype == torch.float32 and bf16.dtype == torch.bfloat16
+    assert torch.equal(bf16, f32.to(torch.bfloat16))
+    entry = k8c.conv_s8_igemm if groups == 1 else k8c.conv_s8_direct
+    extra = {} if groups == 1 else {"groups": groups}
+    kw.pop("groups")
+    assert torch.equal(entry(x_q, w_q, w_scale, 0.0123, bias, out_dtype=torch.bfloat16,
+                             **kw, **extra), bf16)
+    with pytest.raises(TypeError):
+        k8c.conv_s8_plain(x_q, w_q, w_scale, 0.0123, out_dtype=torch.float16, **kw, **extra)
+
+
+def test_serving_modules_out_dtypes_and_bits(monkeypatch):
+    """ResNet-18 V3+ at 64^2 in bf16, int8_exec_xla: every ``Int8Conv`` asks
+    the conv for its input's dtype and gives the bits of the float32 result
+    cast after (as before the bf16 epilogue); the concat conv's parts stay
+    float32; the logits equal those of the float32-then-cast path."""
+    model = _bn_perturbed(build_model(ModelConfig(name="deeplabv3plus", backbone="resnet18",
+                                                  compute_dtype="bfloat16")), 3)
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 3, 64, 64)).astype(np.float32))
+    scales = pq.calibrate_conv_inputs(model, [x], wide=True)
+    fn = pq.make_variant_fn(model, "int8_exec_xla", conv_scales=scales)
+    seen = []
+    conv = pq.int8_conv
+
+    def recorded(xh, *args, out_dtype=torch.float32, **kwargs):
+        seen.append((xh.dtype, out_dtype))
+        return conv(xh, *args, out_dtype=out_dtype, **kwargs)
+
+    monkeypatch.setattr(pq, "int8_conv", recorded)
+    got = fn(x.permute(0, 2, 3, 1))
+    parts = sum(len(m.widths) for m in fn.model.modules() if isinstance(m, pq.Int8ConcatConvBN))
+    routed = sum(isinstance(m, pq.Int8Conv) for m in fn.model.modules())
+    assert parts == 2 and routed > 0 and len(seen) == routed + parts
+    assert seen.count((torch.bfloat16, torch.bfloat16)) == routed
+    assert seen.count((torch.bfloat16, torch.float32)) == parts
+
+    def cast_after(xh, *args, out_dtype=torch.float32, **kwargs):
+        return conv(xh, *args, **kwargs).to(out_dtype)
+
+    monkeypatch.setattr(pq, "int8_conv", cast_after)
+    assert torch.equal(got, fn(x.permute(0, 2, 3, 1)))
+
+
+# (B, H, W, C, N, k, stride, pad, dilation): the ASPP branches at 32^2
+# (whole blocks in padding at d = 12, 18), a stride-2 3x3 at 128^2, a 1x1 over
+# a row of pixels, the stem, ragged sides
+TAP_GEOMETRIES = {
+    "aspp_d6": (8, 32, 32, 2048, 256, 3, 1, 6, 6),
+    "aspp_d12": (8, 32, 32, 2048, 256, 3, 1, 12, 12),
+    "aspp_d18": (8, 32, 32, 2048, 256, 3, 1, 18, 18),
+    "stride2_128": (8, 128, 128, 128, 128, 3, 2, 1, 1),
+    "row_1x1": (1, 1, 131072, 256, 48, 1, 1, 0, 1),
+    "stem": (8, 512, 512, 3, 64, 7, 2, 3, 1),
+    "ragged_d2": (2, 37, 21, 64, 64, 3, 1, 2, 2),
+    "asymmetric": (1, 9, 30, 16, 16, 5, 2, 4, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TAP_GEOMETRIES))
+def test_tap_skipping_rule(name):
+    """For every block rectangle of every tile width, a tap of ``tile_taps``
+    reads inside the input for some pixel of the block, and every other tap
+    reads only padding for all of them (so skipping its K adds 0)."""
+    b, h, w, c, n, k, stride, pad, dil = TAP_GEOMETRIES[name]
+    g = k8c.conv_geometry((b, h, w, c), (n, k, k, c), stride, pad, dil)
+    rows_in = [[0 <= oy * stride - pad + kh * dil < h for oy in range(g["Ho"])]
+               for kh in range(k)]
+    cols_in = [[0 <= ox * stride - pad + kw * dil < w for ox in range(g["Wo"])]
+               for kw in range(k)]
+    for tw in k8c.TILE_WIDTHS:
+        th = 128 // tw
+        rows, cols = k8c.tile_taps(g, tw)
+        assert len(rows) == -(-g["Ho"] // th) and len(cols) == -(-g["Wo"] // tw)
+        for ty, kept in enumerate(rows):
+            for kh in range(k):
+                assert (kh in kept) == any(rows_in[kh][ty * th:(ty + 1) * th])
+        for tx, kept in enumerate(cols):
+            for kw in range(k):
+                assert (kw in kept) == any(cols_in[kw][tx * tw:(tx + 1) * tw])
+    plan = k8c.plan_igemm(g, 2)
+    assert 0 < plan["kept"] <= 1 and plan["blocks"] > 0
+    if name == "aspp_d18":  # no block rectangle of 128 pixels keeps all 9 taps
+        assert plan["kept"] <= 0.67
+
+
+def test_dense_plans_fit_the_card():
+    """At every dense shape of the serving chunk and the odd ones, the
+    planned body's shared memory and grid fit an H100; 1x1 stride-1 convs
+    are planned as one row of pixels."""
+    import chip_smoke as cs
+
+    for shape in (*cs.XLA_IGEMM_SHAPES, cs.XLA_STEM_SHAPE, *cs.XLA_ODD_SHAPES):
+        b, h, w, c, n, k, stride, pad, dil = shape
+        g = k8c.conv_geometry((b, h, w, c), (n, k, k, c), stride, pad, dil)
+        if k8c.igemm_body(g) == "bytes":
+            assert c % 16 and shape == cs.XLA_STEM_SHAPE
+            continue
+        rows = k8c.as_rows(g)
+        if k == 1 and stride == 1:
+            assert (rows["H"], rows["W"], rows["Wo"]) == (1, b * h * w, b * h * w)
+        for out_bytes in (2, 4):
+            p = k8c.plan_igemm(rows, out_bytes)
+            dyn, static = k8c.dense_smem(p["bn"], p["slots"])
+            assert (p["bn"], p["slots"]) in k8c.DENSE_PLANS and dyn + static <= k8c.SMEM_MAX
+            assert p["tw"] in k8c.TILE_WIDTHS and p["splits"] in k8c.SPLITS
+            assert 0 < p["blocks"] < 2**31
 
 
 # ------------------------------------------------------------ routed sites
@@ -363,12 +489,19 @@ CUDA_CONVS = {
     "strided_c24": (3, 15, 15, 24, 3, 2, 1, 1, 1, 40),
     "depthwise": (2, 20, 18, 96, 3, 2, 2, 2, 96, 96),
     "grouped_bytes": (2, 11, 9, 30, 3, 1, 1, 1, 10, 20),
+    "aspp_d12_32": (2, 32, 32, 256, 3, 1, 12, 12, 1, 256),
+    "aspp_d18_32": (2, 32, 32, 256, 3, 1, 18, 18, 1, 256),
+    "stride2_128": (1, 128, 128, 64, 3, 2, 1, 1, 1, 128),
+    "row_1x1": (1, 1, 3000, 320, 1, 1, 0, 1, 1, 256),
+    "n2_bias_3x3": (2, 16, 16, 64, 3, 1, 1, 1, 1, 2),
+    "depthwise_s1_d2": (2, 32, 32, 576, 3, 1, 2, 2, 576, 576),
 }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CUDA_CONVS))
 def test_cuda_convs_bit_equal_plain(case):
+    """Each case in float32 and in bf16 output, one launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     b, h, w, c, k, stride, pad, dil, groups, n = CUDA_CONVS[case]
@@ -378,17 +511,20 @@ def test_cuda_convs_bit_equal_plain(case):
     w_scale = torch.from_numpy(rng.random(n).astype(np.float32) * 0.01 + 1e-4).cuda()
     bias = torch.randn(n, device="cuda") if "bias" in case else None
     kw = dict(stride=stride, padding=pad, dilation=dil)
-    if groups == 1:
-        before = k8c.launches_igemm
-        got = k8c.conv_s8_igemm(x_q, w_q, w_scale, 0.0123, bias, **kw)
-        count = k8c.launches_igemm - before
-    else:
-        before = k8c.launches_direct
-        got = k8c.conv_s8_direct(x_q, w_q, w_scale, 0.0123, bias, groups=groups, **kw)
-        count = k8c.launches_direct - before
-    want = k8c.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, groups=groups, **kw)
-    torch.cuda.synchronize()
-    assert count == 1 and torch.equal(got, want)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        if groups == 1:
+            before = k8c.launches_igemm
+            got = k8c.conv_s8_igemm(x_q, w_q, w_scale, 0.0123, bias, out_dtype=out_dtype, **kw)
+            count = k8c.launches_igemm - before
+        else:
+            before = k8c.launches_direct
+            got = k8c.conv_s8_direct(x_q, w_q, w_scale, 0.0123, bias, groups=groups,
+                                     out_dtype=out_dtype, **kw)
+            count = k8c.launches_direct - before
+        want = k8c.conv_s8_plain(x_q, w_q, w_scale, 0.0123, bias, groups=groups,
+                                 out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        assert count == 1 and got.dtype == out_dtype and torch.equal(got, want), out_dtype
 
 
 @pytest.mark.cuda
