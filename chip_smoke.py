@@ -259,7 +259,22 @@ not 0):
      every routed module on the plain versions, the mask agreement with bf16;
      a chunk's host time, device time, int8 kernels' share and idle share for
      bf16, int8_exec and int8_exec_xla, and their scene latencies; and
-     ``compare_variants`` with the six variants (33 dense convs an image).
+     ``compare_variants`` with the six variants (33 dense convs an image);
+ 18. quantization-aware training (``int8_training=256``, the gate route) of
+     DeepLabV3+/ResNet-50, OS 16, batch 8 at 512^2, bf16: the device-scale
+     entries of the quantize and the dense conv (the amax a device tensor)
+     bit-equal (``torch.equal``) to the host-scale entries fed the scale they
+     form and to the plain versions, on the real inputs of every routed site
+     of a train and an eval forward (49 and 45 sites) and at a zero amax; a
+     train step's 49 + 49 and an eval forward's 45 + 45 launches, all of the
+     device-scale entries; one QAT forward and backward under
+     ``torch.cuda.set_sync_debug_mode("error")``; their device time a step
+     with the inputs out of L2 against their bound; 4-step fits with a
+     quick-eval and a validation in dynamic mode, delayed mode and dynamic
+     mode switching to bf16 at step 2 (no device-scale launch after it),
+     finite losses; the QAT step's and the bf16 step's host and device ms;
+     ``int8_exec_xla`` serving of a scene from the delayed run's checkpoint,
+     its learned amaxes merged over the calibration.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -1517,12 +1532,14 @@ def _fused_trainer(setting: str, steps: int, seed: int | None = None) -> tuple:
     return _slice_trainer(steps, f"chip_smoke_{setting}", seed, **{setting: "always"})
 
 
-def _slice_trainer(steps: int, name: str, seed: int | None = None, **model) -> tuple:
+def _slice_trainer(steps: int, name: str, seed: int | None = None, train=None,
+                   **model) -> tuple:
     """(Trainer, its Config, train set, validation set) of phase 6's
     configuration with the ``model`` settings given, for ``steps`` steps with
     a quick-eval halfway and a validation at the end, writing under
     ``build/<name>``; ``seed`` replaces the configuration's
-    ``train.random_seed`` (the weights, augmentation and batch order)."""
+    ``train.random_seed`` (the weights, augmentation and batch order) and
+    ``train`` sets ``cfg.train`` fields."""
     from iswm_tpu_torch.config import Config
     from iswm_tpu_torch.data import ArrayDataset, generate_scene
     from iswm_tpu_torch.train import Trainer
@@ -1537,6 +1554,8 @@ def _slice_trainer(steps: int, name: str, seed: int | None = None, **model) -> t
     cfg = Config()
     for key, value in model.items():
         setattr(cfg.model, key, value)
+    for key, value in (train or {}).items():
+        setattr(cfg.train, key, value)
     cfg.data.crop_size, cfg.data.batch_size = 512, 8
     cfg.train.total_itrs = cfg.train.val_interval = steps
     cfg.train.quick_eval_interval = cfg.train.print_interval = steps // 2
@@ -3880,6 +3899,241 @@ def phase_int8_xla_compare(kc) -> None:
           f"launches {kc.launches_igemm} = {dense} x ({EVAL_SCENES} images + 1 probe); "
           f"int8_exec_xla vs f32 mask agreement {report['int8_exec_xla']['mask_agreement']:.6f}")
 
+QAT_GATE = 256  # bench.py's int8_train row: int8_training=256, the gate route
+QAT_SITES = {"train": 49, "eval": 45}  # routed sites of a forward (the JAX package's)
+QAT_STEPS = 4  # each fit: a quick-eval at step 2 and the validation at 4
+
+
+def _qat_inputs(model, x, training: bool) -> list:
+    """(x, w, amax, stride, padding, dilation) at every routed site of one
+    forward of ``model`` on ``x`` in that mode, in order (the real inputs of
+    the int8 forward)."""
+    from iswm_tpu_torch.ops import int8_train
+
+    seen = []
+    forward = int8_train.int8_conv_forward
+
+    def record(x, w, amax, stride=1, padding=0, dilation=1):
+        seen.append((x, w, amax.clone(), stride, padding, dilation))
+        return forward(x, w, amax, stride, padding, dilation)
+
+    int8_train.int8_conv_forward = record
+    try:
+        model.train(training)
+        with torch.no_grad():
+            model(x)
+    finally:
+        int8_train.int8_conv_forward = forward
+    return seen
+
+
+def phase_qat_kernels(kc, smi: str) -> dict:
+    """The device-scale entries against the host-scale entries and the plain
+    versions, bit for bit, at every routed site's real input; their device
+    time over a train step's sites with the inputs out of L2 and the bound."""
+    from iswm_tpu_torch.models import build_model_by_name
+    from iswm_tpu_torch.ops.int8_train import _rows_view, quantize_weight
+
+    model = build_model_by_name("deeplabv3plus_resnet50", int8_training=QAT_GATE)
+    model.to("cuda", memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    sites = {mode: _qat_inputs(model, x, mode == "train") for mode in QAT_SITES}
+    for mode, n in QAT_SITES.items():
+        check(len(sites[mode]) == n, f"a {mode} forward routed {len(sites[mode])} sites, not {n}")
+    shapes, checked = {}, {}
+    for mode in ("train", "eval"):
+        for xs, w, amax, stride, pad, dil in sites[mode]:
+            key = (tuple(xs.shape), tuple(w.shape), stride, pad, dil)
+            if mode == "train":
+                shapes[key] = shapes.get(key, 0) + 1
+            if key in checked:
+                continue
+            rows = _rows_view(xs)  # as the int8 forward reads it
+            w_q, w_s = quantize_weight(w)
+            for a in (amax, torch.zeros_like(amax)) if not checked else (amax,):
+                scale = float(kc.scale_of(a, "cuda"))
+                q = kc.quantize_s8(rows, a)
+                geo = dict(stride=stride, padding=pad, dilation=dil, out_dtype=xs.dtype)
+                got = kc.conv_s8_igemm(q, w_q, w_s, a, **geo)
+                same = (torch.equal(q, kc.quantize_s8(rows, scale))
+                        and torch.equal(q, kc.quantize_s8_plain(rows, a))
+                        and torch.equal(got, kc.conv_s8_igemm(q, w_q, w_s, scale, **geo))
+                        and torch.equal(got, kc.conv_s8_plain(q, w_q, w_s, a, **geo)))
+                torch.cuda.synchronize()
+                check(same and got.dtype == xs.dtype,
+                      f"device-scale entries != host-scale / plain at {key}, amax {float(a)}")
+            checked[key] = True
+    print(f"[18] device-scale quantize_s8 and conv_s8_igemm at the real inputs of all "
+          f"{QAT_SITES['train']} train-forward and {QAT_SITES['eval']} eval-forward routed sites "
+          f"({len(checked)} shapes, bf16 out) and at a zero amax: bit-equal (torch.equal) to the "
+          "host-scale entries fed the scale they form and to the plain versions")
+    cold = ColdTimer(reps=5)
+    total = {"quantize": 0.0, "igemm": 0.0}
+    bounds = {"quantize": [], "igemm": []}
+    for (xshape, wshape, stride, pad, dil), count in shapes.items():
+        xs, w, amax = next((s[0], s[1], s[2]) for s in sites["train"]
+                           if (tuple(s[0].shape), tuple(s[1].shape), *s[3:]) ==
+                           (xshape, wshape, stride, pad, dil))
+        rows = _rows_view(xs)
+        w_q, w_s = quantize_weight(w)
+        q = kc.quantize_s8(rows, amax)
+        total["quantize"] += count * cold(lambda: kc.quantize_s8(rows, amax))
+        total["igemm"] += count * cold(lambda: kc.conv_s8_igemm(
+            q, w_q, w_s, amax, stride=stride, padding=pad, dilation=dil, out_dtype=xs.dtype))
+        n = xs.numel()
+        bounds["quantize"] += [{"bytes": 3 * n + 4, "ops": n,
+                                **least_time(3 * n + 4, n, F32_OPS_PER_S)}] * count
+        b, c, h, wd = xs.shape
+        one = [v if isinstance(v, int) else v[0] for v in (stride, pad, dil)]
+        bounds["igemm"] += [conv_bound(b, h, wd, c, wshape[0], wshape[2], *one,
+                                       out_bytes=2)] * count
+    del sites, model
+    records = {}
+    for key in total:
+        least = sum_bounds(bounds[key])
+        records[key] = {"ms": total[key], **least}
+        print(f"[18] device-scale {'quantize_s8' if key == 'quantize' else 'conv_s8_igemm'} "
+              f"over a train step's {QAT_SITES['train']} routed sites ({smi}): "
+              f"{total[key]:.4f} ms with the inputs out of L2, "
+              f"{least['bound_ms'] / total[key]:.1%} of the bound {least['bound_ms']:.4f} ms "
+              f"by {least['bound_by']} ({_work(bounds[key])})")
+    return records
+
+
+def _counting_steps(trainer, log: list):
+    """Wrap ``trainer.train_step``: each step appends (step, device-scale
+    quantize and dense-conv launches in it)."""
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
+
+    step = trainer.train_step
+
+    def counted(state, images, labels):
+        before = [kc.launches_by_scale[e]["device"] for e in ("quantize", "igemm")]
+        out = step(state, images, labels)
+        log.append((state.step - 1, *(kc.launches_by_scale[e]["device"] - b
+                                      for e, b in zip(("quantize", "igemm"), before))))
+        return out
+
+    trainer.train_step = counted
+
+
+def phase_qat_train(kc, smi: str) -> dict:
+    """The QAT main path: fits in dynamic mode, delayed mode and dynamic mode
+    switching to bf16 at step 2; launches a step and an eval forward; a
+    forward and backward without a host sync; the QAT and the bf16 step's
+    times; ``int8_exec_xla`` serving from the delayed run's checkpoint.
+    Returns the main path's launches of the quantize and the dense conv by
+    the scale's source."""
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import val_transform_batch
+    from iswm_tpu_torch.infer import Predictor
+    from iswm_tpu_torch.infer.quantization import conv_scales_from_quant
+    from iswm_tpu_torch.models.layers import quant_state, routed_sites
+
+    t0 = time.perf_counter()
+    for entry in kc.launches_by_scale.values():
+        entry.update(dict.fromkeys(entry, 0))
+    runs = {"dynamic": ({}, {}), "delayed": ({"int8_scale_mode": "delayed"}, {}),
+            "switch at 2": ({}, {"int8_switch_iter": 2})}
+    trainers = {}
+    for name, (model, train) in runs.items():
+        trainer, cfg, train_ds, _ = _slice_trainer(
+            QAT_STEPS, f"chip_smoke_qat_{name.split()[0]}", train=train,
+            int8_training=QAT_GATE, **model)
+        log = []
+        _counting_steps(trainer, log)
+        trainer.fit()
+        losses = trainer.logger.history["train_loss"]
+        check(len(losses) == 2 and bool(np.isfinite(losses).all()),
+              f"QAT {name}: losses {losses}")
+        sites = QAT_SITES["train"]
+        want = [(i, sites, sites) if i < train.get("int8_switch_iter", QAT_STEPS) else (i, 0, 0)
+                for i in range(QAT_STEPS)]
+        check(log == want, f"QAT {name}: device-scale launches by step {log}, expected {want}")
+        amaxes = quant_state(trainer.state.model)
+        print(f"[18] QAT {name} fit ({smi}): {QAT_STEPS} steps, losses {losses}, quick-eval and "
+              f"validation; device-scale (quantize, conv) launches by step {log}; "
+              f"{len(amaxes)} running amaxes, best checkpoint {trainer.best_path is not None}")
+        trainers[name] = trainer
+    switched = trainers.pop("switch at 2")  # from step 2 on, the bf16 model
+    check(not routed_sites(switched.state.model, True) and not quant_state(switched.state.model),
+          "the switched model still routes or keeps amaxes")
+    delayed = trainers["delayed"]
+    check(len(quant_state(delayed.state.model)) > 0 and all(
+        float(v) > 0 for v in quant_state(delayed.state.model).values()),
+        "delayed mode's running amaxes are not all positive")
+
+    # launches of a step and an eval forward; one forward and backward with no sync
+    trainer = trainers["dynamic"]
+    gen = torch.Generator().manual_seed(SEED)
+    xu8 = torch.randint(0, 256, (8, 512, 512, 3), dtype=torch.uint8, generator=gen).cuda()
+    yu8 = torch.randint(0, 2, (8, 512, 512), dtype=torch.uint8, generator=gen).cuda()
+    model, loss_fn = trainer.state.model, trainer.loss_fn
+    x = val_transform_batch(xu8).permute(0, 3, 1, 2)
+    model.train()
+    for _ in range(2):
+        loss_fn(model(x), yu8).backward()
+    torch.cuda.synchronize()
+    kc.launches_quantize = kc.launches_igemm = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = loss_fn(model(x), yu8)
+        fwd = (kc.launches_quantize, kc.launches_igemm)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    loss = float(loss.detach())
+    check(fwd == (QAT_SITES["train"],) * 2 and np.isfinite(loss),
+          f"a QAT train forward launched {fwd}, loss {loss}")
+    kc.launches_quantize = kc.launches_igemm = 0
+    eval_logits = trainer.eval_step(xu8)["preds"]
+    torch.cuda.synchronize()
+    ev = (kc.launches_quantize, kc.launches_igemm)
+    check(ev == (QAT_SITES["eval"],) * 2 and eval_logits.shape == (8, 512, 512),
+          f"a QAT eval forward launched {ev}")
+    print(f"[18] QAT train forward: {fwd[0]} quantize + {fwd[1]} dense conv launches, all "
+          f"device-scale; forward and backward under set_sync_debug_mode('error') with no "
+          f"synchronizing call; eval forward (dynamic scales): {ev[0]} + {ev[1]}")
+
+    # the QAT step against the bf16 step (the switched run's model), in this run
+    times = {}
+    for name, t in (("QAT", trainer), ("bf16", switched)):
+        host = _median_step_ms(t, xu8, yu8)
+        dev, launches, by_class = _step_profile(t, xu8, yu8)
+        times[name] = (float(np.median(host)), dev, launches)
+        print(f"[18] {name} train step, ResNet-50 batch 8 at 512^2 ({smi}): host "
+              f"{times[name][0]:.2f} ms (median of 8), device {dev:.2f} ms (profiler, "
+              f"{launches} kernel launches), by class "
+              + ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    print(f"[18] QAT / bf16 step ({smi}): host {times['QAT'][0] / times['bf16'][0]:.3f}, device "
+          f"{times['QAT'][1] / times['bf16'][1]:.3f}; {times['QAT'][2] - times['bf16'][2]} more "
+          "launches a step")
+    del switched, trainers, trainer, model
+
+    # int8_exec_xla serving from the delayed run's checkpoint
+    path = delayed.best_path
+    cfg = Config()
+    cfg.predict.serving_variant = "int8_exec_xla"
+    pred = Predictor(cfg, ckpt_path=path, device="cuda")
+    learned = conv_scales_from_quant(pred.quant)
+    scene = np.random.default_rng(SEED).integers(0, 256, SCENES[0] + (3,), dtype=np.uint8)
+    kc.launches_quantize = kc.launches_igemm = 0
+    products = pred.predict_image(scene)
+    torch.cuda.synchronize()
+    routed = set(pred.engine.model_fn.routed_sites)
+    check(bool(np.isfinite(products["prob_fg"]).all()) and kc.launches_igemm > 0,
+          "int8_exec_xla serving from the QAT checkpoint")
+    print(f"[18] int8_exec_xla serving of a {SCENES[0][0]}x{SCENES[0][1]} scene from the delayed "
+          f"QAT checkpoint: {len(learned)} learned scales merged ({len(set(learned) & routed)} at "
+          f"routed serving sites of {len(routed)}), {kc.launches_quantize} quantize + "
+          f"{kc.launches_igemm} dense conv launches; the training part took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {e: dict(v) for e, v in kc.launches_by_scale.items()}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3934,6 +4188,12 @@ def main() -> int:
     xla_launches = phase_int8_xla_serving(k8, kc, smi)
     launches += xla_launches["matmul"]
     phase_int8_xla_compare(kc)
+    # quantization-aware training: the device-scale entries (the main path's
+    # launches of the quantize and the dense conv counted by scale source)
+    qat_records = phase_qat_kernels(kc, smi)
+    qat_launches = phase_qat_train(kc, smi)
+    by_scale = {e: {"host": xla_launches[e] + qat_launches[e]["host"],
+                    "device": qat_launches[e]["device"]} for e in ("quantize", "igemm")}
     for name, count in (("int8_matmul", launches), ("fused_binary_ce_fwd", ce_fwd),
                         ("sharded_fused_binary_ce", sharded_launches),
                         ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches),
@@ -3942,7 +4202,9 @@ def main() -> int:
                         *((f"int8_conv {k}", xla_launches[k])
                           for k in ("quantize", "igemm", "direct")),
                         *((f"int8_conv's {b} body", xla_launches["bodies"][b])
-                          for b in ("wgmma", "bytes", "tiled"))):
+                          for b in ("wgmma", "bytes", "tiled")),
+                        *((f"int8_conv {e} with a device scale", by_scale[e]["device"])
+                          for e in by_scale)):
         check(count > 0, f"the main paths never launched {name}")
     print(f"[profiler] traces of the run: {TRACES['whole']} whole at the first take, "
           f"{TRACES['retaken']} whole after a retake, {TRACES['estimated']} never whole "
@@ -4016,9 +4278,17 @@ def main() -> int:
            "replaces": replaces, "launches": block_launches[key], **block_records[key]}
           for name, key, replaces in block_rows),
         *({"name": name, "route": "cuda", "source": "iswm_tpu_torch/csrc/int8_conv.cu",
-           "replaces": replaces, "pallas_call": False, "launches": xla_launches[key],
+           "replaces": replaces, "pallas_call": False,
+           "launches": sum(by_scale[key].values()) if key in by_scale else xla_launches[key],
            **({"launches_by_body": {b: xla_launches["bodies"][b] for b in bodies}}
               if bodies else {}),
+           **({"launches_by_scale": by_scale[key],
+               "device_scale": {"ms": qat_records[key]["ms"],
+                                "bound_ms": qat_records[key]["bound_ms"],
+                                "bound_by": qat_records[key]["bound_by"],
+                                "replaces": "iswm_tpu/ops/int8_train.py:31 (_dyn_quant_x) and "
+                                            ":57 / :112 / :434 (the QAT convs' int8 forward)"}}
+              if key in by_scale else {}),
            **xla_records[key]}
           for name, key, replaces, bodies in xla_rows),
     ]}))

@@ -86,6 +86,14 @@
 // which the compiler never contracts into an FMA, and the bf16 store as
 // __float2bfloat16_rn of that float32 value (the plain version's .to()).
 //
+// Where x_scale comes from: the host passes it as a float (serving, its
+// calibrated scales), or the `_amax` entries of the quantize and the dense
+// conv read one float32 amax in device memory and form x_scale = amax > 0 ?
+// amax / 127 : 1 there, with an IEEE division (quantization-aware training,
+// whose dynamic or delayed amax is a device tensor: no host read a conv).
+// Both run the same kernels, templated on the scale's source (HostScale,
+// AmaxScale); the dense conv's epilogue reads the amax once a block.
+//
 // Contract (checked by the Python wrapper): x_q NHWC int8 contiguous and
 // 16-byte aligned; w_q [N, ldw] int8 rows of (kh, kw, c) with ldw >= K a
 // multiple of 16, zero past K; w_scale [N] f32; bias [N] f32 or null; out
@@ -144,6 +152,20 @@ __device__ __forceinline__ float epilogue(int acc, float xs, float ws, const flo
   const float v = dequant(acc, xs, ws);
   return bias ? __fadd_rn(v, bias[n]) : v;
 }
+// The activation scale: a float from the host, or formed from one float32
+// amax in device memory as the JAX package's QAT forms it
+// (jnp.where(amax > 0, amax / 127.0, 1.0), iswm_tpu/ops/int8_train.py).
+struct HostScale {
+  float s;
+  __device__ __forceinline__ float get() const { return s; }
+};
+struct AmaxScale {
+  const float* amax;
+  __device__ __forceinline__ float get() const {
+    const float a = *amax;
+    return a > 0.0f ? __fdiv_rn(a, 127.0f) : 1.0f;
+  }
+};
 template <typename OutT>
 __device__ __forceinline__ OutT to_out(float v);
 template <>
@@ -189,10 +211,11 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162flo
 // ld multiples of the vector and x 16-byte aligned.
 // 32-bit indices (the wrapper keeps P C < 2^31): a 64-bit division costs
 // tens of instructions an element.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, float s,
+template <typename T, bool VEC, typename S>
+__global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, S scale,
                                                        int8_t* __restrict__ out, int P, int C,
                                                        long long ld) {
+  const float s = scale.get();
   constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
   const int per_row = C / V;
   const int total = P * per_row;
@@ -403,12 +426,12 @@ __host__ __device__ constexpr int min_blocks(int bn, int slots) {
   return 2 * (smem_bytes(bn, slots) + 4096 + 1024) <= 233472 ? 2 : 1;
 }
 
-template <int BN, int SLOTS, bool TMA_B, typename OutT>
+template <int BN, int SLOTS, bool TMA_B, typename OutT, typename S>
 __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
     igemm_wgmma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                        const __grid_constant__ CUtensorMap w_map,
                        const float* __restrict__ w_scale, const float* __restrict__ bias,
-                       float xs, OutT* __restrict__ out, int* __restrict__ partial, Geom g,
+                       S scale, OutT* __restrict__ out, int* __restrict__ partial, Geom g,
                        int tw_log2, int splits) {
   static_assert(SLOTS >= 3, "a slot multiplied, one in flight, one loading");
   constexpr int STAGE = stage_bytes(BN);
@@ -602,6 +625,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
   const int frow = wg * 64 + (warp & 3) * 16 + (lane >> 2), fcol = 2 * (lane & 3);
   if (splits == 1) {
     OutT* tile = reinterpret_cast<OutT*>(smem);
+    const float xs = scale.get();
 #pragma unroll
     for (int q = 0; q < BN / 8; ++q) {
       const int col = 8 * q + fcol;
@@ -670,11 +694,12 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
 
 // After a K split: the splits' int32 partials [splits][M N], added in split
 // order (exact), then the epilogue once.
-template <typename OutT>
+template <typename OutT, typename S>
 __global__ void __launch_bounds__(256)
     igemm_split_finish(const int* __restrict__ partial, int splits, int mn, int N,
                        const float* __restrict__ w_scale, const float* __restrict__ bias,
-                       float xs, OutT* __restrict__ out) {
+                       S scale, OutT* __restrict__ out) {
+  const float xs = scale.get();
   for (int i = blockIdx.x * 256 + threadIdx.x; i < mn; i += gridDim.x * 256) {
     int acc = 0;
     for (int s = 0; s < splits; ++s) acc += partial[static_cast<long long>(s) * mn + i];
@@ -750,10 +775,10 @@ __device__ __forceinline__ void load_b(int8_t* sb, const int8_t* __restrict__ w,
              valid ? w + static_cast<long long>(n) * g.ldw + k : w, valid);
 }
 
-template <typename OutT>
+template <typename OutT, typename S>
 __global__ void __launch_bounds__(THREADS) igemm_bytes_kernel(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-    const float* __restrict__ w_scale, const float* __restrict__ bias, float xs,
+    const float* __restrict__ w_scale, const float* __restrict__ bias, S scale,
     OutT* __restrict__ out, Geom g) {
   __shared__ __align__(128) int8_t smem[STAGES][(BM + BN) * LDS];
   const int n0 = blockIdx.x * BN;
@@ -833,6 +858,7 @@ __global__ void __launch_bounds__(THREADS) igemm_bytes_kernel(
 
   // epilogue: fragment (i, j) holds rows wm 32 + 16 i + lane / 4 (+ 8) and
   // columns wn 32 + 8 j + 2 (lane % 4) (+ 1)
+  const float xs = scale.get();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + wn * 32 + 8 * j + 2 * (lane & 3);
@@ -1053,25 +1079,26 @@ Geom geom_of(const int* geom) {
               geom[9], geom[10], geom[11], geom[12], geom[13], geom[14], geom[15], geom[16]};
 }
 
-template <typename OutT>
+template <typename OutT, typename S>
 using DenseKernel = void (*)(const int8_t*, const int8_t*, const CUtensorMap, const float*,
-                             const float*, float, OutT*, int*, Geom, int, int);
+                             const float*, S, OutT*, int*, Geom, int, int);
 
 // The built (BN, slots) pairs, with the weights by cp.async or by TMA; null
 // for another.
-template <bool TMA_B, typename OutT>
-DenseKernel<OutT> dense_kernel_of(int bn, int slots) {
+template <bool TMA_B, typename OutT, typename S>
+DenseKernel<OutT, S> dense_kernel_of(int bn, int slots) {
   using namespace dense;
-  if (bn == 256 && slots == 4) return igemm_wgmma_kernel<256, 4, TMA_B, OutT>;
-  if (bn == 128 && slots == 3) return igemm_wgmma_kernel<128, 3, TMA_B, OutT>;
-  if (bn == 128 && slots == 4) return igemm_wgmma_kernel<128, 4, TMA_B, OutT>;
-  if (bn == 64 && slots == 4) return igemm_wgmma_kernel<64, 4, TMA_B, OutT>;
-  if (bn == 8 && slots == 4) return igemm_wgmma_kernel<8, 4, TMA_B, OutT>;
+  if (bn == 256 && slots == 4) return igemm_wgmma_kernel<256, 4, TMA_B, OutT, S>;
+  if (bn == 128 && slots == 3) return igemm_wgmma_kernel<128, 3, TMA_B, OutT, S>;
+  if (bn == 128 && slots == 4) return igemm_wgmma_kernel<128, 4, TMA_B, OutT, S>;
+  if (bn == 64 && slots == 4) return igemm_wgmma_kernel<64, 4, TMA_B, OutT, S>;
+  if (bn == 8 && slots == 4) return igemm_wgmma_kernel<8, 4, TMA_B, OutT, S>;
   return nullptr;
 }
-template <typename OutT>
-DenseKernel<OutT> dense_kernel(int bn, int slots, bool tma) {
-  return tma ? dense_kernel_of<true, OutT>(bn, slots) : dense_kernel_of<false, OutT>(bn, slots);
+template <typename OutT, typename S>
+DenseKernel<OutT, S> dense_kernel(int bn, int slots, bool tma) {
+  return tma ? dense_kernel_of<true, OutT, S>(bn, slots)
+             : dense_kernel_of<false, OutT, S>(bn, slots);
 }
 
 // The weights [N rows][ldw bytes] as a TMA map of boxes of 64 bytes x BN
@@ -1101,18 +1128,19 @@ int weight_map(CUtensorMap* map, const int8_t* w, int N, int ldw, int bn) {
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename OutT>
+template <typename OutT, typename S>
 int run_dense(const Geom& g, const int* plan, const int8_t* x, const int8_t* w, const float* ws,
-              const float* bs, float xs, OutT* out, int* partial, cudaStream_t s) {
+              const float* bs, S xs, OutT* out, int* partial, cudaStream_t s) {
   if (plan[0] == 1) {  // the bytewise body
     const int M = g.B * g.Ho * g.Wo;
     const dim3 grid((g.N + bytewise::BN - 1) / bytewise::BN, (M + bytewise::BM - 1) / bytewise::BM);
-    bytewise::igemm_bytes_kernel<OutT><<<grid, bytewise::THREADS, 0, s>>>(x, w, ws, bs, xs, out, g);
+    bytewise::igemm_bytes_kernel<OutT, S><<<grid, bytewise::THREADS, 0, s>>>(x, w, ws, bs, xs, out,
+                                                                             g);
     return static_cast<int>(cudaGetLastError());
   }
   const int tw_log2 = plan[1], bn = plan[2], slots = plan[3], splits = plan[4];
   const bool tma = plan[5] != 0;
-  const DenseKernel<OutT> kernel = dense_kernel<OutT>(bn, slots, tma);
+  const DenseKernel<OutT, S> kernel = dense_kernel<OutT, S>(bn, slots, tma);
   if (kernel == nullptr || tw_log2 < 3 || tw_log2 > 7 || splits < 1 ||
       g.KH * g.KW > dense::MAX_TAPS || g.C % (tma ? 64 : 16) || (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1134,8 +1162,8 @@ int run_dense(const Geom& g, const int* plan, const int8_t* x, const int8_t* w, 
                                                                      partial, g, tw_log2, splits);
   if (splits > 1) {
     const int mn = g.B * g.Ho * g.Wo * g.N;
-    dense::igemm_split_finish<OutT><<<grid_for(mn), 256, 0, s>>>(partial, splits, mn, g.N, ws, bs,
-                                                                 xs, out);
+    dense::igemm_split_finish<OutT, S><<<grid_for(mn), 256, 0, s>>>(partial, splits, mn, g.N, ws,
+                                                                    bs, xs, out);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1185,14 +1213,9 @@ int run_direct(const Geom& g, int groups, int body, const int8_t* x, const int8_
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-// x rows [P, C] (row stride ld elements), x_is_bf16 1 for bf16, 0 for f32;
-// out [P, C] int8 contiguous.  Returns cudaGetLastError().
-int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, int P, int C,
-                       long long ld, void* stream) {
+template <typename S>
+int quantize(const void* x, int x_is_bf16, S scale, void* out, int P, int C, long long ld,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int esize = x_is_bf16 ? 2 : 4;
   const int v = 16 / esize;
@@ -1202,14 +1225,48 @@ int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, i
   int8_t* o = static_cast<int8_t*>(out);
   if (x_is_bf16) {
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    if (vec) quantize_kernel<__nv_bfloat16, true><<<grid, 256, 0, s>>>(xb, x_scale, o, P, C, ld);
-    else quantize_kernel<__nv_bfloat16, false><<<grid, 256, 0, s>>>(xb, x_scale, o, P, C, ld);
+    if (vec) quantize_kernel<__nv_bfloat16, true, S><<<grid, 256, 0, s>>>(xb, scale, o, P, C, ld);
+    else quantize_kernel<__nv_bfloat16, false, S><<<grid, 256, 0, s>>>(xb, scale, o, P, C, ld);
   } else {
     const auto* xf = static_cast<const float*>(x);
-    if (vec) quantize_kernel<float, true><<<grid, 256, 0, s>>>(xf, x_scale, o, P, C, ld);
-    else quantize_kernel<float, false><<<grid, 256, 0, s>>>(xf, x_scale, o, P, C, ld);
+    if (vec) quantize_kernel<float, true, S><<<grid, 256, 0, s>>>(xf, scale, o, P, C, ld);
+    else quantize_kernel<float, false, S><<<grid, 256, 0, s>>>(xf, scale, o, P, C, ld);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename S>
+int conv_igemm(const void* x_q, const void* w_q, const void* w_scale, const void* bias, S scale,
+               void* out, int out_bf16, const int* geom, const int* plan, void* partial,
+               void* stream) {
+  const Geom g = geom_of(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const int8_t*>(x_q);
+  const auto* w = static_cast<const int8_t*>(w_q);
+  const auto* ws = static_cast<const float*>(w_scale);
+  const auto* bs = static_cast<const float*>(bias);
+  int* part = static_cast<int*>(partial);
+  if (out_bf16)
+    return run_dense(g, plan, x, w, ws, bs, scale, static_cast<__nv_bfloat16*>(out), part, s);
+  return run_dense(g, plan, x, w, ws, bs, scale, static_cast<float*>(out), part, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+// x rows [P, C] (row stride ld elements), x_is_bf16 1 for bf16, 0 for f32;
+// out [P, C] int8 contiguous.  Returns cudaGetLastError().
+int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, int P, int C,
+                       long long ld, void* stream) {
+  return quantize(x, x_is_bf16, HostScale{x_scale}, out, P, C, ld, stream);
+}
+
+// As iswm_int8_quantize, with x_scale formed on the device from the float32
+// amax at `amax` (x_scale = amax > 0 ? amax / 127 : 1).
+int iswm_int8_quantize_amax(const void* x, int x_is_bf16, const float* amax, void* out, int P,
+                            int C, long long ld, void* stream) {
+  return quantize(x, x_is_bf16, AmaxScale{amax}, out, P, C, ld, stream);
 }
 
 // geom[17] = B, H, W, C, Ho, Wo, N, KH, KW, sh, sw, ph, pw, dh, dw, K, ldw.
@@ -1221,16 +1278,17 @@ int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, i
 int iswm_int8_conv_igemm(const void* x_q, const void* w_q, const void* w_scale,
                          const void* bias, float x_scale, void* out, int out_bf16,
                          const int* geom, const int* plan, void* partial, void* stream) {
-  const Geom g = geom_of(geom);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const int8_t*>(x_q);
-  const auto* w = static_cast<const int8_t*>(w_q);
-  const auto* ws = static_cast<const float*>(w_scale);
-  const auto* bs = static_cast<const float*>(bias);
-  int* part = static_cast<int*>(partial);
-  if (out_bf16)
-    return run_dense(g, plan, x, w, ws, bs, x_scale, static_cast<__nv_bfloat16*>(out), part, s);
-  return run_dense(g, plan, x, w, ws, bs, x_scale, static_cast<float*>(out), part, s);
+  return conv_igemm(x_q, w_q, w_scale, bias, HostScale{x_scale}, out, out_bf16, geom, plan,
+                    partial, stream);
+}
+
+// As iswm_int8_conv_igemm, with x_scale formed on the device from the
+// float32 amax at `amax`, as iswm_int8_quantize_amax forms it.
+int iswm_int8_conv_igemm_amax(const void* x_q, const void* w_q, const void* w_scale,
+                              const void* bias, const float* amax, void* out, int out_bf16,
+                              const int* geom, const int* plan, void* partial, void* stream) {
+  return conv_igemm(x_q, w_q, w_scale, bias, AmaxScale{amax}, out, out_bf16, geom, plan, partial,
+                    stream);
 }
 
 // Grouped conv: as above with w_q [N, KH KW C / groups] (ldw unused); body 0

@@ -9,7 +9,8 @@ compute dtype), ``int8`` (weight-only), ``int8_exec`` (1x1 convs in int8
 through the hand-written matmul) and ``int8_exec_xla`` (every dense conv of
 >= 64 input channels in int8 through the hand-written int8 convs; with
 ``int8_grouped`` / ``int8_stem`` the grouped convs / the stem too); both
-``int8_exec`` variants calibrate on the first scene.  With
+``int8_exec`` variants calibrate on the first scene, and a checkpoint of
+delayed-mode QAT lends them its learned input amaxes.  With
 ``save_feature_maps``, also ``{name}_fmap_{label}.png``: channel-mean
 heatmaps of the backbone's two taps and the ASPP output on the centre tile.
 """
@@ -28,8 +29,10 @@ from ..config import Config
 from ..data.datasets import IMG_EXTENSIONS, decode_target
 from ..data.transforms import val_transform_batch
 from ..models import ASPP, build_model
+from ..train.checkpoint import load_quant
 from .products import binarize_confidence_map, confidence_map, prob_to_mask
-from .quantization import ServingFn, calibrate_conv_inputs, make_variant_fn
+from .quantization import (ServingFn, calibrate_conv_inputs, conv_scales_from_quant,
+                           make_variant_fn)
 from .tiling import TileEngine
 
 
@@ -50,8 +53,11 @@ class Predictor:
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = build_model(cfg.model)  # seeded init without a checkpoint
+        # a QAT checkpoint's running amaxes (``quant``), reused as int8 scales
+        self.quant: Dict[str, torch.Tensor] = {}
         if ckpt_path:
             self.model.load_state_dict(load_checkpoint(ckpt_path), strict=True)
+            self.quant = load_quant(ckpt_path)
         self.model.to(self.device, memory_format=torch.channels_last)
 
         self._needs_calibration = variant.startswith("int8_exec")
@@ -88,9 +94,9 @@ class Predictor:
             self.model, [x.permute(0, 3, 1, 2) for x in tiles], wide=True,
             grouped=p.int8_grouped, stem=p.int8_stem,
         )
-        # The JAX Predictor lets a QAT checkpoint's learned input amaxes
-        # (conv_scales_from_quant) override these; that waits for ROADMAP.md
-        # Queue 1, 'Quantization-aware training'.
+        # QAT-learned input amaxes override the few-tile calibration where
+        # present (learned over the whole training distribution)
+        conv_scales.update(conv_scales_from_quant(self.quant))
         self.engine = self._make_engine(make_variant_fn(
             self.model, p.serving_variant, conv_scales=conv_scales,
             grouped=p.int8_grouped, stem=p.int8_stem,

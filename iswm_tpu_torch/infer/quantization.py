@@ -360,6 +360,26 @@ def calibrate_conv_inputs(
     return _scales_from_absmax(absmax)
 
 
+def conv_scales_from_quant(quant: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Serving ``conv_scales`` from the running amaxes of a delayed-mode QAT
+    model or checkpoint (``models.layers.quant_state``, a checkpoint's
+    ``quant``): ``<conv>.x_amax`` -> the site ``<conv>``, a concat conv's
+    ``<conv>.x_amax_p{i}`` -> ``<conv>#p{i}``, each ``amax / 127`` (1 where
+    the amax is 0), as ``calibrate_conv_inputs`` keys and scales them.  Only
+    the sites QAT routed carry one: merge the result over calibrated scales,
+    the learned ones winning."""
+    out: Dict[str, float] = {}
+    for key, value in quant.items():
+        site, _, leaf = key.rpartition(".")
+        amax = float(value)
+        scale = amax / 127.0 if amax > 0 else 1.0
+        if leaf == "x_amax":
+            out[site] = scale
+        elif leaf.startswith("x_amax_p"):
+            out[f"{site}#p{leaf[len('x_amax_p'):]}"] = scale
+    return out
+
+
 def _mobilenetv2_site(m: re.Match) -> str:
     stage, block = int(m[1]), int(m[2])
     index = 1 + sum(n for _, _, n, _ in INVERTED_RESIDUAL_SETTINGS[:stage]) + block

@@ -4,7 +4,8 @@ Every backbone of ``BACKBONES`` under either head of ``HEADS``, with
 ``separable_conv`` for the head's 3x3 convs.  ``ModelConfig.fused_stem`` and
 ``ModelConfig.fused_blocks`` (``never`` | ``auto`` | ``always`` |
 ``interpret``) choose the fused stem and the fused bottleneck blocks of a
-ResNet backbone; the other backbones have neither.
+ResNet backbone; the other backbones have neither.  ``ModelConfig.int8_training``
+and its settings build a QAT model (``quant_spec``, ``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from ..config import ModelConfig, aspp_dilations
 from ..parallel.distributed import world_size
 
 from .deeplab import ASPP, DeepLabHead, DeepLabHeadV3Plus, DeepLabV3Model
-from .layers import BatchNorm2d, init_weights
+from .layers import BatchNorm2d, QuantSpec, init_weights
 from .mobilenetv2 import MobileNetV2
 from .resnet import ARCHS, ResNet, resnet_feature_channels
 from .xception import Xception
@@ -27,6 +28,7 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 BACKBONES = tuple(ARCHS) + ("mobilenetv2", "xception")
 HEADS = ("deeplabv3plus", "deeplabv3")
 SHARDED_FUSED_ITEM = "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'"
+INT8_BWD_ITEM = "ROADMAP.md Queue 1, 'Quantization-aware training, int8 backward'"
 # the auto grouped_blockdiag gate of each grouped backbone, as the JAX package
 # sets it (iswm_tpu/models/__init__.py)
 _GROUPED_BACKBONES = {"resnext50_32x4d": 256, "resnext101_32x8d": 512}
@@ -42,6 +44,22 @@ def grouped_blockdiag_max(cfg: ModelConfig) -> int:
     if gb in (-1, None):
         return _GROUPED_BACKBONES.get(cfg.backbone, 0)
     return int(gb or 0)
+
+
+def quant_spec(cfg: ModelConfig) -> QuantSpec:
+    """The model's ``QuantSpec`` from a ModelConfig, as the JAX package
+    derives it: ``int8_training`` True is a gate of 64 channels."""
+    int8 = cfg.int8_training
+    if int8 is True:
+        int8 = 64
+    return QuantSpec(
+        int8_min_channels=int(int8 or 0),
+        int8_scale_mode=cfg.int8_scale_mode,
+        int8_bwd=bool(cfg.int8_training_bwd),
+        int8_route=cfg.int8_route,
+        int8_cost_bytes=float(cfg.int8_cost_bytes),
+        grouped_blockdiag_max=grouped_blockdiag_max(cfg),
+    )
 
 
 def _resolve_fused_mode(value: str, setting: str) -> str:
@@ -81,11 +99,9 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
         raise ValueError(f"unknown model name {cfg.name!r}; expected one of {HEADS}")
     if cfg.backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {cfg.backbone!r}; expected one of {BACKBONES}")
-    if cfg.int8_training:
+    if cfg.int8_training and cfg.int8_training_bwd:
         raise NotImplementedError(
-            "int8_training (QAT) is not ported yet (ROADMAP.md Queue 1, "
-            "'Quantization-aware training')"
-        )
+            f"int8_training_bwd (the int8 backward of QAT) is not ported yet ({INT8_BWD_ITEM})")
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
             f"param_dtype={cfg.param_dtype!r} is not ported yet (ROADMAP.md "
@@ -93,24 +109,25 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     if cfg.output_stride not in (8, 16):
         raise ValueError("output_stride must be 8 or 16")
     os8 = cfg.output_stride == 8
+    quant = quant_spec(cfg)
     if cfg.backbone in ARCHS:
         backbone = ResNet(
             cfg.backbone, (False, True, True) if os8 else (False, False, True),
             in_channels=cfg.in_channels,
             fused_stem=_resolve_fused_mode(cfg.fused_stem, "fused_stem"),
-            fused_blocks=_resolve_fused_mode(cfg.fused_blocks, "fused_blocks"))
+            fused_blocks=_resolve_fused_mode(cfg.fused_blocks, "fused_blocks"), quant=quant)
     elif cfg.backbone == "mobilenetv2":
-        backbone = MobileNetV2(cfg.output_stride, in_channels=cfg.in_channels)
+        backbone = MobileNetV2(cfg.output_stride, in_channels=cfg.in_channels, quant=quant)
     else:  # over (block1, block2, block3 + the middle flow, block12)
         backbone = Xception((False, False, True, True) if os8 else (False, False, False, True),
-                            in_channels=cfg.in_channels)
+                            in_channels=cfg.in_channels, quant=quant)
     low_ch, out_ch = backbone.feature_channels
     rates = aspp_dilations(cfg.output_stride)
-    head = (DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes, rates, cfg.separable_conv)
+    head = (DeepLabHeadV3Plus(out_ch, low_ch, cfg.num_classes, rates, cfg.separable_conv, quant)
             if cfg.name == "deeplabv3plus"
-            else DeepLabHead(out_ch, cfg.num_classes, rates, cfg.separable_conv))
+            else DeepLabHead(out_ch, cfg.num_classes, rates, cfg.separable_conv, quant))
     model = DeepLabV3Model(backbone, head, compute_dtype=DTYPES[cfg.compute_dtype],
-                           grouped_blockdiag_max=grouped_blockdiag_max(cfg))
+                           grouped_blockdiag_max=quant.grouped_blockdiag_max, quant=quant)
     init_weights(model, torch.Generator().manual_seed(seed))
     for m in model.modules():
         if isinstance(m, BatchNorm2d):  # flax momentum 0.9 is torch's 0.1
@@ -148,5 +165,6 @@ __all__ = [
     "Xception",
     "build_model",
     "build_model_by_name",
+    "quant_spec",
     "resnet_feature_channels",
 ]

@@ -14,6 +14,13 @@ broadcast pool + concat + one 1x1 projection.
 the classifier's 3x3s) a ``SeparableConvBN``: its depthwise and pointwise
 convs sit at ``<conv>.body.0`` and ``<conv>.body.1``, where the plain conv's
 weight was.
+
+``quant`` routes the head's convs for QAT as the JAX package's heads do.  Two
+of them are the JAX package's ``ConcatConvBN`` there: the V3+ decoder's
+first (non-separable) 3x3, one conv a part of its concatenated input (the 48
+low-level and the 256 ASPP channels) in both modes, and the ASPP's projection
+in TRAIN mode, one conv a branch, the pooled branch at 1 x 1 and broadcast in
+the sum; each part with its own amax.  The output conv never routes.
 """
 
 from __future__ import annotations
@@ -25,19 +32,20 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
-from .layers import BatchNorm2d, ConvBN, SeparableConvBN, conv
+from .layers import QUANT_OFF, BatchNorm2d, ConvBN, QuantSpec, SeparableConvBN, conv
 
 
-def _conv3x3(separable: bool):
-    return SeparableConvBN if separable else functools.partial(ConvBN, kernel_size=3)
+def _conv3x3(separable: bool, quant: QuantSpec):
+    return functools.partial(SeparableConvBN if separable else functools.partial(
+        ConvBN, kernel_size=3), quant=quant)
 
 
 class ASPPPooling(nn.Sequential):
     """Image-level branch: global average pool, 1x1 ConvBN (children
     ``1``, ``2``); its [B, C, 1, 1] output is broadcast by the ASPP."""
 
-    def __init__(self, in_ch: int, out_ch: int):
-        super().__init__(nn.AdaptiveAvgPool2d(1), conv(in_ch, out_ch, 1),
+    def __init__(self, in_ch: int, out_ch: int, quant: QuantSpec = QUANT_OFF):
+        super().__init__(nn.AdaptiveAvgPool2d(1), conv(in_ch, out_ch, 1, quant=quant),
                          BatchNorm2d(out_ch), nn.ReLU(inplace=True))
 
 
@@ -47,21 +55,27 @@ class ASPP(nn.Module):
 
     def __init__(self, in_ch: int, atrous_rates: Sequence[int],
                  out_channels: int = 256, dropout_rate: float = 0.1,
-                 separable: bool = False):
+                 separable: bool = False, quant: QuantSpec = QUANT_OFF):
         super().__init__()
-        conv3 = _conv3x3(separable)
-        branches = [ConvBN(in_ch, out_channels, 1)]
+        conv3 = _conv3x3(separable, quant)
+        branches = [ConvBN(in_ch, out_channels, 1, quant=quant)]
         branches += [conv3(in_ch, out_channels, dilation=r) for r in atrous_rates]
-        branches.append(ASPPPooling(in_ch, out_channels))
+        branches.append(ASPPPooling(in_ch, out_channels, quant))
         self.convs = nn.ModuleList(branches)
         n = len(branches)
         self.project = nn.Sequential(
-            *ConvBN(n * out_channels, out_channels, 1), nn.Dropout(dropout_rate)
+            *ConvBN(n * out_channels, out_channels, 1, quant=quant,
+                    parts=(out_channels,) * n, parts_in_eval=False),
+            nn.Dropout(dropout_rate)
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         res = [branch(x) for branch in self.convs[:-1]]
         pooled = self.convs[-1](x)
+        conv1x1 = self.project[0]
+        if getattr(conv1x1, "runs_parts", lambda training: False)(self.training):
+            # QAT's train forward: one conv a branch, the pooled one at 1 x 1
+            return self.project[1:](conv1x1.forward_parts(res + [pooled]))
         res.append(pooled.expand(-1, -1, x.shape[2], x.shape[3]))
         return self.project(torch.cat(res, dim=1))
 
@@ -71,13 +85,15 @@ class DeepLabHeadV3Plus(nn.Module):
     bilinear upsample, concat (304 ch), 3x3 / 3x3 / 1x1 classifier."""
 
     def __init__(self, in_ch: int, low_level_ch: int, num_classes: int,
-                 atrous_rates: Sequence[int], separable: bool = False):
+                 atrous_rates: Sequence[int], separable: bool = False,
+                 quant: QuantSpec = QUANT_OFF):
         super().__init__()
-        conv3 = _conv3x3(separable)
-        self.project = ConvBN(low_level_ch, 48, 1)
-        self.aspp = ASPP(in_ch, atrous_rates, separable=separable)
+        conv3 = _conv3x3(separable, quant)
+        self.project = ConvBN(low_level_ch, 48, 1, quant=quant)
+        self.aspp = ASPP(in_ch, atrous_rates, separable=separable, quant=quant)
+        cls0 = conv3(48 + 256, 256) if separable else conv3(48 + 256, 256, parts=(48, 256))
         self.classifier = nn.Sequential(
-            *conv3(48 + 256, 256), *conv3(256, 256),
+            *cls0, *conv3(256, 256),
             conv(256, num_classes, 1, bias=True),
         )
 
@@ -93,11 +109,11 @@ class DeepLabHead(nn.Module):
     all in ``classifier.classifier``."""
 
     def __init__(self, in_ch: int, num_classes: int, atrous_rates: Sequence[int],
-                 separable: bool = False):
+                 separable: bool = False, quant: QuantSpec = QUANT_OFF):
         super().__init__()
         self.classifier = nn.Sequential(
-            ASPP(in_ch, atrous_rates, separable=separable),
-            *_conv3x3(separable)(256, 256),
+            ASPP(in_ch, atrous_rates, separable=separable, quant=quant),
+            *_conv3x3(separable, quant)(256, 256),
             conv(256, num_classes, 1, bias=True),
         )
 
@@ -113,16 +129,18 @@ class DeepLabV3Model(nn.Module):
     is the gate below which the JAX package runs a grouped conv as one dense
     conv on a block-diagonal kernel: the same numbers, so here it only
     decides which grouped convs ``int8_exec_xla`` routes without
-    ``int8_grouped``."""
+    ``int8_grouped``.  ``quant`` is the ``QuantSpec`` the model was built
+    with (``switch_off_int8`` turns its int8 gate off)."""
 
     def __init__(self, backbone: nn.Module, classifier: nn.Module,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 grouped_blockdiag_max: int = 0):
+                 grouped_blockdiag_max: int = 0, quant: QuantSpec = QUANT_OFF):
         super().__init__()
         self.backbone = backbone
         self.classifier = classifier
         self.compute_dtype = compute_dtype
         self.grouped_blockdiag_max = grouped_blockdiag_max
+        self.quant = quant
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         input_hw = (x.shape[2], x.shape[3])

@@ -12,9 +12,21 @@ ReLU and max-pool through the fused stem kernels (``ops/kernels/fused_stem``).
 In a process group, train-mode ``BatchNorm2d`` takes its statistics over every
 rank's rows (``CrossReplicaBatchNorm``), as the JAX package's does under a
 jit sharded over the data axis.
+
+Quantization-aware training (``QuantSpec``, the JAX package's, threaded from
+``ModelConfig`` by ``build_model``): a conv site that the spec routes is a
+``QatConv2d`` (``Conv2d``'s parameters and state-dict keys) whose forward runs
+``ops/int8_train.py``, by the JAX modules' rules: ``ConvBN``'s (groups 1 and
+dilation < 6 through ``int8_conv_st`` / ``int8_conv_static_amax``; a 3x3 of
+dilation >= 6 through ``int8_dilated_conv3x3``), the separable convs'
+pointwise halves (``qat_pointwise_conv``: dynamic scales only) and a concat
+conv's parts (``ConcatConvBN``: each part its own conv and amax).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -24,6 +36,58 @@ from ..parallel.distributed import is_initialized
 
 # all-reduces launched by the cross-replica BatchNorm, forward and backward
 cross_replica_all_reduces = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Per-model quantized-execution routing (the JAX package's
+    ``QuantSpec``), captured by every module at construction.
+
+    int8_min_channels -- minimum INPUT channel count of an int8-forward
+        (QAT) conv; 0 = off.
+    int8_scale_mode -- "dynamic": each step's absmax; "delayed": the running
+        amax a module carries (train forwards only; an eval forward is
+        dynamic).
+    int8_bwd -- an int8 backward too (not ported: refused).
+    int8_route -- "gate": every eligible conv at or above the channel gate;
+        "cost": the per-site roofline model (``int8_cost_route``) above it.
+    int8_cost_bytes -- bytes a value that model charges a dynamic quantize.
+    grouped_blockdiag_max -- the gate of the grouped convs the JAX package
+        runs block-diagonal (see ``DeepLabV3Model``)."""
+
+    int8_min_channels: int = 0
+    int8_scale_mode: str = "dynamic"
+    int8_bwd: bool = False
+    int8_route: str = "gate"
+    int8_cost_bytes: float = 3.0
+    grouped_blockdiag_max: int = 0
+
+    def __post_init__(self):
+        if self.int8_scale_mode not in ("dynamic", "delayed"):
+            raise ValueError(f"int8_scale_mode {self.int8_scale_mode!r}")
+        if self.int8_route not in ("gate", "cost"):
+            raise ValueError(f"int8_route {self.int8_route!r}")
+
+    @property
+    def int8(self) -> bool:
+        return self.int8_min_channels > 0
+
+    def conv_routing(self, cin: int, cout: int, k: int, stride: int) -> Tuple[bool, bool]:
+        """(int8_fwd, int8_bwd) of one conv site: "gate" routes every site
+        with ``cin >= int8_min_channels``; "cost" applies the roofline model
+        above that floor."""
+        if not self.int8 or cin < self.int8_min_channels:
+            return False, False
+        if self.int8_route == "gate":
+            return True, self.int8_bwd
+        from ..ops.int8_train import int8_cost_route
+
+        return int8_cost_route(cin, cout, k, stride,
+                               delayed=self.int8_scale_mode == "delayed",
+                               want_bwd=self.int8_bwd, quant_bytes=self.int8_cost_bytes)
+
+
+QUANT_OFF = QuantSpec()
 
 
 def torch_conv_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -145,15 +209,168 @@ class CrossReplicaBatchNorm(torch.autograd.Function):
         return dx.to(x.dtype), dweight, dbias, None
 
 
+class QatConv2d(Conv2d):
+    """A conv site that QAT routes (see the module docstring): ``Conv2d``'s
+    parameters and keys, an int8 forward through ``ops/int8_train.py``.
+
+    ``route`` is ``"st"`` (``int8_conv_st``, or ``int8_conv_static_amax`` in a
+    delayed-mode train forward), ``"dilated"`` (``int8_dilated_conv3x3``) or
+    None, for the whole conv.  A concat conv has ``parts`` (the input-channel
+    widths of its concatenated input): in train mode, and in eval mode too
+    where ``parts_in_eval``, it is the JAX package's ``ConcatConvBN``, a sum
+    of per-part convs (the weight split by input slice), each routed where
+    ``part_routes`` says (none routed: the plain conv, the same sum).  A
+    delayed-mode site keeps its running amax in a non-persistent buffer
+    (``x_amax``, a part's ``x_amax_p{i}``, 0 at first), out of the state dict.
+    ``qat`` False (``switch_off_int8``) makes it a plain ``Conv2d``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *, route: Optional[str],
+                 delayed: bool = False, int8_bwd: bool = False,
+                 parts: Optional[Sequence[int]] = None, part_routes: Sequence[bool] = (),
+                 parts_in_eval: bool = True, **kw):
+        super().__init__(in_ch, out_ch, kernel_size, **kw)
+        self.qat, self.route, self.int8_bwd = True, route, int8_bwd
+        self.parts = None if parts is None else tuple(parts)
+        self.part_routes, self.parts_in_eval = tuple(part_routes), parts_in_eval
+        if delayed and route == "st" and parts is None:
+            self.register_buffer("x_amax", torch.zeros(()), persistent=False)
+        for i, routed in enumerate(self.part_routes):
+            if delayed and routed:
+                self.register_buffer(f"x_amax_p{i}", torch.zeros(()), persistent=False)
+
+    def amax_buffers(self) -> dict:
+        """{buffer name: the running amax} of a delayed-mode site."""
+        return {k: v for k, v in self._buffers.items() if k.startswith("x_amax")}
+
+    def _parts_mode(self, training: bool) -> bool:
+        return self.qat and self.parts is not None and (training or self.parts_in_eval)
+
+    def runs_parts(self, training: bool) -> bool:
+        """Whether a forward in this mode sums per-part convs, some routed."""
+        return self._parts_mode(training) and any(self.part_routes)
+
+    def routed_sites(self, name: str, training: bool) -> list:
+        """The site keys this conv routes in a forward of this mode: ``name``,
+        or ``name#p{i}`` for each routed part."""
+        if self._parts_mode(training):
+            return [f"{name}#p{i}" for i, r in enumerate(self.part_routes) if r]
+        return [name] if self.qat and self.route else []
+
+    def switch_off(self) -> None:
+        self.qat = False
+        for k in list(self.amax_buffers()):
+            del self._buffers[k]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.runs_parts(self.training):
+            return self.forward_parts(torch.split(x, self.parts, dim=1))
+        if not self.qat or self.route is None or self._parts_mode(self.training):
+            return super().forward(x)
+        out = self._int8(x, self.weight.to(x.dtype), "x_amax", self.route)
+        return out if self.bias is None else out + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
+
+    def forward_parts(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The conv of the channel concatenation of ``parts`` as a sum of per-part
+        convs, in part order (a part may have a smaller spatial extent, which
+        broadcasts: the ASPP's pooled branch, 1 x 1)."""
+        w = self.weight.to(parts[0].dtype)
+        acc, off = None, 0
+        for i, (p, routed) in enumerate(zip(parts, self.part_routes)):
+            wp = w[:, off:off + p.shape[1]]
+            t = (self._int8(p, wp, f"x_amax_p{i}", "st") if routed else
+                 F.conv2d(p, wp, None, self.stride, self.padding, self.dilation))
+            acc = t if acc is None else acc + t
+            off += p.shape[1]
+        return acc if self.bias is None else acc + self.bias.to(acc.dtype).reshape(1, -1, 1, 1)
+
+    def _int8(self, x: torch.Tensor, w: torch.Tensor, amax_name: str, route: str):
+        from ..ops.int8_train import int8_conv_st, int8_conv_static_amax, int8_dilated_conv3x3
+
+        if route == "dilated":
+            return int8_dilated_conv3x3(x, w, self.dilation[0], self.int8_bwd,
+                                        across_ranks=self.training)
+        geometry = (self.stride, self.padding, self.dilation)
+        amax = self._buffers.get(amax_name)
+        if self.training and amax is not None:
+            out, new_amax = int8_conv_static_amax(x, w, amax, *geometry,
+                                                  int8_bwd=self.int8_bwd, across_ranks=True)
+            with torch.no_grad():
+                amax.copy_(new_amax)
+            return out
+        return int8_conv_st(x, w, *geometry, int8_bwd=self.int8_bwd, across_ranks=self.training)
+
+
+def qat_route(quant: QuantSpec, in_ch: int, out_ch: int, kernel_size: int, stride: int,
+              dilation: int, groups: int, default_padding: bool,
+              pointwise: bool = False) -> Tuple[Optional[str], bool]:
+    """(route, int8 backward) of a conv site by the JAX modules' rules: a
+    separable conv's pointwise half as a 1x1; else ``ConvBN``'s: groups 1 and
+    dilation < 6 as the conv itself (``"st"``), a 3x3 of dilation >= 6,
+    stride 1, groups 1 and torch padding as ``ShiftedDilatedConv``
+    (``"dilated"``); any other conv never routes."""
+    if not quant.int8:
+        return None, False
+    if pointwise:
+        fwd, bwd = quant.conv_routing(in_ch, out_ch, 1, 1)
+        return ("st" if fwd else None), bwd
+    if groups == 1 and dilation < 6:
+        fwd, bwd = quant.conv_routing(in_ch, out_ch, kernel_size, stride)
+        return ("st" if fwd else None), bwd
+    if kernel_size == 3 and stride == 1 and groups == 1 and default_padding:
+        fwd, bwd = quant.conv_routing(in_ch, out_ch, 3, 1)
+        return ("dilated" if fwd else None), bwd
+    return None, False
+
+
 def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
          dilation: int = 1, groups: int = 1, bias: bool = False,
-         padding: int | None = None) -> Conv2d:
+         padding: int | None = None, quant: QuantSpec = QUANT_OFF, pointwise: bool = False,
+         parts: Optional[Sequence[int]] = None, parts_in_eval: bool = True) -> Conv2d:
     """Conv2d with torch geometry (padding (k//2)*d) unless ``padding``
-    (per side) is given, as Xception's VALID stems give 0."""
-    if padding is None:
-        padding = torch_conv_padding(kernel_size, dilation)
-    return Conv2d(in_ch, out_ch, kernel_size, stride=stride, padding=padding,
-                  dilation=dilation, groups=groups, bias=bias)
+    (per side) is given, as Xception's VALID stems give 0; a ``QatConv2d``
+    where ``quant`` routes the site (``qat_route``; ``pointwise`` for a
+    separable conv's 1x1; ``parts`` for a concat conv, each part routed as a
+    1-stride conv of its own width)."""
+    kw = dict(stride=stride, dilation=dilation, groups=groups, bias=bias,
+              padding=torch_conv_padding(kernel_size, dilation) if padding is None else padding)
+    route, bwd = qat_route(quant, in_ch, out_ch, kernel_size, stride, dilation, groups,
+                           padding is None, pointwise)
+    part_routes = ()
+    if parts is not None and quant.int8:
+        routing = [quant.conv_routing(c, out_ch, kernel_size, 1) for c in parts]
+        part_routes = tuple(fwd for fwd, _ in routing)
+        bwd = bwd or any(b for _, b in routing)
+    if route is None and not any(part_routes):
+        return Conv2d(in_ch, out_ch, kernel_size, **kw)
+    delayed = quant.int8_scale_mode == "delayed" and not pointwise
+    return QatConv2d(in_ch, out_ch, kernel_size, route=route, delayed=delayed, int8_bwd=bwd,
+                     parts=parts, part_routes=part_routes, parts_in_eval=parts_in_eval, **kw)
+
+
+def switch_off_int8(model: nn.Module) -> None:
+    """End QAT on ``model`` in place (``int8_switch_iter``): every routed conv
+    runs as a plain ``Conv2d`` and drops its running amaxes, and every module
+    that QAT kept off a fused path (``qat``) takes it again.  The parameters,
+    and so an optimizer's references and state, are untouched."""
+    for m in model.modules():
+        if isinstance(m, QatConv2d):
+            m.switch_off()
+        elif getattr(m, "qat", False):
+            m.qat = False
+
+
+def quant_state(model: nn.Module) -> dict:
+    """{``<conv>.x_amax[_p{i}]``: the running amax} of every delayed-mode
+    site of ``model`` (empty without one)."""
+    return {f"{name}.{k}": v for name, m in model.named_modules()
+            if isinstance(m, QatConv2d) for k, v in m.amax_buffers().items()}
+
+
+def routed_sites(model: nn.Module, training: bool) -> list:
+    """The keys of the sites a forward of ``model`` in this mode routes
+    (``QatConv2d.routed_sites``), in module order."""
+    return [k for name, m in model.named_modules() if isinstance(m, QatConv2d)
+            for k in m.routed_sites(name, training)]
 
 
 class ConvBN(nn.Sequential):
@@ -162,8 +379,10 @@ class ConvBN(nn.Sequential):
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
                  strides: int = 1, dilation: int = 1, groups: int = 1,
-                 use_relu: bool = True, bn_epsilon: float = 1e-5):
-        layers = [conv(in_ch, features, kernel_size, strides, dilation, groups),
+                 use_relu: bool = True, bn_epsilon: float = 1e-5,
+                 quant: QuantSpec = QUANT_OFF, **conv_kw):
+        layers = [conv(in_ch, features, kernel_size, strides, dilation, groups, quant=quant,
+                       **conv_kw),
                   BatchNorm2d(features, eps=bn_epsilon)]
         if use_relu:
             layers.append(nn.ReLU(inplace=True))
@@ -175,11 +394,12 @@ class AtrousSeparableConv(nn.Module):
     conv, as ``body.0`` and ``body.1``: the key layout of the reference's
     ``AtrousSeparableConvolution``."""
 
-    def __init__(self, in_ch: int, features: int, dilation: int = 1):
+    def __init__(self, in_ch: int, features: int, dilation: int = 1,
+                 quant: QuantSpec = QUANT_OFF):
         super().__init__()
         self.body = nn.Sequential(
             conv(in_ch, in_ch, 3, dilation=dilation, groups=in_ch),
-            conv(in_ch, features, 1),
+            conv(in_ch, features, 1, quant=quant, pointwise=True),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -192,8 +412,9 @@ class SeparableConvBN(nn.Sequential):
     ``SeparableConvBN`` in ``ConvBN``'s key layout.  Depthwise convs run
     through cuDNN (``groups=``)."""
 
-    def __init__(self, in_ch: int, features: int, dilation: int = 1):
-        super().__init__(AtrousSeparableConv(in_ch, features, dilation),
+    def __init__(self, in_ch: int, features: int, dilation: int = 1,
+                 quant: QuantSpec = QUANT_OFF):
+        super().__init__(AtrousSeparableConv(in_ch, features, dilation, quant),
                          BatchNorm2d(features), nn.ReLU(inplace=True))
 
 

@@ -17,6 +17,9 @@ the block that turns uses the new dilation already.
 
 ``forward`` returns ``{'low_level': the 24-channel stage (stride 4), 'out':
 the 320-channel output}``.
+
+``quant`` routes the stem, expansion and projection convs for QAT as the JAX
+package's ``ConvBN`` does (a depthwise conv never routes).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm2d, conv
+from .layers import QUANT_OFF, BatchNorm2d, QuantSpec, conv
 
 # (expansion t, channels c, repeats n, stride s): MobileNetV2 paper table 2
 INVERTED_RESIDUAL_SETTINGS = (
@@ -43,8 +46,9 @@ class ConvBNReLU6(nn.Sequential):
     ``ConvBNReLU``, the JAX package's ``ConvBN(use_relu=False)`` + relu6."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
-                 dilation: int = 1, groups: int = 1):
-        super().__init__(conv(in_ch, out_ch, kernel_size, stride, dilation, groups),
+                 dilation: int = 1, groups: int = 1, quant: QuantSpec = QUANT_OFF):
+        super().__init__(conv(in_ch, out_ch, kernel_size, stride, dilation, groups,
+                              quant=quant),
                          BatchNorm2d(out_ch), nn.ReLU6(inplace=True))
 
 
@@ -53,13 +57,13 @@ class InvertedResidual(nn.Module):
     with the input added where the shape is kept."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, expand_ratio: int,
-                 dilation: int = 1):
+                 dilation: int = 1, quant: QuantSpec = QUANT_OFF):
         super().__init__()
         hidden = int(round(in_ch * expand_ratio))
         self.use_res = stride == 1 and in_ch == out_ch
-        layers = [ConvBNReLU6(in_ch, hidden, 1)] if expand_ratio != 1 else []
+        layers = [ConvBNReLU6(in_ch, hidden, 1, quant=quant)] if expand_ratio != 1 else []
         layers += [ConvBNReLU6(hidden, hidden, 3, stride, dilation, groups=hidden),
-                   conv(hidden, out_ch, 1), BatchNorm2d(out_ch)]
+                   conv(hidden, out_ch, 1, quant=quant), BatchNorm2d(out_ch)]
         self.conv = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -70,9 +74,10 @@ class InvertedResidual(nn.Module):
 class MobileNetV2(nn.Module):
     feature_channels = (24, 320)  # (low_level, out)
 
-    def __init__(self, output_stride: int = 16, in_channels: int = 3):
+    def __init__(self, output_stride: int = 16, in_channels: int = 3,
+                 quant: QuantSpec = QUANT_OFF):
         super().__init__()
-        layers = [ConvBNReLU6(in_channels, 32, 3, 2)]
+        layers = [ConvBNReLU6(in_channels, 32, 3, 2, quant=quant)]
         in_ch, current_stride, dilation = 32, 2, 1
         for stage_idx, (t, c, n, s) in enumerate(INVERTED_RESIDUAL_SETTINGS):
             for block_idx in range(n):
@@ -80,7 +85,7 @@ class MobileNetV2(nn.Module):
                 if stride > 1 and current_stride >= output_stride:
                     dilation *= stride
                     stride = 1
-                layers.append(InvertedResidual(in_ch, c, stride, t, dilation))
+                layers.append(InvertedResidual(in_ch, c, stride, t, dilation, quant))
                 in_ch, current_stride = c, current_stride * stride
             if stage_idx == 1:
                 self.low_level_index = len(layers)

@@ -26,6 +26,11 @@ ReLU on the way in, ``ops/kernels/fused_block.py``): stride 1, dilation 1,
 groups 1, base width 64 and an eligible shape; every other block, and every
 block in eval mode, runs its unfused modules.  The fused path uses the block's
 own modules, so the keys are the same there too.
+
+``quant`` (a ``QuantSpec``) routes the blocks' convs for QAT as the JAX
+package's ``ConvBN`` does; the stem never routes.  Under QAT the fused blocks
+stay off (``Bottleneck.qat``), as in the JAX package, until
+``switch_off_int8`` ends QAT.
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .layers import BatchNorm2d, FusedStemPool, conv, fused_stem_eligible
+from .layers import QUANT_OFF, BatchNorm2d, FusedStemPool, QuantSpec, conv, fused_stem_eligible
 
 
 class BasicBlock(nn.Module):
@@ -45,18 +50,18 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, planes: int, strides: int = 1,
                  dilation: int = 1, downsample: bool = False,
-                 groups: int = 1, base_width: int = 64):
+                 groups: int = 1, base_width: int = 64, quant: QuantSpec = QUANT_OFF):
         super().__init__()
         if groups != 1 or base_width != 64:
             raise ValueError("BasicBlock supports only groups=1, base_width=64")
-        self.conv1 = conv(in_ch, planes, 3, strides, dilation)
+        self.conv1 = conv(in_ch, planes, 3, strides, dilation, quant=quant)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv(planes, planes, 3, 1, dilation)
+        self.conv2 = conv(planes, planes, 3, 1, dilation, quant=quant)
         self.bn2 = BatchNorm2d(planes)
         self.relu1 = nn.ReLU(inplace=True)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(conv(in_ch, planes, 1, strides), BatchNorm2d(planes))
+            nn.Sequential(conv(in_ch, planes, 1, strides, quant=quant), BatchNorm2d(planes))
             if downsample else None
         )
 
@@ -75,31 +80,35 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_ch: int, planes: int, strides: int = 1,
                  dilation: int = 1, downsample: bool = False,
-                 groups: int = 1, base_width: int = 64, fused_mode: str = "never"):
+                 groups: int = 1, base_width: int = 64, fused_mode: str = "never",
+                 quant: QuantSpec = QUANT_OFF):
         super().__init__()
         # what the fused path's gate reads
         self.strides, self.dilation = strides, dilation
         self.groups, self.base_width, self.fused_mode = groups, base_width, fused_mode
+        self.qat = quant.int8
         width = int(planes * base_width / 64) * groups
         out_ch = planes * self.expansion
-        self.conv1 = conv(in_ch, width, 1)
+        self.conv1 = conv(in_ch, width, 1, quant=quant)
         self.bn1 = BatchNorm2d(width)
-        self.conv2 = conv(width, width, 3, strides, dilation, groups)
+        self.conv2 = conv(width, width, 3, strides, dilation, groups, quant=quant)
         self.bn2 = BatchNorm2d(width)
-        self.conv3 = conv(width, out_ch, 1)
+        self.conv3 = conv(width, out_ch, 1, quant=quant)
         self.bn3 = BatchNorm2d(out_ch)
         self.relu1 = nn.ReLU(inplace=True)
         self.relu2 = nn.ReLU(inplace=True)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = (
-            nn.Sequential(conv(in_ch, out_ch, 1, strides), BatchNorm2d(out_ch))
+            nn.Sequential(conv(in_ch, out_ch, 1, strides, quant=quant), BatchNorm2d(out_ch))
             if downsample else None
         )
 
     def fuses_on(self, device: torch.device) -> bool:
         """Whether an eligible input on ``device`` takes the fused path in
-        training mode: ``"auto"`` fuses on a CUDA device only."""
-        if (self.strides, self.dilation, self.groups, self.base_width) != (1, 1, 1, 64):
+        training mode: ``"auto"`` fuses on a CUDA device only; never under
+        QAT."""
+        if self.qat or (self.strides, self.dilation, self.groups,
+                        self.base_width) != (1, 1, 1, 64):
             return False
         if self.fused_mode == "auto":
             return device.type == "cuda"
@@ -145,7 +154,7 @@ class ResNet(nn.Module):
     def __init__(self, arch: str = "resnet50",
                  replace_stride_with_dilation: Sequence[bool] = (False, False, True),
                  in_channels: int = 3, fused_stem: str = "never",
-                 fused_blocks: str = "never"):
+                 fused_blocks: str = "never", quant: QuantSpec = QUANT_OFF):
         super().__init__()
         block, layer_sizes, groups, base_width = ARCHS[arch]
         self.feature_channels = resnet_feature_channels(arch)  # (low_level, out)
@@ -176,7 +185,7 @@ class ResNet(nn.Module):
                     downsample=first and (
                         stride != 1 or in_ch != planes * block.expansion
                     ),
-                    groups=groups, base_width=base_width, **fused_kw,
+                    groups=groups, base_width=base_width, quant=quant, **fused_kw,
                 ))
                 in_ch = planes * block.expansion
             self.add_module(f"layer{stage_idx + 1}", nn.Sequential(*layers))

@@ -17,6 +17,10 @@ A block's leading ReLU is not in place: the shortcut reads the block's input.
 
 ``forward`` returns ``{'low_level': block1's output (128 channels, stride
 4), 'out': the 2048-channel output}``.
+
+``quant`` routes the stems, the shortcuts and every separable conv's
+pointwise half for QAT, as the JAX package does (``SepConvBN``'s pointwise
+route takes dynamic scales only).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm2d, conv
+from .layers import QUANT_OFF, BatchNorm2d, QuantSpec, conv
 
 # (reps, start_with_relu) of each block (reference xception.py:139-153)
 XCEPTION_BLOCKS = {1: (2, False), 2: (2, True), 3: (2, True),
@@ -39,10 +43,11 @@ class SeparableConv2d(nn.Module):
     ``pointwise``: the reference's ``SeparableConv2d``.  With the BatchNorm
     that follows it, the JAX package's ``SepConvBN`` (no activation)."""
 
-    def __init__(self, in_ch: int, out_ch: int, dilation: int = 1):
+    def __init__(self, in_ch: int, out_ch: int, dilation: int = 1,
+                 quant: QuantSpec = QUANT_OFF):
         super().__init__()
         self.conv1 = conv(in_ch, in_ch, 3, 1, dilation, groups=in_ch)
-        self.pointwise = conv(in_ch, out_ch, 1)
+        self.pointwise = conv(in_ch, out_ch, 1, quant=quant, pointwise=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointwise(self.conv1(x))
@@ -55,7 +60,7 @@ class Block(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, reps: int, strides: int = 1,
                  start_with_relu: bool = True, grow_first: bool = True,
-                 dilation: int = 1):
+                 dilation: int = 1, quant: QuantSpec = QUANT_OFF):
         super().__init__()
         widths = [out_ch] if grow_first else []
         widths += [out_ch if grow_first else in_ch] * (reps - 1)
@@ -65,12 +70,12 @@ class Block(nn.Module):
         for i, w in enumerate(widths):
             if i > 0 or start_with_relu:
                 rep.append(nn.ReLU(inplace=i > 0))
-            rep += [SeparableConv2d(width, w, dilation), BatchNorm2d(w)]
+            rep += [SeparableConv2d(width, w, dilation, quant), BatchNorm2d(w)]
             width = w
         self.rep = nn.Sequential(*rep)
         self.strides = strides
         if out_ch != in_ch or strides != 1:
-            self.skip = conv(in_ch, out_ch, 1, strides)
+            self.skip = conv(in_ch, out_ch, 1, strides, quant=quant)
             self.skipbn = BatchNorm2d(out_ch)
         else:
             self.skip = None
@@ -86,12 +91,12 @@ class Xception(nn.Module):
     feature_channels = (128, 2048)  # (low_level, out)
 
     def __init__(self, replace_stride_with_dilation: Sequence[bool] = (False, False, False, True),
-                 in_channels: int = 3):
+                 in_channels: int = 3, quant: QuantSpec = QUANT_OFF):
         super().__init__()
-        self.conv1 = conv(in_channels, 32, 3, 2, padding=0)
+        self.conv1 = conv(in_channels, 32, 3, 2, padding=0, quant=quant)
         self.bn1 = BatchNorm2d(32)
         self.relu1 = nn.ReLU(inplace=True)
-        self.conv2 = conv(32, 64, 3, padding=0)
+        self.conv2 = conv(32, 64, 3, padding=0, quant=quant)
         self.bn2 = BatchNorm2d(64)
         self.relu2 = nn.ReLU(inplace=True)
         dilation = 1
@@ -110,11 +115,12 @@ class Xception(nn.Module):
             # the middle flow keeps block3's stride 1 and dilation
             s, d = stage(flags[n]) if n in flags else (1, dilation)
             self.add_module(f"block{n}", Block(
-                *widths[n], reps, s, start_with_relu, grow_first=n != 12, dilation=d))
-        self.conv3 = SeparableConv2d(1024, 1536, dilation)
+                *widths[n], reps, s, start_with_relu, grow_first=n != 12, dilation=d,
+                quant=quant))
+        self.conv3 = SeparableConv2d(1024, 1536, dilation, quant)
         self.bn3 = BatchNorm2d(1536)
         self.relu3 = nn.ReLU(inplace=True)
-        self.conv4 = SeparableConv2d(1536, 2048, dilation)
+        self.conv4 = SeparableConv2d(1536, 2048, dilation, quant)
         self.bn4 = BatchNorm2d(2048)
         self.relu4 = nn.ReLU(inplace=True)
 

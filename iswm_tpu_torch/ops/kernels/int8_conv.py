@@ -17,7 +17,12 @@ and the two TPU lowerings of a plain conv), as three entries:
 
 ``x_scale`` is a Python float (absmax / 127 in double, as calibration returns
 it), rounded to float32 once, at the kernel boundary, as the JAX package
-does.  A padding is an int, ``(ph, pw)`` (each side) or ``((top, bottom),
+does; or, for the quantize and the dense conv, a 0-d float32 tensor holding
+an AMAX on the tensor's device, from which the kernel forms the scale ``amax
+> 0 ? amax / 127 : 1`` (float32, IEEE division: ``jnp.where(amax > 0, amax /
+127.0, 1.0)`` of the JAX package's quantization-aware training,
+``iswm_tpu/ops/int8_train.py``), so that a scale computed on the card is
+never read back to the host.  The plain versions take either form.  A padding is an int, ``(ph, pw)`` (each side) or ``((top, bottom),
 (left, right))``.
 
 Each wrapper launches a kernel for a CUDA tensor and uses its plain version
@@ -34,7 +39,9 @@ the output rectangle of a block, BN, ring slots and K splits, from a cost
 model of the card (``block_bwd_ab.py --kind igemm --sweep`` times every
 plan); :func:`tile_taps` is its tap-skipping rule.  ``launches_quantize``,
 ``launches_igemm`` and ``launches_direct`` count the launches of each entry,
-``launches_by_body`` those of each body.
+``launches_by_body`` those of each body, ``launches_by_scale`` those of the
+quantize and the dense conv by where the scale came from (``host``: a float,
+``device``: an amax tensor).
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ launches_quantize = 0
 launches_igemm = 0
 launches_direct = 0
 launches_by_body = dict.fromkeys(("wgmma", "bytes", "tiled", "generic"), 0)
+launches_by_scale = {entry: dict.fromkeys(("host", "device"), 0)
+                     for entry in ("quantize", "igemm")}
 _lib = None
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -62,9 +71,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.iswm_int8_quantize.argtypes = [ptr, i32, f32, ptr, i32, i32, i64, ptr]
     lib.iswm_int8_quantize.restype = i32
+    lib.iswm_int8_quantize_amax.argtypes = [ptr, i32, ptr, ptr, i32, i32, i64, ptr]
+    lib.iswm_int8_quantize_amax.restype = i32
     ints = ctypes.POINTER(i32)
     lib.iswm_int8_conv_igemm.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, ints, ptr, ptr]
     lib.iswm_int8_conv_igemm.restype = i32
+    lib.iswm_int8_conv_igemm_amax.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, ints, ptr,
+                                              ptr]
+    lib.iswm_int8_conv_igemm_amax.restype = i32
     lib.iswm_int8_conv_direct.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, i32, i32, ptr]
     lib.iswm_int8_conv_direct.restype = i32
     lib.iswm_cuda_error_string.argtypes = [i32]
@@ -112,10 +126,38 @@ def conv_geometry(x_shape, w_shape, stride=1, padding=0, dilation=1, groups=1) -
                 pw=pl, dh=dh, dw=dw, pads=((pt, pb), (pl, pr)))
 
 
+# ---------------------------------------------------------------- scales
+def ieee_div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b``, correctly rounded on any device: on a CUDA tensor PyTorch
+    divides by a Python number as a product with its reciprocal, which may
+    differ in the last bit; a tensor divisor gives a true division."""
+    return a / torch.full_like(a, b)
+
+
+def scale_of(x_scale, device) -> torch.Tensor:
+    """The float32 scale, 0-d on ``device``, of either form of ``x_scale``: a
+    float, or an amax tensor (``amax > 0 ? amax / 127 : 1``)."""
+    if isinstance(x_scale, torch.Tensor):
+        amax = x_scale.to(device=device, dtype=torch.float32)
+        return torch.where(amax > 0, ieee_div(amax, 127.0), torch.ones_like(amax))
+    return torch.tensor(x_scale, dtype=torch.float32, device=device)
+
+
+def _scale_arg(x_scale, device, name: str) -> tuple:
+    """(C entry suffix, argument, source) of ``x_scale`` on the card: a float
+    goes by value, an amax tensor by its device pointer."""
+    if not isinstance(x_scale, torch.Tensor):
+        return "", float(x_scale), "host"
+    if x_scale.dtype != torch.float32 or x_scale.numel() != 1 or x_scale.device != device:
+        raise ValueError(f"{name}: the amax must be one float32 on {device}, got "
+                         f"{x_scale.dtype} {tuple(x_scale.shape)} on {x_scale.device}")
+    return "_amax", x_scale.data_ptr(), "device"
+
+
 # ---------------------------------------------------------------- quantize
-def quantize_s8_plain(x: torch.Tensor, x_scale: float) -> torch.Tensor:
+def quantize_s8_plain(x: torch.Tensor, x_scale) -> torch.Tensor:
     """``clip(round(x / x_scale), -127, 127)`` as int8, in float32."""
-    xs = torch.tensor(x_scale, dtype=torch.float32, device=x.device)
+    xs = scale_of(x_scale, x.device)
     return torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
 
 
@@ -133,7 +175,7 @@ def _rows(x: torch.Tensor) -> tuple[int, int, int]:
     return x.numel() // max(c, 1), c, ld
 
 
-def quantize_s8(x: torch.Tensor, x_scale: float) -> torch.Tensor:
+def quantize_s8(x: torch.Tensor, x_scale) -> torch.Tensor:
     """bf16 / f32 x [..., C] -> int8 codes of x's shape, contiguous.  On the
     card x may be a channel slice of a contiguous NHWC tensor (rows of one
     stride)."""
@@ -146,6 +188,7 @@ def quantize_s8(x: torch.Tensor, x_scale: float) -> torch.Tensor:
     p, c, ld = _rows(x)
     if p * c >= 2**31:
         raise ValueError(f"quantize_s8: {p * c} values do not fit the kernel's int indices")
+    suffix, scale, source = _scale_arg(x_scale, x.device, "quantize_s8")
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if p == 0 or c == 0:
         return out
@@ -153,9 +196,10 @@ def quantize_s8(x: torch.Tensor, x_scale: float) -> torch.Tensor:
     global launches_quantize
     with torch.cuda.device(x.device):
         launches_quantize += 1
-        rc = lib.iswm_int8_quantize(x.data_ptr(), int(x.dtype == torch.bfloat16), x_scale,
-                                    out.data_ptr(), p, c, ld,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
+        launches_by_scale["quantize"][source] += 1
+        rc = getattr(lib, f"iswm_int8_quantize{suffix}")(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale, out.data_ptr(), p, c, ld,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, lib, "quantize_s8")
     return out
 
@@ -187,8 +231,7 @@ def conv_s8_plain(x_q, w_q, w_scale, x_scale, bias=None, stride=1, padding=0,
     acc = F.conv2d(xd, w_q.permute(0, 3, 1, 2).double(), None, (g["sh"], g["sw"]), 0,
                    (g["dh"], g["dw"]), groups)
     acc = torch.round(acc).to(torch.int32).permute(0, 2, 3, 1)
-    xs = torch.tensor(x_scale, dtype=torch.float32, device=x_q.device)
-    out = acc.float() * xs * w_scale.float().reshape(-1)
+    out = acc.float() * scale_of(x_scale, x_q.device) * w_scale.float().reshape(-1)
     if bias is not None:
         out = out + bias.float().reshape(-1)
     return out.contiguous().to(out_dtype)
@@ -387,6 +430,9 @@ def _launch(kind: str, x_q, w_q, w_scale, x_scale, bias, stride, padding, dilati
     k = w_q[0].numel()
     if k * 127 * 127 >= 2**31:
         raise ValueError(f"{name}: K = {k} overflows the int32 sum")
+    suffix, scale, source = _scale_arg(x_scale, x_q.device, name)
+    if suffix and kind != "igemm":
+        raise ValueError(f"{name} takes its scale from the host (a float), not an amax tensor")
     out_bytes = 2 if out_dtype == torch.bfloat16 else 4
     plan = None
     if kind == "igemm":
@@ -427,14 +473,15 @@ def _launch(kind: str, x_q, w_q, w_scale, x_scale, bias, stride, padding, dilati
     with torch.cuda.device(x_q.device):
         stream = torch.cuda.current_stream(x_q.device).cuda_stream
         args = (x_q.data_ptr(), w.data_ptr(), ws.data_ptr(),
-                None if bs is None else bs.data_ptr(), x_scale, out.data_ptr(),
+                None if bs is None else bs.data_ptr(), scale, out.data_ptr(),
                 int(out_dtype == torch.bfloat16), geom)
         launches_by_body[body] += 1
         if kind == "igemm":
             launches_igemm += 1
-            rc = lib.iswm_int8_conv_igemm(*args, (ctypes.c_int * 6)(*plan),
-                                          None if partial is None else partial.data_ptr(),
-                                          stream)
+            launches_by_scale["igemm"][source] += 1
+            rc = getattr(lib, f"iswm_int8_conv_igemm{suffix}")(
+                *args, (ctypes.c_int * 6)(*plan),
+                None if partial is None else partial.data_ptr(), stream)
         else:
             launches_direct += 1
             rc = lib.iswm_int8_conv_direct(*args, groups, 0 if body == "tiled" else 1, stream)
@@ -443,7 +490,7 @@ def _launch(kind: str, x_q, w_q, w_scale, x_scale, bias, stride, padding, dilati
 
 
 def conv_s8_igemm(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-                  x_scale: float, bias: torch.Tensor | None = None, stride=1, padding=0,
+                  x_scale, bias: torch.Tensor | None = None, stride=1, padding=0,
                   dilation=1, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Dense int8 conv (see the module docstring): x_q [B, H, W, C] int8,
     w_q [N, KH, KW, C] int8 -> [B, Ho, Wo, N] in ``out_dtype`` (float32 or

@@ -8,7 +8,11 @@ same policy and a reference-format ``.pth`` payload in place of Orbax:
   - a warning when less than 1 GB of disk is free;
   - payload: ``model_state`` (the reference key layout) + ``optimizer_state``,
     ``scheduler_state``, ``cur_itrs``, ``best_score``, ``weighted_score``,
-    ``val_score``, ``save_time``, ``model_config``.
+    ``val_score``, ``save_time``, ``model_config``;
+  - ``quant``, where the model carries the running amaxes of delayed-mode
+    QAT: ``{<conv>.x_amax[_p{i}]: 0-d float32}``, beside ``model_state`` and
+    not in it (the JAX package's "quant" sidecar), so that the state dict
+    stays the reference layout.
 
 ``iswm_tpu.compat.torch_import.load_reference_checkpoint`` reads the
 payload, so the JAX package loads what the port trains.  ``restore``
@@ -27,6 +31,7 @@ from typing import Any, Optional
 
 import torch
 
+from ..models.layers import quant_state
 from .step import TrainState
 
 MIN_FREE_BYTES = 1 << 30  # 1 GB warning threshold
@@ -81,6 +86,9 @@ def _save(path: str, state: TrainState, **meta: Any) -> str:
         "save_time": time.strftime("%Y-%m-%d %H:%M:%S"),
         **_plain(meta),
     }
+    quant = quant_state(state.model)
+    if quant:
+        payload["quant"] = _to_cpu(quant)
     tmp = os.path.join(directory, f".tmp_{os.path.basename(path)}_{os.getpid()}")
     torch.save(payload, tmp)
     os.replace(tmp, path)  # atomic publish
@@ -129,15 +137,27 @@ def find_latest(checkpoints_dir: str) -> Optional[str]:
     return p if os.path.isfile(p) else None
 
 
+def load_quant(path: str) -> dict:
+    """The running amaxes a checkpoint carries (``quant``; empty without)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return dict(payload.get("quant", {})) if isinstance(payload, dict) else {}
+
+
 def restore(path: str, state: TrainState, continue_training: bool) -> dict:
-    """Load a checkpoint into ``state`` (model weights, ``strict=True``; with
-    ``continue_training`` also the optimizer, scheduler and step).  Returns
-    the payload's metadata."""
+    """Load a checkpoint into ``state`` (model weights, ``strict=True``, and
+    the running amaxes of the sites the model and the checkpoint both have;
+    with ``continue_training`` also the optimizer, scheduler and step).
+    Returns the payload's metadata."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model_state"], strict=True)
+    amaxes = quant_state(state.model)
+    with torch.no_grad():
+        for key, value in payload.get("quant", {}).items():
+            if key in amaxes:
+                amaxes[key].copy_(value)
     if continue_training:
         state.optimizer.load_state_dict(payload["optimizer_state"])
         state.scheduler.load_state_dict(payload["scheduler_state"])
         state.step = int(payload["cur_itrs"])
     return {k: v for k, v in payload.items()
-            if k not in ("model_state", "optimizer_state", "scheduler_state")}
+            if k not in ("model_state", "optimizer_state", "scheduler_state", "quant")}

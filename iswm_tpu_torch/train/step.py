@@ -7,6 +7,11 @@ tensor and reads nothing back, so it makes no host sync.  Images enter
 channels last, [B, H, W, C], as in the JAX package; the NCHW view the model
 takes is a permute (channels-last memory, no copy).
 
+Under quantization-aware training the train forward (the model in train
+mode) updates the delayed mode's running amaxes; the eval forward (eval mode)
+quantizes with each tensor's own amax in either mode, as the JAX package's
+eval step, which applies the model without its "quant" collection.
+
 In a process group the step runs through ``data_parallel``'s
 ``DistributedDataParallel`` wrapper, whose gradient reduction SUMS over the
 ranks (the JAX package's psum) where DDP's default averages: with the

@@ -15,6 +15,12 @@ runs this loop on its rows of each global batch of ``cfg.data.batch_size``,
 through the data-parallel step (``train/step.py``); validation, quick-eval,
 checkpoints, logs and plots run on rank 0 while the others wait.
 
+Quantization-aware training (``model.int8_training``) runs in the model's
+routed convs; with ``train.int8_switch_iter`` the iterations from that one on
+run the plain model: the same modules with QAT switched off
+(``switch_off_int8``), so the optimizer's parameters and state carry over,
+and the delayed mode's running amaxes are dropped.
+
 What the port does not carry yet is refused with ``NotImplementedError``
 naming its ROADMAP item (``refuse_unported``).
 """
@@ -39,6 +45,7 @@ from ..data.transforms import AugmentConfig
 from ..metrics import StreamMetrics
 from ..metrics.device import DeviceEvalAccumulator
 from ..models import build_model
+from ..models.layers import switch_off_int8
 from ..ops.losses import make_loss_fn
 from ..parallel import SPATIAL_ITEM, is_initialized, local_device, make_mesh, rank
 from . import checkpoint as ckpt_lib
@@ -52,9 +59,9 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not port."""
     q1 = "ROADMAP.md Queue 1"
     checks = (
-        (bool(cfg.model.int8_training) or bool(cfg.train.int8_switch_iter),
-         f"int8_training / int8_switch_iter (QAT) are not ported yet ({q1}, "
-         "'Quantization-aware training')"),
+        (bool(cfg.model.int8_training) and bool(cfg.model.int8_training_bwd),
+         f"int8_training_bwd (the int8 backward of QAT) is not ported yet ({q1}, "
+         "'Quantization-aware training, int8 backward')"),
         (cfg.parallel.remat,
          f"parallel.remat is not ported yet ({q1}, 'Activation rematerialization')"),
         (cfg.parallel.model_axis > 1,
@@ -155,6 +162,8 @@ class Trainer:
         self.train_step = make_train_step(self.loss_fn, augment=self.augment,
                                           generator=self.generator)
         self.eval_step = make_eval_step(model, want=("preds",))
+        # the int8 -> plain switch (0: none)
+        self._switch_iter = cfg.train.int8_switch_iter if cfg.model.int8_training else 0
         self.best_score: Optional[Dict[str, float]] = None
         self.best_weighted = 0.0
         self.best_path: Optional[str] = None
@@ -237,6 +246,8 @@ class Trainer:
         try:
             while self.state.step < cfg.train.total_itrs:
                 step = self.state.step
+                if self._switch_iter and step >= self._switch_iter:
+                    self._switch_to_plain()
                 if cfg.train.profile_steps:
                     if step == cfg.train.profile_start and profiler is None:
                         profiler = self._start_profiler()
@@ -280,6 +291,20 @@ class Trainer:
             if self.logger is not None:
                 self._stop_logging()
         return {"best_weighted_score": self.best_weighted}
+
+    def _switch_to_plain(self) -> None:
+        """int8-early / plain-finish (``train.int8_switch_iter``): QAT off on
+        the model's own modules; parameters, BatchNorm statistics and the
+        optimizer's state carry over, the running amaxes are dropped."""
+        import dataclasses
+
+        model = self.state.model
+        switch_off_int8(model)
+        model.quant = dataclasses.replace(model.quant, int8_min_channels=0, int8_bwd=False)
+        if self.lead:
+            print(f"[int8_switch @ {self.state.step}] train step switched int8 -> "
+                  f"{self.cfg.model.compute_dtype} (hybrid schedule)")
+        self._switch_iter = 0
 
     def _log_losses(self, step: int, avg: float, steps: int, t0: float) -> None:
         cfg = self.cfg

@@ -55,6 +55,7 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
             "ce": [_sharded_ce(case) for case in payload["ce_cases"]],
             "bn": [_batchnorm(case) for case in payload["bn_cases"]],
             "step": _train_step(payload["step"]),
+            "qat": _train_step(payload["step"], qat=True),
             "refusals": _refusals(),
             "fit": _fit(payload["fit_dir"]),
         }
@@ -152,30 +153,40 @@ def _dropout_off(model) -> None:
             m.p = 0.0
 
 
-def _train_step(case: dict) -> dict:
+QAT = dict(int8_training=64, int8_scale_mode="delayed")  # the QAT step's model
+
+
+def _train_step(case: dict, qat: bool = False) -> dict:
     """One data-parallel step of resnet18 from the crossed weights on this
     rank's rows: the sharded CE (plain versions), the cross-replica
-    BatchNorm and the summing gradient reduction."""
+    BatchNorm and the summing gradient reduction; with ``qat``, of the
+    delayed-mode QAT model (``QAT``), its amaxes taken over both ranks."""
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig, OptimConfig
     from iswm_tpu_torch.models import build_model, layers
+    from iswm_tpu_torch.ops import int8_train
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
     from iswm_tpu_torch.train.step import data_parallel
 
-    model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32"))
+    model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32",
+                                    **(QAT if qat else {})))
     model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
     _dropout_off(model)
     factory, _ = make_optimizer(OptimConfig(), TOTAL)
     state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     all_reduces = layers.cross_replica_all_reduces
+    amax_reduces = int8_train.amax_all_reduces
     loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
         state, torch.from_numpy(_rows(case["images"])), torch.from_numpy(_rows(case["labels"])))
     return {"loss": float(loss), "before": before,
             "after": {k: v.clone() for k, v in model.state_dict().items()},
             "count": state.step,
             "all_reduces": layers.cross_replica_all_reduces - all_reduces,
+            "amax_all_reduces": int8_train.amax_all_reduces - amax_reduces,
+            "amaxes": {k: v.clone() for k, v in layers.quant_state(model).items()},
+            "routed": len(layers.routed_sites(model, True)),
             "batchnorms": sum(isinstance(m, layers.BatchNorm2d) for m in model.modules())}
 
 

@@ -102,10 +102,14 @@ def test_logits_match_jax(tmp_path, backbone, output_stride):
 
 
 def test_unported_backbone_and_head_are_refused():
-    """Every backbone and head builds; what stays refused names its ROADMAP
-    item, and unknown names are errors as in the JAX package."""
-    with pytest.raises(NotImplementedError, match="'Quantization-aware training'"):
-        build_model_by_name("deeplabv3plus_mobilenet", int8_training=64)
+    """Every backbone and head builds, QAT ones too; what stays refused names
+    its ROADMAP item, and unknown names are errors as in the JAX package."""
+    from iswm_tpu_torch.models.layers import routed_sites
+
+    assert routed_sites(build_model_by_name("deeplabv3plus_mobilenet", int8_training=64), True)
+    with pytest.raises(NotImplementedError,
+                       match="'Quantization-aware training, int8 backward'"):
+        build_model_by_name("deeplabv3plus_mobilenet", int8_training=64, int8_training_bwd=True)
     with pytest.raises(NotImplementedError, match="'Low-precision parameters'"):
         build_model_by_name("deeplabv3_resnet50", param_dtype="bfloat16")
     with pytest.raises(ValueError, match="unknown backbone"):

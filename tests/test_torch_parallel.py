@@ -20,7 +20,11 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   ``make_train_step`` with ``make_loss_fn(mesh=...)`` on the 2-device mesh, at
   that file's tolerances (loss 1e-5 relative, statistics 1e-5, each update
   1e-3 * max + one ulp) on its batch seed 1, which has no flipped decision
-  here either; both ranks end with equal parameters;
+  here either; both ranks end with equal parameters; the same step of the
+  delayed-mode QAT model (gate 64) against the one-process QAT step on the
+  whole batch at those tolerances, its new amaxes within 1e-6 relative (a
+  max over both ranks' rows, one all-reduce a routed site, the same on both
+  ranks; a rank's own rows give other amaxes);
 - (e) refusals at world size 2: ``model_axis > 1``, the fused stem and blocks
   under ``always`` / ``interpret``; ``auto`` resolves to ``never``;
   ``data_axis`` other than the world size and a batch that does not divide;
@@ -296,6 +300,50 @@ def test_two_rank_train_step_matches_jax_two_device_step(ranks):
         assert torch.equal(v, steps[1]["after"][k]), k
     port = [(steps[0]["loss"], steps[0]["before"], steps[0]["after"], steps[0]["count"])]
     _check_step((jax_losses, sds, port), 0)
+
+
+def test_two_rank_qat_step_matches_one_process_step(ranks):
+    """QAT's activation amaxes are taken over the global batch (an all-reduce
+    with MAX a routed site): the 2-rank step is the one-process step."""
+    from iswm_tpu_torch.compat import load_checkpoint
+    from iswm_tpu_torch.config import ModelConfig, OptimConfig
+    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.models.layers import quant_state
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    from ._torch_dist import QAT, _dropout_off
+
+    case = ranks["payload"]["step"]
+    steps = [seen["qat"] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["amax_all_reduces"] == s["routed"] > 20
+        assert s["loss"] == steps[0]["loss"]
+        for k, v in s["amaxes"].items():
+            assert torch.equal(v, steps[0]["amaxes"][k]), k
+    for k, v in steps[0]["after"].items():
+        assert torch.equal(v, steps[1]["after"][k]), k
+
+    def one_process(rows):
+        model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32", **QAT))
+        model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
+        _dropout_off(model)
+        factory, _ = make_optimizer(OptimConfig(), TOTAL)
+        state = TrainState(model, *factory(model.parameters()), 0)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
+            state, torch.from_numpy(case["images"][rows]), torch.from_numpy(case["labels"][rows]))
+        return float(loss), before, model.state_dict(), quant_state(model)
+
+    loss, before, after, amaxes = one_process(slice(None))
+    assert set(amaxes) == set(steps[0]["amaxes"])
+    for k, v in amaxes.items():
+        torch.testing.assert_close(steps[0]["amaxes"][k], v, rtol=1e-6, atol=0)
+    own = one_process(slice(0, len(case["images"]) // WORLD))[3]
+    assert any(float(own[k]) != float(v) for k, v in amaxes.items())
+    sds = [{k: v.numpy() for k, v in d.items()} for d in (before, after)]
+    _check_step(([loss], sds, [(steps[0]["loss"], steps[0]["before"], steps[0]["after"],
+                                steps[0]["count"])]), 0)
 
 
 # ----------------------------------------------------------- (e) refusals

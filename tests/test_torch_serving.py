@@ -144,10 +144,17 @@ def test_unported_variants_are_refused(crossed):
         model, "int8_exec", conv_scales=scales).routed_sites
     with pytest.raises(ValueError, match="act_scales"):  # ported: needs its calibration
         pq.make_variant_fn(model, "int8_act")
-    with pytest.raises(NotImplementedError, match="'Quantization-aware training'"):
-        from iswm_tpu_torch.models import build_model_by_name
+    # a QAT model serves: its routed convs run int8 with dynamic scales in
+    # eval mode; only QAT's int8 backward stays refused
+    from iswm_tpu_torch.models import build_model_by_name
 
-        build_model_by_name("deeplabv3plus_resnet18", int8_training=64)
+    qat = build_model_by_name("deeplabv3plus_resnet18", int8_training=64,
+                              compute_dtype="float32")
+    qat.load_state_dict(model.state_dict(), strict=True)
+    assert torch.isfinite(pq.make_variant_fn(qat, "bf16")(x)).all()
+    with pytest.raises(NotImplementedError,
+                       match="'Quantization-aware training, int8 backward'"):
+        build_model_by_name("deeplabv3plus_resnet18", int8_training=64, int8_training_bwd=True)
 
 
 @pytest.mark.parametrize("hw", [(100, 150), (20, 25)])  # ragged; under half a tile

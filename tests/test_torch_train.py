@@ -368,23 +368,55 @@ def test_dropout_rate_and_scaling():
 
 
 REFUSED = {
-    "int8_training": (("model", "int8_training", 64), "Quantization-aware training"),
-    "int8_switch": (("train", "int8_switch_iter", 10), "Quantization-aware training"),
-    "remat": (("parallel", "remat", True), "rematerialization"),
-    "devices": (("parallel", "model_axis", 2), "Spatial model axis"),
+    "int8_bwd": ((("model", "int8_training", 64), ("model", "int8_training_bwd", True)),
+                 "Quantization-aware training, int8 backward"),
+    "remat": ((("parallel", "remat", True),), "rematerialization"),
+    "devices": ((("parallel", "model_axis", 2),), "Spatial model axis"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_are_refused(name):
-    (section, key, value), item = REFUSED[name]
+    settings, item = REFUSED[name]
     cfg = Config()
     refuse_unported(cfg)  # the defaults pass
-    setattr(getattr(cfg, section), key, value)
+    for section, key, value in settings:
+        setattr(getattr(cfg, section), key, value)
     with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1.*{item}"):
         refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+
+
+# the QAT options these tests refused before QAT was ported, and which
+# ModelConfig fields they set
+ACCEPTED = {
+    "int8_training": (("model", "int8_training", 64),),
+    "int8_switch": (("model", "int8_training", 64), ("train", "int8_switch_iter", 10)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED))
+def test_qat_options_are_accepted(name, tmp_path):
+    """QAT and its int8 -> plain switch pass ``refuse_unported`` and build a
+    Trainer whose model routes convs; ``int8_switch_iter`` alone, without
+    ``int8_training``, switches nothing, as in the JAX package."""
+    from iswm_tpu_torch.data import ArrayDataset
+    from iswm_tpu_torch.models.layers import routed_sites
+
+    cfg = Config()
+    for section, key, value in ACCEPTED[name]:
+        setattr(getattr(cfg, section), key, value)
+    refuse_unported(cfg)
+    for key in ("checkpoints_dir", "log_dir", "val_results_dir", "metrics_plots_dir"):
+        setattr(cfg.train, key, str(tmp_path / key))
+    cfg.model.backbone = "resnet18"
+    ds = ArrayDataset(np.zeros((2, 8, 8, 3), np.uint8), np.zeros((2, 8, 8), np.uint8))
+    trainer = Trainer(cfg, device="cpu", train_ds=ds, val_ds=ds)
+    assert routed_sites(trainer.state.model, True)
+    assert trainer._switch_iter == cfg.train.int8_switch_iter
+    cfg.model.int8_training = 0
+    assert Trainer(cfg, device="cpu", train_ds=ds, val_ds=ds)._switch_iter == 0
 
 
 def imagenet_file(path, backbone, seed=0):
