@@ -63,6 +63,13 @@ the root of the checkout:
     python3 block_bwd_ab.py --kind igemm --base build/int8_conv_base.cu [--edit ...]
     python3 block_bwd_ab.py --kind direct --base build/int8_conv_base.cu
 
+``--kind wgrad`` compares QAT's int8 weight gradient (``conv_s8_wgrad`` of
+``int8_conv.cu``) at the real codes and cotangents of one int8-backward QAT
+step of ResNet-50 (batch 8 at 512^2, gate 256), each distinct shape once,
+weighted by its sites, each build held to the plain version's bits:
+
+    python3 block_bwd_ab.py --kind wgrad --base build/int8_conv_base.cu [--edit ...]
+
 With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem``, ``ce``
 or ``igemm``, no base) it times instead the checkout's build under every plan
 that fits (int8: rows of a strip, ring stages, N groups, K splits, for both
@@ -1046,17 +1053,74 @@ def sweep_igemm(args, lib, cold) -> None:
     args.out.write_text(json.dumps({"kind": "igemm sweep", "shapes": rows}))
 
 
+def time_wgrad(args, libs: dict, cold) -> None:
+    """conv_s8_wgrad of every build at one int8-backward QAT step's shapes
+    (the wrapper's plan, each build's kernels through ``kc._lib``)."""
+    from iswm_tpu_torch.models import build_model_by_name
+
+    model = build_model_by_name("deeplabv3plus_resnet50", int8_training=cs.QAT_GATE,
+                                int8_training_bwd=True)
+    model.to("cuda", memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    yu8 = torch.randint(0, 2, (8, 512, 512), generator=gen, device="cuda")
+    calls = [(a, k) for kind, a, k in cs._qat_bwd_calls(model, x, yu8) if kind == "wgrad"]
+    del model, x
+    shapes = {}
+    for a, k in calls:
+        key = (tuple(a[0].shape), tuple(a[1].shape), str(a[4:]))
+        shapes.setdefault(key, [a, k, 0])[2] += 1
+    order = list(libs) + list(libs)[::-1]
+    head_lib, totals, rows, differ = kc._lib, dict.fromkeys(libs, 0.0), [], []
+
+    def run(lib, a, k):
+        def call():
+            kc._lib = lib
+            return kc.conv_s8_wgrad(*a, **k)
+        return call
+
+    for key, (a, k, count) in shapes.items():
+        want = kc.conv_s8_wgrad_plain(*a, **k)
+        for name, lib in libs.items():
+            got = run(lib, a, k)()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                differ.append(f"{name} at {key}")
+        times = {name: [] for name in libs}
+        for name in order:
+            times[name].append(cold(run(libs[name], a, k)))
+        row = {"shape": [list(key[0]), list(key[1]), key[2]], "count": count,
+               "splits": kc.wgrad_splits(kc.conv_geometry(
+                   a[0].shape, (a[1].shape[3], *a[4], a[0].shape[3]), *a[5:8])),
+               "bound_ms": cs._bwd_bound("wgrad", a, k)["bound_ms"],
+               **{name: sum(v) / len(v) for name, v in times.items()}}
+        for name in libs:
+            totals[name] += count * row[name]
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+    kc._lib = head_lib
+    for name, total in totals.items():
+        print(f"[ab] conv_s8_wgrad over one step's {len(calls)} sites, {name}: {total:.4f} ms")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
+                                    "differs": differ}))
+    if differ:
+        raise SystemExit("builds differ from the plain version: " + "; ".join(differ))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path,
                         help="a fused_block.cu (int8_matmul.cu, fused_stem.cu) to compare; "
                              "not with --sweep")
     parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem", "ce",
-                                           "igemm", "direct"),
+                                           "igemm", "direct", "wgrad"),
                         default="mm",
                         help="the 1x1 backward (#7b), the 3x3 (#8b), their forwards (#7a, "
                              "#8a), the int8 1x1 (#1, #2), the stem's backward (#11a, #11b), "
-                             "the fused CE (#4) or int8_exec_xla's dense or grouped int8 conv")
+                             "the fused CE (#4), int8_exec_xla's dense or grouped int8 conv or "
+                             "QAT's int8 weight gradient")
     parser.add_argument("--edit", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then one or more OLD=>NEW")
     parser.add_argument("--sweep", action="store_true",
@@ -1070,13 +1134,15 @@ def main() -> None:
     cs.phase_device()
     module, stem = {"int8": (k8, "int8_matmul"), "stem": (fs, "fused_stem"),
                     "ce": (ce, "fused_ce"), "igemm": (kc, "int8_conv"),
-                    "direct": (kc, "int8_conv")}.get(args.kind, (fb, "fused_block"))
+                    "direct": (kc, "int8_conv"), "wgrad": (kc, "int8_conv")}.get(
+        args.kind, (fb, "fused_block"))
     bind = bind_conv if module is kc else module.bind
     base_bind = bind
     if module is kc and args.base is not None and "out_bf16" not in args.base.read_text():
         base_bind = functools.partial(bind_conv, pr15=True)
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
-    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct")):
+    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct",
+                                                                         "wgrad")):
         parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem, ce or igemm")
     jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", base_bind)}
     jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", bind))
@@ -1099,7 +1165,7 @@ def main() -> None:
         time_forward(args, libs, cold)
     else:
         {"int8": time_int8, "stem": time_stem, "ce": time_ce, "igemm": time_conv,
-         "direct": time_conv}.get(args.kind, time_blocks)(args, libs, cold)
+         "direct": time_conv, "wgrad": time_wgrad}.get(args.kind, time_blocks)(args, libs, cold)
 
 
 if __name__ == "__main__":

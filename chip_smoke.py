@@ -4135,6 +4135,291 @@ def phase_qat_train(kc, smi: str) -> dict:
     return {e: dict(v) for e, v in kc.launches_by_scale.items()}
 
 
+# ------------------------------------------------- QAT's int8 backward
+def _qat_bwd_calls(model, x, yu8) -> list:
+    """The two backward entries' calls of one forward and backward of
+    ``model`` on ``x`` (train mode, a cross-entropy on ``yu8``), in order:
+    ("dgrad" | "wgrad", args, kwargs), the arguments as the entries got them
+    (the real cotangents and codes)."""
+    from iswm_tpu_torch.ops import int8_train
+
+    calls, saved = [], {}
+    for name in ("dgrad", "wgrad"):
+        fn = saved[name] = getattr(int8_train, f"conv_s8_{name}")
+
+        def record(*a, name=name, fn=fn, **k):
+            calls.append((name, a, k))
+            return fn(*a, **k)
+
+        setattr(int8_train, f"conv_s8_{name}", record)
+    try:
+        model.train()
+        logits = model(x)
+        torch.nn.functional.cross_entropy(logits.float(), yu8.long()).backward()
+    finally:
+        for name, fn in saved.items():
+            setattr(int8_train, f"conv_s8_{name}", fn)
+    model.zero_grad(set_to_none=True)
+    return calls
+
+
+def _bwd_bound(kind: str, a, k) -> dict:
+    """The least time of one backward entry's call: its operands read once
+    and its output written once, or its products (2 N C a valid tap of an
+    output pixel of the forward, as the forward's) at the int8 rate."""
+    if kind == "dgrad":
+        g_q, w_q, _, _, x_hw = a[:5]
+        b, ho, wo, n = g_q.shape
+        c, kh, kw = w_q.shape[:3]
+        h, w = x_hw
+        out = b * h * w * c
+        nbytes = g_q.numel() + w_q.numel() + out * k["out_dtype"].itemsize
+    else:
+        x_q, g_q, _, _, kernel = a[:5]
+        b, h, w, c = x_q.shape
+        n = g_q.shape[3]
+        kh = kw = kernel if isinstance(kernel, int) else kernel[0]
+        nbytes = x_q.numel() + g_q.numel() + n * c * kh * kw * k["out_dtype"].itemsize
+    stride, pad, dil = (v if isinstance(v, int) else v[0] for v in a[5:8])
+    ho = (h + 2 * pad - dil * (kh - 1) - 1) // stride + 1
+    wo = (w + 2 * pad - dil * (kw - 1) - 1) // stride + 1
+    taps = _valid_taps(h, ho, kh, stride, pad, dil) * _valid_taps(w, wo, kw, stride, pad, dil)
+    ops = 2 * b * taps * n * c
+    return {"bytes": nbytes, "ops": ops, **least_time(nbytes, ops, INT8_OPS_PER_S)}
+
+
+def _bwd_library(kind: str, a, k):
+    """cuDNN's bf16 backward of the same conv (another function: no
+    quantization), the half the entry computes: a call of
+    ``aten.convolution_backward`` on the codes as bf16, channels last."""
+    if kind == "dgrad":
+        g_q, w_q, _, _, x_hw = a[:5]
+        w = w_q.flip(1, 2).permute(3, 0, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        x = torch.empty((g_q.shape[0], w_q.shape[0], *x_hw), dtype=torch.bfloat16,
+                        device="cuda").contiguous(memory_format=torch.channels_last)
+        mask = [True, False, False]
+    else:
+        x_q, g_q = a[:2]
+        kh, kw = (a[4], a[4]) if isinstance(a[4], int) else a[4]
+        x = x_q.to(torch.bfloat16).permute(0, 3, 1, 2)
+        w = torch.empty((g_q.shape[3], x_q.shape[3], kh, kw), dtype=torch.bfloat16,
+                        device="cuda").contiguous(memory_format=torch.channels_last)
+        mask = [False, True, False]
+    g = g_q.to(torch.bfloat16).permute(0, 3, 1, 2)
+    stride, pad, dil = ([v, v] if isinstance(v, int) else list(v) for v in a[5:8])
+    return lambda: torch.ops.aten.convolution_backward(g, x, w, None, stride, pad, dil, False,
+                                                       [0, 0], 1, mask)
+
+
+def phase_qat_bwd_kernels(kc, smi: str) -> dict:
+    """conv_s8_dgrad and conv_s8_wgrad at the real cotangents and codes of
+    every routed site of one int8-backward QAT step (ResNet-50, batch 8 at
+    512^2, gate 256) and at a zero cotangent: bit-equal to their plain
+    versions; their device time over the step's sites with the inputs out of
+    L2 beside the bounds, the plain versions, cuDNN's bf16 backward and, for
+    the 1x1 weight gradients, torch._int_mm's int32 product alone."""
+    from iswm_tpu_torch.models import build_model_by_name
+
+    model = build_model_by_name("deeplabv3plus_resnet50", int8_training=QAT_GATE,
+                                int8_training_bwd=True)
+    model.to("cuda", memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    yu8 = torch.randint(0, 2, (8, 512, 512), generator=gen, device="cuda")
+    calls = _qat_bwd_calls(model, x, yu8)
+    del model, x
+    sites = QAT_SITES["train"]
+    kinds = [c[0] for c in calls]
+    check(kinds.count("dgrad") == sites and kinds.count("wgrad") == sites,
+          f"an int8-backward step made {kinds.count('dgrad')} dgrad and "
+          f"{kinds.count('wgrad')} wgrad calls, expected {sites} each")
+    plains = {"dgrad": kc.conv_s8_dgrad_plain, "wgrad": kc.conv_s8_wgrad_plain}
+    entries = {"dgrad": kc.conv_s8_dgrad, "wgrad": kc.conv_s8_wgrad}
+    err = dict.fromkeys(entries, 0.0)
+    strided = next(i for i, (kind, a, _) in enumerate(calls)
+                   if kind == "dgrad" and a[5] not in (1, [1, 1]))
+    pooled = next(i for i, (kind, a, _) in enumerate(calls)
+                  if kind == "dgrad" and a[0].shape[1:3] == (1, 1))
+    # a zero cotangent at a strided site and at the pooled part: each dgrad, then its wgrad
+    zero_sites = {strided, pooled, strided + 1, pooled + 1}
+    for i, (kind, a, k) in enumerate(calls):
+        args = [a]
+        if i in zero_sites:  # a zero cotangent: amax 0, scale 1, codes 0
+            g_at = 0 if kind == "dgrad" else 1
+            zero = list(a)
+            zero[g_at] = torch.zeros_like(a[g_at])
+            zero[2 if kind == "dgrad" else 3] = torch.zeros_like(a[2 if kind == "dgrad" else 3])
+            args.append(tuple(zero))
+        for aa in args:
+            got, want = entries[kind](*aa, **k), plains[kind](*aa, **k)
+            torch.cuda.synchronize()
+            diff = float((got.float() - want.float()).abs().max())
+            err[kind] = max(err[kind], diff)
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"conv_s8_{kind} != plain at site {i // 2} {tuple(aa[0].shape)}: max abs "
+                  f"err {diff}")
+    print(f"[19] conv_s8_dgrad and conv_s8_wgrad at the real cotangents of all {sites} routed "
+          f"sites of an int8-backward QAT step ({len(calls)} calls; 3 strided, the pooled part "
+          f"at M = 8) and at a zero cotangent at a strided site and the pooled part: bit-equal "
+          f"(torch.equal) to the plain versions in the sites' dtypes "
+          f"({calls[0][2]['out_dtype']})")
+
+    # device time over the step's sites: each distinct shape once, times its count
+    shapes = {}
+    for kind, a, k in calls:
+        key = (kind, *(tuple(t.shape) if isinstance(t, torch.Tensor) else str(t) for t in a),
+               str(k))
+        shapes.setdefault(key, [kind, a, k, 0])[3] += 1
+    cold = ColdTimer(reps=5)
+    records = {}
+    for name in entries:
+        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "int_mm_ms"), 0.0)
+        bounds = []
+        for kind, a, k, count in shapes.values():
+            if kind != name:
+                continue
+            total["ms"] += count * cold(lambda: entries[kind](*a, **k))
+            total["plain_ms"] += count * cuda_ms(lambda: plains[kind](*a, **k), reps=1, warmup=1)
+            total["library_ms"] += count * cold(_bwd_library(kind, a, k))
+            bounds += [_bwd_bound(kind, a, k)] * count
+            if kind == "wgrad" and a[4] in (1, (1, 1)) and a[5] in (1, [1, 1]):
+                p = a[1].shape[0] * a[1].shape[1] * a[1].shape[2]
+                gt = a[1].reshape(p, -1).t().contiguous()  # [N, P]
+                int_mm = _int_mm(gt, a[0].reshape(p, -1))
+                total["int_mm_ms"] += count * (cold(int_mm) if int_mm else 0.0)
+        least = sum_bounds(bounds)
+        records[name] = {"max_abs_err": err[name], "ms": total["ms"],
+                         "plain_ms": total["plain_ms"], **least,
+                         "library_ms": total["library_ms"],
+                         "library_call": "aten.convolution_backward in bf16 (cuDNN), the "
+                                         f"{'input' if name == 'dgrad' else 'weight'} half: "
+                                         "another function, no quantization"}
+        if name == "wgrad":
+            records[name]["int_mm_ms_1x1"] = total["int_mm_ms"]
+        print(f"[19] conv_s8_{name} over an int8-backward QAT step's {sites} routed sites "
+              f"({smi}): kernel {total['ms']:.4f} ms with the inputs out of L2 "
+              f"({least['bound_ms'] / total['ms']:.1%} of the bound {least['bound_ms']:.4f} ms "
+              f"by {least['bound_by']}; {_work(bounds)}); plain {total['plain_ms']:.4f} ms; "
+              f"cuDNN bf16 backward {total['library_ms']:.4f} ms"
+              + (f"; torch._int_mm at the 1x1 stride-1 sites (the int32 product alone) "
+                 f"{total['int_mm_ms']:.4f} ms" if name == "wgrad" else "")
+              + f"; launches by body {dict(kc.launches_dgrad_by_body)}" * (name == "dgrad"))
+    return records
+
+
+def _bwd_counting_steps(trainer, log: list):
+    """Wrap ``trainer.train_step``: each step appends (step, device-scale
+    quantize launches, dense-conv launches, dgrad launches, wgrad launches)
+    in it."""
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
+
+    step = trainer.train_step
+
+    def counts():
+        return (kc.launches_by_scale["quantize"]["device"], kc.launches_by_scale["igemm"]["device"],
+                kc.launches_dgrad, kc.launches_wgrad)
+
+    def counted(state, images, labels):
+        before = counts()
+        out = step(state, images, labels)
+        log.append((state.step - 1, *(a - b for a, b in zip(counts(), before))))
+        return out
+
+    trainer.train_step = counted
+
+
+def phase_qat_bwd_train(kc, smi: str) -> dict:
+    """The int8-backward QAT main path: 4-step fits in dynamic and delayed
+    mode (a quick-eval and a validation each), launches counted a step; a
+    forward and backward without a host sync; the step's device time, host
+    time, launches and peak memory against the QAT-forward-only step and the
+    bf16 step in the same run.  Returns the main path's launches."""
+    from iswm_tpu_torch.data import val_transform_batch
+
+    t0 = time.perf_counter()
+    sites = QAT_SITES["train"]
+    kc.launches_dgrad = kc.launches_wgrad = 0
+    by_scale = {e: v["device"] for e, v in kc.launches_by_scale.items()}
+    trainers = {}
+    for name, model in (("dynamic", {}), ("delayed", {"int8_scale_mode": "delayed"})):
+        trainer, _, _, _ = _slice_trainer(QAT_STEPS, f"chip_smoke_qat_bwd_{name}",
+                                          int8_training=QAT_GATE, int8_training_bwd=True,
+                                          **model)
+        log = []
+        _bwd_counting_steps(trainer, log)
+        trainer.fit()
+        losses = trainer.logger.history["train_loss"]
+        check(len(losses) == 2 and bool(np.isfinite(losses).all()),
+              f"int8-backward QAT {name}: losses {losses}")
+        want = [(i, 2 * sites, sites, sites, sites) for i in range(QAT_STEPS)]
+        check(log == want, f"int8-backward QAT {name}: (quantize, conv, dgrad, wgrad) launches "
+                           f"by step {log}, expected {want}")
+        print(f"[19] int8-backward QAT {name} fit ({smi}): {QAT_STEPS} steps, losses {losses}, "
+              f"quick-eval and validation; device-scale (quantize, conv, dgrad, wgrad) launches "
+              f"by step {log}: a cotangent quantize, a dgrad and a wgrad a routed site")
+        trainers[name] = trainer
+    launches = {"dgrad": kc.launches_dgrad, "wgrad": kc.launches_wgrad,
+                **{e: kc.launches_by_scale[e]["device"] - by_scale[e] for e in by_scale}}
+
+    trainer = trainers.pop("dynamic")
+    del trainers
+    gen = torch.Generator().manual_seed(SEED)
+    xu8 = torch.randint(0, 256, (8, 512, 512, 3), dtype=torch.uint8, generator=gen).cuda()
+    yu8 = torch.randint(0, 2, (8, 512, 512), dtype=torch.uint8, generator=gen).cuda()
+    model, loss_fn = trainer.state.model, trainer.loss_fn
+    x = val_transform_batch(xu8).permute(0, 3, 1, 2)
+    model.train()
+    for _ in range(2):
+        loss_fn(model(x), yu8).backward()
+    torch.cuda.synchronize()
+    before = (kc.launches_dgrad, kc.launches_wgrad)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = loss_fn(model(x), yu8)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    bwd = (kc.launches_dgrad - before[0], kc.launches_wgrad - before[1])
+    loss = float(loss.detach())
+    check(bwd == (sites, sites) and np.isfinite(loss),
+          f"an int8-backward forward and backward launched {bwd}, loss {loss}")
+    print(f"[19] int8-backward QAT forward and backward under set_sync_debug_mode('error'): no "
+          f"synchronizing call; {bwd[0]} dgrad + {bwd[1]} wgrad launches, loss {loss:.6f}")
+
+    # the step against the QAT-forward-only step and the bf16 step, in this run
+    times = {}
+    for name, settings in (("int8-backward QAT", None), ("QAT forward only",
+                                                        {"int8_training": QAT_GATE}),
+                           ("bf16", {})):
+        t = trainer if settings is None else _slice_trainer(
+            QAT_STEPS, f"chip_smoke_qat_bwd_{len(times)}", **settings)[0]
+        host = _median_step_ms(t, xu8, yu8)
+        dev, n, by_class = _step_profile(t, xu8, yu8)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t.train_step(t.state, xu8, yu8)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        times[name] = (float(np.median(host)), dev, n, peak)
+        classes = sorted(by_class.items(), key=lambda kv: -kv[1])
+        print(f"[19] {name} train step, ResNet-50 batch 8 at 512^2 ({smi}): host "
+              f"{times[name][0]:.2f} ms (median of 8), device {dev:.2f} ms (profiler, {n} kernel "
+              f"launches), peak memory {peak:.0f} MiB, by class "
+              + ", ".join(f"{k} {v:.2f}" for k, v in classes))
+        del t
+    q, f, b = (times[k] for k in ("int8-backward QAT", "QAT forward only", "bf16"))
+    print(f"[19] int8-backward QAT step ({smi}) against the QAT-forward-only step: host "
+          f"{q[0] / f[0]:.3f}, device {q[1] / f[1]:.3f}, {q[2] - f[2]:+d} launches, peak memory "
+          f"{q[3] - f[3]:+.0f} MiB; against bf16: host {q[0] / b[0]:.3f}, device "
+          f"{q[1] / b[1]:.3f}, {q[2] - b[2]:+d} launches; the phase took "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -4192,8 +4477,12 @@ def main() -> int:
     # launches of the quantize and the dense conv counted by scale source)
     qat_records = phase_qat_kernels(kc, smi)
     qat_launches = phase_qat_train(kc, smi)
+    # QAT's int8 backward: the data and weight gradients' entries
+    bwd_records = phase_qat_bwd_kernels(kc, smi)
+    bwd_launches = phase_qat_bwd_train(kc, smi)
     by_scale = {e: {"host": xla_launches[e] + qat_launches[e]["host"],
-                    "device": qat_launches[e]["device"]} for e in ("quantize", "igemm")}
+                    "device": qat_launches[e]["device"] + bwd_launches[e]}
+                for e in ("quantize", "igemm")}
     for name, count in (("int8_matmul", launches), ("fused_binary_ce_fwd", ce_fwd),
                         ("sharded_fused_binary_ce", sharded_launches),
                         ("fused_binary_ce_bwd", ce_bwd), ("binary_confusion_matrix", cm_launches),
@@ -4204,7 +4493,9 @@ def main() -> int:
                         *((f"int8_conv's {b} body", xla_launches["bodies"][b])
                           for b in ("wgmma", "bytes", "tiled")),
                         *((f"int8_conv {e} with a device scale", by_scale[e]["device"])
-                          for e in by_scale)):
+                          for e in by_scale),
+                        ("int8_conv_s8_dgrad", bwd_launches["dgrad"]),
+                        ("int8_conv_s8_wgrad", bwd_launches["wgrad"])):
         check(count > 0, f"the main paths never launched {name}")
     print(f"[profiler] traces of the run: {TRACES['whole']} whole at the first take, "
           f"{TRACES['retaken']} whole after a retake, {TRACES['estimated']} never whole "
@@ -4291,6 +4582,12 @@ def main() -> int:
               if key in by_scale else {}),
            **xla_records[key]}
           for name, key, replaces, bodies in xla_rows),
+        *({"name": f"int8_conv_s8_{key}", "route": "cuda",
+           "source": "iswm_tpu_torch/csrc/int8_conv.cu", "replaces": replaces,
+           "pallas_call": False, "launches": bwd_launches[key], **bwd_records[key]}
+          for key, replaces in (
+              ("dgrad", "iswm_tpu/ops/int8_train.py:202 (_int8_dgrad) / :458 (_dil_bwd)"),
+              ("wgrad", "iswm_tpu/ops/int8_train.py:232 (_int8_wgrad) / :458 (_dil_bwd)"))),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,8 +60,7 @@ def get_argparser() -> argparse.ArgumentParser:
                    choices=["bfloat16", "float32"])
     p.add_argument("--int8_training", type=int, default=None,
                    help="QAT: min input channels to route forward convs "
-                        "through executed int8 (0 = off; 64 = all eligible). "
-                        "Not ported yet: refused")
+                        "through executed int8 (0 = off; 64 = all eligible)")
     p.add_argument("--int8_scale_mode", type=str, default=None,
                    choices=["dynamic", "delayed"],
                    help="activation-scale mode for --int8_training convs "

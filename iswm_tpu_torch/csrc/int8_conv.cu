@@ -1,6 +1,8 @@
 // int8 convolutions for Hopper (sm_90a): the activation quantize, a dense
-// implicit-GEMM int8 conv on the tensor cores, and a grouped / depthwise int8
-// conv on the CUDA cores.
+// implicit-GEMM int8 conv on the tensor cores, a grouped / depthwise int8
+// conv on the CUDA cores, and the int8 backward of quantization-aware
+// training: its data gradient (the dense conv over the cotangent) and its
+// weight gradient (a product over pixels on the tensor cores).
 //
 //   quantize:  x_q = clip(rint(x / x_scale), -127, 127)      (x: bf16 or f32)
 //   conv:      out[b, oy, ox, n] = (float(acc) * x_scale) * w_scale[n]
@@ -17,6 +19,18 @@
 // plain conv (a space-to-depth pack of the 7x7 / stride-2 stem, the valid-tap
 // split of an atrous 3x3): here both are this conv at their own geometry, with
 // the same numbers, since a tap in the zero padding adds 0.
+//
+// The backward replaces what the JAX package's QAT leaves to XLA
+// (iswm_tpu/ops/int8_train.py, no pallas_call): `_int8_dgrad` (:202, an int8
+// conv of the cotangent g_q with the rotated, I/O-swapped per-tensor codes,
+// lhs_dilation = stride) and `_int8_wgrad` (:232) / `_dil_bwd` (:458, the
+// forward's codes x_q contracted with g_q over (B, H, W)):
+//   dgrad:     dx[b, iy, ix, c] = float(acc) * (g_s * w_s), the dense conv of
+//              g_q dilated by the stride (zeros between its pixels, written by
+//              `dilate_kernel` where the stride is above 1), stride 1, the
+//              transpose padding, x's extent
+//   wgrad:     dw[n, c, kh, kw] = float(acc) * (x_s * g_s), acc the sum over
+//              the output pixels of g_q[., n] x_q[the tap's pixel, c]
 //
 // What bounds each kernel on this card, at the serving slice's shapes
 // (ResNet-50 and MobileNetV2, OS 16, 8 tiles of 512^2; block_bwd_ab.py --kind
@@ -76,7 +90,15 @@
 //     size): one thread an output value, `dp4a` where the group's channels
 //     allow;
 //   - `quantize_kernel`: 16 bytes of x a thread where the row allows, over
-//     rows of any stride (a channel slice of an NHWC tensor).
+//     rows of any stride (a channel slice of an NHWC tensor);
+//   - the data gradient runs `igemm_wgmma_kernel` (or the bytewise body) as
+//     it is: its epilogue's scale is the product of two amaxes' scales and
+//     its per-channel scales are 1 (an exact product).  Stride-2 sites (3 of
+//     a ResNet-50 step's 49) pay 4x their products on the inserted zeros;
+//   - `wgrad_mma_kernel` (C and N multiples of 4): see its comment; the
+//     pixels split across blocks into int32 partials, `wgrad_finish` adds
+//     them and writes OIHW.  Bound by its instructions (the transposes, the
+//     barrier) more than by its products (PERF.md).
 //
 // Exactness: the int32 sums are exact in any order (|acc| <= K 127^2 < 2^31
 // for K < 133,000), so skipped padding taps, K splits and any product order
@@ -92,7 +114,9 @@
 // amax / 127 : 1 there, with an IEEE division (quantization-aware training,
 // whose dynamic or delayed amax is a device tensor: no host read a conv).
 // Both run the same kernels, templated on the scale's source (HostScale,
-// AmaxScale); the dense conv's epilogue reads the amax once a block.
+// AmaxScale); the dense conv's epilogue reads the amax once a block.  The
+// backward's entries take two amaxes and multiply their scales (AmaxScale's
+// second pointer).
 //
 // Contract (checked by the Python wrapper): x_q NHWC int8 contiguous and
 // 16-byte aligned; w_q [N, ldw] int8 rows of (kh, kw, c) with ldw >= K a
@@ -159,11 +183,20 @@ struct HostScale {
   float s;
   __device__ __forceinline__ float get() const { return s; }
 };
+__device__ __forceinline__ float scale_of_amax(const float* amax) {
+  const float a = *amax;
+  return a > 0.0f ? __fdiv_rn(a, 127.0f) : 1.0f;
+}
+// One amax (the forward's activation scale), or the product of the scales
+// of two (the backward's: g_s * w_s for the data gradient, x_s * g_s for the
+// weight gradient), taken before it multiplies the sum, as the JAX package's
+// `acc * (g_s * w_s)` and `acc * (x_s * g_s)`.
 struct AmaxScale {
   const float* amax;
+  const float* amax2;  // null: one amax
   __device__ __forceinline__ float get() const {
-    const float a = *amax;
-    return a > 0.0f ? __fdiv_rn(a, 127.0f) : 1.0f;
+    const float s = scale_of_amax(amax);
+    return amax2 ? __fmul_rn(s, scale_of_amax(amax2)) : s;
   }
 };
 template <typename OutT>
@@ -1069,6 +1102,257 @@ __global__ void __launch_bounds__(256) direct_kernel(
 
 }  // namespace direct
 
+// ------------------------------------------------- the backward's two convs
+namespace backward {
+
+// The data gradient's zero insertion: g [B, gh, gw, C] -> out [B, H, W, C]
+// (the geometry's input, (gh - 1) sh + 1 x (gw - 1) sw + 1), g's pixel (y,
+// x) at (y sh, x sw) and zeros between; V bytes a thread (16 where C % 16 ==
+// 0, else 1).
+template <int V>
+__global__ void __launch_bounds__(256) dilate_kernel(const int8_t* __restrict__ g,
+                                                     int8_t* __restrict__ out, Geom d, int gh,
+                                                     int gw, int sh, int sw) {
+  const int per_px = d.C / V;
+  const int total = d.B * d.H * d.W * per_px;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
+    const int px = i / per_px;
+    const int c = (i - px * per_px) * V;
+    const int b = px / (d.H * d.W);
+    const int rem = px - b * d.H * d.W;
+    const int y = rem / d.W, x = rem - (rem / d.W) * d.W;
+    const bool on = y % sh == 0 && x % sw == 0;
+    const int8_t* src =
+        g + ((static_cast<long long>(b) * gh + y / sh) * gw + x / sw) * d.C + c;
+    int8_t* dst = out + static_cast<long long>(px) * d.C + c;
+    if constexpr (V == 16) {
+      *reinterpret_cast<uint4*>(dst) = on ? *reinterpret_cast<const uint4*>(src)
+                                          : make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      *dst = on ? *src : int8_t{0};
+    }
+  }
+}
+
+// The weight gradient: dw[n, kh, kw, c] = sum over the output pixels (b, oy,
+// ox) of g[b, oy, ox, n] x[b, oy sh - ph + kh dh, ox sw - pw + kw dw, c], a
+// tap outside x adding 0.  A product over pixels, which NHWC keeps apart
+// (channels are contiguous): both operands have to be made pixel-major (K-
+// major) for an int8 MMA, and ldmatrix's .trans moves 16-bit elements, not
+// bytes.  A block owns one tap, BM = 128 output channels n x BN = 128 input
+// channels c, and a contiguous range of the pixels (a split); it walks them
+// in steps of BK = 64.  A step: each thread loads four 4 x 4 byte blocks (4
+// pixels x 4 channels of g and of x, 32-bit loads, a warp's 32 bytes of 4
+// pixel rows at once) into registers, transposes each with byte permutes
+// (prmt) and stores them as rows of 64 pixel bytes a channel (rows of 80
+// bytes, the bytewise body's layout, so that ldmatrix fragments of the two
+// tiles feed mma.sync m16n8k32 as there); the stores are rotated a word per
+// lane so that a warp's 32 land in 32 banks.  Two buffers: the next step's
+// loads are in flight during this step's products.  8 warps of 64 n x 32 c,
+// one A fragment live at a time, so that two blocks fit an SM (128
+// registers: 15% faster than one block an SM, where loading the words two
+// steps ahead gained nothing; block_bwd_ab.py --kind wgrad).
+// The int32 sums go to `partial` (wrapping two's-complement adds, no
+// saturation: exact in any order), and wgrad_finish adds the splits.
+constexpr int BM = 128;
+constexpr int BN = 128;
+constexpr int BK = 64;
+constexpr int LDS = BK + 16;
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ void transpose4x4(uint32_t (&r)[4]) {
+  // rows r[i] of bytes (i, 0..3) -> rows of bytes (0..3, j)
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140), t3 = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
+}
+// r[j] <- r[(j + rot) % 4], by selects (no local memory)
+__device__ __forceinline__ void rotate4(uint32_t (&r)[4], int rot) {
+  if (rot & 1) {
+    const uint32_t t = r[0];
+    r[0] = r[1];
+    r[1] = r[2];
+    r[2] = r[3];
+    r[3] = t;
+  }
+  if (rot & 2) {
+    uint32_t t = r[0];
+    r[0] = r[2];
+    r[2] = t;
+    t = r[1];
+    r[1] = r[3];
+    r[3] = t;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+    wgrad_mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ gq,
+                     int* __restrict__ partial, Geom g, int splits) {
+  __shared__ __align__(128) int8_t smem[2][2 * BM * LDS];  // a buffer: g^T [BM] then x^T [BN]
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int taps = g.KH * g.KW;
+  const int NT = (g.N + BM - 1) / BM, CT = (g.C + BN - 1) / BN;
+  int bid = blockIdx.x;
+  const int ct = bid % CT;
+  bid /= CT;
+  const int nt = bid % NT;
+  bid /= NT;
+  const int tap = bid % taps;
+  const int split = bid / taps;
+  const int kh = tap / g.KW, kw = tap - kh * g.KW;
+  const int dy = kh * g.dh - g.ph, dx = kw * g.dw - g.pw;
+  const int n0 = nt * BM, c0 = ct * BN;
+  const int hw = g.Ho * g.Wo, P = g.B * hw;
+  const int steps_all = (P + BK - 1) / BK;
+  const int s0 = static_cast<int>(static_cast<long long>(split) * steps_all / splits);
+  const int s1 = static_cast<int>(static_cast<long long>(split + 1) * steps_all / splits);
+
+  // this thread's 4 x 4 blocks: pixels 4 pq .. 4 pq + 3 of a step, word
+  // columns wc and wc + 16 (channels 4 wc ..) of g's and of x's tile
+  const int wcl = lane >> 2;
+  const int pq = (warp & 3) * 4 + (lane & 3), wc = (warp >> 2) * 8 + wcl;
+  const int rot = (wcl + (wcl >> 2)) & 3;
+  int p = s0 * BK + 4 * pq;  // the pixel of row 0 at the current step
+  int pb[4], py[4], px[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int q = p + r;
+    pb[r] = q / hw;
+    py[r] = (q - pb[r] * hw) / g.Wo;
+    px[r] = q - pb[r] * hw - py[r] * g.Wo;
+  }
+  uint32_t rg[2][4], rx[2][4];
+  auto fetch = [&]() {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const bool pv = p + r < P;
+      const int iy = py[r] * g.sh + dy, ix = px[r] * g.sw + dx;
+      const bool xv = pv && static_cast<unsigned>(iy) < static_cast<unsigned>(g.H) &&
+                      static_cast<unsigned>(ix) < static_cast<unsigned>(g.W);
+      const int8_t* grow = gq + static_cast<long long>(p + r) * g.N;
+      const int8_t* xrow = x + ((static_cast<long long>(pb[r]) * g.H + iy) * g.W + ix) * g.C;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = 4 * (wc + 16 * h);
+        rg[h][r] = pv && n0 + col < g.N ? *reinterpret_cast<const uint32_t*>(grow + n0 + col) : 0u;
+        rx[h][r] = xv && c0 + col < g.C ? *reinterpret_cast<const uint32_t*>(xrow + c0 + col) : 0u;
+      }
+    }
+    p += BK;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      px[r] += BK;
+      while (px[r] >= g.Wo) {
+        px[r] -= g.Wo;
+        if (++py[r] == g.Ho) {
+          py[r] = 0;
+          ++pb[r];
+        }
+      }
+    }
+  };
+  auto store = [&](int buf) {
+    int8_t* sa = smem[buf];
+    int8_t* sb = sa + BM * LDS;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      transpose4x4(rg[h]);
+      transpose4x4(rx[h]);
+      rotate4(rg[h], rot);
+      rotate4(rx[h], rot);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // word j is channel row 4 (wc + 16 h) + (j + rot) % 4
+        const int row = 4 * (wc + 16 * h) + ((j + rot) & 3);
+        *reinterpret_cast<uint32_t*>(sa + row * LDS + 4 * pq) = rg[h][j];
+        *reinterpret_cast<uint32_t*>(sb + row * LDS + 4 * pq) = rx[h][j];
+      }
+    }
+  };
+
+  int acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+  const int wm = warp & 1, wn = warp >> 1;  // rows 64 wm .. of n, columns 32 wn .. of c
+  auto products = [&](int buf) {
+    const int8_t* sa = smem[buf];
+    const int8_t* sb = sa + BM * LDS;
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        uint32_t r[4];
+        ldsm_x4(r, sb + (wn * 32 + 16 * jj + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 32 +
+                       ((lane >> 3) & 1) * 16);
+        bf[2 * jj][0] = r[0];
+        bf[2 * jj][1] = r[1];
+        bf[2 * jj + 1][0] = r[2];
+        bf[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {  // one A fragment live at a time (2 blocks an SM)
+        uint32_t af[4];
+        ldsm_x4(af, sa + (wm * 64 + 16 * i + (lane & 15)) * LDS + kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af, bf[j]);
+      }
+    }
+  };
+
+  if (s0 < s1) fetch();
+  for (int s = s0; s < s1; ++s) {
+    const int buf = (s - s0) & 1;
+    store(buf);
+    __syncthreads();  // the last reads of this buffer were two steps ago
+    if (s + 1 < s1) fetch();
+    products(buf);
+  }
+
+  // fragment (i, j): rows n of lane / 4 (+ 8), columns c of 2 (lane % 4) (+ 1)
+  int* part = partial + static_cast<long long>(split * taps + tap) * g.N * g.C;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = n0 + wm * 64 + 16 * i + (lane >> 2) + 8 * h;
+        const int c = c0 + wn * 32 + 8 * j + 2 * (lane & 3);
+        if (n < g.N && c < g.C)
+          *reinterpret_cast<int2*>(part + static_cast<long long>(n) * g.C + c) =
+              make_int2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+}
+
+// dw in OIHW: out[((n C + c) KH + kh) KW + kw] = float(sum over the splits
+// of partial[split][kh KW + kw][n][c]) * scale, the splits added in order as
+// unsigned (wrapping) ints.
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+    wgrad_finish(const int* __restrict__ partial, int splits, Geom g, AmaxScale scale,
+                 OutT* __restrict__ out) {
+  const float s = scale.get();
+  const int taps = g.KH * g.KW;
+  const long long plane = static_cast<long long>(g.N) * g.C;
+  const int total = g.N * g.C * taps;
+  for (int o = blockIdx.x * 256 + threadIdx.x; o < total; o += gridDim.x * 256) {
+    const int tap = o % taps, nc = o / taps;
+    const int* src = partial + tap * plane + nc;
+    unsigned acc = 0u;
+    for (int k = 0; k < splits; ++k) acc += static_cast<unsigned>(src[k * taps * plane]);
+    out[o] = to_out<OutT>(__fmul_rn(__int2float_rn(static_cast<int>(acc)), s));
+  }
+}
+
+}  // namespace backward
+
 int grid_for(long long work) {
   long long blocks = (work + 255) / 256;
   return static_cast<int>(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
@@ -1251,6 +1535,35 @@ int conv_igemm(const void* x_q, const void* w_q, const void* w_scale, const void
   return run_dense(g, plan, x, w, ws, bs, scale, static_cast<float*>(out), part, s);
 }
 
+// g [B, gh, gw, C] -> the dense conv's input `d` (d.H = (gh - 1) sh + 1, ...)
+int dilate(const int8_t* g, int8_t* out, const Geom& d, int gh, int gw, int sh, int sw,
+           cudaStream_t s) {
+  if (d.H != (gh - 1) * sh + 1 || d.W != (gw - 1) * sw + 1 || sh < 1 || sw < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = d.C % 16 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const long long values = static_cast<long long>(d.B) * d.H * d.W * d.C;
+  const int grid = grid_for(vec ? values / 16 : values);
+  if (vec) backward::dilate_kernel<16><<<grid, 256, 0, s>>>(g, out, d, gh, gw, sh, sw);
+  else backward::dilate_kernel<1><<<grid, 256, 0, s>>>(g, out, d, gh, gw, sh, sw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OutT>
+int run_wgrad(const Geom& g, int splits, const int8_t* x, const int8_t* gq, int* partial,
+              AmaxScale scale, OutT* out, cudaStream_t s) {
+  using namespace backward;
+  if (g.C % 4 || g.N % 4 || splits < 1 || partial == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(splits) * g.KH * g.KW * ((g.N + BM - 1) / BM) *
+                           ((g.C + BN - 1) / BN);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  wgrad_mma_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(x, gq, partial, g, splits);
+  const long long outputs = static_cast<long long>(g.N) * g.C * g.KH * g.KW;
+  wgrad_finish<OutT><<<grid_for(outputs), 256, 0, s>>>(partial, splits, g, scale, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1266,7 +1579,7 @@ int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, i
 // amax at `amax` (x_scale = amax > 0 ? amax / 127 : 1).
 int iswm_int8_quantize_amax(const void* x, int x_is_bf16, const float* amax, void* out, int P,
                             int C, long long ld, void* stream) {
-  return quantize(x, x_is_bf16, AmaxScale{amax}, out, P, C, ld, stream);
+  return quantize(x, x_is_bf16, AmaxScale{amax, nullptr}, out, P, C, ld, stream);
 }
 
 // geom[17] = B, H, W, C, Ho, Wo, N, KH, KW, sh, sw, ph, pw, dh, dw, K, ldw.
@@ -1287,8 +1600,53 @@ int iswm_int8_conv_igemm(const void* x_q, const void* w_q, const void* w_scale,
 int iswm_int8_conv_igemm_amax(const void* x_q, const void* w_q, const void* w_scale,
                               const void* bias, const float* amax, void* out, int out_bf16,
                               const int* geom, const int* plan, void* partial, void* stream) {
-  return conv_igemm(x_q, w_q, w_scale, bias, AmaxScale{amax}, out, out_bf16, geom, plan, partial,
-                    stream);
+  return conv_igemm(x_q, w_q, w_scale, bias, AmaxScale{amax, nullptr}, out, out_bf16, geom, plan,
+                    partial, stream);
+}
+
+// The data gradient of a conv (the JAX package's _int8_dgrad): the dense
+// conv of the int8 cotangent g_q [B, gh, gw, N] dilated by (lsh, lsw)
+// (zeros between its pixels, written into `g_dil` [B, H', W', N] where a
+// stride is above 1) with the rotated, I/O-swapped per-tensor codes w_q [C,
+// ldw] of (kh, kw, n), at `geom` (the dilated input, stride 1, the transpose
+// padding, out [B, H, W, C] of x's extent).  The epilogue is float(acc) *
+// (g_s * w_s), the scales formed from the amaxes: `ones` is C float32 ones
+// in the per-channel place (an exact product).
+int iswm_int8_conv_dgrad(const void* g_q, void* g_dil, const void* w_q, const void* ones,
+                         const float* g_amax, const float* w_amax, void* out, int out_bf16,
+                         const int* geom, int gh, int gw, int lsh, int lsw, const int* plan,
+                         void* partial, void* stream) {
+  const Geom g = geom_of(geom);
+  const void* x = g_q;
+  if (lsh > 1 || lsw > 1) {
+    const int rc = dilate(static_cast<const int8_t*>(g_q), static_cast<int8_t*>(g_dil), g, gh, gw,
+                          lsh, lsw, static_cast<cudaStream_t>(stream));
+    if (rc) return rc;
+    x = g_dil;
+  }
+  return conv_igemm(x, w_q, ones, nullptr, AmaxScale{g_amax, w_amax}, out, out_bf16, geom, plan,
+                    partial, stream);
+}
+
+// The weight gradient of a conv (the JAX package's _int8_wgrad and the
+// weight half of _dil_bwd): dw [N, C, KH, KW] (OIHW) in float32 or bf16 of
+// the forward's int8 codes x_q [B, H, W, C] and the int8 cotangent g_q [B,
+// Ho, Wo, N] at the forward's `geom` (geom[0..14]: B, H, W, C, Ho, Wo, N,
+// KH, KW, sh, sw, ph, pw, dh, dw), C and N multiples of 4: the pixels split
+// `splits` ways into `partial` [splits][KH KW][N][C] int32, then one
+// finishing pass with the epilogue float(acc) * (x_s * g_s).
+int iswm_int8_conv_wgrad(const void* x_q, const void* g_q, const float* x_amax,
+                         const float* g_amax, void* out, int out_bf16, const int* geom,
+                         int splits, void* partial, void* stream) {
+  const Geom g = geom_of(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const int8_t*>(x_q);
+  const auto* gq = static_cast<const int8_t*>(g_q);
+  int* part = static_cast<int*>(partial);
+  const AmaxScale scale{x_amax, g_amax};
+  if (out_bf16)
+    return run_wgrad(g, splits, x, gq, part, scale, static_cast<__nv_bfloat16*>(out), s);
+  return run_wgrad(g, splits, x, gq, part, scale, static_cast<float*>(out), s);
 }
 
 // Grouped conv: as above with w_q [N, KH KW C / groups] (ldw unused); body 0

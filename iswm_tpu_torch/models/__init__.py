@@ -28,7 +28,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 BACKBONES = tuple(ARCHS) + ("mobilenetv2", "xception")
 HEADS = ("deeplabv3plus", "deeplabv3")
 SHARDED_FUSED_ITEM = "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'"
-INT8_BWD_ITEM = "ROADMAP.md Queue 1, 'Quantization-aware training, int8 backward'"
 # the auto grouped_blockdiag gate of each grouped backbone, as the JAX package
 # sets it (iswm_tpu/models/__init__.py)
 _GROUPED_BACKBONES = {"resnext50_32x4d": 256, "resnext101_32x8d": 512}
@@ -99,9 +98,6 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
         raise ValueError(f"unknown model name {cfg.name!r}; expected one of {HEADS}")
     if cfg.backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {cfg.backbone!r}; expected one of {BACKBONES}")
-    if cfg.int8_training and cfg.int8_training_bwd:
-        raise NotImplementedError(
-            f"int8_training_bwd (the int8 backward of QAT) is not ported yet ({INT8_BWD_ITEM})")
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
             f"param_dtype={cfg.param_dtype!r} is not ported yet (ROADMAP.md "

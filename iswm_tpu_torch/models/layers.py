@@ -17,10 +17,11 @@ Quantization-aware training (``QuantSpec``, the JAX package's, threaded from
 ``ModelConfig`` by ``build_model``): a conv site that the spec routes is a
 ``QatConv2d`` (``Conv2d``'s parameters and state-dict keys) whose forward runs
 ``ops/int8_train.py``, by the JAX modules' rules: ``ConvBN``'s (groups 1 and
-dilation < 6 through ``int8_conv_st`` / ``int8_conv_static_amax``; a 3x3 of
+dilation < 6 through ``int8_conv_st`` / ``int8_conv_static_amax``, or with an
+int8 backward ``int8_conv_fullq`` / ``int8_conv_fullq_static``; a 3x3 of
 dilation >= 6 through ``int8_dilated_conv3x3``), the separable convs'
 pointwise halves (``qat_pointwise_conv``: dynamic scales only) and a concat
-conv's parts (``ConcatConvBN``: each part its own conv and amax).
+conv's parts (``ConcatConvBN``: each part its own conv, amax and backward).
 """
 
 from __future__ import annotations
@@ -48,7 +49,9 @@ class QuantSpec:
     int8_scale_mode -- "dynamic": each step's absmax; "delayed": the running
         amax a module carries (train forwards only; an eval forward is
         dynamic).
-    int8_bwd -- an int8 backward too (not ported: refused).
+    int8_bwd -- an int8 backward too at a routed site (where "cost" routes
+        it): the cotangent quantized per tensor, the data and the weight
+        gradient int8 convs (``int8_conv_fullq*``).
     int8_route -- "gate": every eligible conv at or above the channel gate;
         "cost": the per-site roofline model (``int8_cost_route``) above it.
     int8_cost_bytes -- bytes a value that model charges a dynamic quantize.
@@ -214,12 +217,14 @@ class QatConv2d(Conv2d):
     parameters and keys, an int8 forward through ``ops/int8_train.py``.
 
     ``route`` is ``"st"`` (``int8_conv_st``, or ``int8_conv_static_amax`` in a
-    delayed-mode train forward), ``"dilated"`` (``int8_dilated_conv3x3``) or
-    None, for the whole conv.  A concat conv has ``parts`` (the input-channel
-    widths of its concatenated input): in train mode, and in eval mode too
-    where ``parts_in_eval``, it is the JAX package's ``ConcatConvBN``, a sum
-    of per-part convs (the weight split by input slice), each routed where
-    ``part_routes`` says (none routed: the plain conv, the same sum).  A
+    delayed-mode train forward; with ``int8_bwd`` their ``fullq`` forms),
+    ``"dilated"`` (``int8_dilated_conv3x3``) or None, for the whole conv.  A
+    concat conv has ``parts`` (the input-channel widths of its concatenated
+    input): in train mode, and in eval mode too where ``parts_in_eval``, it is
+    the JAX package's ``ConcatConvBN``, a sum of per-part convs (the weight
+    split by input slice), each routed where ``part_routes`` says and with an
+    int8 backward where ``part_bwd`` says (none routed: the plain conv, the
+    same sum).  A
     delayed-mode site keeps its running amax in a non-persistent buffer
     (``x_amax``, a part's ``x_amax_p{i}``, 0 at first), out of the state dict.
     ``qat`` False (``switch_off_int8``) makes it a plain ``Conv2d``."""
@@ -227,11 +232,12 @@ class QatConv2d(Conv2d):
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *, route: Optional[str],
                  delayed: bool = False, int8_bwd: bool = False,
                  parts: Optional[Sequence[int]] = None, part_routes: Sequence[bool] = (),
-                 parts_in_eval: bool = True, **kw):
+                 part_bwd: Sequence[bool] = (), parts_in_eval: bool = True, **kw):
         super().__init__(in_ch, out_ch, kernel_size, **kw)
         self.qat, self.route, self.int8_bwd = True, route, int8_bwd
         self.parts = None if parts is None else tuple(parts)
         self.part_routes, self.parts_in_eval = tuple(part_routes), parts_in_eval
+        self.part_bwd = tuple(part_bwd)
         if delayed and route == "st" and parts is None:
             self.register_buffer("x_amax", torch.zeros(()), persistent=False)
         for i, routed in enumerate(self.part_routes):
@@ -266,7 +272,7 @@ class QatConv2d(Conv2d):
             return self.forward_parts(torch.split(x, self.parts, dim=1))
         if not self.qat or self.route is None or self._parts_mode(self.training):
             return super().forward(x)
-        out = self._int8(x, self.weight.to(x.dtype), "x_amax", self.route)
+        out = self._int8(x, self.weight.to(x.dtype), "x_amax", self.route, self.int8_bwd)
         return out if self.bias is None else out + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
 
     def forward_parts(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -277,27 +283,28 @@ class QatConv2d(Conv2d):
         acc, off = None, 0
         for i, (p, routed) in enumerate(zip(parts, self.part_routes)):
             wp = w[:, off:off + p.shape[1]]
-            t = (self._int8(p, wp, f"x_amax_p{i}", "st") if routed else
+            t = (self._int8(p, wp, f"x_amax_p{i}", "st", self.part_bwd[i]) if routed else
                  F.conv2d(p, wp, None, self.stride, self.padding, self.dilation))
             acc = t if acc is None else acc + t
             off += p.shape[1]
         return acc if self.bias is None else acc + self.bias.to(acc.dtype).reshape(1, -1, 1, 1)
 
-    def _int8(self, x: torch.Tensor, w: torch.Tensor, amax_name: str, route: str):
-        from ..ops.int8_train import int8_conv_st, int8_conv_static_amax, int8_dilated_conv3x3
+    def _int8(self, x: torch.Tensor, w: torch.Tensor, amax_name: str, route: str, bwd: bool):
+        from ..ops import int8_train as ops
 
         if route == "dilated":
-            return int8_dilated_conv3x3(x, w, self.dilation[0], self.int8_bwd,
-                                        across_ranks=self.training)
+            return ops.int8_dilated_conv3x3(x, w, self.dilation[0], bwd,
+                                            across_ranks=self.training)
         geometry = (self.stride, self.padding, self.dilation)
         amax = self._buffers.get(amax_name)
         if self.training and amax is not None:
-            out, new_amax = int8_conv_static_amax(x, w, amax, *geometry,
-                                                  int8_bwd=self.int8_bwd, across_ranks=True)
+            fn = ops.int8_conv_fullq_static if bwd else ops.int8_conv_static_amax
+            out, new_amax = fn(x, w, amax, *geometry, across_ranks=True)
             with torch.no_grad():
                 amax.copy_(new_amax)
             return out
-        return int8_conv_st(x, w, *geometry, int8_bwd=self.int8_bwd, across_ranks=self.training)
+        fn = ops.int8_conv_fullq if bwd else ops.int8_conv_st
+        return fn(x, w, *geometry, across_ranks=self.training)
 
 
 def qat_route(quant: QuantSpec, in_ch: int, out_ch: int, kernel_size: int, stride: int,
@@ -335,16 +342,17 @@ def conv(in_ch: int, out_ch: int, kernel_size: int, stride: int = 1,
               padding=torch_conv_padding(kernel_size, dilation) if padding is None else padding)
     route, bwd = qat_route(quant, in_ch, out_ch, kernel_size, stride, dilation, groups,
                            padding is None, pointwise)
-    part_routes = ()
+    part_routes = part_bwd = ()
     if parts is not None and quant.int8:
         routing = [quant.conv_routing(c, out_ch, kernel_size, 1) for c in parts]
         part_routes = tuple(fwd for fwd, _ in routing)
-        bwd = bwd or any(b for _, b in routing)
+        part_bwd = tuple(b for _, b in routing)
     if route is None and not any(part_routes):
         return Conv2d(in_ch, out_ch, kernel_size, **kw)
     delayed = quant.int8_scale_mode == "delayed" and not pointwise
     return QatConv2d(in_ch, out_ch, kernel_size, route=route, delayed=delayed, int8_bwd=bwd,
-                     parts=parts, part_routes=part_routes, parts_in_eval=parts_in_eval, **kw)
+                     parts=parts, part_routes=part_routes, part_bwd=part_bwd,
+                     parts_in_eval=parts_in_eval, **kw)
 
 
 def switch_off_int8(model: nn.Module) -> None:

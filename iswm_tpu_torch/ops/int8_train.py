@@ -1,5 +1,5 @@
-"""Quantization-aware training convs (QAT: an int8 forward with
-straight-through gradients), the counterpart of the forward half of
+"""Quantization-aware training convs (QAT: an int8 forward, and with
+``int8_bwd`` an int8 backward too), the counterpart of
 ``iswm_tpu/ops/int8_train.py``.
 
   fwd:  out = dequant(conv_int8(quant(x), quant(W))): a per-tensor symmetric
@@ -7,27 +7,36 @@ straight-through gradients), the counterpart of the forward half of
         running amax carried by the module), per-output-channel weight scales,
         an int32 sum, ``(float(acc) * x_scale) * w_scale`` in float32, cast to
         the compute dtype
-  bwd:  straight-through: the cotangents of the DENSE conv at the unquantized
-        (x, W), in the compute dtype (``aten.convolution_backward``)
+  bwd:  straight-through (``int8_conv_st``, ``int8_conv_static_amax``): the
+        cotangents of the DENSE conv at the unquantized (x, W), in the compute
+        dtype (``aten.convolution_backward``); or int8 (``int8_conv_fullq``,
+        ``int8_conv_fullq_static``, ``int8_dilated_conv3x3(..., int8_bwd=True)``):
+        the cotangent g quantized per tensor with its dynamic amax, the data
+        gradient an int8 conv of g_q with the rotated, I/O-swapped kernel
+        re-quantized per tensor, ``float(acc) * (g_s * w_s)`` in x's dtype,
+        and the weight gradient the product over pixels of the forward's own
+        int8 codes x_q with g_q, ``float(acc) * (x_s * g_s)`` in w's dtype
+        (the forward keeps x_q and its amax, not x)
 
-On the card the forward is two hand-written kernels of ``csrc/int8_conv.cu``
+On the card these are hand-written kernels of ``csrc/int8_conv.cu``
 (``ops/kernels/int8_conv.py``): ``quantize_s8`` and the dense
-``conv_s8_igemm``, both given the amax as a 0-d device tensor, from which they
-form the scale ``amax > 0 ? amax / 127 : 1``.  The amax (``max |x|``) and the
-per-channel weight quantize are ATen passes on the device.  Nothing on this
-path reads a value back to the host.  On a CPU tensor the kernels' plain
-versions run.
+``conv_s8_igemm`` forward, ``conv_s8_dgrad`` and ``conv_s8_wgrad`` backward,
+all given their amaxes as 0-d device tensors, from which they form the scales
+``amax > 0 ? amax / 127 : 1``.  The amaxes (``max |x|``, ``max |g|``) and
+the weight quantizes are ATen passes on the device.  Nothing on this path
+reads a value back to the host.  On a CPU tensor the kernels' plain versions
+run.
 
 Layouts are the port's: x NCHW (channels last on the card, whose NHWC view the
 kernels read), w OIHW.  The JAX package's ``int8_dilated_conv3x3`` sums the
 valid taps of an atrous 3x3; here it is the same dense conv (a padding tap
-adds 0).  The int8 backward (``int8_bwd``, the JAX package's
-``int8_conv_fullq*`` and ``_dil_bwd``) is not ported and is refused.
+adds 0), forward and backward.
 
 In a process group a TRAINING forward takes the amax over every rank's rows
 (an all-reduce with MAX), as the JAX package's does over the global batch
-under a sharded jit; the new running amax of the delayed mode is then the
-same on every rank.  An eval forward runs on one rank with the whole batch.
+under a sharded jit, and so does its int8 backward for g's amax; the new
+running amax of the delayed mode is then the same on every rank.  An eval
+forward runs on one rank with the whole batch.
 """
 
 from __future__ import annotations
@@ -37,18 +46,13 @@ from typing import Tuple
 import torch
 
 from ..parallel.distributed import is_initialized
-from .kernels.int8_conv import conv_s8_igemm, ieee_div, quantize_s8
+from .kernels.int8_conv import (conv_s8_dgrad, conv_s8_igemm, conv_s8_wgrad, ieee_div,
+                                quantize_s8)
 
-INT8_BWD_ITEM = "ROADMAP.md Queue 1, 'Quantization-aware training, int8 backward'"
 AMAX_DECAY = 0.999
 
 # all-reduces of an amax across the ranks of a process group
 amax_all_reduces = 0
-
-
-def _refuse_int8_bwd(int8_bwd: bool) -> None:
-    if int8_bwd:
-        raise NotImplementedError(f"the int8 backward of QAT is not ported yet ({INT8_BWD_ITEM})")
 
 
 def activation_amax(x: torch.Tensor, across_ranks: bool = False) -> torch.Tensor:
@@ -75,6 +79,18 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes.to(torch.int8).contiguous(), scale
 
 
+def quantize_weight_rotated(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 of an OIHW kernel, as the data gradient takes
+    it (``_int8_dgrad``): (codes of the rotated, I/O-swapped kernel [I, kh,
+    kw, O] contiguous, ``w_rot[i, a, b, o] = w[o, i, kh - 1 - a, kw - 1 - b]``;
+    the amax, 0-d float32), codes ``clip(round(w / scale), -127, 127)``."""
+    wf = w.detach().flip(2, 3).permute(1, 2, 3, 0).float()
+    amax = torch.linalg.vector_norm(wf, float("inf"))
+    scale = torch.where(amax > 0, ieee_div(amax, 127.0), torch.ones_like(amax))
+    codes = torch.clamp(torch.round(wf / scale), -127, 127)
+    return codes.to(torch.int8).contiguous(), amax
+
+
 def _rows_view(x: torch.Tensor) -> torch.Tensor:
     """The NHWC view of NCHW x, copied on the card only where its rows of
     channels do not collapse to one stride (a channels-last tensor or a
@@ -89,18 +105,24 @@ def _rows_view(x: torch.Tensor) -> torch.Tensor:
     return v if ok else v.contiguous()
 
 
+def _kernel_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a kernel writes for a tensor of ``dtype``: its own where the
+    kernels write it (float32, bf16), else float32, cast after."""
+    return dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
+
+
 def int8_conv_forward(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
-                      padding=0, dilation=1) -> torch.Tensor:
+                      padding=0, dilation=1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int8 forward: x [B, C, H, W] in the compute dtype, w [N, C, kh,
     kw] in the compute dtype, the activation amax (0-d float32 on x's device)
-    -> [B, N, Ho, Wo] in x's dtype.  The conv writes float32 or (for bf16 x)
-    the bf16 rounding of the float32 value from its epilogue."""
+    -> (out [B, N, Ho, Wo] in x's dtype, x's int8 codes [B, H, W, C]).  The
+    conv writes float32 or (for bf16 x) the bf16 rounding of the float32
+    value from its epilogue."""
     w_q, w_s = quantize_weight(w)
     x_q = quantize_s8(_rows_view(x), x_amax)
-    out_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) else torch.float32
     out = conv_s8_igemm(x_q, w_q, w_s, x_amax, None, stride, padding, dilation,
-                        out_dtype=out_dtype)
-    return out.permute(0, 3, 1, 2).to(x.dtype)
+                        out_dtype=_kernel_dtype(x.dtype))
+    return out.permute(0, 3, 1, 2).to(x.dtype), x_q
 
 
 def _pair(v) -> list:
@@ -115,7 +137,7 @@ class Int8ConvST(torch.autograd.Function):
     def forward(ctx, x, w, x_amax, stride, padding, dilation):
         ctx.save_for_backward(x, w)
         ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation))
-        return int8_conv_forward(x, w, x_amax, stride, padding, dilation)
+        return int8_conv_forward(x, w, x_amax, stride, padding, dilation)[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -127,25 +149,77 @@ class Int8ConvST(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+class Int8ConvFullQ(torch.autograd.Function):
+    """conv(x, w) with :func:`int8_conv_forward` as its forward, keeping x's
+    int8 codes and the amax they were made with (not x), and an int8
+    backward (the JAX package's ``_fullq_bwd``): g's dynamic amax (over every
+    rank's rows where ``across_ranks``, in a process group), g's codes, then
+    the data gradient (where x needs one) and the weight gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, x_amax, stride, padding, dilation, across_ranks):
+        out, x_q = int8_conv_forward(x, w, x_amax, stride, padding, dilation)
+        ctx.save_for_backward(x_q, x_amax, w)
+        ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation))
+        ctx.x_dtype, ctx.across_ranks = x.dtype, across_ranks
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x_q, x_amax, w = ctx.saved_tensors
+        geometry = ctx.geometry
+        g_amax = activation_amax(g, ctx.across_ranks)
+        g_q = quantize_s8(_rows_view(g.detach()), g_amax)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_rot, w_amax = quantize_weight_rotated(w)
+            dx = conv_s8_dgrad(g_q, w_rot, g_amax, w_amax, x_q.shape[1:3], *geometry,
+                               out_dtype=_kernel_dtype(ctx.x_dtype))
+            dx = dx.permute(0, 3, 1, 2).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = conv_s8_wgrad(x_q, g_q, x_amax, g_amax, w.shape[2:], *geometry,
+                               out_dtype=_kernel_dtype(w.dtype)).to(w.dtype)
+        return dx, dw, None, None, None, None, None
+
+
 def int8_conv_st(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, dilation=1,
-                 int8_bwd: bool = False, across_ranks: bool = False) -> torch.Tensor:
+                 across_ranks: bool = False) -> torch.Tensor:
     """Dense conv whose forward runs int8 with a DYNAMIC activation scale
     (this tensor's amax) and whose gradients are the dense conv's."""
-    _refuse_int8_bwd(int8_bwd)
     return Int8ConvST.apply(x, w, activation_amax(x, across_ranks), stride, padding, dilation)
 
 
 def int8_conv_static_amax(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
                           padding=0, dilation=1, amax_decay: float = AMAX_DECAY,
-                          int8_bwd: bool = False, across_ranks: bool = False,
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          across_ranks: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """int8-forward conv with a DELAYED activation scale: quantizes with the
     running ``x_amax`` (0-d float32, stale) and returns ``(out, new_amax)``,
     ``new_amax = max(max |x|, decay * x_amax)``, the caller's next running
     amax.  Gradients as :func:`int8_conv_st`."""
-    _refuse_int8_bwd(int8_bwd)
     cur = activation_amax(x, across_ranks)
     out = Int8ConvST.apply(x, w, x_amax, stride, padding, dilation)
+    return out, torch.maximum(cur, x_amax.to(torch.float32) * amax_decay)
+
+
+def int8_conv_fullq(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, dilation=1,
+                    across_ranks: bool = False) -> torch.Tensor:
+    """Conv whose forward AND backward run int8: the forward as
+    :func:`int8_conv_st`'s, the backward :class:`Int8ConvFullQ`'s."""
+    return Int8ConvFullQ.apply(x, w, activation_amax(x, across_ranks), stride, padding,
+                               dilation, across_ranks)
+
+
+def int8_conv_fullq_static(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
+                           padding=0, dilation=1, amax_decay: float = AMAX_DECAY,
+                           across_ranks: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`int8_conv_fullq` with a DELAYED forward activation scale, as
+    :func:`int8_conv_static_amax` returns it: ``(out, new_amax)``; the
+    backward's cotangent scale is dynamic.  The weight gradient reads the
+    amax the forward quantized with: a copy, as the caller updates its
+    running amax in place."""
+    cur = activation_amax(x, across_ranks)
+    out = Int8ConvFullQ.apply(x, w, x_amax.detach().clone(), stride, padding, dilation,
+                              across_ranks)
     return out, torch.maximum(cur, x_amax.to(torch.float32) * amax_decay)
 
 
@@ -153,8 +227,10 @@ def int8_dilated_conv3x3(x: torch.Tensor, w: torch.Tensor, d: int, int8_bwd: boo
                          across_ranks: bool = False) -> torch.Tensor:
     """QAT atrous 3x3 (dilation and padding ``d``, stride 1) with a dynamic
     scale: the math of ``Conv2d(3, 3, dilation=d, padding=d)`` under the
-    symmetric contract; the dense backward (straight-through)."""
-    return int8_conv_st(x, w, 1, d, d, int8_bwd, across_ranks)
+    symmetric contract; the dense backward (straight-through), or the int8
+    one with ``int8_bwd``."""
+    fn = int8_conv_fullq if int8_bwd else int8_conv_st
+    return fn(x, w, 1, d, d, across_ranks)
 
 
 # ------------------------------------------------ per-site routing cost model

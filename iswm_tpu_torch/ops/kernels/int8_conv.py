@@ -13,7 +13,20 @@ and the two TPU lowerings of a plain conv), as three entries:
   w_scale[n] (+ bias[n])`` as float32 or rounded to bf16 (``out_dtype``),
   [B, Ho, Wo, N];
 - :func:`conv_s8_direct`: the same for a grouped or depthwise conv, w_q
-  [N, KH, KW, C / groups], on the CUDA cores.
+  [N, KH, KW, C / groups], on the CUDA cores;
+
+and, for the int8 backward of quantization-aware training
+(``iswm_tpu/ops/int8_train.py``'s ``_int8_dgrad``, ``_int8_wgrad`` and
+``_dil_bwd``, also left to XLA there), two entries that take their scales as
+two amaxes on the device and multiply them first, ``float(acc) * (a_s *
+b_s)``:
+
+- :func:`conv_s8_dgrad`: the int8 cotangent g_q [B, Ho, Wo, N] and the
+  rotated per-tensor codes [C, KH, KW, N] -> dx [B, H, W, C], the dense
+  conv's kernel over g_q dilated by the stride (:func:`dgrad_geometry`);
+- :func:`conv_s8_wgrad`: the forward's codes x_q [B, H, W, C] and g_q -> dw
+  [N, C, KH, KW], a product over the pixels (``wgrad_mma_kernel``), split
+  across blocks (:func:`wgrad_splits`) into int32 partials and finished once.
 
 ``x_scale`` is a Python float (absmax / 127 in double, as calibration returns
 it), rounded to float32 once, at the kernel boundary, as the JAX package
@@ -41,7 +54,12 @@ plan); :func:`tile_taps` is its tap-skipping rule.  ``launches_quantize``,
 ``launches_igemm`` and ``launches_direct`` count the launches of each entry,
 ``launches_by_body`` those of each body, ``launches_by_scale`` those of the
 quantize and the dense conv by where the scale came from (``host``: a float,
-``device``: an amax tensor).
+``device``: an amax tensor); ``launches_dgrad`` and ``launches_wgrad`` those
+of the backward's entries, ``launches_dgrad_by_body`` the data gradient's by
+the dense body it runs and how many zero-inserted the cotangent first.  Their
+plain versions (:func:`conv_s8_dgrad_plain`, :func:`conv_s8_wgrad_plain`) are
+``aten.convolution_backward`` in float64 on the codes, wrapped to int32 as
+the int32 accumulator wraps.
 """
 
 from __future__ import annotations
@@ -57,7 +75,12 @@ import torch.nn.functional as F
 launches_quantize = 0
 launches_igemm = 0
 launches_direct = 0
+launches_dgrad = 0
+launches_wgrad = 0
 launches_by_body = dict.fromkeys(("wgmma", "bytes", "tiled", "generic"), 0)
+# the data gradient's launches by the dense body it runs, and those of them
+# that zero-insert the cotangent first (a stride above 1)
+launches_dgrad_by_body = dict.fromkeys(("wgmma", "bytes", "dilated"), 0)
 launches_by_scale = {entry: dict.fromkeys(("host", "device"), 0)
                      for entry in ("quantize", "igemm")}
 _lib = None
@@ -81,6 +104,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iswm_int8_conv_igemm_amax.restype = i32
     lib.iswm_int8_conv_direct.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, i32, i32, ptr]
     lib.iswm_int8_conv_direct.restype = i32
+    lib.iswm_int8_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, i32, i32,
+                                         i32, i32, ints, ptr, ptr]
+    lib.iswm_int8_conv_dgrad.restype = i32
+    lib.iswm_int8_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ints, i32, ptr, ptr]
+    lib.iswm_int8_conv_wgrad.restype = i32
     lib.iswm_cuda_error_string.argtypes = [i32]
     lib.iswm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -163,12 +191,14 @@ def quantize_s8_plain(x: torch.Tensor, x_scale) -> torch.Tensor:
 
 def _rows(x: torch.Tensor) -> tuple[int, int, int]:
     """(rows, C, row stride) of x as rows of its last, contiguous dim whose
-    leading dims collapse to one stride; raises otherwise."""
+    leading dims collapse to one stride (a dim of size 1 has none: the
+    cotangent of a 1 x 1 map may carry any); raises otherwise."""
     c = x.shape[-1]
     ok = x.dim() >= 1 and (x.stride(-1) == 1 or c == 1)
-    ld = x.stride(-2) if x.dim() >= 2 else c
-    for i in range(x.dim() - 2):
-        ok = ok and (x.shape[i] == 1 or x.stride(i) == x.stride(i + 1) * x.shape[i + 1])
+    lead = [(n, st) for n, st in zip(x.shape[:-1], x.stride()[:-1]) if n != 1]
+    ld = lead[-1][1] if lead else c
+    for (_, outer), (n, inner) in zip(lead, lead[1:]):
+        ok = ok and outer == inner * n
     if not ok:
         raise ValueError(f"x must be rows of contiguous channels with one row stride, got "
                          f"strides {x.stride()} for {tuple(x.shape)}")
@@ -391,7 +421,8 @@ def as_rows(g: dict) -> dict:
     """A 1x1 conv of stride 1 and no padding is a matmul over the pixels:
     its geometry as one row of B H W pixels, so that a block's 128 pixels
     run on across rows and images."""
-    if (g["KH"], g["KW"], g["sh"], g["sw"], g["ph"], g["pw"]) != (1, 1, 1, 1, 0, 0):
+    if ((g["KH"], g["KW"], g["sh"], g["sw"], g["ph"], g["pw"]) != (1, 1, 1, 1, 0, 0)
+            or (g["Ho"], g["Wo"]) != (g["H"], g["W"])):
         return g
     m = g["B"] * g["H"] * g["W"]
     return {**g, "B": 1, "H": 1, "W": m, "Ho": 1, "Wo": m}
@@ -514,3 +545,244 @@ def conv_s8_direct(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                              groups, out_dtype)
     return _launch("direct", x_q, w_q, w_scale, x_scale, bias, stride, padding, dilation,
                    groups, out_dtype)
+
+
+# ------------------------------------------------------------ the backward
+def _sym_pads(padding) -> tuple[int, int]:
+    """(ph, pw) of a padding the same on both sides of each axis."""
+    (pt, pb), (pl, pr) = _pads(padding)
+    if pt != pb or pl != pr:
+        raise ValueError(f"the backward takes a padding the same on both sides, got {padding}")
+    return pt, pl
+
+
+def _wrap_int32(acc: torch.Tensor) -> torch.Tensor:
+    """Exact float64 sums of integers -> int32, wrapping as a two's-complement
+    int32 accumulator does."""
+    a = torch.round(acc).to(torch.int64)
+    return ((a + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def product_scale(a_amax: torch.Tensor, b_amax: torch.Tensor) -> torch.Tensor:
+    """``scale(a) * scale(b)`` in float32, each ``amax > 0 ? amax / 127 : 1``:
+    the backward's ``g_s * w_s`` and ``x_s * g_s``."""
+    return scale_of(a_amax, a_amax.device) * scale_of(b_amax, a_amax.device)
+
+
+def dgrad_geometry(g_shape, w_shape, x_hw, stride=1, padding=0, dilation=1) -> dict:
+    """The dense conv whose output is the data gradient (the JAX package's
+    ``_int8_dgrad``): over g [B, Ho, Wo, N] dilated by the forward's stride
+    (``(Ho - 1) sh + 1`` rows, zeros between g's), stride 1, the rotated
+    kernel [C, KH, KW, N] at the forward's dilation, padded before by ``(KH -
+    1) dh - ph`` and after as far as makes the output x's extent ``x_hw``
+    (``_vjp_lhs_padding``; x's extent is given, as a transposed conv's is
+    ambiguous at an odd one)."""
+    b, ho, wo, n = g_shape
+    (sh, sw), (dh, dw) = _pair(stride), _pair(dilation)
+    ph, pw = _sym_pads(padding)
+    kh, kw = w_shape[1], w_shape[2]
+    hd, wd = (ho - 1) * sh + 1, (wo - 1) * sw + 1
+    pads = []
+    for size, k, d, p, extent in ((x_hw[0], kh, dh, ph, hd), (x_hw[1], kw, dw, pw, wd)):
+        before = (k - 1) * d - p
+        pads.append((before, size + (k - 1) * d - extent - before))
+    return conv_geometry((b, hd, wd, n), w_shape, 1, tuple(pads), (dh, dw))
+
+
+def _forward_extent(x_hw, c, g_shape, kernel, stride, padding, dilation) -> None:
+    """Raise unless a forward conv of x's extent gives g's."""
+    b, ho, wo, n = g_shape
+    f = conv_geometry((b, *x_hw, c), (n, *kernel, c), stride, padding, dilation)
+    if (f["Ho"], f["Wo"]) != (ho, wo):
+        raise ValueError(f"g {tuple(g_shape)} is no output of a conv of x {tuple(x_hw)} with "
+                         f"kernel {tuple(kernel)}, stride {stride}, padding {padding}, "
+                         f"dilation {dilation}")
+
+
+def conv_s8_dgrad_plain(g_q, w_q, g_amax, w_amax, x_hw, stride=1, padding=0, dilation=1,
+                        out_dtype=torch.float32) -> torch.Tensor:
+    """The plain data gradient: ``aten.convolution_backward`` of the forward
+    conv with respect to x, in float64 (exact) on the codes, wrapped to
+    int32, then ``float(acc) * (g_s * w_s)`` in float32, then ``out_dtype``."""
+    if g_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"g_q and w_q must be int8, got {g_q.dtype} and {w_q.dtype}")
+    out_dtype = _out_dtype(out_dtype)
+    b, c = g_q.shape[0], w_q.shape[0]
+    _forward_extent(x_hw, c, g_q.shape, w_q.shape[1:3], stride, padding, dilation)
+    w_fwd = w_q.flip(1, 2).permute(3, 0, 1, 2).double()  # the forward's OIHW kernel
+    x_like = torch.zeros((), dtype=torch.float64, device=g_q.device).expand(b, c, *x_hw)
+    dx = torch.ops.aten.convolution_backward(
+        g_q.permute(0, 3, 1, 2).double(), x_like, w_fwd, None, list(_pair(stride)),
+        list(_sym_pads(padding)), list(_pair(dilation)), False, [0, 0], 1,
+        [True, False, False])[0]
+    out = _wrap_int32(dx).permute(0, 2, 3, 1).float() * product_scale(g_amax, w_amax)
+    return out.contiguous().to(out_dtype)
+
+
+def conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, kernel_size, stride=1, padding=0,
+                        dilation=1, out_dtype=torch.float32) -> torch.Tensor:
+    """The plain weight gradient: ``aten.convolution_backward`` of the
+    forward conv with respect to w, in float64 (exact) on the codes, wrapped
+    to int32, then ``float(acc) * (x_s * g_s)`` in float32, then
+    ``out_dtype``, OIHW."""
+    if x_q.dtype != torch.int8 or g_q.dtype != torch.int8:
+        raise TypeError(f"x_q and g_q must be int8, got {x_q.dtype} and {g_q.dtype}")
+    out_dtype = _out_dtype(out_dtype)
+    c, n = x_q.shape[3], g_q.shape[3]
+    kernel = _pair(kernel_size)
+    _forward_extent(x_q.shape[1:3], c, g_q.shape, kernel, stride, padding, dilation)
+    w_like = torch.zeros((), dtype=torch.float64, device=x_q.device).expand(n, c, *kernel)
+    dw = torch.ops.aten.convolution_backward(
+        g_q.permute(0, 3, 1, 2).double(), x_q.permute(0, 3, 1, 2).double(), w_like, None,
+        list(_pair(stride)), list(_sym_pads(padding)), list(_pair(dilation)), False, [0, 0],
+        1, [False, True, False])[1]
+    out = _wrap_int32(dw).float() * product_scale(x_amax, g_amax)
+    return out.contiguous().to(out_dtype)
+
+
+def _backward_checks(name: str, a: torch.Tensor, b: torch.Tensor, amaxes) -> list:
+    """Device, types, layout and the two amaxes' device pointers."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU, not {a.device}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 operands, got {a.dtype} and {b.dtype}")
+    if torch.cuda.get_device_capability(a.device) != (9, 0):
+        raise RuntimeError(f"the {name} kernel is built for sm_90a (H100/H200)")
+    for t in (a, b):
+        if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous, 16-byte aligned and on one "
+                             f"device, got strides {t.stride()} for {tuple(t.shape)}")
+    if not all(isinstance(m, torch.Tensor) for m in amaxes):
+        raise TypeError(f"{name} takes its scales as amax tensors on the device")
+    return [_scale_arg(m, a.device, name)[1] for m in amaxes]
+
+
+def conv_s8_dgrad(g_q: torch.Tensor, w_q: torch.Tensor, g_amax: torch.Tensor,
+                  w_amax: torch.Tensor, x_hw, stride=1, padding=0, dilation=1,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The data gradient of a conv (the JAX package's ``_int8_dgrad``): the
+    int8 cotangent g_q [B, Ho, Wo, N] (NHWC) and the per-tensor codes of the
+    rotated, I/O-swapped kernel w_q [C, KH, KW, N] (``w_rot[c, i, j, n] =
+    w[n, c, KH - 1 - i, KW - 1 - j]``) -> dx [B, H, W, C] (``x_hw`` = (H, W),
+    x's extent) in ``out_dtype``, ``float(acc) * (g_s * w_s)``, each scale
+    from its amax (0-d float32 tensors on g's device), for the forward's
+    stride, padding (the same on both sides) and dilation.  On the card: the
+    dense conv's kernel at :func:`dgrad_geometry`, after a kernel that
+    zero-inserts g_q where the stride is above 1."""
+    if g_q.device.type == "cpu":
+        return conv_s8_dgrad_plain(g_q, w_q, g_amax, w_amax, x_hw, stride, padding, dilation,
+                                   out_dtype)
+    name = "conv_s8_dgrad"
+    amaxes = _backward_checks(name, g_q, w_q, (g_amax, w_amax))
+    out_dtype = _out_dtype(out_dtype)
+    _forward_extent(x_hw, w_q.shape[0], g_q.shape, w_q.shape[1:3], stride, padding, dilation)
+    g = dgrad_geometry(g_q.shape, w_q.shape, x_hw, stride, padding, dilation)
+    sh, sw = _pair(stride)
+    dilated = (sh, sw) != (1, 1)
+    m, k = g["B"] * g["Ho"] * g["Wo"], w_q[0].numel()
+    if m * max(g["N"], g["C"]) >= 2**31 or g["B"] * g["H"] * g["W"] * g["C"] >= 2**31:
+        raise ValueError(f"{name}: g {tuple(g_q.shape)} -> x {tuple(x_hw)} does not fit the "
+                         "kernel's int indices")
+    if k * 127 * 127 >= 2**31:
+        raise ValueError(f"{name}: K = {k} overflows the int32 sum")
+    out_bytes = 2 if out_dtype == torch.bfloat16 else 4
+    body = igemm_body(g)
+    if body == "bytes":
+        if -(-m // 128) > 65535:
+            raise ValueError(f"{name}: {m} output pixels exceed the grid")
+        run, plan = g, (1, 0, 0, 0, 1, 0)
+    else:
+        run = g if dilated else as_rows(g)
+        p = plan_igemm(run, out_bytes)
+        dyn, static = dense_smem(p["bn"], p["slots"])
+        if p["blocks"] >= 2**31 or dyn + static > SMEM_MAX:
+            raise ValueError(f"{name}: plan {p} exceeds the grid or the shared memory")
+        plan = (0, p["tw"].bit_length() - 1, p["bn"], p["slots"], p["splits"], int(p["tma"]))
+    w = _weight_rows(w_q)
+    ones = torch.ones(g["N"], dtype=torch.float32, device=g_q.device)
+    out = torch.empty((g["B"], g["Ho"], g["Wo"], g["N"]), dtype=out_dtype, device=g_q.device)
+    if m == 0:
+        return out
+    g_dil = (torch.empty((g["B"], g["H"], g["W"], g["C"]), dtype=torch.int8, device=g_q.device)
+             if dilated else None)
+    partial = (torch.empty((plan[4], m * g["N"]), dtype=torch.int32, device=g_q.device)
+               if plan[4] > 1 else None)
+    geom = (ctypes.c_int * 17)(*(run[key] for key in GEOM_KEYS), k, w.shape[1])
+    lib, _ = load_library()
+    global launches_dgrad
+    with torch.cuda.device(g_q.device):
+        launches_dgrad += 1
+        launches_dgrad_by_body[body] += 1
+        launches_dgrad_by_body["dilated"] += dilated
+        rc = lib.iswm_int8_conv_dgrad(
+            g_q.data_ptr(), None if g_dil is None else g_dil.data_ptr(), w.data_ptr(),
+            ones.data_ptr(), *amaxes, out.data_ptr(), int(out_dtype == torch.bfloat16), geom,
+            g_q.shape[1], g_q.shape[2], sh, sw, (ctypes.c_int * 6)(*plan),
+            None if partial is None else partial.data_ptr(),
+            torch.cuda.current_stream(g_q.device).cuda_stream)
+    _raise_on(rc, lib, name)
+    return out
+
+
+WGRAD_TILE = 128    # output channels n and input channels c of a block
+WGRAD_STEP = 64     # pixels of a step
+WGRAD_WORKSPACE = 2**30  # bytes the splits' int32 partials may take
+
+
+def wgrad_splits(g: dict) -> int:
+    """The pixel splits of the weight gradient's kernel for a geometry: enough
+    blocks for two waves of two on each of the card's SMs, each split one step
+    at least, the workspace within ``WGRAD_WORKSPACE``."""
+    plane = g["KH"] * g["KW"] * g["N"] * g["C"]
+    tiles = g["KH"] * g["KW"] * -(-g["N"] // WGRAD_TILE) * -(-g["C"] // WGRAD_TILE)
+    steps = -(-g["B"] * g["Ho"] * g["Wo"] // WGRAD_STEP)
+    return max(1, min(steps, -(-4 * SMS // tiles), WGRAD_WORKSPACE // (4 * plane)))
+
+
+def conv_s8_wgrad(x_q: torch.Tensor, g_q: torch.Tensor, x_amax: torch.Tensor,
+                  g_amax: torch.Tensor, kernel_size, stride=1, padding=0, dilation=1,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The weight gradient of a conv (the JAX package's ``_int8_wgrad`` and
+    the weight half of ``_dil_bwd``): the forward's int8 codes x_q [B, H, W,
+    C] and the int8 cotangent g_q [B, Ho, Wo, N] (NHWC) -> dw [N, C, KH, KW]
+    (OIHW) in ``out_dtype``, ``dw[n, c, i, j] = float(sum over (b, oy, ox) of
+    g_q[b, oy, ox, n] x_q[b, oy sh - ph + i dh, ox sw - pw + j dw, c]) *
+    (x_s * g_s)``, a tap outside x adding 0, each scale from its amax.  On the
+    card: ``wgrad_mma_kernel`` over :func:`wgrad_splits` pixel ranges, then
+    its finishing pass; a channel count that is no multiple of 4 is padded
+    with zero channels (a copy) and cut off after."""
+    if x_q.device.type == "cpu":
+        return conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, kernel_size, stride, padding,
+                                   dilation, out_dtype)
+    name = "conv_s8_wgrad"
+    amaxes = _backward_checks(name, x_q, g_q, (x_amax, g_amax))
+    out_dtype = _out_dtype(out_dtype)
+    c, n = x_q.shape[3], g_q.shape[3]
+    kernel = _pair(kernel_size)
+    _sym_pads(padding)
+    _forward_extent(x_q.shape[1:3], c, g_q.shape, kernel, stride, padding, dilation)
+    if c % 4 or n % 4:
+        xp = F.pad(x_q, (0, -c % 4)).contiguous()
+        gp = F.pad(g_q, (0, -n % 4)).contiguous()
+        dw = conv_s8_wgrad(xp, gp, x_amax, g_amax, kernel, stride, padding, dilation, out_dtype)
+        return dw[:n, :c].contiguous()
+    g = conv_geometry(x_q.shape, (n, *kernel, c), stride, padding, dilation)
+    if (g["B"] * g["H"] * g["W"] * c >= 2**31 or g_q.numel() >= 2**31
+            or n * c * kernel[0] * kernel[1] >= 2**31):
+        raise ValueError(f"{name}: x {tuple(x_q.shape)}, g {tuple(g_q.shape)} do not fit the "
+                         "kernel's int indices")
+    splits = wgrad_splits(g)
+    out = torch.empty((n, c, *kernel), dtype=out_dtype, device=x_q.device)
+    partial = torch.empty((splits, kernel[0] * kernel[1], n, c), dtype=torch.int32,
+                          device=x_q.device)
+    geom = (ctypes.c_int * 17)(*(g[key] for key in GEOM_KEYS), 0, 0)
+    lib, _ = load_library()
+    global launches_wgrad
+    with torch.cuda.device(x_q.device):
+        launches_wgrad += 1
+        rc = lib.iswm_int8_conv_wgrad(
+            x_q.data_ptr(), g_q.data_ptr(), *amaxes, out.data_ptr(),
+            int(out_dtype == torch.bfloat16), geom, splits, partial.data_ptr(),
+            torch.cuda.current_stream(x_q.device).cuda_stream)
+    _raise_on(rc, lib, name)
+    return out

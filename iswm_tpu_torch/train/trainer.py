@@ -59,9 +59,6 @@ def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not port."""
     q1 = "ROADMAP.md Queue 1"
     checks = (
-        (bool(cfg.model.int8_training) and bool(cfg.model.int8_training_bwd),
-         f"int8_training_bwd (the int8 backward of QAT) is not ported yet ({q1}, "
-         "'Quantization-aware training, int8 backward')"),
         (cfg.parallel.remat,
          f"parallel.remat is not ported yet ({q1}, 'Activation rematerialization')"),
         (cfg.parallel.model_axis > 1,

@@ -55,7 +55,9 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
             "ce": [_sharded_ce(case) for case in payload["ce_cases"]],
             "bn": [_batchnorm(case) for case in payload["bn_cases"]],
             "step": _train_step(payload["step"]),
-            "qat": _train_step(payload["step"], qat=True),
+            "qat": _train_step(payload["step"], QAT),
+            "qat_bwd": _train_step(payload["step"], QAT_BWD),
+            "int8_bwd_conv": _int8_bwd_conv(payload["int8_bwd_conv"]),
             "refusals": _refusals(),
             "fit": _fit(payload["fit_dir"]),
         }
@@ -154,13 +156,15 @@ def _dropout_off(model) -> None:
 
 
 QAT = dict(int8_training=64, int8_scale_mode="delayed")  # the QAT step's model
+QAT_BWD = dict(QAT, int8_training_bwd=True)  # ... with QAT's int8 backward
 
 
-def _train_step(case: dict, qat: bool = False) -> dict:
+def _train_step(case: dict, quant: dict | None = None) -> dict:
     """One data-parallel step of resnet18 from the crossed weights on this
     rank's rows: the sharded CE (plain versions), the cross-replica
-    BatchNorm and the summing gradient reduction; with ``qat``, of the
-    delayed-mode QAT model (``QAT``), its amaxes taken over both ranks."""
+    BatchNorm and the summing gradient reduction; with ``quant`` (``QAT``,
+    ``QAT_BWD``), of that QAT model, its amaxes (and with the int8 backward
+    its cotangents' amaxes) taken over both ranks."""
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig, OptimConfig
     from iswm_tpu_torch.models import build_model, layers
@@ -170,7 +174,7 @@ def _train_step(case: dict, qat: bool = False) -> dict:
     from iswm_tpu_torch.train.step import data_parallel
 
     model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32",
-                                    **(QAT if qat else {})))
+                                    **(quant or {})))
     model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
     _dropout_off(model)
     factory, _ = make_optimizer(OptimConfig(), TOTAL)
@@ -188,6 +192,23 @@ def _train_step(case: dict, qat: bool = False) -> dict:
             "amaxes": {k: v.clone() for k, v in layers.quant_state(model).items()},
             "routed": len(layers.routed_sites(model, True)),
             "batchnorms": sum(isinstance(m, layers.BatchNorm2d) for m in model.modules())}
+
+
+def _int8_bwd_conv(case: dict) -> dict:
+    """One int8-backward conv (``int8_conv_fullq``, across the ranks) on this
+    rank's rows of ``case``'s x and cotangent g: dx of the rows, dw summed
+    over the ranks as the data-parallel step's gradient reduction sums it,
+    the amax all-reduces it made."""
+    from iswm_tpu_torch.ops import int8_train
+
+    x = torch.from_numpy(_rows(case["x"])).requires_grad_()
+    w = torch.from_numpy(case["w"]).requires_grad_()
+    reduces = int8_train.amax_all_reduces
+    out = int8_train.int8_conv_fullq(x, w, *case["geometry"], across_ranks=True)
+    out.backward(torch.from_numpy(_rows(case["g"])))
+    dw = w.grad.clone()
+    torch.distributed.all_reduce(dw)
+    return {"dx": x.grad, "dw": dw, "amax_all_reduces": int8_train.amax_all_reduces - reduces}
 
 
 def _refusals() -> dict:

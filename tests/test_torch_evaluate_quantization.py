@@ -95,9 +95,9 @@ def test_resnet50_sites_are_the_jax_sites():
     their BatchNorm."""
     from iswm_tpu_torch.models import build_model_by_name
 
-    from .test_torch_models import jax_init
+    from .test_torch_models import port_init
 
-    _, jmodel, params, stats = jax_init("resnet50", 16)
+    _, jmodel, params, stats = port_init("resnet50", 16)
     x = np.zeros((1, 32, 32, 3), np.float32)
     keys = jq.calibrate_activations(jmodel, params, stats, [jnp.asarray(x)])
     model = build_model_by_name("deeplabv3plus_resnet50", compute_dtype="float32")

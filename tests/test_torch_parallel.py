@@ -24,7 +24,10 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   delayed-mode QAT model (gate 64) against the one-process QAT step on the
   whole batch at those tolerances, its new amaxes within 1e-6 relative (a
   max over both ranks' rows, one all-reduce a routed site, the same on both
-  ranks; a rank's own rows give other amaxes);
+  ranks; a rank's own rows give other amaxes); with QAT's int8 backward
+  (the cotangents' amaxes all-reduced too) the same loss and amaxes, and one
+  int8-backward conv on the two ranks against one process: dx bit-equal, dw
+  within 1.5 float32 ulps;
 - (e) refusals at world size 2: ``model_axis > 1``, the fused stem and blocks
   under ``always`` / ``interpret``; ``auto`` resolves to ``never``;
   ``data_axis`` other than the world size and a batch that does not divide;
@@ -175,6 +178,7 @@ def ranks(tmp_path_factory):
     images, labels = _batch(STEP_BATCH)
     payload = {"ce_cases": _ce_cases(), "bn_cases": _bn_cases(),
                "step": {"ckpt": ckpt, "images": images, "labels": labels},
+               "int8_bwd_conv": _int8_bwd_conv_case(),
                "fit_dir": str(root / "fit")}
     torch.save(payload, root / "payload.pt")
     context = start_ranks(str(root / "payload.pt"), str(root))
@@ -305,6 +309,89 @@ def test_two_rank_train_step_matches_jax_two_device_step(ranks):
 def test_two_rank_qat_step_matches_one_process_step(ranks):
     """QAT's activation amaxes are taken over the global batch (an all-reduce
     with MAX a routed site): the 2-rank step is the one-process step."""
+    from ._torch_dist import QAT
+
+    case = ranks["payload"]["step"]
+    steps = [seen["qat"] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["amax_all_reduces"] == s["routed"] > 20
+    _same_on_both_ranks(steps)
+    loss, before, after, amaxes = _one_process_step(case, QAT, slice(None))
+    assert set(amaxes) == set(steps[0]["amaxes"])
+    for k, v in amaxes.items():
+        torch.testing.assert_close(steps[0]["amaxes"][k], v, rtol=1e-6, atol=0)
+    own = _one_process_step(case, QAT, slice(0, len(case["images"]) // WORLD))[3]
+    assert any(float(own[k]) != float(v) for k, v in amaxes.items())
+    sds = [{k: v.numpy() for k, v in d.items()} for d in (before, after)]
+    _check_step(([loss], sds, [(steps[0]["loss"], steps[0]["before"], steps[0]["after"],
+                                steps[0]["count"])]), 0)
+
+
+def _int8_bwd_conv_case() -> dict:
+    """x, w and a cotangent of a 3x3 stride-2 conv over the global batch."""
+    rng = np.random.default_rng(17)
+    return {"x": rng.normal(size=(8, 16, 9, 11)).astype(np.float32),
+            "w": (rng.normal(size=(12, 16, 3, 3)) * 0.1).astype(np.float32),
+            "g": rng.normal(size=(8, 12, 5, 6)).astype(np.float32), "geometry": (2, 1, 1)}
+
+
+def test_two_rank_int8_bwd_qat_step_matches_one_process_step(ranks):
+    """With QAT's int8 backward the cotangents' amaxes are taken over the
+    global batch too: a second all-reduce with MAX a routed site, in the
+    backward.  The step: equal losses, amaxes and parameters on both ranks,
+    the loss and the running amaxes those of the one-process step.  Its
+    parameters are not held to the one-process step's elementwise: an int8
+    backward is chaotic (a float32 cotangent within rounding of an int8
+    code's edge flips it, and the flip carries through every data gradient
+    below; in one process two torch thread counts alone move some tensors'
+    updates by 10% of their largest).  One conv holds the arithmetic there,
+    fed the same x and g on both sides: the ranks' dx rows bit-equal to the
+    one process's, and dw, each rank's dequantized weight gradient summed in
+    float32 across the ranks where the one process dequantizes one int32
+    sum, within 1.5 float32 ulps of the largest |dw| (two roundings of the
+    ranks' products and one of their sum)."""
+    from iswm_tpu_torch.ops import int8_train
+
+    from ._torch_dist import QAT_BWD
+
+    case = ranks["payload"]["step"]
+    steps = [seen["qat_bwd"] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["amax_all_reduces"] == 2 * s["routed"] > 40
+    _same_on_both_ranks(steps)
+    loss, _, _, amaxes = _one_process_step(case, QAT_BWD, slice(None))
+    np.testing.assert_allclose(steps[0]["loss"], loss, rtol=1e-5)
+    assert set(amaxes) == set(steps[0]["amaxes"])
+    for k, v in amaxes.items():
+        torch.testing.assert_close(steps[0]["amaxes"][k], v, rtol=1e-6, atol=0)
+
+    conv = ranks["payload"]["int8_bwd_conv"]
+    x = torch.from_numpy(conv["x"]).requires_grad_()
+    w = torch.from_numpy(conv["w"]).requires_grad_()
+    int8_train.int8_conv_fullq(x, w, *conv["geometry"]).backward(torch.from_numpy(conv["g"]))
+    rows = len(conv["x"]) // WORLD
+    for r, seen in enumerate(ranks["seen"]):
+        got = seen["int8_bwd_conv"]
+        assert got["amax_all_reduces"] == 2
+        assert torch.equal(got["dx"], x.grad[r * rows:(r + 1) * rows])
+        limit = 1.5 * np.spacing(np.float32(w.grad.abs().max()))
+        assert float((got["dw"] - w.grad).abs().max()) <= limit
+
+
+def _same_on_both_ranks(steps) -> None:
+    """The two ranks' losses, running amaxes and parameters after a step are
+    the same."""
+    for s in steps:
+        assert s["loss"] == steps[0]["loss"]
+        for k, v in s["amaxes"].items():
+            assert torch.equal(v, steps[0]["amaxes"][k]), k
+    for k, v in steps[0]["after"].items():
+        assert torch.equal(v, steps[1]["after"][k]), k
+
+
+def _one_process_step(case, quant: dict, rows) -> tuple:
+    """(loss, state before, state after, running amaxes) of one step of the
+    QAT model ``quant`` in one process on ``rows`` of the step's batch."""
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig, OptimConfig
     from iswm_tpu_torch.models import build_model
@@ -312,38 +399,17 @@ def test_two_rank_qat_step_matches_one_process_step(ranks):
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
 
-    from ._torch_dist import QAT, _dropout_off
+    from ._torch_dist import _dropout_off
 
-    case = ranks["payload"]["step"]
-    steps = [seen["qat"] for seen in ranks["seen"]]
-    for s in steps:
-        assert s["amax_all_reduces"] == s["routed"] > 20
-        assert s["loss"] == steps[0]["loss"]
-        for k, v in s["amaxes"].items():
-            assert torch.equal(v, steps[0]["amaxes"][k]), k
-    for k, v in steps[0]["after"].items():
-        assert torch.equal(v, steps[1]["after"][k]), k
-
-    def one_process(rows):
-        model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32", **QAT))
-        model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
-        _dropout_off(model)
-        factory, _ = make_optimizer(OptimConfig(), TOTAL)
-        state = TrainState(model, *factory(model.parameters()), 0)
-        before = {k: v.clone() for k, v in model.state_dict().items()}
-        loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
-            state, torch.from_numpy(case["images"][rows]), torch.from_numpy(case["labels"][rows]))
-        return float(loss), before, model.state_dict(), quant_state(model)
-
-    loss, before, after, amaxes = one_process(slice(None))
-    assert set(amaxes) == set(steps[0]["amaxes"])
-    for k, v in amaxes.items():
-        torch.testing.assert_close(steps[0]["amaxes"][k], v, rtol=1e-6, atol=0)
-    own = one_process(slice(0, len(case["images"]) // WORLD))[3]
-    assert any(float(own[k]) != float(v) for k, v in amaxes.items())
-    sds = [{k: v.numpy() for k, v in d.items()} for d in (before, after)]
-    _check_step(([loss], sds, [(steps[0]["loss"], steps[0]["before"], steps[0]["after"],
-                                steps[0]["count"])]), 0)
+    model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32", **quant))
+    model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
+    _dropout_off(model)
+    factory, _ = make_optimizer(OptimConfig(), TOTAL)
+    state = TrainState(model, *factory(model.parameters()), 0)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
+        state, torch.from_numpy(case["images"][rows]), torch.from_numpy(case["labels"][rows]))
+    return float(loss), before, model.state_dict(), quant_state(model)
 
 
 # ----------------------------------------------------------- (e) refusals

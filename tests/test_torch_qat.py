@@ -133,8 +133,10 @@ def test_int8_dilated_conv3x3_exact_on_grid(d):
     out.backward(_nchw(g))
     np.testing.assert_array_equal(xt.grad.permute(0, 2, 3, 1).numpy(), np.asarray(gx))
     np.testing.assert_array_equal(wt.grad.permute(2, 3, 1, 0).numpy(), np.asarray(gw))
-    with pytest.raises(NotImplementedError, match="'Quantization-aware training, int8 backward'"):
-        pt.int8_dilated_conv3x3(xt, wt, d, int8_bwd=True)
+    # every scale is 1 here, so the int8 backward gives the same bits
+    xb, wb = _nchw(x).requires_grad_(), _oihw(w).requires_grad_()
+    pt.int8_dilated_conv3x3(xb, wb, d, int8_bwd=True).backward(_nchw(g))
+    assert torch.equal(xb.grad, xt.grad) and torch.equal(wb.grad, wt.grad)
 
 
 def test_int8_cost_route_matches_jax():
@@ -160,15 +162,27 @@ SITE_CASES = {  # ModelConfig fields; routed sites of an eval and a train forwar
     "separable_resnet18": (dict(backbone="resnet18", separable_conv=True, int8_training=64),
                            None),
     "cost_resnet50": (dict(backbone="resnet50", int8_training=64, int8_route="cost",
-                           int8_scale_mode="delayed"), None),
+                           int8_scale_mode="delayed", int8_training_bwd=True), None),
 }
 
 
-def _jax_routed(fields: dict) -> tuple:
+def _jax_routed(fields: dict, with_bwd: bool = False) -> tuple:
     """The sites a JAX eval and train forward route, traced only (the eval
     one is init's forward): the calling module of each int8 function,
     ``<path>/pointwise`` for a separable conv's half and ``<path>#p{i}`` for
-    a concat conv's part."""
+    a concat conv's part; ``with_bwd``: (site, whether its backward is int8).
+    Traced once a configuration in this module."""
+    key = tuple(sorted(fields.items()))
+    if key not in _ROUTED:
+        _ROUTED[key] = _trace_jax_routed(fields)
+    sites = _ROUTED[key]
+    return sites if with_bwd else tuple([path for path, _ in mode] for mode in sites)
+
+
+_ROUTED = {}
+
+
+def _trace_jax_routed(fields: dict) -> tuple:
     import flax.linen as fnn
     import jax
     import jax.numpy as jnp
@@ -189,7 +203,7 @@ def _jax_routed(fields: dict) -> tuple:
         finally:
             stack.pop()
 
-    def recorded(fn):
+    def recorded(fn, name):
         def wrapped(*a, **k):
             module, method, margs = stack[-1]
             path = "/".join(module.path)
@@ -197,15 +211,18 @@ def _jax_routed(fields: dict) -> tuple:
                 path += f"#p{margs[0]}"
             elif isinstance(module, (jl.SeparableConvBN, SepConvBN)):
                 path += "/pointwise"
-            sites.append(path)
+            bwd = name.startswith("int8_conv_fullq") or (name == "int8_dilated_conv3x3"
+                                                         and bool(a[3]))
+            sites.append((path, bwd))
             return fn(*a, **k)
 
         return wrapped
 
     x = jax.ShapeDtypeStruct((2, 32, 32, 3), jnp.float32)
     with pytest.MonkeyPatch.context() as mp, fnn.intercept_methods(interceptor):
-        for name in ("int8_conv_st", "int8_conv_static_amax", "int8_dilated_conv3x3"):
-            mp.setattr(jt, name, recorded(getattr(jt, name)))
+        for name in ("int8_conv_st", "int8_conv_static_amax", "int8_dilated_conv3x3",
+                     "int8_conv_fullq", "int8_conv_fullq_static"):
+            mp.setattr(jt, name, recorded(getattr(jt, name), name))
         variables = jax.eval_shape(lambda x: model.init(jax.random.key(0), x, train=False), x)
         eval_sites = sites[:]
         del sites[:]
@@ -242,15 +259,16 @@ QAT = dict(backbone="resnet18", int8_training=64)
 
 @pytest.fixture(scope="module")
 def trees():
-    """ResNet-18's JAX (params, batch_stats) at init, BatchNorm perturbed
-    (QAT adds no variable to them), and the port's state dict of them."""
+    """ResNet-18's JAX (params, batch_stats) from the port's seeded init (no
+    JAX compile), BatchNorm perturbed (QAT adds no variable to them), and the
+    port's state dict of them."""
     import jax
 
     from iswm_tpu.compat.torch_import import export_torch_state_dict
 
-    from .test_torch_models import jax_init, perturbed_trees
+    from .test_torch_models import perturbed_trees, port_init
 
-    _, _, params, stats = jax_init("resnet18", 16)
+    _, _, params, stats = port_init("resnet18", 16)
     params, stats = perturbed_trees(jax.device_get(params), jax.device_get(stats))
     sd = {k: torch.from_numpy(np.array(v)) for k, v in export_torch_state_dict(
         params, stats, backbone="resnet18").items()}
@@ -524,11 +542,29 @@ def test_int8_switch_iter_keeps_parameters(tmp_path):
 
 
 def test_int8_training_bwd_is_refused():
+    """Refused no longer: ``int8_training_bwd`` builds, and a train forward
+    routes each site with the JAX package's (forward, backward) pair, the
+    cost route deciding the backward per site and per concat part (the
+    delayed mode's ``int8_conv_fullq_static``, the ASPP branches'
+    ``int8_dilated_conv3x3(..., True)``)."""
     from iswm_tpu_torch.models import build_model_by_name
+    from iswm_tpu_torch.models.layers import QatConv2d
 
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md Queue 1, 'Quantization-aware training, int8 backward'"):
-        build_model_by_name("deeplabv3plus_resnet18", int8_training=64, int8_training_bwd=True)
+    fields = SITE_CASES["cost_resnet50"][0]
+    assert fields["int8_training_bwd"] and fields["int8_route"] == "cost"
+    model = build_model(ModelConfig(compute_dtype="float32", **fields))
+    got = {}
+    for name, m in model.named_modules():
+        if isinstance(m, QatConv2d):
+            if m.runs_parts(True):
+                got.update({k: m.part_bwd[int(k.rsplit("#p", 1)[1])]
+                            for k in m.routed_sites(name, True)})
+            else:
+                got.update({k: m.int8_bwd for k in m.routed_sites(name, True)})
+    want = {pq.port_site_key(k, backbone="resnet50"): bwd
+            for k, bwd in _jax_routed(fields, with_bwd=True)[1]}
+    assert got == want
+    assert any(want.values()) and not all(want.values())
     # without int8_training the flag routes nothing, as in the JAX package
     assert not routed_sites(build_model_by_name("deeplabv3plus_resnet18",
                                                 int8_training_bwd=True), True)

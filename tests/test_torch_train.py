@@ -368,8 +368,6 @@ def test_dropout_rate_and_scaling():
 
 
 REFUSED = {
-    "int8_bwd": ((("model", "int8_training", 64), ("model", "int8_training_bwd", True)),
-                 "Quantization-aware training, int8 backward"),
     "remat": ((("parallel", "remat", True),), "rematerialization"),
     "devices": ((("parallel", "model_axis", 2),), "Spatial model axis"),
 }
@@ -392,15 +390,18 @@ def test_unported_options_are_refused(name):
 # ModelConfig fields they set
 ACCEPTED = {
     "int8_training": (("model", "int8_training", 64),),
+    "int8_bwd": (("model", "int8_training", 64), ("model", "int8_training_bwd", True)),
     "int8_switch": (("model", "int8_training", 64), ("train", "int8_switch_iter", 10)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(ACCEPTED))
 def test_qat_options_are_accepted(name, tmp_path):
-    """QAT and its int8 -> plain switch pass ``refuse_unported`` and build a
-    Trainer whose model routes convs; ``int8_switch_iter`` alone, without
-    ``int8_training``, switches nothing, as in the JAX package."""
+    """QAT, its int8 backward and its int8 -> plain switch pass
+    ``refuse_unported`` and build a Trainer whose model routes convs (with
+    ``int8_training_bwd``, each with an int8 backward); ``int8_switch_iter``
+    alone, without ``int8_training``, switches nothing, as in the JAX
+    package."""
     from iswm_tpu_torch.data import ArrayDataset
     from iswm_tpu_torch.models.layers import routed_sites
 
@@ -414,6 +415,7 @@ def test_qat_options_are_accepted(name, tmp_path):
     ds = ArrayDataset(np.zeros((2, 8, 8, 3), np.uint8), np.zeros((2, 8, 8), np.uint8))
     trainer = Trainer(cfg, device="cpu", train_ds=ds, val_ds=ds)
     assert routed_sites(trainer.state.model, True)
+    assert trainer.state.model.quant.int8_bwd == cfg.model.int8_training_bwd
     assert trainer._switch_iter == cfg.train.int8_switch_iter
     cfg.model.int8_training = 0
     assert Trainer(cfg, device="cpu", train_ds=ds, val_ds=ds)._switch_iter == 0
