@@ -66,8 +66,13 @@ the root of the checkout:
 ``--kind wgrad`` compares QAT's int8 weight gradient (``conv_s8_wgrad`` of
 ``int8_conv.cu``) at the real codes and cotangents of one int8-backward QAT
 step of ResNet-50 (batch 8 at 512^2, gate 256), each distinct shape once,
-weighted by its sites, each build held to the plain version's bits:
+weighted by its sites, each build's whole entry timed (every launch it
+makes: the checkout's planar copies too) and held to the plain version's
+bits.  The base is PR 18's source, driven through its own entry
+(``iswm_int8_conv_wgrad`` on the NHWC codes, its pixel splits, its
+finishing pass); the checkout and its edits through ``kc.conv_s8_wgrad``:
 
+    git show 96ec4bf:iswm_tpu_torch/csrc/int8_conv.cu > build/int8_conv_base.cu
     python3 block_bwd_ab.py --kind wgrad --base build/int8_conv_base.cu [--edit ...]
 
 With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem``, ``ce``
@@ -1053,9 +1058,49 @@ def sweep_igemm(args, lib, cold) -> None:
     args.out.write_text(json.dumps({"kind": "igemm sweep", "shapes": rows}))
 
 
+def bind_pr18_wgrad(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """A PR-18 int8_conv.cu build: its weight-gradient entry alone."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.iswm_int8_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ctypes.POINTER(i32), i32,
+                                         ptr, ptr]
+    lib.iswm_int8_conv_wgrad.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def pr18_wgrad(lib: ctypes.CDLL, a, k):
+    """A call of PR 18's entry as its wrapper made it: the NHWC codes, its
+    splits' int32 partials (``kc.wgrad_splits``, the mma body's, PR 18's)
+    and its finishing pass, out in OIHW."""
+    x_q, g_q, x_amax, g_amax, kernel = a[:5]
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else tuple(kernel)
+    c, n = x_q.shape[3], g_q.shape[3]
+    if c % 4 or n % 4:
+        raise ValueError(f"PR 18's entry takes channel counts of multiples of 4, got {c}, {n}")
+    g = kc.conv_geometry(x_q.shape, (n, kh, kw, c), *a[5:8])
+    splits = kc.wgrad_splits(g)
+    geom = (ctypes.c_int * 17)(*(g[key] for key in kc.GEOM_KEYS), 0, 0)
+    bf16 = k["out_dtype"] == torch.bfloat16
+
+    def call():
+        out = torch.empty((n, c, kh, kw), dtype=k["out_dtype"], device="cuda")
+        partial = torch.empty((splits, kh * kw, n, c), dtype=torch.int32, device="cuda")
+        rc = lib.iswm_int8_conv_wgrad(x_q.data_ptr(), g_q.data_ptr(), x_amax.data_ptr(),
+                                      g_amax.data_ptr(), out.data_ptr(), int(bf16), geom, splits,
+                                      partial.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+        return out
+    return call
+
+
 def time_wgrad(args, libs: dict, cold) -> None:
-    """conv_s8_wgrad of every build at one int8-backward QAT step's shapes
-    (the wrapper's plan, each build's kernels through ``kc._lib``)."""
+    """conv_s8_wgrad of every build at one int8-backward QAT step's shapes:
+    the base through PR 18's entry (:func:`pr18_wgrad`), the checkout and
+    its edits through ``kc.conv_s8_wgrad`` with their library; each build's
+    device time a call is the sum of every kernel it launches, the planar
+    copies' kernel also apart."""
     from iswm_tpu_torch.models import build_model_by_name
 
     model = build_model_by_name("deeplabv3plus_resnet50", int8_training=cs.QAT_GATE,
@@ -1072,41 +1117,131 @@ def time_wgrad(args, libs: dict, cold) -> None:
         key = (tuple(a[0].shape), tuple(a[1].shape), str(a[4:]))
         shapes.setdefault(key, [a, k, 0])[2] += 1
     order = list(libs) + list(libs)[::-1]
-    head_lib, totals, rows, differ = kc._lib, dict.fromkeys(libs, 0.0), [], []
+    head_lib, rows, differ = kc._lib, [], []
+    totals = {name: {"ms": 0.0, "planar_ms": 0.0} for name in libs}
 
-    def run(lib, a, k):
+    def run(name, a, k):
+        if name == "base":
+            return pr18_wgrad(libs["base"], a, k)
+
         def call():
-            kc._lib = lib
+            kc._lib = libs[name]
             return kc.conv_s8_wgrad(*a, **k)
         return call
 
     for key, (a, k, count) in shapes.items():
         want = kc.conv_s8_wgrad_plain(*a, **k)
-        for name, lib in libs.items():
-            got = run(lib, a, k)()
+        for name in libs:
+            got = run(name, a, k)()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 differ.append(f"{name} at {key}")
         times = {name: [] for name in libs}
         for name in order:
-            times[name].append(cold(run(libs[name], a, k)))
+            times[name].append(cold.kernels(run(name, a, k)))
+        geo = kc.conv_geometry(a[0].shape, (a[1].shape[3], *a[4], a[0].shape[3]), *a[5:8])
         row = {"shape": [list(key[0]), list(key[1]), key[2]], "count": count,
-               "splits": kc.wgrad_splits(kc.conv_geometry(
-                   a[0].shape, (a[1].shape[3], *a[4], a[0].shape[3]), *a[5:8])),
-               "bound_ms": cs._bwd_bound("wgrad", a, k)["bound_ms"],
-               **{name: sum(v) / len(v) for name, v in times.items()}}
-        for name in libs:
-            totals[name] += count * row[name]
+               "body": kc.wgrad_body(geo), "bound_ms": cs._bwd_bound("wgrad", a, k)["bound_ms"]}
+        for name, runs in times.items():
+            row[name] = sum(sum(r.values()) for r in runs) / len(runs)
+            row[f"{name}_planar_ms"] = sum(v for r in runs for n, v in r.items()
+                                           if "planar_kernel" in n) / len(runs)
+            totals[name]["ms"] += count * row[name]
+            totals[name]["planar_ms"] += count * row[f"{name}_planar_ms"]
         rows.append(row)
         print("[ab] " + json.dumps(row), flush=True)
     kc._lib = head_lib
+    bound = sum(r["count"] * r["bound_ms"] for r in rows)
     for name, total in totals.items():
-        print(f"[ab] conv_s8_wgrad over one step's {len(calls)} sites, {name}: {total:.4f} ms")
+        print(f"[ab] conv_s8_wgrad over one step's {len(calls)} sites, {name}: "
+              f"{total['ms']:.4f} ms ({bound / total['ms']:.1%} of the bound {bound:.4f} ms), "
+              f"its planar copies {total['planar_ms']:.4f} ms")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
-                                    "differs": differ}))
+                                    "bound_ms": bound, "differs": differ}))
     if differ:
         raise SystemExit("builds differ from the plain version: " + "; ".join(differ))
+
+
+def sweep_wgrad(args, lib, cold) -> None:
+    """The wgmma body of conv_s8_wgrad at one int8-backward QAT step's
+    shapes under 1 ... 64 splits a tap (work items) beside the planner's
+    choice: device time a call with the inputs out of L2, each plan's output
+    equal to the plain version's."""
+    from iswm_tpu_torch.models import build_model_by_name
+
+    model = build_model_by_name("deeplabv3plus_resnet50", int8_training=cs.QAT_GATE,
+                                int8_training_bwd=True)
+    model.to("cuda", memory_format=torch.channels_last)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    yu8 = torch.randint(0, 2, (8, 512, 512), generator=gen, device="cuda")
+    shapes = {}
+    for kind, a, k in cs._qat_bwd_calls(model, x, yu8):
+        if kind == "wgrad":
+            key = (tuple(a[0].shape), tuple(a[1].shape), str(a[4:]))
+            shapes.setdefault(key, [a, k, 0])[2] += 1
+    del model, x
+    rows, bad = [], []
+    for key, (a, k, count) in shapes.items():
+        x_q, g_q, x_amax, g_amax = a[:4]
+        geo = kc.conv_geometry(x_q.shape, (g_q.shape[3], *a[4], x_q.shape[3]), *a[5:8])
+        if kc.wgrad_body(geo) != "wgmma":
+            continue
+        chosen = kc.wgrad_plan(geo)
+        most = max(chosen["stages"])
+        pers = sorted({d for d in (1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 24, 32, 48, 64) if d <= most}
+                      | {chosen["splits"]})
+        want = kc.conv_s8_wgrad_plain(*a, **k)
+        times = {}
+        for per in pers:
+            p = kc.wgrad_plan(geo, per)
+            if not p["items"]:  # past the partials' workspace
+                continue
+            n, c = g_q.shape[3], x_q.shape[3]
+            kh, kw = geo["KH"], geo["KW"]
+            out = torch.empty((n, c, kh, kw), dtype=k["out_dtype"], device="cuda")
+            x_t = torch.empty(c * p["x_len"], dtype=torch.int8, device="cuda")
+            g_t = torch.empty(n * p["g_len"], dtype=torch.int8, device="cuda")
+            sums = torch.empty(p["items"] * n * c, dtype=torch.int32, device="cuda")
+
+            def call(p=p, out=out, x_t=x_t, g_t=g_t, sums=sums):
+                rc = lib.iswm_int8_conv_wgrad_tma(
+                    x_q.data_ptr(), g_q.data_ptr(), x_t.data_ptr(), g_t.data_ptr(),
+                    x_amax.data_ptr(), g_amax.data_ptr(), out.data_ptr(),
+                    int(k["out_dtype"] == torch.bfloat16), p["c_geom"], p["c_ints"],
+                    sums.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+                return out
+
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad.append(f"{per} splits at {key}")
+            by_kernel = cold.kernels(call)
+            times[per] = {"ms": sum(by_kernel.values()), "blocks": p["blocks"],
+                          "main_ms": sum(v for n_, v in by_kernel.items()
+                                         if "wgrad_tma_kernel" in n_)}
+        first = chosen["splits"]
+        best = min(times, key=lambda q: times[q]["ms"])
+        row = {"shape": [list(key[0]), list(key[1]), key[2]], "count": count,
+               "stages": list(chosen["stages"]), "tiles": chosen["m_tiles"] * chosen["j_tiles"],
+               "bm": chosen["bm"], "chosen": first, "chosen_ms": times[first]["ms"],
+               "best": best, "best_ms": times[best]["ms"], "plans": times}
+        rows.append(row)
+        print(f"[sweep] {key}: planned {first} splits ({chosen['blocks']} blocks) "
+              f"{times[first]['ms']:.4f} ms, best {best} splits ({times[best]['blocks']} blocks) "
+              f"{times[best]['ms']:.4f} ms", flush=True)
+    picked = sum(r["count"] * r["chosen_ms"] for r in rows)
+    best = sum(r["count"] * r["best_ms"] for r in rows)
+    print(f"[sweep] one step's wgmma-body sites: the planner's plans {picked:.4f} ms, the best "
+          f"plan at each shape {best:.4f} ms")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "wgrad sweep", "shapes": rows, "bad": bad}))
+    if bad:
+        raise SystemExit("plans differ from the plain version: " + "; ".join(bad))
 
 
 def main() -> None:
@@ -1124,8 +1259,8 @@ def main() -> None:
     parser.add_argument("--edit", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then one or more OLD=>NEW")
     parser.add_argument("--sweep", action="store_true",
-                        help="with --kind int8, mm_fwd, c3_fwd, stem, ce or igemm: time every "
-                             "plan of the checkout's build instead")
+                        help="with --kind int8, mm_fwd, c3_fwd, stem, ce, igemm or wgrad: time "
+                             "every plan of the checkout's build instead")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
     args = parser.parse_args()
@@ -1140,10 +1275,12 @@ def main() -> None:
     base_bind = bind
     if module is kc and args.base is not None and "out_bf16" not in args.base.read_text():
         base_bind = functools.partial(bind_conv, pr15=True)
+    if args.kind == "wgrad":
+        base_bind = bind_pr18_wgrad
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
-    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct",
-                                                                         "wgrad")):
-        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem, ce or igemm")
+    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct")):
+        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem, ce, igemm "
+                     "or wgrad")
     jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", base_bind)}
     jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", bind))
                 for name, *edits in args.edit)
@@ -1158,7 +1295,8 @@ def main() -> None:
     cold = cs.ColdTimer(reps=args.reps)
     forward = args.kind.endswith("_fwd")
     if args.sweep:
-        sweep = {"stem": sweep_stem, "ce": sweep_ce, "igemm": sweep_igemm}.get(
+        sweep = {"stem": sweep_stem, "ce": sweep_ce, "igemm": sweep_igemm,
+                 "wgrad": sweep_wgrad}.get(
             args.kind, sweep_forward if forward else sweep_int8)
         sweep(args, libs["head"], cold)
     elif forward:

@@ -509,7 +509,10 @@ class ColdTimer:
             self.flush_kernels = None
             self.flush_ms = cuda_ms(self.flush.zero_, reps)
 
-    def __call__(self, fn, reps: int | None = None) -> float:
+    def kernels(self, fn, reps: int | None = None) -> dict:
+        """{kernel name: its device ms in one fn()} with fn's inputs out of
+        L2 (the flush's own kernel left out); where the profiler records
+        nothing, {"all (CUDA events)": the CUDA-event time less the flush's}."""
         def flushed():
             self.flush.zero_()
             return fn()
@@ -520,12 +523,15 @@ class ColdTimer:
                 # a trace can hold the rewrite's records and none of fn's:
                 # it is taken again, as an empty one is
                 records = traced_records(flushed, reps, 3, exclude=self.flush_kernels)
-                return sum(us * n for k, (us, n) in records.items()
-                           if k not in self.flush_kernels) / 1e3
+                return {k: us * n / 1e3 for k, (us, n) in records.items()
+                        if k not in self.flush_kernels}
             except NoDeviceRecords as e:
                 print(f"[profiler] {e}: CUDA-event times stand in", file=sys.stderr)
                 self.flush_ms = cuda_ms(self.flush.zero_, reps)
-        return cuda_ms(flushed, reps) - self.flush_ms
+        return {"all (CUDA events)": cuda_ms(flushed, reps) - self.flush_ms}
+
+    def __call__(self, fn, reps: int | None = None) -> float:
+        return sum(self.kernels(fn, reps).values())
 
 
 def _smi() -> str:
@@ -3901,6 +3907,9 @@ def phase_int8_xla_compare(kc) -> None:
 
 QAT_GATE = 256  # bench.py's int8_train row: int8_training=256, the gate route
 QAT_SITES = {"train": 49, "eval": 45}  # routed sites of a forward (the JAX package's)
+# the weight gradient's launches a step by body: the ASPP's two pooled-part
+# sites (M = 8) keep the mma body, every other routed site runs wgmma
+QAT_WGRAD_BODIES = {"wgmma": 47, "mma": 2}
 QAT_STEPS = 4  # each fit: a quick-eval at step 2 and the validation at 4
 
 
@@ -4212,13 +4221,27 @@ def _bwd_library(kind: str, a, k):
                                                        [0, 0], 1, mask)
 
 
+WGRAD_BODIES = {
+    "wgmma": "planar_kernel (x and g made pixel-major once a call, x in a copy for each column "
+             "shift of the kernel with its padding written as zeros, so that every K stage is "
+             "128 contiguous bytes a channel) + wgrad_tma_kernel (a 128-byte TMA box of each "
+             "operand a stage in the 128-byte swizzle, wgmma m64nNk32 .s32.s8.s8, a producer "
+             "warp and a 4-slot mbarrier ring, tile-level tap skip, planned work items) + "
+             "wgrad_tma_finish (the items' int32 partials added through 32 x 32 shared-memory "
+             "tiles, OIHW)",
+    "mma": "wgrad_mma_kernel (PR 18: 4 x 4 byte transposes in registers, mma.sync m16n8k32) + "
+           "wgrad_finish; the ASPP's pooled part (M = 8)"}
+
+
 def phase_qat_bwd_kernels(kc, smi: str) -> dict:
     """conv_s8_dgrad and conv_s8_wgrad at the real cotangents and codes of
     every routed site of one int8-backward QAT step (ResNet-50, batch 8 at
     512^2, gate 256) and at a zero cotangent: bit-equal to their plain
     versions; their device time over the step's sites with the inputs out of
     L2 beside the bounds, the plain versions, cuDNN's bf16 backward and, for
-    the 1x1 weight gradients, torch._int_mm's int32 product alone."""
+    the 1x1 weight gradients, torch._int_mm's int32 product alone; the weight
+    gradient's also per shape, by kernel (its planar copies apart), and its
+    calls by body against ``QAT_WGRAD_BODIES``."""
     from iswm_tpu_torch.models import build_model_by_name
 
     model = build_model_by_name("deeplabv3plus_resnet50", int8_training=QAT_GATE,
@@ -4265,6 +4288,12 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
           f"at M = 8) and at a zero cotangent at a strided site and the pooled part: bit-equal "
           f"(torch.equal) to the plain versions in the sites' dtypes "
           f"({calls[0][2]['out_dtype']})")
+    bodies = {b: 0 for b in QAT_WGRAD_BODIES}
+    for kind, a, _ in calls:
+        if kind == "wgrad":
+            bodies[kc.wgrad_body(_wgrad_geometry(kc, a))] += 1
+    check(bodies == QAT_WGRAD_BODIES, f"the step's weight gradients by body {bodies}, expected "
+                                      f"{QAT_WGRAD_BODIES}")
 
     # device time over the step's sites: each distinct shape once, times its count
     shapes = {}
@@ -4275,15 +4304,36 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
     cold = ColdTimer(reps=5)
     records = {}
     for name in entries:
-        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "int_mm_ms"), 0.0)
-        bounds = []
+        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "int_mm_ms", "planar_ms"), 0.0)
+        bounds, per_shape = [], []
         for kind, a, k, count in shapes.values():
             if kind != name:
                 continue
-            total["ms"] += count * cold(lambda: entries[kind](*a, **k))
+            by_kernel = cold.kernels(lambda: entries[kind](*a, **k))
+            ms = sum(by_kernel.values())
+            library_ms = cold(_bwd_library(kind, a, k))
+            total["ms"] += count * ms
             total["plain_ms"] += count * cuda_ms(lambda: plains[kind](*a, **k), reps=1, warmup=1)
-            total["library_ms"] += count * cold(_bwd_library(kind, a, k))
-            bounds += [_bwd_bound(kind, a, k)] * count
+            total["library_ms"] += count * library_ms
+            bound = _bwd_bound(kind, a, k)
+            bounds += [bound] * count
+            if kind == "wgrad":
+                planar = sum(v for key, v in by_kernel.items() if "planar_kernel" in key)
+                main = sum(v for key, v in by_kernel.items()
+                           if "wgrad_tma_kernel" in key or "wgrad_mma_kernel" in key)
+                total["planar_ms"] += count * planar
+                row = {"x": list(a[0].shape), "g": list(a[1].shape), "kernel": str(a[4]),
+                       "stride": str(a[5]), "padding": str(a[6]), "dilation": str(a[7]),
+                       "count": count, "body": kc.wgrad_body(_wgrad_geometry(kc, a)), "ms": ms,
+                       "bound_ms": bound["bound_ms"], "library_ms": library_ms,
+                       "planar_ms": planar, "main_ms": main, "finish_ms": ms - planar - main}
+                per_shape.append(row)
+                print(f"[19] conv_s8_wgrad at x {tuple(a[0].shape)} g {tuple(a[1].shape)} k "
+                      f"{a[4]} s {a[5]} p {a[6]} d {a[7]}, {count} site(s), body {row['body']} "
+                      f"({smi}): {ms:.4f} ms ({bound['bound_ms'] / ms:.1%} of its bound "
+                      f"{bound['bound_ms']:.4f} ms): planar copies {planar:.4f}, main kernel "
+                      f"{main:.4f}, finishing pass {ms - planar - main:.4f}; cuDNN bf16 dW "
+                      f"{library_ms:.4f} ms", flush=True)
             if kind == "wgrad" and a[4] in (1, (1, 1)) and a[5] in (1, [1, 1]):
                 p = a[1].shape[0] * a[1].shape[1] * a[1].shape[2]
                 gt = a[1].reshape(p, -1).t().contiguous()  # [N, P]
@@ -4298,28 +4348,39 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
                                          "another function, no quantization"}
         if name == "wgrad":
             records[name]["int_mm_ms_1x1"] = total["int_mm_ms"]
+            records[name]["planar_copies_ms"] = total["planar_ms"]
+            records[name]["per_shape"] = per_shape
         print(f"[19] conv_s8_{name} over an int8-backward QAT step's {sites} routed sites "
               f"({smi}): kernel {total['ms']:.4f} ms with the inputs out of L2 "
               f"({least['bound_ms'] / total['ms']:.1%} of the bound {least['bound_ms']:.4f} ms "
               f"by {least['bound_by']}; {_work(bounds)}); plain {total['plain_ms']:.4f} ms; "
               f"cuDNN bf16 backward {total['library_ms']:.4f} ms"
               + (f"; torch._int_mm at the 1x1 stride-1 sites (the int32 product alone) "
-                 f"{total['int_mm_ms']:.4f} ms" if name == "wgrad" else "")
+                 f"{total['int_mm_ms']:.4f} ms; the planar copies {total['planar_ms']:.4f} ms of "
+                 f"the kernel's time; bodies a step {bodies}" if name == "wgrad" else "")
               + f"; launches by body {dict(kc.launches_dgrad_by_body)}" * (name == "dgrad"))
     return records
 
 
+def _wgrad_geometry(kc, a) -> dict:
+    """The conv geometry of a recorded conv_s8_wgrad call's arguments."""
+    x_q, g_q, kernel = a[0], a[1], a[4]
+    kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+    return kc.conv_geometry(x_q.shape, (g_q.shape[3], kh, kw, x_q.shape[3]), *a[5:8])
+
+
 def _bwd_counting_steps(trainer, log: list):
     """Wrap ``trainer.train_step``: each step appends (step, device-scale
-    quantize launches, dense-conv launches, dgrad launches, wgrad launches)
-    in it."""
+    quantize launches, dense-conv launches, dgrad launches, wgrad launches,
+    wgrad launches of each body of ``QAT_WGRAD_BODIES``) in it."""
     from iswm_tpu_torch.ops.kernels import int8_conv as kc
 
     step = trainer.train_step
 
     def counts():
         return (kc.launches_by_scale["quantize"]["device"], kc.launches_by_scale["igemm"]["device"],
-                kc.launches_dgrad, kc.launches_wgrad)
+                kc.launches_dgrad, kc.launches_wgrad,
+                *(kc.launches_wgrad_by_body[b] for b in QAT_WGRAD_BODIES))
 
     def counted(state, images, labels):
         before = counts()
@@ -4341,6 +4402,7 @@ def phase_qat_bwd_train(kc, smi: str) -> dict:
     t0 = time.perf_counter()
     sites = QAT_SITES["train"]
     kc.launches_dgrad = kc.launches_wgrad = 0
+    kc.launches_wgrad_by_body.update(dict.fromkeys(kc.launches_wgrad_by_body, 0))
     by_scale = {e: v["device"] for e, v in kc.launches_by_scale.items()}
     trainers = {}
     for name, model in (("dynamic", {}), ("delayed", {"int8_scale_mode": "delayed"})):
@@ -4353,14 +4415,18 @@ def phase_qat_bwd_train(kc, smi: str) -> dict:
         losses = trainer.logger.history["train_loss"]
         check(len(losses) == 2 and bool(np.isfinite(losses).all()),
               f"int8-backward QAT {name}: losses {losses}")
-        want = [(i, 2 * sites, sites, sites, sites) for i in range(QAT_STEPS)]
-        check(log == want, f"int8-backward QAT {name}: (quantize, conv, dgrad, wgrad) launches "
-                           f"by step {log}, expected {want}")
+        want = [(i, 2 * sites, sites, sites, sites, *QAT_WGRAD_BODIES.values())
+                for i in range(QAT_STEPS)]
+        check(log == want, f"int8-backward QAT {name}: (quantize, conv, dgrad, wgrad, wgrad by "
+                           f"body {tuple(QAT_WGRAD_BODIES)}) launches by step {log}, expected "
+                           f"{want}")
         print(f"[19] int8-backward QAT {name} fit ({smi}): {QAT_STEPS} steps, losses {losses}, "
-              f"quick-eval and validation; device-scale (quantize, conv, dgrad, wgrad) launches "
-              f"by step {log}: a cotangent quantize, a dgrad and a wgrad a routed site")
+              f"quick-eval and validation; device-scale (quantize, conv, dgrad, wgrad, wgrad by "
+              f"body {tuple(QAT_WGRAD_BODIES)}) launches by step {log}: a cotangent quantize, a "
+              f"dgrad and a wgrad a routed site")
         trainers[name] = trainer
     launches = {"dgrad": kc.launches_dgrad, "wgrad": kc.launches_wgrad,
+                "wgrad_by_body": dict(kc.launches_wgrad_by_body),
                 **{e: kc.launches_by_scale[e]["device"] - by_scale[e] for e in by_scale}}
 
     trainer = trainers.pop("dynamic")
@@ -4584,7 +4650,10 @@ def main() -> int:
           for name, key, replaces, bodies in xla_rows),
         *({"name": f"int8_conv_s8_{key}", "route": "cuda",
            "source": "iswm_tpu_torch/csrc/int8_conv.cu", "replaces": replaces,
-           "pallas_call": False, "launches": bwd_launches[key], **bwd_records[key]}
+           "pallas_call": False, "launches": bwd_launches[key],
+           **({"launches_by_body": bwd_launches["wgrad_by_body"], "bodies": WGRAD_BODIES}
+              if key == "wgrad" else {}),
+           **bwd_records[key]}
           for key, replaces in (
               ("dgrad", "iswm_tpu/ops/int8_train.py:202 (_int8_dgrad) / :458 (_dil_bwd)"),
               ("wgrad", "iswm_tpu/ops/int8_train.py:232 (_int8_wgrad) / :458 (_dil_bwd)"))),

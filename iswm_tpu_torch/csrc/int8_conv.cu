@@ -95,10 +95,15 @@
 //     it is: its epilogue's scale is the product of two amaxes' scales and
 //     its per-channel scales are 1 (an exact product).  Stride-2 sites (3 of
 //     a ResNet-50 step's 49) pay 4x their products on the inserted zeros;
-//   - `wgrad_mma_kernel` (C and N multiples of 4): see its comment; the
-//     pixels split across blocks into int32 partials, `wgrad_finish` adds
-//     them and writes OIHW.  Bound by its instructions (the transposes, the
-//     barrier) more than by its products (PERF.md).
+//   - the weight gradient's `wgmma` body (namespace wgrad: C and N multiples
+//     of 16, an output map of 64 pixels or more): both operands made
+//     pixel-major once a call, their tiles copied by TMA into `wgmma`, int32
+//     partials added by a finishing pass; see its comment;
+//   - `wgrad_mma_kernel` (the weight gradient's other sites: the pooled
+//     part's M = 8, channel counts the wgmma body does not take; C and N
+//     multiples of 4): see its comment; the pixels split across blocks into
+//     int32 partials, `wgrad_finish` adds them and writes OIHW.  Bound by its
+//     instructions (the transposes, the barrier) more than by its products.
 //
 // Exactness: the int32 sums are exact in any order (|acc| <= K 127^2 < 2^31
 // for K < 133,000), so skipped padding taps, K splits and any product order
@@ -1353,6 +1358,319 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace backward
 
+// ------------------------------------ the weight gradient on wgmma and TMA
+// The weight gradient's body for every site whose channel counts are
+// multiples of 16 and whose output map has 64 pixels or more (every routed
+// site of a ResNet-50 QAT step but the two of the ASPP's pooled part, M = 8,
+// which keep `wgrad_mma_kernel` above, as do channel counts it cannot take).
+// A K stage is 128 pixel bytes: R = 128 / TW output rows of TW pixels (TW =
+// 32, 64 or 128, the map's width rounded up; a wider map walks chunks of 128
+// along its rows) of one image.  Three launches:
+//   - `planar_kernel` makes both operands pixel-major ("planar") once a call,
+//     laid out so that every stage of every tap is 128 contiguous bytes of a
+//     channel's row: g^T [N][B][Ho'][pitch] (Ho' = Ho rounded up to R, zeros
+//     past Ho and Wo) and x^T [C][B np][Hc][pitch] in np copies, one for each
+//     (py, px, s) some tap reads: copy (py, px, s) holds at (row y' + m,
+//     column u) the code of pixel (y' sh + py, (u + s) sw + px), zeros where
+//     there is none: the stride's parity plane (py, px) with the tap's column
+//     shift s taken out and m = R - 1 zero rows above and below (a stage a
+//     tap walks reads at most R - 1 rows past x's).  pitch = TW (or a
+//     multiple of 128 past 128 columns), so a stage's R rows run on.  A 3x3
+//     keeps three copies, a 1x1 of stride 2 one plane of four.  64 positions
+//     x 128 channels a block: 16-byte loads of NHWC rows into a swizzled
+//     tile, 4 x 4 byte transposes (prmt), coalesced 4-byte stores of channel
+//     rows;
+//   - `wgrad_tma_kernel`: a block owns one tap, a tile of BM rows (the
+//     smaller of N and C: 64 where it is 64 or less, else 128) x BN = 256
+//     columns (the larger), and one work item: split k of the tap's stages,
+//     of `splits` a tap; the blocks run split by split, every tap's split k
+//     together (blocks in flight read the same pixels of g).  A stage is one TMA box of each operand, 128 bytes x its rows, through
+//     2-D maps of the copies (a row a channel) in the 128-byte swizzle: g's
+//     at the stage's pixels, x's at the same pixels in the tap's copy, its
+//     rows shifted by the tap's row offset; four `wgmma.mma_async m64nNk32
+//     .s32.s8.s8` a stage and consumer warpgroup.  One producer warp keeps a
+//     4-slot ring in flight on `full` / `empty` mbarriers; the consumers hold
+//     no load, index or bounds check in their loop.  The map's out-of-bounds
+//     zero fill covers the channel rows past N or C.  A tap walks only the
+//     stages whose rows and columns read inside x for some pixel (the
+//     tile-level tap skip: the ASPP branches at d = 12 / 18 keep about half
+//     of theirs); the splits a tap come from the wrapper's planner
+//     (`wgrad_plan`, fitted to `block_bwd_ab.py --kind wgrad --sweep`); an
+//     item may hold no stage (a short tap's), its partial then 0.  A block
+//     stores its int32 tile into its item's partial [item][M][J];
+//   - `wgrad_tma_finish` adds each tap's items' partials in order (wrapping,
+//     exact) and writes float(acc) * scale in OIHW, through 32 x 32 tiles in
+//     shared memory: 16-byte loads, OIHW written in runs.
+// What bounds it: its products on paper (850.8 GOP a ResNet-50 step); the
+// copies out of L2 ((BM + BN) x 128 bytes a stage against BM x BN x 256
+// operations) and the planar copies' bytes (x, three times at a 3x3, and g
+// read and written once).  The copies, and not boxes of x at the taps'
+// shifted coordinates, because a TMA box starts on 16 bytes along its row
+// and a box of 32 bytes a row ran at a third of a 128-byte box's rate;
+// partials, and not atomic adds into one sum a tap, because L2's atomics
+// cost more than the partials' bytes (PERF.md).
+namespace wgrad {
+
+constexpr int STAGES = 4;      // ring slots
+constexpr int BK = 128;        // pixel bytes of a stage
+constexpr int BN = 256;        // columns of a tile (the larger of N and C)
+constexpr int THREADS = 288;   // two consumer warpgroups, one producer warp
+constexpr int MAX_TAPS = 49;
+constexpr int MAX_PLANES = 16;  // x's copies
+
+// One tap's place in the schedule (the wrapper's plan).
+struct Tap {
+  int shift_y, plane;         // x's row offset, its copy
+  int rg_lo, nrg, cc_lo, ncc;  // the output row groups and column chunks it walks
+  int item0, items;            // its work items: [item0, item0 + items), items = splits
+};
+struct Plan {
+  int taps, np, m_tiles, j_tiles, M, J, B, x_is_a;
+  int R, TW, pitch, hc, ho_pad, margin;  // the copies' layout
+  Tap tap[MAX_TAPS];
+};
+
+__host__ __device__ constexpr int smem_bytes(int bm) { return STAGES * (bm + BN) * BK; }
+
+// A K-major wgmma operand in the 128-byte swizzle (128 bytes a row, atoms of
+// 8 rows 1,024 bytes apart).
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | uint64_t{1} << 16 |
+         uint64_t{1024 >> 4} << 32 | uint64_t{1} << 62;
+}
+
+// One operand's planar copies: NHWC codes [B, H, W, C] -> [C][len], len = B
+// np rows pitch, position ((b np + i) rows + r) pitch + u of copy i = (py[i],
+// px[i], s[i]) holding the code of pixel ((r - margin) sh + py, (u + s) sw +
+// px), 0 where there is none.
+struct Side {
+  const int8_t* src;
+  int8_t* dst;
+  int H, W, C, sh, sw, np, rows, margin, pitch, len, q_tiles, blocks;
+  int py[MAX_PLANES], px[MAX_PLANES], s[MAX_PLANES];
+};
+struct Sides {
+  Side s[2];  // x, then g
+};
+
+// 64 positions x 128 channels a block: 16-byte loads of the NHWC rows into a
+// tile whose 16-byte chunk j of row p sits at j ^ ((p / 4) % 8) (a warp's
+// transposing reads then hit 32 banks), 4 x 4 byte transposes, 4-byte stores
+// of channel rows (32 bytes a row and warp store).
+__global__ void __launch_bounds__(256) planar_kernel(const __grid_constant__ Sides sides) {
+  __shared__ __align__(16) unsigned char tile[64 * 128];
+  int bid = blockIdx.x;
+  const int which = bid < sides.s[0].blocks ? 0 : 1;
+  if (which) bid -= sides.s[0].blocks;
+  const Side& sd = sides.s[which];
+  const int tq = bid % sd.q_tiles, tc = bid / sd.q_tiles;
+  const int q0 = tq * 64, c0 = tc * 128;
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int idx = t + 256 * u;
+    const int p = idx >> 3, j = idx & 7;
+    const int q = q0 + p;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q < sd.len && c0 + 16 * j < sd.C) {
+      const int row = q / sd.pitch, col = q - row * sd.pitch;
+      const int bp = row / sd.rows, r = row - bp * sd.rows;
+      const int b = bp / sd.np, pl = bp - b * sd.np;
+      const int y = r - sd.margin, x = col + sd.s[pl];
+      const int iy = y * sd.sh + sd.py[pl], ix = x * sd.sw + sd.px[pl];
+      if (y >= 0 && x >= 0 && iy < sd.H && ix < sd.W)
+        v = *reinterpret_cast<const uint4*>(
+            sd.src + ((static_cast<long long>(b) * sd.H + iy) * sd.W + ix) * sd.C + c0 + 16 * j);
+    }
+    *reinterpret_cast<uint4*>(tile + p * 128 + 16 * (j ^ ((p >> 2) & 7))) = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    // a warp: positions 4 pw .. (8 pw values) x 4 channel quads of one chunk
+    const int idx = t + 256 * u;
+    const int wi = idx >> 5, lane = idx & 31;
+    const int pw = (lane >> 2) | ((wi & 1) << 3), cq = ((wi >> 1) << 2) | (lane & 3);
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = *reinterpret_cast<const uint32_t*>(tile + (4 * pw + i) * 128 +
+                                                16 * ((cq >> 2) ^ (pw & 7)) + 4 * (cq & 3));
+    backward::transpose4x4(r);  // r[k]: channel 4 cq + k at positions 4 pw .. 4 pw + 3
+    const int q = q0 + 4 * pw;
+    if (q < sd.len) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int c = c0 + 4 * cq + k;
+        if (c < sd.C)
+          *reinterpret_cast<uint32_t*>(sd.dst + static_cast<long long>(c) * sd.len + q) = r[k];
+      }
+    }
+  }
+}
+
+// One block: tap, rows [m0, m0 + BM) x columns [j0, j0 + BN) of the tap's
+// D[M][J] (M = N, J = C; or M = C, J = N where x is the A operand), the
+// stages [s0, s1) of its work item.
+template <int BM>
+__global__ void __launch_bounds__(THREADS, 1)
+    wgrad_tma_kernel(const __grid_constant__ CUtensorMap a_map,
+                     const __grid_constant__ CUtensorMap b_map, const __grid_constant__ Plan plan,
+                     int* __restrict__ partial) {
+  constexpr int STAGE = (BM + BN) * BK;
+  constexpr int WN = BM == 128 ? BN : BN / 2;  // columns of a consumer warpgroup
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+
+  const int t = threadIdx.x;
+  int bid = blockIdx.x;
+  const int jt = bid % plan.j_tiles;
+  bid /= plan.j_tiles;
+  const int mt = bid % plan.m_tiles;
+  bid /= plan.m_tiles;
+  const int tap = bid % plan.taps;
+  const int split = bid / plan.taps;
+  const Tap& tp = plan.tap[tap];
+  const int item = tp.item0 + split;
+  const int stages = plan.B * tp.nrg * tp.ncc;
+  const int s0 = static_cast<int>(static_cast<long long>(split) * stages / tp.items);
+  const int s1 = static_cast<int>(static_cast<long long>(split + 1) * stages / tp.items);
+  const int steps = s1 - s0;
+  const int m0 = mt * BM, j0 = jt * BN;
+
+  if (t == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);   // the producer's arrival with the stage's bytes
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (t >= 256) {  // the producer warp: lane 0 issues every copy
+    if (t == 256) {
+      const int per_b = tp.nrg * tp.ncc;
+      for (int i = 0; i < steps; ++i) {
+        const int slot = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[slot], ((i / STAGES) - 1) & 1);
+        const int st = s0 + i;
+        const int b = st / per_b, rest = st - b * per_b;
+        const int oy = (tp.rg_lo + rest / tp.ncc) * plan.R;
+        const int ox = (tp.cc_lo + rest % tp.ncc) * plan.TW;
+        // the stage's pixels in g's copy, and in x's at the tap's row offset
+        const int g_at = (b * plan.ho_pad + oy) * plan.pitch + ox;
+        const int x_at = ((b * plan.np + tp.plane) * plan.hc + oy + tp.shift_y + plan.margin) *
+                             plan.pitch + ox;
+        unsigned char* sa = smem + slot * STAGE;
+        mbar_arrive_tx(&full[slot], STAGE);
+        tma_load_2d(sa, &a_map, plan.x_is_a ? x_at : g_at, m0, &full[slot]);
+        tma_load_2d(sa + BM * BK, &b_map, plan.x_is_a ? g_at : x_at, j0, &full[slot]);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes A rows 64 wg .. (BM = 128) or B rows
+  // 128 wg .. (BM = 64)
+  const int wg = t >> 7, warp = (t >> 5) & 3, lane = t & 31;
+  const int a_off = BM == 128 ? wg * 64 * BK : 0;
+  const int b_off = BM * BK + (BM == 128 ? 0 : wg * (BN / 2) * BK);
+  int acc[WN / 2];
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0;
+  for (int i = 0; i < steps; ++i) {
+    const int slot = i % STAGES;
+    mbar_wait(&full[slot], (i / STAGES) & 1);
+    const unsigned char* st = smem + slot * STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 32; ++k)
+      wgmma_s8(acc, smem_desc_sw128(st + a_off + 32 * k), smem_desc_sw128(st + b_off + 32 * k));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: its slot is free
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // n8 block q of the warp's 16 rows: rows lane / 4 (+ 8), columns 8 q + 2
+  // (lane % 4) (+ 1)
+  int* part = partial + static_cast<long long>(item) * plan.M * plan.J;
+  const int row = m0 + (BM == 128 ? wg * 64 : 0) + warp * 16 + (lane >> 2);
+  const int col = j0 + (BM == 128 ? 0 : wg * (BN / 2)) + 2 * (lane & 3);
+#pragma unroll
+  for (int q = 0; q < WN / 8; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = row + 8 * h, j = col + 8 * q;
+      if (m < plan.M && j < plan.J)
+        *reinterpret_cast<int2*>(part + static_cast<long long>(m) * plan.J + j) =
+            make_int2(acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+    }
+}
+
+// dw in OIHW: each tap's items added in order as unsigned (wrapping) ints,
+// then float(acc) * scale.  A block a 32 x 32 tile of D (rows m, columns j)
+// for up to 9 taps at a time: 16-byte loads of the partials' rows into a
+// shared tile [tap][m][j], then OIHW runs of (c, tap) (or (n, tap) where x
+// is the A operand) written in order (J % 4 == 0).
+constexpr int FT = 32;            // rows and columns of a finishing tile
+constexpr int FTAPS = 9;          // taps a pass
+constexpr int FSTRIDE = FT * (FT + 1) + 1;  // words of a tap's tile (banks apart)
+
+template <typename OutT>
+__global__ void __launch_bounds__(256)
+    wgrad_tma_finish(const int* __restrict__ partial, const __grid_constant__ Plan plan, int C,
+                     AmaxScale scale, OutT* __restrict__ out) {
+  __shared__ int tile[FTAPS * FSTRIDE];
+  const float s = scale.get();
+  const int M = plan.M, J = plan.J, taps = plan.taps, t = threadIdx.x;
+  const long long mj = static_cast<long long>(M) * J;
+  const int tiles_j = (J + FT - 1) / FT;
+  const int m0 = blockIdx.x / tiles_j * FT, j0 = blockIdx.x % tiles_j * FT;
+  for (int t0 = 0; t0 < taps; t0 += FTAPS) {
+    const int nt = min(FTAPS, taps - t0);
+    const int r = t >> 3, q = (t & 7) * 4;  // row r, columns q .. q + 3
+    for (int k = 0; k < nt; ++k) {
+      const Tap& tp = plan.tap[t0 + k];
+      uint4 acc = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < M && j0 + q < J) {
+        const int* src = partial + (m0 + r) * static_cast<long long>(J) + j0 + q;
+        for (int i = 0; i < tp.items; ++i) {
+          const uint4 v = *reinterpret_cast<const uint4*>(src + (tp.item0 + i) * mj);
+          acc.x += v.x;
+          acc.y += v.y;
+          acc.z += v.z;
+          acc.w += v.w;
+        }
+      }
+      int* row = tile + k * FSTRIDE + r * (FT + 1) + q;
+      row[0] = static_cast<int>(acc.x);
+      row[1] = static_cast<int>(acc.y);
+      row[2] = static_cast<int>(acc.z);
+      row[3] = static_cast<int>(acc.w);
+    }
+    __syncthreads();
+    // out[(n C + c) taps + tap]: a run of (c, tap) for each n = m (or of
+    // (n, tap)... for each c = m where x is the A operand: then n = j)
+    for (int e = t; e < FT * FT * nt; e += 256) {
+      const int a = e / (FT * nt), rest = e - a * (FT * nt);
+      const int b = rest / nt, k = rest - b * nt;
+      const int m = plan.x_is_a ? m0 + b : m0 + a, j = plan.x_is_a ? j0 + a : j0 + b;
+      if (m < M && j < J) {
+        const int n = plan.x_is_a ? j : m, c = plan.x_is_a ? m : j;
+        const int v = tile[k * FSTRIDE + (m - m0) * (FT + 1) + (j - j0)];
+        out[(static_cast<long long>(n) * C + c) * taps + t0 + k] =
+            to_out<OutT>(__fmul_rn(__int2float_rn(v), s));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace wgrad
+
 int grid_for(long long work) {
   long long blocks = (work + 255) / 256;
   return static_cast<int>(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
@@ -1389,18 +1707,23 @@ DenseKernel<OutT, S> dense_kernel(int bn, int slots, bool tma) {
 // rows in the 64-byte swizzle, zeros outside.  cuTensorMapEncodeTiled is a
 // libcuda entry: found by dlsym in the libcuda.so.1 the process has loaded,
 // so that the build links nothing more.
-int weight_map(CUtensorMap* map, const int8_t* w, int N, int ldw, int bn) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                            const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                            const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                            CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+Encode encode_fn() {
   static Encode encode = nullptr;
   if (encode == nullptr) {
     void* lib = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
     if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_LAZY);
     if (lib != nullptr) encode = reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled"));
-    if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   }
+  return encode;
+}
+
+int weight_map(CUtensorMap* map, const int8_t* w, int N, int ldw, int bn) {
+  const Encode encode = encode_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(ldw), static_cast<cuuint64_t>(N)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldw)};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(bn)};
@@ -1408,6 +1731,22 @@ int weight_map(CUtensorMap* map, const int8_t* w, int N, int ldw, int bn) {
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(w), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A planar copy [rows][len] as a 2-D TMA map of boxes of 128 bytes x
+// box_rows in the 128-byte swizzle (rows past `rows` read as zeros).
+int planar_map(CUtensorMap* map, const int8_t* base, int len, int rows, int box_rows) {
+  const Encode encode = encode_fn();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(len)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1564,6 +1903,86 @@ int run_wgrad(const Geom& g, int splits, const int8_t* x, const int8_t* gq, int*
   return static_cast<int>(cudaGetLastError());
 }
 
+using WgradKernel = void (*)(const CUtensorMap, const CUtensorMap, const wgrad::Plan, int*);
+
+// The wgmma body (see namespace wgrad).  plan[]: BM, BN, TW, x_is_a,
+// m_tiles, j_tiles, items, taps, np, hc, pitch, ho_pad, margin, the copies'
+// py[16], px[16], s[16], then 8 ints a tap: shift_y, plane, rg_lo, nrg,
+// cc_lo, ncc, item0, items.
+template <typename OutT>
+int run_wgrad_tma(const Geom& g, const int* p, const int8_t* x, const int8_t* gq, int8_t* xt,
+                  int8_t* gt, int* partial, AmaxScale scale, OutT* out, cudaStream_t s) {
+  using namespace wgrad;
+  const int bm = p[0], bn = p[1], tw = p[2], x_is_a = p[3], m_tiles = p[4], j_tiles = p[5];
+  const int items = p[6], taps = p[7], np = p[8], hc = p[9], pitch = p[10], ho_pad = p[11];
+  const int margin = p[12];
+  const WgradKernel kernel = bm == 128 ? wgrad_tma_kernel<128> : wgrad_tma_kernel<64>;
+  const int rows = BK / tw;
+  if ((bm != 64 && bm != 128) || bn != BN || (tw != 32 && tw != 64 && tw != 128) ||
+      taps != g.KH * g.KW || taps > MAX_TAPS || items % taps || np < 1 || np > MAX_PLANES || g.C % 16 ||
+      g.N % 16 || pitch % tw || (rows > 1 && pitch != tw) || ho_pad % rows || ho_pad < g.Ho ||
+      margin != rows - 1 || items < 1 || partial == nullptr || xt == nullptr || gt == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long len_x = static_cast<long long>(g.B) * np * hc * pitch;
+  const long long len_g = static_cast<long long>(g.B) * ho_pad * pitch;
+  const long long blocks = static_cast<long long>(items) * m_tiles * j_tiles;  // splits * taps
+  if (len_x >= 0x7fffffffLL || len_g >= 0x7fffffffLL || blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  // the planar copies of x and g, one launch
+  Sides sides{};
+  Side& sx = sides.s[0];
+  sx = Side{x, xt, g.H, g.W, g.C, g.sh, g.sw, np, hc, margin, pitch, static_cast<int>(len_x),
+            static_cast<int>((len_x + 63) / 64), 0, {}, {}, {}};
+  for (int i = 0; i < MAX_PLANES; ++i) {
+    sx.py[i] = p[13 + i];
+    sx.px[i] = p[13 + MAX_PLANES + i];
+    sx.s[i] = p[13 + 2 * MAX_PLANES + i];
+  }
+  sx.blocks = sx.q_tiles * ((g.C + 127) / 128);
+  Side& sg = sides.s[1];
+  sg = Side{gq, gt, g.Ho, g.Wo, g.N, 1, 1, 1, ho_pad, 0, pitch, static_cast<int>(len_g),
+            static_cast<int>((len_g + 63) / 64), 0, {}, {}, {}};
+  sg.blocks = sg.q_tiles * ((g.N + 127) / 128);
+  planar_kernel<<<sx.blocks + sg.blocks, 256, 0, s>>>(sides);
+
+  // the two maps: a row of a copy a channel
+  CUtensorMap xm{}, gm{};
+  int rc = planar_map(&xm, xt, static_cast<int>(len_x), g.C, x_is_a ? bm : bn);
+  if (rc) return rc;
+  rc = planar_map(&gm, gt, static_cast<int>(len_g), g.N, x_is_a ? bn : bm);
+  if (rc) return rc;
+
+  Plan plan{};
+  plan.taps = taps;
+  plan.np = np;
+  plan.m_tiles = m_tiles;
+  plan.j_tiles = j_tiles;
+  plan.M = x_is_a ? g.C : g.N;
+  plan.J = x_is_a ? g.N : g.C;
+  plan.B = g.B;
+  plan.x_is_a = x_is_a;
+  plan.R = rows;
+  plan.TW = tw;
+  plan.pitch = pitch;
+  plan.hc = hc;
+  plan.ho_pad = ho_pad;
+  plan.margin = margin;
+  for (int i = 0; i < taps; ++i) {
+    const int* q = p + 13 + 3 * MAX_PLANES + 8 * i;
+    plan.tap[i] = Tap{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
+    if (q[6] != i * (items / taps) || q[7] != items / taps) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = smem_bytes(bm);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, smem, s>>>(x_is_a ? xm : gm, x_is_a ? gm : xm,
+                                                              plan, partial);
+  const int finish_tiles = ((plan.M + FT - 1) / FT) * ((plan.J + FT - 1) / FT);
+  wgrad_tma_finish<OutT><<<finish_tiles, 256, 0, s>>>(partial, plan, g.C, scale, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1647,6 +2066,26 @@ int iswm_int8_conv_wgrad(const void* x_q, const void* g_q, const float* x_amax,
   if (out_bf16)
     return run_wgrad(g, splits, x, gq, part, scale, static_cast<__nv_bfloat16*>(out), s);
   return run_wgrad(g, splits, x, gq, part, scale, static_cast<float*>(out), s);
+}
+
+// The weight gradient's wgmma body (run_wgrad_tma): as iswm_int8_conv_wgrad
+// with C and N multiples of 16, x_t and g_t the planar copies' room (C len_x
+// and N len_g bytes, 16-byte aligned), `plan` the wrapper's (kc.wgrad_plan)
+// and `partial` items * N * C int32 (16-byte aligned).
+int iswm_int8_conv_wgrad_tma(const void* x_q, const void* g_q, void* x_t, void* g_t,
+                             const float* x_amax, const float* g_amax, void* out, int out_bf16,
+                             const int* geom, const int* plan, void* partial, void* stream) {
+  const Geom g = geom_of(geom);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const int8_t*>(x_q);
+  const auto* gq = static_cast<const int8_t*>(g_q);
+  auto* xt = static_cast<int8_t*>(x_t);
+  auto* gt = static_cast<int8_t*>(g_t);
+  int* part = static_cast<int*>(partial);
+  const AmaxScale scale{x_amax, g_amax};
+  if (out_bf16)
+    return run_wgrad_tma(g, plan, x, gq, xt, gt, part, scale, static_cast<__nv_bfloat16*>(out), s);
+  return run_wgrad_tma(g, plan, x, gq, xt, gt, part, scale, static_cast<float*>(out), s);
 }
 
 // Grouped conv: as above with w_q [N, KH KW C / groups] (ldw unused); body 0

@@ -25,8 +25,16 @@ b_s)``:
   rotated per-tensor codes [C, KH, KW, N] -> dx [B, H, W, C], the dense
   conv's kernel over g_q dilated by the stride (:func:`dgrad_geometry`);
 - :func:`conv_s8_wgrad`: the forward's codes x_q [B, H, W, C] and g_q -> dw
-  [N, C, KH, KW], a product over the pixels (``wgrad_mma_kernel``), split
-  across blocks (:func:`wgrad_splits`) into int32 partials and finished once.
+  [N, C, KH, KW], a product over the pixels.  Its ``wgmma`` body
+  (:func:`wgrad_body`: channel counts multiples of 16, an output map of 64
+  pixels or more) makes both operands pixel-major once a call
+  (:func:`planar_plain` is that copy's plain version: x's padding written
+  into it as zeros, a copy for each column shift of the kernel), copies
+  their tiles by TMA into ``wgmma`` and walks each tap's stages in the work
+  items of :func:`wgrad_plan`, each into an int32 partial; its
+  ``mma`` body (``wgrad_mma_kernel``, the pooled part's M = 8 and other
+  channel counts) splits the pixels across blocks (:func:`wgrad_splits`)
+  into int32 partials.  A finishing pass writes OIHW.
 
 ``x_scale`` is a Python float (absmax / 127 in double, as calibration returns
 it), rounded to float32 once, at the kernel boundary, as the JAX package
@@ -56,7 +64,8 @@ plan); :func:`tile_taps` is its tap-skipping rule.  ``launches_quantize``,
 quantize and the dense conv by where the scale came from (``host``: a float,
 ``device``: an amax tensor); ``launches_dgrad`` and ``launches_wgrad`` those
 of the backward's entries, ``launches_dgrad_by_body`` the data gradient's by
-the dense body it runs and how many zero-inserted the cotangent first.  Their
+the dense body it runs and how many zero-inserted the cotangent first,
+``launches_wgrad_by_body`` the weight gradient's by body.  Their
 plain versions (:func:`conv_s8_dgrad_plain`, :func:`conv_s8_wgrad_plain`) are
 ``aten.convolution_backward`` in float64 on the codes, wrapped to int32 as
 the int32 accumulator wraps.
@@ -66,6 +75,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 
 import numpy as np
@@ -81,6 +91,7 @@ launches_by_body = dict.fromkeys(("wgmma", "bytes", "tiled", "generic"), 0)
 # the data gradient's launches by the dense body it runs, and those of them
 # that zero-insert the cotangent first (a stride above 1)
 launches_dgrad_by_body = dict.fromkeys(("wgmma", "bytes", "dilated"), 0)
+launches_wgrad_by_body = dict.fromkeys(("wgmma", "mma"), 0)
 launches_by_scale = {entry: dict.fromkeys(("host", "device"), 0)
                      for entry in ("quantize", "igemm")}
 _lib = None
@@ -109,6 +120,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iswm_int8_conv_dgrad.restype = i32
     lib.iswm_int8_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ints, i32, ptr, ptr]
     lib.iswm_int8_conv_wgrad.restype = i32
+    lib.iswm_int8_conv_wgrad_tma.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, ints,
+                                             ptr, ptr]
+    lib.iswm_int8_conv_wgrad_tma.restype = i32
     lib.iswm_cuda_error_string.argtypes = [i32]
     lib.iswm_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -724,19 +738,170 @@ def conv_s8_dgrad(g_q: torch.Tensor, w_q: torch.Tensor, g_amax: torch.Tensor,
     return out
 
 
-WGRAD_TILE = 128    # output channels n and input channels c of a block
-WGRAD_STEP = 64     # pixels of a step
-WGRAD_WORKSPACE = 2**30  # bytes the splits' int32 partials may take
+WGRAD_TILE = 128    # the mma body: output channels n and input channels c of a block
+WGRAD_STEP = 64     # the mma body: pixels of a step
+WGRAD_WORKSPACE = 2**30  # bytes the int32 partials may take
 
 
 def wgrad_splits(g: dict) -> int:
-    """The pixel splits of the weight gradient's kernel for a geometry: enough
-    blocks for two waves of two on each of the card's SMs, each split one step
-    at least, the workspace within ``WGRAD_WORKSPACE``."""
+    """The pixel splits of the weight gradient's ``mma`` body for a geometry:
+    enough blocks for two waves of two on each of the card's SMs, each split
+    one step at least, the workspace within ``WGRAD_WORKSPACE``."""
     plane = g["KH"] * g["KW"] * g["N"] * g["C"]
     tiles = g["KH"] * g["KW"] * -(-g["N"] // WGRAD_TILE) * -(-g["C"] // WGRAD_TILE)
     steps = -(-g["B"] * g["Ho"] * g["Wo"] // WGRAD_STEP)
     return max(1, min(steps, -(-4 * SMS // tiles), WGRAD_WORKSPACE // (4 * plane)))
+
+
+# ------------------------------------------- the weight gradient's wgmma body
+WGRAD_BN = 256          # columns of a block's tile (the larger of N and C)
+WGRAD_STAGE = 128       # pixel bytes of a K stage
+WGRAD_MAX_TAPS = 49     # csrc: wgrad::MAX_TAPS
+WGRAD_MAX_PLANES = 16   # x's planar copies (csrc: wgrad::MAX_PLANES)
+
+
+def wgrad_body(g: dict) -> str:
+    """``wgmma`` where both channel counts are multiples of 16 (16-byte rows of
+    the planar copies), the kernel has 49 taps or fewer, x's copies number
+    16 or fewer and the output map has 64 pixels or more (a K stage is 128 of
+    them); else ``mma``, PR 18's body (the ASPP's pooled part, M = 8)."""
+    ok = (g["C"] % 16 == 0 and g["N"] % 16 == 0 and g["KH"] * g["KW"] <= WGRAD_MAX_TAPS
+          and g["Ho"] * g["Wo"] >= 64)
+    if not ok:
+        return "mma"
+    p = wgrad_plan(g)
+    return "wgmma" if p["items"] and len(p["planes"]) <= WGRAD_MAX_PLANES else "mma"
+
+
+def _wgrad_axis(n_out: int, n_in: int, s: int, off: int) -> tuple:
+    """(shift, parity, lo, hi) of one kernel offset ``off`` on an axis: the
+    output positions o with 0 <= o s + off < n_in are lo = ceil(-off / s) ..
+    hi = floor((n_in - 1 - off) / s) (none where lo > hi); they read plane
+    ``parity`` = off mod s at o + shift."""
+    parity = off % s
+    lo = max(0, -(off // s))
+    hi = min(n_out - 1, (n_in - 1 - off) // s)
+    return (off - parity) // s, parity, lo, hi
+
+
+# The planner's estimate of the card's time, in SM cycles (fitted to
+# ``block_bwd_ab.py --kind wgrad --sweep`` on an H100): a K stage of a block
+# takes the longer of its copies out of L2, (BM + 256) x 128 bytes at 36
+# bytes a cycle an SM, and its products (BM x 256 x 256 operations at 8,192
+# a cycle an SM); a block adds 2,000 cycles of ring fill and its int32
+# partial's stores at 14.5 bytes a cycle (the card's 3.35 TB/s shared by
+# its SMs).  The blocks go in launch order (split, tap, tile) to the SM that
+# frees first, one an SM.  The finishing pass takes 4,000 cycles and reads
+# the items' partials at 1,500 bytes a cycle.
+def _wgrad_cost(stages: list, splits: int, tiles: int, bm: int, mj: int) -> float:
+    step = max((bm + WGRAD_BN) * WGRAD_STAGE / 36, bm * WGRAD_BN * 2 * WGRAD_STAGE / 8192)
+    block = 2000 + bm * WGRAD_BN * 4 / 14.5
+    free = [0.0] * SMS
+    for i in range(splits):
+        for a in stages:  # split i of the tap: its share of the tap's stages
+            ms = (a * (i + 1) // splits - a * i // splits) * step + block
+            for _ in range(tiles):
+                heapq.heapreplace(free, free[0] + ms)
+    return max(free) + 4000 + splits * len(stages) * mj * 4 / 1500
+
+
+@functools.lru_cache(maxsize=1024)
+def _wgrad_plan(key: tuple, splits: int = 0) -> dict:
+    g = dict(zip(GEOM_KEYS, key))
+    tw = 32 if g["Wo"] <= 32 else 64 if g["Wo"] <= 64 else 128
+    rows = WGRAD_STAGE // tw
+    pitch = tw if rows > 1 else -(-g["Wo"] // 128) * 128
+    x_is_a = g["C"] < g["N"]
+    bm = 64 if min(g["C"], g["N"]) <= 64 else 128
+    m, j = (g["C"], g["N"]) if x_is_a else (g["N"], g["C"])
+    m_tiles, j_tiles = -(-m // bm), -(-j // WGRAD_BN)
+    hp = -(-g["H"] // g["sh"])
+    planes, taps = [], []
+    for kh in range(g["KH"]):
+        shift_y, py, oy_lo, oy_hi = _wgrad_axis(g["Ho"], g["H"], g["sh"], kh * g["dh"] - g["ph"])
+        for kw in range(g["KW"]):
+            shift_x, px, ox_lo, ox_hi = _wgrad_axis(g["Wo"], g["W"], g["sw"],
+                                                    kw * g["dw"] - g["pw"])
+            if (py, px, shift_x) not in planes:
+                planes.append((py, px, shift_x))
+            walks = oy_lo <= oy_hi and ox_lo <= ox_hi
+            rg, cc = (oy_lo // rows, ox_lo // tw) if walks else (0, 0)
+            nrg, ncc = (oy_hi // rows - rg + 1, ox_hi // tw - cc + 1) if walks else (0, 0)
+            taps.append((shift_y, planes.index((py, px, shift_x)), rg, nrg, cc, ncc))
+    stages = [g["B"] * t[3] * t[5] for t in taps]
+    tiles, mj = m_tiles * j_tiles, g["N"] * g["C"]
+    best, best_cost = 1, math.inf
+    for each in [splits] if splits else range(1, min(max(stages), 64) + 1):
+        if each * len(taps) * mj * 4 > WGRAD_WORKSPACE:
+            continue
+        cost = _wgrad_cost(stages, each, tiles, bm, mj)
+        if cost < best_cost:
+            best, best_cost = each, cost
+    best = [best] * len(taps)
+    item0 = [i * best[0] for i in range(len(taps))]
+    margin = rows - 1
+    plan = {"bm": bm, "bn": WGRAD_BN, "tw": tw, "rows": rows, "x_is_a": x_is_a,
+            "m_tiles": m_tiles, "j_tiles": j_tiles, "items": sum(best), "planes": tuple(planes),
+            "pitch": pitch, "margin": margin, "hc": hp + 2 * margin,
+            "ho_pad": -(-g["Ho"] // rows) * rows, "stages": tuple(stages), "splits": best[0],
+            "taps": tuple(t + (i0, k) for t, i0, k in zip(taps, item0, best))}
+    plan["blocks"] = plan["items"] * tiles
+    plan["x_len"] = g["B"] * len(planes) * plan["hc"] * pitch
+    plan["g_len"] = g["B"] * plan["ho_pad"] * pitch
+    cols = [list(c) + [0] * WGRAD_MAX_PLANES for c in zip(*planes)]
+    plan["ints"] = (bm, WGRAD_BN, tw, int(x_is_a), m_tiles, j_tiles, plan["items"], len(taps),
+                    len(planes), plan["hc"], pitch, plan["ho_pad"], margin,
+                    *(v for c in cols for v in c[:WGRAD_MAX_PLANES]),
+                    *(v for t in plan["taps"] for v in t))
+    plan["c_ints"] = (ctypes.c_int * len(plan["ints"]))(*plan["ints"])
+    plan["c_geom"] = (ctypes.c_int * 17)(*key, 0, 0)
+    return plan
+
+
+def wgrad_plan(g: dict, splits: int = 0) -> dict:
+    """The ``wgmma`` body's plan for a geometry (``conv_geometry``'s keys):
+    ``tw`` pixels a row (32, 64 or 128: the map's width rounded up; chunks of
+    128 past that) and ``rows`` = 128 / tw output rows a K stage; the tile
+    ``bm`` x ``bn`` with x on its rows (``x_is_a``) where C < N,
+    ``m_tiles`` x ``j_tiles`` of them.  The copies' layout, in which every
+    stage of every tap is 128 contiguous bytes of a channel: rows of
+    ``pitch`` (tw, or a multiple of 128 past 128 columns); g's [N][B]
+    [``ho_pad``][pitch] (Ho rounded up to ``rows``); x's [C][B np][``hc``]
+    [pitch] in np ``planes``, each (py, px, s): the stride's parity plane (py,
+    px) with a tap's column shift s taken out (column u holds x' = u + s),
+    ``margin`` = rows - 1 zero rows above and below its hc - 2 margin rows;
+    ``x_len`` / ``g_len`` bytes a channel.  For each tap in (kh, kw) order
+    (row shift, copy, first row group, row groups, first column chunk, column
+    chunks, first item, items): it walks ``stages`` = B x row groups x
+    column chunks K stages, those whose pixels read inside x, split into
+    ``splits`` work items (1 ... 64, an item maybe empty at a short tap),
+    ``items`` = splits x taps of them, ``blocks`` in all, run split by split
+    and sized by a cost model of the card (``splits`` > 0: that many instead,
+    as ``block_bwd_ab.py --kind wgrad --sweep`` times them); ``ints``, the C
+    entry's plan array (``c_ints`` as ctypes ints, ``c_geom`` the
+    geometry's)."""
+    return _wgrad_plan(tuple(g[k] for k in GEOM_KEYS), splits)
+
+
+def planar_plain(codes: torch.Tensor, g: dict, cotangent: bool = False) -> torch.Tensor:
+    """The plain version of the ``wgmma`` body's planar copies: x's codes
+    [B, H, W, C] -> [C, B np, hc, pitch], position (b np + i, margin + y', u)
+    of copy i = (py, px, s) the code of pixel (y' sh + py, (u + s) sw + px),
+    0 where there is none; with ``cotangent``, g's codes [B, Ho, Wo, N] ->
+    [N, B, ho_pad, pitch]."""
+    p = wgrad_plan(g)
+    if cotangent:
+        out = codes.new_zeros((g["N"], g["B"], p["ho_pad"], p["pitch"]))
+        out[:, :, :g["Ho"], :g["Wo"]] = codes.permute(3, 0, 1, 2)
+        return out
+    out = codes.new_zeros((g["C"], g["B"], len(p["planes"]), p["hc"], p["pitch"]))
+    for i, (py, px, sx) in enumerate(p["planes"]):
+        part = codes[:, py::g["sh"], px::g["sw"]].permute(3, 0, 1, 2)[..., max(0, sx):]
+        u0 = max(0, -sx)  # column u holds x' = u + s
+        part = part[..., :p["pitch"] - u0]
+        m = p["margin"]
+        out[:, :, i, m:m + part.shape[2], u0:u0 + part.shape[3]] = part
+    return out.reshape(g["C"], g["B"] * len(p["planes"]), p["hc"], p["pitch"])
 
 
 def conv_s8_wgrad(x_q: torch.Tensor, g_q: torch.Tensor, x_amax: torch.Tensor,
@@ -748,9 +913,11 @@ def conv_s8_wgrad(x_q: torch.Tensor, g_q: torch.Tensor, x_amax: torch.Tensor,
     (OIHW) in ``out_dtype``, ``dw[n, c, i, j] = float(sum over (b, oy, ox) of
     g_q[b, oy, ox, n] x_q[b, oy sh - ph + i dh, ox sw - pw + j dw, c]) *
     (x_s * g_s)``, a tap outside x adding 0, each scale from its amax.  On the
-    card: ``wgrad_mma_kernel`` over :func:`wgrad_splits` pixel ranges, then
+    card the body :func:`wgrad_body` picks: ``wgmma`` (planar copies of both
+    operands, TMA tiles, ``wgmma``, the finishing pass: three launches) or
+    ``mma`` (``wgrad_mma_kernel`` over :func:`wgrad_splits` pixel ranges, then
     its finishing pass; a channel count that is no multiple of 4 is padded
-    with zero channels (a copy) and cut off after."""
+    with zero channels, a copy, and cut off after)."""
     if x_q.device.type == "cpu":
         return conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, kernel_size, stride, padding,
                                    dilation, out_dtype)
@@ -761,28 +928,43 @@ def conv_s8_wgrad(x_q: torch.Tensor, g_q: torch.Tensor, x_amax: torch.Tensor,
     kernel = _pair(kernel_size)
     _sym_pads(padding)
     _forward_extent(x_q.shape[1:3], c, g_q.shape, kernel, stride, padding, dilation)
-    if c % 4 or n % 4:
+    g = conv_geometry(x_q.shape, (n, *kernel, c), stride, padding, dilation)
+    body = wgrad_body(g)
+    if body == "mma" and (c % 4 or n % 4):
         xp = F.pad(x_q, (0, -c % 4)).contiguous()
         gp = F.pad(g_q, (0, -n % 4)).contiguous()
         dw = conv_s8_wgrad(xp, gp, x_amax, g_amax, kernel, stride, padding, dilation, out_dtype)
         return dw[:n, :c].contiguous()
-    g = conv_geometry(x_q.shape, (n, *kernel, c), stride, padding, dilation)
     if (g["B"] * g["H"] * g["W"] * c >= 2**31 or g_q.numel() >= 2**31
             or n * c * kernel[0] * kernel[1] >= 2**31):
         raise ValueError(f"{name}: x {tuple(x_q.shape)}, g {tuple(g_q.shape)} do not fit the "
                          "kernel's int indices")
-    splits = wgrad_splits(g)
     out = torch.empty((n, c, *kernel), dtype=out_dtype, device=x_q.device)
-    partial = torch.empty((splits, kernel[0] * kernel[1], n, c), dtype=torch.int32,
-                          device=x_q.device)
-    geom = (ctypes.c_int * 17)(*(g[key] for key in GEOM_KEYS), 0, 0)
+    empty = functools.partial(torch.empty, device=x_q.device)
+    if body == "wgmma":
+        p = wgrad_plan(g)
+        if p["x_len"] >= 2**31 or p["g_len"] >= 2**31 or p["blocks"] >= 2**31:
+            raise ValueError(f"{name}: plan {p['ints'][:14]} exceeds the kernel's int indices")
+        x_t, g_t = empty(c * p["x_len"], dtype=torch.int8), empty(n * p["g_len"], dtype=torch.int8)
+        partial = empty(p["items"] * n * c, dtype=torch.int32)
+    else:
+        splits = wgrad_splits(g)
+        partial = empty((splits, kernel[0] * kernel[1], n, c), dtype=torch.int32)
+        geom = (ctypes.c_int * 17)(*(g[key] for key in GEOM_KEYS), 0, 0)
     lib, _ = load_library()
     global launches_wgrad
     with torch.cuda.device(x_q.device):
+        stream = torch.cuda.current_stream(x_q.device).cuda_stream
         launches_wgrad += 1
-        rc = lib.iswm_int8_conv_wgrad(
-            x_q.data_ptr(), g_q.data_ptr(), *amaxes, out.data_ptr(),
-            int(out_dtype == torch.bfloat16), geom, splits, partial.data_ptr(),
-            torch.cuda.current_stream(x_q.device).cuda_stream)
+        launches_wgrad_by_body[body] += 1
+        if body == "wgmma":
+            rc = lib.iswm_int8_conv_wgrad_tma(
+                x_q.data_ptr(), g_q.data_ptr(), x_t.data_ptr(), g_t.data_ptr(), *amaxes,
+                out.data_ptr(), int(out_dtype == torch.bfloat16), p["c_geom"], p["c_ints"],
+                partial.data_ptr(), stream)
+        else:
+            rc = lib.iswm_int8_conv_wgrad(
+                x_q.data_ptr(), g_q.data_ptr(), *amaxes, out.data_ptr(),
+                int(out_dtype == torch.bfloat16), geom, splits, partial.data_ptr(), stream)
     _raise_on(rc, lib, name)
     return out

@@ -19,6 +19,12 @@ versions).
 - One float64 ResNet-18 step with ``int8_training_bwd`` against the JAX
   package's at 1e-6 of each tensor's largest update (``test_torch_qat``'s
   method: the QAT quantizes in float32 on both sides).
+- The weight gradient's ``wgmma`` body without a card: its planar copies'
+  plain version against the codes permuted, and its schedule (the plan's
+  boxes, tap shifts, skipped stages, work items and tiles, each TMA box read
+  with its out-of-bounds zero fill) walked in int64 at reduced copies of a
+  ResNet-50 step's 25 distinct weight-gradient geometries, equal to the
+  plain weight gradient.
 
 The ``cuda`` cases hold each entry bit-equal to its plain version on the card,
 where this file runs alone without jax:
@@ -352,21 +358,157 @@ def test_resnet18_int8_bwd_step_float64_matches_jax():
         assert float((got - want[k]).abs().max()) <= 1e-6 * float(want[k].abs().max()), k
 
 
+# --------------------------------------- the weight gradient's wgmma body
+# The distinct weight-gradient geometries of a ResNet-50 int8-backward step
+# at 512^2 (H, W of x, C, N, k, stride, pad, dilation): layer1-4, the ASPP
+# branches and pooled part (M = 8), the projection's parts, the decoder.
+WGRAD_SITES = (
+    (1, 1, 256, 256, 1, 1, 0, 1), (1, 1, 2048, 256, 1, 1, 0, 1), (32, 32, 256, 256, 1, 1, 0, 1),
+    (32, 32, 256, 256, 3, 1, 1, 1), (32, 32, 256, 1024, 1, 1, 0, 1),
+    (32, 32, 512, 512, 3, 1, 1, 1), (32, 32, 512, 512, 3, 1, 2, 2),
+    (32, 32, 512, 2048, 1, 1, 0, 1), (32, 32, 1024, 256, 1, 1, 0, 1),
+    (32, 32, 1024, 512, 1, 1, 0, 1), (32, 32, 1024, 2048, 1, 1, 0, 1),
+    (32, 32, 2048, 256, 1, 1, 0, 1), (32, 32, 2048, 256, 3, 1, 6, 6),
+    (32, 32, 2048, 256, 3, 1, 12, 12), (32, 32, 2048, 256, 3, 1, 18, 18),
+    (32, 32, 2048, 512, 1, 1, 0, 1), (64, 64, 256, 256, 3, 2, 1, 1),
+    (64, 64, 512, 128, 1, 1, 0, 1), (64, 64, 512, 256, 1, 1, 0, 1),
+    (64, 64, 512, 1024, 1, 2, 0, 1), (128, 128, 256, 48, 1, 1, 0, 1),
+    (128, 128, 256, 64, 1, 1, 0, 1), (128, 128, 256, 128, 1, 1, 0, 1),
+    (128, 128, 256, 256, 3, 1, 1, 1), (128, 128, 256, 512, 1, 2, 0, 1))
+
+
+def _narrow(c: int) -> int:
+    """A reduced channel count: an eighth above 64, as it is up to 64."""
+    return c // 8 if c > 64 else c
+
+
+def _tma_box(t, x0, r0, rows):
+    """A 2-D TMA box of t [rows, len] (the map's extents) at (x0, r0): 128
+    bytes x ``rows`` int64, zeros past the map's rows."""
+    out = torch.zeros((rows, 128), dtype=torch.int64)
+    rb = min(r0 + rows, t.shape[0])
+    if r0 < rb:
+        out[:rb - r0] = t[r0:rb, x0:x0 + 128]
+    return out
+
+
+def _walk_wgmma_schedule(x_q, g_q, geo):
+    """dw's int32 sums [N, C, KH, KW] as the wgmma body forms them: each
+    block (tap, work item, tile) walks its stages, one 128-byte box of each
+    operand a stage from g's planar copy and x's copy for the tap through the
+    two maps, and adds its int64 products into the tap's sums, wrapped to
+    int32 at the end (the atomic int32 adds wrap, in any order).  Every box
+    lies inside its image's copy (the margins hold every row a stage reads)."""
+    p = kc.wgrad_plan(geo)
+    b_, n, c = geo["B"], geo["N"], geo["C"]
+    xt = kc.planar_plain(x_q, geo).reshape(c, -1).long()
+    gt = kc.planar_plain(g_q, geo, cotangent=True).reshape(n, -1).long()
+    a_map, b_map = (xt, gt) if p["x_is_a"] else (gt, xt)
+    m_ext, j_ext = (c, n) if p["x_is_a"] else (n, c)
+    bm, bn, np_, pitch = p["bm"], p["bn"], len(p["planes"]), p["pitch"]
+    copy, image = p["hc"] * pitch, p["ho_pad"] * pitch  # bytes of an x copy, of a g image
+    sums = torch.zeros((len(p["taps"]), m_ext, j_ext), dtype=torch.int64)
+    for tap, (shift_y, plane, rg_lo, nrg, cc_lo, ncc, item0, items) in enumerate(p["taps"]):
+        stages = b_ * nrg * ncc
+        assert (item0, items) == (tap * p["splits"], p["splits"])
+        for split in range(items):  # an item of a short tap may hold no stage
+            s0, s1 = split * stages // items, (split + 1) * stages // items
+            for mt in range(p["m_tiles"]):
+                for jt in range(p["j_tiles"]):
+                    acc = torch.zeros((bm, bn), dtype=torch.int64)
+                    for st in range(s0, s1):
+                        b, rest = divmod(st, nrg * ncc)
+                        oy, ox = (rg_lo + rest // ncc) * p["rows"], (cc_lo + rest % ncc) * p["tw"]
+                        g_at = (b * p["ho_pad"] + oy) * pitch + ox
+                        x_at = (((b * np_ + plane) * p["hc"] + oy + shift_y + p["margin"]) * pitch
+                                + ox)
+                        z = b * np_ + plane
+                        assert z * copy <= x_at and x_at + 128 <= (z + 1) * copy
+                        assert b * image <= g_at and g_at + 128 <= (b + 1) * image
+                        a_at, b_at = (x_at, g_at) if p["x_is_a"] else (g_at, x_at)
+                        acc += _tma_box(a_map, a_at, mt * bm, bm) @ _tma_box(b_map, b_at,
+                                                                             jt * bn, bn).T
+                    m0, j0 = mt * bm, jt * bn
+                    m1, j1 = min(m0 + bm, m_ext), min(j0 + bn, j_ext)
+                    sums[tap, m0:m1, j0:j1] += acc[:m1 - m0, :j1 - j0]
+    sums = sums.permute(1, 2, 0)
+    if p["x_is_a"]:
+        sums = sums.transpose(0, 1)
+    return kc._wrap_int32(sums.double()).reshape(n, c, geo["KH"], geo["KW"])
+
+
+def test_planar_copies_plain_are_the_codes_permuted():
+    """The planar copies' plain version: g's [N, B, Ho', pitch] the codes
+    permuted (zeros past Ho and Wo); x's at stride 1 the same between its
+    zero margin rows, one copy a column shift of a 3x3, shifted; at stride 2
+    the parity planes."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 9, 13, 32)).astype(np.float32))
+    x_q = kc.quantize_s8_plain(x, torch.tensor(2.5))
+    geo = kc.conv_geometry(x_q.shape, (16, 1, 1, 32), 1, 0, 1)
+    p = kc.wgrad_plan(geo)
+    assert (p["pitch"], p["rows"], p["margin"], p["hc"], p["ho_pad"]) == (32, 4, 3, 15, 12)
+    assert p["planes"] == ((0, 0, 0),)
+    codes = x_q.permute(3, 0, 1, 2)
+    want = torch.zeros((32, 2, 15, 32), dtype=torch.int8)
+    want[:, :, 3:12, :13] = codes
+    assert torch.equal(kc.planar_plain(x_q, geo), want)
+    want_g = torch.zeros((16, 2, 12, 32), dtype=torch.int8)
+    want_g[:, :, :9, :13] = codes[:16]
+    assert torch.equal(kc.planar_plain(x_q[..., :16], geo, cotangent=True), want_g)
+    geo = kc.conv_geometry(x_q.shape, (16, 3, 3, 32), 1, 1, 1)
+    assert kc.wgrad_plan(geo)["planes"] == ((0, 0, -1), (0, 0, 0), (0, 0, 1))
+    copies = kc.planar_plain(x_q, geo).reshape(32, 2, 3, 15, 32)
+    assert torch.equal(copies[:, :, 0, 3:12, 1:14], codes)  # s = -1: column u holds x' = u - 1
+    assert torch.equal(copies[:, :, 2, 3:12, :12], codes[..., 1:])  # s = 1: x' = u + 1
+    assert int(copies[:, :, :, :3].abs().sum() + copies[:, :, :, 12:].abs().sum()) == 0
+    geo = kc.conv_geometry(x_q.shape, (16, 3, 3, 32), 2, 1, 1)
+    p = kc.wgrad_plan(geo)
+    planes = kc.planar_plain(x_q, geo).reshape(32, 2, len(p["planes"]), p["hc"], 32)
+    for i, (py, px, sx) in enumerate(p["planes"]):
+        part = x_q[:, py::2, px::2].permute(3, 0, 1, 2)[..., max(0, sx):]
+        u0, m = max(0, -sx), p["margin"]
+        assert torch.equal(planes[:, :, i, m:m + part.shape[2], u0:u0 + part.shape[3]], part)
+
+
+@pytest.mark.parametrize("site", WGRAD_SITES)
+def test_wgmma_schedule_walk_equals_plain(site):
+    """The wgmma body's schedule, walked in int64 on the CPU at a reduced
+    copy of each site (B = 1, narrow channels, the real map, kernel, stride,
+    padding and dilation), equals the plain weight gradient bit for bit; the
+    pooled part (M = 8) is the mma body's, every other site the wgmma one's."""
+    h, w, c, n, k, s, p, d = site
+    c, n = _narrow(c), _narrow(n)
+    rng = np.random.default_rng(h + c + n + k + s + p + d)
+    geo = kc.conv_geometry((1, h, w, c), (n, k, k, c), s, p, d)
+    assert kc.wgrad_body(geo) == ("mma" if h == 1 else "wgmma")
+    x_q = torch.from_numpy(rng.integers(-127, 128, (1, h, w, c)).astype(np.int8))
+    g_q = torch.from_numpy(rng.integers(-127, 128, (1, geo["Ho"], geo["Wo"], n)).astype(np.int8))
+    x_amax, g_amax = torch.tensor(3.5), torch.tensor(0.75)
+    got = _walk_wgmma_schedule(x_q, g_q, geo).float() * kc.product_scale(x_amax, g_amax)
+    want = kc.conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, k, s, p, d)
+    assert torch.equal(got, want)
+
+
 # -------------------------------------------------------------- on the card
 # (B, H, W, C, N, k, stride, pad, dilation): ResNet-50's three stride-2
 # sites, an odd map, the pooled part (M = 8), a narrow N for the bytewise
-# dgrad body, channels no multiple of 4 for the wgrad's padded route
+# dgrad body, channels no multiple of 4 for the wgrad's padded route, the
+# ASPP branch at d = 18 on its 32^2 map (taps and stages wholly in the
+# padding), the 1x1s with N = 48 and 64 (the wgmma body's 64-row tiles)
 CUDA_SHAPES = ((8, 128, 128, 256, 512, 1, 2, 0, 1), (8, 64, 64, 256, 256, 3, 2, 1, 1),
                (2, 33, 17, 64, 96, 3, 2, 1, 1), (8, 1, 1, 256, 256, 1, 1, 0, 1),
                (2, 16, 16, 256, 24, 3, 1, 6, 6), (2, 9, 7, 6, 10, 3, 1, 1, 1),
-               (8, 32, 32, 512, 512, 3, 1, 2, 2))
+               (8, 32, 32, 512, 512, 3, 1, 2, 2), (8, 32, 32, 2048, 256, 3, 1, 18, 18),
+               (8, 128, 128, 256, 48, 1, 1, 0, 1), (8, 128, 128, 256, 64, 1, 1, 0, 1))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", CUDA_SHAPES)
 def test_cuda_backward_entries_bit_equal(shape):
     """conv_s8_dgrad and conv_s8_wgrad equal their plain versions in float32
-    and bf16, at a positive and a zero cotangent amax; the launches count."""
+    and bf16, at a positive and a zero cotangent amax; the launches count,
+    the weight gradient's by the body :func:`kc.wgrad_body` picks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     b, h, w, c, n, k, s, p, d = shape
@@ -376,9 +518,11 @@ def test_cuda_backward_entries_bit_equal(shape):
     g = torch.randn((b, geo["Ho"], geo["Wo"], n), generator=gen, device="cuda")
     w_rot = torch.randint(-127, 128, (c, k, k, n), generator=gen, device="cuda").to(torch.int8)
     x_amax, w_amax = torch.tensor(3.5, device="cuda"), torch.tensor(0.25, device="cuda")
+    body = kc.wgrad_body(geo)
+    assert body == ("mma" if h * w == 1 or n == 24 or c == 6 else "wgmma")
     for g_amax in (pt.activation_amax(g), torch.zeros((), device="cuda")):
         g_q = kc.quantize_s8(g, g_amax)
-        before = (kc.launches_dgrad, kc.launches_wgrad)
+        before = (kc.launches_dgrad, kc.launches_wgrad, kc.launches_wgrad_by_body[body])
         for dt in (torch.float32, torch.bfloat16):
             got = kc.conv_s8_dgrad(g_q, w_rot, g_amax, w_amax, (h, w), s, p, d, out_dtype=dt)
             want = kc.conv_s8_dgrad_plain(g_q, w_rot, g_amax, w_amax, (h, w), s, p, d,
@@ -388,4 +532,5 @@ def test_cuda_backward_entries_bit_equal(shape):
             want = kc.conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, k, s, p, d, out_dtype=dt)
             assert got.dtype == dt and torch.equal(got, want), ("wgrad", dt)
         torch.cuda.synchronize()
-        assert (kc.launches_dgrad, kc.launches_wgrad) == (before[0] + 2, before[1] + 2)
+        assert (kc.launches_dgrad, kc.launches_wgrad, kc.launches_wgrad_by_body[body]) == (
+            before[0] + 2, before[1] + 2, before[2] + 2)
