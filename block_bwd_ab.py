@@ -75,14 +75,33 @@ finishing pass); the checkout and its edits through ``kc.conv_s8_wgrad``:
     git show 96ec4bf:iswm_tpu_torch/csrc/int8_conv.cu > build/int8_conv_base.cu
     python3 block_bwd_ab.py --kind wgrad --base build/int8_conv_base.cu [--edit ...]
 
-With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem``, ``ce``
-or ``igemm``, no base) it times instead the checkout's build under every plan
+``--kind dgrad`` does the same for the data gradient (``conv_s8_dgrad``) at
+the step's 49 calls: commit e3404bf's source through its own entry
+(``dilate_kernel`` zero-inserting g at a stride of 2, then the dense body at
+``dgrad_geometry`` over the codes made by ATen, ``quantize_weight_rotated``)
+against the
+checkout's parity split over the rows its ``rotated_weight_codes`` makes,
+each build's data gradient and weight preparation timed apart, every dx
+held to the plain version's bits.  ``--kind quantize`` times the step's 98
+quantizes (the forward's activations and the backward's cotangents): that
+source's ATen amax (``vector_norm``, a cast) and device-amax quantize, against the
+checkout's one reducing launch (and, beside it, the ATen amax with the
+checkout's one-pass quantize); and serving's host-scale quantize at a
+chunk's 33 dense-site inputs, each build's codes held to the plain version's:
+
+    git show e3404bf:iswm_tpu_torch/csrc/int8_conv.cu > build/int8_conv_base.cu
+    python3 block_bwd_ab.py --kind dgrad --base build/int8_conv_base.cu
+    python3 block_bwd_ab.py --kind quantize --base build/int8_conv_base.cu
+
+With ``--sweep`` (``--kind int8``, ``mm_fwd``, ``c3_fwd``, ``stem``, ``ce``,
+``igemm``, ``wgrad`` or ``dgrad``, no base) it times instead the checkout's
+build under every plan
 that fits (int8: rows of a strip, ring stages, N groups, K splits, for both
 entries; the forward: its tiles and, for the 1x1, the column tiles a block
 walks; the stem: the conv-pixel tiles of ``STEM_TILES`` for both kernels;
-ce: vectors a thread and blocks of ``CE_PLANS``; igemm: the block's tile
-width, BN and ring slots of ``DENSE_PLANS`` and the K splits, in the site's
-output dtype), at the same shapes, beside
+ce: vectors a thread and blocks of ``CE_PLANS``; igemm and dgrad: the
+block's tile width, BN and ring slots of ``DENSE_PLANS`` and the K splits, in
+the site's output dtype), at the same shapes, beside
 the plan the kernel's planner (the stem: its built-in tiles) picks, and
 checks that every plan gives the planner's y (the stem: that every tile is
 within the float64 limits and bit-stable, at the slice and at a side ragged
@@ -95,6 +114,7 @@ the SASS instructions of the slice's instantiations (``cuobjdump``):
     python3 block_bwd_ab.py --kind stem --sweep --out build/stem_sweep.json
     python3 block_bwd_ab.py --kind ce --sweep --out build/ce_sweep.json
     python3 block_bwd_ab.py --kind igemm --sweep --out build/igemm_sweep.json
+    python3 block_bwd_ab.py --kind dgrad --sweep --out build/dgrad_sweep.json
 
 An edit replaces the text OLD of the head's source, which must occur once, by
 NEW (``--edit NAME 'OLD=>NEW' ['OLD2=>NEW2' ...]`` makes each replacement in
@@ -871,6 +891,30 @@ def bind_conv(lib: ctypes.CDLL, pr15: bool = False) -> ctypes.CDLL:
     return lib
 
 
+def bind_zero_insert(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """An int8_conv.cu build from before the reducing quantize and the
+    parity split (commits 57618a6 to e3404bf): its quantize, dense and
+    data-gradient entries."""
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    ints = ctypes.POINTER(i32)
+    lib.iswm_int8_quantize.argtypes = [ptr, i32, f32, ptr, i32, i32, i64, ptr]
+    lib.iswm_int8_quantize_amax.argtypes = [ptr, i32, ptr, ptr, i32, i32, i64, ptr]
+    lib.iswm_int8_conv_igemm.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, ints, ptr, ptr]
+    lib.iswm_int8_conv_igemm_amax.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, ints, ptr,
+                                              ptr]
+    lib.iswm_int8_conv_direct.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, i32, i32, ptr]
+    lib.iswm_int8_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, i32, i32,
+                                         i32, i32, ints, ptr, ptr]
+    for fn in (lib.iswm_int8_quantize, lib.iswm_int8_quantize_amax, lib.iswm_int8_conv_igemm,
+               lib.iswm_int8_conv_igemm_amax, lib.iswm_int8_conv_direct,
+               lib.iswm_int8_conv_dgrad):
+        fn.restype = i32
+    lib.iswm_cuda_error_string.argtypes = [i32]
+    lib.iswm_cuda_error_string.restype = ctypes.c_char_p
+    lib.pr15 = False
+    return lib
+
+
 def conv_shapes(kind: str) -> dict:
     """{(B, H, W, C, N, k, stride, pad, dil, groups): launches a chunk}."""
     if kind == "igemm":
@@ -1095,12 +1139,10 @@ def pr18_wgrad(lib: ctypes.CDLL, a, k):
     return call
 
 
-def time_wgrad(args, libs: dict, cold) -> None:
-    """conv_s8_wgrad of every build at one int8-backward QAT step's shapes:
-    the base through PR 18's entry (:func:`pr18_wgrad`), the checkout and
-    its edits through ``kc.conv_s8_wgrad`` with their library; each build's
-    device time a call is the sum of every kernel it launches, the planar
-    copies' kernel also apart."""
+def step_shapes(kinds) -> dict:
+    """The calls of ``kinds`` (``chip_smoke._qat_bwd_calls``'s) of one
+    int8-backward QAT step of ResNet-50 (batch 8 at 512^2, gate 256), each
+    distinct shape once: {key: [kind, args, kwargs, calls]}."""
     from iswm_tpu_torch.models import build_model_by_name
 
     model = build_model_by_name("deeplabv3plus_resnet50", int8_training=cs.QAT_GATE,
@@ -1110,12 +1152,23 @@ def time_wgrad(args, libs: dict, cold) -> None:
     x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
         memory_format=torch.channels_last)
     yu8 = torch.randint(0, 2, (8, 512, 512), generator=gen, device="cuda")
-    calls = [(a, k) for kind, a, k in cs._qat_bwd_calls(model, x, yu8) if kind == "wgrad"]
-    del model, x
     shapes = {}
-    for a, k in calls:
-        key = (tuple(a[0].shape), tuple(a[1].shape), str(a[4:]))
-        shapes.setdefault(key, [a, k, 0])[2] += 1
+    for kind, a, k in cs._qat_bwd_calls(model, x, yu8):
+        if kind in kinds:
+            key = (kind, *(tuple(t.shape) if isinstance(t, torch.Tensor) else str(t) for t in a),
+                   str(k))
+            shapes.setdefault(key, [kind, a, k, 0])[3] += 1
+    return shapes
+
+
+def time_wgrad(args, libs: dict, cold) -> None:
+    """conv_s8_wgrad of every build at one int8-backward QAT step's shapes:
+    the base through its own entry (:func:`pr18_wgrad`), the checkout and
+    its edits through ``kc.conv_s8_wgrad`` with their library; each build's
+    device time a call is the sum of every kernel it launches, the planar
+    copies' kernel also apart."""
+    shapes = {key: (a, k, count) for key, (_, a, k, count) in step_shapes({"wgrad"}).items()}
+    calls = sum(count for _, _, count in shapes.values())
     order = list(libs) + list(libs)[::-1]
     head_lib, rows, differ = kc._lib, [], []
     totals = {name: {"ms": 0.0, "planar_ms": 0.0} for name in libs}
@@ -1140,7 +1193,7 @@ def time_wgrad(args, libs: dict, cold) -> None:
         for name in order:
             times[name].append(cold.kernels(run(name, a, k)))
         geo = kc.conv_geometry(a[0].shape, (a[1].shape[3], *a[4], a[0].shape[3]), *a[5:8])
-        row = {"shape": [list(key[0]), list(key[1]), key[2]], "count": count,
+        row = {"shape": [list(a[0].shape), list(a[1].shape), str(a[4:])], "count": count,
                "body": kc.wgrad_body(geo), "bound_ms": cs._bwd_bound("wgrad", a, k)["bound_ms"]}
         for name, runs in times.items():
             row[name] = sum(sum(r.values()) for r in runs) / len(runs)
@@ -1153,7 +1206,7 @@ def time_wgrad(args, libs: dict, cold) -> None:
     kc._lib = head_lib
     bound = sum(r["count"] * r["bound_ms"] for r in rows)
     for name, total in totals.items():
-        print(f"[ab] conv_s8_wgrad over one step's {len(calls)} sites, {name}: "
+        print(f"[ab] conv_s8_wgrad over one step's {calls} sites, {name}: "
               f"{total['ms']:.4f} ms ({bound / total['ms']:.1%} of the bound {bound:.4f} ms), "
               f"its planar copies {total['planar_ms']:.4f} ms")
     args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -1168,23 +1221,8 @@ def sweep_wgrad(args, lib, cold) -> None:
     shapes under 1 ... 64 splits a tap (work items) beside the planner's
     choice: device time a call with the inputs out of L2, each plan's output
     equal to the plain version's."""
-    from iswm_tpu_torch.models import build_model_by_name
-
-    model = build_model_by_name("deeplabv3plus_resnet50", int8_training=cs.QAT_GATE,
-                                int8_training_bwd=True)
-    model.to("cuda", memory_format=torch.channels_last)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
-        memory_format=torch.channels_last)
-    yu8 = torch.randint(0, 2, (8, 512, 512), generator=gen, device="cuda")
-    shapes = {}
-    for kind, a, k in cs._qat_bwd_calls(model, x, yu8):
-        if kind == "wgrad":
-            key = (tuple(a[0].shape), tuple(a[1].shape), str(a[4:]))
-            shapes.setdefault(key, [a, k, 0])[2] += 1
-    del model, x
     rows, bad = [], []
-    for key, (a, k, count) in shapes.items():
+    for key, (_, a, k, count) in step_shapes({"wgrad"}).items():
         x_q, g_q, x_amax, g_amax = a[:4]
         geo = kc.conv_geometry(x_q.shape, (g_q.shape[3], *a[4], x_q.shape[3]), *a[5:8])
         if kc.wgrad_body(geo) != "wgmma":
@@ -1226,7 +1264,7 @@ def sweep_wgrad(args, lib, cold) -> None:
                                          if "wgrad_tma_kernel" in n_)}
         first = chosen["splits"]
         best = min(times, key=lambda q: times[q]["ms"])
-        row = {"shape": [list(key[0]), list(key[1]), key[2]], "count": count,
+        row = {"shape": [list(a[0].shape), list(a[1].shape), str(a[4:])], "count": count,
                "stages": list(chosen["stages"]), "tiles": chosen["m_tiles"] * chosen["j_tiles"],
                "bm": chosen["bm"], "chosen": first, "chosen_ms": times[first]["ms"],
                "best": best, "best_ms": times[best]["ms"], "plans": times}
@@ -1244,22 +1282,299 @@ def sweep_wgrad(args, lib, cold) -> None:
         raise SystemExit("plans differ from the plain version: " + "; ".join(bad))
 
 
+def zero_insert_dgrad(lib: ctypes.CDLL, a, k):
+    """A call of the zero-inserting data gradient as its wrapper made it
+    (:func:`bind_zero_insert`'s build), on the codes of a recorded call:
+    ``dilate_kernel`` and the dense body at ``kc.dgrad_geometry`` (zeros
+    inserted at a stride of 2), the planner's plan, the weight rows of the
+    rotated codes, C float32 ones."""
+    g_q, w_rows, g_amax, w_amax, x_hw, stride, pad, dil = a[:8]
+    kernel = cs._dgrad_kernel(a, k)
+    w4 = kc._rotated_codes(w_rows, kernel, g_q.shape[3], stride).contiguous()
+    geo = kc.dgrad_geometry(g_q.shape, w4.shape, x_hw, stride, pad, dil)
+    sh, sw = kc._pair(stride)
+    dilated = (sh, sw) != (1, 1)
+    out_dtype = k["out_dtype"]
+    if kc.igemm_body(geo) == "bytes":
+        run, plan = geo, (1, 0, 0, 0, 1, 0)
+    else:
+        run = geo if dilated else kc.as_rows(geo)
+        p = kc.plan_igemm(run, 2 if out_dtype == torch.bfloat16 else 4)
+        plan = (0, p["tw"].bit_length() - 1, p["bn"], p["slots"], p["splits"], int(p["tma"]))
+    w = kc._weight_rows(w4)
+    c = w4.shape[0]
+    m = geo["B"] * geo["Ho"] * geo["Wo"]
+    ones = torch.ones(c, dtype=torch.float32, device="cuda")
+    out = torch.empty((geo["B"], geo["Ho"], geo["Wo"], c), dtype=out_dtype, device="cuda")
+    g_dil = (torch.empty((geo["B"], geo["H"], geo["W"], geo["C"]), dtype=torch.int8,
+                         device="cuda") if dilated else None)
+    partial = (torch.empty((plan[4], m * c), dtype=torch.int32, device="cuda")
+               if plan[4] > 1 else None)
+    geom = (ctypes.c_int * 17)(*(run[key] for key in kc.GEOM_KEYS), w4[0].numel(), w.shape[1])
+    c_plan = (ctypes.c_int * 6)(*plan)
+
+    def call():
+        rc = lib.iswm_int8_conv_dgrad(
+            g_q.data_ptr(), None if g_dil is None else g_dil.data_ptr(), w.data_ptr(),
+            ones.data_ptr(), g_amax.data_ptr(), w_amax.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), geom, g_q.shape[1], g_q.shape[2], sh, sw, c_plan,
+            None if partial is None else partial.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+        return out
+    return call
+
+
+def time_dgrad(args, libs: dict, cold) -> None:
+    """conv_s8_dgrad of every build at one int8-backward QAT step's 49 calls
+    (each distinct shape once, weighted by its calls): the base through its
+    own entry (:func:`zero_insert_dgrad`), the checkout and its edits through
+    ``kc.conv_s8_dgrad`` with their library, every kernel a call launches
+    (the base's zero insertion too); beside it each build's weight
+    preparation at the same sites (the base: ATen's
+    ``quantize_weight_rotated`` and the weight rows, the checkout's:
+    ``kc.rotated_weight_codes``).  Every dx equal to the plain version's."""
+    from iswm_tpu_torch.ops.int8_train import quantize_weight_rotated
+
+    shapes = step_shapes({"dgrad", "rotated"})
+    order = list(libs) + list(libs)[::-1]
+    head_lib, rows, differ = kc._lib, [], []
+    totals = {name: {"ms": 0.0, "weights_ms": 0.0} for name in libs}
+
+    def run(name, kind, a, k):
+        if kind == "rotated":
+            if name == "base":
+                return lambda: kc._weight_rows(quantize_weight_rotated(a[0])[0])
+            return lambda: kc.rotated_weight_codes(*a)
+        if name == "base":
+            return zero_insert_dgrad(libs["base"], a, k)
+
+        def call():
+            kc._lib = libs[name]
+            return kc.conv_s8_dgrad(*a, **k)
+        return call
+
+    for key, (kind, a, k, count) in shapes.items():
+        if kind == "dgrad":
+            want = kc.conv_s8_dgrad_plain(*a, **k)
+            for name in libs:
+                got = run(name, kind, a, k)()
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    differ.append(f"{name} at {key}")
+        times = {name: [] for name in libs}
+        for name in order:
+            times[name].append(sum(cold.kernels(run(name, kind, a, k)).values()))
+        row = {"kind": kind, "shape": [list(a[0].shape), *map(str, a[1:])], "count": count}
+        if kind == "dgrad":
+            lay = kc.dgrad_launch(a[0].shape, a[1].shape[0], cs._dgrad_kernel(a, k), *a[4:8],
+                                  out_dtype=k["out_dtype"])
+            row.update(parity=lay["parity"], bound_ms=cs._bwd_bound("dgrad", a, k)["bound_ms"],
+                       plan=[lay["plan"][q] for q in ("tw", "bn", "slots", "splits")])
+        for name, runs in times.items():
+            row[name] = sum(runs) / len(runs)
+            totals[name]["ms" if kind == "dgrad" else "weights_ms"] += count * row[name]
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+    kc._lib = head_lib
+    bound = sum(r["count"] * r["bound_ms"] for r in rows if r["kind"] == "dgrad")
+    for name, total in totals.items():
+        print(f"[ab] conv_s8_dgrad over one step's 49 sites, {name}: {total['ms']:.4f} ms "
+              f"({bound / total['ms']:.1%} of the bound {bound:.4f} ms); its weight "
+              f"preparation {total['weights_ms']:.4f} ms")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
+                                    "bound_ms": bound, "differs": differ}))
+    if differ:
+        raise SystemExit("builds differ from the plain version: " + "; ".join(differ))
+
+
+def sweep_dgrad(args, lib, cold) -> None:
+    """Every plan of the data gradient's launch (``kc.DENSE_PLANS`` x
+    ``kc.TILE_WIDTHS`` x ``kc.SPLITS``) at one int8-backward QAT step's
+    distinct shapes beside the planner's: cold times, each plan's dx equal
+    to the plain version's; the best plan of each shape printed as the key
+    and value of ``kc.DGRAD_PLANS``."""
+    rows, bad = [], []
+    for key, (_, a, k, count) in step_shapes({"dgrad"}).items():
+        g_q, w_rows, g_amax, w_amax, x_hw, stride, pad, dil = a[:8]
+        kernel = cs._dgrad_kernel(a, k)
+        c = w_rows.shape[0]
+        chosen = kc.dgrad_launch(g_q.shape, c, kernel, x_hw, stride, pad, dil, k["out_dtype"])
+        if chosen["body"] != "wgmma":
+            continue
+        first = tuple(chosen["plan"][q] for q in ("tw", "bn", "slots", "splits"))
+        want = kc.conv_s8_dgrad_plain(*a, **k)
+        times = {}
+        for plan in [first] + [(tw, bn, slots, sp) for bn, slots in kc.DENSE_PLANS
+                               for tw in kc.TILE_WIDTHS for sp in kc.SPLITS]:
+            if plan in times or (plan[1] == 8 and c > 8) or plan[1] > 2 * max(c, 64):
+                continue
+            try:
+                lay = kc.dgrad_launch(g_q.shape, c, kernel, x_hw, stride, pad, dil,
+                                      k["out_dtype"], plan=plan)
+            except ValueError:  # past the grid or the shared memory
+                continue
+            out = torch.empty_like(want)
+            splits = plan[3]
+            partial = (torch.empty((splits, out.numel()), dtype=torch.int32, device="cuda")
+                       if splits > 1 else None)
+            g_in = kc.F.pad(g_q, (0, lay["np"] - g_q.shape[3])).contiguous()
+
+            def call(lay=lay, out=out, partial=partial, g_in=g_in):
+                rc = lib.iswm_int8_conv_dgrad(
+                    g_in.data_ptr(), w_rows.data_ptr(), kc._ones_f32(c, g_q.device).data_ptr(),
+                    g_amax.data_ptr(), w_amax.data_ptr(), out.data_ptr(),
+                    int(k["out_dtype"] == torch.bfloat16), lay["c_geom"], lay["c_plan"],
+                    lay["c_parity"], None if partial is None else partial.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+                return out
+
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad.append(f"{plan} at {key}")
+            times[plan] = cold(call)
+        best = min(times, key=times.get)
+        key = kc.dgrad_key(g_q.shape, c, kernel, x_hw, stride, pad, dil, k["out_dtype"])
+        row = {"key": repr(key), "count": count, "parity": chosen["parity"],
+               "chosen": first, "chosen_ms": times[first], "best": best, "best_ms": times[best],
+               "plans": {" ".join(map(str, q)): t for q, t in times.items()}}
+        rows.append(row)
+        print(f"[sweep] {row['key']}: planned {first} {times[first]:.4f} ms, best {best} "
+              f"{times[best]:.4f} ms of {len(times)} plans", flush=True)
+    picked = sum(r["count"] * r["chosen_ms"] for r in rows)
+    best = sum(r["count"] * r["best_ms"] for r in rows)
+    print(f"[sweep] one step's data gradients: the planner's plans {picked:.4f} ms, the best "
+          f"plan at each shape {best:.4f} ms")
+    for r in rows:  # the measured best plans, as kc.DGRAD_PLANS holds them
+        print(f"[sweep] DGRAD_PLANS {r['key']}: {tuple(r['best'])},")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": "dgrad sweep", "shapes": rows, "bad": bad}))
+    if bad:
+        raise SystemExit("plans differ from the plain version: " + "; ".join(bad))
+
+
+def time_quantize(args, libs: dict, cold) -> None:
+    """The quantize of every build: at one int8-backward QAT step's 98
+    activations and cotangents (each distinct shape once, weighted by its
+    calls) the base's ATen amax (``vector_norm``, a cast) and its
+    device-amax quantize, the checkout's (and its edits') one reducing
+    launch, and the ATen amax with the checkout's one-pass quantize; at a
+    serving chunk's 33 dense-site inputs the host-scale quantize of every
+    build.  Every build's codes equal to the plain version's."""
+    from iswm_tpu_torch.ops.int8_train import _rows_view, activation_amax
+
+    order = list(libs) + list(libs)[::-1]
+    head_lib, rows, differ = kc._lib, [], []
+
+    def entry(lib, rows_, amax=None, scale=None):
+        out = torch.empty(rows_.shape, dtype=torch.int8, device="cuda")
+        p, c, ld = kc._rows(rows_)
+        bf16 = int(rows_.dtype == torch.bfloat16)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = (lib.iswm_int8_quantize(rows_.data_ptr(), bf16, scale, out.data_ptr(), p, c, ld,
+                                     stream) if amax is None else
+              lib.iswm_int8_quantize_amax(rows_.data_ptr(), bf16, amax.data_ptr(),
+                                          out.data_ptr(), p, c, ld, stream))
+        if rc:
+            raise RuntimeError(lib.iswm_cuda_error_string(rc).decode())
+        return out
+
+    def two_pass(name, rows_, x):
+        def call():
+            return entry(libs[name], rows_, activation_amax(x))
+        return call
+
+    def fused(name, rows_):
+        def call():
+            kc._lib = libs[name]
+            return kc.quantize_s8_reduce(rows_, "dynamic")[0]
+        return call
+
+    totals = {}
+    for key, (kind, a, k, count) in step_shapes({"quantize_x", "quantize_g"}).items():
+        x = a[0]
+        rows_ = _rows_view(x.detach())
+        want = kc.quantize_s8_plain(rows_, activation_amax(x))
+        calls = {"base": two_pass("base", rows_, x)}
+        for name in libs:
+            if name != "base":
+                calls[name] = fused(name, rows_)
+                calls[f"{name} two-pass"] = two_pass(name, rows_, x)
+        for name, fn in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                differ.append(f"{name} at {key}")
+        times = {name: [] for name in calls}
+        for name in list(calls) + list(calls)[::-1]:
+            times[name].append(sum(cold.kernels(calls[name]).values()))
+        row = {"kind": kind, "shape": list(x.shape), "slice": rows_.stride(2) != x.shape[1],
+               "count": count, "bound_ms": cs._quantize_bound(rows_)["bound_ms"]}
+        for name, runs in times.items():
+            row[name] = sum(runs) / len(runs)
+            totals.setdefault(kind, {}).setdefault(name, 0.0)
+            totals[kind][name] += count * row[name]
+        totals.setdefault(kind, {}).setdefault("bound_ms", 0.0)
+        totals[kind]["bound_ms"] += count * row["bound_ms"]
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, count in cs.XLA_IGEMM_SHAPES.items():  # serving: a host scale
+        b, h, w, c = shape[:4]
+        x = torch.randn((b, h, w, c), generator=gen, device="cuda").to(torch.bfloat16)
+        want = kc.quantize_s8_plain(x, 0.05)
+        calls = {name: functools.partial(entry, lib, x, None, 0.05) for name, lib in libs.items()}
+        for name, fn in calls.items():
+            if not torch.equal(fn(), want):
+                differ.append(f"{name} serving at {shape}")
+        times = {name: [] for name in libs}
+        for name in order:
+            times[name].append(cold(calls[name]))
+        row = {"kind": "serving", "shape": list(shape[:4]), "count": count,
+               "bound_ms": cs._quantize_bound(x)["bound_ms"] - 4 / cs.HBM_BYTES_PER_S * 1e3}
+        for name, runs in times.items():
+            row[name] = sum(runs) / len(runs)
+            totals.setdefault("serving", {}).setdefault(name, 0.0)
+            totals["serving"][name] += count * row[name]
+        totals["serving"].setdefault("bound_ms", 0.0)
+        totals["serving"]["bound_ms"] += count * row["bound_ms"]
+        rows.append(row)
+        print("[ab] " + json.dumps(row), flush=True)
+    kc._lib = head_lib
+    for kind, total in totals.items():
+        bound = total.pop("bound_ms")
+        print(f"[ab] the quantize at {kind} (bound {bound:.4f} ms): " + ", ".join(
+            f"{name} {ms:.4f} ms ({bound / ms:.1%})" for name, ms in total.items()))
+        total["bound_ms"] = bound
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"kind": args.kind, "shapes": rows, "totals": totals,
+                                    "differs": differ}))
+    if differ:
+        raise SystemExit("builds differ from the plain version: " + "; ".join(differ))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--base", type=Path,
                         help="a fused_block.cu (int8_matmul.cu, fused_stem.cu) to compare; "
                              "not with --sweep")
     parser.add_argument("--kind", choices=("mm", "c3", "mm_fwd", "c3_fwd", "int8", "stem", "ce",
-                                           "igemm", "direct", "wgrad"),
+                                           "igemm", "direct", "wgrad", "dgrad", "quantize"),
                         default="mm",
                         help="the 1x1 backward (#7b), the 3x3 (#8b), their forwards (#7a, "
                              "#8a), the int8 1x1 (#1, #2), the stem's backward (#11a, #11b), "
-                             "the fused CE (#4), int8_exec_xla's dense or grouped int8 conv or "
-                             "QAT's int8 weight gradient")
+                             "the fused CE (#4), int8_exec_xla's dense or grouped int8 conv, "
+                             "QAT's int8 weight or data gradient, or the quantize")
     parser.add_argument("--edit", nargs="+", action="append", default=[],
                         metavar=("NAME", "EDIT"), help="a name, then one or more OLD=>NEW")
     parser.add_argument("--sweep", action="store_true",
-                        help="with --kind int8, mm_fwd, c3_fwd, stem, ce, igemm or wgrad: time "
+                        help="with --kind int8, mm_fwd, c3_fwd, stem, ce, igemm, wgrad or dgrad: "
+                             "time "
                              "every plan of the checkout's build instead")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--out", type=Path, default=Path("build/block_bwd_ab.json"))
@@ -1269,18 +1584,23 @@ def main() -> None:
     cs.phase_device()
     module, stem = {"int8": (k8, "int8_matmul"), "stem": (fs, "fused_stem"),
                     "ce": (ce, "fused_ce"), "igemm": (kc, "int8_conv"),
-                    "direct": (kc, "int8_conv"), "wgrad": (kc, "int8_conv")}.get(
+                    "direct": (kc, "int8_conv"), "wgrad": (kc, "int8_conv"),
+                    "dgrad": (kc, "int8_conv"), "quantize": (kc, "int8_conv")}.get(
         args.kind, (fb, "fused_block"))
     bind = bind_conv if module is kc else module.bind
     base_bind = bind
     if module is kc and args.base is not None and "out_bf16" not in args.base.read_text():
         base_bind = functools.partial(bind_conv, pr15=True)
+    elif module is kc and args.base is not None and (
+            "iswm_int8_quantize_reduce" not in args.base.read_text()):
+        base_bind = bind_zero_insert
     if args.kind == "wgrad":
         base_bind = bind_pr18_wgrad
     head = (Path(module.__file__).resolve().parents[2] / "csrc" / f"{stem}.cu").read_text()
-    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct")):
-        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem, ce, igemm "
-                     "or wgrad")
+    if args.sweep != (args.base is None) or (args.sweep and args.kind in ("mm", "c3", "direct",
+                                                                          "quantize")):
+        parser.error("give --base, or --sweep with --kind int8, mm_fwd, c3_fwd, stem, ce, igemm, "
+                     "wgrad or dgrad")
     jobs = {} if args.sweep else {"base": (args.base.read_text(), f"ab_{stem}_base", base_bind)}
     jobs.update((name, (edited(head, edits), f"ab_{stem}_{name}", bind))
                 for name, *edits in args.edit)
@@ -1296,14 +1616,15 @@ def main() -> None:
     forward = args.kind.endswith("_fwd")
     if args.sweep:
         sweep = {"stem": sweep_stem, "ce": sweep_ce, "igemm": sweep_igemm,
-                 "wgrad": sweep_wgrad}.get(
+                 "wgrad": sweep_wgrad, "dgrad": sweep_dgrad}.get(
             args.kind, sweep_forward if forward else sweep_int8)
         sweep(args, libs["head"], cold)
     elif forward:
         time_forward(args, libs, cold)
     else:
         {"int8": time_int8, "stem": time_stem, "ce": time_ce, "igemm": time_conv,
-         "direct": time_conv, "wgrad": time_wgrad}.get(args.kind, time_blocks)(args, libs, cold)
+         "direct": time_conv, "wgrad": time_wgrad, "dgrad": time_dgrad,
+         "quantize": time_quantize}.get(args.kind, time_blocks)(args, libs, cold)
 
 
 if __name__ == "__main__":

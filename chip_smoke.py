@@ -274,7 +274,23 @@ not 0):
      mode switching to bf16 at step 2 (no device-scale launch after it),
      finite losses; the QAT step's and the bf16 step's host and device ms;
      ``int8_exec_xla`` serving of a scene from the delayed run's checkpoint,
-     its learned amaxes merged over the calibration.
+     its learned amaxes merged over the calibration.  The forward's amaxes
+     come from the reducing quantize (``quantize_s8_reduce``): its dynamic,
+     amax and delayed modes bit-equal to ``activation_amax`` +
+     ``quantize_s8_plain`` at every site, timed per shape;
+ 19. QAT's int8 backward (``int8_training_bwd``): at the real tensors of
+     every routed site of one step, the reducing quantize (the 49
+     activations and the 49 cotangents), the data gradient's weight codes,
+     ``conv_s8_dgrad`` (the three strided sites split by output parity) and
+     ``conv_s8_wgrad`` bit-equal to their plain versions, also at a zero
+     cotangent at a strided site and the pooled part, the quantize also
+     across the ranks of a 1-rank nccl group (the amax mode, the all-reduce,
+     the codes); both gradients per shape, every entry's device time over the
+     step with the inputs out of L2 beside its bound, the plain version and
+     cuDNN's bf16 half; 4-step fits in dynamic and delayed mode with every
+     launch counted a step (no amax pass outside the quantize, no zero
+     insertion); the step's host and device ms, launches and peak memory
+     against the forward-only QAT and the bf16 step.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -3910,30 +3926,64 @@ QAT_SITES = {"train": 49, "eval": 45}  # routed sites of a forward (the JAX pack
 # the weight gradient's launches a step by body: the ASPP's two pooled-part
 # sites (M = 8) keep the mma body, every other routed site runs wgmma
 QAT_WGRAD_BODIES = {"wgmma": 47, "mma": 2}
+# the data gradients of a step split by output parity (its three stride-2 sites)
+QAT_DGRAD_PARITY = 3
 QAT_STEPS = 4  # each fit: a quick-eval at step 2 and the validation at 4
 
 
 def _qat_inputs(model, x, training: bool) -> list:
     """(x, w, amax, stride, padding, dilation) at every routed site of one
     forward of ``model`` on ``x`` in that mode, in order (the real inputs of
-    the int8 forward)."""
+    the int8 forward: the site's input as the quantize got it, NCHW, and the
+    amax its codes were made with)."""
     from iswm_tpu_torch.ops import int8_train
 
-    seen = []
-    forward = int8_train.int8_conv_forward
+    seen, inputs = [], []
+    forward, quantize = int8_train.int8_conv_forward, int8_train.quantize_activation
 
-    def record(x, w, amax, stride=1, padding=0, dilation=1):
-        seen.append((x, w, amax.clone(), stride, padding, dilation))
-        return forward(x, w, amax, stride, padding, dilation)
+    def record_input(x, *a, **k):
+        out = quantize(x, *a, **k)
+        inputs.append((x, out[1].clone()))
+        return out
 
-    int8_train.int8_conv_forward = record
+    def record(x_q, w, amax, stride=1, padding=0, dilation=1, dtype=torch.float32):
+        xs, a = inputs.pop()
+        seen.append((xs, w, a, stride, padding, dilation))
+        return forward(x_q, w, amax, stride, padding, dilation, dtype)
+
+    int8_train.int8_conv_forward, int8_train.quantize_activation = record, record_input
     try:
         model.train(training)
         with torch.no_grad():
             model(x)
     finally:
-        int8_train.int8_conv_forward = forward
+        int8_train.int8_conv_forward, int8_train.quantize_activation = forward, quantize
     return seen
+
+
+def _reduce_checks(kc, x: torch.Tensor) -> bool:
+    """The reducing quantize at NCHW x's rows in its three modes against
+    ``activation_amax`` + ``quantize_s8_plain``: the amax bit for bit, the
+    codes with it, the delayed mode's codes of half of it beside ``max
+    |x|``."""
+    from iswm_tpu_torch.ops.int8_train import _rows_view, activation_amax
+
+    rows = _rows_view(x.detach())
+    amax = activation_amax(x)
+    q, got = kc.quantize_s8_reduce(rows, "dynamic")
+    same = torch.equal(got, amax) and torch.equal(q, kc.quantize_s8_plain(rows, amax))
+    same = same and torch.equal(kc.quantize_s8_reduce(rows, "amax")[1], amax)
+    half = amax * 0.5
+    q, cur = kc.quantize_s8_reduce(rows, "delayed", half)
+    return same and torch.equal(cur, amax) and torch.equal(q, kc.quantize_s8_plain(rows, half))
+
+
+def _quantize_bound(x: torch.Tensor) -> dict:
+    """The reducing quantize's least time: x read once, the codes written, the
+    amax (4 bytes); one division a value."""
+    n = x.numel()
+    nbytes = n * (x.element_size() + 1) + 4
+    return {"bytes": nbytes, "ops": n, **least_time(nbytes, n, F32_OPS_PER_S)}
 
 
 def phase_qat_kernels(kc, smi: str) -> dict:
@@ -3948,6 +3998,8 @@ def phase_qat_kernels(kc, smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((8, 3, 512, 512), generator=gen, device="cuda").contiguous(
         memory_format=torch.channels_last)
+    from iswm_tpu_torch.ops.int8_train import activation_amax
+
     sites = {mode: _qat_inputs(model, x, mode == "train") for mode in QAT_SITES}
     for mode, n in QAT_SITES.items():
         check(len(sites[mode]) == n, f"a {mode} forward routed {len(sites[mode])} sites, not {n}")
@@ -3957,6 +4009,9 @@ def phase_qat_kernels(kc, smi: str) -> dict:
             key = (tuple(xs.shape), tuple(w.shape), stride, pad, dil)
             if mode == "train":
                 shapes[key] = shapes.get(key, 0) + 1
+            # the forward's amax came from the reducing quantize: the plain max's
+            check(torch.equal(amax, activation_amax(xs)) and _reduce_checks(kc, xs),
+                  f"the reducing quantize != activation_amax + quantize_s8_plain at {key}")
             if key in checked:
                 continue
             rows = _rows_view(xs)  # as the int8 forward reads it
@@ -3977,9 +4032,11 @@ def phase_qat_kernels(kc, smi: str) -> dict:
     print(f"[18] device-scale quantize_s8 and conv_s8_igemm at the real inputs of all "
           f"{QAT_SITES['train']} train-forward and {QAT_SITES['eval']} eval-forward routed sites "
           f"({len(checked)} shapes, bf16 out) and at a zero amax: bit-equal (torch.equal) to the "
-          "host-scale entries fed the scale they form and to the plain versions")
+          "host-scale entries fed the scale they form and to the plain versions; the forward's "
+          "amaxes (from the reducing quantize) and quantize_s8_reduce in its dynamic, amax and "
+          "delayed modes at every site: bit-equal to activation_amax + quantize_s8_plain")
     cold = ColdTimer(reps=5)
-    total = {"quantize": 0.0, "igemm": 0.0}
+    total = {"quantize": 0.0, "igemm": 0.0, "single_pass": 0.0}
     bounds = {"quantize": [], "igemm": []}
     for (xshape, wshape, stride, pad, dil), count in shapes.items():
         xs, w, amax = next((s[0], s[1], s[2]) for s in sites["train"]
@@ -3988,26 +4045,36 @@ def phase_qat_kernels(kc, smi: str) -> dict:
         rows = _rows_view(xs)
         w_q, w_s = quantize_weight(w)
         q = kc.quantize_s8(rows, amax)
-        total["quantize"] += count * cold(lambda: kc.quantize_s8(rows, amax))
+        ms = cold(lambda: kc.quantize_s8_reduce(rows, "dynamic"))
+        single = cold(lambda: kc.quantize_s8(rows, amax))
+        total["quantize"] += count * ms
+        total["single_pass"] += count * single
         total["igemm"] += count * cold(lambda: kc.conv_s8_igemm(
             q, w_q, w_s, amax, stride=stride, padding=pad, dilation=dil, out_dtype=xs.dtype))
-        n = xs.numel()
-        bounds["quantize"] += [{"bytes": 3 * n + 4, "ops": n,
-                                **least_time(3 * n + 4, n, F32_OPS_PER_S)}] * count
+        bound = _quantize_bound(xs)
+        bounds["quantize"] += [bound] * count
+        print(f"[18] quantize_s8_reduce (dynamic) at x {tuple(xs.shape)}"
+              f"{' (a channel slice)' if rows.stride(2) != xs.shape[1] else ''}, {count} site(s) "
+              f"({smi}): {ms:.4f} ms ({bound['bound_ms'] / ms:.1%} of its bound "
+              f"{bound['bound_ms']:.4f} ms); the same body's one pass at a device amax "
+              f"(quantize_s8) {single:.4f} ms", flush=True)
         b, c, h, wd = xs.shape
         one = [v if isinstance(v, int) else v[0] for v in (stride, pad, dil)]
         bounds["igemm"] += [conv_bound(b, h, wd, c, wshape[0], wshape[2], *one,
                                        out_bytes=2)] * count
     del sites, model
     records = {}
-    for key in total:
+    for key in bounds:
         least = sum_bounds(bounds[key])
         records[key] = {"ms": total[key], **least}
-        print(f"[18] device-scale {'quantize_s8' if key == 'quantize' else 'conv_s8_igemm'} "
+        print(f"[18] device-scale "
+              f"{'quantize_s8_reduce (dynamic)' if key == 'quantize' else 'conv_s8_igemm'} "
               f"over a train step's {QAT_SITES['train']} routed sites ({smi}): "
               f"{total[key]:.4f} ms with the inputs out of L2, "
               f"{least['bound_ms'] / total[key]:.1%} of the bound {least['bound_ms']:.4f} ms "
-              f"by {least['bound_by']} ({_work(bounds[key])})")
+              f"by {least['bound_by']} ({_work(bounds[key])})"
+              + (f"; the one-pass quantize_s8 at the device amax {total['single_pass']:.4f} ms"
+                 if key == "quantize" else ""))
     return records
 
 
@@ -4146,30 +4213,45 @@ def phase_qat_train(kc, smi: str) -> dict:
 
 # ------------------------------------------------- QAT's int8 backward
 def _qat_bwd_calls(model, x, yu8) -> list:
-    """The two backward entries' calls of one forward and backward of
+    """The int8 backward's kernel calls of one forward and backward of
     ``model`` on ``x`` (train mode, a cross-entropy on ``yu8``), in order:
-    ("dgrad" | "wgrad", args, kwargs), the arguments as the entries got them
-    (the real cotangents and codes)."""
+    (kind, args, kwargs), the arguments as the entries got them (the real
+    activations, cotangents, weights and codes): ``quantize_x`` /
+    ``quantize_g`` (the forward's and the backward's ``quantize_activation``:
+    NCHW x or g), ``rotated`` (the data gradient's weights), ``dgrad``,
+    ``wgrad``."""
     from iswm_tpu_torch.ops import int8_train
 
-    calls, saved = [], {}
-    for name in ("dgrad", "wgrad"):
-        fn = saved[name] = getattr(int8_train, f"conv_s8_{name}")
+    calls, saved, part = [], {}, ["x"]
+    kinds = {"conv_s8_dgrad": "dgrad", "conv_s8_wgrad": "wgrad",
+             "rotated_weight_codes": "rotated", "quantize_activation": "quantize"}
+    for name, kind in kinds.items():
+        fn = saved[name] = getattr(int8_train, name)
 
-        def record(*a, name=name, fn=fn, **k):
-            calls.append((name, a, k))
+        def record(*a, kind=kind, fn=fn, **k):
+            calls.append((f"quantize_{part[0]}" if kind == "quantize" else kind, a, k))
             return fn(*a, **k)
 
-        setattr(int8_train, f"conv_s8_{name}", record)
+        setattr(int8_train, name, record)
     try:
         model.train()
         logits = model(x)
+        part[0] = "g"
         torch.nn.functional.cross_entropy(logits.float(), yu8.long()).backward()
     finally:
         for name, fn in saved.items():
-            setattr(int8_train, f"conv_s8_{name}", fn)
+            setattr(int8_train, name, fn)
     model.zero_grad(set_to_none=True)
     return calls
+
+
+def _dgrad_kernel(a, k) -> tuple:
+    """(KH, KW) of a recorded conv_s8_dgrad call (its weights as the rotated
+    codes or their rows)."""
+    if a[1].dim() == 4:
+        return tuple(a[1].shape[1:3])
+    ks = k["kernel_size"]
+    return (ks, ks) if isinstance(ks, int) else tuple(ks)
 
 
 def _bwd_bound(kind: str, a, k) -> dict:
@@ -4179,10 +4261,11 @@ def _bwd_bound(kind: str, a, k) -> dict:
     if kind == "dgrad":
         g_q, w_q, _, _, x_hw = a[:5]
         b, ho, wo, n = g_q.shape
-        c, kh, kw = w_q.shape[:3]
+        c = w_q.shape[0]
+        kh, kw = _dgrad_kernel(a, k)
         h, w = x_hw
         out = b * h * w * c
-        nbytes = g_q.numel() + w_q.numel() + out * k["out_dtype"].itemsize
+        nbytes = g_q.numel() + c * kh * kw * n + out * k["out_dtype"].itemsize
     else:
         x_q, g_q, _, _, kernel = a[:5]
         b, h, w, c = x_q.shape
@@ -4197,12 +4280,13 @@ def _bwd_bound(kind: str, a, k) -> dict:
     return {"bytes": nbytes, "ops": ops, **least_time(nbytes, ops, INT8_OPS_PER_S)}
 
 
-def _bwd_library(kind: str, a, k):
+def _bwd_library(kc, kind: str, a, k):
     """cuDNN's bf16 backward of the same conv (another function: no
     quantization), the half the entry computes: a call of
     ``aten.convolution_backward`` on the codes as bf16, channels last."""
     if kind == "dgrad":
         g_q, w_q, _, _, x_hw = a[:5]
+        w_q = kc._rotated_codes(w_q, _dgrad_kernel(a, k), g_q.shape[3], a[5])
         w = w_q.flip(1, 2).permute(3, 0, 1, 2).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         x = torch.empty((g_q.shape[0], w_q.shape[0], *x_hw), dtype=torch.bfloat16,
@@ -4233,16 +4317,63 @@ WGRAD_BODIES = {
            "wgrad_finish; the ASPP's pooled part (M = 8)"}
 
 
+DGRAD_BODIES = {
+    "wgmma": "igemm_wgmma_kernel over the int8 cotangent with the rotated per-tensor codes "
+             "(the transpose padding, x's extent; its epilogue's scale g_s * w_s)",
+    "parity": "at a stride above 1, igemm_wgmma_kernel's Parity template: every output parity "
+              "class of dx in one launch (blockIdx.y), each a stride-1 conv of the undilated "
+              "cotangent over its taps from a table, its rows of dx written strided; a class of "
+              "no tap writes zeros",
+    "weights": "rotated_codes_kernel: the float kernel's amax, a grid barrier, the rotated, "
+               "I/O-swapped per-tensor codes as the dense body's rows (one cooperative launch)"}
+
+
+def _reduce_in_group(kc, xs: list) -> None:
+    """``quantize_activation`` across the ranks of a 1-rank nccl group at
+    each NCHW tensor of ``xs``: the amax mode (one launch), the all-reduce,
+    the device-amax quantize; the codes and the amax bit-equal to
+    ``activation_amax`` + ``quantize_s8_plain``."""
+    from iswm_tpu_torch.ops import int8_train
+    from iswm_tpu_torch.parallel import destroy
+
+    _open_group("phase19.nccl")
+    try:
+        before = (dict(kc.launches_reduce), int8_train.amax_all_reduces, kc.launches_quantize)
+        for x in xs:
+            x_q, amax, cur = int8_train.quantize_activation(x, across_ranks=True)
+            want = int8_train.activation_amax(x)
+            rows = int8_train._rows_view(x.detach())
+            check(torch.equal(amax, want) and cur is amax
+                  and torch.equal(x_q, kc.quantize_s8_plain(rows, want)),
+                  f"the group's quantize at {tuple(x.shape)} != activation_amax + plain")
+        torch.cuda.synchronize()
+        n = len(xs)
+        got = (kc.launches_reduce["amax"] - before[0]["amax"],
+               kc.launches_reduce["dynamic"] - before[0]["dynamic"],
+               int8_train.amax_all_reduces - before[1], kc.launches_quantize - before[2])
+        check(got == (n, 0, n, n), f"in a group (amax, dynamic, all-reduces, quantizes) {got}, "
+                                   f"expected {(n, 0, n, n)}")
+    finally:
+        destroy()
+    print(f"[19] in a 1-rank nccl group: quantize_activation across the ranks at the step's {n} "
+          f"activations and cotangents: {n} amax-mode launches, {n} all-reduces, {n} quantizes "
+          "at the reduced amax; codes and amax bit-equal to activation_amax + quantize_s8_plain")
+
+
 def phase_qat_bwd_kernels(kc, smi: str) -> dict:
-    """conv_s8_dgrad and conv_s8_wgrad at the real cotangents and codes of
-    every routed site of one int8-backward QAT step (ResNet-50, batch 8 at
-    512^2, gate 256) and at a zero cotangent: bit-equal to their plain
-    versions; their device time over the step's sites with the inputs out of
-    L2 beside the bounds, the plain versions, cuDNN's bf16 backward and, for
-    the 1x1 weight gradients, torch._int_mm's int32 product alone; the weight
-    gradient's also per shape, by kernel (its planar copies apart), and its
-    calls by body against ``QAT_WGRAD_BODIES``."""
+    """The int8 backward's kernels at the real activations, cotangents,
+    weights and codes of every routed site of one int8-backward QAT step
+    (ResNet-50, batch 8 at 512^2, gate 256) and at a zero cotangent: the
+    reducing quantize (the forward's 49 activations and the backward's 49
+    cotangents, its three modes, and through a 1-rank nccl group), the data
+    gradient's weight codes, conv_s8_dgrad and conv_s8_wgrad, bit-equal to
+    their plain versions; their device time over the step's sites with the
+    inputs out of L2 beside the bounds, the plain versions, cuDNN's bf16
+    backward and, for the 1x1 weight gradients, torch._int_mm's int32
+    product alone; both gradients per shape (the weight gradient by kernel:
+    its planar copies apart), and their calls by body."""
     from iswm_tpu_torch.models import build_model_by_name
+    from iswm_tpu_torch.ops.int8_train import _rows_view
 
     model = build_model_by_name("deeplabv3plus_resnet50", int8_training=QAT_GATE,
                                 int8_training_bwd=True)
@@ -4255,11 +4386,17 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
     del model, x
     sites = QAT_SITES["train"]
     kinds = [c[0] for c in calls]
-    check(kinds.count("dgrad") == sites and kinds.count("wgrad") == sites,
-          f"an int8-backward step made {kinds.count('dgrad')} dgrad and "
-          f"{kinds.count('wgrad')} wgrad calls, expected {sites} each")
-    plains = {"dgrad": kc.conv_s8_dgrad_plain, "wgrad": kc.conv_s8_wgrad_plain}
-    entries = {"dgrad": kc.conv_s8_dgrad, "wgrad": kc.conv_s8_wgrad}
+    counted = {kind: kinds.count(kind) for kind in ("quantize_x", "quantize_g", "rotated",
+                                                    "dgrad", "wgrad")}
+    check(set(counted.values()) == {sites}, f"an int8-backward step made {counted} calls, "
+                                            f"expected {sites} of each")
+    check(sum(kc.dgrad_launch(a[0].shape, a[1].shape[0], _dgrad_kernel(a, k), *a[4:8])["parity"]
+              for kind, a, k in calls if kind == "dgrad") == QAT_DGRAD_PARITY,
+          f"the step's data gradients split by parity are not {QAT_DGRAD_PARITY}")
+    plains = {"dgrad": kc.conv_s8_dgrad_plain, "wgrad": kc.conv_s8_wgrad_plain,
+              "rotated": kc.rotated_weight_codes_plain}
+    entries = {"dgrad": kc.conv_s8_dgrad, "wgrad": kc.conv_s8_wgrad,
+               "rotated": kc.rotated_weight_codes}
     err = dict.fromkeys(entries, 0.0)
     strided = next(i for i, (kind, a, _) in enumerate(calls)
                    if kind == "dgrad" and a[5] not in (1, [1, 1]))
@@ -4268,6 +4405,13 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
     # a zero cotangent at a strided site and at the pooled part: each dgrad, then its wgrad
     zero_sites = {strided, pooled, strided + 1, pooled + 1}
     for i, (kind, a, k) in enumerate(calls):
+        if kind.startswith("quantize"):
+            check(_reduce_checks(kc, a[0]), f"the reducing quantize != plain at {kind} "
+                                            f"{tuple(a[0].shape)}")
+            if i + 2 in (strided, pooled):  # this site's cotangent, all zeros
+                check(_reduce_checks(kc, torch.zeros_like(a[0])),
+                      f"the reducing quantize of zeros != plain at {tuple(a[0].shape)}")
+            continue
         args = [a]
         if i in zero_sites:  # a zero cotangent: amax 0, scale 1, codes 0
             g_at = 0 if kind == "dgrad" else 1
@@ -4278,16 +4422,22 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
         for aa in args:
             got, want = entries[kind](*aa, **k), plains[kind](*aa, **k)
             torch.cuda.synchronize()
+            got, want = (got, want) if kind != "rotated" else (got[0], want[0])
             diff = float((got.float() - want.float()).abs().max())
             err[kind] = max(err[kind], diff)
-            check(got.dtype == want.dtype and torch.equal(got, want),
-                  f"conv_s8_{kind} != plain at site {i // 2} {tuple(aa[0].shape)}: max abs "
-                  f"err {diff}")
-    print(f"[19] conv_s8_dgrad and conv_s8_wgrad at the real cotangents of all {sites} routed "
-          f"sites of an int8-backward QAT step ({len(calls)} calls; 3 strided, the pooled part "
-          f"at M = 8) and at a zero cotangent at a strided site and the pooled part: bit-equal "
-          f"(torch.equal) to the plain versions in the sites' dtypes "
-          f"({calls[0][2]['out_dtype']})")
+            same = got.dtype == want.dtype and torch.equal(got, want)
+            if kind == "rotated":  # and the amax
+                same = same and torch.equal(entries[kind](*aa)[1], plains[kind](*aa)[1])
+            check(same,
+                  f"{kind} != plain at call {i} {tuple(aa[0].shape)}: max abs err {diff}")
+    print(f"[19] the reducing quantize at the step's {2 * sites} activations and cotangents "
+          f"(dynamic, amax, delayed), the data gradient's weight codes, conv_s8_dgrad "
+          f"({QAT_DGRAD_PARITY} split by parity) and conv_s8_wgrad at the real tensors of all "
+          f"{sites} routed sites of an int8-backward QAT step ({len(calls)} calls; the pooled "
+          f"part at M = 8) and at a zero cotangent at a strided site and the pooled part: "
+          f"bit-equal (torch.equal) to the plain versions in the sites' dtypes "
+          f"({next(k for kind, _, k in calls if kind == 'dgrad')['out_dtype']})")
+    _reduce_in_group(kc, [a[0] for kind, a, _ in calls if kind.startswith("quantize")])
     bodies = {b: 0 for b in QAT_WGRAD_BODIES}
     for kind, a, _ in calls:
         if kind == "wgrad":
@@ -4303,20 +4453,53 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
         shapes.setdefault(key, [kind, a, k, 0])[3] += 1
     cold = ColdTimer(reps=5)
     records = {}
-    for name in entries:
+    for name in ("quantize_x", "quantize_g", "rotated", "dgrad", "wgrad"):
         total = dict.fromkeys(("ms", "plain_ms", "library_ms", "int_mm_ms", "planar_ms"), 0.0)
         bounds, per_shape = [], []
         for kind, a, k, count in shapes.values():
             if kind != name:
                 continue
+            if name.startswith("quantize"):
+                rows = _rows_view(a[0].detach())
+                ms = cold(lambda: kc.quantize_s8_reduce(rows, "dynamic"))
+                total["ms"] += count * ms
+                total["plain_ms"] += count * cuda_ms(
+                    lambda: kc.quantize_s8_reduce_plain(rows, "dynamic"), reps=2, warmup=1)
+                bounds += [_quantize_bound(rows)] * count
+                continue
+            if name == "rotated":
+                ms = cold(lambda: kc.rotated_weight_codes(*a))
+                total["ms"] += count * ms
+                total["plain_ms"] += count * cuda_ms(
+                    lambda: kc.rotated_weight_codes_plain(*a), reps=2, warmup=1)
+                n = a[0].numel()
+                nbytes = n * (a[0].element_size() + 1) + 4
+                bounds += [{"bytes": nbytes, "ops": n,
+                            **least_time(nbytes, n, F32_OPS_PER_S)}] * count
+                continue
             by_kernel = cold.kernels(lambda: entries[kind](*a, **k))
             ms = sum(by_kernel.values())
-            library_ms = cold(_bwd_library(kind, a, k))
+            library_ms = cold(_bwd_library(kc, kind, a, k))
             total["ms"] += count * ms
             total["plain_ms"] += count * cuda_ms(lambda: plains[kind](*a, **k), reps=1, warmup=1)
             total["library_ms"] += count * library_ms
             bound = _bwd_bound(kind, a, k)
             bounds += [bound] * count
+            if kind == "dgrad":
+                lay = kc.dgrad_launch(a[0].shape, a[1].shape[0], _dgrad_kernel(a, k), *a[4:8],
+                                      out_dtype=k["out_dtype"])
+                row = {"g": list(a[0].shape), "x_hw": list(a[4]),
+                       "kernel": list(_dgrad_kernel(a, k)),
+                       "stride": str(a[5]), "padding": str(a[6]), "dilation": str(a[7]),
+                       "count": count, "parity": lay["parity"],
+                       "plan": [lay["plan"][key] for key in ("tw", "bn", "slots", "splits")],
+                       "ms": ms, "bound_ms": bound["bound_ms"], "library_ms": library_ms}
+                per_shape.append(row)
+                print(f"[19] conv_s8_dgrad at g {tuple(a[0].shape)} -> x {tuple(a[4])} k "
+                      f"{row['kernel']} s {a[5]} p {a[6]} d {a[7]}, {count} site(s), "
+                      f"{'parity classes' if lay['parity'] else 'dense'} plan {row['plan']} "
+                      f"({smi}): {ms:.4f} ms ({bound['bound_ms'] / ms:.1%} of its bound "
+                      f"{bound['bound_ms']:.4f} ms); cuDNN bf16 dx {library_ms:.4f} ms", flush=True)
             if kind == "wgrad":
                 planar = sum(v for key, v in by_kernel.items() if "planar_kernel" in key)
                 main = sum(v for key, v in by_kernel.items()
@@ -4340,25 +4523,38 @@ def phase_qat_bwd_kernels(kc, smi: str) -> dict:
                 int_mm = _int_mm(gt, a[0].reshape(p, -1))
                 total["int_mm_ms"] += count * (cold(int_mm) if int_mm else 0.0)
         least = sum_bounds(bounds)
-        records[name] = {"max_abs_err": err[name], "ms": total["ms"],
+        records[name] = {"max_abs_err": err.get(name, 0.0), "ms": total["ms"],
                          "plain_ms": total["plain_ms"], **least,
-                         "library_ms": total["library_ms"],
-                         "library_call": "aten.convolution_backward in bf16 (cuDNN), the "
-                                         f"{'input' if name == 'dgrad' else 'weight'} half: "
-                                         "another function, no quantization"}
+                         "library_ms": total["library_ms"] if name in ("dgrad", "wgrad") else None}
+        label = {"quantize_x": "quantize_s8_reduce (dynamic) at the forward's activations",
+                 "quantize_g": "quantize_s8_reduce (dynamic) at the backward's cotangents",
+                 "rotated": "rotated_weight_codes", "dgrad": "conv_s8_dgrad",
+                 "wgrad": "conv_s8_wgrad"}[name]
+        if name in ("dgrad", "wgrad"):
+            records[name]["library_call"] = (
+                "aten.convolution_backward in bf16 (cuDNN), the "
+                f"{'input' if name == 'dgrad' else 'weight'} half: another function, no "
+                "quantization")
+            records[name]["per_shape"] = per_shape
         if name == "wgrad":
             records[name]["int_mm_ms_1x1"] = total["int_mm_ms"]
             records[name]["planar_copies_ms"] = total["planar_ms"]
-            records[name]["per_shape"] = per_shape
-        print(f"[19] conv_s8_{name} over an int8-backward QAT step's {sites} routed sites "
-              f"({smi}): kernel {total['ms']:.4f} ms with the inputs out of L2 "
+        print(f"[19] {label} over an int8-backward QAT step's {sites} routed sites ({smi}): "
+              f"kernel {total['ms']:.4f} ms with the inputs out of L2 "
               f"({least['bound_ms'] / total['ms']:.1%} of the bound {least['bound_ms']:.4f} ms "
-              f"by {least['bound_by']}; {_work(bounds)}); plain {total['plain_ms']:.4f} ms; "
-              f"cuDNN bf16 backward {total['library_ms']:.4f} ms"
+              f"by {least['bound_by']}; {_work(bounds)}); plain {total['plain_ms']:.4f} ms"
+              + (f"; cuDNN bf16 backward {total['library_ms']:.4f} ms"
+                 if name in ("dgrad", "wgrad") else "")
               + (f"; torch._int_mm at the 1x1 stride-1 sites (the int32 product alone) "
                  f"{total['int_mm_ms']:.4f} ms; the planar copies {total['planar_ms']:.4f} ms of "
-                 f"the kernel's time; bodies a step {bodies}" if name == "wgrad" else "")
-              + f"; launches by body {dict(kc.launches_dgrad_by_body)}" * (name == "dgrad"))
+                 f"the kernel's time; bodies a step {bodies}" if name == "wgrad" else ""),
+              flush=True)
+    quantize = {key: records.pop(f"quantize_{key}") for key in ("x", "g")}
+    records["quantize"] = {
+        "max_abs_err": 0.0, "library_ms": None,
+        **{key: quantize["x"][key] + quantize["g"][key] for key in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "x_ms": quantize["x"]["ms"], "g_ms": quantize["g"]["ms"],
+        "x_bound_ms": quantize["x"]["bound_ms"], "g_bound_ms": quantize["g"]["bound_ms"]}
     return records
 
 
@@ -4369,10 +4565,15 @@ def _wgrad_geometry(kc, a) -> dict:
     return kc.conv_geometry(x_q.shape, (g_q.shape[3], kh, kw, x_q.shape[3]), *a[5:8])
 
 
+BWD_COUNTS = ("quantize", "conv", "dgrad", "wgrad", *(f"wgrad {b}" for b in QAT_WGRAD_BODIES),
+              "dgrad parity", "reduce dynamic", "reduce delayed", "reduce amax", "weight codes")
+
+
 def _bwd_counting_steps(trainer, log: list):
-    """Wrap ``trainer.train_step``: each step appends (step, device-scale
-    quantize launches, dense-conv launches, dgrad launches, wgrad launches,
-    wgrad launches of each body of ``QAT_WGRAD_BODIES``) in it."""
+    """Wrap ``trainer.train_step``: each step appends (step, the launches of
+    ``BWD_COUNTS`` in it: device-scale quantize, dense conv, dgrad, wgrad,
+    wgrad of each body of ``QAT_WGRAD_BODIES``, dgrad split by parity, the
+    reducing quantize by mode, the data gradient's weight codes)."""
     from iswm_tpu_torch.ops.kernels import int8_conv as kc
 
     step = trainer.train_step
@@ -4380,7 +4581,10 @@ def _bwd_counting_steps(trainer, log: list):
     def counts():
         return (kc.launches_by_scale["quantize"]["device"], kc.launches_by_scale["igemm"]["device"],
                 kc.launches_dgrad, kc.launches_wgrad,
-                *(kc.launches_wgrad_by_body[b] for b in QAT_WGRAD_BODIES))
+                *(kc.launches_wgrad_by_body[b] for b in QAT_WGRAD_BODIES),
+                kc.launches_dgrad_by_body["parity"],
+                *(kc.launches_reduce[m] for m in ("dynamic", "delayed", "amax")),
+                kc.launches_rotated)
 
     def counted(state, images, labels):
         before = counts()
@@ -4399,10 +4603,13 @@ def phase_qat_bwd_train(kc, smi: str) -> dict:
     bf16 step in the same run.  Returns the main path's launches."""
     from iswm_tpu_torch.data import val_transform_batch
 
+    from iswm_tpu_torch.models.layers import quant_state
+
     t0 = time.perf_counter()
     sites = QAT_SITES["train"]
-    kc.launches_dgrad = kc.launches_wgrad = 0
-    kc.launches_wgrad_by_body.update(dict.fromkeys(kc.launches_wgrad_by_body, 0))
+    kc.launches_dgrad = kc.launches_wgrad = kc.launches_rotated = 0
+    for counter in (kc.launches_wgrad_by_body, kc.launches_dgrad_by_body, kc.launches_reduce):
+        counter.update(dict.fromkeys(counter, 0))
     by_scale = {e: v["device"] for e, v in kc.launches_by_scale.items()}
     trainers = {}
     for name, model in (("dynamic", {}), ("delayed", {"int8_scale_mode": "delayed"})):
@@ -4415,18 +4622,20 @@ def phase_qat_bwd_train(kc, smi: str) -> dict:
         losses = trainer.logger.history["train_loss"]
         check(len(losses) == 2 and bool(np.isfinite(losses).all()),
               f"int8-backward QAT {name}: losses {losses}")
-        want = [(i, 2 * sites, sites, sites, sites, *QAT_WGRAD_BODIES.values())
-                for i in range(QAT_STEPS)]
-        check(log == want, f"int8-backward QAT {name}: (quantize, conv, dgrad, wgrad, wgrad by "
-                           f"body {tuple(QAT_WGRAD_BODIES)}) launches by step {log}, expected "
-                           f"{want}")
+        delayed = len(quant_state(trainer.state.model))  # the sites of a running amax
+        want = [(i, 2 * sites, sites, sites, sites, *QAT_WGRAD_BODIES.values(), QAT_DGRAD_PARITY,
+                 2 * sites - delayed, delayed, 0, sites) for i in range(QAT_STEPS)]
+        check(log == want, f"int8-backward QAT {name}: ({', '.join(BWD_COUNTS)}) launches by "
+                           f"step {log}, expected {want}")
         print(f"[19] int8-backward QAT {name} fit ({smi}): {QAT_STEPS} steps, losses {losses}, "
-              f"quick-eval and validation; device-scale (quantize, conv, dgrad, wgrad, wgrad by "
-              f"body {tuple(QAT_WGRAD_BODIES)}) launches by step {log}: a cotangent quantize, a "
-              f"dgrad and a wgrad a routed site")
+              f"quick-eval and validation; ({', '.join(BWD_COUNTS)}) launches by step {log}: one "
+              f"reducing quantize an activation and a cotangent (no other amax pass), the "
+              f"weight codes, a dgrad and a wgrad a routed site")
         trainers[name] = trainer
     launches = {"dgrad": kc.launches_dgrad, "wgrad": kc.launches_wgrad,
                 "wgrad_by_body": dict(kc.launches_wgrad_by_body),
+                "dgrad_by_body": dict(kc.launches_dgrad_by_body),
+                "reduce": dict(kc.launches_reduce), "rotated": kc.launches_rotated,
                 **{e: kc.launches_by_scale[e]["device"] - by_scale[e] for e in by_scale}}
 
     trainer = trainers.pop("dynamic")
@@ -4561,7 +4770,11 @@ def main() -> int:
                         *((f"int8_conv {e} with a device scale", by_scale[e]["device"])
                           for e in by_scale),
                         ("int8_conv_s8_dgrad", bwd_launches["dgrad"]),
-                        ("int8_conv_s8_wgrad", bwd_launches["wgrad"])):
+                        ("int8_conv_s8_dgrad's parity split",
+                         bwd_launches["dgrad_by_body"]["parity"]),
+                        ("int8_conv_s8_wgrad", bwd_launches["wgrad"]),
+                        ("int8_quantize_s8_reduce", sum(bwd_launches["reduce"].values())),
+                        ("int8_rotated_weight_codes", bwd_launches["rotated"])):
         check(count > 0, f"the main paths never launched {name}")
     print(f"[profiler] traces of the run: {TRACES['whole']} whole at the first take, "
           f"{TRACES['retaken']} whole after a retake, {TRACES['estimated']} never whole "
@@ -4652,11 +4865,27 @@ def main() -> int:
            "source": "iswm_tpu_torch/csrc/int8_conv.cu", "replaces": replaces,
            "pallas_call": False, "launches": bwd_launches[key],
            **({"launches_by_body": bwd_launches["wgrad_by_body"], "bodies": WGRAD_BODIES}
-              if key == "wgrad" else {}),
+              if key == "wgrad" else {"launches_by_body": bwd_launches["dgrad_by_body"],
+                                      "bodies": DGRAD_BODIES}),
            **bwd_records[key]}
           for key, replaces in (
               ("dgrad", "iswm_tpu/ops/int8_train.py:202 (_int8_dgrad) / :458 (_dil_bwd)"),
               ("wgrad", "iswm_tpu/ops/int8_train.py:232 (_int8_wgrad) / :458 (_dil_bwd)"))),
+        {"name": "int8_quantize_s8_reduce", "route": "cuda",
+         "source": "iswm_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "iswm_tpu/ops/int8_train.py:31 (_dyn_quant_x: the amax and the codes) and "
+                     ":273 (_quant_g); the delayed amax's max |x| (:130)",
+         "pallas_call": False, "launches": sum(bwd_launches["reduce"].values()),
+         "launches_by_mode": bwd_launches["reduce"],
+         "body": "quantize_kernel's reducing modes (dynamic: one cooperative launch, the max, "
+                 "a grid barrier, the codes walked backwards; amax; delayed)",
+         **bwd_records["quantize"]},
+        {"name": "int8_rotated_weight_codes", "route": "cuda",
+         "source": "iswm_tpu_torch/csrc/int8_conv.cu",
+         "replaces": "iswm_tpu/ops/int8_train.py:209 (_int8_dgrad's per-tensor weight quantize "
+                     "and rotation, :209-217) / :471 (_dil_bwd's)",
+         "pallas_call": False, "launches": bwd_launches["rotated"],
+         "body": DGRAD_BODIES["weights"], **bwd_records["rotated"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,14 +23,21 @@
 // The backward replaces what the JAX package's QAT leaves to XLA
 // (iswm_tpu/ops/int8_train.py, no pallas_call): `_int8_dgrad` (:202, an int8
 // conv of the cotangent g_q with the rotated, I/O-swapped per-tensor codes,
-// lhs_dilation = stride) and `_int8_wgrad` (:232) / `_dil_bwd` (:458, the
-// forward's codes x_q contracted with g_q over (B, H, W)):
+// lhs_dilation = stride), `_quant_g` (:273) and `_dyn_quant_x` (:31) and
+// `_int8_wgrad` (:232) / `_dil_bwd` (:458, the forward's codes x_q
+// contracted with g_q over (B, H, W)):
 //   dgrad:     dx[b, iy, ix, c] = float(acc) * (g_s * w_s), the dense conv of
-//              g_q dilated by the stride (zeros between its pixels, written by
-//              `dilate_kernel` where the stride is above 1), stride 1, the
-//              transpose padding, x's extent
+//              g_q dilated by the stride, stride 1, the transpose padding,
+//              x's extent; at a stride above 1 split by output parity (no
+//              zeros inserted): class (a, b) = dx[:, a::sh, b::sw] is a
+//              stride-1 conv of g_q over the taps of the rotated kernel that
+//              land on it, all classes in one launch
 //   wgrad:     dw[n, c, kh, kw] = float(acc) * (x_s * g_s), acc the sum over
 //              the output pixels of g_q[., n] x_q[the tap's pixel, c]
+//   quantize:  with its amax = max |x| reduced in the same launch (dynamic),
+//              alone (in a process group, before the all-reduce), or beside
+//              the codes of a given amax (delayed)
+//   weights:   the data gradient's rotated per-tensor codes made on the card
 //
 // What bounds each kernel on this card, at the serving slice's shapes
 // (ResNet-50 and MobileNetV2, OS 16, 8 tiles of 512^2; block_bwd_ab.py --kind
@@ -89,12 +96,27 @@
 //   - `direct_kernel` (every other grouped conv, Cg > 1 or another kernel
 //     size): one thread an output value, `dp4a` where the group's channels
 //     allow;
-//   - `quantize_kernel`: 16 bytes of x a thread where the row allows, over
-//     rows of any stride (a channel slice of an NHWC tensor);
-//   - the data gradient runs `igemm_wgmma_kernel` (or the bytewise body) as
-//     it is: its epilogue's scale is the product of two amaxes' scales and
-//     its per-channel scales are 1 (an exact product).  Stride-2 sites (3 of
-//     a ResNet-50 step's 49) pay 4x their products on the inserted zeros;
+//   - `quantize_kernel` (namespace quant): two 16-byte vectors in flight a
+//     thread (one where a tensor is too small to fill the card), rows of any
+//     stride (a channel slice of an NHWC tensor) walked by counting, the
+//     quotient from a reciprocal where that is exact (see q8_code).  Its
+//     reducing modes take max |x| on the raw bits and combine the blocks'
+//     maxima with one atomicMax in a stream's workspace; the dynamic mode is
+//     one cooperative launch of the blocks the card holds: pass 1 the max, a
+//     grid barrier, pass 2 the codes, walked backwards so that what pass 1
+//     left in L2 is read again first.  Bound by bytes: x read once on paper
+//     (twice from memory for a tensor past L2's share), the codes written;
+//   - the data gradient runs `igemm_wgmma_kernel` (or, at a stride of 1 and
+//     channels no multiple of 16, the bytewise body): its epilogue's scale
+//     is the product of two amaxes' scales and its per-channel scales are 1
+//     (an exact product).  At a stride above 1 the kernel's Parity template
+//     runs every output parity class of dx in one launch (blockIdx.y), each
+//     over its own taps of the rotated kernel at their offsets into the
+//     undilated cotangent, its epilogue writing the class's pixels of dx (16-
+//     byte rows of channels, pixels sh, sw apart); a class of no tap (three
+//     of four at a 1x1 of stride 2) writes its zeros.  Its weights come from
+//     `rotated_codes_kernel`: one cooperative launch, the float kernel's
+//     amax, a grid barrier, the rotated codes;
 //   - the weight gradient's `wgmma` body (namespace wgrad: C and N multiples
 //     of 16, an output map of 64 pixels or more): both operands made
 //     pixel-major once a call, their tiles copied by TMA into `wgmma`, int32
@@ -135,6 +157,8 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -237,47 +261,241 @@ __device__ __forceinline__ void store16<__nv_bfloat16>(__nv_bfloat16* dst, const
 }
 
 // ------------------------------------------------------------------ quantize
-__device__ __forceinline__ int8_t q8(float v, float s) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.0f), 127.0f);
-  return static_cast<int8_t>(__float2int_rn(q));
+// code = clip(rint(v / s), -127, 127) with v / s the IEEE quotient.  The
+// quotient is taken as v * r (r = 1 / s, correctly rounded, once a thread):
+// within |q| 2^-23 of v / s, so rint(q) is rint(v / s) unless q lies within
+// |q| 2^-21 of a tie (k + 1/2), where __fdiv_rn gives the quotient (about one
+// value in a million; NaN, infinities and r = NaN, for an s whose reciprocal
+// is not a normal float, all take that path).  Bit-equal to rint(__fdiv_rn(v,
+// s)) for every v.
+__device__ __forceinline__ int q8_code(float v, float s, float r) {
+  const float q = __fmul_rn(v, r);
+  float n = rintf(q);
+  if (!(fmaf(fabsf(q), 0x1p-21f, fabsf(__fsub_rn(q, n))) < 0.5f)) n = rintf(__fdiv_rn(v, s));
+  return __float2int_rn(fminf(fmaxf(n, -127.0f), 127.0f));
+}
+// 1 / s for q8_code: NaN (every value by the IEEE division) outside [2^-120, 2^120]
+__device__ __forceinline__ float q8_recip(float s) {
+  return s >= 0x1p-120f && s <= 0x1p120f ? __frcp_rn(s) : __int_as_float(0x7fffffff);
 }
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// |v|'s bits: non-negative floats order as unsigned ints (a NaN above +inf)
+__device__ __forceinline__ unsigned abs_bits(float v) { return __float_as_uint(v) & 0x7fffffffu; }
+__device__ __forceinline__ unsigned abs_bits(__nv_bfloat16 v) {
+  return (static_cast<unsigned>(__bfloat16_as_ushort(v)) & 0x7fffu) << 16;
+}
 
-// x rows [P, C] with `ld` elements between rows -> out [P, C] contiguous.
-// VEC: each thread takes 16 bytes of x (8 bf16 or 4 f32 values); needs C and
-// ld multiples of the vector and x 16-byte aligned.
-// 32-bit indices (the wrapper keeps P C < 2^31): a 64-bit division costs
-// tens of instructions an element.
-template <typename T, bool VEC, typename S>
-__global__ void __launch_bounds__(256) quantize_kernel(const T* __restrict__ x, S scale,
-                                                       int8_t* __restrict__ out, int P, int C,
-                                                       long long ld) {
-  const float s = scale.get();
-  constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
-  const int per_row = C / V;
-  const int total = P * per_row;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    const int p = i / per_row;
-    const int c = (i - p * per_row) * V;
-    const T* src = x + p * ld + c;
-    int8_t* dst = out + static_cast<long long>(p) * C + c;
-    if constexpr (VEC) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src);
-      const T* v = reinterpret_cast<const T*>(&raw);
-      alignas(8) int8_t b[V];
+// The grid's workspace (one a stream): the max's bits, the grid barrier's
+// arrivals, the blocks done; all 0 between launches (the last block resets).
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned add_acq_rel(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;" : "=r"(old) : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+namespace quant {
+
+constexpr int THREADS = 256;
+// 16-byte vectors in flight a thread, at most (2 measured faster than 4 at a
+// QAT step's and a serving chunk's shapes: block_bwd_ab.py --kind quantize)
+constexpr int UNROLL = 2;
+// DYNAMIC: amax = max |x| into amax_out, then the codes with its scale (one
+// cooperative launch, a grid barrier between the passes); AMAX: amax alone;
+// DELAYED: the codes with the scale of a given amax, and max |x| into
+// amax_out in the same read; QUANT: the codes alone (a host or device scale)
+enum Mode { QUANT = 0, DYNAMIC = 1, AMAX = 2, DELAYED = 3 };
+
+// The grid's max from every thread's max |x| bits m: the block's, then one
+// atomicMax into ws[0].  With `barrier` (a cooperative launch: every block
+// resident) each block then waits for every other's (ws[1] counts them) and
+// gets the grid's max; else 0.
+__device__ __forceinline__ float grid_max(unsigned m, unsigned* ws, bool barrier) {
+  __shared__ unsigned warp_max[THREADS / 32];
+  __shared__ float amax;
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
 #pragma unroll
-      for (int j = 0; j < V; ++j) b[j] = q8(to_f32(v[j]), s);
-      if constexpr (V == 8) {
-        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(b);
-      } else {
-        *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(b);
+    for (int w = 0; w < THREADS / 32; ++w) m = max(m, warp_max[w]);
+    atomicMax(ws, m);
+    amax = 0.0f;
+    if (barrier) {
+      add_acq_rel(ws + 1, 1u);
+      while (ld_acquire(ws + 1) < gridDim.x) {
       }
-    } else {
-      *dst = q8(to_f32(*src), s);
+      amax = __uint_as_float(ld_acquire(ws));
     }
   }
+  __syncthreads();
+  return amax;
 }
+// The end of a block that took part in grid_max: the last block done (ws[2]
+// counts them) writes the grid's max to amax_out and leaves ws zeroed.
+__device__ __forceinline__ void grid_done(unsigned* ws, float* amax_out) {
+  if (threadIdx.x == 0 && add_acq_rel(ws + 2, 1u) == gridDim.x - 1) {
+    *amax_out = __uint_as_float(ld_acquire(ws));
+    ws[0] = 0u;
+    ws[1] = 0u;
+    ws[2] = 0u;
+  }
+}
+// this thread's max |x| bits m with 16 bytes of T values (bf16: two halves a lane)
+template <typename T>
+__device__ __forceinline__ unsigned vec_max(unsigned m, const uint4& v) {
+  if constexpr (sizeof(T) == 2) {
+    m = __vmaxu2(m, v.x & 0x7fff7fffu);
+    m = __vmaxu2(m, v.y & 0x7fff7fffu);
+    m = __vmaxu2(m, v.z & 0x7fff7fffu);
+    return __vmaxu2(m, v.w & 0x7fff7fffu);
+  } else {
+    m = max(max(m, v.x & 0x7fffffffu), v.y & 0x7fffffffu);
+    return max(max(m, v.z & 0x7fffffffu), v.w & 0x7fffffffu);
+  }
+}
+// m of vec_max as a float's bits
+template <typename T>
+__device__ __forceinline__ unsigned vec_max_bits(unsigned m) {
+  return sizeof(T) == 2 ? max(m & 0xffffu, m >> 16) << 16 : m;
+}
+
+// x rows [P, C] with `ld` elements between rows -> out [P, C] contiguous (a
+// contiguous x comes as one row).  VEC: 16 bytes of x a vector (8 bf16 or 4
+// f32 values); needs C and ld multiples of the vector and 16-byte alignment.
+// An iteration of the grid takes u x THREADS vectors a block (u <= UNROLL,
+// the launch's: fewer for a small tensor, so that its blocks fill the card),
+// a warp's loads consecutive; each thread walks its vectors' (row, column)
+// places by counting (one 32-bit division a vector at the start, none
+// after; the wrapper keeps P C < 2^31).  The max goes on the raw bits (two
+// bf16 halves at once).  DYNAMIC's second pass walks backwards: what the
+// first pass read last, still in L2, is read again first.
+template <typename T, bool VEC, int MODE, typename S>
+__global__ void __launch_bounds__(THREADS)
+    quantize_kernel(const T* __restrict__ x, S scale, int8_t* __restrict__ out, int P, int C,
+                    long long ld, int u, float* __restrict__ amax_out, unsigned* __restrict__ ws) {
+  constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  constexpr int U = UNROLL;
+  constexpr bool REDUCE = MODE != QUANT;
+  const unsigned per_row = static_cast<unsigned>(C / V);
+  const unsigned total = static_cast<unsigned>(P) * per_row;  // < 2^31
+  const unsigned span = gridDim.x * u * THREADS;  // vectors an iteration of the grid
+  const int iters = static_cast<int>((total + span - 1) / span);
+  const int dp = static_cast<int>(span / per_row), dc = static_cast<int>(span % per_row);
+  int p[U], c[U];
+  auto place = [&](int it) {  // vector k of this thread at iteration it (k >= u: none)
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const unsigned i = static_cast<unsigned>(it) * span + (blockIdx.x * u + k) * THREADS +
+                         threadIdx.x;  // < 2^32: total + span
+      p[k] = k < u ? static_cast<int>(i / per_row) : P;
+      c[k] = static_cast<int>(i - static_cast<unsigned>(p[k]) * per_row);
+    }
+  };
+  auto step = [&](int dir) {  // the next (dir 1) or the previous (-1) iteration
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (k >= u) continue;
+      c[k] += dir * dc;
+      p[k] += dir * dp;
+      if (c[k] >= static_cast<int>(per_row)) {
+        c[k] -= per_row;
+        ++p[k];
+      } else if (c[k] < 0) {
+        c[k] += per_row;
+        --p[k];
+      }
+    }
+  };
+  using Raw = typename std::conditional<VEC, uint4, T>::type;
+  auto load = [&](Raw (&raw)[U]) {
+#pragma unroll
+    for (int k = 0; k < U; ++k)
+      if (p[k] < P)
+        raw[k] = *reinterpret_cast<const Raw*>(x + static_cast<long long>(p[k]) * ld +
+                                               static_cast<long long>(c[k]) * V);
+  };
+  unsigned m = 0u;  // this thread's max |x| bits (VEC bf16: two halves)
+  auto take_max = [&](const Raw (&raw)[U]) {
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (p[k] >= P) continue;
+      if constexpr (VEC) m = vec_max<T>(m, raw[k]);
+      else m = max(m, abs_bits(raw[k]));
+    }
+  };
+  auto codes = [&](const Raw (&raw)[U], float s, float r) {
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      if (p[k] >= P) continue;
+      int8_t* dst = out + static_cast<long long>(p[k]) * C + static_cast<long long>(c[k]) * V;
+      if constexpr (!VEC) {
+        *dst = static_cast<int8_t>(q8_code(to_f32(raw[k]), s, r));
+      } else {
+        const uint32_t w[4] = {raw[k].x, raw[k].y, raw[k].z, raw[k].w};
+        uint32_t b[V / 4];
+#pragma unroll
+        for (int j = 0; j < V / 4; ++j) {
+          int q[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v;
+            if constexpr (V == 8) {  // two bf16 a word, the low half first
+              const uint32_t word = w[(4 * j + e) >> 1];
+              v = __uint_as_float(e & 1 ? word & 0xffff0000u : word << 16);
+            } else {
+              v = __uint_as_float(w[4 * j + e]);
+            }
+            q[e] = q8_code(v, s, r);
+          }
+          b[j] = (q[0] & 0xff) | (q[1] & 0xff) << 8 | (q[2] & 0xff) << 16 |
+                 static_cast<uint32_t>(q[3]) << 24;
+        }
+        if constexpr (V == 8) *reinterpret_cast<uint2*>(dst) = make_uint2(b[0], b[1]);
+        else *reinterpret_cast<uint32_t*>(dst) = b[0];
+      }
+    }
+  };
+
+  float s = 1.0f, r = 1.0f;
+  if constexpr (MODE == QUANT || MODE == DELAYED) {
+    s = scale.get();
+    r = q8_recip(s);
+  }
+  Raw raw[U];
+  place(0);
+  for (int it = 0; it < iters; ++it) {  // the first (or only) pass
+    load(raw);
+    if constexpr (REDUCE) take_max(raw);
+    if constexpr (MODE == QUANT || MODE == DELAYED) codes(raw, s, r);
+    if (it + 1 < iters) step(1);
+  }
+  if constexpr (!REDUCE) return;
+
+  if constexpr (VEC) m = vec_max_bits<T>(m);
+  const float a = grid_max(m, ws, MODE == DYNAMIC);
+  if constexpr (MODE == DYNAMIC) {
+    s = a > 0.0f ? __fdiv_rn(a, 127.0f) : 1.0f;
+    r = q8_recip(s);
+    if (iters > 0) {  // the second pass, backwards from this thread's last place
+      place(iters - 1);
+      for (int it = iters - 1; it >= 0; --it) {
+        load(raw);
+        codes(raw, s, r);
+        if (it > 0) step(-1);
+      }
+    }
+  }
+  grid_done(ws, amax_out);
+}
+
+}  // namespace quant
 
 // ------------------------------------------------------ dense conv on wgmma
 // A wgmma operand in shared memory, K-major with the 64-byte swizzle: rows
@@ -443,6 +661,24 @@ __host__ __device__ constexpr int smem_bytes(int bn, int slots) {
                                                         : BM * tile_ld(bn) * 4;
 }
 
+// The data gradient split by output parity (a stride above 1): class (a,
+// b) is dx[:, a::sh, b::sw, :], a stride-1 conv of the undilated cotangent
+// over the taps (i, j) of the rotated kernel whose (a + before - i dh) ... is
+// a multiple of the stride (the wrapper's `dgrad_classes`), each at its own
+// offset (dy, dx) into g.  Classes in blockIdx.y, their taps in a table; a
+// class of no tap writes its zeros.  NoParity: every other launch.
+constexpr int MAX_CLASSES = 16;  // sh sw
+struct NoParity {
+  static constexpr bool split = false;
+};
+struct Parity {
+  static constexpr bool split = true;
+  int sh, sw, H, W;             // the stride; dx's extent
+  int4 cls[MAX_CLASSES];        // a, b, the class's extent Hc, Wc
+  int tap0[MAX_CLASSES + 1];    // class k's taps: tap[tap0[k] .. tap0[k + 1])
+  int4 tap[MAX_TAPS];           // dy, dx, K offset (tap (i, j)'s (i KW + j) C), 0
+};
+
 // Whether some o in [o0, o1] has 0 <= o s + off < n: the output positions a
 // tap offset `off` reads inside the input are ceil(-off / s) .. floor((n - 1
 // - off) / s).
@@ -464,13 +700,13 @@ __host__ __device__ constexpr int min_blocks(int bn, int slots) {
   return 2 * (smem_bytes(bn, slots) + 4096 + 1024) <= 233472 ? 2 : 1;
 }
 
-template <int BN, int SLOTS, bool TMA_B, typename OutT, typename S>
+template <int BN, int SLOTS, bool TMA_B, typename OutT, typename S, typename PAR>
 __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
     igemm_wgmma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                        const __grid_constant__ CUtensorMap w_map,
                        const float* __restrict__ w_scale, const float* __restrict__ bias,
                        S scale, OutT* __restrict__ out, int* __restrict__ partial, Geom g,
-                       int tw_log2, int splits) {
+                       int tw_log2, int splits, const __grid_constant__ PAR par) {
   static_assert(SLOTS >= 3, "a slot multiplied, one in flight, one loading");
   constexpr int STAGE = stage_bytes(BN);
   constexpr int LD = tile_ld(BN);
@@ -486,7 +722,14 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
   const int t = threadIdx.x;
   const int TW = 1 << tw_log2, TH = BM >> tw_log2;
   const int NT = (g.N + BN - 1) / BN;
-  const int tiles_x = (g.Wo + TW - 1) >> tw_log2, tiles_y = (g.Ho + TH - 1) / TH;
+  int Ho = g.Ho, Wo = g.Wo;  // the output's extent (PAR: the class's)
+  int4 cls = make_int4(0, 0, 0, 0);
+  if constexpr (PAR::split) {
+    cls = par.cls[blockIdx.y];
+    Ho = cls.z;
+    Wo = cls.w;
+  }
+  const int tiles_x = (Wo + TW - 1) >> tw_log2, tiles_y = (Ho + TH - 1) / TH;
   int bid = blockIdx.x;
   const int nt = bid % NT;
   bid /= NT;
@@ -496,22 +739,33 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
   bid /= tiles_x;
   const int ty = bid % tiles_y;
   const int b = bid / tiles_y;
+  if constexpr (PAR::split) {
+    if (b >= g.B) return;  // past this class's blocks (the grid fits the largest)
+  }
   const int oy0 = ty * TH, ox0 = tx * TW, n0 = nt * BN;
 
   if (t < 32) {  // warp 0: lane l judges taps l and l + 32, a ballot orders them
-    const int oy1 = min(oy0 + TH, g.Ho) - 1, ox1 = min(ox0 + TW, g.Wo) - 1;
+    const int oy1 = min(oy0 + TH, Ho) - 1, ox1 = min(ox0 + TW, Wo) - 1;
     int before = 0;
 #pragma unroll
     for (int half = 0; half < MAX_TAPS / 32; ++half) {
       const int tap = t + 32 * half;
-      const int kh = tap / g.KW, kw = tap - kh * g.KW;
-      const bool hit = tap < g.KH * g.KW &&
-                       axis_hits(oy0, oy1, g.sh, kh * g.dh - g.ph, g.H) &&
-                       axis_hits(ox0, ox1, g.sw, kw * g.dw - g.pw, g.W);
+      bool hit;
+      int4 entry;
+      if constexpr (PAR::split) {  // the class's taps (stride 1, no padding)
+        const int first = par.tap0[blockIdx.y];
+        hit = tap < par.tap0[blockIdx.y + 1] - first;
+        const int4 e = par.tap[hit ? first + tap : 0];
+        hit = hit && axis_hits(oy0, oy1, 1, e.x, g.H) && axis_hits(ox0, ox1, 1, e.y, g.W);
+        entry = make_int4(e.x, e.y, e.z, (e.x * g.W + e.y) * g.C);
+      } else {
+        const int kh = tap / g.KW, kw = tap - kh * g.KW;
+        hit = tap < g.KH * g.KW && axis_hits(oy0, oy1, g.sh, kh * g.dh - g.ph, g.H) &&
+              axis_hits(ox0, ox1, g.sw, kw * g.dw - g.pw, g.W);
+        entry = make_int4(kh * g.dh, kw * g.dw, tap * g.C, (kh * g.dh * g.W + kw * g.dw) * g.C);
+      }
       const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      if (hit)
-        taps[before + __popc(mask & ((1u << t) - 1))] =
-            make_int4(kh * g.dh, kw * g.dw, tap * g.C, (kh * g.dh * g.W + kw * g.dw) * g.C);
+      if (hit) taps[before + __popc(mask & ((1u << t) - 1))] = entry;
       before += __popc(mask);
     }
     if (t == 0) tap_count = before;
@@ -538,7 +792,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
   for (int i = 0; i < AROWS; ++i) {
     const int r = row0 + 32 * i;
     const int oy = oy0 + (r >> tw_log2), ox = ox0 + (r & (TW - 1));
-    mv[i] = oy < g.Ho && ox < g.Wo;
+    mv[i] = oy < Ho && ox < Wo;
     iy0[i] = oy * g.sh - g.ph;
     ix0[i] = ox * g.sw - g.pw;
     rp[i] = x + (static_cast<long long>(b * g.H + iy0[i]) * g.W + ix0[i]) * g.C;
@@ -651,8 +905,11 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
   // the output
   auto out_row = [&](int r) -> long long {
     const int oy = oy0 + (r >> tw_log2), ox = ox0 + (r & (TW - 1));
-    if (oy >= g.Ho || ox >= g.Wo) return -1;
-    return (static_cast<long long>(b) * g.Ho + oy) * g.Wo + ox;
+    if (oy >= Ho || ox >= Wo) return -1;
+    if constexpr (PAR::split)  // the class's pixel (oy, ox) is dx's (a + oy sh, b + ox sw)
+      return (static_cast<long long>(b) * par.H + cls.x + oy * par.sh) * par.W + cls.y +
+             ox * par.sw;
+    return (static_cast<long long>(b) * Ho + oy) * Wo + ox;
   };
   // The tile goes out through shared memory as rows of LD values: warp w's
   // 16 rows of its warpgroup, n8 block q in acc[4 q ..]: rows lane / 4 (+ 8),
@@ -709,7 +966,9 @@ __global__ void __launch_bounds__(THREADS, min_blocks(BN, SLOTS))
           make_int2(acc[4 * q + 2], acc[4 * q + 3]);
     }
     __syncthreads();
-    int* part = partial + static_cast<long long>(split) * g.B * g.Ho * g.Wo * g.N;
+    long long pixels = static_cast<long long>(Ho) * Wo;  // of an image of the output
+    if constexpr (PAR::split) pixels = static_cast<long long>(par.H) * par.W;
+    int* part = partial + split * g.B * pixels * g.N;
     if (g.N % 4 == 0) {
       constexpr int CPR = BN / 4;
       for (int q = t; q < BM * CPR; q += THREADS) {
@@ -1110,33 +1369,87 @@ __global__ void __launch_bounds__(256) direct_kernel(
 // ------------------------------------------------- the backward's two convs
 namespace backward {
 
-// The data gradient's zero insertion: g [B, gh, gw, C] -> out [B, H, W, C]
-// (the geometry's input, (gh - 1) sh + 1 x (gw - 1) sw + 1), g's pixel (y,
-// x) at (y sh, x sw) and zeros between; V bytes a thread (16 where C % 16 ==
-// 0, else 1).
-template <int V>
-__global__ void __launch_bounds__(256) dilate_kernel(const int8_t* __restrict__ g,
-                                                     int8_t* __restrict__ out, Geom d, int gh,
-                                                     int gw, int sh, int sw) {
-  const int per_px = d.C / V;
-  const int total = d.B * d.H * d.W * per_px;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += gridDim.x * blockDim.x) {
-    const int px = i / per_px;
-    const int c = (i - px * per_px) * V;
-    const int b = px / (d.H * d.W);
-    const int rem = px - b * d.H * d.W;
-    const int y = rem / d.W, x = rem - (rem / d.W) * d.W;
-    const bool on = y % sh == 0 && x % sw == 0;
-    const int8_t* src =
-        g + ((static_cast<long long>(b) * gh + y / sh) * gw + x / sw) * d.C + c;
-    int8_t* dst = out + static_cast<long long>(px) * d.C + c;
-    if constexpr (V == 16) {
-      *reinterpret_cast<uint4*>(dst) = on ? *reinterpret_cast<const uint4*>(src)
-                                          : make_uint4(0u, 0u, 0u, 0u);
-    } else {
-      *dst = on ? *src : int8_t{0};
-    }
+// The data gradient's weights, one cooperative launch: max |w| of the float
+// kernel w [N][C][KH][KW] (element strides st[0..3], dense: its numel values
+// read in any order, 16 bytes a load where they allow) into amax_out, a grid
+// barrier (quant::grid_max), then the rotated, I/O-swapped per-tensor codes
+// as the dense body's rows out [C][ldw]: out[c][(i KW + j) NP + n] =
+// q8(w[n][c][KH - 1 - i][KW - 1 - j]) for n < N, 0 for N <= n < NP and past
+// KH KW NP, with the scale of that amax (s = amax > 0 ? amax / 127 : 1).  A
+// tile: 64 (c, tap) places of out x 32 n, read along w's contiguous dim (q: c
+// fastest where st[1] == 1, channels last, else the tap) into shared memory,
+// written as 8-byte runs of n (w's row n holds its C KH KW values in q's
+// order: no division on the load side); the blocks walk the tiles; every
+// block zeroes a share of the rows' padding.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    rotated_codes_kernel(const T* __restrict__ w, float* __restrict__ amax_out,
+                         unsigned* __restrict__ ws, int8_t* __restrict__ out, int N, int C, int KH,
+                         int KW, int NP, int ldw, long long sn, long long sc) {
+  __shared__ int8_t tile[64][33];
+  const int taps = KH * KW, Q = C * taps, t = threadIdx.x;
+  const long long numel = static_cast<long long>(N) * Q;
+  const int threads = gridDim.x * 256;
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  unsigned m = 0u;
+  if (numel % V == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0) {
+    const uint4* wv = reinterpret_cast<const uint4*>(w);
+    for (long long i = blockIdx.x * 256 + t; i < numel / V; i += threads)
+      m = quant::vec_max<T>(m, wv[i]);
+    m = quant::vec_max_bits<T>(m);
+  } else {
+    for (long long i = blockIdx.x * 256 + t; i < numel; i += threads) m = max(m, abs_bits(w[i]));
   }
+  const float a = quant::grid_max(m, ws, true);
+  const float s = a > 0.0f ? __fdiv_rn(a, 127.0f) : 1.0f, r = q8_recip(s);
+
+  const bool c_fast = sc == 1 && C > 1;
+  auto where = [&](int q, int& c, int& tap) {
+    if (c_fast) {
+      tap = q / C;
+      c = q - tap * C;
+    } else {
+      c = q / taps;
+      tap = q - c * taps;
+    }
+  };
+  const int tiles_q = (Q + 63) / 64, tiles = tiles_q * ((NP + 31) / 32);
+  for (int k = blockIdx.x; k < tiles; k += gridDim.x) {
+    const int q0 = (k % tiles_q) * 64, n0 = (k / tiles_q) * 32;
+    {
+      const int n = n0 + (t >> 3);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int qi = (t & 7) * 8 + e, q = q0 + qi;
+        tile[qi][t >> 3] = static_cast<int8_t>(
+            n < N && q < Q ? q8_code(to_f32(w[n * sn + q]), s, r) : 0);
+      }
+    }
+    __syncthreads();
+    const int qi = t >> 2, q = q0 + qi, nn = n0 + (t & 3) * 8;
+    if (q < Q && nn < NP) {
+      int c, tap;
+      where(q, c, tap);
+      const int kh = tap / KW, kw = tap - kh * KW;
+      int8_t* dst = out + static_cast<long long>(c) * ldw +
+                    ((KH - 1 - kh) * KW + (KW - 1 - kw)) * NP + nn;
+      const int8_t* src = &tile[qi][(t & 3) * 8];
+      if ((NP & 7) == 0) {
+        uint32_t b[2] = {0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          b[e >> 2] |= static_cast<uint32_t>(static_cast<uint8_t>(src[e])) << (8 * (e & 3));
+        *reinterpret_cast<uint2*>(dst) = make_uint2(b[0], b[1]);
+      } else {
+        for (int e = 0; e < 8 && nn + e < NP; ++e) dst[e] = src[e];
+      }
+    }
+    __syncthreads();  // the tile is read before the next one is written
+  }
+  const int pad = ldw - taps * NP;  // < 16 bytes a row
+  for (int i = blockIdx.x * 256 + t; i < C * 16; i += threads)
+    if ((i & 15) < pad) out[static_cast<long long>(i >> 4) * ldw + taps * NP + (i & 15)] = 0;
+  quant::grid_done(ws, amax_out);
 }
 
 // The weight gradient: dw[n, kh, kw, c] = sum over the output pixels (b, oy,
@@ -1681,26 +1994,26 @@ Geom geom_of(const int* geom) {
               geom[9], geom[10], geom[11], geom[12], geom[13], geom[14], geom[15], geom[16]};
 }
 
-template <typename OutT, typename S>
+template <typename OutT, typename S, typename PAR>
 using DenseKernel = void (*)(const int8_t*, const int8_t*, const CUtensorMap, const float*,
-                             const float*, S, OutT*, int*, Geom, int, int);
+                             const float*, S, OutT*, int*, Geom, int, int, const PAR);
 
 // The built (BN, slots) pairs, with the weights by cp.async or by TMA; null
 // for another.
-template <bool TMA_B, typename OutT, typename S>
-DenseKernel<OutT, S> dense_kernel_of(int bn, int slots) {
+template <bool TMA_B, typename OutT, typename S, typename PAR>
+DenseKernel<OutT, S, PAR> dense_kernel_of(int bn, int slots) {
   using namespace dense;
-  if (bn == 256 && slots == 4) return igemm_wgmma_kernel<256, 4, TMA_B, OutT, S>;
-  if (bn == 128 && slots == 3) return igemm_wgmma_kernel<128, 3, TMA_B, OutT, S>;
-  if (bn == 128 && slots == 4) return igemm_wgmma_kernel<128, 4, TMA_B, OutT, S>;
-  if (bn == 64 && slots == 4) return igemm_wgmma_kernel<64, 4, TMA_B, OutT, S>;
-  if (bn == 8 && slots == 4) return igemm_wgmma_kernel<8, 4, TMA_B, OutT, S>;
+  if (bn == 256 && slots == 4) return igemm_wgmma_kernel<256, 4, TMA_B, OutT, S, PAR>;
+  if (bn == 128 && slots == 3) return igemm_wgmma_kernel<128, 3, TMA_B, OutT, S, PAR>;
+  if (bn == 128 && slots == 4) return igemm_wgmma_kernel<128, 4, TMA_B, OutT, S, PAR>;
+  if (bn == 64 && slots == 4) return igemm_wgmma_kernel<64, 4, TMA_B, OutT, S, PAR>;
+  if (bn == 8 && slots == 4) return igemm_wgmma_kernel<8, 4, TMA_B, OutT, S, PAR>;
   return nullptr;
 }
-template <typename OutT, typename S>
-DenseKernel<OutT, S> dense_kernel(int bn, int slots, bool tma) {
-  return tma ? dense_kernel_of<true, OutT, S>(bn, slots)
-             : dense_kernel_of<false, OutT, S>(bn, slots);
+template <typename OutT, typename S, typename PAR>
+DenseKernel<OutT, S, PAR> dense_kernel(int bn, int slots, bool tma) {
+  return tma ? dense_kernel_of<true, OutT, S, PAR>(bn, slots)
+             : dense_kernel_of<false, OutT, S, PAR>(bn, slots);
 }
 
 // The weights [N rows][ldw bytes] as a TMA map of boxes of 64 bytes x BN
@@ -1751,10 +2064,15 @@ int planar_map(CUtensorMap* map, const int8_t* base, int len, int rows, int box_
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <typename OutT, typename S>
+// The dense conv's launch (and its K split's finish); PAR: the data
+// gradient's parity classes (`classes` of them in blockIdx.y, out dx [B, H,
+// W, N]), NoParity for every other launch.
+template <typename OutT, typename S, typename PAR = dense::NoParity>
 int run_dense(const Geom& g, const int* plan, const int8_t* x, const int8_t* w, const float* ws,
-              const float* bs, S xs, OutT* out, int* partial, cudaStream_t s) {
+              const float* bs, S xs, OutT* out, int* partial, cudaStream_t s,
+              const PAR& par = PAR{}, int classes = 1) {
   if (plan[0] == 1) {  // the bytewise body
+    if (PAR::split) return static_cast<int>(cudaErrorInvalidValue);
     const int M = g.B * g.Ho * g.Wo;
     const dim3 grid((g.N + bytewise::BN - 1) / bytewise::BN, (M + bytewise::BM - 1) / bytewise::BM);
     bytewise::igemm_bytes_kernel<OutT, S><<<grid, bytewise::THREADS, 0, s>>>(x, w, ws, bs, xs, out,
@@ -1763,7 +2081,7 @@ int run_dense(const Geom& g, const int* plan, const int8_t* x, const int8_t* w, 
   }
   const int tw_log2 = plan[1], bn = plan[2], slots = plan[3], splits = plan[4];
   const bool tma = plan[5] != 0;
-  const DenseKernel<OutT, S> kernel = dense_kernel<OutT, S>(bn, slots, tma);
+  const DenseKernel<OutT, S, PAR> kernel = dense_kernel<OutT, S, PAR>(bn, slots, tma);
   if (kernel == nullptr || tw_log2 < 3 || tw_log2 > 7 || splits < 1 ||
       g.KH * g.KW > dense::MAX_TAPS || g.C % (tma ? 64 : 16) || (splits > 1 && partial == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1773,21 +2091,32 @@ int run_dense(const Geom& g, const int* plan, const int8_t* x, const int8_t* w, 
     if (rc) return rc;
   }
   const int tw = 1 << tw_log2, th = dense::BM >> tw_log2;
-  const long long blocks = static_cast<long long>(g.B) * ((g.Ho + th - 1) / th) *
-                           ((g.Wo + tw - 1) / tw) * splits * ((g.N + bn - 1) / bn);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  long long blocks = 0, mn = static_cast<long long>(g.B) * g.Ho * g.Wo * g.N;
+  for (int k = 0; k < classes; ++k) {  // the grid fits the largest class
+    int ho = g.Ho, wo = g.Wo;
+    if constexpr (PAR::split) {
+      ho = par.cls[k].z;
+      wo = par.cls[k].w;
+      mn = static_cast<long long>(g.B) * par.H * par.W * g.N;
+    }
+    const long long n = static_cast<long long>(g.B) * ((ho + th - 1) / th) * ((wo + tw - 1) / tw) *
+                        splits * ((g.N + bn - 1) / bn);
+    blocks = n > blocks ? n : blocks;
+  }
+  if (blocks > 0x7fffffffLL || mn > 0x7fffffffLL || classes < 1 ||
+      (PAR::split ? classes > dense::MAX_CLASSES : classes != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   // above 48 KB dynamic shared memory must be asked for; the attribute is per
   // device, so it is asked before every launch
   const int smem = dense::smem_bytes(bn, slots);
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<static_cast<unsigned>(blocks), dense::THREADS, smem, s>>>(x, w, map, ws, bs, xs, out,
-                                                                     partial, g, tw_log2, splits);
-  if (splits > 1) {
-    const int mn = g.B * g.Ho * g.Wo * g.N;
-    dense::igemm_split_finish<OutT, S><<<grid_for(mn), 256, 0, s>>>(partial, splits, mn, g.N, ws,
-                                                                    bs, xs, out);
-  }
+  const dim3 grid(static_cast<unsigned>(blocks), classes);
+  kernel<<<grid, dense::THREADS, smem, s>>>(x, w, map, ws, bs, xs, out, partial, g, tw_log2,
+                                             splits, par);
+  if (splits > 1)
+    dense::igemm_split_finish<OutT, S><<<grid_for(mn), 256, 0, s>>>(
+        partial, splits, static_cast<int>(mn), g.N, ws, bs, xs, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1836,26 +2165,80 @@ int run_direct(const Geom& g, int groups, int body, const int8_t* x, const int8_
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S>
+// One launch of the quantize (quant::Mode) on x rows [P, C] (ld apart):
+// one iteration of UNROLL x THREADS vectors a block, up to the blocks the
+// card holds at once; DYNAMIC by a cooperative launch, whose grid barrier
+// needs every block resident.
+// Blocks of `kernel` (THREADS threads) the card holds at once, into *blocks.
+template <typename K>
+int resident_blocks(K kernel, int threads, int* blocks) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  *blocks = per_sm * sms;
+  return e != cudaSuccess ? static_cast<int>(e) : *blocks < 1 ? cudaErrorInvalidValue : 0;
+}
+
+// One launch of the quantize (quant::Mode) on x rows [P, C] (ld apart):
+// one iteration of u x THREADS vectors a block, up to the blocks the card
+// holds at once; DYNAMIC by a cooperative launch, whose grid barrier needs
+// every block resident.
+template <typename T, bool VEC, int MODE, typename S>
+int launch_quantize(const T* x, S scale, int8_t* out, int P, int C, long long ld, float* amax_out,
+                    unsigned* ws, cudaStream_t s) {
+  constexpr int V = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;
+  const long long vectors = static_cast<long long>(P) * (C / V);
+  const auto kernel = quant::quantize_kernel<T, VEC, MODE, S>;
+  static int resident = 0;  // blocks the card holds at once (one card model a process)
+  if (resident == 0) {
+    const int rc = resident_blocks(kernel, quant::THREADS, &resident);
+    if (rc) return rc;
+  }
+  // vectors a thread an iteration: as many as fill the blocks the card holds
+  const long long fill = static_cast<long long>(resident) * quant::THREADS;
+  int u = static_cast<int>((vectors + fill - 1) / fill);
+  u = u < 1 ? 1 : u > quant::UNROLL ? quant::UNROLL : u;
+  const long long want = (vectors + u * quant::THREADS - 1) / (u * quant::THREADS);
+  const int grid = static_cast<int>(want < resident ? (want > 0 ? want : 1) : resident);
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (MODE == quant::DYNAMIC) {
+    void* args[] = {&x, &scale, &out, &P, &C, &ld, &u, &amax_out, &ws};
+    return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                                        grid, quant::THREADS, args, 0, s));
+  }
+  kernel<<<grid, quant::THREADS, 0, s>>>(x, scale, out, P, C, ld, u, amax_out, ws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x rows [P, C] (ld apart; rows that run on are taken as one), bf16 or f32,
+// 16-byte vectors where the rows allow.  out: the codes (null for AMAX);
+// amax_out and ws: the reducing modes'.
+template <int MODE, typename S>
 int quantize(const void* x, int x_is_bf16, S scale, void* out, int P, int C, long long ld,
-             void* stream) {
+             float* amax_out, unsigned* ws, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int esize = x_is_bf16 ? 2 : 4;
-  const int v = 16 / esize;
+  if (P < 1 || C < 1 || (MODE != quant::AMAX && out == nullptr) ||
+      (MODE != quant::QUANT && (amax_out == nullptr || ws == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ld == C || P == 1) {  // one row (the wrapper keeps P C < 2^31)
+    C *= P;
+    ld = C;
+    P = 1;
+  }
+  const int v = x_is_bf16 ? 8 : 4;
   const bool vec = C % v == 0 && ld % v == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int grid = grid_for(static_cast<long long>(P) * (vec ? C / v : C));
   int8_t* o = static_cast<int8_t*>(out);
   if (x_is_bf16) {
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    if (vec) quantize_kernel<__nv_bfloat16, true, S><<<grid, 256, 0, s>>>(xb, scale, o, P, C, ld);
-    else quantize_kernel<__nv_bfloat16, false, S><<<grid, 256, 0, s>>>(xb, scale, o, P, C, ld);
-  } else {
-    const auto* xf = static_cast<const float*>(x);
-    if (vec) quantize_kernel<float, true, S><<<grid, 256, 0, s>>>(xf, scale, o, P, C, ld);
-    else quantize_kernel<float, false, S><<<grid, 256, 0, s>>>(xf, scale, o, P, C, ld);
+    return vec ? launch_quantize<__nv_bfloat16, true, MODE>(xb, scale, o, P, C, ld, amax_out, ws, s)
+               : launch_quantize<__nv_bfloat16, false, MODE>(xb, scale, o, P, C, ld, amax_out, ws,
+                                                              s);
   }
-  return static_cast<int>(cudaGetLastError());
+  const auto* xf = static_cast<const float*>(x);
+  return vec ? launch_quantize<float, true, MODE>(xf, scale, o, P, C, ld, amax_out, ws, s)
+             : launch_quantize<float, false, MODE>(xf, scale, o, P, C, ld, amax_out, ws, s);
 }
 
 template <typename S>
@@ -1874,18 +2257,72 @@ int conv_igemm(const void* x_q, const void* w_q, const void* w_scale, const void
   return run_dense(g, plan, x, w, ws, bs, scale, static_cast<float*>(out), part, s);
 }
 
-// g [B, gh, gw, C] -> the dense conv's input `d` (d.H = (gh - 1) sh + 1, ...)
-int dilate(const int8_t* g, int8_t* out, const Geom& d, int gh, int gw, int sh, int sw,
-           cudaStream_t s) {
-  if (d.H != (gh - 1) * sh + 1 || d.W != (gw - 1) * sw + 1 || sh < 1 || sw < 1)
+// The data gradient's weights (backward::rotated_codes_kernel): one
+// cooperative launch of as many blocks as there are tiles, up to the blocks
+// the card holds at once.
+template <typename T>
+int launch_rotated(const T* w, int N, int C, int KH, int KW, const long long* st, int NP,
+                   int ldw, int8_t* out, float* amax_out, unsigned* ws, cudaStream_t s) {
+  const auto kernel = backward::rotated_codes_kernel<T>;
+  static int resident = 0;
+  if (resident == 0) {
+    const int rc = resident_blocks(kernel, 256, &resident);
+    if (rc) return rc;
+  }
+  const long long tiles = static_cast<long long>((C * KH * KW + 63) / 64) * ((NP + 31) / 32);
+  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
+  long long sn = st[0], sc = st[1];
+  // a dense kernel, row n's values in q's order: OIHW (c, then the tap) or
+  // channels last (the tap, then c)
+  const bool oihw = st[3] == 1 && st[2] == KW && st[1] == KH * KW;
+  const bool last = st[1] == 1 && st[3] == C && st[2] == KW * C;
+  if (st[0] != static_cast<long long>(C) * KH * KW || !(oihw || last))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = d.C % 16 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const long long values = static_cast<long long>(d.B) * d.H * d.W * d.C;
-  const int grid = grid_for(vec ? values / 16 : values);
-  if (vec) backward::dilate_kernel<16><<<grid, 256, 0, s>>>(g, out, d, gh, gw, sh, sw);
-  else backward::dilate_kernel<1><<<grid, 256, 0, s>>>(g, out, d, gh, gw, sh, sw);
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&w, &amax_out, &ws, &out, &N, &C, &KH, &KW, &NP, &ldw, &sn, &sc};
+  return static_cast<int>(cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), grid,
+                                                      256, args, 0, s));
+}
+
+int rotated_codes(const void* w, int w_is_bf16, int N, int C, int KH, int KW,
+                  const long long* st, int NP, int ldw, int8_t* out, float* amax_out,
+                  unsigned* ws, cudaStream_t s) {
+  const long long numel = static_cast<long long>(N) * C * KH * KW;
+  if (N < 1 || C < 1 || KH < 1 || KW < 1 || NP < N || ldw < KH * KW * NP ||
+      ldw - KH * KW * NP >= 16 || numel >= 0x7fffffffLL || out == nullptr ||
+      amax_out == nullptr || ws == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (w_is_bf16)
+    return launch_rotated(static_cast<const __nv_bfloat16*>(w), N, C, KH, KW, st, NP, ldw, out,
+                          amax_out, ws, s);
+  return launch_rotated(static_cast<const float*>(w), N, C, KH, KW, st, NP, ldw, out, amax_out,
+                        ws, s);
+}
+
+// The parity table of the data gradient's launch from the wrapper's ints:
+// classes, sh, sw, H, W; (a, b, Hc, Wc) x MAX_CLASSES; tap0 x (MAX_CLASSES +
+// 1); (dy, dx, K offset) x MAX_TAPS.
+bool parity_of(const int* p, dense::Parity& par, int& classes) {
+  using dense::MAX_CLASSES;
+  using dense::MAX_TAPS;
+  classes = p[0];
+  par.sh = p[1];
+  par.sw = p[2];
+  par.H = p[3];
+  par.W = p[4];
+  if (classes < 1 || classes > MAX_CLASSES || classes > par.sh * par.sw) return false;
+  const int* c = p + 5;
+  const int* t0 = c + 4 * MAX_CLASSES;
+  const int* t = t0 + MAX_CLASSES + 1;
+  for (int k = 0; k < MAX_CLASSES; ++k)
+    par.cls[k] = make_int4(c[4 * k], c[4 * k + 1], c[4 * k + 2], c[4 * k + 3]);
+  for (int k = 0; k <= MAX_CLASSES; ++k) {
+    par.tap0[k] = t0[k];
+    if (k > 0 && k <= classes && t0[k] < t0[k - 1]) return false;
+  }
+  if (t0[0] != 0 || t0[classes] > MAX_TAPS) return false;
+  for (int k = 0; k < MAX_TAPS; ++k)
+    par.tap[k] = make_int4(t[3 * k], t[3 * k + 1], t[3 * k + 2], 0);
+  return true;
 }
 
 template <typename OutT>
@@ -1991,14 +2428,53 @@ extern "C" {
 // out [P, C] int8 contiguous.  Returns cudaGetLastError().
 int iswm_int8_quantize(const void* x, int x_is_bf16, float x_scale, void* out, int P, int C,
                        long long ld, void* stream) {
-  return quantize(x, x_is_bf16, HostScale{x_scale}, out, P, C, ld, stream);
+  return quantize<quant::QUANT>(x, x_is_bf16, HostScale{x_scale}, out, P, C, ld, nullptr, nullptr,
+                                stream);
 }
 
 // As iswm_int8_quantize, with x_scale formed on the device from the float32
 // amax at `amax` (x_scale = amax > 0 ? amax / 127 : 1).
 int iswm_int8_quantize_amax(const void* x, int x_is_bf16, const float* amax, void* out, int P,
                             int C, long long ld, void* stream) {
-  return quantize(x, x_is_bf16, AmaxScale{amax, nullptr}, out, P, C, ld, stream);
+  return quantize<quant::QUANT>(x, x_is_bf16, AmaxScale{amax, nullptr}, out, P, C, ld, nullptr,
+                                nullptr, stream);
+}
+
+// The quantize that reduces its own amax, one launch: mode 1 (dynamic) the
+// amax max |x| into amax_out and the codes with its scale; 2 the amax alone
+// (out null); 3 (delayed) the codes with the scale of the amax at amax_in and
+// max |x| into amax_out.  ws: the stream's workspace (4 words, zero before
+// the first launch; each launch leaves it zero).
+int iswm_int8_quantize_reduce(const void* x, int x_is_bf16, int mode, const float* amax_in,
+                              void* out, int P, int C, long long ld, float* amax_out, void* ws,
+                              void* stream) {
+  auto* w = static_cast<unsigned*>(ws);
+  const AmaxScale scale{amax_in, nullptr};
+  switch (mode) {
+    case quant::DYNAMIC:
+      return quantize<quant::DYNAMIC>(x, x_is_bf16, scale, out, P, C, ld, amax_out, w, stream);
+    case quant::AMAX:
+      return quantize<quant::AMAX>(x, x_is_bf16, scale, nullptr, P, C, ld, amax_out, w, stream);
+    case quant::DELAYED:
+      if (amax_in == nullptr) break;
+      return quantize<quant::DELAYED>(x, x_is_bf16, scale, out, P, C, ld, amax_out, w, stream);
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The data gradient's weights: the float kernel w [N, C, KH, KW] (element
+// strides strides[4]: contiguous or channels last) -> its per-tensor amax
+// (amax_out) and the rotated, I/O-swapped codes as rows out [C, ldw] of (i,
+// j, n), n padded to NP with zeros (w_rot[c, i, j, n] = w[n, c, KH - 1 - i,
+// KW - 1 - j]), zeros past KH KW NP: one cooperative launch.  ws as
+// iswm_int8_quantize_reduce's.
+int iswm_int8_rotated_codes(const void* w, int w_is_bf16, int N, int C, int KH, int KW,
+                            const long long* strides, int NP, int ldw, void* out,
+                            float* amax_out, void* ws, void* stream) {
+  return rotated_codes(w, w_is_bf16, N, C, KH, KW, strides, NP, ldw, static_cast<int8_t*>(out),
+                       amax_out, static_cast<unsigned*>(ws), static_cast<cudaStream_t>(stream));
 }
 
 // geom[17] = B, H, W, C, Ho, Wo, N, KH, KW, sh, sw, ph, pw, dh, dw, K, ldw.
@@ -2024,27 +2500,35 @@ int iswm_int8_conv_igemm_amax(const void* x_q, const void* w_q, const void* w_sc
 }
 
 // The data gradient of a conv (the JAX package's _int8_dgrad): the dense
-// conv of the int8 cotangent g_q [B, gh, gw, N] dilated by (lsh, lsw)
-// (zeros between its pixels, written into `g_dil` [B, H', W', N] where a
-// stride is above 1) with the rotated, I/O-swapped per-tensor codes w_q [C,
-// ldw] of (kh, kw, n), at `geom` (the dilated input, stride 1, the transpose
-// padding, out [B, H, W, C] of x's extent).  The epilogue is float(acc) *
-// (g_s * w_s), the scales formed from the amaxes: `ones` is C float32 ones
-// in the per-channel place (an exact product).
-int iswm_int8_conv_dgrad(const void* g_q, void* g_dil, const void* w_q, const void* ones,
-                         const float* g_amax, const float* w_amax, void* out, int out_bf16,
-                         const int* geom, int gh, int gw, int lsh, int lsw, const int* plan,
-                         void* partial, void* stream) {
+// body over the int8 cotangent g_q [B, gh, gw, N] with the rotated, I/O-
+// swapped per-tensor codes w_q [C, ldw] of (kh, kw, n).  parity null (a
+// stride of 1): one conv at `geom` (stride 1, the transpose padding, out [B,
+// H, W, C] of x's extent).  Else (parity_of's ints) the parity classes in one
+// launch, `geom` g's extent as H, W, stride 1, no padding, out dx [B, H, W,
+// C] of the table's extent.  The epilogue is float(acc) * (g_s * w_s), the
+// scales formed from the amaxes: `ones` is C float32 ones in the per-channel
+// place (an exact product).
+int iswm_int8_conv_dgrad(const void* g_q, const void* w_q, const void* ones, const float* g_amax,
+                         const float* w_amax, void* out, int out_bf16, const int* geom,
+                         const int* plan, const int* parity, void* partial, void* stream) {
+  if (parity == nullptr)
+    return conv_igemm(g_q, w_q, ones, nullptr, AmaxScale{g_amax, w_amax}, out, out_bf16, geom,
+                      plan, partial, stream);
+  dense::Parity par;
+  int classes = 0;
+  if (!parity_of(parity, par, classes)) return static_cast<int>(cudaErrorInvalidValue);
   const Geom g = geom_of(geom);
-  const void* x = g_q;
-  if (lsh > 1 || lsw > 1) {
-    const int rc = dilate(static_cast<const int8_t*>(g_q), static_cast<int8_t*>(g_dil), g, gh, gw,
-                          lsh, lsw, static_cast<cudaStream_t>(stream));
-    if (rc) return rc;
-    x = g_dil;
-  }
-  return conv_igemm(x, w_q, ones, nullptr, AmaxScale{g_amax, w_amax}, out, out_bf16, geom, plan,
-                    partial, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const int8_t*>(g_q);
+  const auto* w = static_cast<const int8_t*>(w_q);
+  const auto* ws = static_cast<const float*>(ones);
+  int* part = static_cast<int*>(partial);
+  const AmaxScale scale{g_amax, w_amax};
+  if (out_bf16)
+    return run_dense(g, plan, x, w, ws, nullptr, scale, static_cast<__nv_bfloat16*>(out), part, s,
+                     par, classes);
+  return run_dense(g, plan, x, w, ws, nullptr, scale, static_cast<float*>(out), part, s, par,
+                   classes);
 }
 
 // The weight gradient of a conv (the JAX package's _int8_wgrad and the

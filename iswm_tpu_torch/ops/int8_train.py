@@ -19,13 +19,20 @@
         (the forward keeps x_q and its amax, not x)
 
 On the card these are hand-written kernels of ``csrc/int8_conv.cu``
-(``ops/kernels/int8_conv.py``): ``quantize_s8`` and the dense
-``conv_s8_igemm`` forward, ``conv_s8_dgrad`` and ``conv_s8_wgrad`` backward,
-all given their amaxes as 0-d device tensors, from which they form the scales
-``amax > 0 ? amax / 127 : 1``.  The amaxes (``max |x|``, ``max |g|``) and
-the weight quantizes are ATen passes on the device.  Nothing on this path
-reads a value back to the host.  On a CPU tensor the kernels' plain versions
-run.
+(``ops/kernels/int8_conv.py``): the quantize, the dense ``conv_s8_igemm``
+forward, ``conv_s8_dgrad`` and ``conv_s8_wgrad`` backward, all given their
+amaxes as 0-d device tensors, from which they form the scales ``amax > 0 ?
+amax / 127 : 1``.  An activation or cotangent is quantized by
+:func:`quantize_activation` in one launch that also reduces its amax
+(``quantize_s8_reduce``: ``dynamic`` forms ``max |x|`` and the codes with
+its scale; ``delayed`` the codes of the running amax beside ``max |x|``).
+In a process group the all-reduce of the amax must sit between the max and
+the codes: the kernel's ``amax`` mode gives the local max (one launch), the
+all-reduce follows, then ``quantize_s8`` with the global amax.  The data
+gradient's rotated per-tensor weight codes come from
+``rotated_weight_codes`` (one launch); the forward's per-channel weight
+quantize is ATen work on the device.  Nothing on this path reads a value
+back to the host.  On a CPU tensor the kernels' plain versions run.
 
 Layouts are the port's: x NCHW (channels last on the card, whose NHWC view the
 kernels read), w OIHW.  The JAX package's ``int8_dilated_conv3x3`` sums the
@@ -47,7 +54,7 @@ import torch
 
 from ..parallel.distributed import is_initialized
 from .kernels.int8_conv import (conv_s8_dgrad, conv_s8_igemm, conv_s8_wgrad, ieee_div,
-                                quantize_s8)
+                                quantize_s8, quantize_s8_reduce, rotated_weight_codes)
 
 AMAX_DECAY = 0.999
 
@@ -55,16 +62,42 @@ AMAX_DECAY = 0.999
 amax_all_reduces = 0
 
 
+def _all_reduce_max(amax: torch.Tensor) -> torch.Tensor:
+    global amax_all_reduces
+    amax_all_reduces += 1
+    torch.distributed.all_reduce(amax, op=torch.distributed.ReduceOp.MAX)
+    return amax
+
+
 def activation_amax(x: torch.Tensor, across_ranks: bool = False) -> torch.Tensor:
     """``max |x|`` as a 0-d float32 tensor on x's device, carrying no
     gradient; with ``across_ranks``, in a process group, the max over every
-    rank's (an all-reduce with MAX)."""
+    rank's (an all-reduce with MAX).  The plain version of the amax that
+    :func:`quantize_activation` reduces in its quantize."""
     amax = torch.linalg.vector_norm(x.detach(), float("inf")).to(torch.float32)
     if across_ranks and is_initialized():
-        global amax_all_reduces
-        amax_all_reduces += 1
-        torch.distributed.all_reduce(amax, op=torch.distributed.ReduceOp.MAX)
+        _all_reduce_max(amax)
     return amax
+
+
+def quantize_activation(x: torch.Tensor, across_ranks: bool = False,
+                        running: torch.Tensor | None = None) -> Tuple[torch.Tensor, ...]:
+    """x's int8 codes (the NHWC rows of NCHW x, [B, H, W, C]), the amax they
+    were made with and ``max |x|`` (``across_ranks`` in a process group: over
+    every rank's rows, an all-reduce with MAX).  Dynamic (``running`` None):
+    the amax is ``max |x|``, one launch, or in a group the max alone, the
+    all-reduce, then the codes; delayed: the running amax (0-d float32), its
+    codes and ``max |x|`` in one launch, the all-reduce after."""
+    rows = _rows_view(x.detach())
+    group = across_ranks and is_initialized()
+    if running is not None:
+        x_q, cur = quantize_s8_reduce(rows, "delayed", running)
+        return x_q, running, _all_reduce_max(cur) if group else cur
+    if group:
+        amax = _all_reduce_max(quantize_s8_reduce(rows, "amax")[1])
+        return quantize_s8(rows, amax), amax, amax
+    x_q, amax = quantize_s8_reduce(rows, "dynamic")
+    return x_q, amax, amax
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -83,7 +116,9 @@ def quantize_weight_rotated(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     """Per-tensor symmetric int8 of an OIHW kernel, as the data gradient takes
     it (``_int8_dgrad``): (codes of the rotated, I/O-swapped kernel [I, kh,
     kw, O] contiguous, ``w_rot[i, a, b, o] = w[o, i, kh - 1 - a, kw - 1 - b]``;
-    the amax, 0-d float32), codes ``clip(round(w / scale), -127, 127)``."""
+    the amax, 0-d float32), codes ``clip(round(w / scale), -127, 127)``.  The
+    plain version the tests hold ``rotated_weight_codes`` against (the
+    backward's weights, made on the card as the dense body's rows)."""
     wf = w.detach().flip(2, 3).permute(1, 2, 3, 0).float()
     amax = torch.linalg.vector_norm(wf, float("inf"))
     scale = torch.where(amax > 0, ieee_div(amax, 127.0), torch.ones_like(amax))
@@ -111,18 +146,17 @@ def _kernel_dtype(dtype: torch.dtype) -> torch.dtype:
     return dtype if dtype in (torch.float32, torch.bfloat16) else torch.float32
 
 
-def int8_conv_forward(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
-                      padding=0, dilation=1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The int8 forward: x [B, C, H, W] in the compute dtype, w [N, C, kh,
-    kw] in the compute dtype, the activation amax (0-d float32 on x's device)
-    -> (out [B, N, Ho, Wo] in x's dtype, x's int8 codes [B, H, W, C]).  The
-    conv writes float32 or (for bf16 x) the bf16 rounding of the float32
-    value from its epilogue."""
+def int8_conv_forward(x_q: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
+                      padding=0, dilation=1, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The int8 forward: x's codes [B, H, W, C] (:func:`quantize_activation`),
+    w [N, C, kh, kw] in the compute dtype, the amax of the codes (0-d float32
+    on their device) -> out [B, N, Ho, Wo] in ``dtype``, x's.  The conv
+    writes float32 or (for bf16) the bf16 rounding of the float32 value from
+    its epilogue."""
     w_q, w_s = quantize_weight(w)
-    x_q = quantize_s8(_rows_view(x), x_amax)
     out = conv_s8_igemm(x_q, w_q, w_s, x_amax, None, stride, padding, dilation,
-                        out_dtype=_kernel_dtype(x.dtype))
-    return out.permute(0, 3, 1, 2).to(x.dtype), x_q
+                        out_dtype=_kernel_dtype(dtype))
+    return out.permute(0, 3, 1, 2).to(dtype)
 
 
 def _pair(v) -> list:
@@ -130,14 +164,15 @@ def _pair(v) -> list:
 
 
 class Int8ConvST(torch.autograd.Function):
-    """conv(x, w) with :func:`int8_conv_forward` as its forward and the dense
-    conv's VJP at (x, w) as its backward; the amax gets no gradient."""
+    """conv(x, w) with :func:`int8_conv_forward` on x's codes x_q as its
+    forward and the dense conv's VJP at (x, w) as its backward; the codes and
+    the amax get no gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, x_amax, stride, padding, dilation):
+    def forward(ctx, x, w, x_q, x_amax, stride, padding, dilation):
         ctx.save_for_backward(x, w)
         ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation))
-        return int8_conv_forward(x, w, x_amax, stride, padding, dilation)[0]
+        return int8_conv_forward(x_q, w, x_amax, stride, padding, dilation, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -146,7 +181,7 @@ class Int8ConvST(torch.autograd.Function):
         dx, dw, _ = torch.ops.aten.convolution_backward(
             g.to(x.dtype), x, w, None, stride, padding, dilation, False, [0, 0], 1,
             [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 class Int8ConvFullQ(torch.autograd.Function):
@@ -154,11 +189,12 @@ class Int8ConvFullQ(torch.autograd.Function):
     int8 codes and the amax they were made with (not x), and an int8
     backward (the JAX package's ``_fullq_bwd``): g's dynamic amax (over every
     rank's rows where ``across_ranks``, in a process group), g's codes, then
-    the data gradient (where x needs one) and the weight gradient."""
+    the data gradient (where x needs one; its weights' rotated codes made on
+    the card) and the weight gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, x_amax, stride, padding, dilation, across_ranks):
-        out, x_q = int8_conv_forward(x, w, x_amax, stride, padding, dilation)
+    def forward(ctx, x, w, x_q, x_amax, stride, padding, dilation, across_ranks):
+        out = int8_conv_forward(x_q, w, x_amax, stride, padding, dilation, x.dtype)
         ctx.save_for_backward(x_q, x_amax, w)
         ctx.geometry = (_pair(stride), _pair(padding), _pair(dilation))
         ctx.x_dtype, ctx.across_ranks = x.dtype, across_ranks
@@ -168,25 +204,25 @@ class Int8ConvFullQ(torch.autograd.Function):
     def backward(ctx, g):
         x_q, x_amax, w = ctx.saved_tensors
         geometry = ctx.geometry
-        g_amax = activation_amax(g, ctx.across_ranks)
-        g_q = quantize_s8(_rows_view(g.detach()), g_amax)
+        g_q, g_amax, _ = quantize_activation(g, ctx.across_ranks)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            w_rot, w_amax = quantize_weight_rotated(w)
-            dx = conv_s8_dgrad(g_q, w_rot, g_amax, w_amax, x_q.shape[1:3], *geometry,
-                               out_dtype=_kernel_dtype(ctx.x_dtype))
+            w_rows, w_amax = rotated_weight_codes(w, geometry[0])
+            dx = conv_s8_dgrad(g_q, w_rows, g_amax, w_amax, x_q.shape[1:3], *geometry,
+                               out_dtype=_kernel_dtype(ctx.x_dtype), kernel_size=w.shape[2:])
             dx = dx.permute(0, 3, 1, 2).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             dw = conv_s8_wgrad(x_q, g_q, x_amax, g_amax, w.shape[2:], *geometry,
                                out_dtype=_kernel_dtype(w.dtype)).to(w.dtype)
-        return dx, dw, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def int8_conv_st(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, dilation=1,
                  across_ranks: bool = False) -> torch.Tensor:
     """Dense conv whose forward runs int8 with a DYNAMIC activation scale
     (this tensor's amax) and whose gradients are the dense conv's."""
-    return Int8ConvST.apply(x, w, activation_amax(x, across_ranks), stride, padding, dilation)
+    x_q, amax, _ = quantize_activation(x, across_ranks)
+    return Int8ConvST.apply(x, w, x_q, amax, stride, padding, dilation)
 
 
 def int8_conv_static_amax(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
@@ -196,8 +232,8 @@ def int8_conv_static_amax(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor
     running ``x_amax`` (0-d float32, stale) and returns ``(out, new_amax)``,
     ``new_amax = max(max |x|, decay * x_amax)``, the caller's next running
     amax.  Gradients as :func:`int8_conv_st`."""
-    cur = activation_amax(x, across_ranks)
-    out = Int8ConvST.apply(x, w, x_amax, stride, padding, dilation)
+    x_q, _, cur = quantize_activation(x, across_ranks, x_amax)
+    out = Int8ConvST.apply(x, w, x_q, x_amax, stride, padding, dilation)
     return out, torch.maximum(cur, x_amax.to(torch.float32) * amax_decay)
 
 
@@ -205,8 +241,8 @@ def int8_conv_fullq(x: torch.Tensor, w: torch.Tensor, stride=1, padding=0, dilat
                     across_ranks: bool = False) -> torch.Tensor:
     """Conv whose forward AND backward run int8: the forward as
     :func:`int8_conv_st`'s, the backward :class:`Int8ConvFullQ`'s."""
-    return Int8ConvFullQ.apply(x, w, activation_amax(x, across_ranks), stride, padding,
-                               dilation, across_ranks)
+    x_q, amax, _ = quantize_activation(x, across_ranks)
+    return Int8ConvFullQ.apply(x, w, x_q, amax, stride, padding, dilation, across_ranks)
 
 
 def int8_conv_fullq_static(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tensor, stride=1,
@@ -217,8 +253,8 @@ def int8_conv_fullq_static(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tenso
     backward's cotangent scale is dynamic.  The weight gradient reads the
     amax the forward quantized with: a copy, as the caller updates its
     running amax in place."""
-    cur = activation_amax(x, across_ranks)
-    out = Int8ConvFullQ.apply(x, w, x_amax.detach().clone(), stride, padding, dilation,
+    x_q, _, cur = quantize_activation(x, across_ranks, x_amax)
+    out = Int8ConvFullQ.apply(x, w, x_q, x_amax.detach().clone(), stride, padding, dilation,
                               across_ranks)
     return out, torch.maximum(cur, x_amax.to(torch.float32) * amax_decay)
 

@@ -22,8 +22,13 @@ two amaxes on the device and multiply them first, ``float(acc) * (a_s *
 b_s)``:
 
 - :func:`conv_s8_dgrad`: the int8 cotangent g_q [B, Ho, Wo, N] and the
-  rotated per-tensor codes [C, KH, KW, N] -> dx [B, H, W, C], the dense
-  conv's kernel over g_q dilated by the stride (:func:`dgrad_geometry`);
+  rotated per-tensor codes [C, KH, KW, N] (or their rows, as
+  :func:`rotated_weight_codes` makes them on the card from the float kernel
+  in one launch) -> dx [B, H, W, C]: the dense conv's kernel at the
+  transpose geometry (:func:`dgrad_geometry`) at a stride of 1; above it
+  split by output parity (:func:`dgrad_classes`), no zeros inserted: every
+  class dx[:, a::sh, b::sw] a stride-1 conv of the undilated g_q over its
+  own taps, all in one launch (:func:`dgrad_launch` plans it);
 - :func:`conv_s8_wgrad`: the forward's codes x_q [B, H, W, C] and g_q -> dw
   [N, C, KH, KW], a product over the pixels.  Its ``wgmma`` body
   (:func:`wgrad_body`: channel counts multiples of 16, an output map of 64
@@ -64,11 +69,20 @@ plan); :func:`tile_taps` is its tap-skipping rule.  ``launches_quantize``,
 quantize and the dense conv by where the scale came from (``host``: a float,
 ``device``: an amax tensor); ``launches_dgrad`` and ``launches_wgrad`` those
 of the backward's entries, ``launches_dgrad_by_body`` the data gradient's by
-the dense body it runs and how many zero-inserted the cotangent first,
+the dense body it runs and how many of them ran split by output parity,
 ``launches_wgrad_by_body`` the weight gradient's by body.  Their
 plain versions (:func:`conv_s8_dgrad_plain`, :func:`conv_s8_wgrad_plain`) are
 ``aten.convolution_backward`` in float64 on the codes, wrapped to int32 as
 the int32 accumulator wraps.
+
+:func:`quantize_s8_reduce` is the quantize that reduces its own amax ``max
+|x|`` (quantization-aware training's dynamic scales, the delayed mode's new
+amax), one launch: ``dynamic`` (the amax, a grid barrier, the codes with its
+scale), ``amax`` (the max alone: in a process group it comes before the
+all-reduce) or ``delayed`` (the codes of a given amax, the max beside them);
+``launches_reduce`` counts its launches by mode (``launches_quantize`` those
+that write codes), ``launches_rotated`` the weight codes' calls.  Its plain
+version is ``vector_norm`` and :func:`quantize_s8_plain`.
 """
 
 from __future__ import annotations
@@ -89,12 +103,17 @@ launches_dgrad = 0
 launches_wgrad = 0
 launches_by_body = dict.fromkeys(("wgmma", "bytes", "tiled", "generic"), 0)
 # the data gradient's launches by the dense body it runs, and those of them
-# that zero-insert the cotangent first (a stride above 1)
-launches_dgrad_by_body = dict.fromkeys(("wgmma", "bytes", "dilated"), 0)
+# split by output parity (a stride above 1: every class in the one launch)
+launches_dgrad_by_body = dict.fromkeys(("wgmma", "bytes", "parity"), 0)
 launches_wgrad_by_body = dict.fromkeys(("wgmma", "mma"), 0)
 launches_by_scale = {entry: dict.fromkeys(("host", "device"), 0)
                      for entry in ("quantize", "igemm")}
+# the quantize's launches that reduce an amax, by mode (REDUCE_MODES)
+launches_reduce = dict.fromkeys(("dynamic", "amax", "delayed"), 0)
+launches_rotated = 0  # the data gradient's weight codes (one launch each)
 _lib = None
+_workspaces: dict = {}
+_ones: dict = {}
 
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -107,6 +126,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iswm_int8_quantize.restype = i32
     lib.iswm_int8_quantize_amax.argtypes = [ptr, i32, ptr, ptr, i32, i32, i64, ptr]
     lib.iswm_int8_quantize_amax.restype = i32
+    lib.iswm_int8_quantize_reduce.argtypes = [ptr, i32, i32, ptr, ptr, i32, i32, i64, ptr, ptr,
+                                              ptr]
+    lib.iswm_int8_quantize_reduce.restype = i32
+    lib.iswm_int8_rotated_codes.argtypes = [ptr, i32, i32, i32, i32, i32,
+                                            ctypes.POINTER(i64), i32, i32, ptr, ptr, ptr, ptr]
+    lib.iswm_int8_rotated_codes.restype = i32
     ints = ctypes.POINTER(i32)
     lib.iswm_int8_conv_igemm.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, ints, ptr, ptr]
     lib.iswm_int8_conv_igemm.restype = i32
@@ -115,8 +140,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.iswm_int8_conv_igemm_amax.restype = i32
     lib.iswm_int8_conv_direct.argtypes = [ptr, ptr, ptr, ptr, f32, ptr, i32, ints, i32, i32, ptr]
     lib.iswm_int8_conv_direct.restype = i32
-    lib.iswm_int8_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, i32, i32,
-                                         i32, i32, ints, ptr, ptr]
+    lib.iswm_int8_conv_dgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, ints, ints, ints, ptr,
+                                         ptr]
     lib.iswm_int8_conv_dgrad.restype = i32
     lib.iswm_int8_conv_wgrad.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, ints, i32, ptr, ptr]
     lib.iswm_int8_conv_wgrad.restype = i32
@@ -248,6 +273,75 @@ def quantize_s8(x: torch.Tensor, x_scale) -> torch.Tensor:
     return out
 
 
+REDUCE_MODES = {"dynamic": 1, "amax": 2, "delayed": 3}  # csrc: quant::Mode
+
+
+def workspace(device: torch.device, stream: int) -> torch.Tensor:
+    """The reducing quantize's workspace (the max's bits, the grid barrier's
+    and the last block's counters) of ``stream`` on ``device``: made zeroed at
+    its first use and kept (each launch leaves it zeroed), so that launches on
+    other streams never share it."""
+    key = (device, stream)
+    if key not in _workspaces:
+        _workspaces[key] = torch.zeros(16, dtype=torch.int32, device=device)
+    return _workspaces[key]
+
+
+def quantize_s8_reduce_plain(x: torch.Tensor, mode: str, amax=None) -> tuple:
+    """The plain version of :func:`quantize_s8_reduce`: ``max |x|`` (0-d
+    float32) and the codes :func:`quantize_s8_plain` makes with it
+    (``dynamic``), it alone (``amax``: codes None), or the codes of the given
+    amax beside it (``delayed``)."""
+    if mode not in REDUCE_MODES:
+        raise ValueError(f"mode must be one of {tuple(REDUCE_MODES)}, got {mode!r}")
+    cur = torch.linalg.vector_norm(x.detach(), float("inf")).to(torch.float32)
+    if mode == "amax":
+        return None, cur
+    return quantize_s8_plain(x, cur if mode == "dynamic" else amax), cur
+
+
+def quantize_s8_reduce(x: torch.Tensor, mode: str, amax=None) -> tuple:
+    """The quantize that reduces its own amax, one launch: (codes of x's
+    shape, contiguous, or None; ``max |x|`` as a 0-d float32 tensor on x's
+    device).  ``dynamic``: the codes with the scale of that amax (a
+    cooperative launch with a grid barrier between the max and the codes);
+    ``amax``: the max alone; ``delayed``: the codes with the scale of
+    ``amax`` (a 0-d float32 device tensor) and the max in the same read.  x as
+    :func:`quantize_s8` takes it."""
+    if x.device.type == "cpu":
+        return quantize_s8_reduce_plain(x, mode, amax)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantize_s8_reduce runs on CUDA or CPU, not {x.device}")
+    if mode not in REDUCE_MODES:
+        raise ValueError(f"mode must be one of {tuple(REDUCE_MODES)}, got {mode!r}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if (mode == "delayed") != (amax is not None):
+        raise ValueError("quantize_s8_reduce takes an amax in the delayed mode only")
+    p, c, ld = _rows(x)
+    if p * c >= 2**31:
+        raise ValueError(f"quantize_s8_reduce: {p * c} values do not fit the kernel's int indices")
+    amax_in = _scale_arg(amax, x.device, "quantize_s8_reduce")[1] if amax is not None else None
+    out = None if mode == "amax" else torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    cur = torch.empty((), dtype=torch.float32, device=x.device)
+    if p == 0 or c == 0:
+        return out, cur.zero_()
+    lib, _ = load_library()
+    global launches_quantize
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        launches_reduce[mode] += 1
+        if out is not None:
+            launches_quantize += 1
+            launches_by_scale["quantize"]["device"] += 1
+        rc = lib.iswm_int8_quantize_reduce(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), REDUCE_MODES[mode], amax_in,
+            None if out is None else out.data_ptr(), p, c, ld, cur.data_ptr(),
+            workspace(x.device, stream).data_ptr(), stream)
+    _raise_on(rc, lib, "quantize_s8_reduce")
+    return out, cur
+
+
 def _raise_on(rc: int, lib, name: str) -> None:
     if rc:
         raise RuntimeError(f"{name} launch failed: {lib.iswm_cuda_error_string(rc).decode()}")
@@ -376,17 +470,24 @@ def _dense_cost(g: dict, tw: int, bn: int, slots: int, splits: int, out_bytes: i
     cycles and its bytes at 1,909 a cycle (3.35 TB/s)."""
     rows, cols = tile_taps(g, tw)
     kept = np.outer([len(r) for r in rows], [len(c) for c in cols]) * g["C"]
+    return _tiles_cost(kept, g["B"], g["N"], dense_tma(g), bn, slots, splits, out_bytes,
+                       g["B"] * g["Ho"] * g["Wo"] * g["N"])
+
+
+def _tiles_cost(kept, b: int, n: int, tma: bool, bn: int, slots: int, splits: int,
+                out_bytes: int, m_n: int) -> float:
+    """:func:`_dense_cost` of the tiles of an image whose kept K bytes are
+    ``kept`` (any shape), B images, N output channels, m_n output values."""
     steps = np.ceil(np.ceil(kept / BK) / splits)
-    blocks = g["B"] * kept.size * splits * -(-g["N"] // bn)
+    blocks = b * kept.size * splits * -(-n // bn)
     dyn, static = dense_smem(bn, slots)
     per_sm = -(-blocks // SMS)
     occ = max(1, min(2, SM_SMEM // (dyn + static + 1024), per_sm))
-    step = max(4 * bn, (BM + (0.25 if dense_tma(g) else 1) * bn) * BK / 20)
+    step = max(4 * bn, (BM + (0.25 if tma else 1) * bn) * BK / 20)
     if occ == 1:
         step = max(step, 1500 / (slots - 2))
     cost = per_sm * (float(steps.mean()) * step + (2000 + BM * bn * out_bytes / 16) / occ)
     if splits > 1:
-        m_n = g["B"] * g["Ho"] * g["Wo"] * g["N"]
         cost += 4000 + m_n * (4 * splits + out_bytes) / 1909
     return cost
 
@@ -590,7 +691,8 @@ def dgrad_geometry(g_shape, w_shape, x_hw, stride=1, padding=0, dilation=1) -> d
     kernel [C, KH, KW, N] at the forward's dilation, padded before by ``(KH -
     1) dh - ph`` and after as far as makes the output x's extent ``x_hw``
     (``_vjp_lhs_padding``; x's extent is given, as a transposed conv's is
-    ambiguous at an odd one)."""
+    ambiguous at an odd one).  The card runs it as it is at a stride of 1,
+    and split by output parity (:func:`dgrad_classes`) above."""
     b, ho, wo, n = g_shape
     (sh, sw), (dh, dw) = _pair(stride), _pair(dilation)
     ph, pw = _sym_pads(padding)
@@ -603,6 +705,172 @@ def dgrad_geometry(g_shape, w_shape, x_hw, stride=1, padding=0, dilation=1) -> d
     return conv_geometry((b, hd, wd, n), w_shape, 1, tuple(pads), (dh, dw))
 
 
+def _dgrad_axis(n_x: int, k: int, s: int, d: int, p: int) -> list:
+    """One axis of the parity split: for each a in [0, s) with a < n_x, (a,
+    the class's extent ceil((n_x - a) / s), its taps ((i, offset), ...)): the
+    rows i of the rotated kernel for which a + i d - ((k - 1) d - p) is a
+    multiple of s, dx's row a + s u reading g's row u + offset through each."""
+    before = (k - 1) * d - p
+    return [(a, -(-(n_x - a) // s), tuple((i, (a - before + i * d) // s) for i in range(k)
+                                          if (a - before + i * d) % s == 0))
+            for a in range(min(s, n_x))]
+
+
+def dgrad_classes(kernel, x_hw, stride=1, padding=0, dilation=1) -> list:
+    """The data gradient split by output parity, no zeros inserted: class (a,
+    b) (0 <= a < sh, 0 <= b < sw, in that order) is dx[:, a::sh, b::sw, :]
+    of extent (Hc, Wc), the stride-1 conv of the undilated cotangent g over
+    the ``taps`` (i, j, dy, dx) of the rotated kernel (in (i, j) order) whose
+    offsets land on it: dx[b', a + sh u, b + sw v] = sum of g[b', u + dy, v +
+    dx] w_rot[:, i, j] (a tap outside g adds 0).  A class may have no tap
+    (three of four at a 1x1 of stride 2): its pixels are 0."""
+    (kh, kw), (sh, sw), (dh, dw) = _pair(kernel), _pair(stride), _pair(dilation)
+    ph, pw = _sym_pads(padding)
+    rows, cols = _dgrad_axis(x_hw[0], kh, sh, dh, ph), _dgrad_axis(x_hw[1], kw, sw, dw, pw)
+    return [{"a": a, "b": b, "Hc": hc, "Wc": wc,
+             "taps": tuple((i, j, dy, dx) for i, dy in ti for j, dx in tj)}
+            for a, hc, ti in rows for b, wc, tj in cols]
+
+
+def dgrad_channels(n: int, stride=1) -> int:
+    """The cotangent channels the card's data gradient runs on: g's N, or at
+    a stride above 1 N rounded up to 16 (the parity split runs on the
+    ``wgmma`` body only: g and the weights' N padded with zero channels)."""
+    return n if _pair(stride) == (1, 1) or n % 16 == 0 else -(-n // 16) * 16
+
+
+MAX_CLASSES = 16  # csrc: dense::MAX_CLASSES
+
+
+def _class_geometry(g: dict, cls: dict) -> dict:
+    """A parity class as a conv geometry of the dense body (for the planner):
+    g's extent, stride 1, its taps a KH' x KW' kernel of their offsets'
+    spacing, padded by minus the first offset."""
+    def axis(vals):
+        vals = sorted(set(vals))
+        return len(vals), (vals[0] if vals else 0), (vals[1] - vals[0] if len(vals) > 1 else 1)
+    kh, dy0, dh = axis([t[2] for t in cls["taps"]])
+    kw, dx0, dw = axis([t[3] for t in cls["taps"]])
+    return {**g, "Ho": cls["Hc"], "Wo": cls["Wc"], "KH": kh, "KW": kw, "sh": 1, "sw": 1,
+            "ph": -dy0, "pw": -dx0, "dh": dh, "dw": dw}
+
+
+def _parity_cost(g: dict, classes: list, tw: int, bn: int, slots: int, splits: int,
+                 out_bytes: int) -> float:
+    """:func:`_dense_cost` of every class's tiles in one launch."""
+    kept = []
+    for cls in classes:
+        rows, cols = tile_taps(_class_geometry(g, cls), tw)
+        kept.append(np.outer([len(r) for r in rows], [len(c) for c in cols]).ravel() * g["C"])
+    return _tiles_cost(np.concatenate(kept), g["B"], g["N"], dense_tma(g), bn, slots, splits,
+                       out_bytes, g["B"] * g["Ho"] * g["Wo"] * g["N"])
+
+
+@functools.lru_cache(maxsize=256)
+def _dgrad_launch(g_shape: tuple, c: int, kernel: tuple, x_hw: tuple, stride: tuple,
+                  padding: tuple, dilation: tuple, out_bytes: int, plan: tuple | None) -> dict:
+    b, ho, wo, n = g_shape
+    np_ = dgrad_channels(n, stride)
+    kh, kw = kernel
+    k = kh * kw * np_
+    ldw = -(-k // 16) * 16
+    parity = stride != (1, 1)
+    if not parity:
+        g = dgrad_geometry((b, ho, wo, np_), (c, kh, kw, np_), x_hw, 1, padding, dilation)
+        body = igemm_body(g)
+        if body == "wgmma":
+            g = as_rows(g)
+        classes = ()
+    else:
+        body = "wgmma"
+        classes = tuple(dgrad_classes(kernel, x_hw, stride, padding, dilation))
+        g = {"B": b, "H": ho, "W": wo, "C": np_, "Ho": x_hw[0], "Wo": x_hw[1], "N": c,
+             "KH": kh, "KW": kw, "sh": 1, "sw": 1, "ph": 0, "pw": 0, "dh": 1, "dw": 1}
+        if kh * kw > MAX_TAPS or len(classes) > MAX_CLASSES:
+            raise ValueError(f"conv_s8_dgrad: {kh}x{kw} kernel, stride {stride}: more taps or "
+                             "parity classes than the kernel takes")
+    if body == "bytes":
+        p, ints = None, (1, 0, 0, 0, 1, 0)
+    else:
+        if plan is None and not parity:
+            q = plan_igemm(g, out_bytes)
+            plan = (q["tw"], q["bn"], q["slots"], q["splits"])
+        elif plan is None:
+            plan = min(((tw, bn, slots, splits) for bn, slots in DENSE_PLANS
+                        if bn > 8 or c <= 8 for tw in TILE_WIDTHS for splits in SPLITS),
+                       key=lambda q: _parity_cost(g, classes, *q, out_bytes))
+        tw, bn, slots, splits = plan
+        tiles = [(cls["Hc"], cls["Wc"]) for cls in classes] or [(g["Ho"], g["Wo"])]
+        th = BM // tw
+        p = {"tw": tw, "bn": bn, "slots": slots, "splits": splits, "tma": dense_tma(g),
+             "blocks": max(g["B"] * -(-h // th) * -(-w // tw) for h, w in tiles) * splits
+             * -(-c // bn)}
+        dyn, static = dense_smem(bn, slots)
+        if p["blocks"] >= 2**31 or dyn + static > SMEM_MAX:
+            raise ValueError(f"conv_s8_dgrad: plan {p} exceeds the grid or the shared memory")
+        ints = (0, tw.bit_length() - 1, bn, slots, splits, int(p["tma"]))
+    table = None
+    if parity:
+        cls_ints = [v for cls in classes for v in (cls["a"], cls["b"], cls["Hc"], cls["Wc"])]
+        tap0 = [0]
+        taps = []
+        for cls in classes:
+            taps += [(dy, dx, (i * kw + j) * np_) for i, j, dy, dx in cls["taps"]]
+            tap0.append(len(taps))
+        table = ((len(classes), *stride, *x_hw)
+                 + tuple(cls_ints + [0] * (4 * MAX_CLASSES - len(cls_ints)))
+                 + tuple(tap0 + [tap0[-1]] * (MAX_CLASSES + 1 - len(tap0)))
+                 + tuple(v for t in taps for v in t) + (0,) * (3 * (MAX_TAPS - len(taps))))
+    return {"parity": parity, "body": body, "np": np_, "ldw": ldw, "geom": g, "plan": p,
+            "classes": classes, "c_geom": (ctypes.c_int * 17)(*(g[key] for key in GEOM_KEYS), k,
+                                                                ldw),
+            "c_plan": (ctypes.c_int * 6)(*ints),
+            "c_parity": None if table is None else (ctypes.c_int * len(table))(*table)}
+
+
+# The data gradient's plans measured best on an H100 (``block_bwd_ab.py --kind
+# dgrad --sweep``: a ResNet-50 step's shapes, batch 8 at 512^2, bf16 dx),
+# (tw, bn, slots, splits) by :func:`dgrad_key`, where the best beat the cost
+# model's choice by more than 0.3 us; a geometry not in it is planned by the
+# cost model (the sweep's other shapes: its choice or within 0.3 us of the
+# best).
+DGRAD_PLANS = {
+    ((8, 128, 128, 256), 256, (3, 3), (128, 128), (1, 1), (1, 1), (1, 1), 2): (32, 256, 4, 1),
+    ((8, 32, 32, 256), 256, (1, 1), (32, 32), (1, 1), (0, 0), (1, 1), 2): (128, 64, 4, 1),
+    ((8, 32, 32, 256), 2048, (3, 3), (32, 32), (1, 1), (18, 18), (18, 18), 2): (8, 256, 4, 1),
+    ((8, 32, 32, 512), 512, (3, 3), (32, 32), (1, 1), (2, 2), (2, 2), 2): (16, 256, 4, 1),
+    ((8, 32, 32, 512), 2048, (1, 1), (32, 32), (1, 1), (0, 0), (1, 1), 2): (128, 128, 3, 1),
+    ((8, 32, 32, 512), 512, (3, 3), (32, 32), (1, 1), (1, 1), (1, 1), 2): (16, 256, 4, 1),
+    ((8, 32, 32, 512), 1024, (1, 1), (32, 32), (1, 1), (0, 0), (1, 1), 2): (128, 128, 3, 1),
+}
+
+
+def dgrad_key(g_shape, c: int, kernel, x_hw, stride=1, padding=0, dilation=1,
+              out_dtype=torch.float32) -> tuple:
+    """The key of a data gradient's geometry in :data:`DGRAD_PLANS`."""
+    return (tuple(g_shape), int(c), _pair(kernel), tuple(x_hw), _pair(stride),
+            _sym_pads(padding), _pair(dilation), 2 if out_dtype == torch.bfloat16 else 4)
+
+
+def dgrad_launch(g_shape, c: int, kernel, x_hw, stride=1, padding=0, dilation=1,
+                 out_dtype=torch.float32, plan=None) -> dict:
+    """How the card runs a data gradient (pure Python, also on the CPU): g
+    [B, Ho, Wo, N] -> dx [B, H, W, C] (``x_hw``) through a ``kernel`` of KH x
+    KW.  ``parity`` (a stride above 1): the classes of :func:`dgrad_classes`
+    in one launch of the ``wgmma`` body at ``geom`` (g's extent, N padded to
+    ``np`` = :func:`dgrad_channels`), the tap table's K offsets (i KW + j)
+    np; else the dense conv at :func:`dgrad_geometry` (:func:`as_rows` for
+    the ``wgmma`` body; ``body`` ``bytes`` for channels no multiple of 16).
+    ``plan``: the ``wgmma`` body's (tw, bn, slots, splits): the given one
+    (as ``block_bwd_ab.py --kind dgrad --sweep`` times them), the measured
+    best of :data:`DGRAD_PLANS`, or a cost model's of every class's tiles;
+    ``ldw`` the weight rows' bytes; the C entry's arrays (``c_geom``,
+    ``c_plan``, ``c_parity``)."""
+    key = dgrad_key(g_shape, c, kernel, x_hw, stride, padding, dilation, out_dtype)
+    plan = DGRAD_PLANS.get(key) if plan is None else tuple(plan)
+    return _dgrad_launch(*key, plan)
+
+
 def _forward_extent(x_hw, c, g_shape, kernel, stride, padding, dilation) -> None:
     """Raise unless a forward conv of x's extent gives g's."""
     b, ho, wo, n = g_shape
@@ -613,14 +881,36 @@ def _forward_extent(x_hw, c, g_shape, kernel, stride, padding, dilation) -> None
                          f"dilation {dilation}")
 
 
+def _rotated_rows(w_q: torch.Tensor, np_: int) -> torch.Tensor:
+    """Rotated codes [C, KH, KW, N] -> the dense body's rows [C, ldw] of (kh,
+    kw, n), n padded to ``np_`` and the rows to ldw = a multiple of 16 with
+    zeros (a view of contiguous codes where neither pads)."""
+    c, kh, kw, n = w_q.shape
+    if np_ != n:
+        w_q = F.pad(w_q, (0, np_ - n))
+    return _weight_rows(w_q)
+
+
+def _rotated_codes(w_q: torch.Tensor, kernel_size, n: int, stride) -> torch.Tensor:
+    """The rotated codes [C, KH, KW, N] of ``w_q``, given as such or as the
+    rows :func:`rotated_weight_codes` makes (``kernel_size`` then KH, KW)."""
+    if w_q.dim() == 4:
+        return w_q
+    kh, kw = _pair(kernel_size)
+    np_ = dgrad_channels(n, stride)
+    return w_q[:, :kh * kw * np_].reshape(w_q.shape[0], kh, kw, np_)[..., :n]
+
+
 def conv_s8_dgrad_plain(g_q, w_q, g_amax, w_amax, x_hw, stride=1, padding=0, dilation=1,
-                        out_dtype=torch.float32) -> torch.Tensor:
+                        out_dtype=torch.float32, kernel_size=None) -> torch.Tensor:
     """The plain data gradient: ``aten.convolution_backward`` of the forward
     conv with respect to x, in float64 (exact) on the codes, wrapped to
-    int32, then ``float(acc) * (g_s * w_s)`` in float32, then ``out_dtype``."""
+    int32, then ``float(acc) * (g_s * w_s)`` in float32, then ``out_dtype``.
+    w_q as :func:`conv_s8_dgrad` takes it."""
     if g_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"g_q and w_q must be int8, got {g_q.dtype} and {w_q.dtype}")
     out_dtype = _out_dtype(out_dtype)
+    w_q = _rotated_codes(w_q, kernel_size, g_q.shape[3], stride)
     b, c = g_q.shape[0], w_q.shape[0]
     _forward_extent(x_hw, c, g_q.shape, w_q.shape[1:3], stride, padding, dilation)
     w_fwd = w_q.flip(1, 2).permute(3, 0, 1, 2).double()  # the forward's OIHW kernel
@@ -671,68 +961,121 @@ def _backward_checks(name: str, a: torch.Tensor, b: torch.Tensor, amaxes) -> lis
     return [_scale_arg(m, a.device, name)[1] for m in amaxes]
 
 
+def _ones_f32(n: int, device: torch.device) -> torch.Tensor:
+    """n float32 ones on ``device``: the data gradient's per-channel scales
+    (an exact product), a slice of one tensor kept a device."""
+    t = _ones.get(device)
+    if t is None or t.numel() < n:
+        t = _ones[device] = torch.ones(max(n, 2048), dtype=torch.float32, device=device)
+    return t[:n]
+
+
+def rotated_weight_codes_plain(w: torch.Tensor, stride=1) -> tuple:
+    """The plain version of :func:`rotated_weight_codes`: the per-tensor
+    scale of OIHW w (``amax > 0 ? amax / 127 : 1``, amax ``max |w|``), the
+    codes ``clip(round(w / scale), -127, 127)``, rotated and I/O-swapped into
+    the dense body's rows."""
+    wf = w.detach().float()
+    amax = torch.linalg.vector_norm(wf, float("inf"))
+    codes = torch.clamp(torch.round(wf / scale_of(amax, w.device)), -127, 127).to(torch.int8)
+    rotated = codes.flip(2, 3).permute(1, 2, 3, 0).contiguous()  # [C, KH, KW, N]
+    return _rotated_rows(rotated, dgrad_channels(w.shape[0], stride)), amax
+
+
+def rotated_weight_codes(w: torch.Tensor, stride=1) -> tuple:
+    """The data gradient's weights made on the card (the JAX package's
+    ``_int8_dgrad`` re-quantizes the float kernel per tensor): OIHW float
+    w [N, C, KH, KW] (bf16 or float32) -> (rows [C, ldw] int8 of the rotated,
+    I/O-swapped codes ``w_rot[c, i, j, n] = clip(round(w[n, c, KH - 1 - i, KW
+    - 1 - j] / s), -127, 127)``, n padded to :func:`dgrad_channels` and the
+    rows to a multiple of 16 with zeros, as :func:`conv_s8_dgrad` reads them;
+    the amax, 0-d float32).  One cooperative launch: the amax, a grid
+    barrier, the codes."""
+    if w.device.type == "cpu":
+        return rotated_weight_codes_plain(w, stride)
+    if w.device.type != "cuda":
+        raise ValueError(f"rotated_weight_codes runs on CUDA or CPU, not {w.device}")
+    if w.dtype not in (torch.bfloat16, torch.float32) or w.dim() != 4:
+        raise TypeError(f"w must be a 4-D bfloat16 or float32 kernel, got {w.dtype} "
+                        f"{tuple(w.shape)}")
+    n, c, kh, kw = w.shape
+    if w.is_contiguous(memory_format=torch.channels_last) and not w.is_contiguous():
+        strides = (kh * kw * c, 1, kw * c, c)  # a size-1 dim's stride is never read
+    else:
+        w = w.contiguous()
+        strides = (c * kh * kw, kh * kw, kw, 1)
+    np_ = dgrad_channels(n, stride)
+    ldw = -(-kh * kw * np_ // 16) * 16
+    if w.numel() >= 2**31 or c * ldw >= 2**31:
+        raise ValueError(f"rotated_weight_codes: {tuple(w.shape)} exceeds the kernel's indices")
+    rows = torch.empty((c, ldw), dtype=torch.int8, device=w.device)
+    amax = torch.empty((), dtype=torch.float32, device=w.device)
+    lib, _ = load_library()
+    global launches_rotated
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        launches_rotated += 1
+        rc = lib.iswm_int8_rotated_codes(
+            w.data_ptr(), int(w.dtype == torch.bfloat16), n, c, kh, kw,
+            (ctypes.c_longlong * 4)(*strides), np_, ldw, rows.data_ptr(), amax.data_ptr(),
+            workspace(w.device, stream).data_ptr(), stream)
+    _raise_on(rc, lib, "rotated_weight_codes")
+    return rows, amax
+
+
 def conv_s8_dgrad(g_q: torch.Tensor, w_q: torch.Tensor, g_amax: torch.Tensor,
                   w_amax: torch.Tensor, x_hw, stride=1, padding=0, dilation=1,
-                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  out_dtype: torch.dtype = torch.float32, kernel_size=None) -> torch.Tensor:
     """The data gradient of a conv (the JAX package's ``_int8_dgrad``): the
     int8 cotangent g_q [B, Ho, Wo, N] (NHWC) and the per-tensor codes of the
     rotated, I/O-swapped kernel w_q [C, KH, KW, N] (``w_rot[c, i, j, n] =
-    w[n, c, KH - 1 - i, KW - 1 - j]``) -> dx [B, H, W, C] (``x_hw`` = (H, W),
-    x's extent) in ``out_dtype``, ``float(acc) * (g_s * w_s)``, each scale
-    from its amax (0-d float32 tensors on g's device), for the forward's
-    stride, padding (the same on both sides) and dilation.  On the card: the
-    dense conv's kernel at :func:`dgrad_geometry`, after a kernel that
-    zero-inserts g_q where the stride is above 1."""
+    w[n, c, KH - 1 - i, KW - 1 - j]``), or the rows [C, ldw] of
+    :func:`rotated_weight_codes` with ``kernel_size`` = (KH, KW), -> dx [B,
+    H, W, C] (``x_hw`` = (H, W), x's extent) in ``out_dtype``, ``float(acc) *
+    (g_s * w_s)``, each scale from its amax (0-d float32 tensors on g's
+    device), for the forward's stride, padding (the same on both sides) and
+    dilation.  On the card the dense conv's kernel as :func:`dgrad_launch`
+    plans it: one launch, every parity class in it at a stride above 1."""
     if g_q.device.type == "cpu":
         return conv_s8_dgrad_plain(g_q, w_q, g_amax, w_amax, x_hw, stride, padding, dilation,
-                                   out_dtype)
+                                   out_dtype, kernel_size)
     name = "conv_s8_dgrad"
     amaxes = _backward_checks(name, g_q, w_q, (g_amax, w_amax))
     out_dtype = _out_dtype(out_dtype)
-    _forward_extent(x_hw, w_q.shape[0], g_q.shape, w_q.shape[1:3], stride, padding, dilation)
-    g = dgrad_geometry(g_q.shape, w_q.shape, x_hw, stride, padding, dilation)
-    sh, sw = _pair(stride)
-    dilated = (sh, sw) != (1, 1)
-    m, k = g["B"] * g["Ho"] * g["Wo"], w_q[0].numel()
-    if m * max(g["N"], g["C"]) >= 2**31 or g["B"] * g["H"] * g["W"] * g["C"] >= 2**31:
+    c, n = w_q.shape[0], g_q.shape[3]
+    kernel = _pair(kernel_size) if w_q.dim() == 2 else tuple(w_q.shape[1:3])
+    _forward_extent(x_hw, c, g_q.shape, kernel, stride, padding, dilation)
+    lay = dgrad_launch(g_q.shape, c, kernel, x_hw, stride, padding, dilation, out_dtype)
+    w = w_q if w_q.dim() == 2 else _rotated_rows(w_q, lay["np"])
+    if tuple(w.shape) != (c, lay["ldw"]):
+        raise ValueError(f"{name}: weight rows {tuple(w.shape)}, expected {(c, lay['ldw'])}")
+    if lay["np"] != n:  # zero channels: the parity split's body takes multiples of 16
+        g_q = F.pad(g_q, (0, lay["np"] - n)).contiguous()
+    b = g_q.shape[0]
+    m, k = b * x_hw[0] * x_hw[1], int(lay["c_geom"][15])
+    if m * max(c, lay["np"]) >= 2**31 or g_q.numel() >= 2**31:
         raise ValueError(f"{name}: g {tuple(g_q.shape)} -> x {tuple(x_hw)} does not fit the "
                          "kernel's int indices")
     if k * 127 * 127 >= 2**31:
         raise ValueError(f"{name}: K = {k} overflows the int32 sum")
-    out_bytes = 2 if out_dtype == torch.bfloat16 else 4
-    body = igemm_body(g)
-    if body == "bytes":
-        if -(-m // 128) > 65535:
-            raise ValueError(f"{name}: {m} output pixels exceed the grid")
-        run, plan = g, (1, 0, 0, 0, 1, 0)
-    else:
-        run = g if dilated else as_rows(g)
-        p = plan_igemm(run, out_bytes)
-        dyn, static = dense_smem(p["bn"], p["slots"])
-        if p["blocks"] >= 2**31 or dyn + static > SMEM_MAX:
-            raise ValueError(f"{name}: plan {p} exceeds the grid or the shared memory")
-        plan = (0, p["tw"].bit_length() - 1, p["bn"], p["slots"], p["splits"], int(p["tma"]))
-    w = _weight_rows(w_q)
-    ones = torch.ones(g["N"], dtype=torch.float32, device=g_q.device)
-    out = torch.empty((g["B"], g["Ho"], g["Wo"], g["N"]), dtype=out_dtype, device=g_q.device)
+    if lay["body"] == "bytes" and -(-m // 128) > 65535:
+        raise ValueError(f"{name}: {m} output pixels exceed the grid")
+    out = torch.empty((b, *x_hw, c), dtype=out_dtype, device=g_q.device)
     if m == 0:
         return out
-    g_dil = (torch.empty((g["B"], g["H"], g["W"], g["C"]), dtype=torch.int8, device=g_q.device)
-             if dilated else None)
-    partial = (torch.empty((plan[4], m * g["N"]), dtype=torch.int32, device=g_q.device)
-               if plan[4] > 1 else None)
-    geom = (ctypes.c_int * 17)(*(run[key] for key in GEOM_KEYS), k, w.shape[1])
+    splits = lay["c_plan"][4]
+    partial = (torch.empty((splits, m * c), dtype=torch.int32, device=g_q.device)
+               if splits > 1 else None)
     lib, _ = load_library()
     global launches_dgrad
     with torch.cuda.device(g_q.device):
         launches_dgrad += 1
-        launches_dgrad_by_body[body] += 1
-        launches_dgrad_by_body["dilated"] += dilated
+        launches_dgrad_by_body[lay["body"]] += 1
+        launches_dgrad_by_body["parity"] += lay["parity"]
         rc = lib.iswm_int8_conv_dgrad(
-            g_q.data_ptr(), None if g_dil is None else g_dil.data_ptr(), w.data_ptr(),
-            ones.data_ptr(), *amaxes, out.data_ptr(), int(out_dtype == torch.bfloat16), geom,
-            g_q.shape[1], g_q.shape[2], sh, sw, (ctypes.c_int * 6)(*plan),
-            None if partial is None else partial.data_ptr(),
+            g_q.data_ptr(), w.data_ptr(), _ones_f32(c, g_q.device).data_ptr(), *amaxes,
+            out.data_ptr(), int(out_dtype == torch.bfloat16), lay["c_geom"], lay["c_plan"],
+            lay["c_parity"], None if partial is None else partial.data_ptr(),
             torch.cuda.current_stream(g_q.device).cuda_stream)
     _raise_on(rc, lib, name)
     return out

@@ -232,6 +232,16 @@ def _trace_jax_routed(fields: dict) -> tuple:
     return eval_sites, sites
 
 
+def _count_quantizes(mp, record) -> None:
+    """Call ``record()`` at each quantize that makes codes: ``quantize_s8``
+    (a group's route, after the all-reduce) or ``quantize_s8_reduce`` in its
+    dynamic or delayed mode."""
+    mp.setattr(pt, "quantize_s8", lambda *a: record() or kc.quantize_s8(*a))
+    mp.setattr(pt, "quantize_s8_reduce",
+               lambda x, mode, *a: (mode != "amax" and record()) or kc.quantize_s8_reduce(
+                   x, mode, *a))
+
+
 @pytest.mark.parametrize("case", sorted(SITE_CASES))
 def test_routed_sites_match_jax(case):
     fields, counts = SITE_CASES[case]
@@ -247,7 +257,7 @@ def test_routed_sites_match_jax(case):
     model.train(False)
     calls = []
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pt, "quantize_s8", lambda *a: calls.append(1) or kc.quantize_s8(*a))
+        _count_quantizes(mp, lambda: calls.append(1))
         with torch.no_grad():
             model(torch.zeros(1, 3, 32, 32))
     assert len(calls) == len(routed_sites(model, False))
@@ -524,8 +534,7 @@ def test_int8_switch_iter_keeps_parameters(tmp_path):
     def counted(state, images, labels):
         kc.launches_quantize = 0
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(pt, "quantize_s8", lambda *a: launched.append(state.step) or
-                       kc.quantize_s8(*a))
+            _count_quantizes(mp, lambda: launched.append(state.step))
             return orig(state, images, labels)
 
     trainer.train_step = counted
@@ -570,6 +579,38 @@ def test_int8_training_bwd_is_refused():
                                                 int8_training_bwd=True), True)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_quantize_plain_is_amax_then_quantize(dtype):
+    """The reducing quantize's plain version in its three modes: the amax
+    ``activation_amax``'s bit for bit, the codes ``quantize_s8_plain``'s with
+    it (dynamic) or with the running amax (delayed, beside ``max |x|``); and
+    ``quantize_activation`` (NCHW x, its NHWC rows) the same, dynamic and
+    delayed, at a warm, a stale and a zero running amax."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(2, 24, 7, 5)).astype(np.float32) * 3).to(dtype)
+    rows = x.permute(0, 2, 3, 1)
+    amax = pt.activation_amax(x)
+    for xt in (rows, rows[..., 8:16], torch.zeros_like(rows)):
+        a = pt.activation_amax(xt)
+        q, got = kc.quantize_s8_reduce(xt, "dynamic")
+        assert got.dtype == torch.float32 and torch.equal(got, a)
+        assert torch.equal(q, kc.quantize_s8_plain(xt, a))
+        assert kc.quantize_s8_reduce(xt, "amax")[0] is None
+        assert torch.equal(kc.quantize_s8_reduce(xt, "amax")[1], a)
+        for running in (a, a * 0.5, torch.zeros(())):
+            q, cur = kc.quantize_s8_reduce(xt, "delayed", running)
+            assert torch.equal(cur, a) and torch.equal(q, kc.quantize_s8_plain(xt, running))
+    x_q, got, cur = pt.quantize_activation(x)
+    assert torch.equal(got, amax) and got is cur
+    assert torch.equal(x_q, kc.quantize_s8_plain(rows, amax))
+    for running in (amax, amax * 0.5, torch.zeros(())):
+        x_q, got, cur = pt.quantize_activation(x, running=running)
+        assert got is running and torch.equal(cur, amax)
+        assert torch.equal(x_q, kc.quantize_s8_plain(rows, running))
+    with pytest.raises(ValueError, match="mode"):
+        kc.quantize_s8_reduce(rows, "static")
+
+
 # -------------------------------------------------------------- on the card
 CUDA_SHAPES = ((8, 32, 32, 256, 64, 1, 1, 0, 1), (2, 33, 17, 256, 256, 3, 2, 1, 1),
                (8, 16, 16, 512, 256, 3, 1, 6, 6), (8, 1, 1, 512, 256, 1, 1, 0, 1),
@@ -604,3 +645,40 @@ def test_cuda_device_scale_entries_bit_equal(shape):
         assert kc.launches_by_scale["quantize"]["device"] == before["quantize"]["device"] + 1
         assert kc.launches_by_scale["igemm"]["device"] == before["igemm"]["device"] + 2
         assert kc.launches_by_scale["igemm"]["host"] == before["igemm"]["host"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", CUDA_SHAPES)
+def test_cuda_reduce_quantize_bit_equal(shape):
+    """``quantize_s8_reduce`` in its three modes equals ``activation_amax`` +
+    ``quantize_s8_plain``: the amax bit for bit, the codes, the delayed
+    mode's ``max |x|`` beside the codes of a stale and a zero running amax;
+    in float32 and bf16, contiguous, as a channel slice and all zeros (and,
+    once, the dynamic mode on a 64 MB tensor: two iterations a pass); one
+    launch a call, counted by mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, h, w, c = shape[:4]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for dt in (torch.float32, torch.bfloat16):
+        base = (torch.randn((b, h, w, c + 16), generator=gen, device="cuda") * 3).to(dt)
+        for x in (base[..., 16:].contiguous(), base[..., :c], torch.zeros_like(base[..., :c])):
+            amax = pt.activation_amax(x)
+            before = dict(kc.launches_reduce), kc.launches_quantize
+            q, got = kc.quantize_s8_reduce(x, "dynamic")
+            assert torch.equal(got, amax) and torch.equal(q, kc.quantize_s8_plain(x, amax))
+            none, got = kc.quantize_s8_reduce(x, "amax")
+            assert none is None and torch.equal(got, amax)
+            for running in (amax * 0.5, torch.zeros((), device="cuda")):
+                q, cur = kc.quantize_s8_reduce(x, "delayed", running)
+                assert torch.equal(cur, amax) and torch.equal(q, kc.quantize_s8_plain(x, running))
+            torch.cuda.synchronize()
+            assert kc.launches_reduce == {"dynamic": before[0]["dynamic"] + 1,
+                                          "amax": before[0]["amax"] + 1,
+                                          "delayed": before[0]["delayed"] + 2}
+            assert kc.launches_quantize == before[1] + 3
+    if shape == CUDA_SHAPES[0]:  # 64 MB of bf16
+        x = torch.randn((8, 64, 64, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+        q, got = kc.quantize_s8_reduce(x, "dynamic")
+        amax = pt.activation_amax(x)
+        assert torch.equal(got, amax) and torch.equal(q, kc.quantize_s8_plain(x, amax))

@@ -14,8 +14,10 @@ versions).
   / 127.0`` as written: the int32 sums are exact and every float step is the
   same IEEE operation).
 - The plain versions against the dense VJP at odd extents and stride 2, dx
-  over x's whole extent; the dense conv at :func:`dgrad_geometry` over the
-  zero-inserted cotangent (the card's route) equal to the plain dgrad.
+  over x's whole extent; the data gradient split by output parity
+  (:func:`dgrad_classes`, the card's route at a stride above 1: each class a
+  stride-1 conv of the undilated cotangent over its taps) equal to the plain
+  dgrad.
 - One float64 ResNet-18 step with ``int8_training_bwd`` against the JAX
   package's at 1e-6 of each tensor's largest update (``test_torch_qat``'s
   method: the QAT quantizes in float32 on both sides).
@@ -25,6 +27,12 @@ versions).
   with its out-of-bounds zero fill) walked in int64 at reduced copies of a
   ResNet-50 step's 25 distinct weight-gradient geometries, equal to the
   plain weight gradient.
+- The data gradient's launch without a card: its schedule (each block's
+  parity class, output rectangle, tap-skipped taps, K stages, splits and
+  channel tile, and the epilogue's strided rows of dx) walked in int64 at
+  reduced copies of the same 25 site geometries (its 49 calls), an odd
+  extent and forced K splits, equal to the plain dgrad; the weight prep's
+  plain layout against ``quantize_weight_rotated``.
 
 The ``cuda`` cases hold each entry bit-equal to its plain version on the card,
 where this file runs alone without jax:
@@ -217,8 +225,10 @@ PLAIN = [(2, 11, 9, 8, 12, 3, 2, 1, 1), (1, 10, 7, 4, 8, 1, 2, 0, 1),
 def test_plain_backward_is_the_dense_vjp(shape):
     """At odd extents and stride 2, with every scale 1: the plain dgrad is
     the dense conv's dx over x's whole extent and the plain wgrad its dw (in
-    OIHW), and the card's route for the dgrad (the dense conv over the
-    zero-inserted cotangent at ``dgrad_geometry``) gives the same."""
+    OIHW), and the card's route for the dgrad at a stride above 1 (each
+    output parity class of :func:`dgrad_classes` a stride-1 conv of the
+    undilated cotangent over its taps; at 1 the dense conv at
+    ``dgrad_geometry``) gives the same."""
     b, h, w, c, n, k, s, p, d = shape
     rng = np.random.default_rng(11)
     x = torch.from_numpy(_planted(rng, (b, c, h, w)))
@@ -236,15 +246,25 @@ def test_plain_backward_is_the_dense_vjp(shape):
     assert torch.equal(got.permute(0, 3, 1, 2).double(), dx)
     got_w = kc.conv_s8_wgrad_plain(x_q, g_q, amax, amax, k, s, p, d)
     assert torch.equal(got_w.double(), dw)
-    # the card's route: zeros between g's pixels, then the dense conv
-    geo = kc.dgrad_geometry(g_q.shape, w_rot.shape, (h, w), s, p, d)
-    assert (geo["Ho"], geo["Wo"]) == (h, w)
-    dil = torch.zeros((b, geo["H"], geo["W"], n), dtype=torch.int8)
-    dil[:, ::s, ::s] = g_q
-    route = kc.conv_s8_plain(dil, w_rot, torch.ones(c), 1.0, None, 1, geo["pads"],
-                             (geo["dh"], geo["dw"]))
+    # the card's route: the parity classes, each over the undilated g
+    if s == 1:
+        geo = kc.dgrad_geometry(g_q.shape, w_rot.shape, (h, w), s, p, d)
+        assert (geo["Ho"], geo["Wo"]) == (h, w)
+        route = kc.conv_s8_plain(g_q, w_rot, torch.ones(c), 1.0, None, 1, geo["pads"],
+                                 (geo["dh"], geo["dw"]))
+        assert kc.as_rows(geo) is geo or (k, p) == (1, 0)
+    else:
+        classes = kc.dgrad_classes(k, (h, w), s, p, d)
+        assert len(classes) == s * s and sum(len(cl["taps"]) for cl in classes) == k * k
+        route = torch.full((b, h, w, c), 7, dtype=torch.float32)
+        gp = F.pad(g_q.long(), (0, 0, 0, 2 * w, 0, 2 * h))  # reads past g: zeros
+        for cl in classes:
+            acc = torch.zeros((b, cl["Hc"], cl["Wc"], c), dtype=torch.int64)
+            for i, j, dy, dx_ in cl["taps"]:
+                part = torch.roll(gp, (-dy, -dx_), (1, 2))[:, :cl["Hc"], :cl["Wc"]]
+                acc += part @ w_rot[:, i, j, :].long().T
+            route[:, cl["a"]::s, cl["b"]::s] = acc.float()
     assert torch.equal(route, got)
-    assert kc.as_rows(geo) is geo or (s, k, p) == (1, 1, 0)
 
 
 def test_plain_backward_epilogue_and_wrap():
@@ -490,6 +510,128 @@ def test_wgmma_schedule_walk_equals_plain(site):
     assert torch.equal(got, want)
 
 
+# ------------------------------------------- the data gradient's launch
+def _walk_dgrad_launch(g_q, w_rows, lay):
+    """dx's int32 sums [B, H, W, C] as the card's launch forms them
+    (:func:`kc.dgrad_launch`): every block (class, image, output rectangle,
+    K split, channel tile) lists the taps that read inside g for a pixel of
+    its rectangle, walks the K' bytes of its split's 128-byte stages (a
+    valid tap's channels after another's), sums its products in int64 and
+    writes its rows (a class's pixel (u, v) is dx's (a + u sh, b + v sw));
+    wrapped to int32 at the end, as the int32 adds wrap in any order.  Each
+    pixel of dx is written once by each split."""
+    geo, p = lay["geom"], lay["plan"]
+    bsz, cg, n_out = geo["B"], geo["C"], geo["N"]
+    g = F.pad(g_q, (0, cg - g_q.shape[3])).reshape(bsz, geo["H"], geo["W"], cg).long()
+    w = w_rows.long()
+    tw, bn, splits = p["tw"], p["bn"], p["splits"]
+    th = 128 // tw
+    if lay["parity"]:
+        sh, sw = (lay["c_parity"][1], lay["c_parity"][2])
+        h_out, w_out = geo["Ho"], geo["Wo"]
+        classes = [(cl["a"], cl["b"], cl["Hc"], cl["Wc"], 1, 1,
+                    [(dy, dx, (i * geo["KW"] + j) * cg) for i, j, dy, dx in cl["taps"]])
+                   for cl in lay["classes"]]
+    else:
+        sh = sw = 1
+        h_out, w_out = geo["Ho"], geo["Wo"]
+        taps = [(kh * geo["dh"] - geo["ph"], kw * geo["dw"] - geo["pw"], (kh * geo["KW"] + kw) * cg)
+                for kh in range(geo["KH"]) for kw in range(geo["KW"])]
+        classes = [(0, 0, h_out, w_out, geo["sh"], geo["sw"], taps)]
+    sums = torch.zeros((bsz, h_out, w_out, n_out), dtype=torch.int64)
+    writes = torch.zeros((bsz, h_out, w_out), dtype=torch.int64)
+
+    def hits(o0, o1, s, off, size):  # the kernel's axis_hits
+        lo = 0 if off >= 0 else (-off + s - 1) // s
+        return size - 1 - off >= 0 and max(lo, o0) <= min((size - 1 - off) // s, o1)
+
+    for a, b_, hc, wc, s_y, s_x, taps in classes:
+        for bi, ty, tx in itertools.product(range(bsz), range(-(-hc // th)), range(-(-wc // tw))):
+            oy0, ox0 = ty * th, tx * tw
+            oy1, ox1 = min(oy0 + th, hc) - 1, min(ox0 + tw, wc) - 1
+            valid = [t for t in taps if hits(oy0, oy1, s_y, t[0], geo["H"])
+                     and hits(ox0, ox1, s_x, t[1], geo["W"])]
+            r = torch.arange(128)
+            oy, ox = oy0 + r // tw, ox0 + r % tw
+            inside = (oy < hc) & (ox < wc)
+            a_cols = []
+            for dy, dx, _ in valid:  # the A tile's columns: each valid tap's channels
+                iy, ix = oy * s_y + dy, ox * s_x + dx
+                ok = inside & (iy >= 0) & (iy < geo["H"]) & (ix >= 0) & (ix < geo["W"])
+                a_cols.append(torch.where(ok[:, None], g[bi, iy.clamp(0, geo["H"] - 1),
+                                                         ix.clamp(0, geo["W"] - 1)], 0))
+            k_all = len(valid) * cg
+            a_tile = torch.cat(a_cols, 1) if a_cols else torch.zeros((128, 0), dtype=torch.int64)
+            b_tile = (torch.cat([w[:, kofs:kofs + cg] for _, _, kofs in valid], 1) if valid
+                      else torch.zeros((n_out, 0), dtype=torch.int64))
+            steps = -(-k_all // 128)
+            rows_y, rows_x = a + oy[inside] * sh, b_ + ox[inside] * sw  # dx's pixels
+            for split in range(splits):
+                k0, k1 = split * steps // splits * 128, min((split + 1) * steps // splits * 128,
+                                                            k_all)
+                acc = a_tile[:, k0:k1] @ b_tile[:, k0:k1].T  # every channel tile at once
+                sums[bi, rows_y, rows_x] += acc[inside]
+                writes[bi, rows_y, rows_x] += 1
+        assert a < sh and b_ < sw
+    assert bool((writes == splits).all())
+    if lay["parity"]:
+        return kc._wrap_int32(sums.double())
+    return kc._wrap_int32(sums.double()).reshape(g_q.shape[0], *lay["x_hw"], n_out)
+
+
+DGRAD_SITES = WGRAD_SITES + ((33, 17, 64, 96, 3, 2, 1, 1),)  # ... and an odd extent
+
+
+@pytest.mark.parametrize("site,plan", [(s, None) for s in DGRAD_SITES]
+                         + [(DGRAD_SITES[16], (32, 64, 4, 4)), (DGRAD_SITES[4], (64, 128, 3, 2))])
+def test_dgrad_launch_walk_equals_plain(site, plan):
+    """The card's data gradient as :func:`kc.dgrad_launch` plans it, walked
+    in int64 on the CPU at a reduced copy of each site (B = 1, 8 at the
+    pooled part's 1 x 1 maps; narrow channels; the real map, kernel, stride,
+    padding and dilation), equals the plain dgrad bit for bit: the three
+    stride-2 sites and the odd extent through the parity classes (every
+    class of a 1x1 of stride 2 but one writes zeros), the others through the
+    dense conv at the transpose geometry; two sites also under forced K
+    splits."""
+    h, w, c, n, k, s, p, d = site
+    c, n = _narrow(c), _narrow(n)
+    b = 8 if h == 1 else 1
+    rng = np.random.default_rng(h + c + n + k + s + p + d)
+    geo = kc.conv_geometry((b, h, w, c), (n, k, k, c), s, p, d)
+    g_q = torch.from_numpy(rng.integers(-127, 128, (b, geo["Ho"], geo["Wo"], n)).astype(np.int8))
+    w_f = torch.from_numpy(rng.normal(size=(n, c, k, k)).astype(np.float32))
+    w_rows, w_amax = kc.rotated_weight_codes(w_f, s)
+    lay = dict(kc.dgrad_launch(g_q.shape, c, k, (h, w), s, p, d, plan=plan), x_hw=(h, w))
+    assert lay["parity"] == (s == 2) and lay["body"] == "wgmma"
+    if s == 2:
+        assert len(lay["classes"]) == 4 and sum(len(cl["taps"]) for cl in lay["classes"]) == k * k
+    g_amax = torch.tensor(0.75)
+    got = _walk_dgrad_launch(g_q, w_rows, lay).float() * kc.product_scale(g_amax, w_amax)
+    want = kc.conv_s8_dgrad_plain(g_q, w_rows, g_amax, w_amax, (h, w), s, p, d,
+                                  kernel_size=k)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(12, 8, 3, 3, 1), (10, 6, 3, 3, 2), (32, 24, 1, 1, 2)])
+def test_rotated_weight_codes_plain_is_quantize_weight_rotated(shape):
+    """The weight prep's plain version: ``quantize_weight_rotated``'s codes as
+    the dense body's rows [C, ldw], N padded to 16 with zeros at a stride of
+    2 (N = 10), the rows to a multiple of 16, the same amax; and the rows
+    read back as the rotated codes by the plain dgrad."""
+    n, c, kh, kw, s = shape
+    rng = np.random.default_rng(n + c + s)
+    w = torch.from_numpy(rng.normal(size=(n, c, kh, kw)).astype(np.float32)).to(torch.bfloat16)
+    rows, amax = kc.rotated_weight_codes(w, s)
+    codes, want_amax = pt.quantize_weight_rotated(w)
+    np_ = kc.dgrad_channels(n, s)
+    assert np_ == (-(-n // 16) * 16 if s == 2 else n)
+    ldw = -(-kh * kw * np_ // 16) * 16
+    want = torch.zeros((c, ldw), dtype=torch.int8)
+    want[:, :kh * kw * np_] = F.pad(codes, (0, np_ - n)).reshape(c, -1)
+    assert torch.equal(rows, want) and torch.equal(amax, want_amax)
+    assert torch.equal(kc._rotated_codes(rows, (kh, kw), n, s), codes)
+
+
 # -------------------------------------------------------------- on the card
 # (B, H, W, C, N, k, stride, pad, dilation): ResNet-50's three stride-2
 # sites, an odd map, the pooled part (M = 8), a narrow N for the bytewise
@@ -507,8 +649,12 @@ CUDA_SHAPES = ((8, 128, 128, 256, 512, 1, 2, 0, 1), (8, 64, 64, 256, 256, 3, 2, 
 @pytest.mark.parametrize("shape", CUDA_SHAPES)
 def test_cuda_backward_entries_bit_equal(shape):
     """conv_s8_dgrad and conv_s8_wgrad equal their plain versions in float32
-    and bf16, at a positive and a zero cotangent amax; the launches count,
-    the weight gradient's by the body :func:`kc.wgrad_body` picks."""
+    and bf16, at a positive and a zero cotangent amax, the data gradient with
+    its rotated codes as given and as ``rotated_weight_codes`` makes them on
+    the card (equal to its plain version, OIHW and channels-last kernels);
+    the launches count: the weight gradient's by the body
+    :func:`kc.wgrad_body` picks, the data gradient's strided ones as parity
+    launches (no zeros inserted)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     b, h, w, c, n, k, s, p, d = shape
@@ -517,20 +663,34 @@ def test_cuda_backward_entries_bit_equal(shape):
     x_q = torch.randint(-127, 128, (b, h, w, c), generator=gen, device="cuda").to(torch.int8)
     g = torch.randn((b, geo["Ho"], geo["Wo"], n), generator=gen, device="cuda")
     w_rot = torch.randint(-127, 128, (c, k, k, n), generator=gen, device="cuda").to(torch.int8)
+    w_f = torch.randn((n, c, k, k), generator=gen, device="cuda").to(torch.bfloat16)
     x_amax, w_amax = torch.tensor(3.5, device="cuda"), torch.tensor(0.25, device="cuda")
     body = kc.wgrad_body(geo)
     assert body == ("mma" if h * w == 1 or n == 24 or c == 6 else "wgmma")
+    for wt in (w_f, w_f.contiguous(memory_format=torch.channels_last), w_f.float()):
+        before = kc.launches_rotated
+        rows, rows_amax = kc.rotated_weight_codes(wt, s)
+        want_rows, want_amax = kc.rotated_weight_codes_plain(wt, s)
+        assert torch.equal(rows, want_rows) and torch.equal(rows_amax, want_amax)
+        assert kc.launches_rotated == before + 1
     for g_amax in (pt.activation_amax(g), torch.zeros((), device="cuda")):
         g_q = kc.quantize_s8(g, g_amax)
-        before = (kc.launches_dgrad, kc.launches_wgrad, kc.launches_wgrad_by_body[body])
+        before = (kc.launches_dgrad, kc.launches_dgrad_by_body["parity"], kc.launches_wgrad,
+                  kc.launches_wgrad_by_body[body])
         for dt in (torch.float32, torch.bfloat16):
             got = kc.conv_s8_dgrad(g_q, w_rot, g_amax, w_amax, (h, w), s, p, d, out_dtype=dt)
             want = kc.conv_s8_dgrad_plain(g_q, w_rot, g_amax, w_amax, (h, w), s, p, d,
                                           out_dtype=dt)
             assert got.dtype == dt and torch.equal(got, want), ("dgrad", dt)
+            got = kc.conv_s8_dgrad(g_q, rows, g_amax, rows_amax, (h, w), s, p, d, out_dtype=dt,
+                                   kernel_size=k)
+            want = kc.conv_s8_dgrad_plain(g_q, rows, g_amax, rows_amax, (h, w), s, p, d,
+                                          out_dtype=dt, kernel_size=k)
+            assert got.dtype == dt and torch.equal(got, want), ("dgrad from rows", dt)
             got = kc.conv_s8_wgrad(x_q, g_q, x_amax, g_amax, k, s, p, d, out_dtype=dt)
             want = kc.conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, k, s, p, d, out_dtype=dt)
             assert got.dtype == dt and torch.equal(got, want), ("wgrad", dt)
         torch.cuda.synchronize()
-        assert (kc.launches_dgrad, kc.launches_wgrad, kc.launches_wgrad_by_body[body]) == (
-            before[0] + 2, before[1] + 2, before[2] + 2)
+        assert (kc.launches_dgrad, kc.launches_dgrad_by_body["parity"], kc.launches_wgrad,
+                kc.launches_wgrad_by_body[body]) == (
+            before[0] + 4, before[1] + 4 * (s == 2), before[2] + 2, before[3] + 2)
