@@ -2,8 +2,9 @@
 kernels, hold each against its plain version, drive the tiled serving path,
 the training path (with quick-evals), the quantization comparison, training
 and serving with the fused stem, training with the fused bottleneck blocks,
-data-parallel training in a process group, the rest of the model zoo, and
-``int8_exec_xla`` serving on the int8 convs.
+data-parallel training in a process group, the rest of the model zoo,
+``int8_exec_xla`` serving on the int8 convs, quantization-aware training, and
+training with rematerialized activations and with bf16 parameters.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-stat-starts 16   # phase 13's statistics
@@ -290,7 +291,28 @@ not 0):
      cuDNN's bf16 half; 4-step fits in dynamic and delayed mode with every
      launch counted a step (no amax pass outside the quantize, no zero
      insertion); the step's host and device ms, launches and peak memory
-     against the forward-only QAT and the bf16 step.
+     against the forward-only QAT and the bf16 step;
+ 20. activation rematerialization (``parallel.remat``, one recomputed
+     segment a block) and bf16 parameters (``param_dtype``) on phase 6's
+     configuration: a remat ``Trainer`` fit for ``REMAT_STEPS`` steps, a
+     quick-eval and a validation (#4 once a step each way, #6 per validation
+     batch, finite losses, the best ``.pth`` loads ``strict=True``); from one
+     state, one batch and one dropout draw with deterministic algorithms, the
+     plain step twice and the remat step: bit-equal loss and parameters, or
+     where they are not, the remat step's parameters no farther from the
+     plain step (worst and median tensor) than twice the plain step's own
+     run-to-run spread; the running statistics updated once, bit-equal to the
+     plain step's; each step's host ms, device ms and launches (profiler) and
+     peak memory (``max_memory_allocated``), the remat step's peak at least
+     25% below the plain step's; a remat step with ``fused_stem`` /
+     ``fused_blocks="always"`` (#9, #10, #7a, #8a twice, the backward kernels
+     once) and one with QAT (``int8_training=256``, delayed, int8 backward:
+     the forward's quantize and dense conv twice), each kernel's recomputed
+     outputs compared with the first forward's and the bitwise share printed;
+     a ``param_dtype="bfloat16"`` fit (parameters and momentum bf16,
+     statistics float32, finite losses), its step against this phase's
+     float32-parameter step, and a ``Predictor`` with bf16 parameters from its
+     checkpoint on one chunk.  The kernel record's launches add this phase's.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -1554,30 +1576,38 @@ def _fused_trainer(setting: str, steps: int, seed: int | None = None) -> tuple:
     return _slice_trainer(steps, f"chip_smoke_{setting}", seed, **{setting: "always"})
 
 
+_SLICE_SCENES = []  # phase 6's seeded train and validation sets, made once
+
+
 def _slice_trainer(steps: int, name: str, seed: int | None = None, train=None,
-                   **model) -> tuple:
+                   parallel=None, **model) -> tuple:
     """(Trainer, its Config, train set, validation set) of phase 6's
     configuration with the ``model`` settings given, for ``steps`` steps with
     a quick-eval halfway and a validation at the end, writing under
     ``build/<name>``; ``seed`` replaces the configuration's
-    ``train.random_seed`` (the weights, augmentation and batch order) and
-    ``train`` sets ``cfg.train`` fields."""
+    ``train.random_seed`` (the weights, augmentation and batch order),
+    ``train`` sets ``cfg.train`` fields and ``parallel`` ``cfg.parallel``
+    fields."""
     from iswm_tpu_torch.config import Config
     from iswm_tpu_torch.data import ArrayDataset, generate_scene
     from iswm_tpu_torch.train import Trainer
 
-    rng = np.random.default_rng(SEED)
+    if not _SLICE_SCENES:
+        rng = np.random.default_rng(SEED)
 
-    def scenes(n):
-        images, masks = zip(*(generate_scene(rng, size=(640, 640)) for _ in range(n)))
-        return ArrayDataset(np.stack(images), np.stack(masks))
+        def scenes(n):
+            images, masks = zip(*(generate_scene(rng, size=(640, 640)) for _ in range(n)))
+            return ArrayDataset(np.stack(images), np.stack(masks))
 
-    train_ds, val_ds = scenes(32), scenes(VAL_SCENES)
+        _SLICE_SCENES.extend((scenes(32), scenes(VAL_SCENES)))
+    train_ds, val_ds = _SLICE_SCENES
     cfg = Config()
     for key, value in model.items():
         setattr(cfg.model, key, value)
     for key, value in (train or {}).items():
         setattr(cfg.train, key, value)
+    for key, value in (parallel or {}).items():
+        setattr(cfg.parallel, key, value)
     cfg.data.crop_size, cfg.data.batch_size = 512, 8
     cfg.train.total_itrs = cfg.train.val_interval = steps
     cfg.train.quick_eval_interval = cfg.train.print_interval = steps // 2
@@ -4695,6 +4725,363 @@ def phase_qat_bwd_train(kc, smi: str) -> dict:
     return launches
 
 
+REMAT_STEPS = 2  # phase 20's fits: a quick-eval at step 1 and the validation at 2
+# the forward kernels a rematerialized step launches twice: (module, entry,
+# kernel); the wrapper's outputs of the recomputation are held against the
+# first forward's
+REMAT_FORWARD = (("kernels.fused_stem", "stem_stats", "#9 stem_stats"),
+                 ("kernels.fused_stem", "stem_norm_relu_pool", "#10 stem_norm_relu_pool"),
+                 ("kernels.fused_block", "matmul_bn_stats_fwd", "#7a matmul_bn_stats forward"),
+                 ("kernels.fused_block", "conv3x3_bn_stats_fwd", "#8a conv3x3_bn_stats forward"),
+                 ("int8_train", "quantize_s8_reduce", "int8 quantize_s8_reduce"),
+                 ("int8_train", "conv_s8_igemm", "int8 conv_s8_igemm"))
+
+
+class _RecomputeLog:
+    """Within: every call of ``REMAT_FORWARD``'s entries logs (segment, whether
+    it is a recomputation, kernel, its tensor outputs cloned); ``bitwise()``
+    pairs each recomputed call with the first forward's call of the same
+    segment, kernel and order and says how many gave the same bits."""
+
+    def __init__(self):
+        import importlib
+
+        from iswm_tpu_torch.models import remat
+
+        self.remat, self.log, self.segment, self.ids = remat, [], None, 0
+        self.saved = [(remat, "checkpoint", remat.checkpoint)]
+        for module, entry, _ in REMAT_FORWARD:
+            mod = importlib.import_module(f"iswm_tpu_torch.ops.{module}")
+            self.saved.append((mod, entry, getattr(mod, entry)))
+
+    def _tagged(self, fn, *args, **kw):
+        sid, self.ids = self.ids, self.ids + 1
+
+        def run(*a):
+            previous, self.segment = self.segment, sid
+            try:
+                return fn(*a)
+            finally:
+                self.segment = previous
+
+        return self.saved[0][2](run, *args, **kw)
+
+    def _wrap(self, fn, kernel):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            outs = out if isinstance(out, tuple) else (out,)
+            self.log.append((self.segment, self.remat.recomputing(), kernel,
+                             [t.detach().clone() for t in outs if isinstance(t, torch.Tensor)]))
+            return out
+        return call
+
+    def __enter__(self):
+        self.remat.checkpoint = self._tagged
+        for (mod, entry, fn), (_, _, kernel) in zip(self.saved[1:], REMAT_FORWARD):
+            setattr(mod, entry, self._wrap(fn, kernel))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, entry, fn in self.saved:
+            setattr(mod, entry, fn)
+
+    def bitwise(self) -> dict:
+        """{kernel: (first-forward calls, recomputed calls, recomputed calls
+        with the first forward's bits)}."""
+        first, again = {}, {}
+        for sid, recomputed, kernel, outs in self.log:
+            if sid is None:  # outside every segment: the backward's own calls
+                continue
+            (again if recomputed else first).setdefault((sid, kernel), []).append(outs)
+        out = {}
+        for (sid, kernel), calls in first.items():
+            n, m, same = out.get(kernel, (0, 0, 0))
+            redo = again.get((sid, kernel), [])
+            same += sum(all(torch.equal(a, b) for a, b in zip(r, f))
+                        for r, f in zip(redo, calls))
+            out[kernel] = (n + len(calls), m + len(redo), same)
+        return out
+
+
+def _recomputed(log, name: str) -> dict:
+    """``log.bitwise()``, every kernel that ran in the first forward having
+    run again in the recomputation."""
+    bits = log.bitwise()
+    for kernel, (n, m, _) in bits.items():
+        check(m == n, f"{name}: {kernel} ran {n} times in the forward, {m} in the "
+                      "recomputation")
+    return bits
+
+
+def _peak_step_mib(trainer, xu8, yu8) -> tuple:
+    """(peak MiB allocated during one step, MiB allocated before it)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(trainer.state, xu8, yu8)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20, before / 2**20
+
+
+def _step_numbers(trainer, xu8, yu8) -> dict:
+    """Host ms (median of 8), device ms and kernel launches of a step (one
+    profiler trace), its peak memory."""
+    host = float(np.median(_median_step_ms(trainer, xu8, yu8)))
+    dev, n, by_class = _step_profile(trainer, xu8, yu8)
+    peak, base = _peak_step_mib(trainer, xu8, yu8)
+    return {"host_ms": host, "device_ms": dev, "launches": n, "peak_mib": peak,
+            "base_mib": base, "by_class": by_class}
+
+
+def _fit_checks(trainer, cfg, name: str) -> None:
+    """A fit's losses are finite and its best .pth loads strict=True into a
+    fresh model of the run's configuration."""
+    from iswm_tpu_torch.models import build_model
+
+    losses = trainer.logger.history["train_loss"]
+    check(len(losses) == REMAT_STEPS and bool(np.isfinite(losses).all()),
+          f"{name}: losses {losses}")
+    check(trainer.best_path is not None, f"{name}: no best checkpoint")
+    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
+    build_model(cfg.model).load_state_dict(payload["model_state"], strict=True)
+
+
+def phase_remat(fs, fb, kc, ce, cm, smi: str) -> dict:
+    """Activation rematerialization and bf16 parameters on phase 6's
+    configuration; returns this phase's launches of each kernel it drives."""
+    import types
+
+    from iswm_tpu_torch.data import val_transform_batch
+    from iswm_tpu_torch.models.layers import quant_state
+    from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    counters = ((ce, ("launches_fwd", "launches_bwd")), (cm, ("launches",)),
+                (fs, ("launches_stats", "launches_pool", "launches_bwd_sums",
+                      "launches_bwd_wgrad")),
+                (fb, ("launches_mm_fwd", "launches_c3_fwd", "launches_mm_bwd",
+                      "launches_c3_bwd")),
+                (kc, ("launches_dgrad", "launches_wgrad", "launches_rotated")))
+
+    def zero():
+        for mod, names in counters:
+            for n in names:
+                setattr(mod, n, 0)
+        for counter in (*kc.launches_by_scale.values(), kc.launches_reduce,
+                        kc.launches_dgrad_by_body, kc.launches_wgrad_by_body):
+            counter.update(dict.fromkeys(counter, 0))
+
+    def read() -> dict:
+        got = {f"{mod.__name__.rsplit('.', 1)[1]}.{n}": getattr(mod, n)
+               for mod, names in counters for n in names}
+        got.update({f"int8_conv.{e} device": kc.launches_by_scale[e]["device"]
+                    for e in kc.launches_by_scale})
+        got.update({f"int8_conv.reduce {m}": v for m, v in kc.launches_reduce.items()})
+        got.update({f"int8_conv.dgrad {b}": v for b, v in kc.launches_dgrad_by_body.items()})
+        got.update({f"int8_conv.wgrad {b}": v for b, v in kc.launches_wgrad_by_body.items()})
+        return got
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # (a) the main path: a Trainer with parallel.remat, fit with a quick-eval
+    # and a validation; counts from 0 just before, read just after
+    trainer, cfg, _, _ = _slice_trainer(REMAT_STEPS, "chip_smoke_remat",
+                                        parallel={"remat": True})
+    zero()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit = read()
+    add(fit)
+    check((fit["fused_ce.launches_fwd"], fit["fused_ce.launches_bwd"])
+          == (REMAT_STEPS, REMAT_STEPS) and fit["confusion.launches"] > 0,
+          f"remat fit: launches {fit}")
+    _fit_checks(trainer, cfg, "remat fit")
+    print(f"[20] remat fit ({smi}): ResNet-50 OS 16 bf16 batch 8 at 512^2, parallel.remat, "
+          f"{REMAT_STEPS} steps, a quick-eval and a validation, losses "
+          f"{trainer.logger.history['train_loss']}; #4 fwd/bwd "
+          f"{fit['fused_ce.launches_fwd']}/{fit['fused_ce.launches_bwd']}, #6 "
+          f"{fit['confusion.launches']}; the best .pth loads strict=True")
+
+    # (b) one plain step twice and one remat step from one state, one batch,
+    # one dropout draw, deterministic algorithms
+    gen = torch.Generator().manual_seed(SEED)
+    xu8 = torch.randint(0, 256, (8, 512, 512, 3), dtype=torch.uint8, generator=gen).cuda()
+    yu8 = torch.randint(0, 2, (8, 512, 512), dtype=torch.uint8, generator=gen).cuda()
+    x = val_transform_batch(xu8)
+    model, loss_fn = trainer.state.model, trainer.loss_fn
+    start = copy.deepcopy(model.state_dict())
+    factory, _ = make_optimizer(cfg.optim, cfg.train.total_itrs)
+
+    def from_start(remat_on: bool) -> tuple:
+        model.load_state_dict(start)
+        state = TrainState(model, *factory(model.parameters()), 0)
+        torch.cuda.manual_seed(SEED)
+        with warnings.catch_warnings():  # ops without a deterministic version
+            warnings.simplefilter("ignore")
+            loss = float(make_train_step(loss_fn, remat=remat_on)(state, x, yu8))
+        return loss, {k: v.clone() for k, v in model.state_dict().items()}
+
+    _deterministic(True)
+    try:
+        plain, again, remat = from_start(False), from_start(False), from_start(True)
+    finally:
+        _deterministic(False)
+    params = [k for k, _ in model.named_parameters()]
+    stats = [k for k in start if k.endswith(("running_mean", "running_var"))]
+
+    def rel(a, b, keys) -> list:
+        return sorted(float((a[k].float() - b[k].float()).abs().max()
+                            / b[k].float().abs().max().clamp_min(1e-30)) for k in keys)
+
+    spread, off = rel(again[1], plain[1], params), rel(remat[1], plain[1], params)
+    same = remat[0] == plain[0] and all(torch.equal(remat[1][k], plain[1][k]) for k in params)
+    check(same or (off[-1] <= 2 * spread[-1] and off[len(off) // 2] <= 2 * spread[len(off) // 2]),
+          f"remat step off the plain step: loss {remat[0]} vs {plain[0]}, parameters' "
+          f"worst / median {off[-1]:.2e} / {off[len(off) // 2]:.2e} against the plain step's "
+          f"own spread {spread[-1]:.2e} / {spread[len(spread) // 2]:.2e}")
+    once = all(torch.equal(remat[1][k], plain[1][k]) for k in stats) and all(
+        int(remat[1][k]) == int(start[k]) + 1 for k in start if k.endswith("num_batches_tracked"))
+    check(once, "remat step: running statistics not those of one update")
+    model.load_state_dict(start)
+    print(f"[20] plain vs remat step from one state, deterministic ({smi}): loss "
+          f"{plain[0]:.7f} / again {again[0]:.7f} / remat {remat[0]:.7f}; parameters "
+          f"{'bit-equal to the plain step' if same else 'not bit-equal'} (remat vs plain worst "
+          f"{off[-1]:.2e}, median {off[len(off) // 2]:.2e} * max|p|; plain vs plain worst "
+          f"{spread[-1]:.2e}, median {spread[len(spread) // 2]:.2e}); running statistics "
+          f"updated once, bit-equal to the plain step's")
+    del start, plain, again, remat
+
+    # (c) the two steps measured: host, device, launches, peak memory
+    plain_step = types.SimpleNamespace(
+        state=trainer.state, train_step=make_train_step(
+            loss_fn, augment=trainer.augment, generator=trainer.generator))
+    numbers = {"plain": _step_numbers(plain_step, xu8, yu8),
+               "remat": _step_numbers(trainer, xu8, yu8)}
+    p, r = numbers["plain"], numbers["remat"]
+    for name, v in numbers.items():
+        classes = sorted(v["by_class"].items(), key=lambda kv: -kv[1])
+        print(f"[20] {name} train step, ResNet-50 OS 16 bf16 batch 8 at 512^2 ({smi}): host "
+              f"{v['host_ms']:.2f} ms (median of 8), device {v['device_ms']:.2f} ms (profiler, "
+              f"{v['launches']} kernel launches), peak memory {v['peak_mib']:.0f} MiB "
+              f"(max_memory_allocated; {v['base_mib']:.0f} MiB allocated before the step), by "
+              f"class " + ", ".join(f"{k} {t:.2f}" for k, t in classes))
+    saved = 1 - r["peak_mib"] / p["peak_mib"]
+    print(f"[20] remat against plain ({smi}): peak memory {saved:.1%} lower "
+          f"({r['peak_mib'] - p['peak_mib']:+.0f} MiB; above the memory held before the step "
+          f"{1 - (r['peak_mib'] - r['base_mib']) / (p['peak_mib'] - p['base_mib']):.1%} "
+          f"lower), device time x{r['device_ms'] / p['device_ms']:.3f}, host time "
+          f"x{r['host_ms'] / p['host_ms']:.3f}, {r['launches'] - p['launches']:+d} launches")
+    check(saved >= 0.25, f"the remat step's peak memory is {saved:.1%} below the plain step's, "
+                         "not 25%")
+    del trainer, plain_step, model
+
+    # (d) remat with the fused stem and blocks: one step, the forward kernels twice
+    fused, _, _, _ = _slice_trainer(REMAT_STEPS, "chip_smoke_remat_fused",
+                                    parallel={"remat": True}, fused_stem="always",
+                                    fused_blocks="always")
+    fused.train_step(fused.state, xu8, yu8)  # cuDNN's autotuning
+    torch.cuda.synchronize()
+    zero()
+    with _RecomputeLog() as log:
+        fused.train_step(fused.state, xu8, yu8)
+        torch.cuda.synchronize()
+    got = read()
+    add(got)
+    want = {"fused_stem.launches_stats": 2, "fused_stem.launches_pool": 2,
+            "fused_stem.launches_bwd_sums": 1, "fused_stem.launches_bwd_wgrad": 1,
+            "fused_block.launches_mm_fwd": 2 * 26, "fused_block.launches_c3_fwd": 2 * 12,
+            "fused_block.launches_mm_bwd": 26, "fused_block.launches_c3_bwd": 12}
+    check(all(got[k] == v for k, v in want.items()),
+          f"remat fused step launches {[(k, got[k]) for k in want]}, expected {want}")
+    bits = _recomputed(log, "remat fused step")
+    print(f"[20] remat step with fused_stem / fused_blocks='always' ({smi}): launches "
+          + ", ".join(f"{k.split('.')[1][9:]} {got[k]}" for k in want)
+          + " (#9, #10, #7a, #8a twice: the forward and its recomputation); recomputed outputs "
+          "bitwise the first forward's: "
+          + ", ".join(f"{k} {eq}/{m}" for k, (n, m, eq) in bits.items() if n))
+    fused_numbers = _step_numbers(fused, xu8, yu8)
+    print(f"[20] remat fused step ({smi}): host {fused_numbers['host_ms']:.2f} ms, device "
+          f"{fused_numbers['device_ms']:.2f} ms ({fused_numbers['launches']} launches), peak "
+          f"{fused_numbers['peak_mib']:.0f} MiB")
+    del fused, log
+
+    # (e) remat with QAT (int8_training=256, delayed, int8 backward): one step
+    qat, _, _, _ = _slice_trainer(REMAT_STEPS, "chip_smoke_remat_qat", parallel={"remat": True},
+                                  int8_training=QAT_GATE, int8_training_bwd=True,
+                                  int8_scale_mode="delayed")
+    qat.train_step(qat.state, xu8, yu8)
+    torch.cuda.synchronize()
+    sites, delayed = QAT_SITES["train"], len(quant_state(qat.state.model))
+    zero()
+    with _RecomputeLog() as log:
+        loss = float(qat.train_step(qat.state, xu8, yu8))
+        torch.cuda.synchronize()
+    got = read()
+    add(got)
+    want = {"int8_conv.quantize device": 3 * sites,
+            "int8_conv.igemm device": 2 * sites, "int8_conv.launches_dgrad": sites,
+            "int8_conv.launches_wgrad": sites, "int8_conv.launches_rotated": sites,
+            "int8_conv.reduce delayed": 2 * delayed,
+            "int8_conv.reduce dynamic": 2 * (sites - delayed) + sites}
+    check(np.isfinite(loss) and all(got[k] == v for k, v in want.items()),
+          f"remat QAT step: loss {loss}, launches {[(k, got[k]) for k in want]}, "
+          f"expected {want}")
+    bits = _recomputed(log, "remat QAT step")
+    print(f"[20] remat QAT step (int8_training={QAT_GATE}, delayed, int8 backward; {smi}): loss "
+          f"{loss:.6f}; launches " + ", ".join(f"{k} {got[k]}" for k in want)
+          + f" ({sites} routed sites, {delayed} with a running amax: the forward's quantize and "
+          "conv twice, the backward's once); recomputed outputs bitwise the first forward's: "
+          + ", ".join(f"{k} {eq}/{m}" for k, (n, m, eq) in bits.items() if n))
+    del qat, log
+
+    # (f) bf16 parameters: a fit, the dtypes, one step measured, one chunk served
+    low, low_cfg, _, _ = _slice_trainer(REMAT_STEPS, "chip_smoke_bf16_params",
+                                        param_dtype="bfloat16")
+    zero()
+    low.fit()
+    torch.cuda.synchronize()
+    add(read())
+    _fit_checks(low, low_cfg, "bf16-parameter fit")
+    state = low.state
+    dtypes = ({p.dtype for p in state.model.parameters()},
+              {v.dtype for k, v in state.model.state_dict().items() if "running" in k},
+              {state.optimizer.state[p]["momentum_buffer"].dtype
+               for p in state.model.parameters()})
+    check(dtypes == ({torch.bfloat16}, {torch.float32}, {torch.bfloat16}),
+          f"bf16-parameter fit: (parameters, statistics, momentum) dtypes {dtypes}")
+    b = _step_numbers(low, xu8, yu8)
+    print(f"[20] bf16-parameter step ({smi}): host {b['host_ms']:.2f} ms, device "
+          f"{b['device_ms']:.2f} ms ({b['launches']} launches), peak {b['peak_mib']:.0f} MiB "
+          f"({b['base_mib']:.0f} MiB before the step); against float32 parameters: peak "
+          f"{b['peak_mib'] - p['peak_mib']:+.0f} MiB, memory before the step "
+          f"{b['base_mib'] - p['base_mib']:+.0f} MiB, device "
+          f"x{b['device_ms'] / p['device_ms']:.3f}, "
+          f"host x{b['host_ms'] / p['host_ms']:.3f}; parameters and momentum bf16, statistics "
+          f"float32; losses {low.logger.history['train_loss']}")
+    from iswm_tpu_torch.infer import Predictor
+
+    low_cfg.predict.tile_size, low_cfg.predict.tile_batch = 512, 8
+    predictor = Predictor(low_cfg, ckpt_path=low.best_path, device="cuda")
+    check({q.dtype for q in predictor.model.parameters()} == {torch.bfloat16},
+          "the bf16-parameter Predictor's parameters are not bf16")
+    scene = np.random.default_rng(SEED).integers(0, 256, (512, 1536, 3), dtype=np.uint8)
+    out = predictor.predict_image(scene)
+    check(all(np.isfinite(np.asarray(v, np.float64)).all() for v in out.values()),
+          "the bf16-parameter Predictor's products are not finite")
+    print(f"[20] bf16-parameter Predictor on a 512x1536 scene (one chunk of 512^2 tiles): products "
+          f"{sorted(out)}, finite; the phase took {time.perf_counter() - t0:.1f} s")
+    del low, predictor
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -4755,6 +5142,25 @@ def main() -> int:
     # QAT's int8 backward: the data and weight gradients' entries
     bwd_records = phase_qat_bwd_kernels(kc, smi)
     bwd_launches = phase_qat_bwd_train(kc, smi)
+    # remat and bf16 parameters: the fits' and steps' launches join the totals
+    remat = phase_remat(fs, fb, kc, ce, cm, smi)
+    ce_fwd += remat["fused_ce.launches_fwd"]
+    ce_bwd += remat["fused_ce.launches_bwd"]
+    cm_launches += remat["confusion.launches"]
+    for key, name in (("stats", "stats"), ("pool", "pool"), ("sums", "bwd_sums"),
+                      ("wgrad", "bwd_wgrad")):
+        stem_launches[key] += remat[f"fused_stem.launches_{name}"]
+    for key in block_launches:
+        block_launches[key] += remat[f"fused_block.launches_{key}"]
+    for key in ("dgrad", "wgrad", "rotated"):
+        bwd_launches[key] += remat[f"int8_conv.launches_{key}"]
+    for mode in bwd_launches["reduce"]:
+        bwd_launches["reduce"][mode] += remat[f"int8_conv.reduce {mode}"]
+    for kind in ("dgrad", "wgrad"):
+        for body in bwd_launches[f"{kind}_by_body"]:
+            bwd_launches[f"{kind}_by_body"][body] += remat[f"int8_conv.{kind} {body}"]
+    for e in ("quantize", "igemm"):
+        bwd_launches[e] += remat[f"int8_conv.{e} device"]
     by_scale = {e: {"host": xla_launches[e] + qat_launches[e]["host"],
                     "device": qat_launches[e]["device"] + bwd_launches[e]}
                 for e in ("quantize", "igemm")}

@@ -37,7 +37,7 @@ class ModelConfig:
     separable_conv: bool = False  # atrous separable convs in the head
     pretrained_backbone: bool = False
     compute_dtype: str = "bfloat16"  # dtype of activations/matmuls
-    param_dtype: str = "float32"  # dtype of parameters / BN stats
+    param_dtype: str = "float32"  # dtype of parameters (BN stats stay float32)
     bn_momentum: float = 0.9  # flax convention = 1 - torch momentum (0.1)
     bn_epsilon: float = 1e-5
     # Fused conv + BatchNorm-statistics residual blocks for training:

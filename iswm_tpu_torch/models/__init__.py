@@ -6,6 +6,9 @@ Every backbone of ``BACKBONES`` under either head of ``HEADS``, with
 ``interpret``) choose the fused stem and the fused bottleneck blocks of a
 ResNet backbone; the other backbones have neither.  ``ModelConfig.int8_training``
 and its settings build a QAT model (``quant_spec``, ``models/layers.py``).
+``ModelConfig.param_dtype`` (``float32``, ``bfloat16`` or ``float16``) is the
+dtype of the parameters; the BatchNorm statistics and QAT's running amaxes
+stay float32, as flax keeps its ``batch_stats``.
 """
 
 from __future__ import annotations
@@ -87,21 +90,30 @@ def _resolve_fused_mode(value: str, setting: str) -> str:
     return value
 
 
+def cast_parameters(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Store every parameter of ``model`` in ``dtype``, in place (a
+    ``Parameter`` stays the same object); buffers keep theirs, where
+    ``Module.to(dtype)`` would cast the float ones too."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.data = p.data.to(dtype)
+
+
 def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     """Build an eval-mode model from config, with seeded random weights.
 
     OS=8 dilates ResNet layers 3 and 4 (Xception's block3, middle flow and
     block12) with ASPP rates (12, 24, 36); OS=16 dilates layer 4 (block12)
     only, with (6, 12, 18).  MobileNetV2 trades strides for dilation once it
-    reaches the output stride."""
+    reaches the output stride.  The weights are drawn in float32 and rounded
+    to ``param_dtype``."""
     if cfg.name not in HEADS:
         raise ValueError(f"unknown model name {cfg.name!r}; expected one of {HEADS}")
     if cfg.backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {cfg.backbone!r}; expected one of {BACKBONES}")
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"param_dtype={cfg.param_dtype!r} is not ported yet (ROADMAP.md "
-            "Queue 1, 'Low-precision parameters')")
+    if cfg.param_dtype not in DTYPES:
+        raise ValueError(f"unknown param_dtype {cfg.param_dtype!r}; expected one of "
+                         f"{tuple(DTYPES)}")
     if cfg.output_stride not in (8, 16):
         raise ValueError("output_stride must be 8 or 16")
     os8 = cfg.output_stride == 8
@@ -125,6 +137,7 @@ def build_model(cfg: ModelConfig, seed: int = 0) -> DeepLabV3Model:
     model = DeepLabV3Model(backbone, head, compute_dtype=DTYPES[cfg.compute_dtype],
                            grouped_blockdiag_max=quant.grouped_blockdiag_max, quant=quant)
     init_weights(model, torch.Generator().manual_seed(seed))
+    cast_parameters(model, DTYPES[cfg.param_dtype])
     for m in model.modules():
         if isinstance(m, BatchNorm2d):  # flax momentum 0.9 is torch's 0.1
             m.momentum = 1.0 - cfg.bn_momentum
@@ -161,6 +174,7 @@ __all__ = [
     "Xception",
     "build_model",
     "build_model_by_name",
+    "cast_parameters",
     "quant_spec",
     "resnet_feature_channels",
 ]

@@ -15,6 +15,9 @@ the classifier's 3x3s) a ``SeparableConvBN``: its depthwise and pointwise
 convs sit at ``<conv>.body.0`` and ``<conv>.body.1``, where the plain conv's
 weight was.
 
+Under ``models/remat.py``'s ``rematerialized`` the head is two recomputed
+segments: the ASPP, then the rest (the V3+ decoder, or the V3 head's convs).
+
 ``quant`` routes the head's convs for QAT as the JAX package's heads do.  Two
 of them are the JAX package's ``ConcatConvBN`` there: the V3+ decoder's
 first (non-separable) 3x3, one conv a part of its concatenated input (the 48
@@ -33,6 +36,7 @@ import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
 from .layers import QUANT_OFF, BatchNorm2d, ConvBN, QuantSpec, SeparableConvBN, conv
+from .remat import segment
 
 
 def _conv3x3(separable: bool, quant: QuantSpec):
@@ -98,8 +102,11 @@ class DeepLabHeadV3Plus(nn.Module):
         )
 
     def forward(self, features: dict) -> torch.Tensor:
-        low = self.project(features["low_level"])
-        out = self.aspp(features["out"])
+        return segment(self.decode, features["low_level"], segment(self.aspp, features["out"]))
+
+    def decode(self, low_level: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """The decoder on the ASPP's output ``out``."""
+        low = self.project(low_level)
         out = resize_bilinear(out, (low.shape[2], low.shape[3]))
         return self.classifier(torch.cat([low, out.to(low.dtype)], dim=1))
 
@@ -118,7 +125,13 @@ class DeepLabHead(nn.Module):
         )
 
     def forward(self, features: dict) -> torch.Tensor:
-        return self.classifier(features["out"])
+        return segment(self.convs, segment(self.classifier[0], features["out"]))
+
+    def convs(self, x: torch.Tensor) -> torch.Tensor:
+        """The convs after the ASPP."""
+        for m in self.classifier[1:]:
+            x = m(x)
+        return x
 
 
 class DeepLabV3Model(nn.Module):

@@ -29,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.fused_block import conv3x3_bn_stats, matmul_bn_stats
+from .remat import recomputing
 
 
 def _pick_tile_m(m: int, target: int = 2048) -> int:
@@ -62,6 +63,8 @@ def _finalize_stats(s, q, count: int, bn: nn.BatchNorm2d):
 
 
 def _update_running(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    if recomputing():  # a rematerialized segment updates them once
+        return
     with torch.no_grad():  # flax's update: the biased batch variance
         bn.running_mean.mul_(1.0 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
         bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)

@@ -1,8 +1,10 @@
 """Shared building blocks, the counterpart of ``iswm_tpu/models/layers.py``.
 
-NCHW activations and OIHW weights, as PyTorch keeps them.  Parameters are
-float32; the compute dtype is the dtype of the activations, and every conv
-casts its weight to it, as the JAX modules cast their kernels to ``dtype``.
+NCHW activations and OIHW weights, as PyTorch keeps them.  Parameters are in
+``param_dtype`` (float32 unless ``build_model`` casts them), BatchNorm
+statistics and QAT's running amaxes float32; the compute dtype is the dtype
+of the activations, and every conv casts its weight to it, as the JAX
+modules cast their kernels to ``dtype``.
 The TPU lowering rewrites of the JAX package (``PackedStrided2Conv``,
 ``ShiftedDilatedConv``, ``ConcatConvBN``, ``BlockDiagConv``) compute the
 same math as a plain conv, so here each of them is one ``Conv2d``.
@@ -34,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.distributed import is_initialized
+from .remat import first_read, recomputing
 
 # all-reduces launched by the cross-replica BatchNorm, forward and backward
 cross_replica_all_reduces = 0
@@ -122,7 +125,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     output ``bias``, as in flax, where ``nn.BatchNorm2d`` raises.
 
     In a process group (of any size) train mode goes through
-    ``CrossReplicaBatchNorm``: the statistics of the global batch."""
+    ``CrossReplicaBatchNorm``: the statistics of the global batch.  A
+    rematerialized segment's recomputation leaves the running statistics
+    alone (``models/remat.py``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         weight, bias = self.weight.float(), self.bias.float()
@@ -153,6 +158,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        if recomputing():
+            return
         self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
         self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
         self.num_batches_tracked.add_(1)
@@ -226,8 +233,10 @@ class QatConv2d(Conv2d):
     int8 backward where ``part_bwd`` says (none routed: the plain conv, the
     same sum).  A
     delayed-mode site keeps its running amax in a non-persistent buffer
-    (``x_amax``, a part's ``x_amax_p{i}``, 0 at first), out of the state dict.
-    ``qat`` False (``switch_off_int8``) makes it a plain ``Conv2d``."""
+    (``x_amax``, a part's ``x_amax_p{i}``, 0 at first), out of the state dict;
+    a rematerialized segment's recomputation quantizes with the amax its first
+    forward read and does not update it (``models/remat.py``).  ``qat`` False
+    (``switch_off_int8``) makes it a plain ``Conv2d``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *, route: Optional[str],
                  delayed: bool = False, int8_bwd: bool = False,
@@ -238,6 +247,7 @@ class QatConv2d(Conv2d):
         self.parts = None if parts is None else tuple(parts)
         self.part_routes, self.parts_in_eval = tuple(part_routes), parts_in_eval
         self.part_bwd = tuple(part_bwd)
+        self._amax_read = {}  # what a segment's first forward read (remat.first_read)
         if delayed and route == "st" and parts is None:
             self.register_buffer("x_amax", torch.zeros(()), persistent=False)
         for i, routed in enumerate(self.part_routes):
@@ -299,9 +309,11 @@ class QatConv2d(Conv2d):
         amax = self._buffers.get(amax_name)
         if self.training and amax is not None:
             fn = ops.int8_conv_fullq_static if bwd else ops.int8_conv_static_amax
-            out, new_amax = fn(x, w, amax, *geometry, across_ranks=True)
-            with torch.no_grad():
-                amax.copy_(new_amax)
+            read = first_read(self._amax_read, amax_name, amax)
+            out, new_amax = fn(x, w, read, *geometry, across_ranks=True)
+            if not recomputing():
+                with torch.no_grad():
+                    amax.copy_(new_amax)
             return out
         fn = ops.int8_conv_fullq if bwd else ops.int8_conv_st
         return fn(x, w, *geometry, across_ranks=self.training)
@@ -445,6 +457,8 @@ class FusedStemPool(nn.Module):
             raise ValueError("FusedStemPool is specialized to the 7x7 / stride 2 / pad 3 stem")
         if bn.training:
             p, mean, var = stem_fused_train(x, conv1.weight, bn.weight, bn.bias, bn.eps)
+            if recomputing():  # a rematerialized segment updates them once
+                return p
             with torch.no_grad():  # flax's update: the biased batch variance
                 bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
                 bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)

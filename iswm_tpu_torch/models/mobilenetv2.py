@@ -18,6 +18,9 @@ the block that turns uses the new dilation already.
 ``forward`` returns ``{'low_level': the 24-channel stage (stride 4), 'out':
 the 320-channel output}``.
 
+Under ``models/remat.py``'s ``rematerialized`` each unit of ``features`` is
+a recomputed segment.
+
 ``quant`` routes the stem, expansion and projection convs for QAT as the JAX
 package's ``ConvBN`` does (a depthwise conv never routes).
 """
@@ -28,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from .layers import QUANT_OFF, BatchNorm2d, QuantSpec, conv
+from .remat import segment
 
 # (expansion t, channels c, repeats n, stride s): MobileNetV2 paper table 2
 INVERTED_RESIDUAL_SETTINGS = (
@@ -92,5 +96,8 @@ class MobileNetV2(nn.Module):
         self.features = nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor) -> dict:
-        low = self.features[:self.low_level_index](x)
-        return {"low_level": low, "out": self.features[self.low_level_index:](low)}
+        for i, unit in enumerate(self.features):
+            x = segment(unit, x)
+            if i + 1 == self.low_level_index:
+                low = x
+        return {"low_level": low, "out": x}

@@ -27,6 +27,9 @@ groups 1, base width 64 and an eligible shape; every other block, and every
 block in eval mode, runs its unfused modules.  The fused path uses the block's
 own modules, so the keys are the same there too.
 
+Under ``models/remat.py``'s ``rematerialized`` each of the stem (fused or
+not) and the residual blocks is a recomputed segment.
+
 ``quant`` (a ``QuantSpec``) routes the blocks' convs for QAT as the JAX
 package's ``ConvBN`` does; the stem never routes.  Under QAT the fused blocks
 stay off (``Bottleneck.qat``), as in the JAX package, until
@@ -41,6 +44,7 @@ import torch
 import torch.nn as nn
 
 from .layers import QUANT_OFF, BatchNorm2d, FusedStemPool, QuantSpec, conv, fused_stem_eligible
+from .remat import segment
 
 
 class BasicBlock(nn.Module):
@@ -197,11 +201,17 @@ class ResNet(nn.Module):
             return device.type == "cuda"
         return self.fused_stem != "never"
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        """conv1 + bn1 + ReLU + max-pool, fused where ``fuses_stem_on``."""
         if self.fuses_stem_on(x.device) and fused_stem_eligible(x.shape):
-            x = self.fused_stem_pool(x, self.conv1, self.bn1)
-        else:
-            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        low = self.layer1(x)
-        out = self.layer4(self.layer3(self.layer2(low)))
-        return {"low_level": low, "out": out}
+            return self.fused_stem_pool(x, self.conv1, self.bn1)
+        return self.maxpool(self.relu(self.bn1(self.conv1(x))))
+
+    def forward(self, x: torch.Tensor) -> dict:
+        x = segment(self.stem, x)
+        for block in self.layer1:
+            x = segment(block, x)
+        low = x
+        for block in (*self.layer2, *self.layer3, *self.layer4):
+            x = segment(block, x)
+        return {"low_level": low, "out": x}

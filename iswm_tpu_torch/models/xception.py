@@ -18,6 +18,9 @@ A block's leading ReLU is not in place: the shortcut reads the block's input.
 ``forward`` returns ``{'low_level': block1's output (128 channels, stride
 4), 'out': the 2048-channel output}``.
 
+Under ``models/remat.py``'s ``rematerialized`` the two stems, each block and
+the exit flow's two separable convs are recomputed segments.
+
 ``quant`` routes the stems, the shortcuts and every separable conv's
 pointwise half for QAT, as the JAX package does (``SepConvBN``'s pointwise
 route takes dynamic scales only).
@@ -32,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .layers import QUANT_OFF, BatchNorm2d, QuantSpec, conv
+from .remat import segment
 
 # (reps, start_with_relu) of each block (reference xception.py:139-153)
 XCEPTION_BLOCKS = {1: (2, False), 2: (2, True), 3: (2, True),
@@ -124,12 +128,17 @@ class Xception(nn.Module):
         self.bn4 = BatchNorm2d(2048)
         self.relu4 = nn.ReLU(inplace=True)
 
-    def forward(self, x: torch.Tensor) -> dict:
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
         x = self.relu1(self.bn1(self.conv1(x)))
-        x = self.relu2(self.bn2(self.conv2(x)))
-        low = self.block1(x)
+        return self.relu2(self.bn2(self.conv2(x)))
+
+    def exit_flow(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.relu3(self.bn3(self.conv3(x)))
+        return self.relu4(self.bn4(self.conv4(x)))
+
+    def forward(self, x: torch.Tensor) -> dict:
+        low = segment(self.block1, segment(self.stem, x))
         x = low
         for n in range(2, 13):
-            x = getattr(self, f"block{n}")(x)
-        x = self.relu3(self.bn3(self.conv3(x)))
-        return {"low_level": low, "out": self.relu4(self.bn4(self.conv4(x)))}
+            x = segment(getattr(self, f"block{n}"), x)
+        return {"low_level": low, "out": segment(self.exit_flow, x)}

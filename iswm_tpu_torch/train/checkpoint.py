@@ -6,7 +6,8 @@ same policy and a reference-format ``.pth`` payload in place of Orbax:
     ``best_{model}_{dataset}_os{OS}_weighted{score:.3f}.pth``;
   - written to a temporary file, then published with ``os.replace``;
   - a warning when less than 1 GB of disk is free;
-  - payload: ``model_state`` (the reference key layout) + ``optimizer_state``,
+  - payload: ``model_state`` (the reference key layout, float32 whatever the
+    model's ``param_dtype``, as the JAX package exports it) + ``optimizer_state``,
     ``scheduler_state``, ``cur_itrs``, ``best_score``, ``weighted_score``,
     ``val_score``, ``save_time``, ``model_config``;
   - ``quant``, where the model carries the running amaxes of delayed-mode
@@ -79,7 +80,8 @@ def _save(path: str, state: TrainState, **meta: Any) -> str:
     os.makedirs(directory, exist_ok=True)
     _check_disk_space(directory)
     payload = {
-        "model_state": _to_cpu(state.model.state_dict()),
+        "model_state": {k: v.float() if v.is_floating_point() else v
+                        for k, v in _to_cpu(state.model.state_dict()).items()},
         "optimizer_state": _to_cpu(state.optimizer.state_dict()),
         "scheduler_state": state.scheduler.state_dict(),
         "cur_itrs": int(state.step),
@@ -144,9 +146,10 @@ def load_quant(path: str) -> dict:
 
 
 def restore(path: str, state: TrainState, continue_training: bool) -> dict:
-    """Load a checkpoint into ``state`` (model weights, ``strict=True``, and
-    the running amaxes of the sites the model and the checkpoint both have;
-    with ``continue_training`` also the optimizer, scheduler and step).
+    """Load a checkpoint into ``state`` (model weights, ``strict=True``, cast
+    to the parameters' dtype, and the running amaxes of the sites the model
+    and the checkpoint both have; with ``continue_training`` also the
+    optimizer, scheduler and step).
     Returns the payload's metadata."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(payload["model_state"], strict=True)

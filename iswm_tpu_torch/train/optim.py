@@ -10,7 +10,9 @@
     with ``t`` clamped to ``T``, as a ``LambdaLR`` (not the recursive
     ``CosineAnnealingLR``);
   - poly: ``max(lr * clip(1 - t / T, 0, 1) ** power, poly_min_lr)``.
-Both schedules are stepped once per iteration.
+Both schedules are stepped once per iteration.  Every optimizer state (SGD's
+momentum, Adam's moments) is kept in its parameter's dtype, as optax keeps
+it: bfloat16 under ``param_dtype="bfloat16"``, as the gradients are.
 """
 
 from __future__ import annotations

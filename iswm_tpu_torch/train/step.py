@@ -12,6 +12,11 @@ mode) updates the delayed mode's running amaxes; the eval forward (eval mode)
 quantizes with each tensor's own amax in either mode, as the JAX package's
 eval step, which applies the model without its "quant" collection.
 
+With ``remat`` the train forward rematerializes its activations block by
+block (``models/remat.py``): each block keeps its input, and the backward
+recomputes its forward, with the same arithmetic, so the step's results are
+those of the plain step.  The forward kernels run twice a step then.
+
 In a process group the step runs through ``data_parallel``'s
 ``DistributedDataParallel`` wrapper, whose gradient reduction SUMS over the
 ranks (the JAX package's psum) where DDP's default averages: with the
@@ -29,6 +34,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from ..data.transforms import AugmentConfig, augment_batch, val_transform_batch
+from ..models.remat import rematerialized
 
 
 @dataclass
@@ -68,13 +74,15 @@ def make_train_step(
     loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     augment: Optional[AugmentConfig] = None,
     generator: Optional[torch.Generator] = None,
+    remat: bool = False,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], torch.Tensor]:
     """``train_step(state, images, labels) -> loss`` (0-d, on the device).
 
     With ``augment``, images are raw uint8 (or [0, 1] float) and go through
     scale/crop/flip/normalize drawn from ``generator`` (on the images'
-    device); without it they are used as given.  Updates ``state`` in
-    place."""
+    device); without it they are used as given.  ``remat`` recomputes the
+    forward's activations in the backward, block by block.  Updates
+    ``state`` in place."""
     if augment is not None and generator is None:
         raise ValueError("augmentation needs a torch.Generator")
 
@@ -84,7 +92,8 @@ def make_train_step(
             images, labels = augment_batch(images, labels, augment, generator)
         net = state.model if state.replicated is None else state.replicated
         net.train()
-        logits = net(images.permute(0, 3, 1, 2))
+        with rematerialized(remat):
+            logits = net(images.permute(0, 3, 1, 2))
         loss = loss_fn(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

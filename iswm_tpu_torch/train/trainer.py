@@ -21,6 +21,11 @@ run the plain model: the same modules with QAT switched off
 (``switch_off_int8``), so the optimizer's parameters and state carry over,
 and the delayed mode's running amaxes are dropped.
 
+``parallel.remat`` recomputes the forward's activations in the backward,
+block by block (``models/remat.py``); ``model.param_dtype`` stores the
+parameters, and so the gradients and the optimizer's state, in bfloat16 or
+float16.
+
 What the port does not carry yet is refused with ``NotImplementedError``
 naming its ROADMAP item (``refuse_unported``).
 """
@@ -57,16 +62,8 @@ from .step import TrainState, data_parallel, make_eval_step, make_train_step
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not port."""
-    q1 = "ROADMAP.md Queue 1"
-    checks = (
-        (cfg.parallel.remat,
-         f"parallel.remat is not ported yet ({q1}, 'Activation rematerialization')"),
-        (cfg.parallel.model_axis > 1,
-         f"parallel.model_axis > 1 is not ported yet ({SPATIAL_ITEM})"),
-    )
-    for refused, message in checks:
-        if refused:
-            raise NotImplementedError(message)
+    if cfg.parallel.model_axis > 1:
+        raise NotImplementedError(f"parallel.model_axis > 1 is not ported yet ({SPATIAL_ITEM})")
 
 
 def rank_seed(seed: int, rank: int) -> int:
@@ -157,7 +154,8 @@ class Trainer:
         )
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.train_step = make_train_step(self.loss_fn, augment=self.augment,
-                                          generator=self.generator)
+                                          generator=self.generator,
+                                          remat=cfg.parallel.remat)
         self.eval_step = make_eval_step(model, want=("preds",))
         # the int8 -> plain switch (0: none)
         self._switch_iter = cfg.train.int8_switch_iter if cfg.model.int8_training else 0
@@ -292,7 +290,9 @@ class Trainer:
     def _switch_to_plain(self) -> None:
         """int8-early / plain-finish (``train.int8_switch_iter``): QAT off on
         the model's own modules; parameters, BatchNorm statistics and the
-        optimizer's state carry over, the running amaxes are dropped."""
+        optimizer's state carry over, the running amaxes are dropped.  The
+        train step, and its ``remat``, stay: it reads the model as it is at
+        each call (the JAX package rebuilds its jitted step here)."""
         import dataclasses
 
         model = self.state.model

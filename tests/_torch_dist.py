@@ -57,6 +57,7 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
             "step": _train_step(payload["step"]),
             "qat": _train_step(payload["step"], QAT),
             "qat_bwd": _train_step(payload["step"], QAT_BWD),
+            "remat": _train_step(payload["step"], remat=True),
             "int8_bwd_conv": _int8_bwd_conv(payload["int8_bwd_conv"]),
             "refusals": _refusals(),
             "fit": _fit(payload["fit_dir"]),
@@ -159,12 +160,13 @@ QAT = dict(int8_training=64, int8_scale_mode="delayed")  # the QAT step's model
 QAT_BWD = dict(QAT, int8_training_bwd=True)  # ... with QAT's int8 backward
 
 
-def _train_step(case: dict, quant: dict | None = None) -> dict:
+def _train_step(case: dict, quant: dict | None = None, remat: bool = False) -> dict:
     """One data-parallel step of resnet18 from the crossed weights on this
     rank's rows: the sharded CE (plain versions), the cross-replica
     BatchNorm and the summing gradient reduction; with ``quant`` (``QAT``,
     ``QAT_BWD``), of that QAT model, its amaxes (and with the int8 backward
-    its cotangents' amaxes) taken over both ranks."""
+    its cotangents' amaxes) taken over both ranks; with ``remat``, the
+    activations recomputed block by block in the backward."""
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig, OptimConfig
     from iswm_tpu_torch.models import build_model, layers
@@ -182,7 +184,7 @@ def _train_step(case: dict, quant: dict | None = None) -> dict:
     before = {k: v.clone() for k, v in model.state_dict().items()}
     all_reduces = layers.cross_replica_all_reduces
     amax_reduces = int8_train.amax_all_reduces
-    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
+    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat)(
         state, torch.from_numpy(_rows(case["images"])), torch.from_numpy(_rows(case["labels"])))
     return {"loss": float(loss), "before": before,
             "after": {k: v.clone() for k, v in model.state_dict().items()},

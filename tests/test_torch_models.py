@@ -123,8 +123,12 @@ def test_unported_backbone_and_head_are_refused():
     assert routed_sites(build_model_by_name("deeplabv3plus_mobilenet", int8_training=64), True)
     assert routed_sites(build_model_by_name("deeplabv3plus_mobilenet", int8_training=64,
                                             int8_training_bwd=True), True)
-    with pytest.raises(NotImplementedError, match="'Low-precision parameters'"):
-        build_model_by_name("deeplabv3_resnet50", param_dtype="bfloat16")
+    # refused no longer: bf16 parameters, float32 BatchNorm statistics
+    low = build_model_by_name("deeplabv3_resnet50", param_dtype="bfloat16")
+    assert {p.dtype for p in low.parameters()} == {torch.bfloat16}
+    assert {b.dtype for n, b in low.named_buffers() if "running" in n} == {torch.float32}
+    with pytest.raises(ValueError, match="unknown param_dtype"):
+        build_model_by_name("deeplabv3_resnet50", param_dtype="int8")
     with pytest.raises(ValueError, match="unknown backbone"):
         build_model_by_name("deeplabv3plus_vgg16")
     with pytest.raises(ValueError, match="unknown model name"):

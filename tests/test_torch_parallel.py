@@ -27,7 +27,9 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   ranks; a rank's own rows give other amaxes); with QAT's int8 backward
   (the cotangents' amaxes all-reduced too) the same loss and amaxes, and one
   int8-backward conv on the two ranks against one process: dx bit-equal, dw
-  within 1.5 float32 ulps;
+  within 1.5 float32 ulps; the remat step (``remat=True``) equal to the
+  2-rank plain step bit for bit and to the one-process remat step at the
+  step tolerances;
 - (e) refusals at world size 2: ``model_axis > 1``, the fused stem and blocks
   under ``always`` / ``interpret``; ``auto`` resolves to ``never``;
   ``data_axis`` other than the world size and a batch that does not divide;
@@ -327,6 +329,26 @@ def test_two_rank_qat_step_matches_one_process_step(ranks):
                                 steps[0]["count"])]), 0)
 
 
+def test_two_rank_remat_step_matches_one_process_remat_step(ranks):
+    """The remat step on two ranks: the 2-rank plain step bit for bit (the
+    recomputation's cross-replica all-reduces give the first forward's
+    statistics again), each BatchNorm's all-reduce run three times (forward,
+    recomputed forward, backward) where the plain step runs it twice, and
+    the one-process remat step at the step tests' tolerance."""
+    case = ranks["payload"]["step"]
+    steps = [seen["remat"] for seen in ranks["seen"]]
+    for s, plain in zip(steps, (seen["step"] for seen in ranks["seen"])):
+        assert s["all_reduces"] == 3 * s["batchnorms"]
+        assert s["loss"] == plain["loss"]
+        for k, v in plain["after"].items():
+            assert torch.equal(v, s["after"][k]), k
+    _same_on_both_ranks(steps)
+    loss, before, after, _ = _one_process_step(case, {}, slice(None), remat=True)
+    sds = [{k: v.numpy() for k, v in d.items()} for d in (before, after)]
+    _check_step(([loss], sds, [(steps[0]["loss"], steps[0]["before"], steps[0]["after"],
+                                steps[0]["count"])]), 0)
+
+
 def _int8_bwd_conv_case() -> dict:
     """x, w and a cotangent of a 3x3 stride-2 conv over the global batch."""
     rng = np.random.default_rng(17)
@@ -389,9 +411,10 @@ def _same_on_both_ranks(steps) -> None:
         assert torch.equal(v, steps[1]["after"][k]), k
 
 
-def _one_process_step(case, quant: dict, rows) -> tuple:
+def _one_process_step(case, quant: dict, rows, remat: bool = False) -> tuple:
     """(loss, state before, state after, running amaxes) of one step of the
-    QAT model ``quant`` in one process on ``rows`` of the step's batch."""
+    QAT model ``quant`` (``{}``: the plain model) in one process on ``rows``
+    of the step's batch, with ``remat`` as the train step's."""
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig, OptimConfig
     from iswm_tpu_torch.models import build_model
@@ -407,7 +430,7 @@ def _one_process_step(case, quant: dict, rows) -> tuple:
     factory, _ = make_optimizer(OptimConfig(), TOTAL)
     state = TrainState(model, *factory(model.parameters()), 0)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"))(
+    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat)(
         state, torch.from_numpy(case["images"][rows]), torch.from_numpy(case["labels"][rows]))
     return float(loss), before, model.state_dict(), quant_state(model)
 

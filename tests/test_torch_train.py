@@ -368,7 +368,6 @@ def test_dropout_rate_and_scaling():
 
 
 REFUSED = {
-    "remat": ((("parallel", "remat", True),), "rematerialization"),
     "devices": ((("parallel", "model_axis", 2),), "Spatial model axis"),
 }
 
@@ -384,6 +383,58 @@ def test_unported_options_are_refused(name):
         refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
+
+
+# the training options these tests refused before they were ported, and which
+# Config fields they set (after resnet18 in float32); the last two combine
+# them with the fused stem and blocks, and with QAT switched off after step 1
+TRAIN_OPTIONS = {
+    "remat": (("parallel", "remat", True),),
+    "param_dtype": (("model", "param_dtype", "bfloat16"),),
+    "remat_fused_bf16": (("parallel", "remat", True), ("model", "param_dtype", "bfloat16"),
+                         ("model", "backbone", "resnet50"), ("model", "fused_stem", "always"),
+                         ("model", "fused_blocks", "always")),
+    "remat_qat_switch": (("parallel", "remat", True), ("model", "param_dtype", "float16"),
+                         ("model", "int8_training", 64), ("model", "int8_scale_mode", "delayed"),
+                         ("model", "int8_training_bwd", True), ("train", "int8_switch_iter", 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TRAIN_OPTIONS))
+def test_training_options_are_accepted(name, tmp_path):
+    """``parallel.remat`` and ``model.param_dtype`` pass ``refuse_unported``
+    and build a Trainer whose step trains: two steps from uint8 images (with
+    ``int8_switch_iter``, QAT switched off between them, as ``fit`` does),
+    finite losses, the parameters in ``param_dtype`` and the running
+    statistics float32 and updated once a step."""
+    from iswm_tpu_torch.data import ArrayDataset
+
+    cfg = Config()
+    cfg.model.backbone, cfg.model.compute_dtype = "resnet18", "float32"
+    for section, key, value in TRAIN_OPTIONS[name]:
+        setattr(getattr(cfg, section), key, value)
+    refuse_unported(cfg)
+    for key in ("checkpoints_dir", "log_dir", "val_results_dir", "metrics_plots_dir"):
+        setattr(cfg.train, key, str(tmp_path / key))
+    cfg.data.crop_size, cfg.data.batch_size = 32, 4
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    masks = torch.from_numpy(rng.integers(0, 2, (4, 32, 32), dtype=np.uint8))
+    ds = ArrayDataset(images.numpy(), masks.numpy())
+    trainer = Trainer(cfg, device="cpu", train_ds=ds, val_ds=ds)
+    model = trainer.state.model
+    for step in range(2):
+        if trainer._switch_iter and step >= trainer._switch_iter:
+            trainer._switch_to_plain()
+        loss = trainer.train_step(trainer.state, images, masks)
+        assert np.isfinite(float(loss)) and trainer.state.step == step + 1
+    assert trainer._switch_iter == 0 and not model.quant.int8
+    assert {p.dtype for p in model.parameters()} == {getattr(torch, cfg.model.param_dtype)}
+    for k, v in model.state_dict().items():
+        if k.endswith("running_var"):
+            assert v.dtype == torch.float32
+        elif k.endswith("num_batches_tracked"):
+            assert int(v) == 2, k
 
 
 # the QAT options these tests refused before QAT was ported, and which
