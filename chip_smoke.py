@@ -3,8 +3,10 @@ kernels, hold each against its plain version, drive the tiled serving path,
 the training path (with quick-evals), the quantization comparison, training
 and serving with the fused stem, training with the fused bottleneck blocks,
 data-parallel training in a process group, the rest of the model zoo,
-``int8_exec_xla`` serving on the int8 convs, quantization-aware training, and
-training with rematerialized activations and with bf16 parameters.
+``int8_exec_xla`` serving on the int8 convs, quantization-aware training,
+training with rematerialized activations and with bf16 parameters, and the
+spatial model axis (image rows split over ranks), scene-parallel serving and
+the multi-device dry run.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-stat-starts 16   # phase 13's statistics
@@ -313,6 +315,23 @@ not 0):
      statistics float32, finite losses), its step against this phase's
      float32-parameter step, and a ``Predictor`` with bf16 parameters from its
      checkpoint on one chunk.  The kernel record's launches add this phase's.
+ 21. the spatial model axis: two spawned ``gloo`` ranks on cuda:0 as one
+     model group (data 1 x model 2), each on 256 of the 512 rows of all 8
+     images, halos exchanged over the group (``parallel/spatial.py``): phase
+     15's f32 step from its seeded state with TF32 off and on, held to phase
+     15's limits of the one-process step (``_hold_two_rank_step``); a bf16
+     step (dropout off) whose loss lies within 2e-2 relative of one process's,
+     25 halo all-gathers, 24 halo all-reduces and 2 group sums a step, kernel
+     #4 through the sharded CE once a step each way on each rank; each rank's
+     peak memory, device time, launches and collective bytes a step beside
+     the one-process step's, alone and in a 1-rank group (the ranks'
+     cross-replica BatchNorm and DDP), with the card's name and power limit.  Then
+     ``int8_exec_xla`` through the scene-parallel ``TileEngine(mesh=)`` on
+     the two ranks (batch 4 each) on the 1024x1536 scene against the one-rank
+     engine (batch 8) on the same calibration: mask agreement >= 0.999, the
+     logit gap printed; then ``dryrun_multichip(4)`` as four ``gloo`` ranks
+     on cuda:0 (data 2 x model 2).  The kernel record's launches add this
+     phase's (both ranks').
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -2961,15 +2980,16 @@ def _dp_batch():
     return x.cuda(), torch.from_numpy(np.stack(masks).astype(np.int32)).cuda()
 
 
-def _dp_model():
-    """Phase 15's float32 ResNet-50 from seeded weights, dropout off, on
-    cuda:0, channels last, with its optimizer factory."""
+def _dp_model(compute_dtype: str = "float32"):
+    """Phase 15's float32 ResNet-50 (or in ``compute_dtype``) from seeded
+    weights, dropout off, on cuda:0, channels last, with its optimizer
+    factory."""
     from iswm_tpu_torch.config import Config
     from iswm_tpu_torch.models import build_model
     from iswm_tpu_torch.train import make_optimizer
 
     cfg = Config()
-    cfg.model.compute_dtype = "float32"
+    cfg.model.compute_dtype = compute_dtype
     model = build_model(cfg.model, seed=SEED).to("cuda:0", memory_format=torch.channels_last)
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
@@ -2996,43 +3016,54 @@ def _statistics(model) -> dict:
 
 def _rank_step(rank: int, ranks: int, rendezvous: str, out: str) -> None:
     """Phase 15 in a spawned rank: one data-parallel step on this rank's rows."""
-    import torch.distributed as dist
-
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.parallel import destroy
-    from iswm_tpu_torch.train import TrainState, make_train_step
-    from iswm_tpu_torch.train.step import data_parallel
+    from iswm_tpu_torch.train import make_train_step
 
     _join_gloo(rank, ranks, rendezvous)
     try:
-        _deterministic(True)
-        model, factory = _dp_model()
-        start = copy.deepcopy(model.state_dict())
-        replicated = data_parallel(model)
         x, y = _dp_batch()
         rows = slice(rank * len(x) // ranks, (rank + 1) * len(x) // ranks)
         step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
-        seen = {}
-        for tf32 in (False, True):
-            _tf32(tf32)
-            model.load_state_dict(start)
-            state = TrainState(model, *factory(model.parameters()), 0, replicated)
-            with warnings.catch_warnings():  # ops without a deterministic version
-                warnings.simplefilter("ignore")
-                loss = float(step(state, x[rows], y[rows]))
-            # parameters and statistics after the step, against rank 0's
-            flat = torch.cat([v.detach().double().flatten()
-                              for v in model.state_dict().values()])
-            lead = flat.clone()
-            dist.broadcast(lead, src=0)
-            seen[tf32] = {"loss": loss, "equal_to_rank_0": torch.equal(lead, flat)}
-            if rank == 0:
-                seen[tf32]["grads"] = {k: p.grad.detach().cpu()
-                                       for k, p in model.named_parameters()}
-                seen[tf32]["statistics"] = {k: v.cpu() for k, v in _statistics(model).items()}
+        seen = _f32_rank_steps(step, x[rows], y[rows], rank)
     finally:
         destroy()
     torch.save(seen, Path(out) / f"_rank_step.{rank}.pt")
+
+
+def _f32_rank_steps(step, x, y, rank: int) -> dict:
+    """In a spawned rank: phase 15's f32 step of ``step`` from the seeded
+    state, deterministic, with TF32 off and on; by TF32 the loss and whether
+    the parameters and statistics equal rank 0's, on rank 0 the gradients
+    and the statistics (what ``_hold_two_rank_step`` holds)."""
+    import torch.distributed as dist
+
+    from iswm_tpu_torch.train import TrainState
+    from iswm_tpu_torch.train.step import data_parallel
+
+    _deterministic(True)
+    model, factory = _dp_model()
+    start = copy.deepcopy(model.state_dict())
+    replicated = data_parallel(model)
+    seen = {}
+    for tf32 in (False, True):
+        _tf32(tf32)
+        model.load_state_dict(start)
+        state = TrainState(model, *factory(model.parameters()), 0, replicated)
+        with warnings.catch_warnings():  # ops without a deterministic version
+            warnings.simplefilter("ignore")
+            loss = float(step(state, x, y))
+        # parameters and statistics after the step, against rank 0's
+        flat = torch.cat([v.detach().double().flatten() for v in model.state_dict().values()])
+        lead = flat.clone()
+        dist.broadcast(lead, src=0)
+        seen[tf32] = {"loss": loss, "equal_to_rank_0": torch.equal(lead, flat)}
+        if rank == 0:
+            seen[tf32]["grads"] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+            seen[tf32]["statistics"] = {k: v.cpu() for k, v in _statistics(model).items()}
+    _tf32(True)
+    _deterministic(False)
+    return seen
 
 
 def _step_profile(trainer, xu8, yu8) -> tuple:
@@ -3061,9 +3092,7 @@ def _median_step_ms(trainer, xu8, yu8, steps: int = 8) -> list:
 def phase_dp_slice(ce, cm) -> int:
     from iswm_tpu_torch.data import batch_iterator
     from iswm_tpu_torch.models import build_model, layers
-    from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.parallel import destroy
-    from iswm_tpu_torch.train import TrainState, make_train_step
 
     smi = _smi()
     # phase 6's step in one process, timed before the group opens and after it closes
@@ -3110,10 +3139,37 @@ def phase_dp_slice(ce, cm) -> int:
                                + _median_step_ms(trainer, xu8, yu8))
     profile = {"1-rank group": _step_profile(trainer, xu8, yu8)}
 
-    # the whole-step reference for the 2-rank step: one process on all 8 rows,
-    # in the group (the same BatchNorm arithmetic), f32, deterministic, with
-    # TF32 off and on; and the same step with one pooled value in a million
-    # moved by an ulp of what the convs read
+    reference = _dp_reference()
+    del trainer
+    destroy()
+    step_ms["one process"] += _median_step_ms(single, xu8, yu8)
+    profile["one process"] = _step_profile(single, xu8, yu8)
+    del single
+    med = {k: float(np.median(v)) for k, v in step_ms.items()}
+    print(f"[15] {smi}: train step, batch 8 at 512^2, bf16 (one process, 1-rank group x 2, one "
+          f"process; median of {len(step_ms['one process'])} each): one process "
+          f"{med['one process']:.2f} ms, 1-rank group {med['1-rank group']:.2f} ms")
+    for mode, (total, n, by_class) in profile.items():
+        print(f"[15] {smi}: one step, {mode} (profiler, per-kernel means): device time "
+              f"{total:.2f} ms in {n:.0f} kernel launches; by class: "
+              + ", ".join(f"{c} {t:.2f} ms" for c, t in sorted(by_class.items(),
+                                                                key=lambda kv: -kv[1]))
+              + ("" if "NCCL" in by_class or mode == "one process"
+                 else "; no NCCL kernel (one rank's all-reduce launches none)"))
+
+    _hold_two_rank_step(reference, _spawn_ranks(_rank_step, out), "[15]", "4 rows each")
+    return launches[0]
+
+
+def _dp_reference() -> dict:
+    """The whole-step reference of phases 15 and 21's two-rank steps, by
+    TF32 off and on: one process on all 8 rows, in the caller's 1-rank group
+    (the same BatchNorm arithmetic), f32, deterministic; its loss, gradients
+    and running statistics, and the gradients of the same step with one
+    pooled value in a million moved by an ulp of what the convs read."""
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import TrainState, make_train_step
+
     _deterministic(True)
     ref, factory = _dp_model()
     start = copy.deepcopy(ref.state_dict())
@@ -3139,33 +3195,22 @@ def phase_dp_slice(ce, cm) -> int:
                            "nudged": one_step(_nudge)[1]}
     _tf32(True)
     _deterministic(False)
-    del trainer, ref, start
-    destroy()
-    step_ms["one process"] += _median_step_ms(single, xu8, yu8)
-    profile["one process"] = _step_profile(single, xu8, yu8)
-    del single
-    med = {k: float(np.median(v)) for k, v in step_ms.items()}
-    print(f"[15] {smi}: train step, batch 8 at 512^2, bf16 (one process, 1-rank group x 2, one "
-          f"process; median of {len(step_ms['one process'])} each): one process "
-          f"{med['one process']:.2f} ms, 1-rank group {med['1-rank group']:.2f} ms")
-    for mode, (total, n, by_class) in profile.items():
-        print(f"[15] {smi}: one step, {mode} (profiler, per-kernel means): device time "
-              f"{total:.2f} ms in {n:.0f} kernel launches; by class: "
-              + ", ".join(f"{c} {t:.2f} ms" for c, t in sorted(by_class.items(),
-                                                                key=lambda kv: -kv[1]))
-              + ("" if "NCCL" in by_class or mode == "one process"
-                 else "; no NCCL kernel (one rank's all-reduce launches none)"))
+    return reference
+
+
+def _hold_two_rank_step(reference: dict, ranks: list, tag: str, layout: str) -> None:
+    """Phase 15's limits on a two-rank f32 step against ``_dp_reference``.
+
+    Held: the loss and the statistics with TF32 off (float32 throughout, so
+    that 1e-5 measures the reduction over two ranks and not TF32's rounding
+    of its differences: with TF32 on they read 2.8e-4 and 5.0e-4), the
+    gradients both ways against the nudged step (phase 11's yardstick)."""
 
     def median_ratio(got, want):
         ratios = sorted(float((got[k].cuda() - w).abs().max() / w.abs().max().clamp_min(1e-30))
                         for k, w in want.items())
         return ratios[len(ratios) // 2], ratios[-1]
 
-    # held: the loss and the statistics with TF32 off (float32 throughout, so
-    # that 1e-5 measures the reduction over two ranks and not TF32's rounding
-    # of its differences: with TF32 on they read 2.8e-4 and 5.0e-4), the
-    # gradients both ways against the nudged step (phase 11's yardstick)
-    ranks = _spawn_ranks(_rank_step, out)
     for tf32 in (False, True):
         want, seen = reference[tf32], [r[tf32] for r in ranks]
         check(all(r["equal_to_rank_0"] for r in seen),
@@ -3193,8 +3238,8 @@ def phase_dp_slice(ce, cm) -> int:
         check(dp_med <= DP_SLACK * nudge_med,
               f"TF32 {tf32}: 2-rank step gradients: median tensor {dp_med:.2e} * max|grad| from "
               f"one process, more than {DP_SLACK} x the nudged step's {nudge_med:.2e}")
-        print(f"[15] one step on 2 gloo ranks on cuda:0 (f32, TF32 {'on' if tf32 else 'off'}, 4 "
-              f"rows each, no augmentation, dropout off, deterministic) against one process on "
+        print(f"{tag} one step on 2 gloo ranks on cuda:0 (f32, TF32 {'on' if tf32 else 'off'}, "
+              f"{layout}, no augmentation, dropout off, deterministic) against one process on "
               f"all 8: loss {losses[0]:.6f} on both vs {want['loss']:.6f} (rel {rel:.2e}"
               + ("" if tf32 else ", limit 1e-5") + f"); running statistics within "
               f"{worst_stat:.2e} at {worst_name}" + ("" if tf32 else " (limit 1e-5)")
@@ -3202,7 +3247,6 @@ def phase_dp_slice(ce, cm) -> int:
               f"{dp_med:.2e} * max|grad| (worst {dp_worst:.2e}) from one process, where one "
               f"process with one pooled value in a million moved by an ulp lies {nudge_med:.2e} "
               f"(worst {nudge_worst:.2e}) (limit {DP_SLACK}x)")
-    return launches[0]
 
 
 # ------------------------------------------------------------------ the zoo
@@ -5082,6 +5126,283 @@ def phase_remat(fs, fb, kc, ce, cm, smi: str) -> dict:
     return total
 
 
+# ------------------------------------------------------- the spatial model axis
+SPATIAL_SERVE_BATCH = 4  # phase 21's scene-parallel engine: tiles a rank, 8 a chunk
+SPATIAL_BF16_LIMIT = 2e-2  # phase 21: the bf16 split step's loss against one process's
+# phase 21's ResNet-50 step, OS 16, 512^2: row windows that fetch a halo (the
+# stem, the pool, 16 backbone 3x3s, 3 ASPP branches, 2 decoder 3x3s, 2
+# resizes), an all-reduce each in the backward but the stem's (the image takes
+# no gradient), the pooling branch's group sum forward and backward
+SPATIAL_COLLECTIVES = {"halo_gather": 25, "halo_reduce": 24, "group_sum": 2}
+SPATIAL_OUT = TRAIN_OUT.with_name("chip_smoke_spatial")
+
+
+def _spatial_scene() -> torch.Tensor:
+    """Phase 17's first scene (1024x1536), normalized NHWC on the card."""
+    from iswm_tpu_torch.data import val_transform_batch
+
+    h, w = SCENES[0]
+    scene = np.random.default_rng(SEED).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return val_transform_batch(torch.from_numpy(scene).cuda())
+
+
+def _spatial_model():
+    """Phase 21's serving model: the configuration's (bf16) from seeded
+    weights on cuda:0."""
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.models import build_model
+
+    return build_model(Config().model, seed=SEED).to("cuda:0")
+
+
+def _scene_ms(engine, x, reps: int = 3) -> float:
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.infer_scene(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def _saved_mib(loss: torch.Tensor, model) -> dict:
+    """{autograd node class: MiB of the device tensors it saved for the
+    backward} over ``loss``'s graph (a custom function's ``saved_tensors``
+    too), ``model``'s parameters left out, each storage counted once, at the
+    first node that holds it (a conv's input saved by the ReLU before it too
+    counts at one of the two)."""
+    seen = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    by_node, stack, visited = {}, [loss.grad_fn], set()
+    while stack:
+        node = stack.pop()
+        if node is None or node in visited:
+            continue
+        visited.add(node)
+        attrs = [a for a in dir(node) if a.startswith("_saved_")]
+        if isinstance(node, torch.autograd.function.BackwardCFunction):
+            attrs.append("saved_tensors")
+        for attr in attrs:
+            value = getattr(node, attr)
+            for t in value if isinstance(value, (tuple, list)) else (value,):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    storage = t.untyped_storage()
+                    if storage.data_ptr() not in seen:
+                        seen.add(storage.data_ptr())
+                        name = type(node).__name__
+                        by_node[name] = by_node.get(name, 0.0) + storage.nbytes() / 2**20
+        stack.extend(f for f, _ in node.next_functions)
+    return dict(sorted(by_node.items(), key=lambda kv: -kv[1]))
+
+
+def _spatial_numbers(step, state, x, y, mesh=None) -> dict:
+    """The loss of a step from the seeded state; after a warm-up step, one
+    step's collectives over the model group and their bytes, kernel #4's
+    launches and the peak memory; what a train forward saves for its
+    backward, by autograd node (:func:`_saved_mib`); the median of 3 steps on
+    the host's clock; the device time, launches and device time by class of
+    one step (one profiler trace of 2)."""
+    import gc
+
+    from iswm_tpu_torch.ops.kernels import fused_ce as ce
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.parallel import spatial, spatial_rows
+
+    loss = float(step(state, x, y))
+    step(state, x, y)
+    net = state.model if state.replicated is None else state.replicated
+    rows = (lambda t: t) if mesh is None else (lambda t: spatial_rows(mesh, t))
+    with spatial.spatially_split(mesh):
+        graph = make_loss_fn("ce_loss", fused="auto", device="cuda")(
+            net(rows(x).permute(0, 3, 1, 2)), rows(y))
+    saved = _saved_mib(graph, state.model)
+    graph.backward()  # as a step's, so that DDP's reduction completes
+    del graph
+    state.optimizer.zero_grad(set_to_none=True)
+    spatial.reset_counts()
+    counts = (ce.launches_sharded, ce.launches_fwd, ce.launches_bwd)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    step(state, x, y)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    numbers = {"loss": loss, "peak_mib": peak, "base_mib": base, "saved": saved,
+               "collectives": dict(spatial.collectives),
+               "bytes": dict(spatial.collective_bytes),
+               "ce": tuple(b - a for a, b in zip(counts, (ce.launches_sharded, ce.launches_fwd,
+                                                          ce.launches_bwd)))}
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    records = traced_records(lambda: step(state, x, y), 2, 1)
+    by_class = {}
+    for name, (us, n) in records.items():
+        cls = "copies" if "memcpy" in name.lower() else _kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + us * n / 1e3
+    numbers.update(host_ms=float(np.median(times)), device_ms=sum(by_class.values()),
+                   launches=sum(n for _, n in records.values()), by_class=by_class)
+    return numbers
+
+
+def _rank_spatial(rank: int, ranks: int, rendezvous: str, out: str) -> None:
+    """Phase 21 in a spawned rank, a model group of both (data 1 x model 2):
+    phase 15's f32 step and a bf16 step on this rank's 256 of the 512 rows of
+    all 8 images, then the scene-parallel int8_exec_xla engine."""
+    from iswm_tpu_torch.infer.quantization import make_variant_fn
+    from iswm_tpu_torch.infer.tiling import TileEngine
+    from iswm_tpu_torch.ops.kernels import fused_ce as ce
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
+    from iswm_tpu_torch.ops.kernels import int8_matmul as k8
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.parallel import destroy, make_mesh
+    from iswm_tpu_torch.train import TrainState, make_train_step
+    from iswm_tpu_torch.train.step import data_parallel
+
+    _join_gloo(rank, ranks, rendezvous)
+    try:
+        mesh = make_mesh(1, ranks)
+        x, y = _dp_batch()
+        step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"), mesh=mesh)
+        ce.launches_fwd = ce.launches_bwd = ce.launches_sharded = 0
+        seen = _f32_rank_steps(step, x, y, rank)
+        torch.backends.cudnn.benchmark = True  # as the Trainer runs
+        model, factory = _dp_model("bfloat16")
+        state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
+        seen["bf16"] = _spatial_numbers(step, state, x, y, mesh)
+        seen["train launches"] = (ce.launches_sharded, ce.launches_fwd, ce.launches_bwd)
+        del model, state
+
+        fn = make_variant_fn(_spatial_model(), "int8_exec_xla",
+                             conv_scales=torch.load(Path(out) / "scales.pt"))
+        engine = TileEngine(fn, tile=512, overlap=64, batch=SPATIAL_SERVE_BATCH,
+                            mesh=make_mesh())
+        scene = _spatial_scene()
+        k8.launches = kc.launches_quantize = kc.launches_igemm = 0
+        logits = engine.infer_scene(scene)
+        torch.cuda.synchronize()
+        seen["serve launches"] = {"matmul": k8.launches, "quantize": kc.launches_quantize,
+                                  "igemm": kc.launches_igemm}
+        seen["scene_ms"] = _scene_ms(engine, scene)
+        if rank == 0:
+            seen["logits"] = logits.cpu()
+    finally:
+        destroy()
+    torch.save(seen, Path(out) / f"_rank_spatial.{rank}.pt")
+
+
+def phase_spatial(smi: str) -> dict:
+    """The spatial model axis (data 1 x model 2 on two gloo ranks on cuda:0),
+    the scene-parallel engine and the multi-device dry run; returns this
+    phase's launches of each kernel it drives."""
+    from iswm_tpu_torch.infer.quantization import calibrate_conv_inputs, make_variant_fn
+    from iswm_tpu_torch.infer.tiling import TileEngine
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.parallel import destroy
+    from iswm_tpu_torch.parallel.dryrun import dryrun_multichip
+    from iswm_tpu_torch.train import TrainState, make_train_step
+    from iswm_tpu_torch.train.step import data_parallel
+
+    t_phase = time.perf_counter()
+    SPATIAL_OUT.mkdir(parents=True, exist_ok=True)
+    # the one-process side: phase 15's reference in a 1-rank group, the bf16
+    # step alone, and the one-rank engine on the scene (its scales for the ranks)
+    _open_group("phase21.nccl")
+    reference = _dp_reference()
+    x, y = _dp_batch()
+    torch.backends.cudnn.benchmark = True
+    step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
+    # the bf16 step in the 1-rank group: the ranks' BatchNorm arithmetic
+    # (cross-replica, float32 passes) and DDP, on all the rows
+    model, factory = _dp_model("bfloat16")
+    grouped = _spatial_numbers(step, TrainState(model, *factory(model.parameters()), 0,
+                                                data_parallel(model)), x, y)
+    del model
+    destroy()
+    step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
+    model, factory = _dp_model("bfloat16")
+    single = _spatial_numbers(step, TrainState(model, *factory(model.parameters()), 0), x, y)
+    del model
+    scene = _spatial_scene()
+    model = _spatial_model()
+    scales = calibrate_conv_inputs(model, [scene[:512, :512][None].permute(0, 3, 1, 2)],
+                                   wide=True)
+    torch.save(scales, SPATIAL_OUT / "scales.pt")
+    fn = make_variant_fn(model, "int8_exec_xla", conv_scales=scales)
+    del model
+    engine = TileEngine(fn, tile=512, overlap=64, batch=2 * SPATIAL_SERVE_BATCH)
+    want = engine.infer_scene(scene)
+    scene_ms = _scene_ms(engine, scene)
+    del fn, engine
+
+    t_ranks = time.perf_counter()
+    ranks = _spawn_ranks(_rank_spatial, SPATIAL_OUT)
+    t_ranks = time.perf_counter() - t_ranks
+    _hold_two_rank_step(reference, ranks, "[21]", "data 1 x model 2: 256 of the 512 rows "
+                                                  "of all 8 images each")
+    for r, seen in enumerate(ranks):
+        bf16 = seen["bf16"]
+        check(bf16["collectives"] == SPATIAL_COLLECTIVES,
+              f"rank {r}: collectives a step {bf16['collectives']}, expected "
+              f"{SPATIAL_COLLECTIVES}")
+        check(bf16["ce"] == (1, 1, 1), f"rank {r}: sharded CE, kernel #4 forward and backward "
+                                       f"launches a step {bf16['ce']}, expected one each")
+    losses = [seen["bf16"]["loss"] for seen in ranks]
+    rel = abs(losses[0] - single["loss"]) / abs(single["loss"])
+    check(losses[0] == losses[1] and np.isfinite(losses[0]), f"bf16 split losses {losses}")
+    check(rel <= SPATIAL_BF16_LIMIT, f"bf16 split step loss {losses[0]} against one process "
+                                     f"{single['loss']} (rel {rel:.2e}, limit "
+                                     f"{SPATIAL_BF16_LIMIT})")
+    print(f"[21] bf16 step from seeded weights (dropout off), split over 2 ranks against one "
+          f"process: loss {losses[0]:.6f} on both vs {single['loss']:.6f} (rel {rel:.2e}, "
+          f"limit {SPATIAL_BF16_LIMIT})")
+    for name, numbers in (("one process", single), ("one process in a 1-rank group", grouped),
+                          *((f"rank {r} of 2", seen["bf16"]) for r, seen in enumerate(ranks))):
+        print(f"[21] {smi}: bf16 step, batch 8 at 512^2, {name}: peak "
+              f"{numbers['peak_mib']:.1f} MiB ({numbers['base_mib']:.1f} before the step), "
+              f"device {numbers['device_ms']:.2f} ms in {numbers['launches']:.0f} launches ("
+              + ", ".join(f"{c} {t:.2f}" for c, t in sorted(numbers["by_class"].items(),
+                                                           key=lambda kv: -kv[1]))
+              + f"), host {numbers['host_ms']:.2f} ms (median of 3); a train forward saves "
+              f"{sum(numbers['saved'].values()):.1f} MiB ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in list(numbers["saved"].items())[:5])
+              + "); collectives a step "
+              f"{numbers['collectives']}, bytes {numbers['bytes']}; sharded CE / #4 forward / "
+              f"#4 backward launches a step {numbers['ce']}")
+
+    got = ranks[0]["logits"].cuda()
+    gap = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    serve = {k: sum(seen["serve launches"][k] for seen in ranks)
+             for k in ("matmul", "quantize", "igemm")}
+    check(tuple(got.shape) == tuple(want.shape) and bool(torch.isfinite(got).all()),
+          f"scene-parallel logits {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+    check(agree >= 0.999, f"scene-parallel mask agreement {agree:.6f} with the one-rank engine "
+                          "(limit 0.999)")
+    check(all(v > 0 for v in serve.values()), f"scene-parallel launches {serve}")
+    print(f"[21] {smi}: int8_exec_xla TileEngine on the 1024x1536 scene, 2 ranks x batch "
+          f"{SPATIAL_SERVE_BATCH} against one rank x batch {2 * SPATIAL_SERVE_BATCH}: mask "
+          f"agreement {agree:.6f} (limit 0.999), logit gap {gap:.3e}; launches over both ranks "
+          f"{serve}; scene ms (median of 3) one rank {scene_ms:.2f}, ranks "
+          f"{[round(seen['scene_ms'], 2) for seen in ranks]} (two processes share the card)")
+
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device="cuda", backend="gloo")
+    t_dry = time.perf_counter() - t0
+    print(f"[21] dryrun_multichip(4) as 4 gloo ranks on cuda:0 (data 2 x model 2, "
+          f"resnet50 crop 32, then int8_exec_xla serving) in {t_dry:.1f} s; phase 21 in "
+          f"{time.perf_counter() - t_phase:.1f} s: the two ranks' process {t_ranks:.1f} s, the "
+          f"dry run {t_dry:.1f} s, the one-process side the rest")
+    train = [sum(seen["train launches"][i] for seen in ranks) for i in range(3)]
+    return {"sharded": train[0], "fwd": train[1], "bwd": train[2], **serve}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -5161,6 +5482,15 @@ def main() -> int:
             bwd_launches[f"{kind}_by_body"][body] += remat[f"int8_conv.{kind} {body}"]
     for e in ("quantize", "igemm"):
         bwd_launches[e] += remat[f"int8_conv.{e} device"]
+    # the spatial model axis: the split steps' #4 / #5 and the scene-parallel
+    # serving's #1 and int8 convs, summed over the phase's two ranks
+    spatial = phase_spatial(smi)
+    sharded_launches += spatial["sharded"]
+    ce_fwd += spatial["fwd"]
+    ce_bwd += spatial["bwd"]
+    launches += spatial["matmul"]
+    for e in ("quantize", "igemm"):
+        xla_launches[e] += spatial[e]
     by_scale = {e: {"host": xla_launches[e] + qat_launches[e]["host"],
                     "device": qat_launches[e]["device"] + bwd_launches[e]}
                 for e in ("quantize", "igemm")}

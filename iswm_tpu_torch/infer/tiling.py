@@ -7,6 +7,13 @@ through the model in chunks of ``batch``; each tile's logits, weighted by a
 separable ramp that downweights tile borders, are added into a canvas, and
 the canvas is divided by the summed weights.  ``tile_origins`` and
 ``_blend_window`` are numpy copies of the JAX module's (it imports jax).
+
+With a ``mesh`` (``parallel.make_mesh``) the engine is scene-parallel, as the
+JAX engine over a mesh's data axis: ``batch`` is per rank, a chunk is
+``batch * mesh.data`` tiles, each rank runs its data index's slice of every
+chunk, and the chunk's logits are all-gathered over the default group (the
+ranks of a model group run the same slice; the first of each gives it), so
+that every rank blends the whole scene, as the JAX engine's replicated blend.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def tile_origins(size: int, tile: int, stride: int) -> np.ndarray:
@@ -59,10 +67,12 @@ class TileEngine:
     ``model_fn(images[N,T,T,C]) -> logits[N,T,T,num_classes]`` takes
     normalized float input.  ``infer_scene`` takes a normalized [H,W,C]
     scene tensor and returns [H,W,num_classes] float32 logits on its device.
+    With ``mesh``, every rank of the default group calls ``infer_scene`` on
+    the same scene (see the module docstring).
     """
 
     def __init__(self, model_fn: Callable, tile: int = 512, overlap: int = 64,
-                 batch: int = 8, num_classes: int = 2):
+                 batch: int = 8, num_classes: int = 2, mesh=None):
         if overlap >= tile:
             raise ValueError("overlap must be < tile")
         self.model_fn = model_fn
@@ -70,6 +80,8 @@ class TileEngine:
         self.overlap = overlap
         self.batch = batch
         self.num_classes = num_classes
+        self.mesh = mesh
+        self.ranks = 1 if mesh is None else mesh.data
         self._window = torch.from_numpy(_blend_window(tile, overlap))
         # per (h, w, device): (origins, summed-weight canvas)
         self._plans: Dict[Tuple, Tuple[np.ndarray, torch.Tensor]] = {}
@@ -101,16 +113,28 @@ class TileEngine:
         origins, weights = self._plan(h, w, scene.device)
         window = self._window.to(scene.device)[..., None]
         n = len(origins)
-        # the tile list is padded to a batch multiple with the last origin;
+        size = self.batch * self.ranks
+        # the tile list is padded to a chunk multiple with the last origin;
         # only the first n tiles are accumulated
-        padded = np.concatenate([origins, np.repeat(origins[-1:], (-n) % self.batch, 0)])
+        padded = np.concatenate([origins, np.repeat(origins[-1:], (-n) % size, 0)])
         canvas = torch.zeros((h, w, self.num_classes), dtype=torch.float32,
                              device=scene.device)
-        for c0 in range(0, len(padded), self.batch):
-            chunk = padded[c0 : c0 + self.batch]
-            tiles = torch.stack([scene[oy : oy + t, ox : ox + t] for oy, ox in chunk])
-            logits = self.model_fn(tiles)
-            for i in range(min(self.batch, n - c0)):
+        mine = slice(0, size) if self.mesh is None else slice(
+            self.mesh.data_index * self.batch, (self.mesh.data_index + 1) * self.batch)
+        for c0 in range(0, len(padded), size):
+            chunk = padded[c0 : c0 + size]
+            tiles = torch.stack([scene[oy : oy + t, ox : ox + t] for oy, ox in chunk[mine]])
+            logits = self.model_fn(tiles).float()
+            if self.mesh is not None:
+                logits = self._gather(logits)
+            for i in range(min(size, n - c0)):
                 oy, ox = chunk[i]
-                canvas[oy : oy + t, ox : ox + t] += logits[i].float() * window
+                canvas[oy : oy + t, ox : ox + t] += logits[i] * window
         return canvas / weights
+
+    def _gather(self, logits: torch.Tensor) -> torch.Tensor:
+        """Every data index's slice of a chunk, in order, on every rank."""
+        logits = logits.contiguous()
+        parts = [torch.empty_like(logits) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, logits)
+        return torch.cat(parts[::self.mesh.model])

@@ -35,7 +35,15 @@ import torch
 import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
-from .layers import QUANT_OFF, BatchNorm2d, ConvBN, QuantSpec, SeparableConvBN, conv
+from .layers import (
+    QUANT_OFF,
+    BatchNorm2d,
+    ConvBN,
+    GlobalAvgPool2d,
+    QuantSpec,
+    SeparableConvBN,
+    conv,
+)
 from .remat import segment
 
 
@@ -46,10 +54,12 @@ def _conv3x3(separable: bool, quant: QuantSpec):
 
 class ASPPPooling(nn.Sequential):
     """Image-level branch: global average pool, 1x1 ConvBN (children
-    ``1``, ``2``); its [B, C, 1, 1] output is broadcast by the ASPP."""
+    ``1``, ``2``); its [B, C, 1, 1] output is broadcast by the ASPP.  Under
+    ``spatially_split`` the pool sums over the model group, and the branch's
+    output is the same on every rank of it."""
 
     def __init__(self, in_ch: int, out_ch: int, quant: QuantSpec = QUANT_OFF):
-        super().__init__(nn.AdaptiveAvgPool2d(1), conv(in_ch, out_ch, 1, quant=quant),
+        super().__init__(GlobalAvgPool2d(), conv(in_ch, out_ch, 1, quant=quant),
                          BatchNorm2d(out_ch), nn.ReLU(inplace=True))
 
 

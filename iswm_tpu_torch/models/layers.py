@@ -8,12 +8,14 @@ modules cast their kernels to ``dtype``.
 The TPU lowering rewrites of the JAX package (``PackedStrided2Conv``,
 ``ShiftedDilatedConv``, ``ConcatConvBN``, ``BlockDiagConv``) compute the
 same math as a plain conv, so here each of them is one ``Conv2d``.
-``max_pool_torch`` is ``nn.MaxPool2d(3, 2, 1)`` and ``global_avg_pool`` is
-``nn.AdaptiveAvgPool2d(1)``.  ``FusedStemPool`` runs the stem's conv, BatchNorm,
-ReLU and max-pool through the fused stem kernels (``ops/kernels/fused_stem``).
-In a process group, train-mode ``BatchNorm2d`` takes its statistics over every
-rank's rows (``CrossReplicaBatchNorm``), as the JAX package's does under a
-jit sharded over the data axis.
+``max_pool_torch`` is ``MaxPool2d(3, 2, 1)`` and ``global_avg_pool`` is
+``GlobalAvgPool2d``: the library modules, with a path for a rank's image rows
+under ``parallel/spatial.py``'s ``spatially_split``, as ``Conv2d`` has.
+``FusedStemPool`` runs the stem's conv, BatchNorm, ReLU and max-pool through
+the fused stem kernels (``ops/kernels/fused_stem``).  In a process group,
+train-mode ``BatchNorm2d`` takes its statistics over every rank's rows
+(``CrossReplicaBatchNorm``), as the JAX package's does under a jit sharded
+over the data axis.
 
 Quantization-aware training (``QuantSpec``, the JAX package's, threaded from
 ``ModelConfig`` by ``build_model``): a conv site that the spec routes is a
@@ -35,6 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from ..parallel.distributed import is_initialized
 from .remat import first_read, recomputing
 
@@ -103,12 +106,52 @@ def torch_conv_padding(kernel_size: int, dilation: int = 1) -> int:
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that runs in the dtype of its input: the weight (and
-    bias) are cast to it, which is a no-op once they are stored in it."""
+    bias) are cast to it, which is a no-op once they are stored in it.
+
+    Under ``parallel/spatial.py``'s ``spatially_split`` ``x`` is this rank's
+    rows of the image: the conv fetches the rows its output rows read (its H
+    padding as zero rows) and runs with H padding 0.  Grouped and depthwise
+    convs take the same path."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
+        padding = self.padding
+        if spatial.current() is not None:
+            x = spatial.window_rows(x, self.kernel_size[0], self.stride[0], self.padding[0],
+                                    self.dilation[0])
+            padding = (0, self.padding[1])
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
-                        self.padding, self.dilation, self.groups)
+                        padding, self.dilation, self.groups)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d``; under ``spatially_split`` it fetches its rows as the
+    conv does, its padding rows -inf."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.current() is None:
+            return super().forward(x)
+        k, s, p, d = (v if isinstance(v, int) else v[0] for v in (
+            self.kernel_size, self.stride, self.padding, self.dilation))
+        x = spatial.window_rows(x, k, s, p, d, fill=float("-inf"))
+        return F.max_pool2d(x, self.kernel_size, self.stride, (0, p), self.dilation,
+                            self.ceil_mode)
+
+
+class GlobalAvgPool2d(nn.AdaptiveAvgPool2d):
+    """``nn.AdaptiveAvgPool2d(1)``; under ``spatially_split`` the float32 sum
+    of this rank's rows, summed over the model group (whose backward is a
+    group sum too) and divided by the global H * W."""
+
+    def __init__(self):
+        super().__init__(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = spatial.current()
+        if split is None:
+            return super().forward(x)
+        total = spatial.group_sum(x.float().sum(dim=(2, 3), keepdim=True))
+        return (total / (split.size * x.shape[2] * x.shape[3])).to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -43,7 +43,15 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from .layers import QUANT_OFF, BatchNorm2d, FusedStemPool, QuantSpec, conv, fused_stem_eligible
+from .layers import (
+    QUANT_OFF,
+    BatchNorm2d,
+    FusedStemPool,
+    MaxPool2d,
+    QuantSpec,
+    conv,
+    fused_stem_eligible,
+)
 from .remat import segment
 
 
@@ -169,7 +177,7 @@ class ResNet(nn.Module):
         self.conv1 = conv(in_channels, 64, 7, 2)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool2d(3, 2, 1)
         in_ch, dilation = 64, 1
         for stage_idx, (planes, blocks) in enumerate(
             zip((64, 128, 256, 512), layer_sizes)

@@ -1,5 +1,7 @@
-"""Data-parallel training across processes, the counterpart of
-``iswm_tpu/parallel``: process groups and the data layout."""
+"""Training across processes, the counterpart of ``iswm_tpu/parallel``:
+process groups, the (data, model) layout, and the image rows split over a
+model group (``spatial``).  ``python -m iswm_tpu_torch.parallel.dryrun``
+runs the multi-device dry run."""
 
 from .distributed import (
     destroy,
@@ -10,11 +12,10 @@ from .distributed import (
     rank,
     world_size,
 )
-from .mesh import SPATIAL_ITEM, Mesh, make_mesh, shard_batch
+from .mesh import Mesh, make_mesh, shard_batch, spatial_rows
 
 __all__ = [
     "Mesh",
-    "SPATIAL_ITEM",
     "destroy",
     "is_initialized",
     "local_device",
@@ -23,5 +24,6 @@ __all__ = [
     "process_local_batch_slice",
     "rank",
     "shard_batch",
+    "spatial_rows",
     "world_size",
 ]

@@ -17,6 +17,15 @@ block (``models/remat.py``): each block keeps its input, and the backward
 recomputes its forward, with the same arithmetic, so the step's results are
 those of the plain step.  The forward kernels run twice a step then.
 
+With a ``mesh`` whose model axis is above 1 (the spatial split, the JAX
+package's ``P(data, model)`` images) every rank of a model group augments the
+same rows of the batch alike (its generator is seeded by data index), takes
+its share of the image rows of images and labels (``parallel.spatial_rows``)
+and runs the forward, loss and backward under ``parallel/spatial.py``'s
+``spatially_split``: the spatial operators exchange halos over the model
+group; the BatchNorm, the loss and the gradient reduction, over the default
+group, are unchanged, since a rank's pixels are its own.
+
 In a process group the step runs through ``data_parallel``'s
 ``DistributedDataParallel`` wrapper, whose gradient reduction SUMS over the
 ranks (the JAX package's psum) where DDP's default averages: with the
@@ -35,6 +44,8 @@ from torch.nn.parallel import DistributedDataParallel
 
 from ..data.transforms import AugmentConfig, augment_batch, val_transform_batch
 from ..models.remat import rematerialized
+from ..parallel.mesh import Mesh, spatial_rows
+from ..parallel.spatial import spatially_split
 
 
 @dataclass
@@ -75,26 +86,32 @@ def make_train_step(
     augment: Optional[AugmentConfig] = None,
     generator: Optional[torch.Generator] = None,
     remat: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor], torch.Tensor]:
     """``train_step(state, images, labels) -> loss`` (0-d, on the device).
 
     With ``augment``, images are raw uint8 (or [0, 1] float) and go through
     scale/crop/flip/normalize drawn from ``generator`` (on the images'
     device); without it they are used as given.  ``remat`` recomputes the
-    forward's activations in the backward, block by block.  Updates
-    ``state`` in place."""
+    forward's activations in the backward, block by block.  With a ``mesh``
+    of a model axis above 1, ``images`` and ``labels`` are the data group's
+    rows and the step runs on this rank's image rows of them, split over
+    the model group.  Updates ``state`` in place."""
     if augment is not None and generator is None:
         raise ValueError("augmentation needs a torch.Generator")
+    split = mesh if mesh is not None and mesh.model > 1 else None
 
     def train_step(state: TrainState, images: torch.Tensor,
                    labels: torch.Tensor) -> torch.Tensor:
         if augment is not None:
             images, labels = augment_batch(images, labels, augment, generator)
+        if split is not None:
+            images, labels = spatial_rows(split, images), spatial_rows(split, labels)
         net = state.model if state.replicated is None else state.replicated
         net.train()
-        with rematerialized(remat):
+        with rematerialized(remat), spatially_split(split):
             logits = net(images.permute(0, 3, 1, 2))
-        loss = loss_fn(logits, labels)
+            loss = loss_fn(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()

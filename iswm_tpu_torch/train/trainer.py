@@ -26,6 +26,12 @@ block by block (``models/remat.py``); ``model.param_dtype`` stores the
 parameters, and so the gradients and the optimizer's state, in bfloat16 or
 float16.
 
+``parallel.model_axis`` above 1 splits the image rows of each step over the
+ranks of a model group (``parallel/spatial.py``): the ranks form a (data,
+model) grid (``parallel.make_mesh``), every rank of a model group reads the
+rows of its data index and augments them alike, and the crop size must be a
+multiple of ``output_stride * model_axis``.
+
 What the port does not carry yet is refused with ``NotImplementedError``
 naming its ROADMAP item (``refuse_unported``).
 """
@@ -52,7 +58,7 @@ from ..metrics.device import DeviceEvalAccumulator
 from ..models import build_model
 from ..models.layers import switch_off_int8
 from ..ops.losses import make_loss_fn
-from ..parallel import SPATIAL_ITEM, is_initialized, local_device, make_mesh, rank
+from ..parallel import is_initialized, local_device, make_mesh, rank
 from . import checkpoint as ckpt_lib
 from .best_score import is_best_score, update_best_score
 from .logging import MetricsLogger, try_setup_mlflow
@@ -60,15 +66,35 @@ from .optim import make_optimizer
 from .step import TrainState, data_parallel, make_eval_step, make_train_step
 
 
+SPATIAL_OPTIONS_ITEM = "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'"
+
+
 def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for an option this slice does not port."""
-    if cfg.parallel.model_axis > 1:
-        raise NotImplementedError(f"parallel.model_axis > 1 is not ported yet ({SPATIAL_ITEM})")
+    """Raise ``NotImplementedError`` for an option this slice does not port:
+    under a model axis above 1, the options whose operators have no path for
+    a rank's image rows yet."""
+    if cfg.parallel.model_axis <= 1:
+        return
+    m = cfg.model
+    refused = ([f"model.backbone={m.backbone!r}"]
+               if m.backbone in ("mobilenetv2", "xception") else [])
+    refused += [f"model.{k}={getattr(m, k)!r}" for k in ("fused_stem", "fused_blocks")
+                if getattr(m, k) in ("always", "interpret")]
+    if m.int8_training:
+        refused.append(f"model.int8_training={m.int8_training!r}")
+    if cfg.parallel.remat:
+        refused.append("parallel.remat=True")
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)} under parallel.model_axis={cfg.parallel.model_axis} is "
+            f"not ported yet ({SPATIAL_OPTIONS_ITEM})")
 
 
 def rank_seed(seed: int, rank: int) -> int:
-    """The seed of a rank's random streams (augmentation, dropout): ``seed``
-    on rank 0, so that one process draws as before, and apart on the others."""
+    """The seed of a rank's random streams: ``seed`` on rank 0, so that one
+    process draws as before, and apart on the others.  Augmentation takes
+    the data index for ``rank`` (a model group crops and flips alike),
+    dropout the rank."""
     return seed + (rank << 32)
 
 
@@ -97,13 +123,18 @@ class Trainer:
                 f"batch_size ({cfg.data.batch_size}) must be divisible by the "
                 f"mesh data axis ({self.mesh.data} devices); adjust batch_size "
                 f"or pass a smaller mesh")
+        rows = cfg.model.output_stride * self.mesh.model
+        if self.mesh.model > 1 and cfg.data.crop_size % rows != 0:
+            raise ValueError(
+                f"crop_size ({cfg.data.crop_size}) must be a multiple of output_stride * "
+                f"model_axis ({cfg.model.output_stride} * {self.mesh.model} = {rows}): "
+                f"every stride-2 stage must see an even share of the rows on each rank")
         if is_initialized() and self.device.type == "cuda" and self.device.index is None:
             self.device = local_device()
         self.rank = rank()
         self.lead = self.rank == 0  # validates, checkpoints and logs
-        seed = rank_seed(cfg.train.random_seed, self.rank)
-        # one seed for the default generators: dropout draws from them
-        torch.manual_seed(seed)
+        # the default generators (dropout) by rank, the augmentation by data index
+        torch.manual_seed(rank_seed(cfg.train.random_seed, self.rank))
         if self.device.type == "cuda":
             torch.backends.cudnn.benchmark = True  # autotuned convs, as XLA's
 
@@ -152,10 +183,11 @@ class Trainer:
             scale_max=cfg.data.scale_range[1], hflip_prob=cfg.data.hflip_prob,
             mean=tuple(cfg.data.mean), std=tuple(cfg.data.std),
         )
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            rank_seed(cfg.train.random_seed, self.mesh.data_index))
         self.train_step = make_train_step(self.loss_fn, augment=self.augment,
                                           generator=self.generator,
-                                          remat=cfg.parallel.remat)
+                                          remat=cfg.parallel.remat, mesh=self.mesh)
         self.eval_step = make_eval_step(model, want=("preds",))
         # the int8 -> plain switch (0: none)
         self._switch_iter = cfg.train.int8_switch_iter if cfg.model.int8_training else 0
@@ -232,7 +264,7 @@ class Trainer:
         it = device_prefetch_iterator(
             batch_iterator(self.train_ds, cfg.data.batch_size, shuffle=True,
                            drop_last=True, seed=cfg.train.random_seed, epochs=None,
-                           shard=(self.rank, self.mesh.data)),
+                           shard=(self.mesh.data_index, self.mesh.data)),
             device=self.device, depth=cfg.data.num_workers // 2 or 2,
         )
         pending = []

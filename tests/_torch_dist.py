@@ -44,7 +44,7 @@ def join_ranks(context, out_dir: str, timeout: float, world: int = WORLD) -> lis
 
 
 def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir: str):
-    from iswm_tpu_torch.parallel import destroy, maybe_initialize_distributed
+    from iswm_tpu_torch.parallel import destroy, make_mesh, maybe_initialize_distributed
 
     torch.set_num_threads(2)
     payload = torch.load(payload_path, weights_only=False)
@@ -62,6 +62,14 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
             "refusals": _refusals(),
             "fit": _fit(payload["fit_dir"]),
         }
+        spatial = make_mesh(1, WORLD)  # one model group of both ranks
+        seen.update({
+            "spatial_mesh": _spatial_mesh_checks(spatial),
+            "halo": [_halo(spatial, case) for case in payload["halo_cases"]],
+            "spatial_step": _train_step(payload["step"], mesh=spatial),
+            "tiles": _tile_engines(payload["tiles"]),
+            "dryrun": _dryrun(),
+        })
     finally:
         destroy()
     seen["jax_loaded"] = sorted(m for m in sys.modules
@@ -104,7 +112,7 @@ def _mesh_checks() -> dict:
         "not_divisible": _raised(lambda: process_local_batch_slice(3)),
         "model_3": _raised(lambda: make_mesh(model_axis=3)),
         "data_3": _raised(lambda: make_mesh(data_axis=3)),
-        "model_2": _raised(lambda: make_mesh(model_axis=2)),
+        "model_2": make_mesh(model_axis=2).shape,
         "odd_batch": _raised(lambda: shard_batch(mesh, x[:3])),
     }
 
@@ -156,17 +164,25 @@ def _dropout_off(model) -> None:
             m.p = 0.0
 
 
+# the options still refused under a model axis above 1 (section, key, value)
+SPATIAL_REFUSED = (("model", "backbone", "mobilenetv2"), ("model", "backbone", "xception"),
+                   ("model", "fused_stem", "always"), ("model", "fused_blocks", "interpret"),
+                   ("model", "int8_training", 64), ("parallel", "remat", True))
 QAT = dict(int8_training=64, int8_scale_mode="delayed")  # the QAT step's model
 QAT_BWD = dict(QAT, int8_training_bwd=True)  # ... with QAT's int8 backward
 
 
-def _train_step(case: dict, quant: dict | None = None, remat: bool = False) -> dict:
+def _train_step(case: dict, quant: dict | None = None, remat: bool = False,
+                mesh=None) -> dict:
     """One data-parallel step of resnet18 from the crossed weights on this
     rank's rows: the sharded CE (plain versions), the cross-replica
     BatchNorm and the summing gradient reduction; with ``quant`` (``QAT``,
     ``QAT_BWD``), of that QAT model, its amaxes (and with the int8 backward
     its cotangents' amaxes) taken over both ranks; with ``remat``, the
-    activations recomputed block by block in the backward."""
+    activations recomputed block by block in the backward; with a ``mesh``
+    of a model axis, the step on this rank's image rows of its data index's
+    batch rows, with its halo exchanges counted."""
+    from iswm_tpu_torch.parallel import shard_batch, spatial
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig, OptimConfig
     from iswm_tpu_torch.models import build_model, layers
@@ -184,9 +200,12 @@ def _train_step(case: dict, quant: dict | None = None, remat: bool = False) -> d
     before = {k: v.clone() for k, v in model.state_dict().items()}
     all_reduces = layers.cross_replica_all_reduces
     amax_reduces = int8_train.amax_all_reduces
-    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat)(
-        state, torch.from_numpy(_rows(case["images"])), torch.from_numpy(_rows(case["labels"])))
+    rows = _rows if mesh is None else (lambda a: shard_batch(mesh, a))
+    spatial.reset_counts()
+    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat, mesh=mesh)(
+        state, torch.from_numpy(rows(case["images"])), torch.from_numpy(rows(case["labels"])))
     return {"loss": float(loss), "before": before,
+            "collectives": dict(spatial.collectives),
             "after": {k: v.clone() for k, v in model.state_dict().items()},
             "count": state.step,
             "all_reduces": layers.cross_replica_all_reduces - all_reduces,
@@ -213,6 +232,107 @@ def _int8_bwd_conv(case: dict) -> dict:
     return {"dx": x.grad, "dw": dw, "amax_all_reduces": int8_train.amax_all_reduces - reduces}
 
 
+def _spatial_mesh_checks(mesh) -> dict:
+    """A data 1 x model 2 mesh: its indices, the model group, the batch rows
+    (the whole batch on both ranks) and the image rows."""
+    import torch.distributed as dist
+
+    from iswm_tpu_torch.parallel import shard_batch, spatial_rows
+
+    x = np.arange(8 * 3).reshape(8, 3)
+    images = np.arange(2 * 6 * 5).reshape(2, 6, 5)
+    ones = torch.ones(1)
+    dist.all_reduce(ones, group=mesh.group)
+    return {"shape": mesh.shape, "indices": (mesh.data_index, mesh.model_index),
+            "group_size": dist.get_world_size(mesh.group), "group_sum": float(ones),
+            "sx": shard_batch(mesh, x), "rows": spatial_rows(mesh, images),
+            "odd_rows": _raised(lambda: spatial_rows(mesh, images[:, :5]))}
+
+
+def halo_op(case: dict):
+    """(fn(x, model_axis), parameters) of a halo case: ``fn`` runs the
+    port's module on rows ``x`` of an image split over ``model_axis`` ranks
+    (1: the whole image, one process)."""
+    from iswm_tpu_torch.models import layers
+    from iswm_tpu_torch.models.deeplab import ASPPPooling
+    from iswm_tpu_torch.ops.resize import resize_bilinear
+
+    kind = case["kind"]
+    if kind == "conv":
+        module = layers.Conv2d(**case["conv"], bias=False)
+    elif kind == "pool":
+        module = layers.MaxPool2d(3, 2, 1)
+    elif kind == "pooling":
+        module = ASPPPooling(*case["channels"]).train()
+    else:
+        out_h, out_w = case["size"]
+        return (lambda x, m: resize_bilinear(x, (out_h // m, out_w))), {}
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.copy_(torch.from_numpy(case["params"][name]))
+    if kind == "pooling":  # broadcast over the rows, as the ASPP does
+        return (lambda x, m: module(x).expand(-1, -1, x.shape[2], x.shape[3])), \
+            dict(module.named_parameters())
+    return (lambda x, m: module(x)), dict(module.named_parameters())
+
+
+def _halo(mesh, case: dict) -> dict:
+    """A halo case on this rank's rows under ``spatially_split``: y and dx
+    of the rows, this rank's parameter gradients, the collectives made."""
+    from iswm_tpu_torch.parallel import spatial, spatial_rows
+
+    fn, params = halo_op(case)
+    x = spatial_rows(mesh, torch.from_numpy(case["x"]), dim=2).clone().requires_grad_()
+    spatial.reset_counts()
+    with spatial.spatially_split(mesh):
+        y = fn(x, mesh.model)
+    y.backward(spatial_rows(mesh, torch.from_numpy(case["dy"]), dim=2))
+    return {"y": y.detach(), "dx": x.grad, "collectives": dict(spatial.collectives),
+            "grads": {k: p.grad.clone() for k, p in params.items()}}
+
+
+def standin_fn(x):
+    """The tile engine's stand-in model: [N, T, T, C] -> [N, T, T, 2]."""
+    k = x.mean(dim=-1, keepdim=True)
+    return torch.cat([k, -k], dim=-1)
+
+
+def int8_serving_fn(x0: np.ndarray):
+    """resnet18 (float32, seeded weights) served ``int8_exec_xla``, calibrated
+    wide on the [1, T, T, 3] image ``x0``."""
+    from iswm_tpu_torch.config import ModelConfig
+    from iswm_tpu_torch.infer.quantization import calibrate_conv_inputs, make_variant_fn
+    from iswm_tpu_torch.models import build_model
+
+    model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32"))
+    scales = calibrate_conv_inputs(model, [torch.from_numpy(x0).permute(0, 3, 1, 2)],
+                                   wide=True)
+    return make_variant_fn(model, "int8_exec_xla", conv_scales=scales)
+
+
+def _tile_engines(case: dict) -> dict:
+    """The scene-parallel engine (every rank on the data axis, batch 1 a
+    rank) on the stand-in model and on ``int8_exec_xla``."""
+    from iswm_tpu_torch.infer.tiling import TileEngine
+    from iswm_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    fn = int8_serving_fn(case["x0"])
+    return {
+        "standin": TileEngine(standin_fn, tile=128, overlap=32, batch=1, mesh=mesh)
+        .infer_scene(torch.from_numpy(case["scene"])),
+        "int8": TileEngine(fn, tile=32, overlap=8, batch=1, mesh=mesh)
+        .infer_scene(torch.from_numpy(case["int8_scene"])),
+        "routed": len(fn.routed_sites)}
+
+
+def _dryrun() -> dict:
+    """The dry run's body at model 2 (resnet18, crop 32) on the CPU."""
+    from iswm_tpu_torch.parallel.dryrun import dryrun_body
+
+    return dryrun_body("resnet18", 32, model_axis=2, device="cpu")
+
+
 def _refusals() -> dict:
     from iswm_tpu_torch.config import Config, ModelConfig
     from iswm_tpu_torch.models import build_model
@@ -224,8 +344,9 @@ def _refusals() -> dict:
             setattr(cfg, k, v)
         return build_model(cfg)
 
-    def trainer(section, key, value):
+    def trainer(section, key, value, model_axis=1):
         cfg = Config()
+        cfg.parallel.model_axis = model_axis
         setattr(getattr(cfg, section), key, value)
         return Trainer(cfg, device="cpu")
 
@@ -234,7 +355,9 @@ def _refusals() -> dict:
         "auto": (auto.fused_stem, auto.layer1[0].fused_mode),
         **{f"{k}={v}": _raised(lambda k=k, v=v: model(**{k: v}))
            for k in ("fused_stem", "fused_blocks") for v in ("always", "interpret")},
-        "model_axis": _raised(lambda: trainer("parallel", "model_axis", 2)),
+        **{f"spatial {k}={v!r}": _raised(lambda s=s, k=k, v=v: trainer(s, k, v, model_axis=2))
+           for s, k, v in SPATIAL_REFUSED},
+        "spatial crop": _raised(lambda: trainer("data", "crop_size", 48, model_axis=2)),
         "data_axis": _raised(lambda: trainer("parallel", "data_axis", 3)),
         "batch": _raised(lambda: trainer("data", "batch_size", 3)),
     }

@@ -30,11 +30,30 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   within 1.5 float32 ulps; the remat step (``remat=True``) equal to the
   2-rank plain step bit for bit and to the one-process remat step at the
   step tolerances;
-- (e) refusals at world size 2: ``model_axis > 1``, the fused stem and blocks
-  under ``always`` / ``interpret``; ``auto`` resolves to ``never``;
-  ``data_axis`` other than the world size and a batch that does not divide;
+- (e) refusals at world size 2: the fused stem and blocks under ``always`` /
+  ``interpret``; ``auto`` resolves to ``never``; under ``model_axis = 2`` the
+  options still refused (ROADMAP.md Queue 1, 'Spatial model axis: remaining
+  options') and a crop size that is not a multiple of ``output_stride *
+  model_axis``; ``data_axis`` other than the world size and a batch that
+  does not divide;
 - (f) ``Trainer.fit`` of 2 steps and a validation on the two ranks: equal
-  parameters on both, one checkpoint, written by rank 0.
+  parameters on both, one checkpoint, written by rank 0;
+
+and the spatial model axis, the two ranks one model group (data 1 x model 2):
+
+- (g) ``make_mesh(1, 2)``: the indices, the model group, ``shard_batch``
+  giving both ranks the whole batch and ``spatial_rows`` each its rows;
+- (h) every operator that reads across a row boundary, on each rank's rows
+  under ``spatially_split`` against the one-process op on the whole image:
+  the output and the input gradient (rows concatenated) and the parameter
+  gradients (summed over the ranks) within 1e-6 of their largest element;
+- (i) one data 1 x model 2 step of (d)'s resnet18, each rank on 16 of the 32
+  rows of all 8 images, against the JAX 2-device step at (d)'s tolerances,
+  bit-equal parameters on both ranks;
+- (j) the scene-parallel ``TileEngine(mesh=)`` (batch 1 a rank) against the
+  port's one-rank engine (batch 2) on ``tests/test_infer.py``'s stand-in
+  model (1e-5) and resnet18 ``int8_exec_xla`` (1e-4);
+- (k) the dry run's body (``parallel/dryrun.py``) at model 2, resnet18, crop 32.
 """
 
 import numpy as np
@@ -93,6 +112,59 @@ def _bn_cases():
             "bias": (0.1 * rng.normal(size=c)).astype(np.float32),
         })
     return cases
+
+
+def _halo_cases():
+    """The halo cases (h): x [B, C, H, W], a cotangent of the op's output and
+    the op's parameters, from one seed."""
+    rng = np.random.default_rng(8)
+
+    def conv(name, shape, out, k, stride=1, dilation=1, groups=1):
+        c, pad = shape[1], (k // 2) * dilation
+        spec = dict(in_channels=c, out_channels=out, kernel_size=k, stride=stride,
+                    padding=pad, dilation=dilation, groups=groups)
+        h_out = (shape[2] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+        w_out = (shape[3] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
+        return {"name": name, "kind": "conv", "conv": spec,
+                "x": rng.normal(size=shape).astype(np.float32),
+                "dy": rng.normal(size=(shape[0], out, h_out, w_out)).astype(np.float32),
+                "params": {"weight": (rng.normal(size=(out, c // groups, k, k))
+                                      / np.sqrt(k * k * c / groups)).astype(np.float32)}}
+
+    cases = [conv("stem-7x7-s2", (2, 3, 16, 12), 8, 7, stride=2),
+             conv("3x3-s2", (2, 4, 8, 6), 6, 3, stride=2),
+             conv("dilated-3x3-d2", (2, 4, 8, 6), 6, 3, dilation=2),
+             conv("dilated-3x3-d4", (2, 4, 8, 6), 6, 3, dilation=4)]
+    for rows in (2, 4):  # a halo past the neighbour: rows of zeros beyond it
+        cases += [conv(f"aspp-d{d}-{rows}-rows", (2, 4, rows, 5), 6, 3, dilation=d)
+                  for d in (6, 12, 18)]
+    cases.append(conv("depthwise-3x3", (2, 4, 8, 6), 4, 3, groups=4))
+    cases.append({"name": "max-pool", "kind": "pool",
+                  "x": rng.normal(size=(2, 4, 8, 6)).astype(np.float32),
+                  "dy": rng.normal(size=(2, 4, 4, 3)).astype(np.float32)})
+    cases.append({"name": "aspp-pooling", "kind": "pooling", "channels": (4, 6),
+                  "x": (1 + rng.normal(size=(4, 4, 8, 6))).astype(np.float32),
+                  "dy": rng.normal(size=(4, 6, 8, 6)).astype(np.float32),
+                  "params": {"1.weight": (0.5 * rng.normal(size=(6, 4, 1, 1))).astype(np.float32),
+                             "2.weight": (1 + 0.2 * rng.normal(size=6)).astype(np.float32),
+                             "2.bias": (0.1 * rng.normal(size=6)).astype(np.float32)}})
+    for name, shape, size in (("resize-decoder", (2, 3, 2, 2), (8, 8)),
+                              ("resize-output", (2, 2, 8, 8), (32, 32))):
+        cases.append({"name": name, "kind": "resize", "size": size,
+                      "x": rng.normal(size=shape).astype(np.float32),
+                      "dy": rng.normal(size=(*shape[:2], *size)).astype(np.float32)})
+    return cases
+
+
+HALO_NAMES = [case["name"] for case in _halo_cases()]
+
+
+def _tiles_case():
+    """(j): the stand-in model's 300x280 scene, and int8_exec_xla's
+    calibration image and 72x64 scene (tests/test_infer.py's seeds)."""
+    return {"scene": np.random.default_rng(0).random((300, 280, 3)).astype(np.float32),
+            "x0": np.random.default_rng(5).normal(size=(1, 32, 32, 3)).astype(np.float32),
+            "int8_scene": np.random.default_rng(6).normal(size=(72, 64, 3)).astype(np.float32)}
 
 
 def _jax_sharded_ce(mesh, case):
@@ -181,7 +253,8 @@ def ranks(tmp_path_factory):
     payload = {"ce_cases": _ce_cases(), "bn_cases": _bn_cases(),
                "step": {"ckpt": ckpt, "images": images, "labels": labels},
                "int8_bwd_conv": _int8_bwd_conv_case(),
-               "fit_dir": str(root / "fit")}
+               "fit_dir": str(root / "fit"),
+               "halo_cases": _halo_cases(), "tiles": _tiles_case()}
     torch.save(payload, root / "payload.pt")
     context = start_ranks(str(root / "payload.pt"), str(root))
 
@@ -212,8 +285,7 @@ def test_mesh_and_batch_slices_on_two_ranks(ranks):
         assert m["odd_batch"][0] == "ValueError"
         assert m["model_3"] == ("ValueError", "model_axis 3 must divide device count 2")
         assert m["data_3"] == ("ValueError", "data_axis*model_axis (3*1) != devices (2)")
-        assert m["model_2"][0] == "NotImplementedError"
-        assert "ROADMAP.md Queue 1, 'Spatial model axis'" in m["model_2"][1]
+        assert m["model_2"] == {"data": 1, "model": 2}  # the spatial model axis
 
 
 def test_one_process_is_a_mesh_of_one(monkeypatch):
@@ -437,6 +509,8 @@ def _one_process_step(case, quant: dict, rows, remat: bool = False) -> tuple:
 
 # ----------------------------------------------------------- (e) refusals
 def test_refusals_and_auto_at_world_size_two(ranks):
+    from ._torch_dist import SPATIAL_REFUSED
+
     for seen in ranks["seen"]:
         r = seen["refusals"]
         assert r["auto"] == ("never", "never")
@@ -444,8 +518,14 @@ def test_refusals_and_auto_at_world_size_two(ranks):
                     "fused_blocks=always", "fused_blocks=interpret"):
             assert r[key][0] == "NotImplementedError", key
             assert "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'" in r[key][1]
-        assert r["model_axis"][0] == "NotImplementedError"
-        assert "ROADMAP.md Queue 1, 'Spatial model axis'" in r["model_axis"][1]
+        for _, key, value in SPATIAL_REFUSED:
+            got = r[f"spatial {key}={value!r}"]
+            assert got[0] == "NotImplementedError", key
+            assert "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'" in got[1]
+            assert f"{key}={value!r}" in got[1]
+        assert r["spatial crop"][0] == "ValueError"
+        assert "crop_size (48) must be a multiple of output_stride * model_axis" in \
+            r["spatial crop"][1]
         assert r["data_axis"] == ("ValueError", "data_axis*model_axis (3*1) != devices (2)")
         assert r["batch"][0] == "ValueError"
         assert "batch_size (3) must be divisible by the mesh data axis (2 devices)" in r["batch"][1]
@@ -466,3 +546,129 @@ def test_trainer_fits_on_two_ranks(ranks):
     assert fits[1]["losses"] is None  # rank 0 logs
     assert fits[0]["checkpoints"] == fits[1]["checkpoints"]
     assert len(fits[0]["checkpoints"]) == 1
+
+
+# ------------------------------------------------ (g) the data 1 x model 2 mesh
+def test_spatial_mesh_on_two_ranks(ranks):
+    images = np.arange(2 * 6 * 5).reshape(2, 6, 5)
+    for r, seen in enumerate(ranks["seen"]):
+        m = seen["spatial_mesh"]
+        assert m["shape"] == {"data": 1, "model": 2}
+        assert m["indices"] == (0, r)
+        assert m["group_size"] == 2 and m["group_sum"] == 2.0
+        np.testing.assert_array_equal(m["sx"], np.arange(24).reshape(8, 3))
+        np.testing.assert_array_equal(m["rows"], images[:, 3 * r:3 * r + 3])
+        assert m["odd_rows"] == ("ValueError",
+                                 "5 image rows do not split evenly over a model axis of 2")
+
+
+# --------------------------------------------------------- (h) the halo cases
+def _one_process_halo(case, tmp_path):
+    """The op on the whole image in one process: y, dx and the parameter
+    gradients.  The pooling branch runs in a 1-rank group, so that its
+    BatchNorm takes the cross-replica arithmetic (flax's variance E[x^2] -
+    E[x]^2) that the split runs: alone, the BatchNorm's two-pass variance
+    lies 4e-6 * max from it on this branch, whose four values a channel sit
+    on a large mean."""
+    from iswm_tpu_torch.parallel import destroy
+
+    from ._torch_dist import halo_op
+
+    group = case["kind"] == "pooling"
+    if group:
+        assert maybe_initialize_distributed(f"file://{tmp_path / 'one'}", 0, 1, device="cpu")
+    try:
+        fn, params = halo_op(case)
+        x = torch.from_numpy(case["x"]).requires_grad_()
+        y = fn(x, 1)
+        y.backward(torch.from_numpy(case["dy"]))
+    finally:
+        if group:
+            destroy()
+    return y.detach(), x.grad, {k: p.grad for k, p in params.items()}
+
+
+def _batchnorm_condition(case) -> float:
+    """The pooling branch's BatchNorm normalizes four values a channel that
+    sit on a mean larger than their spread: a relative rounding of the pooled
+    input (the split sums each rank's rows apart) comes out of it multiplied
+    by max|z| / std(z) of the conv's output z, in float64 (10.2 here).  Every
+    tensor after it is held at 1e-6 of its largest element times that
+    factor."""
+    p = case["x"].astype(np.float64).mean(axis=(2, 3))
+    z = p @ case["params"]["1.weight"][:, :, 0, 0].T.astype(np.float64)
+    return float((np.abs(z).max(axis=0) / z.std(axis=0)).max())
+
+
+@pytest.mark.parametrize("case", range(len(HALO_NAMES)), ids=HALO_NAMES)
+def test_halo_case_matches_one_process(ranks, case, tmp_path):
+    inputs = ranks["payload"]["halo_cases"][case]
+    seen = [s["halo"][case] for s in ranks["seen"]]
+    y, dx, grads = _one_process_halo(inputs, tmp_path)
+    got = {"y": torch.cat([s["y"] for s in seen], dim=2),
+           "dx": torch.cat([s["dx"] for s in seen], dim=2),
+           **{k: seen[0]["grads"][k] + seen[1]["grads"][k] for k in grads}}
+    pooling = inputs["kind"] == "pooling"
+    scale = _batchnorm_condition(inputs) if pooling else 1.0
+    for k, want in {"y": y, "dx": dx, **grads}.items():
+        torch.testing.assert_close(got[k], want, rtol=0,
+                                   atol=1e-6 * scale * float(want.abs().max()), msg=k)
+    for s in seen:  # one gather forward and one all-reduce backward, or the group sums
+        want = ({"halo_gather": 0, "halo_reduce": 0, "group_sum": 2} if pooling else
+                {"halo_gather": 1, "halo_reduce": 1, "group_sum": 0})
+        assert s["collectives"] == want
+
+
+# ---------------------------------------------------- (i) the spatial step
+def test_spatial_train_step_matches_jax_two_device_step(ranks):
+    """Data 1 x model 2: both ranks take all 8 images and 16 of their 32
+    rows; the halos, the BatchNorm over the default group and the summed
+    gradients give the JAX package's 2-device step."""
+    jax_losses, sds = ranks["jax_step"]
+    steps = [seen["spatial_step"] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["all_reduces"] == 2 * s["batchnorms"]
+        # 25 row windows (the stem, the pool, 18 strided or wider convs, the
+        # two resizes): a gather each, an all-reduce each in the backward but
+        # the stem's (the image takes no gradient); the pool's group sum twice
+        assert s["collectives"] == {"halo_gather": 25, "halo_reduce": 24, "group_sum": 2}
+    _same_on_both_ranks(steps)
+    port = [(steps[0]["loss"], steps[0]["before"], steps[0]["after"], steps[0]["count"])]
+    _check_step((jax_losses, sds, port), 0)
+
+
+# ------------------------------------------------ (j) the scene-parallel engine
+@pytest.mark.parametrize("model", ["standin", "int8"])
+def test_tile_engine_mesh_matches_one_rank_engine(ranks, model):
+    from iswm_tpu_torch.infer.tiling import TileEngine
+
+    from ._torch_dist import int8_serving_fn, standin_fn
+
+    case = ranks["payload"]["tiles"]
+    if model == "standin":
+        want = TileEngine(standin_fn, tile=128, overlap=32, batch=2).infer_scene(
+            torch.from_numpy(case["scene"]))
+        shape, tol = (300, 280, 2), 1e-5
+    else:
+        fn = int8_serving_fn(case["x0"])
+        want = TileEngine(fn, tile=32, overlap=8, batch=2).infer_scene(
+            torch.from_numpy(case["int8_scene"]))
+        shape, tol = (72, 64, 2), 1e-4
+        assert [s["tiles"]["routed"] for s in ranks["seen"]] == [len(fn.routed_sites)] * 2
+        assert len(fn.routed_sites) > 20
+    for seen in ranks["seen"]:  # every rank blends the whole scene
+        got = seen["tiles"][model]
+        assert tuple(got.shape) == tuple(want.shape) == shape
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------------------ (k) the dry run
+def test_dryrun_body_at_model_two(ranks):
+    runs = [seen["dryrun"] for seen in ranks["seen"]]
+    for run in runs:
+        assert run["mesh"] == {"data": 1, "model": 2}
+        assert run["step"] == 1 and np.isfinite(run["loss"])
+        assert tuple(run["logits"].shape) == (72, 64, 2)
+        assert bool(torch.isfinite(run["logits"]).all()) and run["routed"] > 20
+    assert runs[0]["loss"] == runs[1]["loss"]
+    assert torch.equal(runs[0]["logits"], runs[1]["logits"])

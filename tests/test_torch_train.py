@@ -367,20 +367,37 @@ def test_dropout_rate_and_scaling():
     torch.testing.assert_close(kept, torch.full_like(kept, 1 / 0.9))
 
 
+# the options refused under parallel.model_axis = 2, and the Config fields
+# they set; "devices" is the model axis alone, which is ported: one process
+# refuses it as the JAX package's make_mesh refuses a model axis that does not
+# divide the devices
 REFUSED = {
-    "devices": ((("parallel", "model_axis", 2),), "Spatial model axis"),
+    "devices": (),
+    "mobilenetv2": (("model", "backbone", "mobilenetv2"),),
+    "xception": (("model", "backbone", "xception"),),
+    "fused_stem": (("model", "fused_stem", "always"),),
+    "fused_blocks": (("model", "fused_blocks", "interpret"),),
+    "int8_training": (("model", "int8_training", 64),),
+    "remat": (("parallel", "remat", True),),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_are_refused(name):
-    settings, item = REFUSED[name]
     cfg = Config()
     refuse_unported(cfg)  # the defaults pass
-    for section, key, value in settings:
+    cfg.parallel.model_axis = 2
+    refuse_unported(cfg)  # and the spatial model axis with them
+    for section, key, value in REFUSED[name]:
         setattr(getattr(cfg, section), key, value)
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md Queue 1.*{item}"):
+    if not REFUSED[name]:
+        with pytest.raises(ValueError, match=r"^model_axis 2 must divide device count 1$"):
+            Trainer(cfg, device="cpu")
+        return
+    item = "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'"
+    with pytest.raises(NotImplementedError) as refused:
         refuse_unported(cfg)
+    assert item in str(refused.value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, device="cpu")
 
