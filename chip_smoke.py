@@ -4,13 +4,16 @@ the training path (with quick-evals), the quantization comparison, training
 and serving with the fused stem, training with the fused bottleneck blocks,
 data-parallel training in a process group, the rest of the model zoo,
 ``int8_exec_xla`` serving on the int8 convs, quantization-aware training,
-training with rematerialized activations and with bf16 parameters, and the
+training with rematerialized activations and with bf16 parameters, the
 spatial model axis (image rows split over ranks), scene-parallel serving and
-the multi-device dry run.
+the multi-device dry run, the fused stem and blocks in a process group, and
+the serving fns as CUDA-graph engines.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-stat-starts 16   # phase 13's statistics
                                                    # from 16 training starts
+    python3 chip_smoke.py --block-f32-starts 8     # phase 13's float32 holds
+                                                   # from 9 training starts
 
 Phases (each prints its result; any failure raises and the exit code is
 not 0):
@@ -332,6 +335,26 @@ not 0):
      logit gap printed; then ``dryrun_multichip(4)`` as four ``gloo`` ranks
      on cuda:0 (data 2 x model 2).  The kernel record's launches add this
      phase's (both ranks').
+ 22. the fused stem and blocks in a process group (their BatchNorm sums
+     all-reduced, ``parallel.distributed.group_batch_sums``): phase 15's bf16 Trainer step
+     in a 1-rank ``nccl`` group with ``fused_stem`` / ``fused_blocks`` =
+     "always": each of the eight fused entries (#9, #10, #11a, #11b once a
+     step, #7a / #7b 26 and #8a / #8b 12 times each way) and 2 all-reduces a
+     BatchNorm a step, a finite loss; its device time, launches, host ms,
+     all-reduces and peak memory beside phase 15's unfused group step, with
+     the card's name and power limit; then phase 15's f32 step from seeded
+     weights with the fused stem and blocks on two ``gloo`` ranks on cuda:0
+     (four rows each, TF32 off and on, every fused entry launched on each
+     rank) held to phase 15's limits (``_hold_two_rank_step``) of the
+     one-process fused step in the 1-rank group.  The kernel record's
+     launches add this phase's (the group's and both ranks');
+ 23. the serving fns of ``bf16``, ``int8_exec`` (#1 inside) and
+     ``int8_exec_xla`` (the int8 convs) as CUDA-graph engines
+     (``infer/engine.py`` ``build_engine``) for a chunk of 8 x 512^2 tiles of
+     phase 4's first scene: each replay bit-equal (``torch.equal``,
+     deterministic cuDNN) to the eager fn on two chunks, the host ms of a
+     chunk eager and replayed, the graph pool's MiB.  The kernel record's
+     launches add this phase's eager calls and captures.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -402,6 +425,21 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise SmokeFailure(msg)
+
+
+# the launch counters of the fused stem's four entries (#9, #10, #11a, #11b)
+# and of the fused blocks' four (#7a, #8a, #7b, #8b)
+STEM_COUNTERS = ("launches_stats", "launches_pool", "launches_bwd_sums", "launches_bwd_wgrad")
+BLOCK_COUNTERS = ("launches_mm_fwd", "launches_c3_fwd", "launches_mm_bwd", "launches_c3_bwd")
+
+
+def read_counters(module, names) -> tuple:
+    return tuple(getattr(module, n) for n in names)
+
+
+def zero_counters(module, names) -> None:
+    for n in names:
+        setattr(module, n, 0)
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1696,10 +1734,9 @@ def phase_stem_slice(fs, ce) -> tuple:
     trainer, cfg, train_ds, val_ds = _fused_trainer("fused_stem", STEM_STEPS)
 
     def counts():
-        return (fs.launches_stats, fs.launches_pool, fs.launches_bwd_sums,
-                fs.launches_bwd_wgrad)
+        return read_counters(fs, STEM_COUNTERS)
 
-    fs.launches_stats = fs.launches_pool = fs.launches_bwd_sums = fs.launches_bwd_wgrad = 0
+    zero_counters(fs, STEM_COUNTERS)
     ce.launches_fwd = ce.launches_bwd = 0
     t0 = time.perf_counter()
     trainer.fit()
@@ -1946,7 +1983,7 @@ BLOCK_STEPS = 4  # with a quick-eval at step 2 and the validation at 4
 # gradients may lie as the unfused modules' (the worst tensor of each, and the
 # median tensor of each), an unfused distance counting as at least the floor
 BLOCK_SLACK_WORST, BLOCK_SLACK_MEDIAN = 5.0, 4.0
-BLOCK_F32_LIMIT = 5e-2  # ... and, in float32, the fused block's own distance
+BLOCK_F32_LIMIT = 1e-3  # ... and, in float32, the fused block's own distance
 BLOCK_FLOOR = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 BLOCK_KERNELS = ("::conv_fwd<", "::conv_dgrad<", "::conv_wgrad<", "::fwd_1x1_bf16<",
                  "::fwd_3x3_bf16<", "::dgrad_1x1_bf16<", "::wgrad_1x1_bf16<",
@@ -2264,13 +2301,15 @@ def phase_block_kernels(fb) -> dict:
 
 
 def _bottleneck_f64(sd: dict, x: torch.Tensor, dout: torch.Tensor | None, eps: float,
-                    momentum: float) -> tuple:
+                    momentum: float, masks=None, decisions=None) -> tuple:
     """A stride-1 Bottleneck's unfused arithmetic in float64 under autograd,
     from the block's state dict: conv -> batch statistics -> normalize ->
     ReLU, three times, the optional projection, add, ReLU.  Returns (output,
     dx, parameter gradients by key, running statistics by key after the
     update ``r = (1 - momentum) * r + momentum * batch``, biased variance);
-    without ``dout``, no dx (None) and no gradients."""
+    without ``dout``, no dx (None) and no gradients.  ``masks``: the three
+    ReLUs' decisions to take (NCHW, 1 where a value passes) in the place of
+    its own; ``decisions``, a list, gets its own."""
     F = torch.nn.functional
     p = {k: v.double().requires_grad_() for k, v in sd.items()
          if v.is_floating_point() and "running_" not in k}
@@ -2287,12 +2326,17 @@ def _bottleneck_f64(sd: dict, x: torch.Tensor, dout: torch.Tensor | None, eps: f
         return ((y - mean) * torch.rsqrt(var + eps) * p[bn + ".weight"].view(1, -1, 1, 1)
                 + p[bn + ".bias"].view(1, -1, 1, 1))
 
-    out = torch.relu(conv_bn(xin, "conv1", "bn1", 0))
-    out = torch.relu(conv_bn(out, "conv2", "bn2", 1))
+    def relu(t, i):
+        if decisions is not None:
+            decisions.append(t.detach() > 0)
+        return torch.relu(t) if masks is None else t * masks[i].to(t.dtype)
+
+    out = relu(conv_bn(xin, "conv1", "bn1", 0), 0)
+    out = relu(conv_bn(out, "conv2", "bn2", 1), 1)
     out = conv_bn(out, "conv3", "bn3", 0)
     identity = (conv_bn(xin, "downsample.0", "downsample.1", 0)
                 if "downsample.0.weight" in p else xin)
-    out = torch.relu(out + identity)
+    out = relu(out + identity, 2)
     if dout is None:
         return out.detach(), None, {}, running
     grads = torch.autograd.grad(out, [xin, *p.values()], dout.double())
@@ -2316,26 +2360,30 @@ def _block_stat_error(got: dict, want: dict) -> float:
 def _block_replay(block, state: dict, xin: torch.Tensor, dtype) -> tuple:
     """``block``'s fused forward replayed from ``state`` on ``xin``, and the
     block's unfused BatchNorm modules fed that replay's own conv outputs:
-    (the replay's running statistics, the modules')."""
+    (the replay's running statistics, the modules', the replay's ReLU
+    decisions).  The decisions are NCHW booleans of the three ReLUs, as the
+    fused kernels and the block's glue take them: ``a * y + b > 0`` in
+    float32 in the two prologues, the output above 0."""
     from iswm_tpu_torch.models import fused_block as fbm
 
     fused, plain = copy.deepcopy(block), copy.deepcopy(block)
     for m in (fused, plain):
         m.load_state_dict(state)
         m.train()
-    ys, kernels = [], (fbm.matmul_bn_stats, fbm.conv3x3_bn_stats)
+    ys, inputs, kernels = [], [], (fbm.matmul_bn_stats, fbm.conv3x3_bn_stats)
 
     def recording(kernel):
         def call(*args, **kwargs):
             out = kernel(*args, **kwargs)
             ys.append(out[0])
+            inputs.append(args)
             return out
         return call
 
     fbm.matmul_bn_stats, fbm.conv3x3_bn_stats = map(recording, kernels)
     try:
         with torch.no_grad():
-            fbm.fused_bottleneck_apply(fused, xin.to(dtype))
+            result = fbm.fused_bottleneck_apply(fused, xin.to(dtype))
     finally:
         fbm.matmul_bn_stats, fbm.conv3x3_bn_stats = kernels
     # fused_bottleneck_apply's order: conv1, conv2, conv3, the projection
@@ -2347,79 +2395,30 @@ def _block_replay(block, state: dict, xin: torch.Tensor, dtype) -> tuple:
     with torch.no_grad():
         for bn, y_conv in zip(bns, ys):
             bn(y_conv.reshape(b, h, w, -1).permute(0, 3, 1, 2))
-    return _running(fused), _running(plain)
+    # conv2's prologue takes (y1, a1, b1, w), conv3's (y2, w, a2, b2)
+    (y1, a1, b1, _), (y2, _, a2, b2) = inputs[1], inputs[2]
+    decisions = [(t.float() * a + c > 0).reshape(b, h, w, -1).permute(0, 3, 1, 2)
+                 for t, a, c in ((y1, a1, b1), (y2, a2, b2))]
+    return _running(fused), _running(plain), decisions + [result > 0]
 
 
-def _kernel_class(name: str) -> str:
-    low = name.lower()
-    if any(k in name for k in BLOCK_KERNELS):
-        return "fused block kernels"
-    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low or "batchnorm" in low:
-        return "BN"
-    if any(k in low for k in ("cudnn", "cutlass", "gemm", "xmma", "conv", "nchwtonhwc",
-                              "nhwctonchw", "wgrad", "dgrad", "cublas")):
-        return "convs"
-    if "elementwise" in low or "vectorized" in low or "reduce_kernel" in low:
-        return "elementwise"
-    return "other"
-
-
-def phase_block_slice(fb, ce) -> tuple:
-    from iswm_tpu_torch.config import Config
-    from iswm_tpu_torch.data import augment_batch, batch_iterator
-    from iswm_tpu_torch.models import build_model
-    from iswm_tpu_torch.models.fused_block import fused_block_eligible
-    from iswm_tpu_torch.models.resnet import Bottleneck
+def _hold_blocks(model, blocks: dict, cfg, x, y, start: dict, dtypes,
+                 readings: list | None = None) -> list:
+    """Phase 13's hold of one block of each kind against the unfused modules'
+    autograd and the block in float64, in each of ``dtypes``, on the fused
+    step's own input, parameters and output cotangent (a whole step fused
+    against unfused is chaotic on this model: printed, not held).  ``blocks``
+    maps names to the model's Bottlenecks, ``start`` is the state the steps
+    start from, (x, y) the batch.  Prints a line a block and dtype; returns
+    the lines of the blocks that failed.  ``readings``, where given, gets the
+    float32 distances of each block."""
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
-
-    trainer, cfg, train_ds, val_ds = _fused_trainer("fused_blocks", BLOCK_STEPS)
-    model = trainer.state.model
-    blocks = {name: m for name, m in model.backbone.named_modules()
-              if isinstance(m, Bottleneck)}
 
     def set_mode(mode):
         for m in blocks.values():
             m.fused_mode = mode
 
-    def counts():
-        return (fb.launches_mm_fwd, fb.launches_c3_fwd, fb.launches_mm_bwd,
-                fb.launches_c3_bwd)
-
-    fb.launches_mm_fwd = fb.launches_c3_fwd = fb.launches_mm_bwd = fb.launches_c3_bwd = 0
-    ce.launches_fwd = ce.launches_bwd = 0
-    t0 = time.perf_counter()
-    trainer.fit()
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = counts()
-    per_step = (sum(BLOCK_MM_SHAPES.values()), sum(BLOCK_C3_SHAPES.values())) * 2
-    check(launches == tuple(BLOCK_STEPS * n for n in per_step),
-          f"fused block launches (1x1 fwd, 3x3 fwd, 1x1 bwd, 3x3 bwd) {launches} in "
-          f"{BLOCK_STEPS} steps, a quick-eval and a validation; expected {per_step} per train "
-          f"step and none in evaluation")
-    check((ce.launches_fwd, ce.launches_bwd) == (BLOCK_STEPS, BLOCK_STEPS),
-          f"fused CE launches {(ce.launches_fwd, ce.launches_bwd)} in {BLOCK_STEPS} steps")
-    losses = trainer.logger.history["train_loss"]
-    check(len(losses) == 2 and all(np.isfinite(losses)), f"logged losses {losses}")
-    check(trainer.best_path is not None, "no best checkpoint was written")
-    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
-    unfused_cfg = Config().model
-    check(unfused_cfg.fused_blocks == "never", "fused_blocks does not default to 'never'")
-    build_model(unfused_cfg).load_state_dict(payload["model_state"], strict=True)
-    print(f"[13] training with fused_blocks='always': {BLOCK_STEPS} steps + 1 quick-eval + 1 "
-          f"validation in {fit_s:.2f} s; launches 1x1 fwd {launches[0]}, 3x3 fwd {launches[1]}, "
-          f"1x1 bwd {launches[2]}, 3x3 bwd {launches[3]} ({per_step} per step, 0 in "
-          f"evaluation); losses {[round(v, 4) for v in losses]}; "
-          f"{Path(trainer.best_path).name} loads strict=True into an unfused model")
-
-    images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
-    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
-                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
-    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
-    # One block of each kind against the unfused modules' autograd, on the
-    # fused step's own input, parameters and output cotangent (a whole step
-    # fused against unfused is chaotic on this model: printed, not held).
     # The reference runs without TF32, so that float32 can be held tightly.
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
@@ -2484,42 +2483,45 @@ def phase_block_slice(fb, ce) -> tuple:
         return (out.detach(), xin.grad, {k: p.grad for k, p in ref.named_parameters()},
                 _running(ref))
 
-    # Limits.  The gradients of this model, four steps from random weights,
-    # are residues of large cancelling sums (a BatchNorm follows every conv),
-    # so the unfused library modules in the same dtype are no reference: in
-    # bf16 they lie as far from the exact result as the fused block does (0.03
-    # to 0.6 * max|tensor|).  Both are therefore held against the block's
-    # arithmetic in float64 on the same input and cotangent, over every
-    # parameter gradient (max |difference| / max |gradient|) and dx (mean
-    # |difference| / mean |dx|: its largest difference is one flipped ReLU
-    # decision, as large as dx itself).  bf16: the fused block's worst tensor
-    # may be ``BLOCK_SLACK_WORST`` times as far from float64 as the unfused
-    # modules' worst (TF32 off), its median tensor ``BLOCK_SLACK_MEDIAN`` times
-    # as far as their median (readings 0.9-1.8 and 1.0-1.3; a single tensor's
-    # distance varies tenfold between two realisations of the rounding, and
-    # the fused backward rounds twice per conv, dx and then dyt, where the
-    # unfused BatchNorm rounds once, as in the JAX package).  float32: every
-    # tensor within ``BLOCK_F32_LIMIT`` of float64 (readings 8.6e-7 to 1.3e-2;
-    # a wrong term shows as 0.3 or more).  There the fused block can be five
-    # times as far as the unfused modules, and is where M is largest: its fast
-    # variance E[y^2] - E[y]^2, flax's, loses one to two digits that
-    # F.batch_norm's two-pass variance keeps when a channel's mean is large
-    # beside its spread, so more ReLU decisions within rounding of 0 go the
-    # other way, each moving a gradient by one pixel's share.  The output has
-    # a limit of its own.  Running statistics: the fused block's are held in
-    # both dtypes at ``stat_tol`` against the unfused BatchNorm modules fed
-    # the fused convs' own outputs (a replay of the block from ``start``, which
-    # must give the step's statistics bit for bit): the statistics arithmetic
-    # that the fused path owns.  Against the whole unfused modules, whose
-    # convs round differently, they are held at ``stat_tol`` in float32; in
-    # bf16 that gap is printed and the statistics are held against float64
-    # like a gradient: no farther than ``BLOCK_SLACK_WORST`` times the unfused
-    # modules' distance.  (bf16 readings over 16 training starts and 7 blocks:
-    # the gap to the whole modules has median 2.1e-6 and a tail to 1.4e-4,
-    # one run read 2.4e-4, while both sides lie 3e-4 to 1.6e-3 from float64,
-    # equal there to three digits.)  See PERF.md for the readings.
+    # Limits.  The gradients of this model, four steps from random weights, are
+    # residues of large cancelling sums (a BatchNorm follows every conv), so the
+    # unfused library modules in the same dtype are no reference: in bf16 they
+    # lie as far from the exact result as the fused block does (0.03 to 0.6 *
+    # max|tensor|).  Both are therefore held against the block's arithmetic in
+    # float64 on the same input and cotangent, over every parameter gradient
+    # (max |difference| / max |gradient|) and dx (mean |difference| / mean |dx|:
+    # its largest difference is one flipped ReLU decision, as large as dx
+    # itself).  bf16: the fused block's worst tensor may be
+    # ``BLOCK_SLACK_WORST`` times as far from float64 as the unfused modules'
+    # worst (TF32 off), its median tensor ``BLOCK_SLACK_MEDIAN`` times as far as
+    # their median (readings 0.9-1.8 and 1.0-1.3; a single tensor's distance
+    # varies tenfold between two realisations of the rounding, and the fused
+    # backward rounds twice per conv, dx and then dyt, where the unfused
+    # BatchNorm rounds once, as in the JAX package).  float32: every tensor
+    # within ``BLOCK_F32_LIMIT`` of the float64 block that takes the fused
+    # block's own ReLU decisions (``_block_replay``'s masks; readings 3.5e-6 to
+    # 3.4e-5 over 27 blocks from 9 training starts, ``--block-f32-starts 8``; a
+    # wrong term shows as 0.3 or more).  Making its own decisions, float64 sends
+    # 2 to 13 pre-activations a block within float32 rounding of 0 the other
+    # way, and each such pixel moves a gradient by its share, whatever float32
+    # arithmetic computed it: the fused block reads up to 2.0e-2 there and the
+    # unfused modules 1.9e-2 (one run read 7.7e-2), so that distance is printed,
+    # not held.  The output has a limit of its own.  Running statistics: the
+    # fused block's are held in both dtypes at ``stat_tol`` against the unfused
+    # BatchNorm modules fed the fused convs' own outputs (a replay of the block
+    # from ``start``, which must give the step's statistics bit for bit): the
+    # statistics arithmetic that the fused path owns.  Against the whole unfused
+    # modules, whose convs round differently, they are held at ``stat_tol`` in
+    # float32; in bf16 that gap is printed and the statistics are held against
+    # float64 like a gradient: no farther than ``BLOCK_SLACK_WORST`` times the
+    # unfused modules' distance.  (bf16 readings over 16 training starts and 7
+    # blocks: the gap to the whole modules has median 2.1e-6 and a tail to
+    # 1.4e-4, one run read 2.4e-4, while both sides lie 3e-4 to 1.6e-3 from
+    # float64, equal there to three digits.) See PERF.md for the readings.
     failures = []
     for dtype, out_tol, stat_tol in ((torch.bfloat16, 2e-2, 1e-4), (torch.float32, 1e-4, 1e-5)):
+        if dtype not in dtypes:
+            continue
         model.compute_dtype = dtype
         loss_k, g_k, buf_k, seen = one_step("always", held)
         loss_p, g_p, _, _ = one_step("never")
@@ -2532,14 +2534,14 @@ def phase_block_slice(fb, ce) -> tuple:
                      {k[len(prefix):]: v for k, v in g_k.items() if k.startswith(prefix)},
                      {k[len(prefix):]: v for k, v in buf_k.items() if k.startswith(prefix)})
             unfused = run_unfused(name, xin, dout, dtype)
-            truth = _bottleneck_f64({k[len(prefix):]: v for k, v in start.items()
-                                     if k.startswith(prefix)}, xin, dout, blocks[name].bn1.eps,
-                                    blocks[name].bn1.momentum)
+            sd = {k[len(prefix):]: v for k, v in start.items() if k.startswith(prefix)}
+            eps, momentum = blocks[name].bn1.eps, blocks[name].bn1.momentum
+            own_decisions = []
+            truth = _bottleneck_f64(sd, xin, dout, eps, momentum, decisions=own_decisions)
             rows = {label: {"output": ratio(got[0], truth[0]), "dx": mean_ratio(got[1], truth[1]),
                             **{k: ratio(got[2][k], truth[2][k]) for k in truth[2]}}
                     for label, got in (("fused", fused), ("unfused", unfused))}
-            replay, own = _block_replay(blocks[name], {k[len(prefix):]: v for k, v in start.items()
-                                                        if k.startswith(prefix)}, xin, dtype)
+            replay, own, masks = _block_replay(blocks[name], sd, xin, dtype)
             replayed = all(torch.equal(fused[3][k], v) for k, v in replay.items())
             stats_own = _block_stat_error(fused[3], own)
             stats = _block_stat_error(fused[3], unfused[3])
@@ -2552,7 +2554,23 @@ def phase_block_slice(fb, ce) -> tuple:
             median = far["fused"][len(keys) // 2] / max(far["unfused"][len(keys) // 2], floor)
             ok = (rows["fused"]["output"] <= out_tol and replayed and stats_own <= stat_tol)
             if dtype == torch.float32:
-                ok = ok and stats <= stat_tol and far["fused"][-1] <= BLOCK_F32_LIMIT
+                decided = _bottleneck_f64(sd, xin, dout, eps, momentum, masks=masks)
+                near = {"dx": mean_ratio(fused[1], decided[1]),
+                        **{k: ratio(fused[2][k], decided[2][k]) for k in decided[2]}}
+                nearest = sorted(near, key=near.get)
+                flips = [int((m != d).sum()) for m, d in zip(masks, own_decisions)]
+                ok = ok and stats <= stat_tol and near[nearest[-1]] <= BLOCK_F32_LIMIT
+                if readings is not None:  # with the float64 batch statistics' mean / std
+                    batch = {k: (v - (1.0 - momentum) * sd[k].double()) / momentum
+                             for k, v in truth[3].items()}
+                    spread = max(float((batch[k].abs() / (batch[k.replace("mean", "var")]
+                                                          + eps).sqrt()).max())
+                                 for k in batch if k.endswith("running_mean"))
+                    readings.append({"block": name, "mean_over_std": spread,
+                                     "decided_worst": near[nearest[-1]],
+                                     "decided_median": near[nearest[len(near) // 2]],
+                                     "worst": far["fused"][-1], "unfused_worst": far["unfused"][-1],
+                                     "flips": flips})
             else:
                 ok = (ok and stats_far["fused"] <= BLOCK_SLACK_WORST * stats_far["unfused"]
                       and worst <= BLOCK_SLACK_WORST and median <= BLOCK_SLACK_MEDIAN)
@@ -2571,16 +2589,20 @@ def phase_block_slice(fb, ce) -> tuple:
                     + ", ".join(f"{k} {rows['fused'][k]:.2e} ({rows['unfused'][k]:.2e})"
                                 for k in keys)
                     + f"; the fused block's worst tensor {far['fused'][-1]:.2e}"
-                    + (f" (limit {BLOCK_F32_LIMIT})" if dtype == torch.float32 else "")
                     + f", {worst:.3g} x as far as the unfused modules' worst, its median "
                     f"tensor {median:.3g} x as far as their median"
-                    + ("" if dtype == torch.float32 else
+                    + (f" (printed); against the float64 block taking the fused block's "
+                       f"ReLU decisions ({flips[0]}, {flips[1]} and {flips[2]} of relu1, relu2 "
+                       f"and the output's differ from its own), dx {near['dx']:.2e}, its worst "
+                       f"tensor {nearest[-1]} {near[nearest[-1]]:.2e} (limit {BLOCK_F32_LIMIT}),"
+                       f" its median {near[nearest[len(near) // 2]]:.2e}"
+                       if dtype == torch.float32 else
                        f" (limits {BLOCK_SLACK_WORST} and {BLOCK_SLACK_MEDIAN}; an unfused "
                        f"distance counts as at least {floor})"))
             print("[13] " + text)
             if not ok:
                 failures.append(text)
-            del fused, unfused, truth, replay, own
+            del fused, unfused, truth, replay, own, masks, own_decisions
         torch.backends.cudnn.allow_tf32 = tf32
         rel = abs(loss_k - loss_p) / abs(loss_p)
         ratios = sorted(ratio(g_k[k], g_p[k]) for k in g_p)
@@ -2590,6 +2612,75 @@ def phase_block_slice(fb, ce) -> tuple:
               f"{ratios[len(ratios) // 2]:.2e}, worst {ratios[-1]:.2e} * max|grad|")
         check(np.isfinite(loss_k), f"{dtype}: fused step loss {loss_k}")
         del seen, g_k, g_p, buf_k
+    return failures
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in BLOCK_KERNELS):
+        return "fused block kernels"
+    if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low or "batchnorm" in low:
+        return "BN"
+    if any(k in low for k in ("cudnn", "cutlass", "gemm", "xmma", "conv", "nchwtonhwc",
+                              "nhwctonchw", "wgrad", "dgrad", "cublas")):
+        return "convs"
+    if "elementwise" in low or "vectorized" in low or "reduce_kernel" in low:
+        return "elementwise"
+    return "other"
+
+
+def phase_block_slice(fb, ce) -> tuple:
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import augment_batch, batch_iterator
+    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.models.fused_block import fused_block_eligible
+    from iswm_tpu_torch.models.resnet import Bottleneck
+
+    trainer, cfg, train_ds, val_ds = _fused_trainer("fused_blocks", BLOCK_STEPS)
+    model = trainer.state.model
+    blocks = {name: m for name, m in model.backbone.named_modules()
+              if isinstance(m, Bottleneck)}
+
+    def set_mode(mode):
+        for m in blocks.values():
+            m.fused_mode = mode
+
+    def counts():
+        return read_counters(fb, BLOCK_COUNTERS)
+
+    zero_counters(fb, BLOCK_COUNTERS)
+    ce.launches_fwd = ce.launches_bwd = 0
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = counts()
+    per_step = (sum(BLOCK_MM_SHAPES.values()), sum(BLOCK_C3_SHAPES.values())) * 2
+    check(launches == tuple(BLOCK_STEPS * n for n in per_step),
+          f"fused block launches (1x1 fwd, 3x3 fwd, 1x1 bwd, 3x3 bwd) {launches} in "
+          f"{BLOCK_STEPS} steps, a quick-eval and a validation; expected {per_step} per train "
+          f"step and none in evaluation")
+    check((ce.launches_fwd, ce.launches_bwd) == (BLOCK_STEPS, BLOCK_STEPS),
+          f"fused CE launches {(ce.launches_fwd, ce.launches_bwd)} in {BLOCK_STEPS} steps")
+    losses = trainer.logger.history["train_loss"]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"logged losses {losses}")
+    check(trainer.best_path is not None, "no best checkpoint was written")
+    payload = torch.load(trainer.best_path, map_location="cpu", weights_only=True)
+    unfused_cfg = Config().model
+    check(unfused_cfg.fused_blocks == "never", "fused_blocks does not default to 'never'")
+    build_model(unfused_cfg).load_state_dict(payload["model_state"], strict=True)
+    print(f"[13] training with fused_blocks='always': {BLOCK_STEPS} steps + 1 quick-eval + 1 "
+          f"validation in {fit_s:.2f} s; launches 1x1 fwd {launches[0]}, 3x3 fwd {launches[1]}, "
+          f"1x1 bwd {launches[2]}, 3x3 bwd {launches[3]} ({per_step} per step, 0 in "
+          f"evaluation); losses {[round(v, 4) for v in losses]}; "
+          f"{Path(trainer.best_path).name} loads strict=True into an unfused model")
+
+    images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
+    failures = _hold_blocks(model, blocks, cfg, x, y, start,
+                            (torch.bfloat16, torch.float32))
     check(not failures, "; ".join(failures))
     torch.use_deterministic_algorithms(False)
     torch.backends.cudnn.deterministic = False
@@ -2836,7 +2927,7 @@ def block_stat_readings(starts: int) -> None:
                 warnings.simplefilter("ignore")
                 ref(xin)
             truth = _bottleneck_f64(sd, xin, None, ref.bn1.eps, ref.bn1.momentum)[3]
-            replay, own = _block_replay(blocks[name], sd, xin, torch.bfloat16)
+            replay, own, _ = _block_replay(blocks[name], sd, xin, torch.bfloat16)
             row = {"gap": _block_stat_error(fused, _running(ref)),
                    "own": _block_stat_error(fused, own),
                    "fused_far": _block_stat_error(fused, truth),
@@ -2860,6 +2951,47 @@ def block_stat_readings(starts: int) -> None:
           f"{ratios[0]:.4f} to {ratios[-1]:.4f} x as far; replays equal "
           f"{sum(r['replayed'] for r in rows)} of {len(rows)}")
     check(all(r["replayed"] for r in rows), "a replay of a fused block differs from its step")
+
+
+def block_f32_readings(starts: int) -> None:
+    """Phase 13's float32 holds (``_hold_blocks``) from phase 13's own training
+    start and ``train.random_seed`` 1 to ``starts``, ``BLOCK_STEPS`` steps
+    each: the phase's line a block and start, then a summary of the fused
+    block's distance from float64 with float64's own ReLU decisions and with
+    the fused block's, and of the decisions that differ.  Holds nothing.
+    ``python3 chip_smoke.py --block-f32-starts 8``."""
+    from iswm_tpu_torch.data import augment_batch, batch_iterator
+    from iswm_tpu_torch.models.resnet import Bottleneck
+
+    readings = []
+    for seed in (None, *range(1, starts + 1)):
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
+        torch.use_deterministic_algorithms(False)
+        trainer, cfg, train_ds, _ = _fused_trainer("fused_blocks", BLOCK_STEPS, seed)
+        trainer.fit()
+        model = trainer.state.model
+        blocks = {n: m for n, m in model.backbone.named_modules() if isinstance(m, Bottleneck)}
+        images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+        x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+                             trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+        start = copy.deepcopy(model.state_dict())
+        failed = _hold_blocks(model, blocks, cfg, x, y, start, (torch.float32,), readings)
+        print(f"[f32] start seed={seed}: {len(failed)} of the held blocks beyond phase 13's "
+              f"limits")
+        del trainer, model, blocks, start
+        torch.cuda.empty_cache()
+    worst = sorted(r["worst"] for r in readings)
+    decided = sorted(r["decided_worst"] for r in readings)
+    flips = [sum(r["flips"]) for r in readings]
+    print(f"[f32] the BatchNorms' largest |batch mean| / std over the held blocks "
+          f"{min(r['mean_over_std'] for r in readings):.3g} to "
+          f"{max(r['mean_over_std'] for r in readings):.3g}")
+    print(f"[f32] {len(readings)} block readings from {starts + 1} starts: the fused block's "
+          f"worst tensor from float64 with its own ReLU decisions median "
+          f"{worst[len(worst) // 2]:.3g}, max {worst[-1]:.3g} (the unfused modules' max "
+          f"{max(r['unfused_worst'] for r in readings):.3g}); with the fused block's decisions "
+          f"median {decided[len(decided) // 2]:.3g}, max {decided[-1]:.3g} (limit "
+          f"{BLOCK_F32_LIMIT}); decisions that differ a block {min(flips)} to {max(flips)}")
 
 
 def phase_sharded_ce(ce) -> dict:
@@ -2980,16 +3112,18 @@ def _dp_batch():
     return x.cuda(), torch.from_numpy(np.stack(masks).astype(np.int32)).cuda()
 
 
-def _dp_model(compute_dtype: str = "float32"):
-    """Phase 15's float32 ResNet-50 (or in ``compute_dtype``) from seeded
-    weights, dropout off, on cuda:0, channels last, with its optimizer
-    factory."""
+def _dp_model(compute_dtype: str = "float32", **settings):
+    """Phase 15's float32 ResNet-50 (or in ``compute_dtype``, with the model
+    ``settings`` given) from seeded weights, dropout off, on cuda:0,
+    channels last, with its optimizer factory."""
     from iswm_tpu_torch.config import Config
     from iswm_tpu_torch.models import build_model
     from iswm_tpu_torch.train import make_optimizer
 
     cfg = Config()
     cfg.model.compute_dtype = compute_dtype
+    for key, value in settings.items():
+        setattr(cfg.model, key, value)
     model = build_model(cfg.model, seed=SEED).to("cuda:0", memory_format=torch.channels_last)
     for m in model.modules():
         if isinstance(m, torch.nn.Dropout):
@@ -3031,18 +3165,19 @@ def _rank_step(rank: int, ranks: int, rendezvous: str, out: str) -> None:
     torch.save(seen, Path(out) / f"_rank_step.{rank}.pt")
 
 
-def _f32_rank_steps(step, x, y, rank: int) -> dict:
+def _f32_rank_steps(step, x, y, rank: int, **settings) -> dict:
     """In a spawned rank: phase 15's f32 step of ``step`` from the seeded
-    state, deterministic, with TF32 off and on; by TF32 the loss and whether
-    the parameters and statistics equal rank 0's, on rank 0 the gradients
-    and the statistics (what ``_hold_two_rank_step`` holds)."""
+    state (of the model ``settings`` given), deterministic, with TF32 off
+    and on; by TF32 the loss and whether the parameters and statistics equal
+    rank 0's, on rank 0 the gradients and the statistics (what
+    ``_hold_two_rank_step`` holds)."""
     import torch.distributed as dist
 
     from iswm_tpu_torch.train import TrainState
     from iswm_tpu_torch.train.step import data_parallel
 
     _deterministic(True)
-    model, factory = _dp_model()
+    model, factory = _dp_model(**settings)
     start = copy.deepcopy(model.state_dict())
     replicated = data_parallel(model)
     seen = {}
@@ -3089,10 +3224,10 @@ def _median_step_ms(trainer, xu8, yu8, steps: int = 8) -> list:
     return times
 
 
-def phase_dp_slice(ce, cm) -> int:
+def phase_dp_slice(ce, cm) -> tuple:
     from iswm_tpu_torch.data import batch_iterator
     from iswm_tpu_torch.models import build_model, layers
-    from iswm_tpu_torch.parallel import destroy
+    from iswm_tpu_torch.parallel import destroy, distributed
 
     smi = _smi()
     # phase 6's step in one process, timed before the group opens and after it closes
@@ -3109,13 +3244,13 @@ def phase_dp_slice(ce, cm) -> int:
     check(trainer.state.replicated is not None, "the Trainer did not wrap its model for the group")
     batchnorms = sum(isinstance(m, layers.BatchNorm2d) for m in model.modules())
     ce.launches_fwd = ce.launches_bwd = ce.launches_sharded = cm.launches = 0
-    layers.cross_replica_all_reduces = 0
+    distributed.cross_replica_all_reduces = 0
     t0 = time.perf_counter()
     trainer.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches = (ce.launches_sharded, ce.launches_fwd, ce.launches_bwd)
-    all_reduces, cm_launches = layers.cross_replica_all_reduces, cm.launches
+    all_reduces, cm_launches = distributed.cross_replica_all_reduces, cm.launches
     check(launches == (DP_STEPS,) * 3,
           f"sharded CE, kernel #4 forward and backward launches {launches} in {DP_STEPS} steps")
     check(all_reduces == DP_STEPS * 2 * batchnorms,
@@ -3138,6 +3273,7 @@ def phase_dp_slice(ce, cm) -> int:
     step_ms["1-rank group"] = (_median_step_ms(trainer, xu8, yu8)
                                + _median_step_ms(trainer, xu8, yu8))
     profile = {"1-rank group": _step_profile(trainer, xu8, yu8)}
+    group_peak = _peak_step_mib(trainer, xu8, yu8)
 
     reference = _dp_reference()
     del trainer
@@ -3158,28 +3294,36 @@ def phase_dp_slice(ce, cm) -> int:
                  else "; no NCCL kernel (one rank's all-reduce launches none)"))
 
     _hold_two_rank_step(reference, _spawn_ranks(_rank_step, out), "[15]", "4 rows each")
-    return launches[0]
+    group = {"host_ms": med["1-rank group"], "device_ms": profile["1-rank group"][0],
+             "launches": profile["1-rank group"][1], "by_class": profile["1-rank group"][2],
+             "peak_mib": group_peak[0], "base_mib": group_peak[1],
+             "all_reduces": 2 * batchnorms}
+    return launches[0], group
 
 
-def _dp_reference() -> dict:
-    """The whole-step reference of phases 15 and 21's two-rank steps, by
-    TF32 off and on: one process on all 8 rows, in the caller's 1-rank group
-    (the same BatchNorm arithmetic), f32, deterministic; its loss, gradients
-    and running statistics, and the gradients of the same step with one
-    pooled value in a million moved by an ulp of what the convs read."""
+def _dp_reference(**settings) -> dict:
+    """The whole-step reference of phases 15, 21 and 22's two-rank steps, by
+    TF32 off and on: one process on all 8 rows (the model ``settings``
+    given), in the caller's 1-rank group (the same BatchNorm arithmetic),
+    f32, deterministic; its loss, gradients and running statistics, and the
+    gradients of the same step with one pooled value in a million moved by
+    an ulp of what the convs read (the stem's max-pool, or with the fused
+    stem its fused pool)."""
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.train import TrainState, make_train_step
 
     _deterministic(True)
-    ref, factory = _dp_model()
+    ref, factory = _dp_model(**settings)
     start = copy.deepcopy(ref.state_dict())
     x, y = _dp_batch()
     step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
+    pool = (ref.backbone.maxpool if settings.get("fused_stem", "never") == "never"
+            else ref.backbone.fused_stem_pool)
 
     def one_step(hook=None):
         ref.load_state_dict(start)
         state = TrainState(ref, *factory(ref.parameters()), 0)
-        handle = None if hook is None else ref.backbone.maxpool.register_forward_hook(hook)
+        handle = None if hook is None else pool.register_forward_hook(hook)
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             loss = float(step(state, x, y))
@@ -4905,16 +5049,12 @@ def phase_remat(fs, fb, kc, ce, cm, smi: str) -> dict:
 
     t0 = time.perf_counter()
     counters = ((ce, ("launches_fwd", "launches_bwd")), (cm, ("launches",)),
-                (fs, ("launches_stats", "launches_pool", "launches_bwd_sums",
-                      "launches_bwd_wgrad")),
-                (fb, ("launches_mm_fwd", "launches_c3_fwd", "launches_mm_bwd",
-                      "launches_c3_bwd")),
+                (fs, STEM_COUNTERS), (fb, BLOCK_COUNTERS),
                 (kc, ("launches_dgrad", "launches_wgrad", "launches_rotated")))
 
     def zero():
         for mod, names in counters:
-            for n in names:
-                setattr(mod, n, 0)
+            zero_counters(mod, names)
         for counter in (*kc.launches_by_scale.values(), kc.launches_reduce,
                         kc.launches_dgrad_by_body, kc.launches_wgrad_by_body):
             counter.update(dict.fromkeys(counter, 0))
@@ -5403,6 +5543,204 @@ def phase_spatial(smi: str) -> dict:
     return {"sharded": train[0], "fwd": train[1], "bwd": train[2], **serve}
 
 
+# -------------------------------------------------- the sharded fused kernels
+SHARDED_FUSED = {"fused_stem": "always", "fused_blocks": "always"}
+# launches of the eight fused kernel entries in one train step at phase 6's
+# shapes (the stem's four; 26 1x1 and 12 3x3 block convs each way)
+FUSED_STEP_LAUNCHES = {"stats": 1, "pool": 1, "sums": 1, "wgrad": 1,
+                       "mm_fwd": 26, "c3_fwd": 12, "mm_bwd": 26, "c3_bwd": 12}
+SHARDED_OUT = TRAIN_OUT.with_name("chip_smoke_sharded_fused")
+
+
+def _fused_launches(fs, fb) -> dict:
+    """The fused stem's and blocks' eight counters under FUSED_STEP_LAUNCHES's
+    keys."""
+    return dict(zip(FUSED_STEP_LAUNCHES, read_counters(fs, STEM_COUNTERS)
+                    + read_counters(fb, BLOCK_COUNTERS)))
+
+
+def _rank_fused_step(rank: int, ranks: int, rendezvous: str, out: str) -> None:
+    """Phase 22 in a spawned rank: phase 15's f32 step with the fused stem and
+    blocks on this rank's rows (TF32 off and on), and the fused kernels'
+    launches."""
+    from iswm_tpu_torch.ops.kernels import fused_block as fb
+    from iswm_tpu_torch.ops.kernels import fused_stem as fs
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.parallel import destroy
+    from iswm_tpu_torch.train import make_train_step
+
+    _join_gloo(rank, ranks, rendezvous)
+    try:
+        x, y = _dp_batch()
+        rows = slice(rank * len(x) // ranks, (rank + 1) * len(x) // ranks)
+        step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
+        zero_counters(fs, STEM_COUNTERS)
+        zero_counters(fb, BLOCK_COUNTERS)
+        seen = _f32_rank_steps(step, x[rows], y[rows], rank, **SHARDED_FUSED)
+        seen["launches"] = _fused_launches(fs, fb)
+    finally:
+        destroy()
+    torch.save(seen, Path(out) / f"_rank_fused_step.{rank}.pt")
+
+
+def phase_sharded_fused(fs, fb, group_step: dict, smi: str) -> dict:
+    """The fused stem and blocks in a process group (their BatchNorm sums
+    all-reduced): phase 15's bf16 step in a 1-rank nccl group with
+    ``fused_stem`` / ``fused_blocks`` = "always" beside phase 15's unfused
+    group step (``group_step``), phase 15's f32 step on two gloo ranks held
+    to phase 15's limits of the one-process fused step; returns the phase's
+    launches of the eight fused entries (the group's and both ranks')."""
+    from iswm_tpu_torch.data import batch_iterator
+    from iswm_tpu_torch.models import layers
+    from iswm_tpu_torch.parallel import destroy, distributed
+
+    t_phase = time.perf_counter()
+    SHARDED_OUT.mkdir(parents=True, exist_ok=True)
+    _open_group("phase22.nccl")
+    zero_counters(fs, STEM_COUNTERS)
+    zero_counters(fb, BLOCK_COUNTERS)
+    trainer, cfg, train_ds, _ = _slice_trainer(DP_STEPS, "chip_smoke_group_fused",
+                                               **SHARDED_FUSED)
+    check(trainer.state.replicated is not None, "the Trainer did not wrap its model for the group")
+    batchnorms = sum(isinstance(m, layers.BatchNorm2d) for m in trainer.state.model.modules())
+    images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+    xu8, yu8 = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    trainer.train_step(trainer.state, xu8, yu8)  # the first step's autotuning
+    torch.cuda.synchronize()
+    reduces, before = distributed.cross_replica_all_reduces, _fused_launches(fs, fb)
+    loss = float(trainer.train_step(trainer.state, xu8, yu8))
+    reduces = distributed.cross_replica_all_reduces - reduces
+    per_step = {k: v - before[k] for k, v in _fused_launches(fs, fb).items()}
+    check(per_step == FUSED_STEP_LAUNCHES,
+          f"fused launches in one group step {per_step}, expected {FUSED_STEP_LAUNCHES}")
+    check(reduces == 2 * batchnorms,
+          f"{reduces} BatchNorm all-reduces in a fused group step, expected 2 for each of "
+          f"{batchnorms} BatchNorms (a fused conv's sums or the cross-replica module's)")
+    check(np.isfinite(loss), f"fused group step loss {loss}")
+    fused = {**_step_numbers(trainer, xu8, yu8), "all_reduces": reduces}
+    del trainer
+    print(f"[22] fused stem and blocks in a 1-rank nccl group: bf16 step loss {loss:.4f}; a "
+          f"step launches {per_step} and makes {reduces} all-reduces (2 x {batchnorms} "
+          f"BatchNorms: the fused convs' and the stem's sums, the other BatchNorms')")
+    for name, numbers in (("fused", fused), ("unfused (phase 15)", group_step)):
+        print(f"[22] {smi}: 1-rank group bf16 step, batch 8 at 512^2, {name}: device "
+              f"{numbers['device_ms']:.2f} ms in {numbers['launches']:.0f} launches ("
+              + ", ".join(f"{c} {t:.2f}" for c, t in sorted(numbers["by_class"].items(),
+                                                           key=lambda kv: -kv[1]))
+              + f"), host {numbers['host_ms']:.2f} ms (median), {numbers['all_reduces']} "
+              f"all-reduces, peak {numbers['peak_mib']:.1f} MiB ({numbers['base_mib']:.1f} "
+              f"before the step)")
+    reference = _dp_reference(**SHARDED_FUSED)
+    destroy()
+    group = _fused_launches(fs, fb)
+    t_ranks = time.perf_counter()
+    ranks = _spawn_ranks(_rank_fused_step, SHARDED_OUT)
+    t_ranks = time.perf_counter() - t_ranks
+    _hold_two_rank_step(reference, ranks, "[22]", "4 rows each, fused stem and blocks")
+    for r, seen in enumerate(ranks):  # two steps a rank: TF32 off and on
+        want = {k: 2 * v for k, v in FUSED_STEP_LAUNCHES.items()}
+        check(seen["launches"] == want,
+              f"rank {r}: fused launches {seen['launches']} in two f32 steps, expected {want}")
+    totals = {k: group[k] + sum(seen["launches"][k] for seen in ranks) for k in group}
+    print(f"[22] fused launches in the phase (1-rank group and both ranks) {totals}; phase 22 "
+          f"in {time.perf_counter() - t_phase:.1f} s (the ranks' processes {t_ranks:.1f} s)")
+    return totals
+
+
+# ------------------------------------------------------------- the engines
+ENGINE_VARIANTS = ("bf16", "int8_exec", "int8_exec_xla")
+
+
+def _host_ms(fn, reps: int = 10) -> float:
+    """Median host-clock ms of ``fn()``, synchronized, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def phase_engine(k8, kc, smi: str) -> dict:
+    """Phase 4's serving fns as CUDA-graph engines (``infer/engine.py``): a
+    chunk of 8 tiles of phase 4's first scene replayed bit-equal to the
+    eager fn (two chunks); the host ms of a chunk eager and replayed;
+    ``int8_exec_xla`` (the int8 convs) the same way.  The bf16 fn through
+    ``serialize`` / ``deserialize`` on the card, bit-equal to the eager fn
+    on both chunks; the int8 fns refused by ``serialize`` (ROADMAP Item 16)
+    without a launch.  Returns the phase's launches of #1 and the int8
+    convs (eager calls and captures: a replay calls no wrapper)."""
+    from iswm_tpu_torch.config import Config
+    from iswm_tpu_torch.data import val_transform_batch
+    from iswm_tpu_torch.infer import Predictor
+    from iswm_tpu_torch.infer.engine import EXPORT_ITEM, build_engine, deserialize, serialize
+
+    scene = np.random.default_rng(SEED).integers(0, 256, SCENES[0] + (3,), dtype=np.uint8)
+    x = val_transform_batch(torch.from_numpy(scene).cuda())
+    chunks = [torch.stack([x[oy:oy + 512, ox:ox + 512] for oy in rows
+                           for ox in (0, 384, 768, 1024)]) for rows in ((0, 448), (256, 512))]
+    flags = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    k8.launches = kc.launches_quantize = kc.launches_igemm = 0
+    for variant in ENGINE_VARIANTS:
+        cfg = Config()  # deeplabv3plus_resnet50, OS 16, bf16, tile 512/64/8
+        cfg.predict.serving_variant = variant
+        predictor = Predictor(cfg, device="cuda")
+        predictor.predict_image(scene)  # the int8 variants calibrate on it
+        fn = predictor.engine.model_fn
+        engine = build_engine(fn, tuple(chunks[0].shape), chunks[0].dtype)
+        for i, chunk in enumerate(chunks):
+            replayed, eager = engine(chunk), fn(chunk)
+            check(torch.equal(replayed, eager),
+                  f"{variant}: the replay of chunk {i} differs from the eager fn by "
+                  f"{float((replayed - eager).abs().max())}")
+        eager_ms = _host_ms(lambda: fn(chunks[0]))
+        graph_ms = _host_ms(lambda: engine(chunks[0]))
+        pool = engine.memory_analysis["graph_pool_bytes"] / 2**20
+        flops = "not counted" if engine.flops is None else f"{engine.flops / 1e9:.1f} GFLOP"
+        print(f"[23] {smi}: {variant} engine, a chunk of 8 x 512^2: replays bit-equal to the "
+              f"eager fn on two chunks; host clock (synchronized, median of 10, deterministic "
+              f"cuDNN) eager {eager_ms:.3f} ms, replayed {graph_ms:.3f} ms; graph pool "
+              f"{pool:.1f} MiB; library flops counted at build {flops} (the hand kernels' "
+              f"not seen)")
+        del engine
+        if variant == "bf16":
+            t0 = time.perf_counter()
+            blob = serialize(fn, tuple(chunks[0].shape), chunks[0].dtype)
+            t_blob = time.perf_counter() - t0
+            served = deserialize(blob)
+            for i, chunk in enumerate(chunks):
+                with torch.inference_mode():
+                    got, eager = served(chunk), fn(chunk)
+                check(torch.equal(got, eager),
+                      f"bf16: the deserialized artifact differs from the eager fn on chunk {i} "
+                      f"by {float((got.float() - eager.float()).abs().max())}")
+            print(f"[23] bf16 serving fn through serialize (torch.export on the card, "
+                  f"{t_blob:.1f} s, {len(blob) / 2**20:.1f} MiB) and deserialize: bit-equal to "
+                  f"the eager fn on two chunks")
+            del served, blob
+        else:
+            counts = (k8.launches, kc.launches_quantize, kc.launches_igemm)
+            try:
+                serialize(fn, tuple(chunks[0].shape), chunks[0].dtype)
+                refusal = "none"
+            except NotImplementedError as e:
+                refusal = str(e)
+            check(EXPORT_ITEM in refusal, f"{variant}: serialize did not refuse the hand "
+                  f"kernels with {EXPORT_ITEM!r}: {refusal}")
+            check((k8.launches, kc.launches_quantize, kc.launches_igemm) == counts,
+                  f"{variant}: the refused trace launched a hand kernel")
+            print(f"[23] {variant}: serialize refuses it ({refusal[:120]}...), no launch")
+        del predictor, fn
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = flags
+    return {"matmul": k8.launches, "quantize": kc.launches_quantize,
+            "igemm": kc.launches_igemm}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an H100",
@@ -5415,10 +5753,12 @@ def main() -> int:
     from iswm_tpu_torch.ops.kernels import int8_conv as kc
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
-    if sys.argv[1:2] == ["--block-stat-starts"]:
+    if sys.argv[1:2] in (["--block-stat-starts"], ["--block-f32-starts"]):
         phase_device()
         phase_build({"fused_ce": ce, "fused_block": fb})
-        block_stat_readings(int(sys.argv[2]))
+        readings = {"--block-stat-starts": block_stat_readings,
+                    "--block-f32-starts": block_f32_readings}[sys.argv[1]]
+        readings(int(sys.argv[2]))
         return 0
     phase_device()
     phase_build({"int8_matmul": k8, "fused_ce": ce, "confusion": cm, "fused_stem": fs,
@@ -5444,7 +5784,7 @@ def main() -> int:
     block_launches = dict(zip(("mm_fwd", "c3_fwd", "mm_bwd", "c3_bwd"),
                               phase_block_slice(fb, ce)))
     sharded_record = phase_sharded_ce(ce)
-    sharded_launches = phase_dp_slice(ce, cm)
+    sharded_launches, group_step = phase_dp_slice(ce, cm)
     # the zoo's main paths: serving (#1) and training with a quick-eval (#4, #6)
     smi = _smi()
     record.update(phase_zoo_kernel(k8))
@@ -5491,6 +5831,17 @@ def main() -> int:
     launches += spatial["matmul"]
     for e in ("quantize", "igemm"):
         xla_launches[e] += spatial[e]
+    # the fused stem and blocks in a process group: their eight entries
+    fused_group = phase_sharded_fused(fs, fb, group_step, smi)
+    for key in stem_launches:
+        stem_launches[key] += fused_group[key]
+    for key in block_launches:
+        block_launches[key] += fused_group[key]
+    # the serving fns as CUDA-graph engines: #1 and the int8 convs captured
+    engine = phase_engine(k8, kc, smi)
+    launches += engine["matmul"]
+    for e in ("quantize", "igemm"):
+        xla_launches[e] += engine[e]
     by_scale = {e: {"host": xla_launches[e] + qat_launches[e]["host"],
                     "device": qat_launches[e]["device"] + bwd_launches[e]}
                 for e in ("quantize", "igemm")}

@@ -13,14 +13,14 @@ Layout:
     iswm_tpu_torch.compat  — weights and SGD momentum from the JAX package /
                              reference .pth
     iswm_tpu_torch.infer   — tile engine, products, serving variants and their
-                             comparison, Predictor
+                             comparison, Predictor, CUDA-graph engines
     iswm_tpu_torch.metrics — host metrics engine (StreamMetrics) and the
                              reductions on tensors for quick evaluation
     iswm_tpu_torch.data    — datasets, synthetic scenes, device augmentation,
-                             class weights, prefetch loader
+                             class weights, prefetch loader, doctor, manifest
     iswm_tpu_torch.train   — optimizer + schedule, train/eval steps, .pth
-                             checkpoints, logging, Trainer
-    iswm_tpu_torch.utils   — panel visualizer
+                             checkpoints, logging, profiling, Trainer
+    iswm_tpu_torch.utils   — panel visualizer, small helpers (misc)
     iswm_tpu_torch.cli     — ``python -m iswm_tpu_torch.cli.{predict,train,
                              evaluate_quantization}``
 """

@@ -30,7 +30,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 BACKBONES = tuple(ARCHS) + ("mobilenetv2", "xception")
 HEADS = ("deeplabv3plus", "deeplabv3")
-SHARDED_FUSED_ITEM = "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'"
 # the auto grouped_blockdiag gate of each grouped backbone, as the JAX package
 # sets it (iswm_tpu/models/__init__.py)
 _GROUPED_BACKBONES = {"resnext50_32x4d": 256, "resnext101_32x8d": 512}
@@ -73,19 +72,16 @@ def _resolve_fused_mode(value: str, setting: str) -> str:
     kernels on the CPU; a CPU tensor takes the plain versions here under
     ``"always"`` already, so it means the same.  ``"auto"`` stays
     ``"auto"``: the model decides per input, fused on a CUDA tensor and
-    unfused on a CPU tensor (the port trains and serves on one device).
+    unfused on a CPU tensor.
 
-    In a process group of more than one rank ``"auto"`` is ``"never"``, as
-    the JAX package turns it off on more than one device, and ``"always"``
-    and ``"interpret"`` are refused: the fused kernels would take each rank's
-    own BatchNorm statistics where the JAX package takes the global batch's."""
+    ``"always"`` and ``"interpret"`` hold on any number of ranks: in a
+    process group the fused stem and blocks all-reduce their BatchNorm sums,
+    so they take the global batch's statistics, as the JAX package's under
+    its sharded jit.  ``"auto"`` is ``"never"`` on more than one rank, as the
+    JAX package turns it off on more than one device."""
     if value not in ("never", "auto", "always", "interpret"):
         raise ValueError(f"unknown {setting} setting {value!r}")
-    if world_size() > 1:
-        if value in ("always", "interpret"):
-            raise NotImplementedError(
-                f"{setting}={value!r} on {world_size()} ranks is not ported yet "
-                f"({SHARDED_FUSED_ITEM}); the fused kernels take one rank's statistics")
+    if value == "auto" and world_size() > 1:
         return "never"
     return value
 

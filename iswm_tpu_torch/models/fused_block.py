@@ -18,6 +18,17 @@ sums over the rounded conv output, the fast variance
 differs from the unfused modules', so the two agree to rounding, not bit for
 bit.
 
+In a process group the statistics are the global batch's, as the JAX
+package's under a jit sharded over the data axis: each kernel's sums
+``(s, q)`` and this rank's count go through one all-reduce
+(``parallel.distributed.group_batch_sums``) before they are folded, and the
+backward all-reduces their cotangents before the kernels' VJPs take them, so
+every rank normalizes with the same statistics and each rank's data
+gradient is that of the global batch.  The weight gradients and the BatchNorm
+parameters' gradients stay this rank's share, which the data-parallel
+step's gradient reduction (a sum over the ranks) completes, as for
+``CrossReplicaBatchNorm``.
+
 Scope, as in the JAX package: training mode, stride 1, dilation 1, groups 1,
 base width 64 (``Bottleneck.forward`` checks), and a shape that
 ``fused_block_eligible`` accepts.
@@ -29,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.fused_block import conv3x3_bn_stats, matmul_bn_stats
+from ..parallel.distributed import group_batch_sums
 from .remat import recomputing
 
 
@@ -55,7 +67,9 @@ def fused_block_eligible(shape) -> bool:
 
 def _finalize_stats(s, q, count: int, bn: nn.BatchNorm2d):
     """(mean, var, a, b) in float32 with ``normalize(y) = a * y + b``, from the
-    sums of y and y^2 over ``count`` values per channel."""
+    sums of y and y^2 over ``count`` values per channel (this rank's); in a
+    process group the sums and the count are first summed over the ranks."""
+    s, q, count = group_batch_sums(s, q, count)
     mean = s / count
     var = torch.clamp_min(q / count - mean * mean, 0.0)
     a = torch.rsqrt(var + bn.eps) * bn.weight.float()
@@ -84,7 +98,9 @@ def fused_bottleneck_apply(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     ``x`` is NCHW [B, C, H, W] in the compute dtype (on the card in
     ``channels_last`` memory, which is the NHWC the kernels read: no copy);
     the output is NCHW of the same dtype, in NHWC memory.  Updates the
-    running statistics of the block's BatchNorms."""
+    running statistics of the block's BatchNorms (in a process group with
+    the global batch's statistics: four all-reduces forward, four backward).
+    """
     bsz, cin, h, w = x.shape
     cdt = x.dtype
     count = bsz * h * w

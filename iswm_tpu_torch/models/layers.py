@@ -38,11 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import spatial
-from ..parallel.distributed import is_initialized
+from ..parallel.distributed import is_initialized, statistics_sum
 from .remat import first_read, recomputing
-
-# all-reduces launched by the cross-replica BatchNorm, forward and backward
-cross_replica_all_reduces = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,13 +205,6 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
 
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    global cross_replica_all_reduces
-    cross_replica_all_reduces += 1
-    torch.distributed.all_reduce(t)
-    return t
-
-
 class CrossReplicaBatchNorm(torch.autograd.Function):
     """Train-mode BatchNorm over the rows of every rank of the default group,
     flax's arithmetic on the global batch: one float32 all-reduce of
@@ -234,7 +224,7 @@ class CrossReplicaBatchNorm(torch.autograd.Function):
         dims = (0, 2, 3)
         local_n = torch.full((1,), x.numel() // x.shape[1], dtype=torch.float32,
                              device=x.device)
-        sums = _all_reduce(torch.cat([xf.sum(dims), (xf * xf).sum(dims), local_n]))
+        sums = statistics_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), local_n]))
         c = x.shape[1]
         n = sums[-1]
         mean = sums[:c] / n
@@ -255,7 +245,7 @@ class CrossReplicaBatchNorm(torch.autograd.Function):
         xhat = (x.float() - mean.reshape(per_channel)) * sigma_inv.reshape(per_channel)
         local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
         dbias, dweight = local.chunk(2)
-        total = _all_reduce(local.clone())
+        total = statistics_sum(local)
         sum_dy, sum_dy_xhat = (t.reshape(per_channel) / n for t in total.chunk(2))
         dx = ((weight * sigma_inv).reshape(per_channel)
               * (dyf - sum_dy - xhat * sum_dy_xhat))

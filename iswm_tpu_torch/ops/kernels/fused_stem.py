@@ -47,6 +47,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ...parallel.distributed import group_batch_sums, is_initialized, statistics_sum
+
 launches_stats = 0
 launches_pool = 0
 launches_bwd_sums = 0
@@ -340,17 +342,29 @@ def fold_affine(gamma, beta, mean, sigma_inv):
     return scale, beta.float() - mean * scale
 
 
-def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv):
+def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, n=None):
     """Fused backward of ``pool(relu(bn(conv(x))))`` given d(pooled).
 
     z: the conv output [B, F, S, S] (the residual, in the compute dtype);
     x: the image [B, 3, 2S, 2S]; dp: the pooled output's cotangent;
     gamma / beta: the BN affine [F]; mean / sigma_inv: the batch statistics
-    [F] float32.  Returns (dW [F, 3, 7, 7] float32, dgamma [F], dbeta [F])."""
+    [F] float32; n: the values a channel they were taken over (default
+    B * S * S; in a process group the group's count, which the caller
+    passes).  Returns (dW [F, 3, 7, 7] float32, dgamma [F], dbeta [F]).
+
+    In a process group the statistics are the group's: the first kernel's
+    sums are all-reduced before the second kernel takes them, and dgamma /
+    dbeta are this rank's sums from before the all-reduce, its share, which
+    the gradient reduction (a sum over the ranks) completes; the global sums
+    there would count every rank's rows once for each rank."""
     scale, bias = fold_affine(gamma, beta, mean, sigma_inv)
     s1, s2 = stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv)
-    n = z.numel() // z.shape[1]
-    dw = stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, s1 / n, s2 / n)
+    if n is None:
+        n = z.numel() // z.shape[1]
+    g1, g2 = s1, s2
+    if is_initialized():
+        g1, g2 = statistics_sum(torch.cat([s1, s2])).chunk(2)
+    dw = stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, g1 / n, g2 / n)
     return dw, s2, s1
 
 
@@ -366,13 +380,25 @@ class StemFusedTrain(torch.autograd.Function):
 
     Saves z, x, gamma, beta and the batch statistics; the backward is the two
     kernels of :func:`stem_tail_bwd`.  The statistics feed the caller's
-    running averages and carry no gradient."""
+    running averages and carry no gradient.
+
+    In a process group the statistics are the global batch's, as the JAX
+    package's under a jit sharded over the data axis: ``(sum z, sum z^2, n)``
+    of ``stem_stats`` go through one all-reduce before ``fold_affine``, so
+    ``stem_norm_relu_pool`` normalizes with them, and the backward
+    all-reduces the first kernel's sums before the second.  dgamma and
+    dbeta stay this rank's local sums (see :func:`stem_tail_bwd`), the
+    weight gradient this rank's rows' contraction: the data-parallel step's
+    gradient reduction sums them over the ranks, as ``CrossReplicaBatchNorm``
+    keeps its ``dweight`` and ``dbias`` local."""
 
     @staticmethod
     def forward(ctx, x, weight, gamma, beta, eps):
         z = _stem_conv(x, weight)
         n = z.numel() // z.shape[1]
         total, total_sq = stem_stats(z)
+        total, total_sq, n = group_batch_sums(total, total_sq, n)
+        ctx.n = n
         mean = total / n
         var = torch.clamp_min(total_sq / n - mean * mean, 0.0)
         sigma_inv = torch.rsqrt(var + eps)
@@ -387,7 +413,7 @@ class StemFusedTrain(torch.autograd.Function):
     def backward(ctx, dp, _dmean, _dvar):
         z, x, gamma, beta, mean, sigma_inv = ctx.saved_tensors
         dw, dgamma, dbeta = stem_tail_bwd(z, x, dp.to(z.dtype), gamma, beta, mean,
-                                          sigma_inv)
+                                          sigma_inv, ctx.n)
         # d(image) is deliberately not computed: the stem is the first layer.
         # NaN and not zero, so that a caller who does ask for it fails loudly.
         dx = torch.full_like(x, float("nan")) if ctx.needs_input_grad[0] else None

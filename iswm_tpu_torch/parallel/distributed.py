@@ -5,7 +5,9 @@ runs one process per device: each process holds a rank of a
 ``torch.distributed`` process group, trains on its own rows of the global
 batch, and reduces BatchNorm statistics, loss denominators and gradients
 over the group explicitly (``models/layers.py``, ``ops/losses.py``,
-``train/step.py``).
+``train/step.py``).  :func:`group_sum` is the one differentiable sum over a
+group they and the spatial split (``spatial.py``) use; the BatchNorm
+statistics' sums go through :func:`statistics_sum`, and are counted.
 
 Call ``maybe_initialize_distributed()`` before building the model.  It
 opens a group when arguments or torchrun's variables (``RANK``,
@@ -21,10 +23,14 @@ failed rendezvous raises: the process does not carry on alone.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+# all-reduces of BatchNorm statistics, forward and backward: the
+# cross-replica BatchNorm's and the fused stem's and blocks'
+cross_replica_all_reduces = 0
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -101,3 +107,55 @@ def process_local_batch_slice(global_batch: int) -> int:
     if global_batch % n != 0:
         raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
     return global_batch // n
+
+
+def _summed(x: torch.Tensor, group, count: Callable) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    count(out)
+    return out
+
+
+class _GroupSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, count):
+        ctx.group, ctx.count = group, count
+        return _summed(x, group, count)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group, ctx.count), None, None
+
+
+def group_sum(x: torch.Tensor, group=None, count: Callable = lambda t: None) -> torch.Tensor:
+    """``x`` summed over ``group`` (None: the default group), into a new
+    tensor.  Differentiable: each rank's loss holds its own rows only, so the
+    gradient of a sum over the group is the sum of the ranks' gradients, and
+    the backward is a sum over the group too.  ``count(t)`` is called with the
+    output of each all-reduce, forward and backward."""
+    return _GroupSum.apply(x, group, count)
+
+
+def _count_statistics(_t: torch.Tensor) -> None:
+    global cross_replica_all_reduces
+    cross_replica_all_reduces += 1
+
+
+def statistics_sum(t: torch.Tensor) -> torch.Tensor:
+    """:func:`group_sum` over the default group of BatchNorm statistics,
+    counted in ``cross_replica_all_reduces``."""
+    return group_sum(t, None, _count_statistics)
+
+
+def group_batch_sums(s: torch.Tensor, q: torch.Tensor, count: int):
+    """(S, Q, N): per-channel float32 sums of y and y^2 over this process's
+    ``count`` values a channel, summed over the default group with the
+    counts in one all-reduce of ``cat([s, q, n])`` (N a 1-element tensor);
+    the sums as given without a group.  S and Q carry gradients back to s
+    and q (a second all-reduce, in the backward)."""
+    if not is_initialized():
+        return s, q, count
+    n = torch.full((1,), count, dtype=torch.float32, device=s.device)
+    c = s.shape[0]
+    total = statistics_sum(torch.cat([s.float(), q.float(), n]))
+    return total[:c], total[c:2 * c], total[2 * c:]

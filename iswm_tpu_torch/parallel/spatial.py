@@ -34,11 +34,14 @@ the tensors they produce, forward and backward.
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from . import distributed
 
 # calls and bytes (of each collective's output tensor) since the last reset
 collectives = {"halo_gather": 0, "halo_reduce": 0, "group_sum": 0}
@@ -154,29 +157,9 @@ class _FetchRows(torch.autograd.Function):
         return dx, None, None, None, None
 
 
-class _GroupSum(torch.autograd.Function):
-    """The sum of a tensor over the model group, whose backward is the sum
-    of the gradients over the group."""
-
-    @staticmethod
-    def forward(ctx, x, split):
-        ctx.split = split
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=split.group)
-        _count("group_sum", out)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.split.group)
-        _count("group_sum", grad)
-        return grad, None
-
-
 def group_sum(x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the model group in force (differentiable)."""
-    return _GroupSum.apply(x, _split)
+    return distributed.group_sum(x, _split.group, functools.partial(_count, "group_sum"))
 
 
 _constants = {}  # (values, dtype, device) -> tensor

@@ -9,6 +9,7 @@ jax nor the JAX package: a spawned child imports it.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -59,6 +60,9 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
             "qat_bwd": _train_step(payload["step"], QAT_BWD),
             "remat": _train_step(payload["step"], remat=True),
             "int8_bwd_conv": _int8_bwd_conv(payload["int8_bwd_conv"]),
+            "fused_block": _fused_block(payload["fused_block"]),
+            "fused_stem": _fused_stem(payload["fused_stem"]),
+            **_fused_steps(payload["step"]),
             "refusals": _refusals(),
             "fit": _fit(payload["fit_dir"]),
         }
@@ -142,6 +146,7 @@ def _batchnorm(case: dict) -> dict:
     """Output, running statistics and gradients (x's rows; this rank's share
     of the weight's and the bias's) of the cross-replica BatchNorm2d."""
     from iswm_tpu_torch.models import layers
+    from iswm_tpu_torch.parallel import distributed
 
     c = case["x"].shape[1]
     bn = layers.BatchNorm2d(c).train()
@@ -149,13 +154,13 @@ def _batchnorm(case: dict) -> dict:
         bn.weight.copy_(torch.from_numpy(case["weight"]))
         bn.bias.copy_(torch.from_numpy(case["bias"]))
     x = torch.from_numpy(_rows(case["x"])).requires_grad_()
-    before = layers.cross_replica_all_reduces
+    before = distributed.cross_replica_all_reduces
     y = bn(x)
     y.backward(torch.from_numpy(_rows(case["dy"])))
     return {"y": y.detach().numpy(), "mean": bn.running_mean.numpy(),
             "var": bn.running_var.numpy(), "dx": x.grad.numpy(),
             "dweight": bn.weight.grad.numpy(), "dbias": bn.bias.grad.numpy(),
-            "all_reduces": layers.cross_replica_all_reduces - before}
+            "all_reduces": distributed.cross_replica_all_reduces - before}
 
 
 def _dropout_off(model) -> None:
@@ -170,45 +175,90 @@ SPATIAL_REFUSED = (("model", "backbone", "mobilenetv2"), ("model", "backbone", "
                    ("model", "int8_training", 64), ("parallel", "remat", True))
 QAT = dict(int8_training=64, int8_scale_mode="delayed")  # the QAT step's model
 QAT_BWD = dict(QAT, int8_training_bwd=True)  # ... with QAT's int8 backward
+# the fused step's model: ResNet-50's stem and bottlenecks through the fused
+# functions (their plain versions here), from the seeded weights of build_model
+FUSED = dict(backbone="resnet50", fused_stem="always", fused_blocks="always")
+RESNET50 = dict(backbone="resnet50")  # ... and unfused, its yardstick
 
 
-def _train_step(case: dict, quant: dict | None = None, remat: bool = False,
+def step_model(case: dict, options: dict):
+    """The float32 model of a step case, dropout off: resnet18 with the
+    crossed weights of ``case["ckpt"]``, or where ``options`` name another
+    backbone (``FUSED``, ``RESNET50``), that model's seeded weights."""
+    from iswm_tpu_torch.compat import load_checkpoint
+    from iswm_tpu_torch.config import ModelConfig
+    from iswm_tpu_torch.models import build_model
+
+    model = build_model(ModelConfig(**{"backbone": "resnet18", "compute_dtype": "float32",
+                                       **options}))
+    if options.get("backbone", "resnet18") == "resnet18":
+        model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
+    _dropout_off(model)
+    return model
+
+
+@contextlib.contextmanager
+def counting_fused_calls(counts: dict):
+    """Count the calls of the fused block and the fused stem's train entry
+    (which still run) into ``counts["blocks"]`` and ``counts["stem"]``."""
+    from iswm_tpu_torch.models import fused_block as mfb
+    from iswm_tpu_torch.ops.kernels import fused_stem as fs
+
+    real = mfb.fused_bottleneck_apply, fs.stem_fused_train
+    counts.update(blocks=0, stem=0)
+
+    def block(*args):
+        counts["blocks"] += 1
+        return real[0](*args)
+
+    def stem(*args):
+        counts["stem"] += 1
+        return real[1](*args)
+
+    mfb.fused_bottleneck_apply, fs.stem_fused_train = block, stem
+    try:
+        yield counts
+    finally:
+        mfb.fused_bottleneck_apply, fs.stem_fused_train = real
+
+
+def _train_step(case: dict, options: dict | None = None, remat: bool = False,
                 mesh=None) -> dict:
     """One data-parallel step of resnet18 from the crossed weights on this
     rank's rows: the sharded CE (plain versions), the cross-replica
-    BatchNorm and the summing gradient reduction; with ``quant`` (``QAT``,
+    BatchNorm and the summing gradient reduction; with ``options`` (``QAT``,
     ``QAT_BWD``), of that QAT model, its amaxes (and with the int8 backward
-    its cotangents' amaxes) taken over both ranks; with ``remat``, the
-    activations recomputed block by block in the backward; with a ``mesh``
-    of a model axis, the step on this rank's image rows of its data index's
-    batch rows, with its halo exchanges counted."""
-    from iswm_tpu_torch.parallel import shard_batch, spatial
-    from iswm_tpu_torch.compat import load_checkpoint
-    from iswm_tpu_torch.config import ModelConfig, OptimConfig
-    from iswm_tpu_torch.models import build_model, layers
+    its cotangents' amaxes) taken over both ranks, or (``FUSED``) of
+    ResNet-50 through the fused stem and blocks, their BatchNorm sums taken
+    over both ranks; with ``remat``, the activations recomputed block by
+    block in the backward; with a ``mesh`` of a model axis, the step on this
+    rank's image rows of its data index's batch rows, with its halo
+    exchanges counted."""
+    from iswm_tpu_torch.parallel import distributed, shard_batch, spatial
+    from iswm_tpu_torch.config import OptimConfig
+    from iswm_tpu_torch.models import layers
     from iswm_tpu_torch.ops import int8_train
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
     from iswm_tpu_torch.train.step import data_parallel
 
-    model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32",
-                                    **(quant or {})))
-    model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
-    _dropout_off(model)
+    model = step_model(case, options or {})
     factory, _ = make_optimizer(OptimConfig(), TOTAL)
     state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    all_reduces = layers.cross_replica_all_reduces
+    all_reduces = distributed.cross_replica_all_reduces
     amax_reduces = int8_train.amax_all_reduces
     rows = _rows if mesh is None else (lambda a: shard_batch(mesh, a))
     spatial.reset_counts()
-    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat, mesh=mesh)(
-        state, torch.from_numpy(rows(case["images"])), torch.from_numpy(rows(case["labels"])))
-    return {"loss": float(loss), "before": before,
+    with counting_fused_calls({}) as fused_calls:
+        loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat,
+                               mesh=mesh)(state, torch.from_numpy(rows(case["images"])),
+                                          torch.from_numpy(rows(case["labels"])))
+    return {"loss": float(loss), "before": before, "fused_calls": fused_calls,
             "collectives": dict(spatial.collectives),
             "after": {k: v.clone() for k, v in model.state_dict().items()},
             "count": state.step,
-            "all_reduces": layers.cross_replica_all_reduces - all_reduces,
+            "all_reduces": distributed.cross_replica_all_reduces - all_reduces,
             "amax_all_reduces": int8_train.amax_all_reduces - amax_reduces,
             "amaxes": {k: v.clone() for k, v in layers.quant_state(model).items()},
             "routed": len(layers.routed_sites(model, True)),
@@ -230,6 +280,87 @@ def _int8_bwd_conv(case: dict) -> dict:
     dw = w.grad.clone()
     torch.distributed.all_reduce(dw)
     return {"dx": x.grad, "dw": dw, "amax_all_reduces": int8_train.amax_all_reduces - reduces}
+
+
+def _fused_steps(case: dict) -> dict:
+    """The ``FUSED`` step, its remat step and the ``RESNET50`` step on this
+    rank's rows.  What a rank saves of them is kept small (a ResNet-50 state
+    is 160 MB): the states after the two plain steps on rank 0 alone, with
+    whether every rank's equals rank 0's, and of the remat step whether its
+    state equals the fused step's."""
+    import torch.distributed as dist
+
+    counts = ("loss", "fused_calls", "all_reduces", "batchnorms", "count")
+
+    def kept(step: dict) -> dict:
+        flat = torch.cat([v.double().flatten() for v in step["after"].values()])
+        lead = flat.clone()
+        dist.broadcast(lead, src=0)
+        return {**{k: step[k] for k in counts}, "equal_to_rank_0": torch.equal(lead, flat),
+                "after": step["after"] if dist.get_rank() == 0 else None}
+
+    step = _train_step(case, FUSED)
+    remat = _train_step(case, FUSED, remat=True)
+    return {
+        "fused_step": kept(step),
+        "fused_remat": {**{k: remat[k] for k in counts},
+                        "equal_to_fused_step": all(torch.equal(v, step["after"][k])
+                                                   for k, v in remat["after"].items())},
+        "resnet50_step": kept(_train_step(case, RESNET50)),
+    }
+
+
+def fused_block_module(state: dict):
+    """ResNet-50's ``layer1.0`` (64 -> 256 channels, with its downsample) in
+    training mode through the fused path, BatchNorm momentum flax's 0.9,
+    with the weights and statistics of ``state``."""
+    from iswm_tpu_torch.models.resnet import Bottleneck
+
+    block = Bottleneck(64, 64, downsample=True, fused_mode="always").train()
+    for m in block.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = 0.1
+    block.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()}, strict=True)
+    return block
+
+
+def _fused_block(case: dict) -> dict:
+    """The fused block on this rank's rows of x [B, 64, H, W] and of the
+    output's cotangent: output and dx rows, this rank's parameter gradients,
+    the running statistics and the all-reduces it made."""
+    from iswm_tpu_torch.parallel import distributed
+
+    block = fused_block_module(case["state"])
+    x = torch.from_numpy(_rows(case["x"])).requires_grad_()
+    before = distributed.cross_replica_all_reduces
+    with counting_fused_calls({}) as calls:
+        out = block(x)
+    out.backward(torch.from_numpy(_rows(case["g"])))
+    return {"out": out.detach(), "dx": x.grad, "calls": calls,
+            "grads": {k: p.grad.clone() for k, p in block.named_parameters()},
+            "buffers": {k: b.clone() for k, b in block.named_buffers()},
+            "all_reduces": distributed.cross_replica_all_reduces - before}
+
+
+def fused_stem_call(case: dict, rows) -> dict:
+    """``stem_fused_train`` on ``rows`` of the image [B, 3, 2S, 2S] with the
+    cotangent's rows of the pooled output: p, the batch statistics and the
+    gradients of the conv weight, gamma and beta (this process's)."""
+    from iswm_tpu_torch.ops.kernels import fused_stem as fs
+
+    leaves = [torch.from_numpy(case[k]).requires_grad_() for k in ("weight", "gamma", "beta")]
+    p, mean, var = fs.stem_fused_train(torch.from_numpy(rows(case["image"])), *leaves, 1e-5)
+    (p * torch.from_numpy(rows(case["w"]))).sum().backward()
+    return {"p": p.detach(), "mean": mean, "var": var,
+            **{f"d{k}": t.grad for k, t in zip(("weight", "gamma", "beta"), leaves)}}
+
+
+def _fused_stem(case: dict) -> dict:
+    from iswm_tpu_torch.parallel import distributed
+
+    before = distributed.cross_replica_all_reduces
+    out = fused_stem_call(case, _rows)
+    return {**out, "all_reduces": distributed.cross_replica_all_reduces - before}
 
 
 def _spatial_mesh_checks(mesh) -> dict:
@@ -350,10 +481,13 @@ def _refusals() -> dict:
         setattr(getattr(cfg, section), key, value)
         return Trainer(cfg, device="cpu")
 
-    auto = model(fused_stem="auto", fused_blocks="auto").backbone
+    def modes(**fused):
+        backbone = model(**fused).backbone
+        return backbone.fused_stem, backbone.layer1[0].fused_mode
+
     return {
-        "auto": (auto.fused_stem, auto.layer1[0].fused_mode),
-        **{f"{k}={v}": _raised(lambda k=k, v=v: model(**{k: v}))
+        "auto": modes(fused_stem="auto", fused_blocks="auto"),
+        **{f"{k}={v}": modes(**{k: v})
            for k in ("fused_stem", "fused_blocks") for v in ("always", "interpret")},
         **{f"spatial {k}={v!r}": _raised(lambda s=s, k=k, v=v: trainer(s, k, v, model_axis=2))
            for s, k, v in SPATIAL_REFUSED},

@@ -30,7 +30,22 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   within 1.5 float32 ulps; the remat step (``remat=True``) equal to the
   2-rank plain step bit for bit and to the one-process remat step at the
   step tolerances;
-- (e) refusals at world size 2: the fused stem and blocks under ``always`` /
+- (d') the fused stem and blocks on the two ranks, their BatchNorm sums
+  all-reduced: ResNet-50's ``layer1.0`` (with its downsample, float32,
+  global batch 4 at 8x8, 2 + 2 rows) and the fused stem (global batch 4 at
+  16x16) against the JAX package's ``Bottleneck(fused_mode="interpret")`` /
+  ``stem_fused_train`` in Pallas interpret mode on the whole batch and
+  against the port's one-process fused functions: output rows, running
+  statistics, the input gradient and the ranks' parameter gradients summed
+  (the stem's dgamma and dbeta are each rank's share: their sum is the
+  one-process value, not twice it); one step of deeplabv3plus_resnet50
+  (seeded weights, (d)'s batch) with ``fused_stem`` / ``fused_blocks`` =
+  ``always`` against the one-process fused step, two all-reduces a
+  BatchNorm (fused or not), and its remat step bit-equal to it with three;
+  the same step unfused against the one-process unfused step, held the same
+  way (a chaotic step: (d)'s tolerances or five times the distance of a
+  one-process step whose stem output moved by an ulp);
+- (e) at world size 2: the fused stem and blocks build under ``always`` /
   ``interpret``; ``auto`` resolves to ``never``; under ``model_axis = 2`` the
   options still refused (ROADMAP.md Queue 1, 'Spatial model axis: remaining
   options') and a crop size that is not a multiple of ``output_stride *
@@ -72,6 +87,7 @@ from iswm_tpu_torch.parallel import (
 
 from ._torch_dist import TOTAL, WORLD, join_ranks, start_ranks
 from ._torch_threads import few_torch_threads  # noqa: F401  (an autouse fixture)
+from .test_torch_fused_block import _close
 from .test_torch_models import crossed_models
 from .test_torch_train import _no_dropout
 from .test_torch_train_step import _batch, _check_step
@@ -212,6 +228,109 @@ def _flax_batchnorm(case):
             "dweight": np.asarray(dparams["scale"]), "dbias": np.asarray(dparams["bias"])}
 
 
+def _nchw(a):
+    return np.ascontiguousarray(np.transpose(np.asarray(a), (0, 3, 1, 2)))
+
+
+def _fused_block_case():
+    """(d'): the payload of ResNet-50's ``layer1.0`` (x post-ReLU [4, 64, 8,
+    8], the output's cotangent, the JAX block's perturbed weights and
+    statistics in the port's keys) and the JAX block with its trees."""
+    import jax
+    import jax.numpy as jnp
+
+    from iswm_tpu.models.resnet import Bottleneck as JaxBottleneck
+
+    from .test_torch_fused_block import _block_state_from_jax
+
+    rng = np.random.default_rng(9)
+    x = np.abs(rng.normal(size=(4, 8, 8, 64))).astype(np.float32)
+    g = rng.normal(size=(4, 8, 8, 256)).astype(np.float32)
+    jblock = JaxBottleneck(planes=64, downsample=True, fused_mode="interpret",
+                           dtype=jnp.float32)
+    shapes = jax.eval_shape(  # the trees' layout, without running an init
+        lambda: jblock.init({"params": jax.random.key(0)}, jnp.asarray(x), train=False))
+
+    def leaf(path, sd):  # He-normal kernels; scale, bias, mean, var near identity
+        name, shape = path[-1].key, sd.shape
+        if name == "kernel":
+            return (rng.normal(size=shape) * np.sqrt(2.0 / np.prod(shape[:-1]))).astype(
+                np.float32)
+        if name == "var":
+            return (0.5 + rng.random(shape)).astype(np.float32)
+        base = 1.0 if name == "scale" else 0.0
+        return (base + 0.2 * rng.normal(size=shape)).astype(np.float32)
+
+    params, stats = (jax.tree_util.tree_map_with_path(leaf, shapes[k])
+                     for k in ("params", "batch_stats"))
+    state = {k: t.numpy() for k, t in _block_state_from_jax(params, stats, True).items()}
+    return {"x": _nchw(x), "g": _nchw(g), "state": state}, (jblock, params, stats)
+
+
+def _jax_fused_block(case, jblock, params, stats) -> dict:
+    """The JAX fused block on the whole batch (interpret mode): output, dx,
+    the parameter gradients and the statistics after, in the port's keys."""
+    import jax
+    import jax.numpy as jnp
+
+    from .test_torch_fused_block import _block_state_from_jax
+
+    x = jnp.asarray(np.transpose(case["x"], (0, 2, 3, 1)))
+    g = jnp.asarray(np.transpose(case["g"], (0, 2, 3, 1)))
+
+    def loss(params, x):
+        out, mut = jblock.apply({"params": params, "batch_stats": stats}, x, train=True,
+                                mutable=["batch_stats"])
+        return jnp.sum(out * g), (out, mut["batch_stats"])
+
+    (_, (out, new_stats)), (dparams, dx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(params, x)
+    grads = _block_state_from_jax(jax.device_get(dparams), jax.device_get(new_stats), True)
+    after = _block_state_from_jax(jax.device_get(params), jax.device_get(new_stats), True)
+    return {"out": _nchw(out), "dx": _nchw(dx),
+            "grads": {k: v.numpy() for k, v in grads.items()
+                      if k.endswith(("weight", "bias"))},
+            "buffers": {k: v.numpy() for k, v in after.items() if "running_" in k}}
+
+
+def _fused_stem_case():
+    """(d'): the stem's image [4, 3, 16, 16], conv weight, BatchNorm affine
+    and the pooled output's cotangent, NCHW / OIHW, and the same NHWC / HWIO
+    for the JAX side."""
+    from .test_torch_fused_stem import _inputs
+
+    image, kernel, gamma, beta, w = _inputs(8, b=4, seed=3)
+    case = {"image": _nchw(image), "w": _nchw(w), "gamma": gamma, "beta": beta,
+            "weight": np.ascontiguousarray(np.transpose(kernel, (3, 2, 0, 1)))}
+    return case, (image, kernel, gamma, beta, w)
+
+
+def _jax_fused_stem(image, kernel, gamma, beta, w) -> dict:
+    """The JAX fused stem (``stem_stats``, ``stem_norm_relu_pool`` and
+    ``stem_tail_bwd`` in interpret mode, through the packed conv) on the
+    whole batch: p, the statistics and the three gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from iswm_tpu.models.layers import pack_stem_kernel
+    from iswm_tpu.ops.pallas.fused_stem import stem_fused_train
+
+    from .test_torch_fused_stem import _jax_packed
+
+    xp_pad, _ = _jax_packed(image, kernel)
+
+    def loss(kernel, gamma, beta):
+        p, mean, var = stem_fused_train(xp_pad, pack_stem_kernel(kernel, 7), gamma, beta,
+                                        1e-5, True)
+        return jnp.sum(p * w), (p, mean, var)
+
+    (_, (p, mean, var)), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(kernel), jnp.asarray(gamma), jnp.asarray(beta))
+    return {"p": _nchw(p), "mean": np.asarray(mean), "var": np.asarray(var),
+            "dweight": np.transpose(np.asarray(grads[0]), (3, 2, 0, 1)),
+            "dgamma": np.asarray(grads[1]), "dbeta": np.asarray(grads[2])}
+
+
 def _jax_step(mesh, jmodel, variables, images, labels):
     """The JAX package's train step on the 2-device mesh: batch sharded over
     ``data``, the sharded fused CE in interpret mode; (loss, state after)."""
@@ -250,9 +369,12 @@ def ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("dist")
     jmodel, variables, _, ckpt = crossed_models(root, "resnet18", 16)
     images, labels = _batch(STEP_BATCH)
+    block_case, jax_block = _fused_block_case()
+    stem_case, stem_inputs = _fused_stem_case()
     payload = {"ce_cases": _ce_cases(), "bn_cases": _bn_cases(),
                "step": {"ckpt": ckpt, "images": images, "labels": labels},
                "int8_bwd_conv": _int8_bwd_conv_case(),
+               "fused_block": block_case, "fused_stem": stem_case,
                "fit_dir": str(root / "fit"),
                "halo_cases": _halo_cases(), "tiles": _tiles_case()}
     torch.save(payload, root / "payload.pt")
@@ -261,6 +383,8 @@ def ranks(tmp_path_factory):
     mesh = Mesh(np.asarray(jax.devices()[:WORLD]), ("data",))
     jax_ce = [_jax_sharded_ce(mesh, case) for case in payload["ce_cases"]]
     flax_bn = [_flax_batchnorm(case) for case in payload["bn_cases"]]
+    jax_fused = {"block": _jax_fused_block(block_case, *jax_block),
+                 "stem": _jax_fused_stem(*stem_inputs)}
     with pytest.MonkeyPatch.context() as mp:
         _no_dropout(mp, torch.nn.Module())
         jax_loss, jax_state = _jax_step(mesh, jmodel, variables, images, labels)
@@ -269,7 +393,7 @@ def ranks(tmp_path_factory):
            state_dict_from_jax(jax_state.params, jax_state.batch_stats, backbone="resnet18")]
     seen = join_ranks(context, str(root), timeout=300)
     return {"payload": payload, "seen": seen, "jax_ce": jax_ce, "flax_bn": flax_bn,
-            "jax_step": ([jax_loss], sds)}
+            "jax_step": ([jax_loss], sds), "jax_fused": jax_fused}
 
 
 # ------------------------------------------------------------- (a) the mesh
@@ -360,11 +484,11 @@ def test_cross_replica_batchnorm_matches_flax(ranks, case):
 
 def test_batchnorm_without_a_group_keeps_its_path():
     """No group: the one-process train-mode path, not the cross-replica one."""
-    from iswm_tpu_torch.models import layers
+    from iswm_tpu_torch.parallel import distributed
 
-    before = layers.cross_replica_all_reduces
+    before = distributed.cross_replica_all_reduces
     BatchNorm2d(3).train()(torch.randn(2, 3, 4, 4))
-    assert layers.cross_replica_all_reduces == before
+    assert distributed.cross_replica_all_reduces == before
 
 
 # ------------------------------------------------------ (d) one train step
@@ -483,31 +607,214 @@ def _same_on_both_ranks(steps) -> None:
         assert torch.equal(v, steps[1]["after"][k]), k
 
 
-def _one_process_step(case, quant: dict, rows, remat: bool = False) -> tuple:
+def _one_process_step(case, options: dict, rows, remat: bool = False,
+                      group_file=None) -> tuple:
     """(loss, state before, state after, running amaxes) of one step of the
-    QAT model ``quant`` (``{}``: the plain model) in one process on ``rows``
-    of the step's batch, with ``remat`` as the train step's."""
-    from iswm_tpu_torch.compat import load_checkpoint
-    from iswm_tpu_torch.config import ModelConfig, OptimConfig
-    from iswm_tpu_torch.models import build_model
+    model ``options`` (``{}``: the plain model; ``QAT``, ``QAT_BWD``,
+    ``FUSED``: ``_torch_dist.step_model``) in one process on ``rows`` of the
+    step's batch, with ``remat`` as the train step's; with ``group_file``,
+    in a 1-rank group opened there (the BatchNorm arithmetic of a group)."""
+    from iswm_tpu_torch.config import OptimConfig
     from iswm_tpu_torch.models.layers import quant_state
     from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.parallel import destroy
     from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
 
-    from ._torch_dist import _dropout_off
+    from ._torch_dist import step_model
 
-    model = build_model(ModelConfig(backbone="resnet18", compute_dtype="float32", **quant))
-    model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
-    _dropout_off(model)
-    factory, _ = make_optimizer(OptimConfig(), TOTAL)
-    state = TrainState(model, *factory(model.parameters()), 0)
-    before = {k: v.clone() for k, v in model.state_dict().items()}
-    loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat)(
-        state, torch.from_numpy(case["images"][rows]), torch.from_numpy(case["labels"][rows]))
+    if group_file is not None:
+        assert maybe_initialize_distributed(f"file://{group_file}", 0, 1, device="cpu")
+    try:
+        model = step_model(case, options)
+        factory, _ = make_optimizer(OptimConfig(), TOTAL)
+        state = TrainState(model, *factory(model.parameters()), 0)
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat)(
+            state, torch.from_numpy(case["images"][rows]),
+            torch.from_numpy(case["labels"][rows]))
+    finally:
+        if group_file is not None:
+            destroy()
     return float(loss), before, model.state_dict(), quant_state(model)
 
 
-# ----------------------------------------------------------- (e) refusals
+# ------------------------------------------ (d') the fused stem and blocks
+def test_two_rank_fused_block_matches_jax_and_one_process(ranks):
+    """``layer1.0`` on 2 + 2 rows: the global batch's statistics (four
+    all-reduces forward, four backward) give the JAX block's and the
+    one-process fused block's output, dx, running statistics and, summed
+    over the ranks, parameter gradients (1e-5 of each tensor's largest)."""
+    from ._torch_dist import fused_block_module
+
+    case = ranks["payload"]["fused_block"]
+    seen = [s["fused_block"] for s in ranks["seen"]]
+    for s in seen:
+        assert s["all_reduces"] == 8
+        assert s["calls"] == {"blocks": 1, "stem": 0}
+        for k, v in s["buffers"].items():
+            assert torch.equal(v, seen[0]["buffers"][k]), k
+    block = fused_block_module(case["state"])
+    x = torch.from_numpy(case["x"]).requires_grad_()
+    out = block(x)
+    out.backward(torch.from_numpy(case["g"]))
+    one = {"out": out.detach(), "dx": x.grad,
+           "grads": {k: p.grad for k, p in block.named_parameters()},
+           "buffers": {k: b for k, b in block.named_buffers() if "running_" in k}}
+    got = {"out": torch.cat([s["out"] for s in seen]), "dx": torch.cat([s["dx"] for s in seen]),
+           "grads": {k: seen[0]["grads"][k] + seen[1]["grads"][k] for k in one["grads"]},
+           "buffers": {k: seen[0]["buffers"][k] for k in one["buffers"]}}
+    want = ranks["jax_fused"]["block"]
+    for part in ("out", "dx"):
+        _close(got[part], one[part], 1e-5)
+        _close(got[part], want[part], 1e-5)
+    for part in ("grads", "buffers"):
+        assert set(got[part]) == set(want[part]) == set(one[part])
+        for k in one[part]:
+            _close(got[part][k], one[part][k], 1e-5)
+            _close(got[part][k], want[part][k], 1e-5)
+
+
+def test_two_rank_fused_stem_matches_jax_and_one_process(ranks):
+    """The fused stem on 2 + 2 images: the global statistics (one all-reduce
+    forward, one between the backward's two kernels), p and the statistics
+    of the JAX stem and the one-process stem (1e-5); the conv weight's, dgamma's
+    and dbeta's rank shares summed equal theirs (1e-5 of the largest
+    element): each rank's dgamma and dbeta is its own rows' sum, so their
+    sum is the one-process value and not twice it."""
+    from ._torch_dist import fused_stem_call
+
+    case = ranks["payload"]["fused_stem"]
+    seen = [s["fused_stem"] for s in ranks["seen"]]
+    for s in seen:
+        assert s["all_reduces"] == 2
+        assert torch.equal(s["mean"], seen[0]["mean"]) and torch.equal(s["var"], seen[0]["var"])
+    one = fused_stem_call(case, lambda a: a)
+    got = {"p": torch.cat([s["p"] for s in seen]), "mean": seen[0]["mean"],
+           "var": seen[0]["var"],
+           **{k: seen[0][k] + seen[1][k] for k in ("dweight", "dgamma", "dbeta")}}
+    want = ranks["jax_fused"]["stem"]
+    for k in got:
+        _close(got[k], one[k], 1e-5)
+        _close(got[k], want[k], 1e-5)
+    for k in ("dgamma", "dbeta"):  # a rank's share is not the whole
+        assert float((seen[0][k] - one[k]).abs().max()) > 0.1 * float(one[k].abs().max()), k
+
+
+FUSED_SLACK = 5  # (d'): a 2-rank ResNet-50 step's distances against the nudged step's
+
+
+def _nudge_pooled(module, args, out):
+    """Forward hook on the stem's pool, fused or not: 8 of the 32,768 pooled
+    values moved up by one float32 ulp (chip_smoke.py's ``_nudge`` at this
+    size)."""
+    where = torch.rand(out.shape, generator=torch.Generator().manual_seed(0)) < 8 / out.numel()
+    return torch.where(where, (out.double() * (1.0 + 2.0 ** -23)).float(), out)
+
+
+def _step_distances(got: tuple, want: tuple) -> dict:
+    """How far step ``got`` (loss, before, after) lies from ``want``: the
+    loss (relative), the running statistics (the worst BatchNorm, variance by
+    max|var| and mean by max sqrt(var)) and the parameter updates (each
+    tensor's max difference by its largest update: the median and the worst
+    tensor)."""
+    (loss, before, after), (loss_w, before_w, after_w) = got, want
+    stats, updates = [], []
+    for k, v in after_w.items():
+        if k.endswith("running_var"):
+            mk = k.replace("running_var", "running_mean")
+            stats.append(max(float((after[k] - v).abs().max() / v.abs().max()),
+                             float((after[mk] - after_w[mk]).abs().max() / v.sqrt().max())))
+        elif not k.endswith(("running_mean", "num_batches_tracked")):
+            ref = v - before_w[k]
+            updates.append(float(((after[k] - before[k]) - ref).abs().max() / ref.abs().max()))
+    updates.sort()
+    return {"loss": abs(loss - loss_w) / abs(loss_w), "statistics": max(stats),
+            "median update": updates[len(updates) // 2], "worst update": updates[-1]}
+
+
+def _held_step(ranks, tmp_path, key: str, options: dict, pool: str) -> dict:
+    """The 2-rank step ``key`` of the model ``options`` against one process
+    on all 8 rows, as ``chip_smoke.py`` phase 15 holds its 2-rank steps: the
+    loss, the worst BatchNorm's statistics and the median and the worst
+    update tensor lie within (d)'s tolerance (1e-5, 1e-5, 1e-3, 1e-3) or
+    within FUSED_SLACK times the distance of the one-process step with 8
+    values of the stem's pooled output (``backbone.<pool>``) moved by one
+    float32 ulp (``_nudge_pooled``).  The one process runs in a 1-rank group,
+    so that its unfused BatchNorms take the cross-replica arithmetic (the
+    variance E[x^2] - E[x]^2) that the ranks run.  Returns the step's
+    distances and the nudged step's."""
+    from . import _torch_dist
+
+    case = ranks["payload"]["step"]
+    steps = [seen[key] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["all_reduces"] == 2 * s["batchnorms"]
+        assert s["loss"] == steps[0]["loss"] and s["equal_to_rank_0"]
+    reference = _one_process_step(case, options, slice(None), group_file=tmp_path / "one")[:3]
+    with pytest.MonkeyPatch.context() as mp:
+        real = _torch_dist.step_model
+
+        def nudged(case, options):
+            model = real(case, options)
+            getattr(model.backbone, pool).register_forward_hook(_nudge_pooled)
+            return model
+
+        mp.setattr(_torch_dist, "step_model", nudged)
+        nudge = _one_process_step(case, options, slice(None), group_file=tmp_path / "nudged")[:3]
+    # the ranks start from the seeded weights of step_model, the reference's
+    got = _step_distances((steps[0]["loss"], reference[1], steps[0]["after"]), reference)
+    yardstick = _step_distances(nudge, reference)
+    print(f"2-rank {key} from one process: {got}; the nudged step: {yardstick}")
+    for name, tol in (("loss", 1e-5), ("statistics", 1e-5), ("median update", 1e-3),
+                      ("worst update", 1e-3)):
+        assert got[name] <= max(tol, FUSED_SLACK * yardstick[name]), (name, got, yardstick)
+    return {"step": steps[0], "got": got, "nudged": yardstick}
+
+
+def test_two_rank_fused_step_matches_one_process_fused_step(ranks, tmp_path):
+    """deeplabv3plus_resnet50 with ``fused_stem`` / ``fused_blocks`` =
+    ``always`` on two ranks (4 rows each) against one process on all 8: the
+    stem and 6 bottlenecks (``layer1``, ``layer2.{1,2,3}``; the other blocks
+    are strided, dilated or under 3x3) fused, two all-reduces for each
+    BatchNorm (a fused conv's sums or the cross-replica module's), equal
+    parameters on both ranks, the step held by ``_held_step``.
+
+    Not at (d)'s tolerances alone: this model's float32 step is chaotic at
+    crop 32 from seeded weights (a ReLU decision within rounding of its
+    threshold flips between two summation orders), and the UNFUSED 2-rank
+    step of the same model misses them as far as the fused one (the next
+    test prints its distances).  The fused functions' arithmetic on the
+    ranks is held at 1e-5 module by module above."""
+    from ._torch_dist import FUSED
+
+    held = _held_step(ranks, tmp_path, "fused_step", FUSED, "fused_stem_pool")
+    assert held["step"]["fused_calls"] == {"blocks": 6, "stem": 1}
+
+
+def test_two_rank_resnet50_step_matches_one_process_step(ranks, tmp_path):
+    """The same step unfused (every BatchNorm the cross-replica module), held
+    the same way: the yardstick the fused step's looser hold rests on, its
+    distances from one process printed beside (d)'s tolerances."""
+    from ._torch_dist import RESNET50
+
+    held = _held_step(ranks, tmp_path, "resnet50_step", RESNET50, "maxpool")
+    assert held["step"]["fused_calls"] == {"blocks": 0, "stem": 0}
+
+
+def test_two_rank_fused_remat_step_is_the_fused_step(ranks):
+    """Remat with the fused stem and blocks on two ranks: each recomputed
+    forward runs its all-reduces again (three a BatchNorm, in the same
+    order on both ranks) and updates no running statistic again; the step
+    is the 2-rank fused step bit for bit."""
+    for seen in ranks["seen"]:
+        remat, plain = seen["fused_remat"], seen["fused_step"]
+        assert remat["fused_calls"] == {"blocks": 12, "stem": 2}
+        assert remat["all_reduces"] == 3 * remat["batchnorms"]
+        assert remat["loss"] == plain["loss"] and remat["count"] == 1
+        assert remat["equal_to_fused_step"]
+
+
+# ----------------------------------------- (e) world size two: what builds
 def test_refusals_and_auto_at_world_size_two(ranks):
     from ._torch_dist import SPATIAL_REFUSED
 
@@ -516,8 +823,9 @@ def test_refusals_and_auto_at_world_size_two(ranks):
         assert r["auto"] == ("never", "never")
         for key in ("fused_stem=always", "fused_stem=interpret",
                     "fused_blocks=always", "fused_blocks=interpret"):
-            assert r[key][0] == "NotImplementedError", key
-            assert "ROADMAP.md Queue 1, 'Sharded fused stem and blocks'" in r[key][1]
+            setting, value = key.split("=")
+            want = (value, "never") if setting == "fused_stem" else ("never", value)
+            assert r[key] == want, key  # built, the mode handed down as given
         for _, key, value in SPATIAL_REFUSED:
             got = r[f"spatial {key}={value!r}"]
             assert got[0] == "NotImplementedError", key
