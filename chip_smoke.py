@@ -7,7 +7,7 @@ data-parallel training in a process group, the rest of the model zoo,
 training with rematerialized activations and with bf16 parameters, the
 spatial model axis (image rows split over ranks), scene-parallel serving and
 the multi-device dry run, the fused stem and blocks in a process group, and
-the serving fns as CUDA-graph engines.
+the serving fns as CUDA-graph engines and as exported artifacts.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --block-stat-starts 16   # phase 13's statistics
@@ -348,13 +348,23 @@ not 0):
      rank) held to phase 15's limits (``_hold_two_rank_step``) of the
      one-process fused step in the 1-rank group.  The kernel record's
      launches add this phase's (the group's and both ranks');
- 23. the serving fns of ``bf16``, ``int8_exec`` (#1 inside) and
-     ``int8_exec_xla`` (the int8 convs) as CUDA-graph engines
-     (``infer/engine.py`` ``build_engine``) for a chunk of 8 x 512^2 tiles of
-     phase 4's first scene: each replay bit-equal (``torch.equal``,
-     deterministic cuDNN) to the eager fn on two chunks, the host ms of a
-     chunk eager and replayed, the graph pool's MiB.  The kernel record's
-     launches add this phase's eager calls and captures.
+ 23. the serving fns of ``bf16``, ``int8_exec`` (#1 inside),
+     ``int8_exec_xla`` (the int8 convs) and a bf16 fn with ``fused_stem =
+     "always"`` (#10 inside), after the host µs a call of each serving
+     wrapper on small inputs through its ``iswm`` operator and directly, as
+     CUDA-graph engines (``infer/engine.py``
+     ``build_engine``) for a chunk of 8 x 512^2 tiles of phase 4's first
+     scene: each replay bit-equal (``torch.equal``, deterministic cuDNN) to
+     the eager fn on two chunks, the host ms of a chunk eager (through the
+     ``iswm`` operators, and with each wrapper calling its CUDA
+     implementation directly, as before they were operators) and replayed,
+     the graph pool's MiB; then each through ``serialize`` (``torch.export``
+     on the card) and ``deserialize``: the trace launches no kernel, the
+     artifact gives the eager fn's logits bit for bit on both chunks and
+     launches the kernels the eager fn launches a chunk (30 x #1 in
+     ``int8_exec``, 1 x #10 in the fused-stem fn), its MiB and trace
+     seconds.  The kernel record's launches add this phase's eager calls,
+     captures and artifact calls.
 Each kernel's record carries its bound: the larger of the bytes it must move
 over 3.35 TB/s and its operations over the card's peak rate for their type
 (1,979 TOP/s int8 and 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
@@ -369,6 +379,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -1856,7 +1867,9 @@ def phase_stem_slice(fs, ce) -> tuple:
             limit = conv_tol if key == stem[0] else bn_tol
             check(ratio <= limit,
                   f"{dtype}: the fused stem's gradient of {key} differs from the unfused "
-                  f"chain's on the same inputs by {ratio:.2e} * max|grad| (limit {limit})")
+                  f"chain's on the same inputs by {ratio:.2e} * max|grad| (limit {limit}; "
+                  f"decisions that differ between the two chains: {flips[0]} ReLU signs, "
+                  f"{flips[1]} pool winners; the other stem gradients {own})")
         whole, floor = ratios_of(g_k, g_p), ratios_of(g_n, g_p)
         print(f"[11] one step fused vs fused_stem='never', {dtype}: loss {loss_k:.6f} vs "
               f"{loss_p:.6f} (rel {rel:.2e}, limit {loss_tol}); bn1 running var {var_err:.2e}, "
@@ -4891,6 +4904,13 @@ def phase_qat_bwd_train(kc, smi: str) -> dict:
         t = trainer if settings is None else _slice_trainer(
             QAT_STEPS, f"chip_smoke_qat_bwd_{len(times)}", **settings)[0]
         host = _median_step_ms(t, xu8, yu8)
+        if settings is None:  # the dispatcher's cost: the int8 forward's operators
+            with _direct_ops():
+                direct = float(np.median(_median_step_ms(t, xu8, yu8)))
+            again = float(np.median(_median_step_ms(t, xu8, yu8)))
+            print(f"[19] {name} train step ({smi}): host {float(np.median(host)):.2f} ms "
+                  f"through the iswm operators ({again:.2f} ms again), {direct:.2f} ms with the "
+                  f"wrappers calling their CUDA implementations directly (median of 8 each)")
         dev, n, by_class = _step_profile(t, xu8, yu8)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -5649,6 +5669,52 @@ def phase_sharded_fused(fs, fb, group_step: dict, smi: str) -> dict:
 
 # ------------------------------------------------------------- the engines
 ENGINE_VARIANTS = ("bf16", "int8_exec", "int8_exec_xla")
+FUSED_STEM_FN = "bf16 fused stem"  # phase 23's fn beside the variants
+# the serving operators' launch counters: (name, module key, counter)
+SERVING_COUNTERS = (("int8_matmul", "k8", "launches"), ("quantize_s8", "kc", "launches_quantize"),
+                    ("conv_s8_igemm", "kc", "launches_igemm"),
+                    ("conv_s8_direct", "kc", "launches_direct"),
+                    ("stem_norm_relu_pool", "fs", "launches_pool"))
+
+
+def _serving_modules() -> dict:
+    from iswm_tpu_torch.ops.kernels import fused_stem as fs
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
+    from iswm_tpu_torch.ops.kernels import int8_matmul as k8
+
+    return {"k8": k8, "kc": kc, "fs": fs}
+
+
+def _serving_launches() -> dict:
+    """{serving operator: its launch counter}."""
+    mods = _serving_modules()
+    return {name: getattr(mods[m], c) for name, m, c in SERVING_COUNTERS}
+
+
+def _launches_since(before: dict) -> dict:
+    """The serving operators' launches since ``before`` (``_serving_launches()``),
+    where there were any."""
+    return {k: v - before[k] for k, v in _serving_launches().items() if v != before[k]}
+
+
+@contextlib.contextmanager
+def _direct_ops():
+    """Within: each serving wrapper calls its operator's CUDA implementation
+    directly, not through the dispatcher, as the wrappers did before they
+    were operators (the same checks, launches and counters)."""
+    mods = _serving_modules()
+    k8, kc, fs = mods["k8"], mods["kc"], mods["fs"]
+    swaps = ((k8, "_int8_matmul", k8._cuda(False)), (kc, "_quantize", kc._quantize_cuda),
+             (kc, "_conv_igemm", kc._conv_cuda("igemm")),
+             (kc, "_conv_direct", kc._conv_cuda("direct")), (fs, "_pool", fs._pool_cuda))
+    saved = [(m, name, getattr(m, name)) for m, name, _ in swaps]
+    for m, name, fn in swaps:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
 
 
 def _host_ms(fn, reps: int = 10) -> float:
@@ -5665,80 +5731,155 @@ def _host_ms(fn, reps: int = 10) -> float:
     return float(np.median(times)) * 1e3
 
 
-def phase_engine(k8, kc, smi: str) -> dict:
-    """Phase 4's serving fns as CUDA-graph engines (``infer/engine.py``): a
-    chunk of 8 tiles of phase 4's first scene replayed bit-equal to the
-    eager fn (two chunks); the host ms of a chunk eager and replayed;
-    ``int8_exec_xla`` (the int8 convs) the same way.  The bf16 fn through
-    ``serialize`` / ``deserialize`` on the card, bit-equal to the eager fn
-    on both chunks; the int8 fns refused by ``serialize`` (ROADMAP Item 16)
-    without a launch.  Returns the phase's launches of #1 and the int8
-    convs (eager calls and captures: a replay calls no wrapper)."""
+def _dispatch_us(calls: int = 1000) -> dict:
+    """{operator: (host µs a call through it, directly)}: each serving
+    wrapper on small inputs on the card, enqueue time (before the sync),
+    through its operator and calling its CUDA implementation directly, in
+    turns (operator, direct, direct, operator), the median of each pair."""
+    mods = _serving_modules()
+    k8, kc, fs = mods["k8"], mods["kc"], mods["fs"]
+    gen = torch.Generator().manual_seed(SEED)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, dtype=torch.int8, generator=gen).cuda()
+
+    x, w, ws = torch.randn(128, 256, generator=gen).cuda().bfloat16(), codes(256, 128), \
+        torch.rand(128, generator=gen).cuda()
+    xq, wq, ws64 = codes(2, 8, 8, 64), codes(64, 3, 3, 64), torch.rand(64, generator=gen).cuda()
+    xf = torch.randn(2, 8, 8, 64, generator=gen).cuda().bfloat16()
+    z = torch.randn(2, 64, 8, 8, generator=gen).cuda().bfloat16().contiguous(
+        memory_format=torch.channels_last)
+    geometry = (None, None, [1, 1], [1, 1, 1, 1], [1, 1], torch.bfloat16)
+    cases = {"int8_matmul": (k8._int8_matmul, k8._cuda(False), (x, w, ws, 0.05)),
+             "quantize_s8": (kc._quantize, kc._quantize_cuda, (xf, 0.05, None)),
+             "conv_s8_igemm": (kc._conv_igemm, kc._conv_cuda("igemm"),
+                               (xq, wq, ws64, 0.05, *geometry)),
+             "stem_norm_relu_pool": (fs._pool, fs._pool_cuda, (z, ws64, ws64))}
+    out = {}
+    with torch.inference_mode():
+        for name, (operator, direct, args) in cases.items():
+            times = {operator: [], direct: []}
+            for fn in (operator, direct, direct, operator):
+                for _ in range(100):
+                    fn(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn(*args)
+                times[fn].append((time.perf_counter() - t0) / calls * 1e6)
+                torch.cuda.synchronize()
+            out[name] = (float(np.median(times[operator])), float(np.median(times[direct])))
+    return out
+
+
+def _engine_fn(variant: str, scene: np.ndarray):
+    """Phase 23's serving fn of ``variant`` (or the fused-stem fn), its
+    Predictor having served ``scene`` (the int8 variants calibrate on it)."""
     from iswm_tpu_torch.config import Config
-    from iswm_tpu_torch.data import val_transform_batch
     from iswm_tpu_torch.infer import Predictor
-    from iswm_tpu_torch.infer.engine import EXPORT_ITEM, build_engine, deserialize, serialize
+
+    cfg = Config()  # deeplabv3plus_resnet50, OS 16, bf16, tile 512/64/8
+    if variant == FUSED_STEM_FN:
+        cfg.model.fused_stem = "always"
+    else:
+        cfg.predict.serving_variant = variant
+    predictor = Predictor(cfg, device="cuda")
+    predictor.predict_image(scene)
+    return predictor.engine.model_fn
+
+
+def phase_engine(smi: str) -> dict:
+    """Phase 4's serving fns and the fused-stem fn as CUDA-graph engines
+    (``infer/engine.py``): a chunk of 8 tiles of phase 4's first scene
+    replayed bit-equal to the eager fn (two chunks); the host ms of a chunk
+    eager, through the operators and directly, and replayed.  Each fn
+    through ``serialize`` / ``deserialize`` on the card: no launch in the
+    trace, bit-equal to the eager fn on both chunks, the eager fn's launches
+    a chunk.  Returns the phase's launches of #1, the int8 convs and #10
+    (eager calls, captures and artifact calls: a graph's replay calls no
+    wrapper)."""
+    from iswm_tpu_torch.data import val_transform_batch
+    from iswm_tpu_torch.infer.engine import build_engine, deserialize, serialize
 
     scene = np.random.default_rng(SEED).integers(0, 256, SCENES[0] + (3,), dtype=np.uint8)
     x = val_transform_batch(torch.from_numpy(scene).cuda())
     chunks = [torch.stack([x[oy:oy + 512, ox:ox + 512] for oy in rows
                            for ox in (0, 384, 768, 1024)]) for rows in ((0, 448), (256, 512))]
+    shape, dtype = tuple(chunks[0].shape), chunks[0].dtype
     flags = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
-    k8.launches = kc.launches_quantize = kc.launches_igemm = 0
-    for variant in ENGINE_VARIANTS:
-        cfg = Config()  # deeplabv3plus_resnet50, OS 16, bf16, tile 512/64/8
-        cfg.predict.serving_variant = variant
-        predictor = Predictor(cfg, device="cuda")
-        predictor.predict_image(scene)  # the int8 variants calibrate on it
-        fn = predictor.engine.model_fn
-        engine = build_engine(fn, tuple(chunks[0].shape), chunks[0].dtype)
+    per_call = _dispatch_us()
+    print(f"[23] {smi}: host µs a call of each serving wrapper on small inputs (enqueue, "
+          f"1000 calls, median of two turns), through its iswm operator / its CUDA "
+          f"implementation called directly: "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in per_call.items()))
+    mods = _serving_modules()
+    for _, m, counter in SERVING_COUNTERS:
+        setattr(mods[m], counter, 0)
+    for variant in ENGINE_VARIANTS + (FUSED_STEM_FN,):
+        fn = _engine_fn(variant, scene)
+        engine = build_engine(fn, shape, dtype)
         for i, chunk in enumerate(chunks):
             replayed, eager = engine(chunk), fn(chunk)
             check(torch.equal(replayed, eager),
                   f"{variant}: the replay of chunk {i} differs from the eager fn by "
                   f"{float((replayed - eager).abs().max())}")
         eager_ms = _host_ms(lambda: fn(chunks[0]))
+        with _direct_ops():
+            direct_ms = _host_ms(lambda: fn(chunks[0]))
+        eager_again_ms = _host_ms(lambda: fn(chunks[0]))
         graph_ms = _host_ms(lambda: engine(chunks[0]))
         pool = engine.memory_analysis["graph_pool_bytes"] / 2**20
         flops = "not counted" if engine.flops is None else f"{engine.flops / 1e9:.1f} GFLOP"
         print(f"[23] {smi}: {variant} engine, a chunk of 8 x 512^2: replays bit-equal to the "
               f"eager fn on two chunks; host clock (synchronized, median of 10, deterministic "
-              f"cuDNN) eager {eager_ms:.3f} ms, replayed {graph_ms:.3f} ms; graph pool "
-              f"{pool:.1f} MiB; library flops counted at build {flops} (the hand kernels' "
-              f"not seen)")
+              f"cuDNN) eager {eager_ms:.3f} ms through the iswm operators ({eager_again_ms:.3f} "
+              f"ms again), {direct_ms:.3f} ms with the wrappers calling their CUDA "
+              f"implementations directly, replayed {graph_ms:.3f} ms; graph pool {pool:.1f} MiB; "
+              f"library flops counted at build {flops} (the hand kernels' not seen)")
         del engine
-        if variant == "bf16":
-            t0 = time.perf_counter()
-            blob = serialize(fn, tuple(chunks[0].shape), chunks[0].dtype)
-            t_blob = time.perf_counter() - t0
-            served = deserialize(blob)
-            for i, chunk in enumerate(chunks):
-                with torch.inference_mode():
-                    got, eager = served(chunk), fn(chunk)
-                check(torch.equal(got, eager),
-                      f"bf16: the deserialized artifact differs from the eager fn on chunk {i} "
-                      f"by {float((got.float() - eager.float()).abs().max())}")
-            print(f"[23] bf16 serving fn through serialize (torch.export on the card, "
-                  f"{t_blob:.1f} s, {len(blob) / 2**20:.1f} MiB) and deserialize: bit-equal to "
-                  f"the eager fn on two chunks")
-            del served, blob
-        else:
-            counts = (k8.launches, kc.launches_quantize, kc.launches_igemm)
-            try:
-                serialize(fn, tuple(chunks[0].shape), chunks[0].dtype)
-                refusal = "none"
-            except NotImplementedError as e:
-                refusal = str(e)
-            check(EXPORT_ITEM in refusal, f"{variant}: serialize did not refuse the hand "
-                  f"kernels with {EXPORT_ITEM!r}: {refusal}")
-            check((k8.launches, kc.launches_quantize, kc.launches_igemm) == counts,
-                  f"{variant}: the refused trace launched a hand kernel")
-            print(f"[23] {variant}: serialize refuses it ({refusal[:120]}...), no launch")
-        del predictor, fn
+        before = _serving_launches()
+        fn(chunks[0])
+        eager_launches = _launches_since(before)
+        before = _serving_launches()
+        t0 = time.perf_counter()
+        blob = serialize(fn, shape, dtype)
+        t_blob = time.perf_counter() - t0
+        check(not _launches_since(before), f"{variant}: the trace launched "
+                                           f"{_launches_since(before)}")
+        served = deserialize(blob)
+        nodes = sorted({str(n.target) for n in served.graph.nodes
+                        if str(n.target).startswith("iswm.")})
+        for i, chunk in enumerate(chunks):
+            with torch.inference_mode():
+                before = _serving_launches()
+                got = served(chunk)
+                launched = _launches_since(before)
+                eager = fn(chunk)
+            check(torch.equal(got, eager),
+                  f"{variant}: the deserialized artifact differs from the eager fn on chunk {i} "
+                  f"by {float((got.float() - eager.float()).abs().max())}")
+            check(launched == eager_launches,
+                  f"{variant}: the artifact launched {launched} on chunk {i}, the eager fn "
+                  f"{eager_launches}")
+        want = {"int8_exec": {"int8_matmul": 30}, FUSED_STEM_FN: {"stem_norm_relu_pool": 1},
+                "bf16": {}}.get(variant)
+        check(want is None or eager_launches == want,
+              f"{variant}: the eager fn launched {eager_launches} a chunk, expected {want}")
+        check(variant != "int8_exec_xla" or {"int8_matmul", "quantize_s8", "conv_s8_igemm"}
+              <= set(eager_launches), f"int8_exec_xla launched {eager_launches} a chunk")
+        with torch.inference_mode():
+            served_ms = _host_ms(lambda: served(chunks[0]))
+        print(f"[23] {smi}: {variant} serving fn through serialize (torch.export on the card, "
+              f"{t_blob:.1f} s, {len(blob) / 2**20:.1f} MiB, no launch in the trace; graph calls "
+              f"{nodes or 'no iswm operator'}) and deserialize: bit-equal to the eager fn on two "
+              f"chunks, launching {launched or 'no hand kernel'} a chunk as the eager fn; the "
+              f"artifact's host clock {served_ms:.3f} ms a chunk (median of 10)")
+        del served, blob, fn
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = flags
-    return {"matmul": k8.launches, "quantize": kc.launches_quantize,
-            "igemm": kc.launches_igemm}
+    counts = _serving_launches()
+    return {"matmul": counts["int8_matmul"], "quantize": counts["quantize_s8"],
+            "igemm": counts["conv_s8_igemm"], "pool": counts["stem_norm_relu_pool"]}
 
 
 def main() -> int:
@@ -5837,9 +5978,11 @@ def main() -> int:
         stem_launches[key] += fused_group[key]
     for key in block_launches:
         block_launches[key] += fused_group[key]
-    # the serving fns as CUDA-graph engines: #1 and the int8 convs captured
-    engine = phase_engine(k8, kc, smi)
+    # the serving fns as CUDA-graph engines and exported artifacts: #1, the
+    # int8 convs and #10
+    engine = phase_engine(smi)
     launches += engine["matmul"]
+    stem_launches["pool"] += engine["pool"]
     for e in ("quantize", "igemm"):
         xla_launches[e] += engine[e]
     by_scale = {e: {"host": xla_launches[e] + qat_launches[e]["host"],

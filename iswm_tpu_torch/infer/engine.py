@@ -18,9 +18,12 @@ build, reference tensorrt_tools/build_engine.py:27-114).
   - ``serialize`` / ``deserialize``: a self-contained artifact through
     ``torch.export`` (``torch.export.save`` bytes; the closed-over weights
     are baked in as constants, TRT-engine semantics: the blob alone serves).
-    A fn that reaches the hand-written kernels (``ops/kernels``) is refused:
-    their wrappers launch through ctypes, which ``torch.export`` cannot
-    trace (``EXPORT_ITEM``).
+    The hand-written kernels that serving reaches are operators of the
+    dispatcher (``torch.ops.iswm``, ``ops/kernels/__init__.py``): the trace
+    runs their fakes and records each call as one node, and the loaded
+    artifact launches the kernels on the card (their plain versions on the
+    CPU).  A fn that reaches a wrapper that still launches through ctypes
+    (training's, marked by ``ops.kernels.ctypes_entry``) is refused.
 
 The JAX package's ``enable_persistent_cache`` configures XLA's compilation
 cache and has no counterpart: the port compiles its kernels once into
@@ -35,19 +38,13 @@ from __future__ import annotations
 
 import gc
 import io
-import sys
-from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import torch
 
-EXPORT_ITEM = "ROADMAP.md Queue 1, 'Exportable hand kernels'"
-_KERNELS = str(Path(__file__).resolve().parents[1] / "ops" / "kernels")
+from ..ops.kernels import refusing_ctypes_entries
+
 WARMUP_CALLS = 3
-
-
-class _ReachedKernels(Exception):
-    """Stops ``serialize``'s trace where it enters ``ops/kernels``."""
 
 
 class CaptureRefused(RuntimeError):
@@ -208,35 +205,26 @@ def serialize(model_fn: Callable, input_shape: Tuple[int, ...], dtype=torch.bflo
     constants on their device, so artifacts for large models are
     weight-sized; ``deserialize`` puts them back there.
 
-    Raises ``NotImplementedError`` for a fn that reaches the hand-written
-    kernels: ``torch.export`` cannot trace their ctypes launches, and on a
-    CPU tensor it would trace their plain versions in their place.  The
-    trace stops as it enters the first function of ``ops/kernels``, so that
-    no wrapper runs (or counts a launch) on the trace's storage-less
-    tensors."""
+    The hand kernels' operators trace as graph nodes: the trace runs only
+    their fakes, so it launches nothing and runs no plain version.  Raises
+    ``NotImplementedError`` for a fn that reaches a wrapper that launches
+    through ctypes (training's, ``ops.kernels.ctypes_entry``):
+    ``torch.export`` cannot trace that launch, and on a CPU tensor it would
+    trace the plain version in its place.  The trace stops as it enters that
+    wrapper, so that its body does not run (or count a launch) on the
+    trace's storage-less tensors."""
     device = _engine_device(device)
-    reached = []
-    previous = sys.getprofile()
-
-    def watch(frame, event, arg):
-        if event == "call" and frame.f_code.co_filename.startswith(_KERNELS):
-            reached.append(f"{Path(frame.f_code.co_filename).stem}.{frame.f_code.co_name}")
-            raise _ReachedKernels(reached[0])
-
     example = torch.zeros(input_shape, dtype=dtype, device=device)
-    sys.setprofile(watch)
-    try:
-        exported = torch.export.export(_Exportable(model_fn), (example,), strict=False)
-        error = None
-    except Exception as e:  # raised below, after the check for the hand kernels
-        error = e
-    finally:
-        sys.setprofile(previous)
+    with refusing_ctypes_entries() as reached:
+        try:
+            exported = torch.export.export(_Exportable(model_fn), (example,), strict=False)
+            error = None
+        except Exception as e:  # raised below, after the check for a ctypes wrapper
+            error = e
     if reached:
         raise NotImplementedError(
-            f"serialize: the fn reaches the hand-written kernels ({reached[0]}), whose "
-            f"ctypes launches torch.export cannot trace; not ported yet ({EXPORT_ITEM})"
-        ) from error
+            f"serialize: the fn reaches {reached[0]}, a training kernel's wrapper that "
+            f"launches through ctypes, which torch.export cannot trace") from error
     if error is not None:
         raise error
     buffer = io.BytesIO()
@@ -245,5 +233,7 @@ def serialize(model_fn: Callable, input_shape: Tuple[int, ...], dtype=torch.bflo
 
 
 def deserialize(blob: bytes) -> Callable:
-    """Load a serialized engine; returns a callable module."""
+    """Load a serialized engine; returns a callable module.  The hand
+    kernels' operators are registered (by the import above) before the load,
+    so that an artifact loads in a fresh interpreter."""
     return torch.export.load(io.BytesIO(blob)).module()

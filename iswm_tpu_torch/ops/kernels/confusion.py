@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from . import ctypes_entry
+
 launches = 0
 _lib = None
 _KINDS = {torch.uint8: 0, torch.int32: 1, torch.int64: 2}
@@ -75,6 +77,7 @@ def binary_confusion_matrix_plain(gts: torch.Tensor, preds: torch.Tensor) -> tor
     return torch.stack([tn, fp, fn, tp]).float().reshape(2, 2)
 
 
+@ctypes_entry
 def binary_confusion_matrix(gts: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
     """[...] int labels/preds -> [2, 2] f32 confusion matrix (rows = true)
     on the labels' device (see the module docstring)."""

@@ -46,6 +46,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import ctypes_entry
+
 launches_mm_fwd = 0
 launches_mm_bwd = 0
 launches_c3_fwd = 0
@@ -302,6 +304,7 @@ def _launch_bwd(x, w_ckn, a, b, y, dy, ds, dq, taps, prologue, geo, c, n):
     return dx, dw, dab[:c], dab[c:]
 
 
+@ctypes_entry
 def matmul_bn_stats_fwd(x, w, a=None, b=None, prologue: bool = False):
     """``(y [M, N], s [N], q [N])`` of x [M, K], w [K, N] (see the module)."""
     _check_mm(x, w, a, b, prologue)
@@ -316,6 +319,7 @@ def matmul_bn_stats_fwd(x, w, a=None, b=None, prologue: bool = False):
                        (x.shape[0], 1, x.shape[0]), k, n)
 
 
+@ctypes_entry
 def matmul_bn_stats_bwd(x, w, a, b, y, dy, ds, dq, prologue: bool = False):
     """``(dx [M, K], dw [K, N] float32, da [K], db [K])`` of the 1x1."""
     _check_mm(x, w, a, b, prologue)
@@ -331,6 +335,7 @@ def matmul_bn_stats_bwd(x, w, a, b, y, dy, ds, dq, prologue: bool = False):
                        (x.shape[0], 1, x.shape[0]), k, n)
 
 
+@ctypes_entry
 def conv3x3_bn_stats_fwd(y1, a, b, w):
     """``(y2 [B, H, W, N], s [N], q [N])`` of y1 [B, H, W, C], w [3, 3, C, N]."""
     _check_c3(y1, w, a, b)
@@ -347,6 +352,7 @@ def conv3x3_bn_stats_fwd(y1, a, b, w):
     return y2.reshape(bsz, h, w_, n), s, q
 
 
+@ctypes_entry
 def conv3x3_bn_stats_bwd(y1, a, b, w, y2, dy2, ds, dq):
     """``(dy1 [B, H, W, C], dw [3, 3, C, N] float32, da [C], db [C])``."""
     _check_c3(y1, w, a, b)

@@ -43,6 +43,8 @@ from typing import NamedTuple
 
 import torch
 
+from . import ctypes_entry
+
 LAYOUTS = ("strided", "nchw", "channels_last")  # the C entries' layout codes
 NCHW_PIXELS = 8  # H * W a multiple of this for ``nchw`` (the bf16 vector)
 launches_fwd = 0
@@ -242,6 +244,7 @@ def _raise_on(lib, rc: int, what: str) -> None:
                            f"{lib.iswm_cuda_error_string(rc).decode()}")
 
 
+@ctypes_entry
 def fused_binary_ce_fwd(
     logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
     ignore_index: int = 255,
@@ -266,6 +269,7 @@ def fused_binary_ce_fwd(
     return out
 
 
+@ctypes_entry
 def fused_binary_ce_bwd(
     logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
     w_sum: torch.Tensor, grad: torch.Tensor, ignore_index: int = 255,

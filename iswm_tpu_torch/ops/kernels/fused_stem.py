@@ -38,6 +38,14 @@ memory (``torch.channels_last``), which is how the Trainer and the Predictor
 keep the model on the card; a CUDA tensor in another layout is copied to it
 once by the wrapper.  ``launches_*`` count the wrapper calls that launched a
 kernel.
+
+``stem_norm_relu_pool`` (#10), the one kernel of an eval forward, is the
+dispatcher's operator ``torch.ops.iswm.stem_norm_relu_pool``
+(``ops/kernels/__init__.py``): CUDA the kernel, CPU the plain version, and a
+fake that gives the output's strides as each device's implementation does
+(NHWC memory on the card, z's memory format on the CPU), so that a serving
+fn exports with it.  The statistics and the backward (training) launch
+through ctypes, outside the dispatcher.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from ...parallel.distributed import group_batch_sums, is_initialized, statistics_sum
+from . import ctypes_entry, op
 
 launches_stats = 0
 launches_pool = 0
@@ -239,6 +248,7 @@ def _scratch(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(n, dtype=torch.float32, device=like.device)
 
 
+@ctypes_entry
 def stem_stats(z: torch.Tensor):
     """Per-channel (sum, sum of squares) of z [B, F, S, S] in float32."""
     _check(z)
@@ -259,16 +269,8 @@ def stem_stats(z: torch.Tensor):
     return out[:CHANNELS], out[CHANNELS:]
 
 
-def stem_norm_relu_pool(z: torch.Tensor, scale: torch.Tensor,
-                        bias: torch.Tensor) -> torch.Tensor:
-    """``maxpool3x3/s2/p1(relu(z * scale + bias))``: z [B, F, S, S] ->
-    [B, F, S/2, S/2] in z's dtype (NHWC memory from the kernel).
-
-    ``scale`` / ``bias`` are the folded BN affine ([F] float32):
-    ``scale = gamma * sigma_inv``, ``bias = beta - mean * scale``."""
+def _pool_cuda(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     _check(z)
-    if z.device.type == "cpu":
-        return stem_norm_relu_pool_plain(z, scale, bias)
     _cuda_check(z)
     z, scale, bias = _nhwc(z), _vec(scale, z), _vec(bias, z)
     b, f, s, _ = z.shape
@@ -285,6 +287,39 @@ def stem_norm_relu_pool(z: torch.Tensor, scale: torch.Tensor,
     return p
 
 
+def _pool_format(z: torch.Tensor) -> torch.memory_format:
+    """The memory format of #10's output: the kernel's NHWC on the card, z's
+    on the CPU (channels last where z is that and not also contiguous)."""
+    if z.device.type == "cuda" or (z.is_contiguous(memory_format=torch.channels_last)
+                                   and not z.is_contiguous()):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def _pool_fake(z: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    _check(z)
+    b, f, s, _ = z.shape
+    return torch.empty((b, f, s // 2, s // 2), dtype=z.dtype, device=z.device,
+                       memory_format=_pool_format(z))
+
+
+_pool = op("stem_norm_relu_pool(Tensor z, Tensor scale, Tensor bias) -> Tensor",
+           lambda z, scale, bias: stem_norm_relu_pool_plain(z, scale, bias).contiguous(
+               memory_format=_pool_format(z)),
+           _pool_cuda, _pool_fake)
+
+
+def stem_norm_relu_pool(z: torch.Tensor, scale: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """``maxpool3x3/s2/p1(relu(z * scale + bias))``: z [B, F, S, S] ->
+    [B, F, S/2, S/2] in z's dtype (NHWC memory from the kernel).
+
+    ``scale`` / ``bias`` are the folded BN affine ([F] float32):
+    ``scale = gamma * sigma_inv``, ``bias = beta - mean * scale``."""
+    return _pool(z, scale, bias)
+
+
+@ctypes_entry
 def stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv):
     """(s1, s2) [F] float32 of the fused backward's first kernel."""
     _check(z, dp)
@@ -307,6 +342,7 @@ def stem_bwd_sums(z, dp, scale, bias, mean, sigma_inv):
     return out[:CHANNELS], out[CHANNELS:]
 
 
+@ctypes_entry
 def stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, mean_s1,
                    mean_s2) -> torch.Tensor:
     """dW [F, 3, 7, 7] float32 of the fused backward's second kernel;

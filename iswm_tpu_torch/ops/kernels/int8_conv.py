@@ -53,6 +53,15 @@ never read back to the host.  The plain versions take either form.  A padding is
 
 Each wrapper launches a kernel for a CUDA tensor and uses its plain version
 only for a CPU tensor; on a CUDA tensor a call no kernel takes raises.  The
+three forward entries, which serving reaches, do so as operators of the
+dispatcher (``ops/kernels/__init__.py``): ``torch.ops.iswm.quantize_s8``,
+``conv_s8_igemm`` and ``conv_s8_direct``, each with its scale as ``float
+x_scale`` and ``Tensor? amax`` (an amax given, the float is not read), a
+padding as ``int[4]`` (top, bottom, left, right) and ``out_dtype`` as a
+``ScalarType``; their fakes give the contiguous outputs of both
+implementations, so that ``torch.export`` traces each call as one node.  The
+backward's entries and :func:`quantize_s8_reduce` (training only) launch
+through ctypes, outside the dispatcher.  The
 plain conv is ``F.conv2d`` in float64 on the integer codes, exact while
 127^2 K < 2^53, rounded to int32, then the same epilogue, then ``.to(out_dtype)``.
 
@@ -95,6 +104,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import ctypes_entry, op
 
 launches_quantize = 0
 launches_igemm = 0
@@ -244,12 +255,15 @@ def _rows(x: torch.Tensor) -> tuple[int, int, int]:
     return x.numel() // max(c, 1), c, ld
 
 
-def quantize_s8(x: torch.Tensor, x_scale) -> torch.Tensor:
-    """bf16 / f32 x [..., C] -> int8 codes of x's shape, contiguous.  On the
-    card x may be a channel slice of a contiguous NHWC tensor (rows of one
-    stride)."""
-    if x.device.type == "cpu":
-        return quantize_s8_plain(x, x_scale)
+def _scale_pair(x_scale) -> tuple:
+    """(float, amax tensor or None) of either form of ``x_scale``: the
+    operators' two scale arguments."""
+    if isinstance(x_scale, torch.Tensor):
+        return 1.0, x_scale
+    return float(x_scale), None
+
+
+def _quantize_cuda(x: torch.Tensor, scale: float, amax) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"quantize_s8 runs on CUDA or CPU, not {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -257,7 +271,7 @@ def quantize_s8(x: torch.Tensor, x_scale) -> torch.Tensor:
     p, c, ld = _rows(x)
     if p * c >= 2**31:
         raise ValueError(f"quantize_s8: {p * c} values do not fit the kernel's int indices")
-    suffix, scale, source = _scale_arg(x_scale, x.device, "quantize_s8")
+    suffix, scale, source = _scale_arg(scale if amax is None else amax, x.device, "quantize_s8")
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     if p == 0 or c == 0:
         return out
@@ -271,6 +285,25 @@ def quantize_s8(x: torch.Tensor, x_scale) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(rc, lib, "quantize_s8")
     return out
+
+
+def _quantize_fake(x: torch.Tensor, scale: float, amax) -> torch.Tensor:
+    if x.device.type == "cuda":
+        _rows(x)
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+_quantize = op("quantize_s8(Tensor x, float x_scale, Tensor? amax) -> Tensor",
+               lambda x, scale, amax: quantize_s8_plain(
+                   x, scale if amax is None else amax).contiguous(),
+               _quantize_cuda, _quantize_fake)
+
+
+def quantize_s8(x: torch.Tensor, x_scale) -> torch.Tensor:
+    """bf16 / f32 x [..., C] -> int8 codes of x's shape, contiguous.  On the
+    card x may be a channel slice of a contiguous NHWC tensor (rows of one
+    stride)."""
+    return _quantize(x, *_scale_pair(x_scale))
 
 
 REDUCE_MODES = {"dynamic": 1, "amax": 2, "delayed": 3}  # csrc: quant::Mode
@@ -300,6 +333,7 @@ def quantize_s8_reduce_plain(x: torch.Tensor, mode: str, amax=None) -> tuple:
     return quantize_s8_plain(x, cur if mode == "dynamic" else amax), cur
 
 
+@ctypes_entry
 def quantize_s8_reduce(x: torch.Tensor, mode: str, amax=None) -> tuple:
     """The quantize that reduces its own amax, one launch: (codes of x's
     shape, contiguous, or None; ``max |x|`` as a 0-d float32 tensor on x's
@@ -635,6 +669,50 @@ def _launch(kind: str, x_q, w_q, w_scale, x_scale, bias, stride, padding, dilati
     return out
 
 
+def _geometry_args(stride, padding, dilation) -> tuple:
+    """(stride, padding, dilation) as the operators take them: [sh, sw],
+    [top, bottom, left, right], [dh, dw]."""
+    (pt, pb), (pl, pr) = _pads(padding)
+    return list(_pair(stride)), [pt, pb, pl, pr], list(_pair(dilation))
+
+
+def _conv_args(stride, padding, dilation, rest) -> tuple:
+    """The operators' geometry back as :func:`_launch` takes it, and (groups,
+    out_dtype) from their last arguments (``conv_s8_igemm`` has no groups)."""
+    groups, out_dtype = rest if len(rest) == 2 else (1, *rest)
+    pads = (tuple(padding[:2]), tuple(padding[2:]))
+    return tuple(stride), pads, tuple(dilation), groups, out_dtype
+
+
+def _conv_cuda(kind: str):
+    def launch(x_q, w_q, w_scale, x_scale, amax, bias, stride, padding, dilation, *rest):
+        return _launch(kind, x_q, w_q, w_scale, x_scale if amax is None else amax, bias,
+                       *_conv_args(stride, padding, dilation, rest))
+    return launch
+
+
+def _conv_cpu(x_q, w_q, w_scale, x_scale, amax, bias, stride, padding, dilation, *rest):
+    return conv_s8_plain(x_q, w_q, w_scale, x_scale if amax is None else amax, bias,
+                         *_conv_args(stride, padding, dilation, rest))
+
+
+def _conv_fake(x_q, w_q, w_scale, x_scale, amax, bias, stride, padding, dilation, *rest):
+    stride, pads, dilation, groups, out_dtype = _conv_args(stride, padding, dilation, rest)
+    if x_q.device.type == "cuda" and not x_q.is_contiguous():
+        raise ValueError(f"x_q must be contiguous NHWC, got strides {x_q.stride()} for "
+                         f"{tuple(x_q.shape)}")
+    g = conv_geometry(x_q.shape, w_q.shape, stride, pads, dilation, groups)
+    return x_q.new_empty((g["B"], g["Ho"], g["Wo"], g["N"]), dtype=_out_dtype(out_dtype))
+
+
+_CONV_ARGS = ("Tensor x_q, Tensor w_q, Tensor w_scale, float x_scale, Tensor? amax, Tensor? bias, "
+              "int[2] stride, int[4] padding, int[2] dilation")
+_conv_igemm = op(f"conv_s8_igemm({_CONV_ARGS}, ScalarType out_dtype) -> Tensor",
+                 _conv_cpu, _conv_cuda("igemm"), _conv_fake)
+_conv_direct = op(f"conv_s8_direct({_CONV_ARGS}, int groups, ScalarType out_dtype) -> Tensor",
+                  _conv_cpu, _conv_cuda("direct"), _conv_fake)
+
+
 def conv_s8_igemm(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                   x_scale, bias: torch.Tensor | None = None, stride=1, padding=0,
                   dilation=1, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -642,11 +720,8 @@ def conv_s8_igemm(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     w_q [N, KH, KW, C] int8 -> [B, Ho, Wo, N] in ``out_dtype`` (float32 or
     bfloat16).  The weights are read as :func:`_weight_rows`, a view of
     contiguous w_q unless K is no multiple of 16."""
-    if x_q.device.type == "cpu":
-        return conv_s8_plain(x_q, w_q, w_scale, x_scale, bias, stride, padding, dilation,
-                             out_dtype=out_dtype)
-    return _launch("igemm", x_q, w_q, w_scale, x_scale, bias, stride, padding, dilation, 1,
-                   out_dtype)
+    return _conv_igemm(x_q, w_q, w_scale, *_scale_pair(x_scale), bias,
+                       *_geometry_args(stride, padding, dilation), out_dtype)
 
 
 def conv_s8_direct(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -655,11 +730,8 @@ def conv_s8_direct(x_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Grouped / depthwise int8 conv: x_q [B, H, W, C] int8, w_q [N, KH, KW,
     C / groups] int8 -> [B, Ho, Wo, N] in ``out_dtype`` (groups > 1)."""
-    if x_q.device.type == "cpu":
-        return conv_s8_plain(x_q, w_q, w_scale, x_scale, bias, stride, padding, dilation,
-                             groups, out_dtype)
-    return _launch("direct", x_q, w_q, w_scale, x_scale, bias, stride, padding, dilation,
-                   groups, out_dtype)
+    return _conv_direct(x_q, w_q, w_scale, *_scale_pair(x_scale), bias,
+                        *_geometry_args(stride, padding, dilation), groups, out_dtype)
 
 
 # ------------------------------------------------------------ the backward
@@ -982,6 +1054,7 @@ def rotated_weight_codes_plain(w: torch.Tensor, stride=1) -> tuple:
     return _rotated_rows(rotated, dgrad_channels(w.shape[0], stride)), amax
 
 
+@ctypes_entry
 def rotated_weight_codes(w: torch.Tensor, stride=1) -> tuple:
     """The data gradient's weights made on the card (the JAX package's
     ``_int8_dgrad`` re-quantizes the float kernel per tensor): OIHW float
@@ -1023,6 +1096,7 @@ def rotated_weight_codes(w: torch.Tensor, stride=1) -> tuple:
     return rows, amax
 
 
+@ctypes_entry
 def conv_s8_dgrad(g_q: torch.Tensor, w_q: torch.Tensor, g_amax: torch.Tensor,
                   w_amax: torch.Tensor, x_hw, stride=1, padding=0, dilation=1,
                   out_dtype: torch.dtype = torch.float32, kernel_size=None) -> torch.Tensor:
@@ -1247,6 +1321,7 @@ def planar_plain(codes: torch.Tensor, g: dict, cotangent: bool = False) -> torch
     return out.reshape(g["C"], g["B"] * len(p["planes"]), p["hc"], p["pitch"])
 
 
+@ctypes_entry
 def conv_s8_wgrad(x_q: torch.Tensor, g_q: torch.Tensor, x_amax: torch.Tensor,
                   g_amax: torch.Tensor, kernel_size, stride=1, padding=0, dilation=1,
                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -13,9 +13,13 @@ TPU wrapper does.  K and N must be multiples of 128.
 ``int8_matmul_prequant`` takes the codes ``x_q`` [M, K] int8 in place of x
 and leaves the quantize out: the same kernel instantiated for int8 x.
 
-Each wrapper launches the kernel for a CUDA tensor and uses its plain
-version only for a CPU tensor.  ``launches`` counts the launches of
-``int8_matmul``, ``launches_prequant`` those of ``int8_matmul_prequant``.
+Each wrapper calls its operator, ``torch.ops.iswm.int8_matmul`` or
+``torch.ops.iswm.int8_matmul_prequant`` (``ops/kernels/__init__.py``), whose
+CUDA implementation launches the kernel and whose CPU implementation is the
+plain version; its fake gives the [M, N] float32 output, so that
+``torch.export`` traces the call as one node.  ``launches`` counts the
+launches of ``int8_matmul``, ``launches_prequant`` those of
+``int8_matmul_prequant``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from . import op
 
 launches = 0
 launches_prequant = 0
@@ -147,14 +153,31 @@ def _launch(x, x_dtypes, w_q, w_scale, x_scale, prequant: bool) -> torch.Tensor:
     return out
 
 
+def _cuda(prequant: bool):
+    x_dtypes = (torch.int8,) if prequant else (torch.bfloat16, torch.float32)
+
+    def launch(x, w_q, w_scale, x_scale):
+        return _launch(x, x_dtypes, w_q, w_scale, x_scale, prequant)
+    return launch
+
+
+def _fake(x, w_q, w_scale, x_scale):
+    m, _, n = _check_shapes(x, w_q)
+    return x.new_empty((m, n), dtype=torch.float32)
+
+
+_int8_matmul = op("int8_matmul(Tensor x, Tensor w_q, Tensor w_scale, float x_scale) -> Tensor",
+                  lambda *args: int8_matmul_plain(*args), _cuda(False), _fake)
+_int8_matmul_prequant = op(
+    "int8_matmul_prequant(Tensor x_q, Tensor w_q, Tensor w_scale, float x_scale) -> Tensor",
+    lambda *args: int8_matmul_prequant_plain(*args), _cuda(True), _fake)
+
+
 def int8_matmul(
     x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, x_scale: float
 ) -> torch.Tensor:
     """[M, K] bf16/f32 @ [K, N] int8 -> [M, N] f32 (see module docstring)."""
-    _check_shapes(x, w_q)
-    if x.device.type == "cpu":
-        return int8_matmul_plain(x, w_q, w_scale, x_scale)
-    return _launch(x, (torch.bfloat16, torch.float32), w_q, w_scale, x_scale, False)
+    return _int8_matmul(x, w_q, w_scale, float(x_scale))
 
 
 def int8_matmul_prequant_plain(
@@ -179,10 +202,7 @@ def int8_matmul_prequant(
     activations already quantized.  Nothing in the serving path calls it;
     it isolates the tensor-core path from the cost of the quantize
     prologue."""
-    _check_shapes(x_q, w_q)
-    if x_q.device.type == "cpu":
-        return int8_matmul_prequant_plain(x_q, w_q, w_scale, x_scale)
-    return _launch(x_q, (torch.int8,), w_q, w_scale, x_scale, True)
+    return _int8_matmul_prequant(x_q, w_q, w_scale, float(x_scale))
 
 
 def _conv1x1(matmul, x, w_q, w_scale, x_scale):

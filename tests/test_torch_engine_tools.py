@@ -6,10 +6,14 @@
   its shape check, word for word; its ``flops`` count a matmul as the JAX
   engine's cost analysis does; ``serialize`` / ``deserialize`` round-trip
   through ``torch.export`` (the JAX round trip's check, and a closed-over
-  weight baked in), and refuse a fn that reaches a hand-written kernel's
-  wrapper.  On the card (``-m cuda``): a captured graph replays a fn that
-  runs the int8 kernel bit for bit as the eager fn, and a fn that reads a
-  value back to the host is refused.
+  weight baked in); a fn that calls a hand kernel's operator (#1) exports
+  with it as one node, the trace running no plain version, and a fn that
+  reaches a training wrapper that launches through ctypes is refused at its
+  entry.  On the card (``-m cuda``): a captured graph replays a fn that runs
+  the int8 kernel bit for bit as the eager fn, and a fn that reads a value
+  back to the host is refused; the bf16, ``int8_exec`` and ``int8_exec_xla``
+  serving fns of ResNet-50 round-trip through ``serialize`` bit for bit,
+  launching the eager fn's kernels.
 - ``train/profiling.py``: ``StepTimer`` as the JAX one; ``trace`` writes a
   trace file.
 - ``data/manifest.py`` and ``data/doctor.py``: the same manifests, reports,
@@ -35,7 +39,6 @@ import torch
 
 from iswm_tpu_torch.data import doctor, manifest
 from iswm_tpu_torch.infer.engine import (
-    EXPORT_ITEM,
     CaptureRefused,
     build_engine,
     deserialize,
@@ -124,8 +127,28 @@ def test_serialize_bakes_the_closed_over_weights_in():
 
 
 def test_serialize_refuses_a_fn_that_reaches_a_hand_kernel(monkeypatch):
-    """Refused at the wrapper's entry: its body (here its plain version) does
-    not run on the trace's tensors."""
+    """A training wrapper that launches through ctypes (the confusion matrix,
+    #6) is refused at its entry: its body (here its plain version) does not
+    run on the trace's tensors, and the message names it."""
+    from iswm_tpu_torch.ops.kernels import confusion as cm
+
+    def fn(x):
+        return cm.binary_confusion_matrix((x > 0).to(torch.uint8), (x > 0.5).to(torch.uint8))
+
+    assert fn(torch.ones(2, 8, 8)).shape == (2, 2)  # its plain version, on the CPU
+    ran = []
+    monkeypatch.setattr(cm, "binary_confusion_matrix_plain", lambda *args: ran.append(args))
+    with pytest.raises(NotImplementedError) as error:
+        serialize(fn, (2, 8, 8), torch.float32, device="cpu")
+    assert "confusion.binary_confusion_matrix" in str(error.value)
+    assert "ROADMAP" not in str(error.value) and ran == []
+
+
+def test_serialize_traces_a_hand_kernel_as_its_op(monkeypatch):
+    """A fn that calls #1's wrapper exports with ``iswm.int8_matmul`` as one
+    node: the trace runs its fake alone (no plain version), and the loaded
+    artifact gives the eager fn's bits through the operator's CPU
+    implementation."""
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
     rng = np.random.default_rng(5)
@@ -135,13 +158,16 @@ def test_serialize_refuses_a_fn_that_reaches_a_hand_kernel(monkeypatch):
     def fn(x):
         return k8.int8_matmul(x, w_q, w_scale, 0.05)
 
-    assert fn(torch.ones(8, 128)).shape == (8, 128)  # its plain version, on the CPU
-    ran = []
-    monkeypatch.setattr(k8, "int8_matmul_plain", lambda *args: ran.append(args))
-    with pytest.raises(NotImplementedError) as error:
-        serialize(fn, (8, 128), torch.float32, device="cpu")
-    assert EXPORT_ITEM in str(error.value) and "(int8_matmul.int8_matmul)" in str(error.value)
+    ran, plain = [], k8.int8_matmul_plain
+    monkeypatch.setattr(k8, "int8_matmul_plain", lambda *args: (ran.append(1), plain(*args))[1])
+    blob = serialize(fn, (8, 128), torch.float32, device="cpu")
     assert ran == []
+    served = deserialize(blob)
+    assert [str(n.target) for n in served.graph.nodes if n.op == "call_function"
+            and str(n.target).startswith("iswm.")] == ["iswm.int8_matmul.default"]
+    x = torch.from_numpy(rng.normal(size=(8, 128)).astype(np.float32))
+    torch.testing.assert_close(served(x), fn(x), rtol=0, atol=0)
+    assert len(ran) == 2
 
 
 @pytest.mark.cuda
@@ -178,16 +204,22 @@ def test_cuda_engine_replays_the_int8_kernel_bit_for_bit():
 
 @pytest.mark.cuda
 def test_cuda_serialize_roundtrips_the_bf16_serving_fn():
-    """The bf16 serving fn of deeplabv3plus_resnet50 (OS 16, seeded weights,
-    on the card) at a chunk of 8 x 512^2 tiles: ``serialize`` traces it on
-    the card by default, and the artifact, loaded back, gives the eager fn's
-    logits bit for bit on two chunks (deterministic cuDNN); the int8_exec fn
-    (#1 inside) is refused."""
+    """The bf16, ``int8_exec`` and ``int8_exec_xla`` serving fns of
+    deeplabv3plus_resnet50 (OS 16, seeded weights, on the card) at a chunk
+    of 8 x 512^2 tiles: ``serialize`` traces each on the card by default
+    without a launch, and the artifact, loaded back, gives the eager fn's
+    logits bit for bit on two chunks (deterministic cuDNN), launching the
+    hand kernels the eager fn launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the serving fn's weights lie on it)")
     from iswm_tpu_torch.config import Config
     from iswm_tpu_torch.data import val_transform_batch
     from iswm_tpu_torch.infer import Predictor
+    from iswm_tpu_torch.ops.kernels import int8_conv as kc
+    from iswm_tpu_torch.ops.kernels import int8_matmul as k8
+
+    def launches():
+        return k8.launches, kc.launches_quantize, kc.launches_igemm
 
     flags = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
     torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
@@ -195,17 +227,26 @@ def test_cuda_serialize_roundtrips_the_bf16_serving_fn():
         rng = np.random.default_rng(9)
         chunks = [val_transform_batch(torch.from_numpy(
             rng.integers(0, 256, (8, 512, 512, 3), dtype=np.uint8)).cuda()) for _ in range(2)]
-        fn = Predictor(Config(), device="cuda").engine.model_fn  # bf16 by default
-        served = deserialize(serialize(fn, tuple(chunks[0].shape), chunks[0].dtype))
-        with torch.inference_mode():
-            for chunk in chunks:
-                assert torch.equal(served(chunk), fn(chunk))
-        cfg = Config()
-        cfg.predict.serving_variant = "int8_exec"
-        predictor = Predictor(cfg, device="cuda")
-        predictor.predict_image(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
-        with pytest.raises(NotImplementedError, match="Exportable hand kernels"):
-            serialize(predictor.engine.model_fn, tuple(chunks[0].shape), chunks[0].dtype)
+        for variant in ("bf16", "int8_exec", "int8_exec_xla"):
+            cfg = Config()  # bf16 compute by default
+            cfg.predict.serving_variant = variant
+            predictor = Predictor(cfg, device="cuda")
+            predictor.predict_image(rng.integers(0, 256, (512, 512, 3), dtype=np.uint8))
+            fn = predictor.engine.model_fn
+            before = launches()
+            served = deserialize(serialize(fn, tuple(chunks[0].shape), chunks[0].dtype))
+            assert launches() == before, variant  # the trace ran the fakes alone
+            with torch.inference_mode():
+                for chunk in chunks:
+                    a = launches()
+                    got = served(chunk)
+                    b = launches()
+                    want = fn(chunk)
+                    assert [y - x for x, y in zip(a, b)] == [
+                        y - x for x, y in zip(b, launches())], variant
+                    assert torch.equal(got, want), variant
+            if variant != "bf16":
+                assert launches()[0] > before[0], variant  # #1 serves both int8 fns
     finally:
         torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = flags
 
