@@ -3182,10 +3182,11 @@ def _f32_rank_steps(step, x, y, rank: int, **settings) -> dict:
     """In a spawned rank: phase 15's f32 step of ``step`` from the seeded
     state (of the model ``settings`` given), deterministic, with TF32 off
     and on; by TF32 the loss and whether the parameters and statistics equal
-    rank 0's, on rank 0 the gradients and the statistics (what
-    ``_hold_two_rank_step`` holds)."""
+    rank 0's, on rank 0 the gradients, the statistics and QAT's running
+    amaxes (what ``_hold_two_rank_step`` holds)."""
     import torch.distributed as dist
 
+    from iswm_tpu_torch.models.layers import quant_state
     from iswm_tpu_torch.train import TrainState
     from iswm_tpu_torch.train.step import data_parallel
 
@@ -3197,18 +3198,22 @@ def _f32_rank_steps(step, x, y, rank: int, **settings) -> dict:
     for tf32 in (False, True):
         _tf32(tf32)
         model.load_state_dict(start)
+        for amax in quant_state(model).values():  # QAT's running amaxes start at 0 too
+            amax.zero_()
         state = TrainState(model, *factory(model.parameters()), 0, replicated)
         with warnings.catch_warnings():  # ops without a deterministic version
             warnings.simplefilter("ignore")
             loss = float(step(state, x, y))
-        # parameters and statistics after the step, against rank 0's
-        flat = torch.cat([v.detach().double().flatten() for v in model.state_dict().values()])
+        # parameters, statistics and running amaxes after the step, against rank 0's
+        flat = torch.cat([v.detach().double().flatten() for v in (
+            *model.state_dict().values(), *quant_state(model).values())])
         lead = flat.clone()
         dist.broadcast(lead, src=0)
         seen[tf32] = {"loss": loss, "equal_to_rank_0": torch.equal(lead, flat)}
         if rank == 0:
             seen[tf32]["grads"] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
             seen[tf32]["statistics"] = {k: v.cpu() for k, v in _statistics(model).items()}
+            seen[tf32]["amaxes"] = {k: v.cpu() for k, v in quant_state(model).items()}
     _tf32(True)
     _deterministic(False)
     return seen
@@ -3314,14 +3319,15 @@ def phase_dp_slice(ce, cm) -> tuple:
     return launches[0], group
 
 
-def _dp_reference(**settings) -> dict:
+def _dp_reference(remat: bool = False, **settings) -> dict:
     """The whole-step reference of phases 15, 21 and 22's two-rank steps, by
     TF32 off and on: one process on all 8 rows (the model ``settings``
-    given), in the caller's 1-rank group (the same BatchNorm arithmetic),
-    f32, deterministic; its loss, gradients and running statistics, and the
-    gradients of the same step with one pooled value in a million moved by
-    an ulp of what the convs read (the stem's max-pool, or with the fused
-    stem its fused pool)."""
+    given; with ``remat``, the step's), in the caller's 1-rank group (the
+    same BatchNorm arithmetic), f32, deterministic; its loss, gradients,
+    running statistics and QAT's running amaxes, and the gradients of the
+    same step with one pooled value in a million moved by an ulp of what the
+    convs read (:func:`_nudge_site`)."""
+    from iswm_tpu_torch.models.layers import quant_state
     from iswm_tpu_torch.ops.losses import make_loss_fn
     from iswm_tpu_torch.train import TrainState, make_train_step
 
@@ -3329,12 +3335,13 @@ def _dp_reference(**settings) -> dict:
     ref, factory = _dp_model(**settings)
     start = copy.deepcopy(ref.state_dict())
     x, y = _dp_batch()
-    step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
-    pool = (ref.backbone.maxpool if settings.get("fused_stem", "never") == "never"
-            else ref.backbone.fused_stem_pool)
+    step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"), remat=remat)
+    pool = _nudge_site(ref, settings)
 
     def one_step(hook=None):
         ref.load_state_dict(start)
+        for amax in quant_state(ref).values():  # QAT's running amaxes start at 0 too
+            amax.zero_()
         state = TrainState(ref, *factory(ref.parameters()), 0)
         handle = None if hook is None else pool.register_forward_hook(hook)
         with warnings.catch_warnings():
@@ -3349,61 +3356,102 @@ def _dp_reference(**settings) -> dict:
         _tf32(tf32)
         loss, grads = one_step()
         reference[tf32] = {"loss": loss, "grads": grads, "statistics": _statistics(ref),
+                           "amaxes": {k: v.clone() for k, v in quant_state(ref).items()},
                            "nudged": one_step(_nudge)[1]}
     _tf32(True)
     _deterministic(False)
     return reference
 
 
-def _hold_two_rank_step(reference: dict, ranks: list, tag: str, layout: str) -> None:
+def _nudge_site(model, settings: dict):
+    """The module whose output :func:`_nudge` moves: the stem's max-pool, its
+    fused pool with the fused stem, MobileNetV2's stem, Xception's first
+    BatchNorm."""
+    backbone = settings.get("backbone", "resnet50")
+    if backbone == "mobilenetv2":
+        return model.backbone.features[0]
+    if backbone == "xception":
+        return model.backbone.bn1
+    return (model.backbone.maxpool if settings.get("fused_stem", "never") == "never"
+            else model.backbone.fused_stem_pool)
+
+
+def _step_distances(got: dict, want: dict) -> dict:
+    """How far a step's rank-0 record ``got`` (``_f32_rank_steps``) lies from
+    the one-process ``want`` (``_dp_reference``): the loss (relative), the
+    worst BatchNorm's running statistics (variance by max|var|, mean by max
+    sqrt(var)), the gradients' median and worst tensor (by max|grad|), and
+    QAT's running amaxes' worst site (relative)."""
+    ratios = sorted(float((got["grads"][k].cuda() - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30)) for k, w in want["grads"].items())
+    stat, name = 0.0, ""
+    for k, var in want["statistics"].items():
+        if k.endswith("running_var"):
+            mk = k.replace("running_var", "running_mean")
+            got_var, got_mean = (got["statistics"][n].cuda() for n in (k, mk))
+            err = max(float((got_var - var).abs().max() / var.abs().max()),
+                      float((got_mean - want["statistics"][mk]).abs().max() / var.sqrt().max()))
+            stat, name = max((stat, name), (err, k[:-12]))
+    amax = max((float((got["amaxes"][k].cuda() - v).abs() / v.abs()) for k, v in
+                want["amaxes"].items()), default=0.0)
+    return {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]), "statistics": stat,
+            "at": name, "median": ratios[len(ratios) // 2], "worst": ratios[-1], "amax": amax}
+
+
+def _hold_two_rank_step(reference: dict, ranks: list, tag: str, layout: str,
+                        yardstick: list | None = None) -> None:
     """Phase 15's limits on a two-rank f32 step against ``_dp_reference``.
 
     Held: the loss and the statistics with TF32 off (float32 throughout, so
     that 1e-5 measures the reduction over two ranks and not TF32's rounding
     of its differences: with TF32 on they read 2.8e-4 and 5.0e-4), the
-    gradients both ways against the nudged step (phase 11's yardstick)."""
-
-    def median_ratio(got, want):
-        ratios = sorted(float((got[k].cuda() - w).abs().max() / w.abs().max().clamp_min(1e-30))
-                        for k, w in want.items())
-        return ratios[len(ratios) // 2], ratios[-1]
-
+    gradients both ways against the nudged step (phase 11's yardstick).
+    With a ``yardstick`` (the ranks' records of the same model's 2-rank
+    data-parallel step, for a step whose forward is chaotic at this size:
+    QAT's, where one rounding of a BatchNorm's sums flips int8 codes), each
+    of those, and QAT's running amaxes, within DP_SLACK times that step's
+    distance from one process where it is larger than the limit: the step
+    lies no farther from one process than data parallelism does."""
     for tf32 in (False, True):
         want, seen = reference[tf32], [r[tf32] for r in ranks]
         check(all(r["equal_to_rank_0"] for r in seen),
               f"TF32 {tf32}: the ranks' parameters or statistics differ after the step")
         losses = [r["loss"] for r in seen]
-        rel = abs(losses[0] - want["loss"]) / abs(want["loss"])
         check(losses[0] == losses[1], f"TF32 {tf32}: the ranks' losses {losses} differ")
-        worst_stat, worst_name = 0.0, ""
-        for k, var in want["statistics"].items():
-            if k.endswith("running_var"):
-                mk = k.replace("running_var", "running_mean")
-                got_var, got_mean = (seen[0]["statistics"][n].cuda() for n in (k, mk))
-                err = max(float((got_var - var).abs().max() / var.abs().max()),
-                          float((got_mean - want["statistics"][mk]).abs().max()
-                                / var.sqrt().max()))
-                worst_stat, worst_name = max((worst_stat, worst_name), (err, k[:-12]))
-        (dp_med, dp_worst), (nudge_med, nudge_worst) = (
-            median_ratio(seen[0]["grads"], want["grads"]),
-            median_ratio(want["nudged"], want["grads"]))
-        if not tf32:
-            check(rel <= 1e-5, f"2-rank step loss {losses[0]} vs one process {want['loss']} "
-                               f"(rel {rel:.2e}, limit 1e-5)")
-            check(worst_stat <= 1e-5, f"2-rank running statistics of {worst_name} "
-                                      f"{worst_stat:.2e} from one process (limit 1e-5)")
-        check(dp_med <= DP_SLACK * nudge_med,
-              f"TF32 {tf32}: 2-rank step gradients: median tensor {dp_med:.2e} * max|grad| from "
-              f"one process, more than {DP_SLACK} x the nudged step's {nudge_med:.2e}")
+        got = _step_distances(seen[0], want)
+        nudge = _step_distances({"loss": want["loss"], "grads": want["nudged"],
+                                 "statistics": want["statistics"],
+                                 "amaxes": want["amaxes"]}, want)
+        dp = None if yardstick is None else _step_distances(yardstick[0][tf32], want)
+        limits = {"loss": 1e-5, "statistics": 1e-5, "amax": SPATIAL_AMAX_LIMIT}
+        if dp is not None:
+            limits = {k: max(v, DP_SLACK * dp[k]) for k, v in limits.items()}
+        for key in ("loss", "statistics", "amax") if not tf32 else ():
+            check(got[key] <= limits[key],
+                  f"2-rank step {key} {got[key]:.2e} from one process (limit "
+                  f"{limits[key]:.2e}{'' if dp is None else f'; data-parallel {dp[key]:.2e}'})")
+        limit = DP_SLACK * max(nudge["median"], 0.0 if dp is None else dp["median"])
+        check(got["median"] <= limit,
+              f"TF32 {tf32}: 2-rank step gradients: median tensor {got['median']:.2e} * "
+              f"max|grad| from one process, more than {DP_SLACK} x the nudged step's "
+              f"{nudge['median']:.2e}" + ("" if dp is None else
+                                          f" or the data-parallel step's {dp['median']:.2e}"))
         print(f"{tag} one step on 2 gloo ranks on cuda:0 (f32, TF32 {'on' if tf32 else 'off'}, "
               f"{layout}, no augmentation, dropout off, deterministic) against one process on "
-              f"all 8: loss {losses[0]:.6f} on both vs {want['loss']:.6f} (rel {rel:.2e}"
-              + ("" if tf32 else ", limit 1e-5") + f"); running statistics within "
-              f"{worst_stat:.2e} at {worst_name}" + ("" if tf32 else " (limit 1e-5)")
+              f"all 8: loss {losses[0]:.6f} on both vs {want['loss']:.6f} (rel "
+              f"{got['loss']:.2e}" + ("" if tf32 else f", limit {limits['loss']:.2e}")
+              + f"); running statistics within {got['statistics']:.2e} at {got['at']}"
+              + ("" if tf32 else f" (limit {limits['statistics']:.2e})")
+              + ("" if not want["amaxes"] else f"; running amaxes within {got['amax']:.2e}"
+                 + ("" if tf32 else f" (limit {limits['amax']:.2e})"))
               + f"; parameters and statistics equal on both ranks; gradients median tensor "
-              f"{dp_med:.2e} * max|grad| (worst {dp_worst:.2e}) from one process, where one "
-              f"process with one pooled value in a million moved by an ulp lies {nudge_med:.2e} "
-              f"(worst {nudge_worst:.2e}) (limit {DP_SLACK}x)")
+              f"{got['median']:.2e} * max|grad| (worst {got['worst']:.2e}) from one process, "
+              f"where one process with one pooled value in a million moved by an ulp lies "
+              f"{nudge['median']:.2e} (worst {nudge['worst']:.2e})"
+              + ("" if dp is None else
+                 f" and the 2-rank data-parallel step (4 images a rank) loss {dp['loss']:.2e}, "
+                 f"statistics {dp['statistics']:.2e}, amaxes {dp['amax']:.2e}, gradients "
+                 f"{dp['median']:.2e} (worst {dp['worst']:.2e})") + f" (limit {DP_SLACK}x)")
 
 
 # ------------------------------------------------------------------ the zoo
@@ -4443,19 +4491,26 @@ def phase_qat_train(kc, smi: str) -> dict:
 
 
 # ------------------------------------------------- QAT's int8 backward
-def _qat_bwd_calls(model, x, yu8) -> list:
+def _qat_bwd_calls(model, x, yu8, mesh=None) -> list:
     """The int8 backward's kernel calls of one forward and backward of
     ``model`` on ``x`` (train mode, a cross-entropy on ``yu8``), in order:
     (kind, args, kwargs), the arguments as the entries got them (the real
     activations, cotangents, weights and codes): ``quantize_x`` /
     ``quantize_g`` (the forward's and the backward's ``quantize_activation``:
     NCHW x or g), ``rotated`` (the data gradient's weights), ``dgrad``,
-    ``wgrad``."""
+    ``wgrad``.  With a ``mesh`` of a model axis, ``x`` and ``yu8`` are this
+    rank's image rows of an image of twice their height, the forward runs
+    under ``spatially_split`` and the forward's convs (``igemm``) are
+    recorded too."""
+    import contextlib
+
     from iswm_tpu_torch.ops import int8_train
+    from iswm_tpu_torch.parallel import spatial
 
     calls, saved, part = [], {}, ["x"]
     kinds = {"conv_s8_dgrad": "dgrad", "conv_s8_wgrad": "wgrad",
-             "rotated_weight_codes": "rotated", "quantize_activation": "quantize"}
+             "rotated_weight_codes": "rotated", "quantize_activation": "quantize",
+             **({} if mesh is None else {"conv_s8_igemm": "igemm"})}
     for name, kind in kinds.items():
         fn = saved[name] = getattr(int8_train, name)
 
@@ -4464,9 +4519,12 @@ def _qat_bwd_calls(model, x, yu8) -> list:
             return fn(*a, **k)
 
         setattr(int8_train, name, record)
+    split = (contextlib.nullcontext() if mesh is None
+             else spatial.spatially_split(mesh, x.shape[2] * mesh.model))
     try:
         model.train()
-        logits = model(x)
+        with split:
+            logits = model(x)
         part[0] = "g"
         torch.nn.functional.cross_entropy(logits.float(), yu8.long()).backward()
     finally:
@@ -5295,6 +5353,18 @@ SPATIAL_BF16_LIMIT = 2e-2  # phase 21: the bf16 split step's loss against one pr
 # no gradient), the pooling branch's group sum forward and backward
 SPATIAL_COLLECTIVES = {"halo_gather": 25, "halo_reduce": 24, "group_sum": 2}
 SPATIAL_OUT = TRAIN_OUT.with_name("chip_smoke_spatial")
+# phase 21's options on the split: (model settings, remat) of each, a float32
+# step held against its one-process step, a bf16 step measured beside the
+# plain split step's.  Xception's VALID stems split the 512 rows unevenly:
+# 255 (128 / 127), 253 (127 / 126), then 127 (64 / 63) from block1
+SPATIAL_OPTIONS = {
+    "remat": ({}, True),
+    "QAT + int8 backward": ({"int8_training": QAT_GATE, "int8_training_bwd": True,
+                             "int8_scale_mode": "delayed"}, False),
+    "MobileNetV2": ({"backbone": "mobilenetv2"}, False),
+    "Xception": ({"backbone": "xception"}, False),
+}
+SPATIAL_AMAX_LIMIT = 1e-5  # phase 21: a 2-rank QAT step's running amaxes against one process's
 
 
 def _spatial_scene() -> torch.Tensor:
@@ -5355,13 +5425,13 @@ def _saved_mib(loss: torch.Tensor, model) -> dict:
     return dict(sorted(by_node.items(), key=lambda kv: -kv[1]))
 
 
-def _spatial_numbers(step, state, x, y, mesh=None) -> dict:
+def _spatial_numbers(step, state, x, y, mesh=None, reps: int = 3) -> dict:
     """The loss of a step from the seeded state; after a warm-up step, one
     step's collectives over the model group and their bytes, kernel #4's
     launches and the peak memory; what a train forward saves for its
-    backward, by autograd node (:func:`_saved_mib`); the median of 3 steps on
-    the host's clock; the device time, launches and device time by class of
-    one step (one profiler trace of 2)."""
+    backward, by autograd node (:func:`_saved_mib`); the median of ``reps``
+    steps on the host's clock; the device time, launches and device time by
+    class of one step (one profiler trace of 2)."""
     import gc
 
     from iswm_tpu_torch.ops.kernels import fused_ce as ce
@@ -5392,10 +5462,11 @@ def _spatial_numbers(step, state, x, y, mesh=None) -> dict:
     numbers = {"loss": loss, "peak_mib": peak, "base_mib": base, "saved": saved,
                "collectives": dict(spatial.collectives),
                "bytes": dict(spatial.collective_bytes),
+               "recomputed": dict(spatial.recomputed), "row_exchanges": spatial.row_exchanges,
                "ce": tuple(b - a for a, b in zip(counts, (ce.launches_sharded, ce.launches_fwd,
                                                           ce.launches_bwd)))}
     times = []
-    for _ in range(3):
+    for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(state, x, y)
@@ -5411,10 +5482,78 @@ def _spatial_numbers(step, state, x, y, mesh=None) -> dict:
     return numbers
 
 
+def _qat_counts(kc) -> dict:
+    """The counters of the int8 backward's entries and of the device-scale
+    quantize and conv, under phase 20's names."""
+    got = {f"int8_conv.launches_{k}": getattr(kc, f"launches_{k}")
+           for k in ("dgrad", "wgrad", "rotated")}
+    got.update({f"int8_conv.{e} device": v["device"] for e, v in kc.launches_by_scale.items()})
+    got.update({f"int8_conv.reduce {m}": v for m, v in kc.launches_reduce.items()})
+    got.update({f"int8_conv.dgrad {b}": v for b, v in kc.launches_dgrad_by_body.items()})
+    got.update({f"int8_conv.wgrad {b}": v for b, v in kc.launches_wgrad_by_body.items()})
+    return got
+
+
+def _halo_entries(kc, mesh, x, y, settings: dict) -> dict:
+    """In a spawned rank: one float32 forward and backward of the QAT model of
+    ``settings`` under the split on this rank's rows, its int8 entries' calls
+    recorded (:func:`_qat_bwd_calls`).  Every call at a halo geometry (H
+    padding 0, W padding above 0: a window's rows with their halo, of odd or
+    halo-extended height) of the dense conv, the data and the weight
+    gradient, and the same site's reducing quantizes (their three modes: of
+    the halo-extended x, of the cotangent) and weight codes, held bit-equal
+    to their plain versions on the same inputs.  Returns the calls held by
+    kind and the halo calls' shapes."""
+    from iswm_tpu_torch.parallel import spatial_rows
+
+    model, _ = _dp_model(**settings)
+    calls = _qat_bwd_calls(model, spatial_rows(mesh, x).permute(0, 3, 1, 2),
+                           spatial_rows(mesh, y), mesh)
+    del model
+    entries = {"igemm": kc.conv_s8_igemm, "dgrad": kc.conv_s8_dgrad, "wgrad": kc.conv_s8_wgrad,
+               "rotated": kc.rotated_weight_codes}
+    plains = {"igemm": lambda *a, out_dtype: kc.conv_s8_plain(*a, 1, out_dtype),
+              "dgrad": kc.conv_s8_dgrad_plain, "wgrad": kc.conv_s8_wgrad_plain,
+              "rotated": kc.rotated_weight_codes_plain}
+    def halo(call) -> bool:
+        (top, bottom), (left, _) = kc._pads(call[1][6])
+        return not (top or bottom) and left > 0
+
+    # a site's calls: its forward's quantize and conv, its backward's quantize,
+    # weight codes, data and weight gradient
+    halo_sites = {i for i, c in enumerate(calls) if c[0] in ("igemm", "dgrad") and halo(c)}
+    halo_sites |= {i - 1 for i in halo_sites} | {i - 2 for i in halo_sites
+                                                  if calls[i][0] == "dgrad"}
+    held, shapes = {}, set()
+    for i, (kind, a, k) in enumerate(calls):
+        if i not in halo_sites and not (kind == "wgrad" and halo((kind, a, k))):
+            continue
+        if kind.startswith("quantize"):
+            check(_reduce_checks(kc, a[0]),
+                  f"the reducing quantize != plain at {kind} {tuple(a[0].shape)} on the split")
+        else:
+            if kind != "rotated":
+                shapes.add((kind, tuple(a[0].shape), tuple(a[1].shape), str(a[5]), str(a[6]),
+                            str(a[7])))
+            got, want = entries[kind](*a, **k), plains[kind](*a, **k)
+            pairs = list(zip(got, want)) if kind == "rotated" else [(got, want)]
+            diff = max(float((g.float() - w.float()).abs().max()) for g, w in pairs)
+            check(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in pairs),
+                  f"{kind} != plain at {tuple(a[0].shape)} on the split ({a[5:8]}): max abs "
+                  f"err {diff}")
+        held[kind] = held.get(kind, 0) + 1
+    torch.cuda.synchronize()
+    check(all(held.get(k, 0) for k in ("igemm", "dgrad", "wgrad")),
+          f"the split QAT step made no int8 call at a halo geometry: {held}")
+    return {"held": held, "shapes": sorted(shapes)}
+
+
 def _rank_spatial(rank: int, ranks: int, rendezvous: str, out: str) -> None:
     """Phase 21 in a spawned rank, a model group of both (data 1 x model 2):
     phase 15's f32 step and a bf16 step on this rank's 256 of the 512 rows of
-    all 8 images, then the scene-parallel int8_exec_xla engine."""
+    all 8 images, the same for each of ``SPATIAL_OPTIONS`` (with QAT, its int8
+    entries at the halo geometries against their plain versions), then the
+    scene-parallel int8_exec_xla engine."""
     from iswm_tpu_torch.infer.quantization import make_variant_fn
     from iswm_tpu_torch.infer.tiling import TileEngine
     from iswm_tpu_torch.ops.kernels import fused_ce as ce
@@ -5436,8 +5575,31 @@ def _rank_spatial(rank: int, ranks: int, rendezvous: str, out: str) -> None:
         model, factory = _dp_model("bfloat16")
         state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
         seen["bf16"] = _spatial_numbers(step, state, x, y, mesh)
-        seen["train launches"] = (ce.launches_sharded, ce.launches_fwd, ce.launches_bwd)
         del model, state
+        start, seen["options"] = _qat_counts(kc), {}
+        for name, (settings, remat) in SPATIAL_OPTIONS.items():
+            t0 = time.perf_counter()
+            option = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"),
+                                     mesh=mesh, remat=remat)
+            got = {"f32": _f32_rank_steps(option, x, y, rank, **settings)}
+            if settings.get("int8_training"):  # the yardstick of a chaotic forward
+                rows = slice(rank * len(x) // ranks, (rank + 1) * len(x) // ranks)
+                got["data-parallel f32"] = _f32_rank_steps(
+                    make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"),
+                                    remat=remat), x[rows], y[rows], rank, **settings)
+            if settings.get("int8_training_bwd"):  # its launches stay out of the counts
+                before = _qat_counts(kc)
+                got["halo entries"] = _halo_entries(kc, mesh, x, y, settings)
+                start = {k: v + _qat_counts(kc)[k] - before[k] for k, v in start.items()}
+            torch.backends.cudnn.benchmark = True
+            model, factory = _dp_model("bfloat16", **settings)
+            state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
+            got["bf16"] = _spatial_numbers(option, state, x, y, mesh, reps=1)
+            got["s"] = time.perf_counter() - t0
+            seen["options"][name] = got
+            del model, state
+        seen["qat launches"] = {k: v - start[k] for k, v in _qat_counts(kc).items()}
+        seen["train launches"] = (ce.launches_sharded, ce.launches_fwd, ce.launches_bwd)
 
         fn = make_variant_fn(_spatial_model(), "int8_exec_xla",
                              conv_scales=torch.load(Path(out) / "scales.pt"))
@@ -5458,9 +5620,10 @@ def _rank_spatial(rank: int, ranks: int, rendezvous: str, out: str) -> None:
 
 
 def phase_spatial(smi: str) -> dict:
-    """The spatial model axis (data 1 x model 2 on two gloo ranks on cuda:0),
-    the scene-parallel engine and the multi-device dry run; returns this
-    phase's launches of each kernel it drives."""
+    """The spatial model axis (data 1 x model 2 on two gloo ranks on cuda:0):
+    the plain split step and each of ``SPATIAL_OPTIONS``'s, the scene-parallel
+    engine and the multi-device dry run; returns this phase's launches of
+    each kernel it drives."""
     from iswm_tpu_torch.infer.quantization import calibrate_conv_inputs, make_variant_fn
     from iswm_tpu_torch.infer.tiling import TileEngine
     from iswm_tpu_torch.ops.losses import make_loss_fn
@@ -5475,6 +5638,10 @@ def phase_spatial(smi: str) -> dict:
     # step alone, and the one-rank engine on the scene (its scales for the ranks)
     _open_group("phase21.nccl")
     reference = _dp_reference()
+    t_refs = time.perf_counter()
+    references = {name: _dp_reference(remat, **settings)
+                  for name, (settings, remat) in SPATIAL_OPTIONS.items()}
+    t_refs = time.perf_counter() - t_refs
     x, y = _dp_batch()
     torch.backends.cudnn.benchmark = True
     step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
@@ -5536,6 +5703,9 @@ def phase_spatial(smi: str) -> dict:
               f"{numbers['collectives']}, bytes {numbers['bytes']}; sharded CE / #4 forward / "
               f"#4 backward launches a step {numbers['ce']}")
 
+    _hold_spatial_options(references, ranks, smi)
+    del references
+
     got = ranks[0]["logits"].cuda()
     gap = float((got - want).abs().max())
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
@@ -5557,10 +5727,88 @@ def phase_spatial(smi: str) -> dict:
     t_dry = time.perf_counter() - t0
     print(f"[21] dryrun_multichip(4) as 4 gloo ranks on cuda:0 (data 2 x model 2, "
           f"resnet50 crop 32, then int8_exec_xla serving) in {t_dry:.1f} s; phase 21 in "
-          f"{time.perf_counter() - t_phase:.1f} s: the two ranks' process {t_ranks:.1f} s, the "
-          f"dry run {t_dry:.1f} s, the one-process side the rest")
+          f"{time.perf_counter() - t_phase:.1f} s: the two ranks' process {t_ranks:.1f} s ("
+          + ", ".join(f"{name} {ranks[0]['options'][name]['s']:.1f} s" for name in SPATIAL_OPTIONS)
+          + f" on rank 0), the options' one-process references {t_refs:.1f} s, the dry run "
+          f"{t_dry:.1f} s, the one-process side the rest")
     train = [sum(seen["train launches"][i] for seen in ranks) for i in range(3)]
-    return {"sharded": train[0], "fwd": train[1], "bwd": train[2], **serve}
+    qat = {k: sum(seen["qat launches"][k] for seen in ranks) for k in ranks[0]["qat launches"]}
+    print(f"[21] launches over both ranks' steps: sharded CE {train[0]}, #4 forward "
+          f"{train[1]}, backward {train[2]}; the QAT option's int8 entries "
+          + ", ".join(f"{k.split('.', 1)[1]} {v}" for k, v in qat.items() if v))
+    return {"sharded": train[0], "fwd": train[1], "bwd": train[2], **serve, "qat": qat}
+
+
+def _hold_spatial_options(references: dict, ranks: list, smi: str) -> None:
+    """Phase 21's options on the split: each float32 step against its
+    one-process step within phase 15's limits (``_hold_two_rank_step``;
+    QAT's forward is chaotic at this size, so its step, its running amaxes
+    included, is held against the 2-rank data-parallel step's distance too);
+    the remat step's gradients against the plain split step's; QAT's int8
+    entries' halo calls (held bit-equal on the ranks); each bf16 step's
+    numbers beside the plain split step's: the same loss and collectives on
+    both ranks, no exchange of row counts, one sharded CE a step."""
+    plain = ranks[0]["bf16"]
+    for name, (settings, remat) in SPATIAL_OPTIONS.items():
+        got = [seen["options"][name] for seen in ranks]
+        layout = (f"{name}, data 1 x model 2: 256 of the 512 rows of all 8 images each"
+                  + (", the maps uneven from the VALID stems on (255 rows: 128 / 127)"
+                     if settings.get("backbone") == "xception" else ""))
+        chaotic = bool(settings.get("int8_training"))
+        yardstick = [g["data-parallel f32"] for g in got] if chaotic else None
+        _hold_two_rank_step(references[name], [g["f32"] for g in got], "[21]", layout,
+                            yardstick)
+        if remat:  # the plain split step's gradients, rank 0's, by TF32
+            same = {tf32: all(torch.equal(v, ranks[0][tf32]["grads"][k])
+                              for k, v in got[0]["f32"][tf32]["grads"].items())
+                    for tf32 in (False, True)}
+            print(f"[21] remat split step's gradients bit-equal to the plain split step's "
+                  f"(rank 0, deterministic): TF32 off {same[False]}, on {same[True]}")
+        if chaotic:
+            want = references[name][False]["amaxes"]
+            check(set(got[0]["f32"][False]["amaxes"]) == set(want) and len(want) > 20,
+                  f"{name}: the split step's amax sites are not one process's {len(want)}")
+            for what, record in (("split", got[0]["f32"]), ("data-parallel",
+                                                           got[0]["data-parallel f32"])):
+                rels = [(k[:-7], float((record[False]["amaxes"][k].cuda() - v).abs() / v.abs()))
+                        for k, v in want.items()]
+                first = next(((k, r) for k, r in rels if r > 1e-6), ("none", 0.0))
+                print(f"[21] {name}: the {what} step's running amaxes (TF32 off) against one "
+                      f"process's, by site in forward order: the first beyond 1e-6 {first[0]} "
+                      f"({first[1]:.2e}), the worst {max(r for _, r in rels):.2e}")
+            for r, g in enumerate(got):
+                entries = g["halo entries"]
+                print(f"[21] {name}, rank {r}: int8 entries bit-equal to their plain versions on "
+                      f"the split's tensors: {entries['held']} calls (the convs at the "
+                      f"{len(entries['shapes'])} halo geometries "
+                      + "; ".join(f"{k} x{s} w{t} stride {st} padding {p} dilation {d}"
+                                  for k, s, t, st, p, d in entries["shapes"]) + ")")
+        bf16 = [g["bf16"] for g in got]
+        losses = [b["loss"] for b in bf16]
+        check(losses[0] == losses[1] and np.isfinite(losses[0]),
+              f"{name}: bf16 split losses {losses}")
+        for r, b in enumerate(bf16):
+            check(b["collectives"] == bf16[0]["collectives"] and b["row_exchanges"] == 0,
+                  f"{name}, rank {r}: collectives a step {b['collectives']} (rank 0's "
+                  f"{bf16[0]['collectives']}), row exchanges {b['row_exchanges']}, expected 0")
+            check(b["ce"] == (1, 1, 1), f"{name}, rank {r}: sharded CE, kernel #4 forward and "
+                                        f"backward launches a step {b['ce']}, expected one each")
+        if remat:
+            want_coll = {k: plain["collectives"][k] + bf16[0]["recomputed"][k]
+                         for k in plain["collectives"]}
+            check(bf16[0]["collectives"] == want_coll,
+                  f"remat: collectives {bf16[0]['collectives']}, expected the plain step's and "
+                  f"its recomputation's {want_coll}")
+        b = bf16[0]
+        print(f"[21] {smi}: {name} bf16 split step, batch 8 at 512^2, rank 0 of 2 (beside the "
+              f"plain split step's): loss {b['loss']:.6f} on both ranks; device "
+              f"{b['device_ms']:.2f} ms ({plain['device_ms']:.2f}) in {b['launches']:.0f} "
+              f"launches ({plain['launches']:.0f}), host {b['host_ms']:.2f} ms "
+              f"({plain['host_ms']:.2f}), peak {b['peak_mib']:.1f} MiB ({plain['peak_mib']:.1f}), "
+              f"a train forward saves {sum(b['saved'].values()):.1f} MiB "
+              f"({sum(plain['saved'].values()):.1f}); collectives a step {b['collectives']} "
+              f"({plain['collectives']}), of them recomputed {b['recomputed']}, bytes "
+              f"{b['bytes']} ({plain['bytes']}); no exchange of row counts")
 
 
 # -------------------------------------------------- the sharded fused kernels
@@ -5972,6 +6220,16 @@ def main() -> int:
     launches += spatial["matmul"]
     for e in ("quantize", "igemm"):
         xla_launches[e] += spatial[e]
+    # ... and its QAT option's int8 backward and device-scale entries
+    for key in ("dgrad", "wgrad", "rotated"):
+        bwd_launches[key] += spatial["qat"][f"int8_conv.launches_{key}"]
+    for mode in bwd_launches["reduce"]:
+        bwd_launches["reduce"][mode] += spatial["qat"][f"int8_conv.reduce {mode}"]
+    for kind in ("dgrad", "wgrad"):
+        for body in bwd_launches[f"{kind}_by_body"]:
+            bwd_launches[f"{kind}_by_body"][body] += spatial["qat"][f"int8_conv.{kind} {body}"]
+    for e in ("quantize", "igemm"):
+        bwd_launches[e] += spatial["qat"][f"int8_conv.{e} device"]
     # the fused stem and blocks in a process group: their eight entries
     fused_group = phase_sharded_fused(fs, fb, group_step, smi)
     for key in stem_launches:

@@ -117,7 +117,7 @@ class DeepLabHeadV3Plus(nn.Module):
     def decode(self, low_level: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         """The decoder on the ASPP's output ``out``."""
         low = self.project(low_level)
-        out = resize_bilinear(out, (low.shape[2], low.shape[3]))
+        out = resize_bilinear(out, (low.shape[2], low.shape[3]), owner=self)
         return self.classifier(torch.cat([low, out.to(low.dtype)], dim=1))
 
 
@@ -168,4 +168,4 @@ class DeepLabV3Model(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         input_hw = (x.shape[2], x.shape[3])
         features = self.backbone(x.to(self.compute_dtype))
-        return resize_bilinear(self.classifier(features), input_hw)
+        return resize_bilinear(self.classifier(features), input_hw, owner=self)

@@ -107,16 +107,22 @@ class Conv2d(nn.Conv2d):
 
     Under ``parallel/spatial.py``'s ``spatially_split`` ``x`` is this rank's
     rows of the image: the conv fetches the rows its output rows read (its H
-    padding as zero rows) and runs with H padding 0.  Grouped and depthwise
-    convs take the same path."""
+    padding as zero rows) and runs with H padding 0 (:meth:`rows`).  Grouped
+    and depthwise convs take the same path."""
+
+    def rows(self, x: torch.Tensor) -> tuple:
+        """(the input rows this rank's output rows read, the padding to run
+        the conv with): ``x`` and the conv's own padding outside
+        ``spatially_split``."""
+        if spatial.current() is None:
+            return x, self.padding
+        x = spatial.window_rows(x, self.kernel_size[0], self.stride[0], self.padding[0],
+                                self.dilation[0], owner=self)
+        return x, (0, self.padding[1])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        padding = self.padding
-        if spatial.current() is not None:
-            x = spatial.window_rows(x, self.kernel_size[0], self.stride[0], self.padding[0],
-                                    self.dilation[0])
-            padding = (0, self.padding[1])
+        x, padding = self.rows(x)
         return F.conv2d(x, self.weight.to(x.dtype), bias, self.stride,
                         padding, self.dilation, self.groups)
 
@@ -130,7 +136,7 @@ class MaxPool2d(nn.MaxPool2d):
             return super().forward(x)
         k, s, p, d = (v if isinstance(v, int) else v[0] for v in (
             self.kernel_size, self.stride, self.padding, self.dilation))
-        x = spatial.window_rows(x, k, s, p, d, fill=float("-inf"))
+        x = spatial.window_rows(x, k, s, p, d, fill=float("-inf"), owner=self)
         return F.max_pool2d(x, self.kernel_size, self.stride, (0, p), self.dilation,
                             self.ceil_mode)
 
@@ -144,11 +150,11 @@ class GlobalAvgPool2d(nn.AdaptiveAvgPool2d):
         super().__init__(1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        split = spatial.current()
-        if split is None:
+        if spatial.current() is None:
             return super().forward(x)
+        (rows,) = spatial.extents(self, x.device, x.shape[2])
         total = spatial.group_sum(x.float().sum(dim=(2, 3), keepdim=True))
-        return (total / (split.size * x.shape[2] * x.shape[3])).to(x.dtype)
+        return (total / (rows * x.shape[3])).to(x.dtype)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -269,7 +275,12 @@ class QatConv2d(Conv2d):
     (``x_amax``, a part's ``x_amax_p{i}``, 0 at first), out of the state dict;
     a rematerialized segment's recomputation quantizes with the amax its first
     forward read and does not update it (``models/remat.py``).  ``qat`` False
-    (``switch_off_int8``) makes it a plain ``Conv2d``."""
+    (``switch_off_int8``) makes it a plain ``Conv2d``.  Under
+    ``spatially_split`` the int8 conv, and a concat conv's parts, run on the
+    rows with their halo at H padding 0 (:meth:`Conv2d.rows`): a halo row is
+    another rank's real row and a fill row 0, so the amax over the ranks is
+    the image's, and the int8 backward's data gradient of the halo goes back
+    to its owner."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *, route: Optional[str],
                  delayed: bool = False, int8_bwd: bool = False,
@@ -312,33 +323,40 @@ class QatConv2d(Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.runs_parts(self.training):
-            return self.forward_parts(torch.split(x, self.parts, dim=1))
+            x, padding = self.rows(x)
+            return self.forward_parts(torch.split(x, self.parts, dim=1), padding)
         if not self.qat or self.route is None or self._parts_mode(self.training):
             return super().forward(x)
-        out = self._int8(x, self.weight.to(x.dtype), "x_amax", self.route, self.int8_bwd)
+        x, padding = self.rows(x)
+        out = self._int8(x, self.weight.to(x.dtype), "x_amax", self.route, self.int8_bwd,
+                         padding)
         return out if self.bias is None else out + self.bias.to(x.dtype).reshape(1, -1, 1, 1)
 
-    def forward_parts(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward_parts(self, parts: Sequence[torch.Tensor], padding=None) -> torch.Tensor:
         """The conv of the channel concatenation of ``parts`` as a sum of per-part
         convs, in part order (a part may have a smaller spatial extent, which
-        broadcasts: the ASPP's pooled branch, 1 x 1)."""
+        broadcasts: the ASPP's pooled branch, 1 x 1), at ``padding`` (the
+        conv's own by default; under ``spatially_split`` the parts of the rows
+        that :meth:`rows` gives, or those of a 1 x 1 conv)."""
+        padding = self.padding if padding is None else padding
         w = self.weight.to(parts[0].dtype)
         acc, off = None, 0
         for i, (p, routed) in enumerate(zip(parts, self.part_routes)):
             wp = w[:, off:off + p.shape[1]]
-            t = (self._int8(p, wp, f"x_amax_p{i}", "st", self.part_bwd[i]) if routed else
-                 F.conv2d(p, wp, None, self.stride, self.padding, self.dilation))
+            t = (self._int8(p, wp, f"x_amax_p{i}", "st", self.part_bwd[i], padding) if routed
+                 else F.conv2d(p, wp, None, self.stride, padding, self.dilation))
             acc = t if acc is None else acc + t
             off += p.shape[1]
         return acc if self.bias is None else acc + self.bias.to(acc.dtype).reshape(1, -1, 1, 1)
 
-    def _int8(self, x: torch.Tensor, w: torch.Tensor, amax_name: str, route: str, bwd: bool):
+    def _int8(self, x: torch.Tensor, w: torch.Tensor, amax_name: str, route: str, bwd: bool,
+              padding):
         from ..ops import int8_train as ops
 
         if route == "dilated":
             return ops.int8_dilated_conv3x3(x, w, self.dilation[0], bwd,
-                                            across_ranks=self.training)
-        geometry = (self.stride, self.padding, self.dilation)
+                                            across_ranks=self.training, padding=padding)
+        geometry = (self.stride, padding, self.dilation)
         amax = self._buffers.get(amax_name)
         if self.training and amax is not None:
             fn = ops.int8_conv_fullq_static if bwd else ops.int8_conv_static_amax

@@ -22,6 +22,12 @@ forward read (:func:`first_read`).  Dropout draws the same mask
 (``preserve_rng_state``).  Collectives in a segment (the cross-replica
 BatchNorm's and QAT's amax all-reduces) run again in the backward, in the
 same order on every rank.
+
+A segment of a forward under ``parallel/spatial.py``'s ``spatially_split``
+is recomputed under the same split (the backward runs after the split's
+context has closed): its halo exchanges and group sums run again, counted
+in ``spatial.recomputed`` too; the operators' global heights, cached at the
+first forward, take no exchange.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel import spatial
 
 # module-wide, not thread-local: the autograd engine recomputes a CUDA
 # segment on its own thread while the caller waits in backward()
@@ -60,8 +68,16 @@ def _in_phase(phase: str):
         _phase = previous
 
 
-def _contexts():
-    return _in_phase("forward"), _in_phase("recompute")
+@contextlib.contextmanager
+def _recomputing(split):
+    with _in_phase("recompute"), spatial.restored(split, recompute=True):
+        yield
+
+
+def _contexts(split):
+    """The contexts of a segment's first forward and of its recomputation,
+    which runs under ``split``, the first forward's."""
+    return _in_phase("forward"), _recomputing(split)
 
 
 def recomputing() -> bool:
@@ -74,8 +90,9 @@ def segment(fn: Callable, *args):
     gradients are recorded."""
     if not (_active and torch.is_grad_enabled()):
         return fn(*args)
+    split = spatial.current()
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=True,
-                      context_fn=_contexts)
+                      context_fn=lambda: _contexts(split))
 
 
 def first_read(stash: dict, key: str, value: torch.Tensor) -> torch.Tensor:

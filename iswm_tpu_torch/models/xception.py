@@ -32,9 +32,8 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
-from .layers import QUANT_OFF, BatchNorm2d, QuantSpec, conv
+from .layers import QUANT_OFF, BatchNorm2d, MaxPool2d, QuantSpec, conv
 from .remat import segment
 
 # (reps, start_with_relu) of each block (reference xception.py:139-153)
@@ -77,7 +76,9 @@ class Block(nn.Module):
             rep += [SeparableConv2d(width, w, dilation, quant), BatchNorm2d(w)]
             width = w
         self.rep = nn.Sequential(*rep)
-        self.strides = strides
+        # no parameters, so no state-dict keys: the max-pool with its path for
+        # a rank's rows under spatially_split
+        self.pool = MaxPool2d(3, strides, 1) if strides != 1 else None
         if out_ch != in_ch or strides != 1:
             self.skip = conv(in_ch, out_ch, 1, strides, quant=quant)
             self.skipbn = BatchNorm2d(out_ch)
@@ -86,8 +87,8 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.rep(x)
-        if self.strides != 1:
-            y = F.max_pool2d(y, 3, self.strides, 1)
+        if self.pool is not None:
+            y = self.pool(y)
         return y + (x if self.skip is None else self.skipbn(self.skip(x)))
 
 

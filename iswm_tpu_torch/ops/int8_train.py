@@ -260,13 +260,15 @@ def int8_conv_fullq_static(x: torch.Tensor, w: torch.Tensor, x_amax: torch.Tenso
 
 
 def int8_dilated_conv3x3(x: torch.Tensor, w: torch.Tensor, d: int, int8_bwd: bool = False,
-                         across_ranks: bool = False) -> torch.Tensor:
+                         across_ranks: bool = False, padding=None) -> torch.Tensor:
     """QAT atrous 3x3 (dilation and padding ``d``, stride 1) with a dynamic
     scale: the math of ``Conv2d(3, 3, dilation=d, padding=d)`` under the
     symmetric contract; the dense backward (straight-through), or the int8
-    one with ``int8_bwd``."""
+    one with ``int8_bwd``.  ``padding`` (``(ph, pw)``) replaces d's: under
+    ``parallel/spatial.py``'s split x holds a rank's rows with their halo,
+    ``(0, d)``."""
     fn = int8_conv_fullq if int8_bwd else int8_conv_st
-    return fn(x, w, 1, d, d, across_ranks)
+    return fn(x, w, 1, d if padding is None else padding, d, across_ranks)
 
 
 # ------------------------------------------------ per-site routing cost model

@@ -6,13 +6,16 @@ scene-parallel ``TileEngine``.
     python -m iswm_tpu_torch.parallel.dryrun --devices 4                  # nccl, a card a rank
     python -m iswm_tpu_torch.parallel.dryrun --devices 4 --backend gloo   # gloo, all on cuda:0
     python -m iswm_tpu_torch.parallel.dryrun --devices 4 --device cpu     # gloo on the CPU
+    python -m iswm_tpu_torch.parallel.dryrun --devices 4 --device cpu --backbone xception
 
 The grid has a model axis of 2 when n is even and at least 4 (the image rows
 split over 2 ranks, ``parallel/spatial.py``), else 1.  The step is
-``deeplabv3plus_resnet50`` (OS 16, float32) at crop 32 on 40x40 uint8 images,
-2 a data index; the serving fn is calibrated wide on the trained weights
-and serves a (2 * tile + 8) x (2 * tile) scene with every rank on the data
-axis.  :func:`dryrun_body` runs in a group that is already open.
+``deeplabv3plus_resnet50`` (OS 16, float32; ``--backbone`` another of the
+zoo's, as the JAX dry run's ``ISWM_DRYRUN_BACKBONE``: Xception's maps split
+unevenly) at crop 32 on 40x40 uint8 images, 2 a data index; the serving fn
+is calibrated wide on the trained weights and serves a (2 * tile + 8) x (2 *
+tile) scene with every rank on the data axis.  :func:`dryrun_body` runs in a
+group that is already open.
 """
 
 from __future__ import annotations

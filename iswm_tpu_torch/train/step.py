@@ -15,14 +15,17 @@ eval step, which applies the model without its "quant" collection.
 With ``remat`` the train forward rematerializes its activations block by
 block (``models/remat.py``): each block keeps its input, and the backward
 recomputes its forward, with the same arithmetic, so the step's results are
-those of the plain step.  The forward kernels run twice a step then.
+those of the plain step.  The forward kernels run twice a step then.  Under
+the spatial split below, a block's recomputation runs under the split of its
+first forward, so the two ranks' steps are the plain split step's.
 
 With a ``mesh`` whose model axis is above 1 (the spatial split, the JAX
 package's ``P(data, model)`` images) every rank of a model group augments the
 same rows of the batch alike (its generator is seeded by data index), takes
 its share of the image rows of images and labels (``parallel.spatial_rows``)
 and runs the forward, loss and backward under ``parallel/spatial.py``'s
-``spatially_split``: the spatial operators exchange halos over the model
+``spatially_split`` (given the images' global height, which keys the
+operators' cached map heights): the spatial operators exchange halos over the model
 group; the BatchNorm, the loss and the gradient reduction, over the default
 group, are unchanged, since a rank's pixels are its own.
 
@@ -105,11 +108,12 @@ def make_train_step(
                    labels: torch.Tensor) -> torch.Tensor:
         if augment is not None:
             images, labels = augment_batch(images, labels, augment, generator)
+        rows = images.shape[1]
         if split is not None:
             images, labels = spatial_rows(split, images), spatial_rows(split, labels)
         net = state.model if state.replicated is None else state.replicated
         net.train()
-        with rematerialized(remat), spatially_split(split):
+        with rematerialized(remat), spatially_split(split, rows):
             logits = net(images.permute(0, 3, 1, 2))
             loss = loss_fn(logits, labels)
         state.optimizer.zero_grad(set_to_none=True)

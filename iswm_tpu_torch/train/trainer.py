@@ -29,8 +29,11 @@ float16.
 ``parallel.model_axis`` above 1 splits the image rows of each step over the
 ranks of a model group (``parallel/spatial.py``): the ranks form a (data,
 model) grid (``parallel.make_mesh``), every rank of a model group reads the
-rows of its data index and augments them alike, and the crop size must be a
-multiple of ``output_stride * model_axis``.
+rows of its data index and augments them alike.  Every backbone, QAT (with
+its int8 backward) and remat run on a rank's rows; the maps may split
+unevenly (Xception's), so the crop size need only split evenly over the
+model axis and leave every rank rows of the deepest map
+(``output_stride * model_axis`` at least).
 
 What the port does not carry yet is refused with ``NotImplementedError``
 naming its ROADMAP item (``refuse_unported``).
@@ -71,19 +74,13 @@ SPATIAL_OPTIONS_ITEM = "ROADMAP.md Queue 1, 'Spatial model axis: remaining optio
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for an option this slice does not port:
-    under a model axis above 1, the options whose operators have no path for
-    a rank's image rows yet."""
+    under a model axis above 1, the fused stem and blocks, whose kernels
+    have no path for a rank's image rows yet."""
     if cfg.parallel.model_axis <= 1:
         return
     m = cfg.model
-    refused = ([f"model.backbone={m.backbone!r}"]
-               if m.backbone in ("mobilenetv2", "xception") else [])
-    refused += [f"model.{k}={getattr(m, k)!r}" for k in ("fused_stem", "fused_blocks")
-                if getattr(m, k) in ("always", "interpret")]
-    if m.int8_training:
-        refused.append(f"model.int8_training={m.int8_training!r}")
-    if cfg.parallel.remat:
-        refused.append("parallel.remat=True")
+    refused = [f"model.{k}={getattr(m, k)!r}" for k in ("fused_stem", "fused_blocks")
+               if getattr(m, k) in ("always", "interpret")]
     if refused:
         raise NotImplementedError(
             f"{', '.join(refused)} under parallel.model_axis={cfg.parallel.model_axis} is "
@@ -123,12 +120,13 @@ class Trainer:
                 f"batch_size ({cfg.data.batch_size}) must be divisible by the "
                 f"mesh data axis ({self.mesh.data} devices); adjust batch_size "
                 f"or pass a smaller mesh")
-        rows = cfg.model.output_stride * self.mesh.model
-        if self.mesh.model > 1 and cfg.data.crop_size % rows != 0:
+        crop, rows = cfg.data.crop_size, cfg.model.output_stride * self.mesh.model
+        if self.mesh.model > 1 and (crop % self.mesh.model or crop < rows):
             raise ValueError(
-                f"crop_size ({cfg.data.crop_size}) must be a multiple of output_stride * "
-                f"model_axis ({cfg.model.output_stride} * {self.mesh.model} = {rows}): "
-                f"every stride-2 stage must see an even share of the rows on each rank")
+                f"crop_size ({crop}) must be a multiple of model_axis ({self.mesh.model}), "
+                f"and at least output_stride * model_axis ({cfg.model.output_stride} * "
+                f"{self.mesh.model} = {rows}): the images split evenly over the model axis, "
+                f"and every rank holds rows of the deepest map")
         if is_initialized() and self.device.type == "cuda" and self.device.index is None:
             self.device = local_device()
         self.rank = rank()

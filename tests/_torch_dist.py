@@ -63,14 +63,23 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
             "fused_block": _fused_block(payload["fused_block"]),
             "fused_stem": _fused_stem(payload["fused_stem"]),
             **_fused_steps(payload["step"]),
-            "refusals": _refusals(),
+            "refusals": _refusals(payload["fit_dir"] + "-spatial"),
             "fit": _fit(payload["fit_dir"]),
         }
         spatial = make_mesh(1, WORLD)  # one model group of both ranks
-        seen.update({
-            "spatial_mesh": _spatial_mesh_checks(spatial),
-            "halo": [_halo(spatial, case) for case in payload["halo_cases"]],
-            "spatial_step": _train_step(payload["step"], mesh=spatial),
+        seen["spatial_mesh"] = _spatial_mesh_checks(spatial)
+        seen["halo"] = [_halo(spatial, case) for case in payload["halo_cases"]]
+        seen["spatial_step"] = step = _train_step(payload["step"], mesh=spatial)
+        seen.update({  # of the option's steps, what kept() keeps
+            "spatial_remat": kept(_train_step(payload["step"], remat=True, mesh=spatial),
+                                  like=step),
+            "spatial_qat": kept(_train_step(payload["step"], QAT, mesh=spatial)),
+            "spatial_qat_bwd": kept(_train_step(payload["step"], QAT_BWD, mesh=spatial),
+                                    state=False),
+            "spatial_int8_bwd_conv": _spatial_int8_bwd_conv(spatial,
+                                                            payload["spatial_int8_bwd_conv"]),
+            **{f"spatial_{b}": _spatial_backbone(payload["step"], b, spatial)
+               for b in SPATIAL_BACKBONES},
             "tiles": _tile_engines(payload["tiles"]),
             "dryrun": _dryrun(),
         })
@@ -170,9 +179,18 @@ def _dropout_off(model) -> None:
 
 
 # the options still refused under a model axis above 1 (section, key, value)
-SPATIAL_REFUSED = (("model", "backbone", "mobilenetv2"), ("model", "backbone", "xception"),
-                   ("model", "fused_stem", "always"), ("model", "fused_blocks", "interpret"),
-                   ("model", "int8_training", 64), ("parallel", "remat", True))
+SPATIAL_REFUSED = (("model", "fused_stem", "always"), ("model", "fused_blocks", "interpret"))
+# the options a Trainer takes under a model axis of 2 (once refused there), in
+# two Trainers: the Config fields each sets
+SPATIAL_ACCEPTED = {
+    "mobilenetv2-int8_training": (("model", "backbone", "mobilenetv2"),
+                                  ("model", "int8_training", 64)),
+    "xception-int8_training_bwd-remat": (("model", "backbone", "xception"),
+                                         ("model", "int8_training", 64),
+                                         ("model", "int8_training_bwd", True),
+                                         ("parallel", "remat", True)),
+}
+SPATIAL_BACKBONES = ("mobilenetv2", "xception")  # their split steps, from seeded weights
 QAT = dict(int8_training=64, int8_scale_mode="delayed")  # the QAT step's model
 QAT_BWD = dict(QAT, int8_training_bwd=True)  # ... with QAT's int8 backward
 # the fused step's model: ResNet-50's stem and bottlenecks through the fused
@@ -223,7 +241,7 @@ def counting_fused_calls(counts: dict):
 
 
 def _train_step(case: dict, options: dict | None = None, remat: bool = False,
-                mesh=None) -> dict:
+                mesh=None, again: bool = False) -> dict:
     """One data-parallel step of resnet18 from the crossed weights on this
     rank's rows: the sharded CE (plain versions), the cross-replica
     BatchNorm and the summing gradient reduction; with ``options`` (``QAT``,
@@ -233,7 +251,9 @@ def _train_step(case: dict, options: dict | None = None, remat: bool = False,
     over both ranks; with ``remat``, the activations recomputed block by
     block in the backward; with a ``mesh`` of a model axis, the step on this
     rank's image rows of its data index's batch rows, with its halo
-    exchanges counted."""
+    exchanges counted (those of remat's recomputation apart too) and its
+    exchanges of row counts; with ``again``, the counts of a second step
+    (after ``after`` is taken)."""
     from iswm_tpu_torch.parallel import distributed, shard_batch, spatial
     from iswm_tpu_torch.config import OptimConfig
     from iswm_tpu_torch.models import layers
@@ -249,20 +269,27 @@ def _train_step(case: dict, options: dict | None = None, remat: bool = False,
     all_reduces = distributed.cross_replica_all_reduces
     amax_reduces = int8_train.amax_all_reduces
     rows = _rows if mesh is None else (lambda a: shard_batch(mesh, a))
+    step = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat, mesh=mesh)
+    batch = (torch.from_numpy(rows(case["images"])), torch.from_numpy(rows(case["labels"])))
     spatial.reset_counts()
     with counting_fused_calls({}) as fused_calls:
-        loss = make_train_step(make_loss_fn("ce_loss", fused="interpret"), remat=remat,
-                               mesh=mesh)(state, torch.from_numpy(rows(case["images"])),
-                                          torch.from_numpy(rows(case["labels"])))
-    return {"loss": float(loss), "before": before, "fused_calls": fused_calls,
-            "collectives": dict(spatial.collectives),
-            "after": {k: v.clone() for k, v in model.state_dict().items()},
-            "count": state.step,
-            "all_reduces": distributed.cross_replica_all_reduces - all_reduces,
-            "amax_all_reduces": int8_train.amax_all_reduces - amax_reduces,
-            "amaxes": {k: v.clone() for k, v in layers.quant_state(model).items()},
-            "routed": len(layers.routed_sites(model, True)),
-            "batchnorms": sum(isinstance(m, layers.BatchNorm2d) for m in model.modules())}
+        loss = step(state, *batch)
+    counts = {"collectives": dict(spatial.collectives), "recomputed": dict(spatial.recomputed),
+              "row_exchanges": spatial.row_exchanges}
+    out = {"loss": float(loss), "before": before, "fused_calls": fused_calls, **counts,
+           "after": {k: v.clone() for k, v in model.state_dict().items()},
+           "count": state.step,
+           "all_reduces": distributed.cross_replica_all_reduces - all_reduces,
+           "amax_all_reduces": int8_train.amax_all_reduces - amax_reduces,
+           "amaxes": {k: v.clone() for k, v in layers.quant_state(model).items()},
+           "routed": len(layers.routed_sites(model, True)),
+           "batchnorms": sum(isinstance(m, layers.BatchNorm2d) for m in model.modules())}
+    if again:
+        spatial.reset_counts()
+        step(state, *batch)
+        out["again"] = {"collectives": dict(spatial.collectives),
+                        "row_exchanges": spatial.row_exchanges}
+    return out
 
 
 def _int8_bwd_conv(case: dict) -> dict:
@@ -282,23 +309,98 @@ def _int8_bwd_conv(case: dict) -> dict:
     return {"dx": x.grad, "dw": dw, "amax_all_reduces": int8_train.amax_all_reduces - reduces}
 
 
-def _fused_steps(case: dict) -> dict:
-    """The ``FUSED`` step, its remat step and the ``RESNET50`` step on this
-    rank's rows.  What a rank saves of them is kept small (a ResNet-50 state
-    is 160 MB): the states after the two plain steps on rank 0 alone, with
-    whether every rank's equals rank 0's, and of the remat step whether its
-    state equals the fused step's."""
+KEPT = ("loss", "fused_calls", "all_reduces", "batchnorms", "count", "collectives",
+        "recomputed", "row_exchanges", "again", "amaxes", "amax_all_reduces", "routed")
+
+
+def kept(step: dict, state: bool = True, like: dict | None = None) -> dict:
+    """What a rank saves of a step of a large model, or of one of many (a
+    ResNet-50 state is 160 MB): the ``KEPT`` numbers it has, whether its
+    state after the step equals rank 0's bit for bit (a digest of each
+    tensor's bytes, broadcast), and with ``state`` that state on rank 0
+    alone; with ``like``, whether it equals that step's instead of the
+    state."""
+    import hashlib
+
     import torch.distributed as dist
 
+    digest = [hashlib.sha256(v.reshape(-1).view(torch.uint8).numpy()).hexdigest()
+              for v in step["after"].values()]
+    lead = [digest]
+    dist.broadcast_object_list(lead, src=0)
+    out = {**{k: step[k] for k in KEPT if k in step}, "equal_to_rank_0": lead[0] == digest}
+    if like is not None:
+        return {**out, "equal_to_like": all(torch.equal(v, like["after"][k])
+                                            for k, v in step["after"].items())}
+    return {**out, "after": step["after"] if state and dist.get_rank() == 0 else None}
+
+
+def _spatial_backbone(case: dict, backbone: str, mesh) -> dict:
+    """The split step of ``backbone`` (seeded weights) and a second step's
+    counts (:func:`kept`), and before it the eval-mode forward's logits of
+    this rank's image rows under ``spatially_split``."""
+    from iswm_tpu_torch.parallel import shard_batch, spatial
+
+    options = {"backbone": backbone}
+    model = step_model(case, options).eval()
+    images = shard_rows(mesh, torch.from_numpy(shard_batch(mesh, case["images"])), dim=1)
+    with torch.no_grad(), spatial.spatially_split(mesh, case["images"].shape[1]):
+        logits = model(images.permute(0, 3, 1, 2))
+    return {**kept(_train_step(case, options, mesh=mesh, again=True)), "eval_logits": logits}
+
+
+def int8_bwd_site(case: dict):
+    """A QAT conv site with the int8 backward (``layers.QatConv2d``, route
+    "st", dynamic scales) of ``case``'s weight and geometry, in train mode."""
+    from iswm_tpu_torch.models import layers
+
+    n, c, k, _ = case["w"].shape
+    stride, padding, dilation = case["geometry"]
+    conv = layers.QatConv2d(c, n, k, route="st", int8_bwd=True, stride=stride,
+                            padding=padding, dilation=dilation, bias=False).train()
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(case["w"]))
+    return conv
+
+
+def _spatial_int8_bwd_conv(mesh, case: dict) -> dict:
+    """:func:`int8_bwd_site` on this rank's rows of ``case``'s x under
+    ``spatially_split`` (a halo fetched, the conv run at H padding 0), the
+    cotangent's rows of its output: the output and dx rows, dw summed over
+    the ranks, the collectives and amax all-reduces it made."""
+    from iswm_tpu_torch.ops import int8_train
+    from iswm_tpu_torch.parallel import spatial
+
+    conv = int8_bwd_site(case)
+    x = torch.from_numpy(shard_rows(mesh, case["x"])).requires_grad_()
+    reduces = int8_train.amax_all_reduces
+    spatial.reset_counts()
+    with spatial.spatially_split(mesh):
+        out = conv(x)
+    out.backward(torch.from_numpy(shard_rows(mesh, case["g"])))
+    dw = conv.weight.grad.clone()
+    torch.distributed.all_reduce(dw)
+    return {"out": out.detach(), "dx": x.grad, "dw": dw,
+            "collectives": dict(spatial.collectives),
+            "amax_all_reduces": int8_train.amax_all_reduces - reduces}
+
+
+def shard_rows(mesh, a, dim: int = 2):
+    """This rank's rows of ``a`` along ``dim`` in the split's layout
+    (``spatial.shard``: chunks of ceil(H / M), the last shorter)."""
+    from iswm_tpu_torch.parallel import spatial
+
+    start, stop = spatial.shard(a.shape[dim], mesh.model, mesh.model_index)
+    index = [slice(None)] * a.ndim
+    index[dim] = slice(start, stop)
+    return a[tuple(index)]
+
+
+def _fused_steps(case: dict) -> dict:
+    """The ``FUSED`` step, its remat step and the ``RESNET50`` step on this
+    rank's rows: of the two plain steps what :func:`kept` keeps, and of the
+    remat step whether its state equals the fused step's."""
     counts = ("loss", "fused_calls", "all_reduces", "batchnorms", "count")
-
-    def kept(step: dict) -> dict:
-        flat = torch.cat([v.double().flatten() for v in step["after"].values()])
-        lead = flat.clone()
-        dist.broadcast(lead, src=0)
-        return {**{k: step[k] for k in counts}, "equal_to_rank_0": torch.equal(lead, flat),
-                "after": step["after"] if dist.get_rank() == 0 else None}
-
     step = _train_step(case, FUSED)
     remat = _train_step(case, FUSED, remat=True)
     return {
@@ -387,6 +489,7 @@ def halo_op(case: dict):
     from iswm_tpu_torch.models import layers
     from iswm_tpu_torch.models.deeplab import ASPPPooling
     from iswm_tpu_torch.ops.resize import resize_bilinear
+    from iswm_tpu_torch.parallel import spatial
 
     kind = case["kind"]
     if kind == "conv":
@@ -397,7 +500,14 @@ def halo_op(case: dict):
         module = ASPPPooling(*case["channels"]).train()
     else:
         out_h, out_w = case["size"]
-        return (lambda x, m: resize_bilinear(x, (out_h // m, out_w))), {}
+
+        def share() -> int:  # this rank's rows of the output
+            split = spatial.current()
+            start, stop = ((0, out_h) if split is None else
+                           spatial.shard(out_h, split.size, split.index))
+            return stop - start
+
+        return (lambda x, m: resize_bilinear(x, (share(), out_w))), {}
     with torch.no_grad():
         for name, p in module.named_parameters():
             p.copy_(torch.from_numpy(case["params"][name]))
@@ -408,17 +518,19 @@ def halo_op(case: dict):
 
 
 def _halo(mesh, case: dict) -> dict:
-    """A halo case on this rank's rows under ``spatially_split``: y and dx
-    of the rows, this rank's parameter gradients, the collectives made."""
-    from iswm_tpu_torch.parallel import spatial, spatial_rows
+    """A halo case on this rank's rows (``shard_rows``: of an odd height,
+    uneven) under ``spatially_split``: y and dx of the rows, this rank's
+    parameter gradients, the collectives and exchanges of row counts made."""
+    from iswm_tpu_torch.parallel import spatial
 
     fn, params = halo_op(case)
-    x = spatial_rows(mesh, torch.from_numpy(case["x"]), dim=2).clone().requires_grad_()
+    x = shard_rows(mesh, torch.from_numpy(case["x"])).clone().requires_grad_()
     spatial.reset_counts()
     with spatial.spatially_split(mesh):
         y = fn(x, mesh.model)
-    y.backward(spatial_rows(mesh, torch.from_numpy(case["dy"]), dim=2))
+    y.backward(shard_rows(mesh, torch.from_numpy(case["dy"])))
     return {"y": y.detach(), "dx": x.grad, "collectives": dict(spatial.collectives),
+            "row_exchanges": spatial.row_exchanges,
             "grads": {k: p.grad.clone() for k, p in params.items()}}
 
 
@@ -464,9 +576,13 @@ def _dryrun() -> dict:
     return dryrun_body("resnet18", 32, model_axis=2, device="cpu")
 
 
-def _refusals() -> dict:
+def _refusals(root: str) -> dict:
+    """What builds at world size 2 and what is refused; the Trainers of
+    ``SPATIAL_ACCEPTED`` (crop 48, data under ``root``) with what each
+    built: its backbone's class, its QAT sites, remat and the mesh."""
     from iswm_tpu_torch.config import Config, ModelConfig
-    from iswm_tpu_torch.models import build_model
+    from iswm_tpu_torch.data import ArrayDataset, generate_scene
+    from iswm_tpu_torch.models import build_model, layers
     from iswm_tpu_torch.train import Trainer
 
     def model(**fused):
@@ -485,13 +601,33 @@ def _refusals() -> dict:
         backbone = model(**fused).backbone
         return backbone.fused_stem, backbone.layer1[0].fused_mode
 
+    rng = np.random.default_rng(1)
+    images, masks = zip(*(generate_scene(rng, size=(48, 48)) for _ in range(2)))
+    dataset = ArrayDataset(np.stack(images), np.stack(masks))
+
+    def accepted(name, fields):
+        cfg = Config()
+        cfg.parallel.model_axis = 2
+        cfg.model.backbone, cfg.model.compute_dtype = "resnet18", "float32"
+        cfg.data.crop_size, cfg.data.batch_size = 48, 2
+        for section, key, value in fields:
+            setattr(getattr(cfg, section), key, value)
+        for key in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
+            setattr(cfg.train, key, os.path.join(root, name, key))
+        t = Trainer(cfg, device="cpu", train_ds=dataset, val_ds=dataset)
+        return {"backbone": type(t.state.model.backbone).__name__, "mesh": t.mesh.shape,
+                "int8_bwd": any(getattr(m, "int8_bwd", False) for m in t.state.model.modules()),
+                "routed": len(layers.routed_sites(t.state.model, True)),
+                "remat": t.cfg.parallel.remat}
+
     return {
         "auto": modes(fused_stem="auto", fused_blocks="auto"),
         **{f"{k}={v}": modes(**{k: v})
            for k in ("fused_stem", "fused_blocks") for v in ("always", "interpret")},
         **{f"spatial {k}={v!r}": _raised(lambda s=s, k=k, v=v: trainer(s, k, v, model_axis=2))
            for s, k, v in SPATIAL_REFUSED},
-        "spatial crop": _raised(lambda: trainer("data", "crop_size", 48, model_axis=2)),
+        **{f"spatial {name}": accepted(name, fields) for name, fields in SPATIAL_ACCEPTED.items()},
+        "spatial crop": _raised(lambda: trainer("data", "crop_size", 30, model_axis=2)),
         "data_axis": _raised(lambda: trainer("parallel", "data_axis", 3)),
         "batch": _raised(lambda: trainer("data", "batch_size", 3)),
     }

@@ -47,10 +47,11 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   one-process step whose stem output moved by an ulp);
 - (e) at world size 2: the fused stem and blocks build under ``always`` /
   ``interpret``; ``auto`` resolves to ``never``; under ``model_axis = 2`` the
-  options still refused (ROADMAP.md Queue 1, 'Spatial model axis: remaining
-  options') and a crop size that is not a multiple of ``output_stride *
-  model_axis``; ``data_axis`` other than the world size and a batch that
-  does not divide;
+  options still refused (the fused modes: ROADMAP.md Queue 1, 'Spatial model
+  axis: remaining options'), a Trainer for each option once refused there
+  (MobileNetV2, Xception, QAT with and without its int8 backward, remat) and
+  a crop size below ``output_stride * model_axis``; ``data_axis`` other than
+  the world size and a batch that does not divide;
 - (f) ``Trainer.fit`` of 2 steps and a validation on the two ranks: equal
   parameters on both, one checkpoint, written by rank 0;
 
@@ -62,9 +63,19 @@ and the spatial model axis, the two ranks one model group (data 1 x model 2):
   under ``spatially_split`` against the one-process op on the whole image:
   the output and the input gradient (rows concatenated) and the parameter
   gradients (summed over the ranks) within 1e-6 of their largest element;
+- (h') the same for uneven shards (an odd height split ceil(H / 2) + the
+  rest, as Xception's maps are), also against the JAX package's op;
 - (i) one data 1 x model 2 step of (d)'s resnet18, each rank on 16 of the 32
   rows of all 8 images, against the JAX 2-device step at (d)'s tolerances,
   bit-equal parameters on both ranks;
+- (i') under the split: the remat step bit-equal to (i)'s; the QAT step
+  against the one-process QAT step at (d)'s tolerances, amaxes within
+  1e-6; with the int8 backward the loss and amaxes, and one strided site
+  with a halo against one process (dx bit-equal but on the borrowed row, it
+  and dw within 1.5 ulps); MobileNetV2's and Xception's steps (seeded
+  weights; Xception's maps uneven) against one process, the eval logits
+  under the split within 1e-5 and the step as ``_held_step`` holds a chaotic
+  one; a second step exchanges no row counts;
 - (j) the scene-parallel ``TileEngine(mesh=)`` (batch 1 a rank) against the
   port's one-rank engine (batch 2) on ``tests/test_infer.py``'s stand-in
   model (1e-5) and resnet18 ``int8_exec_xla`` (1e-4);
@@ -135,8 +146,8 @@ def _halo_cases():
     the op's parameters, from one seed."""
     rng = np.random.default_rng(8)
 
-    def conv(name, shape, out, k, stride=1, dilation=1, groups=1):
-        c, pad = shape[1], (k // 2) * dilation
+    def conv(name, shape, out, k, stride=1, dilation=1, groups=1, pad=None):
+        c, pad = shape[1], (k // 2) * dilation if pad is None else pad
         spec = dict(in_channels=c, out_channels=out, kernel_size=k, stride=stride,
                     padding=pad, dilation=dilation, groups=groups)
         h_out = (shape[2] + 2 * pad - dilation * (k - 1) - 1) // stride + 1
@@ -169,10 +180,57 @@ def _halo_cases():
         cases.append({"name": name, "kind": "resize", "size": size,
                       "x": rng.normal(size=shape).astype(np.float32),
                       "dy": rng.normal(size=(*shape[:2], *size)).astype(np.float32)})
+    # uneven shards (ceil(H / 2) rows on rank 0, the rest on rank 1), as
+    # Xception's maps split: its VALID stem (15 -> 7 rows), a separable conv's
+    # depthwise 3x3 and a strided block's pool at 13 rows, the decoder's
+    # resize to an odd height
+    rng = np.random.default_rng(18)
+    cases += [conv("uneven-valid-3x3-s2", (2, 4, 15, 10), 6, 3, stride=2, pad=0),
+              conv("uneven-depthwise-3x3", (2, 4, 13, 6), 4, 3, groups=4)]
+    cases.append({"name": "uneven-block-pool", "kind": "pool",
+                  "x": rng.normal(size=(2, 4, 13, 6)).astype(np.float32),
+                  "dy": rng.normal(size=(2, 4, 7, 3)).astype(np.float32)})
+    cases.append({"name": "uneven-resize-odd", "kind": "resize", "size": (7, 9),
+                  "x": rng.normal(size=(2, 3, 4, 5)).astype(np.float32),
+                  "dy": rng.normal(size=(2, 3, 7, 9)).astype(np.float32)})
     return cases
 
 
 HALO_NAMES = [case["name"] for case in _halo_cases()]
+
+
+def _jax_halo(case) -> dict:
+    """An uneven halo case's op on the whole image in the JAX package (NHWC):
+    ``lax.conv_general_dilated`` (what its ``nn.Conv`` runs), its
+    ``max_pool_torch`` or ``resize_bilinear``, with ``jax.vjp``; y, dx and
+    the weight's gradient in the port's layouts."""
+    import jax
+    import jax.numpy as jnp
+
+    from iswm_tpu.models.layers import max_pool_torch
+    from iswm_tpu.ops.resize import resize_bilinear
+
+    x = jnp.asarray(np.transpose(case["x"], (0, 2, 3, 1)))
+    dy = jnp.asarray(np.transpose(case["dy"], (0, 2, 3, 1)))
+    if case["kind"] == "conv":
+        spec = case["conv"]
+        s, p, d = spec["stride"], spec["padding"], spec["dilation"]
+        w = jnp.asarray(np.transpose(case["params"]["weight"], (2, 3, 1, 0)))
+
+        def fn(x, w):
+            return jax.lax.conv_general_dilated(
+                x, w, (s, s), [(p, p), (p, p)], rhs_dilation=(d, d),
+                dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                feature_group_count=spec["groups"])
+
+        y, vjp = jax.vjp(fn, x, w)
+        dx, dw = vjp(dy)
+        grads = {"weight": torch.from_numpy(np.transpose(np.asarray(dw), (3, 2, 0, 1)).copy())}
+    else:
+        y, vjp = jax.vjp((lambda x: max_pool_torch(x, 3, 2, 1)) if case["kind"] == "pool"
+                         else (lambda x: resize_bilinear(x, case["size"])), x)
+        (dx,), grads = vjp(dy), {}
+    return {"y": torch.from_numpy(_nchw(y)), "dx": torch.from_numpy(_nchw(dx)), **grads}
 
 
 def _tiles_case():
@@ -374,6 +432,7 @@ def ranks(tmp_path_factory):
     payload = {"ce_cases": _ce_cases(), "bn_cases": _bn_cases(),
                "step": {"ckpt": ckpt, "images": images, "labels": labels},
                "int8_bwd_conv": _int8_bwd_conv_case(),
+               "spatial_int8_bwd_conv": _spatial_int8_bwd_conv_case(),
                "fused_block": block_case, "fused_stem": stem_case,
                "fit_dir": str(root / "fit"),
                "halo_cases": _halo_cases(), "tiles": _tiles_case()}
@@ -553,6 +612,16 @@ def _int8_bwd_conv_case() -> dict:
             "g": rng.normal(size=(8, 12, 5, 6)).astype(np.float32), "geometry": (2, 1, 1)}
 
 
+def _spatial_int8_bwd_conv_case() -> dict:
+    """x, w and a cotangent of a 3x3 stride-2 conv whose 10 input rows split
+    5 / 5 and whose 5 output rows split 3 / 2 (rank 0 borrows rank 1's first
+    row)."""
+    rng = np.random.default_rng(19)
+    return {"x": rng.normal(size=(4, 16, 10, 11)).astype(np.float32),
+            "w": (rng.normal(size=(12, 16, 3, 3)) * 0.1).astype(np.float32),
+            "g": rng.normal(size=(4, 12, 5, 6)).astype(np.float32), "geometry": (2, 1, 1)}
+
+
 def test_two_rank_int8_bwd_qat_step_matches_one_process_step(ranks):
     """With QAT's int8 backward the cotangents' amaxes are taken over the
     global batch too: a second all-reduce with MAX a routed site, in the
@@ -594,6 +663,15 @@ def test_two_rank_int8_bwd_qat_step_matches_one_process_step(ranks):
         assert torch.equal(got["dx"], x.grad[r * rows:(r + 1) * rows])
         limit = 1.5 * np.spacing(np.float32(w.grad.abs().max()))
         assert float((got["dw"] - w.grad).abs().max()) <= limit
+
+
+def _same_kept_on_both_ranks(steps) -> None:
+    """:func:`_same_on_both_ranks` of what ``_torch_dist.kept`` keeps: the
+    losses and the running amaxes, and each rank's state digest."""
+    for s in steps:
+        assert s["loss"] == steps[0]["loss"] and s["equal_to_rank_0"]
+        for k, v in s["amaxes"].items():
+            assert torch.equal(v, steps[0]["amaxes"][k]), k
 
 
 def _same_on_both_ranks(steps) -> None:
@@ -732,17 +810,19 @@ def _step_distances(got: tuple, want: tuple) -> dict:
             "median update": updates[len(updates) // 2], "worst update": updates[-1]}
 
 
-def _held_step(ranks, tmp_path, key: str, options: dict, pool: str) -> dict:
+def _held_step(ranks, tmp_path, key: str, options: dict, pool) -> dict:
     """The 2-rank step ``key`` of the model ``options`` against one process
     on all 8 rows, as ``chip_smoke.py`` phase 15 holds its 2-rank steps: the
     loss, the worst BatchNorm's statistics and the median and the worst
     update tensor lie within (d)'s tolerance (1e-5, 1e-5, 1e-3, 1e-3) or
-    within FUSED_SLACK times the distance of the one-process step with 8
-    values of the stem's pooled output (``backbone.<pool>``) moved by one
-    float32 ulp (``_nudge_pooled``).  The one process runs in a 1-rank group,
-    so that its unfused BatchNorms take the cross-replica arithmetic (the
-    variance E[x^2] - E[x]^2) that the ranks run.  Returns the step's
-    distances and the nudged step's."""
+    within FUSED_SLACK times the distance of a yardstick step: the
+    one-process step with 8 values of the stem's pooled output
+    (``backbone.<pool>``) moved by one float32 ulp (``_nudge_pooled``), or
+    with ``pool`` None the one-process step at one torch thread where the
+    reference runs two (every sum in another order).  The one process runs
+    in a 1-rank group, so that its unfused BatchNorms take the cross-replica
+    arithmetic (the variance E[x^2] - E[x]^2) that the ranks run.  Returns
+    the step's distances and the yardstick's."""
     from . import _torch_dist
 
     case = ranks["payload"]["step"]
@@ -759,12 +839,21 @@ def _held_step(ranks, tmp_path, key: str, options: dict, pool: str) -> dict:
             getattr(model.backbone, pool).register_forward_hook(_nudge_pooled)
             return model
 
-        mp.setattr(_torch_dist, "step_model", nudged)
-        nudge = _one_process_step(case, options, slice(None), group_file=tmp_path / "nudged")[:3]
+        if pool is None:
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+        else:
+            mp.setattr(_torch_dist, "step_model", nudged)
+        try:
+            nudge = _one_process_step(case, options, slice(None),
+                                      group_file=tmp_path / "nudged")[:3]
+        finally:
+            if pool is None:
+                torch.set_num_threads(threads)
     # the ranks start from the seeded weights of step_model, the reference's
     got = _step_distances((steps[0]["loss"], reference[1], steps[0]["after"]), reference)
     yardstick = _step_distances(nudge, reference)
-    print(f"2-rank {key} from one process: {got}; the nudged step: {yardstick}")
+    print(f"2-rank {key} from one process: {got}; the yardstick step: {yardstick}")
     for name, tol in (("loss", 1e-5), ("statistics", 1e-5), ("median update", 1e-3),
                       ("worst update", 1e-3)):
         assert got[name] <= max(tol, FUSED_SLACK * yardstick[name]), (name, got, yardstick)
@@ -816,7 +905,7 @@ def test_two_rank_fused_remat_step_is_the_fused_step(ranks):
 
 # ----------------------------------------- (e) world size two: what builds
 def test_refusals_and_auto_at_world_size_two(ranks):
-    from ._torch_dist import SPATIAL_REFUSED
+    from ._torch_dist import SPATIAL_ACCEPTED, SPATIAL_REFUSED
 
     for seen in ranks["seen"]:
         r = seen["refusals"]
@@ -831,9 +920,17 @@ def test_refusals_and_auto_at_world_size_two(ranks):
             assert got[0] == "NotImplementedError", key
             assert "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'" in got[1]
             assert f"{key}={value!r}" in got[1]
+        for name, fields in SPATIAL_ACCEPTED.items():  # Trainers at model axis 2, crop 48
+            got, settings = r[f"spatial {name}"], {key: value for _, key, value in fields}
+            assert got["mesh"] == {"data": 1, "model": 2}, name
+            assert got["backbone"] == {"mobilenetv2": "MobileNetV2",
+                                       "xception": "Xception"}[settings["backbone"]], name
+            assert got["routed"] > 10, name
+            assert got["int8_bwd"] == settings.get("int8_training_bwd", False), name
+            assert got["remat"] == settings.get("remat", False), name
         assert r["spatial crop"][0] == "ValueError"
-        assert "crop_size (48) must be a multiple of output_stride * model_axis" in \
-            r["spatial crop"][1]
+        assert ("crop_size (30) must be a multiple of model_axis (2), and at least "
+                "output_stride * model_axis (16 * 2 = 32)") in r["spatial crop"][1]
         assert r["data_axis"] == ("ValueError", "data_axis*model_axis (3*1) != devices (2)")
         assert r["batch"][0] == "ValueError"
         assert "batch_size (3) must be divisible by the mesh data axis (2 devices)" in r["batch"][1]
@@ -918,13 +1015,20 @@ def test_halo_case_matches_one_process(ranks, case, tmp_path):
            **{k: seen[0]["grads"][k] + seen[1]["grads"][k] for k in grads}}
     pooling = inputs["kind"] == "pooling"
     scale = _batchnorm_condition(inputs) if pooling else 1.0
-    for k, want in {"y": y, "dx": dx, **grads}.items():
-        torch.testing.assert_close(got[k], want, rtol=0,
-                                   atol=1e-6 * scale * float(want.abs().max()), msg=k)
+    references = [{"y": y, "dx": dx, **grads}]
+    if inputs["name"].startswith("uneven-"):  # and the JAX package's op
+        references.append(_jax_halo(inputs))
+        assert [s["y"].shape[2] for s in seen] == [-(-y.shape[2] // WORLD),
+                                                    y.shape[2] // WORLD]
+    for reference in references:
+        for k, want in reference.items():
+            torch.testing.assert_close(got[k], want, rtol=0,
+                                       atol=1e-6 * scale * float(want.abs().max()), msg=k)
     for s in seen:  # one gather forward and one all-reduce backward, or the group sums
         want = ({"halo_gather": 0, "halo_reduce": 0, "group_sum": 2} if pooling else
                 {"halo_gather": 1, "halo_reduce": 1, "group_sum": 0})
         assert s["collectives"] == want
+        assert s["row_exchanges"] == 1  # the input's global height, the resize's output's too
 
 
 # ---------------------------------------------------- (i) the spatial step
@@ -943,6 +1047,134 @@ def test_spatial_train_step_matches_jax_two_device_step(ranks):
     _same_on_both_ranks(steps)
     port = [(steps[0]["loss"], steps[0]["before"], steps[0]["after"], steps[0]["count"])]
     _check_step((jax_losses, sds, port), 0)
+
+
+# ------------------------------- (i') the spatial step's options (Item 15)
+def test_spatial_remat_step_is_the_spatial_step(ranks):
+    """Remat under the split: each recomputed segment runs under the split
+    of its first forward, so the step is the plain split step bit for bit.
+    The recomputation gathers every window again but the final resize
+    (outside the segments): 24 more gathers, no more all-reduce of halos
+    (the backward's are the first forward's), the pooling branch's group sum
+    once more; each BatchNorm's all-reduce three times; no row counts
+    exchanged again (the heights are cached at the first forward)."""
+    for seen in ranks["seen"]:
+        remat, plain = seen["spatial_remat"], seen["spatial_step"]
+        assert remat["loss"] == plain["loss"] and remat["count"] == 1
+        assert remat["equal_to_like"] and remat["equal_to_rank_0"]  # the state after
+        assert remat["recomputed"] == {"halo_gather": 24, "halo_reduce": 0, "group_sum": 1}
+        assert remat["collectives"] == {
+            k: plain["collectives"][k] + remat["recomputed"][k] for k in plain["collectives"]}
+        assert remat["all_reduces"] == 3 * remat["batchnorms"]
+        assert remat["row_exchanges"] == plain["row_exchanges"] > 0
+
+
+def test_spatial_qat_step_matches_one_process_step(ranks):
+    """QAT (delayed scales, gate 64) under the split: a routed conv fetches
+    its halo and runs at H padding 0 (the ASPP's dilated 3x3s through
+    ``int8_dilated_conv3x3`` too); its amax, a max over the halo-extended
+    rows all-reduced over both ranks, is the global one.  The step is the
+    one-process QAT step at the step tests' tolerances, the amaxes within
+    1e-6 and equal on both ranks."""
+    from ._torch_dist import QAT
+
+    case = ranks["payload"]["step"]
+    steps = [seen["spatial_qat"] for seen in ranks["seen"]]
+    for s, plain in zip(steps, (seen["spatial_step"] for seen in ranks["seen"])):
+        assert s["amax_all_reduces"] == s["routed"] > 20
+        assert s["collectives"] == plain["collectives"]
+    _same_kept_on_both_ranks(steps)
+    loss, before, after, amaxes = _one_process_step(case, QAT, slice(None))
+    assert set(amaxes) == set(steps[0]["amaxes"])
+    for k, v in amaxes.items():
+        torch.testing.assert_close(steps[0]["amaxes"][k], v, rtol=1e-6, atol=0)
+    sds = [{k: v.numpy() for k, v in d.items()} for d in (before, after)]
+    # the ranks start from the crossed weights, the one process's ``before``
+    _check_step(([loss], sds, [(steps[0]["loss"], before, steps[0]["after"],
+                                steps[0]["count"])]), 0)
+
+
+def test_spatial_int8_bwd_qat_step_matches_one_process_step(ranks):
+    """QAT's int8 backward under the split: the data gradient of the
+    halo-extended rows goes back to their owners, the cotangent's amax is
+    all-reduced over both ranks.  The step (chaotic, see the 2-rank int8
+    backward test): equal on both ranks, the loss and the running amaxes
+    those of the one-process step.  One conv site (3x3, stride 2, 10 rows
+    split 5 / 5 to 5 output rows split 3 / 2) holds the arithmetic against
+    one process: the output rows bit-equal (the same codes, the same global
+    amax); dx bit-equal but on the row that rank 0 borrows, which sums each
+    rank's dequantized part in float32 where one process dequantizes one
+    int32 sum, and dw, summed over the ranks, within 1.5 float32 ulps of
+    their largest."""
+    from iswm_tpu_torch.ops import int8_train
+
+    from ._torch_dist import QAT_BWD, int8_bwd_site
+
+    case = ranks["payload"]["step"]
+    steps = [seen["spatial_qat_bwd"] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["amax_all_reduces"] == 2 * s["routed"] > 40
+    _same_kept_on_both_ranks(steps)
+    loss, _, _, amaxes = _one_process_step(case, QAT_BWD, slice(None))
+    np.testing.assert_allclose(steps[0]["loss"], loss, rtol=1e-5)
+    for k, v in amaxes.items():
+        torch.testing.assert_close(steps[0]["amaxes"][k], v, rtol=1e-6, atol=0)
+
+    conv_case = ranks["payload"]["spatial_int8_bwd_conv"]
+    conv = int8_bwd_site(conv_case)
+    x = torch.from_numpy(conv_case["x"]).requires_grad_()
+    reduces = int8_train.amax_all_reduces
+    out = conv(x)
+    out.backward(torch.from_numpy(conv_case["g"]))
+    assert int8_train.amax_all_reduces == reduces  # no group here: nothing to reduce
+    seen = [s["spatial_int8_bwd_conv"] for s in ranks["seen"]]
+    assert [s["out"].shape[2] for s in seen] == [3, 2]
+    assert torch.equal(torch.cat([s["out"] for s in seen], dim=2), out.detach())
+    dx = torch.cat([s["dx"] for s in seen], dim=2)
+    borrowed = 5  # rank 1's first row, read by rank 0's last output row
+    rows = [r for r in range(x.shape[2]) if r != borrowed]
+    assert torch.equal(dx[:, :, rows], x.grad[:, :, rows])
+    limit = 1.5 * np.spacing(np.float32(x.grad.abs().max()))
+    assert float((dx - x.grad).abs().max()) <= limit
+    limit = 1.5 * np.spacing(np.float32(conv.weight.grad.abs().max()))
+    for s in seen:
+        assert s["amax_all_reduces"] == 2  # x's amax forward, g's backward
+        assert s["collectives"] == {"halo_gather": 1, "halo_reduce": 1, "group_sum": 0}
+        assert float((s["dw"] - conv.weight.grad).abs().max()) <= limit
+
+
+@pytest.mark.parametrize("backbone", ["mobilenetv2", "xception"])
+def test_spatial_backbone_step_matches_one_process_step(ranks, tmp_path, backbone):
+    """MobileNetV2 and Xception (seeded weights, crop 32) under the split.
+    Xception's maps split unevenly: its VALID stems take the 16 + 16 rows to
+    8 + 7 and 7 + 6, block1 to 4 + 3 (the low-level map), then 2 + 2 and
+    1 + 1; the decoder resizes 1 + 1 rows to 4 + 3 and those to 16 + 16.
+    The eval-mode forward under the split (the halos' arithmetic, apart from
+    the train-mode BatchNorm's sums over both ranks, which a chaotic step
+    amplifies) gives one process's logits within 1e-5; the step is held by
+    ``_held_step`` against the one-process step at another thread count
+    (each model's float32 step is chaotic at this size: that step moves
+    some tensor's update by 0.9-1.7 times its largest and the median tensor
+    by 0.2-0.4% of its largest, so no 2-rank step meets (d)'s per-update
+    tolerance, and an ulp on 8 stem values is no yardstick); every rank
+    makes the same collectives, and a second step exchanges no row counts
+    and the same halos."""
+    from ._torch_dist import step_model
+
+    options = {"backbone": backbone}
+    held = _held_step(ranks, tmp_path, f"spatial_{backbone}", options, None)
+    seen = [s[f"spatial_{backbone}"] for s in ranks["seen"]]
+    case = ranks["payload"]["step"]
+    with torch.no_grad():
+        want = step_model(case, options).eval()(
+            torch.from_numpy(case["images"]).permute(0, 3, 1, 2))
+    logits = torch.cat([s["eval_logits"] for s in seen], dim=2)
+    torch.testing.assert_close(logits, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+    for s in seen:
+        assert s["collectives"] == seen[0]["collectives"]
+        assert s["row_exchanges"] == seen[0]["row_exchanges"] > 0
+        assert s["again"] == {"collectives": s["collectives"], "row_exchanges": 0}
+    assert held["step"]["fused_calls"] == {"blocks": 0, "stem": 0}
 
 
 # ------------------------------------------------ (j) the scene-parallel engine

@@ -582,6 +582,40 @@ def _walk_dgrad_launch(g_q, w_rows, lay):
 DGRAD_SITES = WGRAD_SITES + ((33, 17, 64, 96, 3, 2, 1, 1),)  # ... and an odd extent
 
 
+# the split's halo geometries (``parallel/spatial.py``: a rank's rows with
+# their halo, run at H padding 0), ResNet-50's routed 3x3s at crop 512 on a
+# model axis of 2: layer3.0's strided one (33 rows), a layer3 one, a dilated
+# layer4 one, the ASPP's three (at d = 18 the halo is taller than a shard)
+HALO_SITES = ((33, 64, 256, 256, 3, 2, (0, 1), 1), (18, 32, 256, 256, 3, 1, (0, 1), 1),
+              (20, 32, 512, 512, 3, 1, (0, 2), 2), (28, 32, 2048, 256, 3, 1, (0, 6), 6),
+              (40, 32, 2048, 256, 3, 1, (0, 12), 12), (52, 32, 2048, 256, 3, 1, (0, 18), 18))
+
+
+@pytest.mark.parametrize("site", HALO_SITES)
+def test_backward_walks_at_a_halo_geometry(site):
+    """Both gradients' plans at a halo geometry (H padding 0, W padding p,
+    odd or halo-extended heights; at a stride of 2 the parity split), walked
+    as the two tests above walk them, equal the plain versions bit for
+    bit."""
+    h, w, c, n, k, s, p, d = site
+    c, n = _narrow(c), _narrow(n)
+    rng = np.random.default_rng(h + c + n)
+    geo = kc.conv_geometry((1, h, w, c), (n, k, k, c), s, p, d)
+    assert kc.wgrad_body(geo) == "wgmma"
+    x_q = torch.from_numpy(rng.integers(-127, 128, (1, h, w, c)).astype(np.int8))
+    g_q = torch.from_numpy(rng.integers(-127, 128, (1, geo["Ho"], geo["Wo"], n)).astype(np.int8))
+    x_amax, g_amax = torch.tensor(3.5), torch.tensor(0.75)
+    got = _walk_wgmma_schedule(x_q, g_q, geo).float() * kc.product_scale(x_amax, g_amax)
+    assert torch.equal(got, kc.conv_s8_wgrad_plain(x_q, g_q, x_amax, g_amax, k, s, p, d))
+    w_rows, w_amax = kc.rotated_weight_codes(
+        torch.from_numpy(rng.normal(size=(n, c, k, k)).astype(np.float32)), s)
+    lay = dict(kc.dgrad_launch(g_q.shape, c, k, (h, w), s, p, d), x_hw=(h, w))
+    assert lay["parity"] == (s == 2) and lay["body"] == "wgmma"
+    got = _walk_dgrad_launch(g_q, w_rows, lay).float() * kc.product_scale(g_amax, w_amax)
+    assert torch.equal(got, kc.conv_s8_dgrad_plain(g_q, w_rows, g_amax, w_amax, (h, w), s, p,
+                                                   d, kernel_size=k))
+
+
 @pytest.mark.parametrize("site,plan", [(s, None) for s in DGRAD_SITES]
                          + [(DGRAD_SITES[16], (32, 64, 4, 4)), (DGRAD_SITES[4], (64, 128, 3, 2))])
 def test_dgrad_launch_walk_equals_plain(site, plan):

@@ -373,13 +373,30 @@ def test_dropout_rate_and_scaling():
 # divide the devices
 REFUSED = {
     "devices": (),
-    "mobilenetv2": (("model", "backbone", "mobilenetv2"),),
-    "xception": (("model", "backbone", "xception"),),
     "fused_stem": (("model", "fused_stem", "always"),),
     "fused_blocks": (("model", "fused_blocks", "interpret"),),
+}
+# the options refused there before they were ported to the split (a 2-rank
+# Trainer takes each: tests/test_torch_parallel.py)
+SPATIAL_OPTIONS = {
+    "mobilenetv2": (("model", "backbone", "mobilenetv2"),),
+    "xception": (("model", "backbone", "xception"),),
     "int8_training": (("model", "int8_training", 64),),
+    "int8_training_bwd": (("model", "int8_training", 64), ("model", "int8_training_bwd", True)),
     "remat": (("parallel", "remat", True),),
 }
+
+
+@pytest.mark.parametrize("name", sorted(SPATIAL_OPTIONS))
+def test_spatial_options_pass_refuse_unported(name):
+    cfg = Config()
+    cfg.parallel.model_axis = 2
+    for section, key, value in SPATIAL_OPTIONS[name]:
+        setattr(getattr(cfg, section), key, value)
+    refuse_unported(cfg)
+    cfg.model.fused_stem = "always"  # with a fused mode, the fused mode alone is named
+    with pytest.raises(NotImplementedError, match=r"^model\.fused_stem='always' under"):
+        refuse_unported(cfg)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
