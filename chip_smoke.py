@@ -14,6 +14,8 @@ the serving fns as CUDA-graph engines and as exported artifacts.
                                                    # from 16 training starts
     python3 chip_smoke.py --block-f32-starts 8     # phase 13's float32 holds
                                                    # from 9 training starts
+    python3 chip_smoke.py --stem-f32-starts 8      # phase 11's float32 hold
+                                                   # from 9 training starts
 
 Phases (each prints its result; any failure raises and the exit code is
 not 0):
@@ -125,8 +127,11 @@ not 0):
      the ReLU and the pool, the fused one after, and takes another variance
      formula); the stem's three gradients against the unfused chain's
      autograd on the fused step's own image, parameters and pooled cotangent:
-     in f32 conv1 within 5e-3 * max|grad| (the library's weight gradient
-     reads TF32) and bn1 within 1e-5 when no ReLU sign or pool winner differs
+     in f32 conv1 against that chain in float64 on the same conv output with
+     the fused chain's ReLU and pool decisions (``_stem_f64``: no TF32, no
+     flipped decision) within 2.5e-4 * max|grad| (its distance from the
+     unfused chain, 6.6e-4 to 1.7e-3 over 9 starts and 1.28e-2 once, is
+     printed) and bn1 within 1e-5 when no ReLU sign or pool winner differs
      between the two chains on that input (counted and printed), else within
      1e-2 (one element decided the other way moved it to 3e-3 once), in bf16 conv1
      within 1e-1 (many pool windows tie, and equal-split and first-index
@@ -328,7 +333,11 @@ not 0):
      #4 through the sharded CE once a step each way on each rank; each rank's
      peak memory, device time, launches and collective bytes a step beside
      the one-process step's, alone and in a 1-rank group (the ranks'
-     cross-replica BatchNorm and DDP), with the card's name and power limit.  Then
+     cross-replica BatchNorm and DDP), with the card's name and power limit;
+     the same f32 hold for each of ``SPATIAL_OPTIONS`` (remat, QAT with its
+     int8 backward, MobileNetV2, Xception on uneven shards) and of each a
+     bf16 step's loss, collectives and #4 launches (its device time and
+     memory are PR 25's record: the phase keeps one bf16 step an option).  Then
      ``int8_exec_xla`` through the scene-parallel ``TileEngine(mesh=)`` on
      the two ranks (batch 4 each) on the 1024x1536 scene against the one-rank
      engine (batch 8) on the same calibration: mask agreement >= 0.999, the
@@ -346,8 +355,15 @@ not 0):
      weights with the fused stem and blocks on two ``gloo`` ranks on cuda:0
      (four rows each, TF32 off and on, every fused entry launched on each
      rank) held to phase 15's limits (``_hold_two_rank_step``) of the
-     one-process fused step in the 1-rank group.  The kernel record's
-     launches add this phase's (the group's and both ranks');
+     one-process fused step in the 1-rank group; the same step split over
+     the two ranks as one model group (data 1 x model 2: 256 of the 512 rows
+     of all 8 images each, the fused kernels on the group's whole maps, their
+     sums over the data group) held to the same reference; a bf16 split step
+     a rank: each fused entry's launches a step (as in one process), two
+     all-reduces for each unfused BatchNorm and none for a fused one, its
+     device time, launches, peak memory and halo bytes beside phase 21's
+     plain split step's, with the card's name and power limit.  The kernel
+     record's launches add this phase's (the group's and both ranks');
  23. the serving fns of ``bf16``, ``int8_exec`` (#1 inside),
      ``int8_exec_xla`` (the int8 convs) and a bf16 fn with ``fused_stem =
      "always"`` (#10 inside), after the host µs a call of each serving
@@ -1690,6 +1706,10 @@ def _slice_trainer(steps: int, name: str, seed: int | None = None, train=None,
 
 
 F32_BN1_LIMIT = 1e-5  # phase 11, float32 bn1 gradients, when no decision differs
+# phase 11, the float32 conv1 gradient against float64 with the fused chain's
+# decisions (``_stem_f64``): ten times the largest of 9 training starts'
+# readings, 8.6e-6 to 2.4e-5 (``--stem-f32-starts 8``, NVIDIA H100 80GB HBM3)
+F32_CONV1_LIMIT = 2.5e-4
 
 
 def _nudge(module, args, out):
@@ -1714,12 +1734,7 @@ def _stem_decision_flips(fs, z, gamma, beta, eps) -> tuple:
     tied positions and the unfused one sends it to the first, but the tied
     positions share y and yhat, so bn1's two sums are the same either way."""
     F = torch.nn.functional
-    n = z.numel() // z.shape[1]
-    total, total_sq = fs.stem_stats(z)
-    mean = total / n
-    var = torch.clamp_min(total_sq / n - mean * mean, 0.0)
-    scale, bias = fs.fold_affine(gamma, beta, mean, torch.rsqrt(var + eps))
-    fused = z.float() * scale.reshape(1, -1, 1, 1) + bias.reshape(1, -1, 1, 1)
+    fused = _stem_preact(fs, z, gamma, beta, eps)
     unfused = F.batch_norm(z, None, None, gamma, beta, True, 0.0, eps).float()
     signs = int(((fused > 0) != (unfused > 0)).sum())
     fused, unfused = torch.relu(fused), torch.relu(unfused)
@@ -1733,14 +1748,256 @@ def _stem_decision_flips(fs, z, gamma, beta, eps) -> tuple:
     return signs, int((differ & ((p_f > 0) | (p_u > 0))).sum())
 
 
+def _stem_preact(fs, z, gamma, beta, eps) -> torch.Tensor:
+    """The fused chain's pre-ReLU map of the conv output ``z``: the kernels'
+    statistics folded into a float32 affine."""
+    n = z.numel() // z.shape[1]
+    total, total_sq = fs.stem_stats(z)
+    mean = total / n
+    var = torch.clamp_min(total_sq / n - mean * mean, 0.0)
+    scale, bias = fs.fold_affine(gamma, beta, mean, torch.rsqrt(var + eps))
+    return z.float() * scale.reshape(1, -1, 1, 1) + bias.reshape(1, -1, 1, 1)
+
+
+def _stem_f64(x, z, gamma, eps, dp, y) -> dict:
+    """The stem's gradients (conv1, bn1's weight and bias) in float64 from
+    the image ``x``, the conv output ``z`` the chain read, bn1's weight and
+    the pooled cotangent ``dp``, with the ReLU and pool decisions of ``y``
+    (a chain's pre-ReLU map): the ReLU passes where y > 0, and each window's
+    cotangent goes to the positions of relu(y) equal to the window's
+    maximum, split equally (the fused kernels' rule); the statistics and
+    every sum in float64: what the backward kernels (#11a, #11b) compute on
+    those inputs, exactly."""
+    F = torch.nn.functional
+    x64, z, g64 = x.double(), z.double(), gamma.double()
+    n = z.numel() // z.shape[1]
+    mean = z.mean(dim=(0, 2, 3), keepdim=True)
+    sigma_inv = torch.rsqrt(z.var(dim=(0, 2, 3), unbiased=False, keepdim=True) + eps)
+    yhat = (z - mean) * sigma_inv
+    b, c, side, _ = y.shape
+    cols = F.unfold(F.pad(torch.relu(y.float()), (1, 1, 1, 1), value=float("-inf")), 3,
+                    stride=2).reshape(b, c, 9, -1)
+    won = cols == cols.amax(dim=2, keepdim=True)
+    del cols
+    share = won.double() / won.sum(dim=2, keepdim=True) * dp.double().reshape(b, c, 1, -1)
+    del won
+    dy = F.fold(share.reshape(b, c * 9, -1), (side + 2, side + 2), 3,
+                stride=2)[:, :, 1:-1, 1:-1] * (y > 0)
+    del share
+    dbeta, dgamma = dy.sum(dim=(0, 2, 3)), (dy * yhat).sum(dim=(0, 2, 3))
+    dz = g64.reshape(1, -1, 1, 1) * sigma_inv * (
+        dy - (dbeta / n).reshape(1, -1, 1, 1) - yhat * (dgamma / n).reshape(1, -1, 1, 1))
+    dw = torch.nn.grad.conv2d_weight(x64, (z.shape[1], x.shape[1], 7, 7), dz, stride=2,
+                                     padding=3)
+    return {"backbone.conv1.weight": dw, "backbone.bn1.weight": dgamma,
+            "backbone.bn1.bias": dbeta}
+
+
+def _hold_stem(fs, trainer, cfg, images, labels, dtypes, readings: list | None = None) -> list:
+    """Phase 11's hold of one step fused against one unfused from the
+    trainer's state, in each of ``dtypes``, on one augmented batch of
+    ``images`` / ``labels``, with one dropout mask and deterministic
+    algorithms.  Prints a line a dtype; returns the failed checks' messages.
+    ``readings``, where given, gets the float32 distances.
+
+    The two forwards differ in the last bit of some pooled values (the
+    unfused BatchNorm rounds before the ReLU and the pool and takes another
+    variance formula), and a whole step of this model answers any such
+    difference with gradients that differ by a large part of their size: so
+    the step's gradients are printed beside those of an unfused step whose
+    pooled values were moved by an ulp or two (of bf16, or of the TF32 that
+    float32 convs read) at one value in a million, and the backward is held
+    to the unfused chain where the two can agree: on the fused step's own
+    image, parameters and pooled cotangent.  In float32 the three are also
+    measured against the same chain in float64 on the same conv output, with
+    the fused chain's ReLU and pool decisions (``_stem_f64``), which reads no
+    TF32 and flips no decision."""
+    from iswm_tpu_torch.data import augment_batch
+    from iswm_tpu_torch.ops.losses import make_loss_fn
+    from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
+
+    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
+                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+    model = trainer.state.model
+    backbone = model.backbone
+    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    factory, _ = make_optimizer(cfg.optim, cfg.train.total_itrs)
+    step = make_train_step(make_loss_fn(cfg.loss.loss_type, fused="auto", device="cuda"))
+    stem = ("backbone.conv1.weight", "backbone.bn1.weight", "backbone.bn1.bias")
+    F = torch.nn.functional
+    failed = []
+
+    def hold(ok: bool, msg: str) -> None:
+        if not ok:
+            failed.append(msg)
+
+    def one_step(mode, hooked, hook):
+        """(loss, gradients, bn1's running mean and var) of one step from
+        ``start`` with ``hook`` on the forward of the module ``hooked``."""
+        backbone.fused_stem = mode
+        model.load_state_dict(start)
+        state = TrainState(model, *factory(model.parameters()), 0)
+        torch.cuda.manual_seed(SEED)
+        handle = hooked.register_forward_hook(hook)
+        with warnings.catch_warnings():  # ops without a deterministic version
+            warnings.simplefilter("ignore")
+            loss = float(step(state, x, y))
+        handle.remove()
+        return (loss, {k: p.grad.float().clone() for k, p in model.named_parameters()},
+                backbone.bn1.running_mean.clone(), backbone.bn1.running_var.clone())
+
+    def ratios_of(got, want):
+        return sorted((float((got[k] - want[k]).abs().max()
+                             / want[k].abs().max().clamp_min(1e-30)), k) for k in want)
+
+    # limits on (loss, conv1's gradient, bn1's two gradients), from the
+    # readings of seven runs on an H100, which spread (the state after four
+    # steps differs between runs), so each limit stands at three to seven
+    # times the largest reading.  Loss: bf16 1.8e-4 to 2.8e-3, float32 3.3e-5
+    # to 1.5e-4 (the pooled values differ by an ulp here and there); bf16
+    # conv1 1.3e-2 to 3.1e-2 (tie routing) and bn1 1.3e-3 to 4.3e-3; float32
+    # conv1 5.9e-4 to 1.3e-3 (the library's weight gradient reads TF32) and
+    # bn1 up to 9e-7 in a dozen runs but 3.0e-3 in one: the folded affine and
+    # F.batch_norm round y differently, and one element whose ReLU or pool
+    # decision goes the other way moves these sums by a whole cotangent (phase
+    # 10 holds the same sums to 1e-5 where both sides share the decisions).
+    # So float32 bn1 is held at F32_BN1_LIMIT when no decision differs between
+    # the two chains on the step's own input (_stem_decision_flips), and at
+    # bn_tol only when one does.  Float32 conv1 read up to 1.7e-3 against the
+    # unfused chain over 9 starts (TF32 and those decisions; 1.28e-2 once in
+    # 11 earlier runs), but 8.6e-6 to 2.4e-5 against float64 on the same conv
+    # output with the fused chain's decisions: it is held there, at
+    # F32_CONV1_LIMIT
+    limits = {torch.bfloat16: (2e-2, 1e-1, 2e-2), torch.float32: (1e-3, F32_CONV1_LIMIT, 1e-2)}
+    for dtype in dtypes:
+        loss_tol, conv_tol, bn_tol = limits[dtype]
+        model.compute_dtype = dtype
+        seen = {}
+
+        def grab(module, args, out):
+            seen["x"] = args[0].detach()
+            out.register_hook(lambda g: seen.__setitem__("dp", g.detach().clone()))
+
+        loss_k, g_k, mean_k, var_k = one_step("always", backbone.fused_stem_pool, grab)
+        loss_p, g_p, mean_p, var_p = one_step("never", backbone.maxpool, lambda *a: None)
+        _, g_n, _, _ = one_step("never", backbone.maxpool, _nudge)
+        var_err = float((var_k - var_p).abs().max() / var_p.abs().max())
+        mean_err = float((mean_k - mean_p).abs().max() / var_p.sqrt().max())
+        hold(var_err <= 1e-5 and mean_err <= 1e-5,
+             f"{dtype}: bn1 running statistics after one fused step differ from the unfused "
+             f"step's: var {var_err:.2e} * max|var|, mean {mean_err:.2e} * max sqrt(var)")
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        hold(rel <= loss_tol, f"{dtype}: fused step loss {loss_k} vs unfused {loss_p}")
+        # the unfused chain's autograd on the fused step's inputs and cotangent
+        leaves = [start[k].clone().requires_grad_() for k in stem]
+        z = F.conv2d(seen["x"], leaves[0].to(dtype), None, 2, 3)
+        bn = backbone.bn1
+        pooled = F.max_pool2d(torch.relu(F.batch_norm(
+            z, None, None, leaves[1], leaves[2], True, 0.0, bn.eps)), 3, 2, 1)
+        chain = dict(zip(stem, torch.autograd.grad(pooled, leaves, seen["dp"])))
+        own = ratios_of({k: g_k[k] for k in stem}, chain)
+        flips = _stem_decision_flips(fs, z.detach(), start[stem[1]], start[stem[2]], bn.eps)
+        if dtype == torch.float32 and not sum(flips):
+            bn_tol = F32_BN1_LIMIT
+        for ratio, key in own:
+            if key == stem[0] and dtype == torch.float32:
+                continue  # held against float64 below
+            limit = conv_tol if key == stem[0] else bn_tol
+            hold(ratio <= limit,
+                 f"{dtype}: the fused stem's gradient of {key} differs from the unfused "
+                 f"chain's on the same inputs by {ratio:.2e} * max|grad| (limit {limit}; "
+                 f"decisions that differ between the two chains: {flips[0]} ReLU signs, "
+                 f"{flips[1]} pool winners; the other stem gradients {own})")
+        decided = ""
+        if dtype == torch.float32:
+            truth = _stem_f64(seen["x"], z.detach(), start[stem[1]], bn.eps, seen["dp"],
+                              _stem_preact(fs, z.detach(), start[stem[1]], start[stem[2]],
+                                           bn.eps))
+            far = dict((k, r) for r, k in ratios_of({k: g_k[k].double() for k in stem}, truth))
+            hold(far[stem[0]] <= conv_tol,
+                 f"{dtype}: the fused stem's gradient of {stem[0]} differs from float64 on "
+                 f"the same conv output with the fused chain's decisions by "
+                 f"{far[stem[0]]:.2e} * max|grad| (limit {conv_tol})")
+            decided = ("; against float64 with the fused chain's decisions: "
+                       + ", ".join(f"{k.removeprefix('backbone.')} {far[k]:.2e}" for k in stem))
+            if readings is not None:
+                readings.append({"conv1": dict((k, r) for r, k in own)[stem[0]],
+                                 "bn1": max(r for r, k in own if k != stem[0]),
+                                 "flips": flips, "decided": far[stem[0]],
+                                 "decided_bn1": max(far[stem[1]], far[stem[2]])})
+            del truth
+        whole, floor = ratios_of(g_k, g_p), ratios_of(g_n, g_p)
+        print(f"[11] one step fused vs fused_stem='never', {dtype}: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f} (rel {rel:.2e}, limit {loss_tol}); bn1 running var {var_err:.2e}, "
+              f"mean {mean_err:.2e} (limit 1e-5); the stem's gradients against the unfused "
+              f"chain's autograd on the same image, parameters and cotangent: "
+              + ", ".join(f"{k.removeprefix('backbone.')} {r:.2e}" for r, k in own)
+              + f" * max|grad| (limits: conv1 {conv_tol}"
+              + (" against float64" if dtype == torch.float32 else "")
+              + f", bn1 {bn_tol}; decisions that differ between the two chains: {flips[0]} "
+              f"ReLU signs, {flips[1]} pool winners)" + decided
+              + "; whole-step gradients, median tensor of "
+              f"{len(whole)}: fused vs unfused {whole[len(whole) // 2][0]:.2e}, unfused vs "
+              f"unfused with one pooled value in a million moved by an ulp or two "
+              f"{floor[len(floor) // 2][0]:.2e} (not held: the step is chaotic)", flush=True)
+        del seen, chain, z, pooled
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    model.compute_dtype = trained_dtype
+    model.load_state_dict(start)
+    backbone.fused_stem = "always"
+    return failed
+
+
+def stem_f32_readings(starts: int) -> None:
+    """Phase 11's float32 hold (``_hold_stem``) from phase 11's own training
+    start and ``train.random_seed`` 1 to ``starts``, ``STEM_STEPS`` steps
+    each: the phase's line a start, then a summary of conv1's and bn1's
+    distances from the unfused chain and from float64 with the fused
+    chain's decisions, each with the ReLU signs and pool winners that differ
+    between the chains.  Holds nothing.  ``python3 chip_smoke.py
+    --stem-f32-starts 8``."""
+    from iswm_tpu_torch.data import batch_iterator
+    from iswm_tpu_torch.ops.kernels import fused_stem as fs
+
+    readings = []
+    for seed in (None, *range(1, starts + 1)):
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = True, False
+        torch.use_deterministic_algorithms(False)
+        trainer, cfg, train_ds, _ = _fused_trainer("fused_stem", STEM_STEPS, seed)
+        trainer.fit()
+        images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
+        failed = _hold_stem(fs, trainer, cfg, images, labels, (torch.float32,), readings)
+        r = readings[-1]
+        r["seed"] = seed
+        print(f"[stem f32] start seed={seed}: conv1 {r['conv1']:.3e} from the unfused chain, "
+              f"{r['decided']:.3e} from float64 with the fused decisions (limit "
+              f"{F32_CONV1_LIMIT}); bn1 "
+              f"{r['bn1']:.3e} ({r['decided_bn1']:.3e}); decisions that differ: {r['flips'][0]} "
+              f"ReLU signs, {r['flips'][1]} pool winners; {len(failed)} of phase 11's float32 "
+              f"checks beyond their limits", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    for r in sorted(readings, key=lambda r: -r["conv1"]):
+        print(f"[stem f32] by conv1: seed={r['seed']} conv1 {r['conv1']:.3e} (float64, the fused "
+              f"decisions: {r['decided']:.3e}), flips {r['flips']}")
+    print(f"[stem f32] {len(readings)} starts: conv1 from the unfused chain "
+          f"{min(r['conv1'] for r in readings):.3e} to {max(r['conv1'] for r in readings):.3e}, "
+          f"from float64 with the fused decisions {min(r['decided'] for r in readings):.3e} to "
+          f"{max(r['decided'] for r in readings):.3e}; starts with a differing decision "
+          f"{sum(1 for r in readings if sum(r['flips']))}")
+
+
 def phase_stem_slice(fs, ce) -> tuple:
     from iswm_tpu_torch.config import Config
-    from iswm_tpu_torch.data import augment_batch, batch_iterator
+    from iswm_tpu_torch.data import batch_iterator
     from iswm_tpu_torch.infer import Predictor, tile_origins
     from iswm_tpu_torch.infer.quantization import logit_diff_verdict
     from iswm_tpu_torch.models import build_model
-    from iswm_tpu_torch.ops.losses import make_loss_fn
-    from iswm_tpu_torch.train import TrainState, make_optimizer, make_train_step
 
     trainer, cfg, train_ds, val_ds = _fused_trainer("fused_stem", STEM_STEPS)
 
@@ -1775,119 +2032,10 @@ def phase_stem_slice(fs, ce) -> tuple:
           f"{[round(v, 4) for v in losses]}; {Path(trainer.best_path).name} loads strict=True "
           f"into an unfused model")
 
-    # one step fused and one unfused from one state, on one augmented batch,
-    # with one dropout mask and deterministic algorithms.  The two forwards
-    # differ in the last bit of some pooled values (the unfused BatchNorm
-    # rounds before the ReLU and the pool and takes another variance formula),
-    # and a whole step of this model answers any such difference with
-    # gradients that differ by a large part of their size: so the step's
-    # gradients are printed beside those of an unfused step whose pooled
-    # values were moved by an ulp or two (of bf16, or of the TF32 that float32
-    # convs read) at one value in a million, and the
-    # backward is held to the unfused chain where the two can agree: on the
-    # fused step's own image, parameters and pooled cotangent.
     images, labels = next(batch_iterator(train_ds, cfg.data.batch_size))
-    x, y = augment_batch(torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda(),
-                         trainer.augment, torch.Generator(device="cuda").manual_seed(SEED))
+    failed = _hold_stem(fs, trainer, cfg, images, labels, (torch.bfloat16, torch.float32))
+    check(not failed, "phase 11's holds of the fused stem failed:\n" + "\n".join(failed))
     model = trainer.state.model
-    backbone = model.backbone
-    start, trained_dtype = copy.deepcopy(model.state_dict()), model.compute_dtype
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    factory, _ = make_optimizer(cfg.optim, cfg.train.total_itrs)
-    step = make_train_step(make_loss_fn(cfg.loss.loss_type, fused="auto", device="cuda"))
-    stem = ("backbone.conv1.weight", "backbone.bn1.weight", "backbone.bn1.bias")
-    F = torch.nn.functional
-
-    def one_step(mode, hooked, hook):
-        """(loss, gradients, bn1's running mean and var) of one step from
-        ``start`` with ``hook`` on the forward of the module ``hooked``."""
-        backbone.fused_stem = mode
-        model.load_state_dict(start)
-        state = TrainState(model, *factory(model.parameters()), 0)
-        torch.cuda.manual_seed(SEED)
-        handle = hooked.register_forward_hook(hook)
-        with warnings.catch_warnings():  # ops without a deterministic version
-            warnings.simplefilter("ignore")
-            loss = float(step(state, x, y))
-        handle.remove()
-        return (loss, {k: p.grad.float().clone() for k, p in model.named_parameters()},
-                backbone.bn1.running_mean.clone(), backbone.bn1.running_var.clone())
-
-    def ratios_of(got, want):
-        return sorted((float((got[k] - want[k]).abs().max()
-                             / want[k].abs().max().clamp_min(1e-30)), k) for k in want)
-
-    # limits on (loss, conv1's gradient, bn1's two gradients), from the
-    # readings of seven runs on an H100, which spread (the state after four
-    # steps differs between runs), so each limit stands at three to seven
-    # times the largest reading.  Loss: bf16 1.8e-4 to 2.8e-3, float32 3.3e-5
-    # to 1.5e-4 (the pooled values differ by an ulp here and there); bf16
-    # conv1 1.3e-2 to 3.1e-2 (tie routing) and bn1 1.3e-3 to 4.3e-3; float32
-    # conv1 5.9e-4 to 1.3e-3 (the library's weight gradient reads TF32) and
-    # bn1 up to 9e-7 in a dozen runs but 3.0e-3 in one: the folded affine and
-    # F.batch_norm round y differently, and one element whose ReLU or pool
-    # decision goes the other way moves these sums by a whole cotangent (phase
-    # 10 holds the same sums to 1e-5 where both sides share the decisions).
-    # So float32 bn1 is held at F32_BN1_LIMIT when no decision differs between
-    # the two chains on the step's own input (_stem_decision_flips), and at
-    # bn_tol only when one does
-    for dtype, loss_tol, conv_tol, bn_tol in ((torch.bfloat16, 2e-2, 1e-1, 2e-2),
-                                              (torch.float32, 1e-3, 5e-3, 1e-2)):
-        model.compute_dtype = dtype
-        seen = {}
-
-        def grab(module, args, out):
-            seen["x"] = args[0].detach()
-            out.register_hook(lambda g: seen.__setitem__("dp", g.detach().clone()))
-
-        loss_k, g_k, mean_k, var_k = one_step("always", backbone.fused_stem_pool, grab)
-        loss_p, g_p, mean_p, var_p = one_step("never", backbone.maxpool, lambda *a: None)
-        _, g_n, _, _ = one_step("never", backbone.maxpool, _nudge)
-        var_err = float((var_k - var_p).abs().max() / var_p.abs().max())
-        mean_err = float((mean_k - mean_p).abs().max() / var_p.sqrt().max())
-        check(var_err <= 1e-5 and mean_err <= 1e-5,
-              f"{dtype}: bn1 running statistics after one fused step differ from the unfused "
-              f"step's: var {var_err:.2e} * max|var|, mean {mean_err:.2e} * max sqrt(var)")
-        rel = abs(loss_k - loss_p) / abs(loss_p)
-        check(rel <= loss_tol, f"{dtype}: fused step loss {loss_k} vs unfused {loss_p}")
-        # the unfused chain's autograd on the fused step's inputs and cotangent
-        leaves = [start[k].clone().requires_grad_() for k in stem]
-        z = F.conv2d(seen["x"], leaves[0].to(dtype), None, 2, 3)
-        bn = backbone.bn1
-        pooled = F.max_pool2d(torch.relu(F.batch_norm(
-            z, None, None, leaves[1], leaves[2], True, 0.0, bn.eps)), 3, 2, 1)
-        chain = dict(zip(stem, torch.autograd.grad(pooled, leaves, seen["dp"])))
-        own = ratios_of({k: g_k[k] for k in stem}, chain)
-        flips = _stem_decision_flips(fs, z.detach(), start[stem[1]], start[stem[2]], bn.eps)
-        if dtype == torch.float32 and not sum(flips):
-            bn_tol = F32_BN1_LIMIT
-        for ratio, key in own:
-            limit = conv_tol if key == stem[0] else bn_tol
-            check(ratio <= limit,
-                  f"{dtype}: the fused stem's gradient of {key} differs from the unfused "
-                  f"chain's on the same inputs by {ratio:.2e} * max|grad| (limit {limit}; "
-                  f"decisions that differ between the two chains: {flips[0]} ReLU signs, "
-                  f"{flips[1]} pool winners; the other stem gradients {own})")
-        whole, floor = ratios_of(g_k, g_p), ratios_of(g_n, g_p)
-        print(f"[11] one step fused vs fused_stem='never', {dtype}: loss {loss_k:.6f} vs "
-              f"{loss_p:.6f} (rel {rel:.2e}, limit {loss_tol}); bn1 running var {var_err:.2e}, "
-              f"mean {mean_err:.2e} (limit 1e-5); the stem's gradients against the unfused "
-              f"chain's autograd on the same image, parameters and cotangent: "
-              + ", ".join(f"{k.removeprefix('backbone.')} {r:.2e}" for r, k in own)
-              + f" * max|grad| (limits: conv1 {conv_tol}, bn1 {bn_tol}; decisions that differ "
-              f"between the two chains: {flips[0]} ReLU signs, {flips[1]} pool winners); whole-step "
-              f"gradients, median tensor of "
-              f"{len(whole)}: fused vs unfused {whole[len(whole) // 2][0]:.2e}, unfused vs "
-              f"unfused with one pooled value in a million moved by an ulp or two "
-              f"{floor[len(floor) // 2][0]:.2e} (not held: the step is chaotic)")
-        del seen, chain, z, pooled
-    torch.use_deterministic_algorithms(False)
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = True
-    model.compute_dtype = trained_dtype
-    model.load_state_dict(start)
 
     xu8, yu8 = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
     step_ms, device_ms_of, stem_ms = {}, {}, 0.0
@@ -5425,13 +5573,13 @@ def _saved_mib(loss: torch.Tensor, model) -> dict:
     return dict(sorted(by_node.items(), key=lambda kv: -kv[1]))
 
 
-def _spatial_numbers(step, state, x, y, mesh=None, reps: int = 3) -> dict:
+def _spatial_numbers(step, state, x, y, mesh=None) -> dict:
     """The loss of a step from the seeded state; after a warm-up step, one
     step's collectives over the model group and their bytes, kernel #4's
     launches and the peak memory; what a train forward saves for its
-    backward, by autograd node (:func:`_saved_mib`); the median of ``reps``
-    steps on the host's clock; the device time, launches and device time by
-    class of one step (one profiler trace of 2)."""
+    backward, by autograd node (:func:`_saved_mib`); the median of 3 steps
+    on the host's clock; the device time, launches and device time by class
+    of one step (one profiler trace of 2)."""
     import gc
 
     from iswm_tpu_torch.ops.kernels import fused_ce as ce
@@ -5466,7 +5614,7 @@ def _spatial_numbers(step, state, x, y, mesh=None, reps: int = 3) -> dict:
                "ce": tuple(b - a for a, b in zip(counts, (ce.launches_sharded, ce.launches_fwd,
                                                           ce.launches_bwd)))}
     times = []
-    for _ in range(reps):
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(state, x, y)
@@ -5480,6 +5628,25 @@ def _spatial_numbers(step, state, x, y, mesh=None, reps: int = 3) -> dict:
     numbers.update(host_ms=float(np.median(times)), device_ms=sum(by_class.values()),
                    launches=sum(n for _, n in records.values()), by_class=by_class)
     return numbers
+
+
+def _split_counts(step, state, x, y) -> dict:
+    """The loss of a step from the seeded state, then a second step's
+    collectives over the model group (those recomputed apart), exchanges of
+    row counts and kernel #4's launches: what phase 21 holds of an option's
+    bf16 step."""
+    from iswm_tpu_torch.ops.kernels import fused_ce as ce
+    from iswm_tpu_torch.parallel import spatial
+
+    loss = float(step(state, x, y))
+    spatial.reset_counts()
+    counts = (ce.launches_sharded, ce.launches_fwd, ce.launches_bwd)
+    step(state, x, y)
+    torch.cuda.synchronize()
+    return {"loss": loss, "collectives": dict(spatial.collectives),
+            "recomputed": dict(spatial.recomputed), "row_exchanges": spatial.row_exchanges,
+            "ce": tuple(b - a for a, b in zip(counts, (ce.launches_sharded, ce.launches_fwd,
+                                                       ce.launches_bwd)))}
 
 
 def _qat_counts(kc) -> dict:
@@ -5594,7 +5761,7 @@ def _rank_spatial(rank: int, ranks: int, rendezvous: str, out: str) -> None:
             torch.backends.cudnn.benchmark = True
             model, factory = _dp_model("bfloat16", **settings)
             state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
-            got["bf16"] = _spatial_numbers(option, state, x, y, mesh, reps=1)
+            got["bf16"] = _split_counts(option, state, x, y)
             got["s"] = time.perf_counter() - t0
             seen["options"][name] = got
             del model, state
@@ -5736,7 +5903,8 @@ def phase_spatial(smi: str) -> dict:
     print(f"[21] launches over both ranks' steps: sharded CE {train[0]}, #4 forward "
           f"{train[1]}, backward {train[2]}; the QAT option's int8 entries "
           + ", ".join(f"{k.split('.', 1)[1]} {v}" for k, v in qat.items() if v))
-    return {"sharded": train[0], "fwd": train[1], "bwd": train[2], **serve, "qat": qat}
+    return {"sharded": train[0], "fwd": train[1], "bwd": train[2], **serve, "qat": qat,
+            "split_step": ranks[0]["bf16"]}
 
 
 def _hold_spatial_options(references: dict, ranks: list, smi: str) -> None:
@@ -5801,14 +5969,10 @@ def _hold_spatial_options(references: dict, ranks: list, smi: str) -> None:
                   f"its recomputation's {want_coll}")
         b = bf16[0]
         print(f"[21] {smi}: {name} bf16 split step, batch 8 at 512^2, rank 0 of 2 (beside the "
-              f"plain split step's): loss {b['loss']:.6f} on both ranks; device "
-              f"{b['device_ms']:.2f} ms ({plain['device_ms']:.2f}) in {b['launches']:.0f} "
-              f"launches ({plain['launches']:.0f}), host {b['host_ms']:.2f} ms "
-              f"({plain['host_ms']:.2f}), peak {b['peak_mib']:.1f} MiB ({plain['peak_mib']:.1f}), "
-              f"a train forward saves {sum(b['saved'].values()):.1f} MiB "
-              f"({sum(plain['saved'].values()):.1f}); collectives a step {b['collectives']} "
-              f"({plain['collectives']}), of them recomputed {b['recomputed']}, bytes "
-              f"{b['bytes']} ({plain['bytes']}); no exchange of row counts")
+              f"plain split step's): loss {b['loss']:.6f} on both ranks; collectives a step "
+              f"{b['collectives']} ({plain['collectives']}), of them recomputed "
+              f"{b['recomputed']}; no exchange of row counts (device time and memory: PR 25's "
+              f"record in PERF.md)")
 
 
 # -------------------------------------------------- the sharded fused kernels
@@ -5829,13 +5993,18 @@ def _fused_launches(fs, fb) -> dict:
 
 def _rank_fused_step(rank: int, ranks: int, rendezvous: str, out: str) -> None:
     """Phase 22 in a spawned rank: phase 15's f32 step with the fused stem and
-    blocks on this rank's rows (TF32 off and on), and the fused kernels'
-    launches."""
+    blocks (TF32 off and on) on this rank's 4 images, then split (data 1 x
+    model 2) on its 256 of the 512 rows of all 8, each with the fused
+    kernels' launches; a bf16 split step's numbers (``_spatial_numbers``),
+    the fused kernels' launches and the BatchNorm all-reduces of one more
+    such step, and the launches of the bf16 part."""
+    from iswm_tpu_torch.models import layers
     from iswm_tpu_torch.ops.kernels import fused_block as fb
     from iswm_tpu_torch.ops.kernels import fused_stem as fs
     from iswm_tpu_torch.ops.losses import make_loss_fn
-    from iswm_tpu_torch.parallel import destroy
-    from iswm_tpu_torch.train import make_train_step
+    from iswm_tpu_torch.parallel import destroy, distributed, make_mesh
+    from iswm_tpu_torch.train import TrainState, make_train_step
+    from iswm_tpu_torch.train.step import data_parallel
 
     _join_gloo(rank, ranks, rendezvous)
     try:
@@ -5844,20 +6013,45 @@ def _rank_fused_step(rank: int, ranks: int, rendezvous: str, out: str) -> None:
         step = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"))
         zero_counters(fs, STEM_COUNTERS)
         zero_counters(fb, BLOCK_COUNTERS)
-        seen = _f32_rank_steps(step, x[rows], y[rows], rank, **SHARDED_FUSED)
-        seen["launches"] = _fused_launches(fs, fb)
+        seen = {"data": _f32_rank_steps(step, x[rows], y[rows], rank, **SHARDED_FUSED),
+                "data launches": _fused_launches(fs, fb)}
+        mesh = make_mesh(1, ranks)
+        split = make_train_step(make_loss_fn("ce_loss", fused="auto", device="cuda"), mesh=mesh)
+        zero_counters(fs, STEM_COUNTERS)
+        zero_counters(fb, BLOCK_COUNTERS)
+        seen["split"] = _f32_rank_steps(split, x, y, rank, **SHARDED_FUSED)
+        seen["split launches"] = _fused_launches(fs, fb)
+        torch.backends.cudnn.benchmark = True  # as the Trainer runs
+        model, factory = _dp_model("bfloat16", **SHARDED_FUSED)
+        state = TrainState(model, *factory(model.parameters()), 0, data_parallel(model))
+        zero_counters(fs, STEM_COUNTERS)
+        zero_counters(fb, BLOCK_COUNTERS)
+        seen["bf16"] = _spatial_numbers(split, state, x, y, mesh)
+        numbers = _fused_launches(fs, fb)
+        zero_counters(fs, STEM_COUNTERS)
+        zero_counters(fb, BLOCK_COUNTERS)
+        reduces = distributed.cross_replica_all_reduces
+        split(state, x, y)
+        torch.cuda.synchronize()
+        seen["bf16 all-reduces"] = distributed.cross_replica_all_reduces - reduces
+        seen["bf16 launches"] = _fused_launches(fs, fb)
+        seen["bf16 total"] = {k: v + seen["bf16 launches"][k] for k, v in numbers.items()}
+        seen["batchnorms"] = sum(isinstance(m, layers.BatchNorm2d) for m in model.modules())
+        del model, state
     finally:
         destroy()
     torch.save(seen, Path(out) / f"_rank_fused_step.{rank}.pt")
 
 
-def phase_sharded_fused(fs, fb, group_step: dict, smi: str) -> dict:
+def phase_sharded_fused(fs, fb, group_step: dict, split_step: dict, smi: str) -> dict:
     """The fused stem and blocks in a process group (their BatchNorm sums
     all-reduced): phase 15's bf16 step in a 1-rank nccl group with
     ``fused_stem`` / ``fused_blocks`` = "always" beside phase 15's unfused
     group step (``group_step``), phase 15's f32 step on two gloo ranks held
-    to phase 15's limits of the one-process fused step; returns the phase's
-    launches of the eight fused entries (the group's and both ranks')."""
+    to phase 15's limits of the one-process fused step, on the data axis and
+    split over the rows (data 1 x model 2), and a bf16 split step beside
+    phase 21's plain one (``split_step``); returns the phase's launches of
+    the eight fused entries (the group's and both ranks')."""
     from iswm_tpu_torch.data import batch_iterator
     from iswm_tpu_torch.models import layers
     from iswm_tpu_torch.parallel import destroy, distributed
@@ -5904,12 +6098,47 @@ def phase_sharded_fused(fs, fb, group_step: dict, smi: str) -> dict:
     t_ranks = time.perf_counter()
     ranks = _spawn_ranks(_rank_fused_step, SHARDED_OUT)
     t_ranks = time.perf_counter() - t_ranks
-    _hold_two_rank_step(reference, ranks, "[22]", "4 rows each, fused stem and blocks")
-    for r, seen in enumerate(ranks):  # two steps a rank: TF32 off and on
+    _hold_two_rank_step(reference, [seen["data"] for seen in ranks], "[22]",
+                        "4 rows each, fused stem and blocks")
+    _hold_two_rank_step(reference, [seen["split"] for seen in ranks], "[22]",
+                        "data 1 x model 2: 256 of the 512 rows of all 8 images each, the fused "
+                        "stem and blocks on the model group's whole maps")
+    # the fused BatchNorms: the stem's and one for each fused conv
+    fused_bns = FUSED_STEP_LAUNCHES["stats"] + FUSED_STEP_LAUNCHES["mm_fwd"] + \
+        FUSED_STEP_LAUNCHES["c3_fwd"]
+    for r, seen in enumerate(ranks):  # two steps a rank each way: TF32 off and on
         want = {k: 2 * v for k, v in FUSED_STEP_LAUNCHES.items()}
-        check(seen["launches"] == want,
-              f"rank {r}: fused launches {seen['launches']} in two f32 steps, expected {want}")
-    totals = {k: group[k] + sum(seen["launches"][k] for seen in ranks) for k in group}
+        for part in ("data", "split"):
+            check(seen[f"{part} launches"] == want,
+                  f"rank {r}: fused launches {seen[f'{part} launches']} in two f32 {part} steps, "
+                  f"expected {want}")
+        check(seen["bf16 launches"] == FUSED_STEP_LAUNCHES,
+              f"rank {r}: fused launches in a bf16 split step {seen['bf16 launches']}, expected "
+              f"{FUSED_STEP_LAUNCHES} (each rank runs every fused kernel on the whole maps)")
+        want_reduces = 2 * (seen["batchnorms"] - fused_bns)
+        check(seen["bf16 all-reduces"] == want_reduces,
+              f"rank {r}: {seen['bf16 all-reduces']} BatchNorm all-reduces in a bf16 split step, "
+              f"expected {want_reduces}: 2 for each unfused BatchNorm, none for the {fused_bns} "
+              f"fused ones (their sums go over the data group, the rank alone at data 1)")
+        check(seen["bf16"]["collectives"] == ranks[0]["bf16"]["collectives"]
+              and seen["bf16"]["row_exchanges"] == 0,
+              f"rank {r}: collectives a bf16 split step {seen['bf16']['collectives']} (rank 0's "
+              f"{ranks[0]['bf16']['collectives']}), row exchanges {seen['bf16']['row_exchanges']}")
+    losses = [seen["bf16"]["loss"] for seen in ranks]
+    check(losses[0] == losses[1] and np.isfinite(losses[0]), f"bf16 fused split losses {losses}")
+    for name, numbers in (("fused", ranks[0]["bf16"]), ("plain (phase 21)", split_step)):
+        print(f"[22] {smi}: bf16 split step, batch 8 at 512^2, rank 0 of 2 (data 1 x model 2), "
+              f"{name}: peak {numbers['peak_mib']:.1f} MiB ({numbers['base_mib']:.1f} before the "
+              f"step), device {numbers['device_ms']:.2f} ms in {numbers['launches']:.0f} launches "
+              "(" + ", ".join(f"{c} {t:.2f}" for c, t in sorted(numbers["by_class"].items(),
+                                                               key=lambda kv: -kv[1]))
+              + f"), host {numbers['host_ms']:.2f} ms (median of 3); collectives a step "
+              f"{numbers['collectives']}, bytes {numbers['bytes']}")
+    print(f"[22] bf16 fused split step a rank: fused launches {ranks[0]['bf16 launches']}, "
+          f"{ranks[0]['bf16 all-reduces']} BatchNorm all-reduces (2 x {ranks[0]['batchnorms']} "
+          f"BatchNorms less the {fused_bns} fused ones), loss {losses[0]:.6f} on both ranks")
+    totals = {k: group[k] + sum(seen["data launches"][k] + seen["split launches"][k]
+                                + seen["bf16 total"][k] for seen in ranks) for k in group}
     print(f"[22] fused launches in the phase (1-rank group and both ranks) {totals}; phase 22 "
           f"in {time.perf_counter() - t_phase:.1f} s (the ranks' processes {t_ranks:.1f} s)")
     return totals
@@ -6142,11 +6371,12 @@ def main() -> int:
     from iswm_tpu_torch.ops.kernels import int8_conv as kc
     from iswm_tpu_torch.ops.kernels import int8_matmul as k8
 
-    if sys.argv[1:2] in (["--block-stat-starts"], ["--block-f32-starts"]):
+    if sys.argv[1:2] in (["--block-stat-starts"], ["--block-f32-starts"], ["--stem-f32-starts"]):
         phase_device()
-        phase_build({"fused_ce": ce, "fused_block": fb})
+        phase_build({"fused_ce": ce, "confusion": cm, "fused_stem": fs, "fused_block": fb})
         readings = {"--block-stat-starts": block_stat_readings,
-                    "--block-f32-starts": block_f32_readings}[sys.argv[1]]
+                    "--block-f32-starts": block_f32_readings,
+                    "--stem-f32-starts": stem_f32_readings}[sys.argv[1]]
         readings(int(sys.argv[2]))
         return 0
     phase_device()
@@ -6231,7 +6461,7 @@ def main() -> int:
     for e in ("quantize", "igemm"):
         bwd_launches[e] += spatial["qat"][f"int8_conv.{e} device"]
     # the fused stem and blocks in a process group: their eight entries
-    fused_group = phase_sharded_fused(fs, fb, group_step, smi)
+    fused_group = phase_sharded_fused(fs, fb, group_step, spatial["split_step"], smi)
     for key in stem_launches:
         stem_launches[key] += fused_group[key]
     for key in block_launches:

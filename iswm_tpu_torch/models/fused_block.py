@@ -27,7 +27,10 @@ every rank normalizes with the same statistics and each rank's data
 gradient is that of the global batch.  The weight gradients and the BatchNorm
 parameters' gradients stay this rank's share, which the data-parallel
 step's gradient reduction (a sum over the ranks) completes, as for
-``CrossReplicaBatchNorm``.
+``CrossReplicaBatchNorm``.  Under ``parallel/spatial.py``'s
+``spatially_split`` ``Bottleneck.forward`` runs the block on its model
+group's whole map, and the sums go over the split's data group
+(``spatial.statistics_group``) instead.
 
 Scope, as in the JAX package: training mode, stride 1, dilation 1, groups 1,
 base width 64 (``Bottleneck.forward`` checks), and a shape that
@@ -40,6 +43,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.kernels.fused_block import conv3x3_bn_stats, matmul_bn_stats
+from ..parallel import spatial
 from ..parallel.distributed import group_batch_sums
 from .remat import recomputing
 
@@ -68,8 +72,9 @@ def fused_block_eligible(shape) -> bool:
 def _finalize_stats(s, q, count: int, bn: nn.BatchNorm2d):
     """(mean, var, a, b) in float32 with ``normalize(y) = a * y + b``, from the
     sums of y and y^2 over ``count`` values per channel (this rank's); in a
-    process group the sums and the count are first summed over the ranks."""
-    s, q, count = group_batch_sums(s, q, count)
+    process group the sums and the count are first summed over the ranks
+    (of the statistics group in force: ``spatial.statistics_group``)."""
+    s, q, count = group_batch_sums(s, q, count, spatial.statistics_group())
     mean = s / count
     var = torch.clamp_min(q / count - mean * mean, 0.0)
     a = torch.rsqrt(var + bn.eps) * bn.weight.float()

@@ -499,7 +499,10 @@ class FusedStemPool(nn.Module):
     ``BatchNorm2d``, so the state-dict keys are those of the unfused stem and
     checkpoints interchange.  Pool-gradient ties are EQUAL-SPLIT and the image
     gets no gradient (see the kernel module's docstring); the eval-mode forward
-    cannot be differentiated at all (its backward raises)."""
+    cannot be differentiated at all (its backward raises).  In train mode the
+    statistics are summed over ``spatial.statistics_group()`` (the split's
+    data group, where ``ResNet.stem`` runs it on a model group's whole
+    image)."""
 
     def forward(self, x: torch.Tensor, conv1: nn.Conv2d, bn: nn.BatchNorm2d) -> torch.Tensor:
         from ..ops.kernels.fused_stem import stem_fused_eval, stem_fused_train
@@ -507,7 +510,8 @@ class FusedStemPool(nn.Module):
         if (conv1.kernel_size, conv1.stride, conv1.padding) != ((7, 7), (2, 2), (3, 3)):
             raise ValueError("FusedStemPool is specialized to the 7x7 / stride 2 / pad 3 stem")
         if bn.training:
-            p, mean, var = stem_fused_train(x, conv1.weight, bn.weight, bn.bias, bn.eps)
+            p, mean, var = stem_fused_train(x, conv1.weight, bn.weight, bn.bias, bn.eps,
+                                            spatial.statistics_group())
             if recomputing():  # a rematerialized segment updates them once
                 return p
             with torch.no_grad():  # flax's update: the biased batch variance

@@ -27,6 +27,14 @@ groups 1, base width 64 and an eligible shape; every other block, and every
 block in eval mode, runs its unfused modules.  The fused path uses the block's
 own modules, so the keys are the same there too.
 
+Under ``parallel/spatial.py``'s ``spatially_split`` the fused stem and blocks
+are chosen on the global shape of the map (``spatial.global_shape``), so
+that every rank of a model group takes the same path, and run on the
+group's whole map, each rank keeping its own rows of the output
+(``spatial.on_whole_map``: the stem gathers the image, a block its input),
+as GSPMD gathers the activations of the JAX package's opaque kernels; their
+BatchNorm sums go over the split's data group.
+
 Under ``models/remat.py``'s ``rematerialized`` each of the stem (fused or
 not) and the residual blocks is a recomputed segment.
 
@@ -43,6 +51,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ..parallel import spatial
 from .layers import (
     QUANT_OFF,
     BatchNorm2d,
@@ -130,8 +139,8 @@ class Bottleneck(nn.Module):
         if self.training and self.fuses_on(x.device):
             from .fused_block import fused_block_eligible, fused_bottleneck_apply
 
-            if fused_block_eligible(x.shape):
-                return fused_bottleneck_apply(self, x)
+            if fused_block_eligible(spatial.global_shape(x, self)):
+                return spatial.on_whole_map(lambda t: fused_bottleneck_apply(self, t), x, self)
         identity = x if self.downsample is None else self.downsample(x)
         out = self.relu1(self.bn1(self.conv1(x)))
         out = self.relu2(self.bn2(self.conv2(out)))
@@ -211,8 +220,9 @@ class ResNet(nn.Module):
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """conv1 + bn1 + ReLU + max-pool, fused where ``fuses_stem_on``."""
-        if self.fuses_stem_on(x.device) and fused_stem_eligible(x.shape):
-            return self.fused_stem_pool(x, self.conv1, self.bn1)
+        pool = self.fused_stem_pool
+        if self.fuses_stem_on(x.device) and fused_stem_eligible(spatial.global_shape(x, pool)):
+            return spatial.on_whole_map(lambda t: pool(t, self.conv1, self.bn1), x, pool)
         return self.maxpool(self.relu(self.bn1(self.conv1(x))))
 
     def forward(self, x: torch.Tensor) -> dict:

@@ -55,7 +55,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ...parallel.distributed import group_batch_sums, is_initialized, statistics_sum
+from ...parallel.distributed import alone_in, group_batch_sums, statistics_sum
 from . import ctypes_entry, op
 
 launches_stats = 0
@@ -378,7 +378,7 @@ def fold_affine(gamma, beta, mean, sigma_inv):
     return scale, beta.float() - mean * scale
 
 
-def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, n=None):
+def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, n=None, group=None):
     """Fused backward of ``pool(relu(bn(conv(x))))`` given d(pooled).
 
     z: the conv output [B, F, S, S] (the residual, in the compute dtype);
@@ -386,10 +386,13 @@ def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, n=None):
     gamma / beta: the BN affine [F]; mean / sigma_inv: the batch statistics
     [F] float32; n: the values a channel they were taken over (default
     B * S * S; in a process group the group's count, which the caller
-    passes).  Returns (dW [F, 3, 7, 7] float32, dgamma [F], dbeta [F]).
+    passes); group: the process group the statistics were summed over
+    (None: the default group).  Returns (dW [F, 3, 7, 7] float32, dgamma
+    [F], dbeta [F]).
 
     In a process group the statistics are the group's: the first kernel's
-    sums are all-reduced before the second kernel takes them, and dgamma /
+    sums are all-reduced over ``group`` before the second kernel takes
+    them (none where ``alone_in`` it), and dgamma /
     dbeta are this rank's sums from before the all-reduce, its share, which
     the gradient reduction (a sum over the ranks) completes; the global sums
     there would count every rank's rows once for each rank."""
@@ -398,8 +401,8 @@ def stem_tail_bwd(z, x, dp, gamma, beta, mean, sigma_inv, n=None):
     if n is None:
         n = z.numel() // z.shape[1]
     g1, g2 = s1, s2
-    if is_initialized():
-        g1, g2 = statistics_sum(torch.cat([s1, s2])).chunk(2)
+    if not alone_in(group):
+        g1, g2 = statistics_sum(torch.cat([s1, s2]), group).chunk(2)
     dw = stem_bwd_wgrad(z, dp, x, scale, bias, mean, sigma_inv, g1 / n, g2 / n)
     return dw, s2, s1
 
@@ -422,19 +425,21 @@ class StemFusedTrain(torch.autograd.Function):
     package's under a jit sharded over the data axis: ``(sum z, sum z^2, n)``
     of ``stem_stats`` go through one all-reduce before ``fold_affine``, so
     ``stem_norm_relu_pool`` normalizes with them, and the backward
-    all-reduces the first kernel's sums before the second.  dgamma and
-    dbeta stay this rank's local sums (see :func:`stem_tail_bwd`), the
-    weight gradient this rank's rows' contraction: the data-parallel step's
-    gradient reduction sums them over the ranks, as ``CrossReplicaBatchNorm``
-    keeps its ``dweight`` and ``dbias`` local."""
+    all-reduces the first kernel's sums before the second, both over
+    ``group`` (None: the default group; under the spatial split the data
+    group, ``spatial.statistics_group``).  dgamma and dbeta stay this rank's
+    local sums (see :func:`stem_tail_bwd`), the weight gradient this rank's
+    rows' contraction: the data-parallel step's gradient reduction sums them
+    over the ranks, as ``CrossReplicaBatchNorm`` keeps its ``dweight`` and
+    ``dbias`` local."""
 
     @staticmethod
-    def forward(ctx, x, weight, gamma, beta, eps):
+    def forward(ctx, x, weight, gamma, beta, eps, group):
         z = _stem_conv(x, weight)
         n = z.numel() // z.shape[1]
         total, total_sq = stem_stats(z)
-        total, total_sq, n = group_batch_sums(total, total_sq, n)
-        ctx.n = n
+        total, total_sq, n = group_batch_sums(total, total_sq, n, group)
+        ctx.n, ctx.group = n, group
         mean = total / n
         var = torch.clamp_min(total_sq / n - mean * mean, 0.0)
         sigma_inv = torch.rsqrt(var + eps)
@@ -449,18 +454,20 @@ class StemFusedTrain(torch.autograd.Function):
     def backward(ctx, dp, _dmean, _dvar):
         z, x, gamma, beta, mean, sigma_inv = ctx.saved_tensors
         dw, dgamma, dbeta = stem_tail_bwd(z, x, dp.to(z.dtype), gamma, beta, mean,
-                                          sigma_inv, ctx.n)
+                                          sigma_inv, ctx.n, ctx.group)
         # d(image) is deliberately not computed: the stem is the first layer.
         # NaN and not zero, so that a caller who does ask for it fails loudly.
         dx = torch.full_like(x, float("nan")) if ctx.needs_input_grad[0] else None
         return (dx, dw.to(z.dtype).to(ctx.weight_dtype), dgamma.to(gamma.dtype),
-                dbeta.to(beta.dtype), None)
+                dbeta.to(beta.dtype), None, None)
 
 
-def stem_fused_train(x, weight, gamma, beta, eps: float):
+def stem_fused_train(x, weight, gamma, beta, eps: float, group=None):
     """(pooled [B, F, S/2, S/2], batch mean [F], batch var [F]) of the image
-    x [B, 3, 2S, 2S], the conv weight [F, 3, 7, 7] and the BN affine."""
-    return StemFusedTrain.apply(x, weight, gamma, beta, eps)
+    x [B, 3, 2S, 2S], the conv weight [F, 3, 7, 7] and the BN affine; in a
+    process group with the statistics summed over ``group`` (None: the
+    default group)."""
+    return StemFusedTrain.apply(x, weight, gamma, beta, eps, group)
 
 
 class StemFusedEval(torch.autograd.Function):

@@ -141,21 +141,29 @@ def _count_statistics(_t: torch.Tensor) -> None:
     cross_replica_all_reduces += 1
 
 
-def statistics_sum(t: torch.Tensor) -> torch.Tensor:
-    """:func:`group_sum` over the default group of BatchNorm statistics,
-    counted in ``cross_replica_all_reduces``."""
-    return group_sum(t, None, _count_statistics)
+def statistics_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """:func:`group_sum` over ``group`` (None: the default group) of
+    BatchNorm statistics, counted in ``cross_replica_all_reduces``."""
+    return group_sum(t, group, _count_statistics)
 
 
-def group_batch_sums(s: torch.Tensor, q: torch.Tensor, count: int):
+def alone_in(group) -> bool:
+    """Whether a sum over ``group`` is this process's own value, so that it
+    makes no collective: no group is open, or ``group`` (not None, the
+    default group, which sums even alone) is this rank alone."""
+    return not is_initialized() or (group is not None and dist.get_world_size(group) == 1)
+
+
+def group_batch_sums(s: torch.Tensor, q: torch.Tensor, count: int, group=None):
     """(S, Q, N): per-channel float32 sums of y and y^2 over this process's
-    ``count`` values a channel, summed over the default group with the
-    counts in one all-reduce of ``cat([s, q, n])`` (N a 1-element tensor);
-    the sums as given without a group.  S and Q carry gradients back to s
-    and q (a second all-reduce, in the backward)."""
-    if not is_initialized():
+    ``count`` values a channel, summed over ``group`` (None: the default
+    group) with the counts in one all-reduce of ``cat([s, q, n])`` (N a
+    1-element tensor); the sums as given where :func:`alone_in` the group.
+    S and Q carry gradients back to s and q (a second all-reduce, in the
+    backward)."""
+    if alone_in(group):
         return s, q, count
     n = torch.full((1,), count, dtype=torch.float32, device=s.device)
     c = s.shape[0]
-    total = statistics_sum(torch.cat([s.float(), q.float(), n]))
+    total = statistics_sum(torch.cat([s.float(), q.float(), n]), group)
     return total[:c], total[c:2 * c], total[2 * c:]

@@ -9,7 +9,10 @@ a rank the rows of the global batch of its DATA index (every rank of a model
 group gets the same rows, as ``batch_sharding`` ``P("data")`` replicates them
 over ``model``), and ``spatial_rows`` its share of the image rows
 (``P(data, model)``).  The model group of a rank (``Mesh.group``) is what the
-spatial operators exchange halos over (``parallel/spatial.py``).
+spatial operators exchange halos over (``parallel/spatial.py``); its data
+group (``Mesh.data_group``, the ranks of its model index) is what the fused
+stem and blocks sum their BatchNorm statistics over under the split, where
+every rank of a model group runs them on the group's whole map.
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ from .distributed import is_initialized, rank, world_size
 @dataclass(frozen=True)
 class Mesh:
     """``data`` replicas times ``model`` row shards, and where this rank
-    sits in them; ``group`` is this rank's model group (None when ``model``
-    is 1)."""
+    sits in them; ``group`` is this rank's model group and ``data_group``
+    the ranks that share its model index (both None when ``model`` is 1)."""
 
     data: int
     model: int = 1
     data_index: int = 0
     model_index: int = 0
     group: Any = field(default=None, compare=False, repr=False)
+    data_group: Any = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -40,8 +44,9 @@ class Mesh:
 def make_mesh(data_axis: int = -1, model_axis: int = 1) -> Mesh:
     """The (data, model) layout over the default group's ranks;
     ``data_axis=-1`` puts every remaining rank on the data axis.  With
-    ``model_axis > 1`` every rank creates every model group, in the same
-    order (``torch.distributed.new_group`` is collective)."""
+    ``model_axis > 1`` every rank creates every model group, then every
+    data group, in the same order (``torch.distributed.new_group`` is
+    collective)."""
     n = world_size()
     if model_axis < 1 or n % model_axis != 0:
         raise ValueError(f"model_axis {model_axis} must divide device count {n}")
@@ -50,7 +55,7 @@ def make_mesh(data_axis: int = -1, model_axis: int = 1) -> Mesh:
     if data_axis * model_axis != n:
         raise ValueError(f"data_axis*model_axis ({data_axis}*{model_axis}) != devices ({n})")
     r = rank()
-    group = None
+    group = data_group = None
     if model_axis > 1:
         import torch.distributed as dist
 
@@ -58,7 +63,11 @@ def make_mesh(data_axis: int = -1, model_axis: int = 1) -> Mesh:
             g = dist.new_group([d * model_axis + m for m in range(model_axis)])
             if d == r // model_axis:
                 group = g
-    return Mesh(data_axis, model_axis, r // model_axis, r % model_axis, group)
+        for m in range(model_axis):
+            g = dist.new_group([d * model_axis + m for d in range(data_axis)])
+            if m == r % model_axis:
+                data_group = g
+    return Mesh(data_axis, model_axis, r // model_axis, r % model_axis, group, data_group)
 
 
 def _check_layout(mesh: Mesh) -> None:

@@ -43,6 +43,18 @@ and ``nccl``.  ``collectives`` and ``collective_bytes`` count the calls and
 the bytes of the tensors they produce, forward and backward; ``recomputed``
 the calls of them that a rematerialized segment's recomputation made
 (``models/remat.py``, which runs it under the split of its first forward).
+
+The fused stem and blocks have no path for a rank's rows: as GSPMD gathers
+the activations of an opaque kernel, every rank of a model group runs them
+on the group's whole map (:func:`on_whole_map`: one exchange of whole
+shards, :func:`whole_map`) and keeps its own rows of the output
+(:func:`keep_rows`).  Every rank of a
+model group then holds the whole map's BatchNorm sums, so those sums go over
+the split's data group (:func:`statistics_group`, the ranks of this rank's
+model index), which counts every pixel of the global batch once; the
+backward sums the statistics' cotangents over that group too, and the
+ranks' partial gradients add up, in the exchange's backward and in the
+gradient reduction, to the global batch's.
 """
 
 from __future__ import annotations
@@ -81,13 +93,15 @@ class Split:
     size M and this rank's index m in it; ``rows`` the global height of the
     step's input images (a key of the operators' cached extents);
     ``recompute`` whether a rematerialized segment's recomputation runs
-    under it."""
+    under it; ``data_group`` the ranks of this rank's model index
+    (:func:`statistics_group`)."""
 
     group: object
     size: int
     index: int
     rows: Optional[int] = None
     recompute: bool = False
+    data_group: object = None
 
 
 # module-wide, not thread-local: the autograd engine runs a CUDA backward on
@@ -101,7 +115,8 @@ def spatially_split(mesh=None, rows: Optional[int] = None):
     rows of the model group of ``mesh`` (a ``parallel.Mesh``) of an input
     image of ``rows`` global rows; ``mesh`` None or with a model axis of 1
     is a no-op."""
-    split = (Split(mesh.group, mesh.model, mesh.model_index, rows)
+    split = (Split(mesh.group, mesh.model, mesh.model_index, rows,
+                   data_group=mesh.data_group)
              if mesh is not None and mesh.model > 1 else None)
     with restored(split) if split is not None else contextlib.nullcontext():
         yield
@@ -125,6 +140,19 @@ def restored(split: Optional[Split], recompute: bool = False):
 def current() -> Optional[Split]:
     """The split in force, or None."""
     return _split
+
+
+def statistics_group():
+    """The process group that a fused kernel's BatchNorm sums go over: the
+    split's data group (the ranks of this rank's model index, whose whole
+    maps are the global batch, each pixel once); None (the default group)
+    outside a split, where each rank holds its own rows."""
+    split = _split
+    if split is None:
+        return None
+    if split.data_group is None:
+        raise ValueError("the split's mesh has no data group: build it with make_mesh")
+    return split.data_group
 
 
 def _count(kind: str, t: torch.Tensor, split: Optional[Split] = None) -> None:
@@ -309,6 +337,63 @@ def fetch_rows(x: torch.Tensor, rows: Callable[[int], Tuple[int, int]], total: i
         else:
             pieces.append((kind, 1) if kind == "fill" else (kind, at[0], at[0] + 1))
     return _FetchRows.apply(x, split, e, whole, tuple(pieces), fill)
+
+
+def global_shape(x: torch.Tensor, owner=None) -> tuple:
+    """``x``'s [B, C, H, W] with H the global height of the map whose rows
+    it holds under the split (:func:`extents`, keyed by ``owner``), as it is
+    outside the split: what a choice between an operator's paths must be
+    made on, the same on every rank."""
+    if _split is None:
+        return tuple(x.shape)
+    (total,) = extents(owner, x.device, x.shape[2])
+    return (*x.shape[:2], total, x.shape[3])
+
+
+def whole_map(x: torch.Tensor, owner=None) -> torch.Tensor:
+    """The model group's whole map of which this rank holds the rows ``x``
+    [B, C, h, W], in ``x``'s memory format (every rank's shard gathered);
+    ``owner`` keys its global height (:func:`extents`).  Differentiable:
+    each rank's gradient of a row is added to its owner's."""
+    (total,) = extents(owner, x.device, x.shape[2])
+    return fetch_rows(x, lambda r: (0, total), total)
+
+
+class _KeepRows(torch.autograd.Function):
+    """The rows ``[start, stop)`` of ``out`` in its memory format; the
+    backward puts their gradient in zeros of ``out``'s shape and format."""
+
+    @staticmethod
+    def forward(ctx, out, start, stop):
+        ctx.shape, ctx.layout, ctx.span = out.shape, _layout(out), (start, stop)
+        return out[:, :, start:stop].contiguous(memory_format=ctx.layout)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, stop = ctx.span
+        dout = grad.new_zeros(ctx.shape).contiguous(memory_format=ctx.layout)
+        dout[:, :, start:stop] = grad
+        return dout, None, None
+
+
+def keep_rows(out: torch.Tensor) -> torch.Tensor:
+    """This rank's rows (:func:`shard`) of the whole map ``out`` [B, C, H,
+    W] that an operator computed from :func:`whole_map`'s input, in
+    ``out``'s memory format."""
+    split = _split
+    start, stop = shard(out.shape[2], split.size, split.index)
+    return _KeepRows.apply(out, start, stop)
+
+
+def on_whole_map(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
+                 owner=None) -> torch.Tensor:
+    """``fn(x)`` for an operator with no path for a rank's rows: outside a
+    split as it is; under one, ``fn`` of the model group's whole map
+    (:func:`whole_map`, keyed by ``owner``) and this rank's rows of its
+    output (:func:`keep_rows`)."""
+    if _split is None:
+        return fn(x)
+    return keep_rows(fn(whole_map(x, owner)))
 
 
 def _output_shards(total: int, size: int, what: str) -> list:

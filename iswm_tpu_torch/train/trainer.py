@@ -30,13 +30,15 @@ float16.
 ranks of a model group (``parallel/spatial.py``): the ranks form a (data,
 model) grid (``parallel.make_mesh``), every rank of a model group reads the
 rows of its data index and augments them alike.  Every backbone, QAT (with
-its int8 backward) and remat run on a rank's rows; the maps may split
-unevenly (Xception's), so the crop size need only split evenly over the
-model axis and leave every rank rows of the deepest map
-(``output_stride * model_axis`` at least).
+its int8 backward) and remat run on a rank's rows, and the fused stem and
+blocks on their model group's whole maps; the maps may split unevenly
+(Xception's), so the crop size need only split evenly over the model axis
+and leave every rank rows of the deepest map (``output_stride *
+model_axis`` at least).
 
-What the port does not carry yet is refused with ``NotImplementedError``
-naming its ROADMAP item (``refuse_unported``).
+An option that the port does not carry would be refused with
+``NotImplementedError`` naming its ROADMAP item (``refuse_unported``); none
+is refused now.
 """
 
 from __future__ import annotations
@@ -69,22 +71,11 @@ from .optim import make_optimizer
 from .step import TrainState, data_parallel, make_eval_step, make_train_step
 
 
-SPATIAL_OPTIONS_ITEM = "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'"
-
-
 def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for an option this slice does not port:
-    under a model axis above 1, the fused stem and blocks, whose kernels
-    have no path for a rank's image rows yet."""
-    if cfg.parallel.model_axis <= 1:
-        return
-    m = cfg.model
-    refused = [f"model.{k}={getattr(m, k)!r}" for k in ("fused_stem", "fused_blocks")
-               if getattr(m, k) in ("always", "interpret")]
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)} under parallel.model_axis={cfg.parallel.model_axis} is "
-            f"not ported yet ({SPATIAL_OPTIONS_ITEM})")
+    """The one place where an option of ``cfg`` that the port does not carry
+    yet is refused, with ``NotImplementedError`` naming its ROADMAP item.
+    The port carries every option of the JAX package's ``Config``, the fused
+    stem and blocks under a model axis above 1 the last: none is refused."""
 
 
 def rank_seed(seed: int, rank: int) -> int:

@@ -69,6 +69,14 @@ def rank_main(rank: int, world: int, init_file: str, payload_path: str, out_dir:
         spatial = make_mesh(1, WORLD)  # one model group of both ranks
         seen["spatial_mesh"] = _spatial_mesh_checks(spatial)
         seen["halo"] = [_halo(spatial, case) for case in payload["halo_cases"]]
+        seen["spatial_fused_block"] = _fused_block(payload["fused_block"], spatial)
+        seen["spatial_uneven_fused_block"] = _fused_block(payload["uneven_fused_block"], spatial)
+        seen["spatial_fused_stem"] = _spatial_fused_stem(spatial, payload["fused_stem"])
+        fused = _train_step(payload["step"], FUSED, mesh=spatial)
+        seen["spatial_fused_step"] = kept(fused)
+        seen["spatial_fused_remat"] = kept(_train_step(payload["step"], FUSED, remat=True,
+                                                       mesh=spatial), like=fused)
+        del fused
         seen["spatial_step"] = step = _train_step(payload["step"], mesh=spatial)
         seen.update({  # of the option's steps, what kept() keeps
             "spatial_remat": kept(_train_step(payload["step"], remat=True, mesh=spatial),
@@ -178,8 +186,9 @@ def _dropout_off(model) -> None:
             m.p = 0.0
 
 
-# the options still refused under a model axis above 1 (section, key, value)
-SPATIAL_REFUSED = (("model", "fused_stem", "always"), ("model", "fused_blocks", "interpret"))
+# the fused modes once refused under a model axis above 1 (section, key,
+# value): a ResNet-50 Trainer at a model axis of 2 with both, which takes a step
+SPATIAL_FUSED = (("model", "fused_stem", "always"), ("model", "fused_blocks", "interpret"))
 # the options a Trainer takes under a model axis of 2 (once refused there), in
 # two Trainers: the Config fields each sets
 SPATIAL_ACCEPTED = {
@@ -199,20 +208,30 @@ FUSED = dict(backbone="resnet50", fused_stem="always", fused_blocks="always")
 RESNET50 = dict(backbone="resnet50")  # ... and unfused, its yardstick
 
 
+_STEP_MODELS = {}  # (checkpoint, options) -> the model step_model copies
+
+
 def step_model(case: dict, options: dict):
     """The float32 model of a step case, dropout off: resnet18 with the
     crossed weights of ``case["ckpt"]``, or where ``options`` name another
-    backbone (``FUSED``, ``RESNET50``), that model's seeded weights."""
+    backbone (``FUSED``, ``RESNET50``), that model's seeded weights; a copy
+    of one built once a process for each."""
+    import copy
+
     from iswm_tpu_torch.compat import load_checkpoint
     from iswm_tpu_torch.config import ModelConfig
     from iswm_tpu_torch.models import build_model
 
-    model = build_model(ModelConfig(**{"backbone": "resnet18", "compute_dtype": "float32",
-                                       **options}))
-    if options.get("backbone", "resnet18") == "resnet18":
-        model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
-    _dropout_off(model)
-    return model
+    crossed = options.get("backbone", "resnet18") == "resnet18"
+    key = (case["ckpt"] if crossed else None, tuple(sorted(options.items())))
+    if key not in _STEP_MODELS:
+        model = build_model(ModelConfig(**{"backbone": "resnet18", "compute_dtype": "float32",
+                                           **options}))
+        if crossed:
+            model.load_state_dict(load_checkpoint(case["ckpt"]), strict=True)
+        _dropout_off(model)
+        _STEP_MODELS[key] = model
+    return copy.deepcopy(_STEP_MODELS[key])
 
 
 @contextlib.contextmanager
@@ -426,22 +445,28 @@ def fused_block_module(state: dict):
     return block
 
 
-def _fused_block(case: dict) -> dict:
+def _fused_block(case: dict, mesh=None) -> dict:
     """The fused block on this rank's rows of x [B, 64, H, W] and of the
-    output's cotangent: output and dx rows, this rank's parameter gradients,
-    the running statistics and the all-reduces it made."""
-    from iswm_tpu_torch.parallel import distributed
+    output's cotangent (with a ``mesh`` of a model axis, its image rows under
+    ``spatially_split``: ``shard_rows``, uneven for an odd H): output and dx
+    rows, this rank's parameter gradients, the running statistics, the
+    all-reduces and the split's collectives it made."""
+    from iswm_tpu_torch.parallel import distributed, spatial
 
+    rows = _rows if mesh is None else (lambda a: shard_rows(mesh, a))
     block = fused_block_module(case["state"])
-    x = torch.from_numpy(_rows(case["x"])).requires_grad_()
+    x = torch.from_numpy(rows(case["x"])).clone().requires_grad_()
     before = distributed.cross_replica_all_reduces
-    with counting_fused_calls({}) as calls:
+    spatial.reset_counts()
+    with counting_fused_calls({}) as calls, spatial.spatially_split(mesh):
         out = block(x)
-    out.backward(torch.from_numpy(_rows(case["g"])))
+    out.backward(torch.from_numpy(rows(case["g"])))
     return {"out": out.detach(), "dx": x.grad, "calls": calls,
             "grads": {k: p.grad.clone() for k, p in block.named_parameters()},
             "buffers": {k: b.clone() for k, b in block.named_buffers()},
-            "all_reduces": distributed.cross_replica_all_reduces - before}
+            "all_reduces": distributed.cross_replica_all_reduces - before,
+            "collectives": dict(spatial.collectives),
+            "channels_last": out.is_contiguous(memory_format=torch.channels_last)}
 
 
 def fused_stem_call(case: dict, rows) -> dict:
@@ -465,6 +490,34 @@ def _fused_stem(case: dict) -> dict:
     return {**out, "all_reduces": distributed.cross_replica_all_reduces - before}
 
 
+def _spatial_fused_stem(mesh, case: dict) -> dict:
+    """A ResNet's stem with ``fused_stem="always"`` (resnet18's, its
+    BatchNorm's momentum 1, so that the running statistics are the batch's)
+    on this rank's rows of the image under ``spatially_split``, the
+    cotangent's rows of the pooled output: p, the statistics, this rank's
+    gradients of the conv weight, gamma and beta, the all-reduces, the
+    split's collectives and its exchanges of row counts."""
+    from iswm_tpu_torch.models.resnet import ResNet
+    from iswm_tpu_torch.parallel import distributed, spatial
+
+    net = ResNet("resnet18", fused_stem="always").train()
+    net.bn1.momentum = 1.0
+    with torch.no_grad():
+        for param, key in ((net.conv1.weight, "weight"), (net.bn1.weight, "gamma"),
+                           (net.bn1.bias, "beta")):
+            param.copy_(torch.from_numpy(case[key]))
+    before = distributed.cross_replica_all_reduces
+    spatial.reset_counts()
+    with counting_fused_calls({}) as calls, spatial.spatially_split(mesh):
+        p = net.stem(shard_rows(mesh, torch.from_numpy(case["image"])))
+    (p * shard_rows(mesh, torch.from_numpy(case["w"]))).sum().backward()
+    return {"p": p.detach(), "mean": net.bn1.running_mean, "var": net.bn1.running_var,
+            "dweight": net.conv1.weight.grad, "dgamma": net.bn1.weight.grad,
+            "dbeta": net.bn1.bias.grad, "calls": calls,
+            "all_reduces": distributed.cross_replica_all_reduces - before,
+            "collectives": dict(spatial.collectives), "row_exchanges": spatial.row_exchanges}
+
+
 def _spatial_mesh_checks(mesh) -> dict:
     """A data 1 x model 2 mesh: its indices, the model group, the batch rows
     (the whole batch on both ranks) and the image rows."""
@@ -478,6 +531,7 @@ def _spatial_mesh_checks(mesh) -> dict:
     dist.all_reduce(ones, group=mesh.group)
     return {"shape": mesh.shape, "indices": (mesh.data_index, mesh.model_index),
             "group_size": dist.get_world_size(mesh.group), "group_sum": float(ones),
+            "data_group_size": dist.get_world_size(mesh.data_group),
             "sx": shard_batch(mesh, x), "rows": spatial_rows(mesh, images),
             "odd_rows": _raised(lambda: spatial_rows(mesh, images[:, :5]))}
 
@@ -579,9 +633,11 @@ def _dryrun() -> dict:
 def _refusals(root: str) -> dict:
     """What builds at world size 2 and what is refused; the Trainers of
     ``SPATIAL_ACCEPTED`` (crop 48, data under ``root``) with what each
-    built: its backbone's class, its QAT sites, remat and the mesh."""
+    built: its backbone's class, its QAT sites, remat and the mesh; the
+    Trainer of ``SPATIAL_FUSED`` (ResNet-50, crop 32) with its fused modes
+    and the fused calls of one step."""
     from iswm_tpu_torch.config import Config, ModelConfig
-    from iswm_tpu_torch.data import ArrayDataset, generate_scene
+    from iswm_tpu_torch.data import ArrayDataset, batch_iterator, generate_scene
     from iswm_tpu_torch.models import build_model, layers
     from iswm_tpu_torch.train import Trainer
 
@@ -605,28 +661,38 @@ def _refusals(root: str) -> dict:
     images, masks = zip(*(generate_scene(rng, size=(48, 48)) for _ in range(2)))
     dataset = ArrayDataset(np.stack(images), np.stack(masks))
 
-    def accepted(name, fields):
+    def accepted(name, fields, crop=48):
         cfg = Config()
         cfg.parallel.model_axis = 2
         cfg.model.backbone, cfg.model.compute_dtype = "resnet18", "float32"
-        cfg.data.crop_size, cfg.data.batch_size = 48, 2
+        cfg.data.crop_size, cfg.data.batch_size = crop, 2
         for section, key, value in fields:
             setattr(getattr(cfg, section), key, value)
         for key in ("checkpoints_dir", "val_results_dir", "metrics_plots_dir", "log_dir"):
             setattr(cfg.train, key, os.path.join(root, name, key))
         t = Trainer(cfg, device="cpu", train_ds=dataset, val_ds=dataset)
-        return {"backbone": type(t.state.model.backbone).__name__, "mesh": t.mesh.shape,
-                "int8_bwd": any(getattr(m, "int8_bwd", False) for m in t.state.model.modules()),
-                "routed": len(layers.routed_sites(t.state.model, True)),
-                "remat": t.cfg.parallel.remat}
+        return t, {"backbone": type(t.state.model.backbone).__name__, "mesh": t.mesh.shape,
+                   "int8_bwd": any(getattr(m, "int8_bwd", False)
+                                   for m in t.state.model.modules()),
+                   "routed": len(layers.routed_sites(t.state.model, True)),
+                   "remat": t.cfg.parallel.remat}
+
+    def fused(name, fields):
+        t, got = accepted(name, (("model", "backbone", "resnet50"), *fields), crop=32)
+        images, labels = next(batch_iterator(dataset, 2))
+        with counting_fused_calls({}) as calls:
+            loss = t.train_step(t.state, torch.from_numpy(images), torch.from_numpy(labels))
+        backbone = t.state.model.backbone
+        return {**got, "modes": (backbone.fused_stem, backbone.layer1[0].fused_mode),
+                "calls": calls, "loss": float(loss), "step": t.state.step}
 
     return {
         "auto": modes(fused_stem="auto", fused_blocks="auto"),
         **{f"{k}={v}": modes(**{k: v})
            for k in ("fused_stem", "fused_blocks") for v in ("always", "interpret")},
-        **{f"spatial {k}={v!r}": _raised(lambda s=s, k=k, v=v: trainer(s, k, v, model_axis=2))
-           for s, k, v in SPATIAL_REFUSED},
-        **{f"spatial {name}": accepted(name, fields) for name, fields in SPATIAL_ACCEPTED.items()},
+        "spatial fused": fused("fused", SPATIAL_FUSED),
+        **{f"spatial {name}": accepted(name, fields)[1]
+           for name, fields in SPATIAL_ACCEPTED.items()},
         "spatial crop": _raised(lambda: trainer("data", "crop_size", 30, model_axis=2)),
         "data_axis": _raised(lambda: trainer("parallel", "data_axis", 3)),
         "batch": _raised(lambda: trainer("data", "batch_size", 3)),

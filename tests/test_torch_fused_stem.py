@@ -170,7 +170,7 @@ def test_image_cotangent_is_nan_when_asked_for_and_none_otherwise():
     p, _, _ = fs.stem_fused_train(x.detach(), weight, torch.from_numpy(gamma),
                                   torch.from_numpy(beta), EPS)
     grads = fs.StemFusedTrain.backward(p.grad_fn, _nchw(w), None, None)
-    assert grads[0] is None and grads[1].shape == weight.shape and grads[4:] == (None,)
+    assert grads[0] is None and grads[1].shape == weight.shape and grads[4:] == (None, None)
 
 
 def test_eval_forward_runs_with_grad_enabled_and_refuses_a_backward():

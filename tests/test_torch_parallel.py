@@ -44,14 +44,16 @@ eight virtual CPU devices, ``Mesh(jax.devices()[:2], ("data",))``:
   BatchNorm (fused or not), and its remat step bit-equal to it with three;
   the same step unfused against the one-process unfused step, held the same
   way (a chaotic step: (d)'s tolerances or five times the distance of a
-  one-process step whose stem output moved by an ulp);
+  one-process step whose stem output moved by an ulp); the one-process fused
+  step and its yardstick are computed once and shared with (i'');
 - (e) at world size 2: the fused stem and blocks build under ``always`` /
-  ``interpret``; ``auto`` resolves to ``never``; under ``model_axis = 2`` the
-  options still refused (the fused modes: ROADMAP.md Queue 1, 'Spatial model
-  axis: remaining options'), a Trainer for each option once refused there
-  (MobileNetV2, Xception, QAT with and without its int8 backward, remat) and
-  a crop size below ``output_stride * model_axis``; ``data_axis`` other than
-  the world size and a batch that does not divide;
+  ``interpret``; ``auto`` resolves to ``never``; under ``model_axis = 2`` a
+  Trainer for each option once refused there (MobileNetV2, Xception, QAT
+  with and without its int8 backward, remat), and a ResNet-50 Trainer with
+  ``fused_stem="always"`` and ``fused_blocks="interpret"``, which takes a
+  step with the stem and 6 blocks fused; a crop size below ``output_stride *
+  model_axis``; ``data_axis`` other than the world size and a batch that
+  does not divide;
 - (f) ``Trainer.fit`` of 2 steps and a validation on the two ranks: equal
   parameters on both, one checkpoint, written by rank 0;
 
@@ -76,6 +78,15 @@ and the spatial model axis, the two ranks one model group (data 1 x model 2):
   weights; Xception's maps uneven) against one process, the eval logits
   under the split within 1e-5 and the step as ``_held_step`` holds a chaotic
   one; a second step exchanges no row counts;
+- (i'') the fused stem and blocks under the split: each rank runs the fused
+  kernel on the model group's whole map and keeps its rows; the statistics
+  go over the data group (the rank alone: no statistics all-reduce):
+  (d')'s ``layer1.0`` on 4 + 4 rows and the stem (``ResNet.stem``) on 8 + 8
+  rows against the JAX results and the one-process functions at 1e-5, the
+  block on an odd height split 5 + 4 against one process; the ``FUSED``
+  step held by ``_held_step`` against the one-process fused step (the stem
+  and 6 blocks fused on the global shape, two all-reduces for each unfused
+  BatchNorm), its remat step bit-equal to it;
 - (j) the scene-parallel ``TileEngine(mesh=)`` (batch 1 a rank) against the
   port's one-rank engine (batch 2) on ``tests/test_infer.py``'s stand-in
   model (1e-5) and resnet18 ``int8_exec_xla`` (1e-4);
@@ -325,6 +336,15 @@ def _fused_block_case():
     return {"x": _nchw(x), "g": _nchw(g), "state": state}, (jblock, params, stats)
 
 
+def _uneven_fused_block_case(block_case) -> dict:
+    """(i''): ``layer1.0``'s weights on x [2, 64, 9, 8] (an odd height, which
+    splits 5 + 4; B * H * W = 144, a multiple of 16) and a cotangent."""
+    rng = np.random.default_rng(11)
+    return {"x": np.abs(rng.normal(size=(2, 64, 9, 8))).astype(np.float32),
+            "g": rng.normal(size=(2, 256, 9, 8)).astype(np.float32),
+            "state": block_case["state"]}
+
+
 def _jax_fused_block(case, jblock, params, stats) -> dict:
     """The JAX fused block on the whole batch (interpret mode): output, dx,
     the parameter gradients and the statistics after, in the port's keys."""
@@ -429,11 +449,13 @@ def ranks(tmp_path_factory):
     images, labels = _batch(STEP_BATCH)
     block_case, jax_block = _fused_block_case()
     stem_case, stem_inputs = _fused_stem_case()
+    uneven_case = _uneven_fused_block_case(block_case)
     payload = {"ce_cases": _ce_cases(), "bn_cases": _bn_cases(),
                "step": {"ckpt": ckpt, "images": images, "labels": labels},
                "int8_bwd_conv": _int8_bwd_conv_case(),
                "spatial_int8_bwd_conv": _spatial_int8_bwd_conv_case(),
                "fused_block": block_case, "fused_stem": stem_case,
+               "uneven_fused_block": uneven_case,
                "fit_dir": str(root / "fit"),
                "halo_cases": _halo_cases(), "tiles": _tiles_case()}
     torch.save(payload, root / "payload.pt")
@@ -717,17 +739,16 @@ def _one_process_step(case, options: dict, rows, remat: bool = False,
 
 
 # ------------------------------------------ (d') the fused stem and blocks
-def test_two_rank_fused_block_matches_jax_and_one_process(ranks):
-    """``layer1.0`` on 2 + 2 rows: the global batch's statistics (four
-    all-reduces forward, four backward) give the JAX block's and the
-    one-process fused block's output, dx, running statistics and, summed
-    over the ranks, parameter gradients (1e-5 of each tensor's largest)."""
+def _held_fused_block(seen: list, case: dict, dim: int, want: dict | None) -> None:
+    """The ranks' fused block results (``_torch_dist._fused_block``) against
+    the one-process fused block on the whole of ``case`` and, where given,
+    the JAX block's ``want``: output and dx (the ranks' parts concatenated
+    along ``dim``, 0 for batch rows, 2 for image rows), the running
+    statistics and the ranks' parameter gradients summed (1e-5 of each
+    tensor's largest); the statistics equal on both ranks."""
     from ._torch_dist import fused_block_module
 
-    case = ranks["payload"]["fused_block"]
-    seen = [s["fused_block"] for s in ranks["seen"]]
     for s in seen:
-        assert s["all_reduces"] == 8
         assert s["calls"] == {"blocks": 1, "stem": 0}
         for k, v in s["buffers"].items():
             assert torch.equal(v, seen[0]["buffers"][k]), k
@@ -738,18 +759,53 @@ def test_two_rank_fused_block_matches_jax_and_one_process(ranks):
     one = {"out": out.detach(), "dx": x.grad,
            "grads": {k: p.grad for k, p in block.named_parameters()},
            "buffers": {k: b for k, b in block.named_buffers() if "running_" in k}}
-    got = {"out": torch.cat([s["out"] for s in seen]), "dx": torch.cat([s["dx"] for s in seen]),
+    got = {"out": torch.cat([s["out"] for s in seen], dim),
+           "dx": torch.cat([s["dx"] for s in seen], dim),
            "grads": {k: seen[0]["grads"][k] + seen[1]["grads"][k] for k in one["grads"]},
            "buffers": {k: seen[0]["buffers"][k] for k in one["buffers"]}}
-    want = ranks["jax_fused"]["block"]
     for part in ("out", "dx"):
         _close(got[part], one[part], 1e-5)
-        _close(got[part], want[part], 1e-5)
+        if want is not None:
+            _close(got[part], want[part], 1e-5)
     for part in ("grads", "buffers"):
-        assert set(got[part]) == set(want[part]) == set(one[part])
+        assert set(got[part]) == set(one[part]) == set((want or one)[part])
         for k in one[part]:
             _close(got[part][k], one[part][k], 1e-5)
-            _close(got[part][k], want[part][k], 1e-5)
+            if want is not None:
+                _close(got[part][k], want[part][k], 1e-5)
+
+
+def _held_fused_stem(seen: list, case: dict, dim: int, want: dict) -> None:
+    """The ranks' fused stem results against the one-process fused stem on
+    the whole image and the JAX stem's ``want``: p (concatenated along
+    ``dim``) and the statistics (1e-5), the conv weight's, dgamma's and
+    dbeta's rank shares summed (1e-5 of the largest element); each rank's
+    dgamma and dbeta is its own rows' sum, so their sum is the one-process
+    value and not twice it."""
+    from ._torch_dist import fused_stem_call
+
+    for s in seen:
+        assert torch.equal(s["mean"], seen[0]["mean"]) and torch.equal(s["var"], seen[0]["var"])
+    one = fused_stem_call(case, lambda a: a)
+    got = {"p": torch.cat([s["p"] for s in seen], dim), "mean": seen[0]["mean"],
+           "var": seen[0]["var"],
+           **{k: seen[0][k] + seen[1][k] for k in ("dweight", "dgamma", "dbeta")}}
+    for k in got:
+        _close(got[k], one[k], 1e-5)
+        _close(got[k], want[k], 1e-5)
+    for k in ("dgamma", "dbeta"):  # a rank's share is not the whole
+        assert float((seen[0][k] - one[k]).abs().max()) > 0.1 * float(one[k].abs().max()), k
+
+
+def test_two_rank_fused_block_matches_jax_and_one_process(ranks):
+    """``layer1.0`` on 2 + 2 rows: the global batch's statistics (four
+    all-reduces forward, four backward) give the JAX block's and the
+    one-process fused block's output, dx, running statistics and, summed
+    over the ranks, parameter gradients (1e-5 of each tensor's largest)."""
+    seen = [s["fused_block"] for s in ranks["seen"]]
+    for s in seen:
+        assert s["all_reduces"] == 8
+    _held_fused_block(seen, ranks["payload"]["fused_block"], 0, ranks["jax_fused"]["block"])
 
 
 def test_two_rank_fused_stem_matches_jax_and_one_process(ranks):
@@ -759,23 +815,10 @@ def test_two_rank_fused_stem_matches_jax_and_one_process(ranks):
     and dbeta's rank shares summed equal theirs (1e-5 of the largest
     element): each rank's dgamma and dbeta is its own rows' sum, so their
     sum is the one-process value and not twice it."""
-    from ._torch_dist import fused_stem_call
-
-    case = ranks["payload"]["fused_stem"]
     seen = [s["fused_stem"] for s in ranks["seen"]]
     for s in seen:
         assert s["all_reduces"] == 2
-        assert torch.equal(s["mean"], seen[0]["mean"]) and torch.equal(s["var"], seen[0]["var"])
-    one = fused_stem_call(case, lambda a: a)
-    got = {"p": torch.cat([s["p"] for s in seen]), "mean": seen[0]["mean"],
-           "var": seen[0]["var"],
-           **{k: seen[0][k] + seen[1][k] for k in ("dweight", "dgamma", "dbeta")}}
-    want = ranks["jax_fused"]["stem"]
-    for k in got:
-        _close(got[k], one[k], 1e-5)
-        _close(got[k], want[k], 1e-5)
-    for k in ("dgamma", "dbeta"):  # a rank's share is not the whole
-        assert float((seen[0][k] - one[k]).abs().max()) > 0.1 * float(one[k].abs().max()), k
+    _held_fused_stem(seen, ranks["payload"]["fused_stem"], 0, ranks["jax_fused"]["stem"])
 
 
 FUSED_SLACK = 5  # (d'): a 2-rank ResNet-50 step's distances against the nudged step's
@@ -810,26 +853,15 @@ def _step_distances(got: tuple, want: tuple) -> dict:
             "median update": updates[len(updates) // 2], "worst update": updates[-1]}
 
 
-def _held_step(ranks, tmp_path, key: str, options: dict, pool) -> dict:
-    """The 2-rank step ``key`` of the model ``options`` against one process
-    on all 8 rows, as ``chip_smoke.py`` phase 15 holds its 2-rank steps: the
-    loss, the worst BatchNorm's statistics and the median and the worst
-    update tensor lie within (d)'s tolerance (1e-5, 1e-5, 1e-3, 1e-3) or
-    within FUSED_SLACK times the distance of a yardstick step: the
-    one-process step with 8 values of the stem's pooled output
+def _one_process_references(case, options: dict, pool, tmp_path) -> tuple:
+    """(the reference, the yardstick) of :func:`_held_step`: one process on
+    all 8 rows of the step of the model ``options`` in a 1-rank group, and
+    the same step with 8 values of the stem's pooled output
     (``backbone.<pool>``) moved by one float32 ulp (``_nudge_pooled``), or
-    with ``pool`` None the one-process step at one torch thread where the
-    reference runs two (every sum in another order).  The one process runs
-    in a 1-rank group, so that its unfused BatchNorms take the cross-replica
-    arithmetic (the variance E[x^2] - E[x]^2) that the ranks run.  Returns
-    the step's distances and the yardstick's."""
+    with ``pool`` None at one torch thread where the reference runs two;
+    each (loss, state before, state after)."""
     from . import _torch_dist
 
-    case = ranks["payload"]["step"]
-    steps = [seen[key] for seen in ranks["seen"]]
-    for s in steps:
-        assert s["all_reduces"] == 2 * s["batchnorms"]
-        assert s["loss"] == steps[0]["loss"] and s["equal_to_rank_0"]
     reference = _one_process_step(case, options, slice(None), group_file=tmp_path / "one")[:3]
     with pytest.MonkeyPatch.context() as mp:
         real = _torch_dist.step_model
@@ -850,6 +882,40 @@ def _held_step(ranks, tmp_path, key: str, options: dict, pool) -> dict:
         finally:
             if pool is None:
                 torch.set_num_threads(threads)
+    return reference, nudge
+
+
+@pytest.fixture(scope="module")
+def fused_references(ranks, tmp_path_factory):
+    """:func:`_one_process_references` of the ``FUSED`` step, once for the
+    module: the data-axis and the split fused steps are the same step on
+    the same 8 rows."""
+    from ._torch_dist import FUSED
+
+    return _one_process_references(ranks["payload"]["step"], FUSED, "fused_stem_pool",
+                                   tmp_path_factory.mktemp("fused_references"))
+
+
+def _held_step(ranks, tmp_path, key: str, options: dict, pool, references=None,
+               all_reduces=None) -> dict:
+    """The 2-rank step ``key`` of the model ``options`` against one process
+    on all 8 rows, as ``chip_smoke.py`` phase 15 holds its 2-rank steps: the
+    loss, the worst BatchNorm's statistics and the median and the worst
+    update tensor lie within (d)'s tolerance (1e-5, 1e-5, 1e-3, 1e-3) or
+    within FUSED_SLACK times the distance of a yardstick step
+    (:func:`_one_process_references`, given as ``references`` or made
+    here).  The one process runs in a 1-rank group, so that its unfused
+    BatchNorms take the cross-replica arithmetic (the variance E[x^2] -
+    E[x]^2) that the ranks run.  Each rank made ``all_reduces`` BatchNorm
+    all-reduces (default: two a BatchNorm).  Returns the step's distances
+    and the yardstick's."""
+    case = ranks["payload"]["step"]
+    steps = [seen[key] for seen in ranks["seen"]]
+    for s in steps:
+        assert s["all_reduces"] == (2 * s["batchnorms"] if all_reduces is None
+                                    else all_reduces), s["all_reduces"]
+        assert s["loss"] == steps[0]["loss"] and s["equal_to_rank_0"]
+    reference, nudge = references or _one_process_references(case, options, pool, tmp_path)
     # the ranks start from the seeded weights of step_model, the reference's
     got = _step_distances((steps[0]["loss"], reference[1], steps[0]["after"]), reference)
     yardstick = _step_distances(nudge, reference)
@@ -860,7 +926,7 @@ def _held_step(ranks, tmp_path, key: str, options: dict, pool) -> dict:
     return {"step": steps[0], "got": got, "nudged": yardstick}
 
 
-def test_two_rank_fused_step_matches_one_process_fused_step(ranks, tmp_path):
+def test_two_rank_fused_step_matches_one_process_fused_step(ranks, tmp_path, fused_references):
     """deeplabv3plus_resnet50 with ``fused_stem`` / ``fused_blocks`` =
     ``always`` on two ranks (4 rows each) against one process on all 8: the
     stem and 6 bottlenecks (``layer1``, ``layer2.{1,2,3}``; the other blocks
@@ -876,7 +942,8 @@ def test_two_rank_fused_step_matches_one_process_fused_step(ranks, tmp_path):
     ranks is held at 1e-5 module by module above."""
     from ._torch_dist import FUSED
 
-    held = _held_step(ranks, tmp_path, "fused_step", FUSED, "fused_stem_pool")
+    held = _held_step(ranks, tmp_path, "fused_step", FUSED, "fused_stem_pool",
+                      fused_references)
     assert held["step"]["fused_calls"] == {"blocks": 6, "stem": 1}
 
 
@@ -905,7 +972,7 @@ def test_two_rank_fused_remat_step_is_the_fused_step(ranks):
 
 # ----------------------------------------- (e) world size two: what builds
 def test_refusals_and_auto_at_world_size_two(ranks):
-    from ._torch_dist import SPATIAL_ACCEPTED, SPATIAL_REFUSED
+    from ._torch_dist import SPATIAL_ACCEPTED, SPATIAL_FUSED
 
     for seen in ranks["seen"]:
         r = seen["refusals"]
@@ -915,11 +982,12 @@ def test_refusals_and_auto_at_world_size_two(ranks):
             setting, value = key.split("=")
             want = (value, "never") if setting == "fused_stem" else ("never", value)
             assert r[key] == want, key  # built, the mode handed down as given
-        for _, key, value in SPATIAL_REFUSED:
-            got = r[f"spatial {key}={value!r}"]
-            assert got[0] == "NotImplementedError", key
-            assert "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'" in got[1]
-            assert f"{key}={value!r}" in got[1]
+        got = r["spatial fused"]  # a ResNet-50 Trainer at model axis 2
+        assert got["mesh"] == {"data": 1, "model": 2}
+        assert got["modes"] == tuple(value for _, _, value in SPATIAL_FUSED)
+        # crop 32: the stem, layer1 and layer2.{1,2,3} (4 x 4) fuse
+        assert got["calls"] == {"blocks": 6, "stem": 1}
+        assert got["step"] == 1 and np.isfinite(got["loss"])
         for name, fields in SPATIAL_ACCEPTED.items():  # Trainers at model axis 2, crop 48
             got, settings = r[f"spatial {name}"], {key: value for _, key, value in fields}
             assert got["mesh"] == {"data": 1, "model": 2}, name
@@ -961,6 +1029,7 @@ def test_spatial_mesh_on_two_ranks(ranks):
         assert m["shape"] == {"data": 1, "model": 2}
         assert m["indices"] == (0, r)
         assert m["group_size"] == 2 and m["group_sum"] == 2.0
+        assert m["data_group_size"] == 1  # the rank alone: its model index's ranks
         np.testing.assert_array_equal(m["sx"], np.arange(24).reshape(8, 3))
         np.testing.assert_array_equal(m["rows"], images[:, 3 * r:3 * r + 3])
         assert m["odd_rows"] == ("ValueError",
@@ -1175,6 +1244,94 @@ def test_spatial_backbone_step_matches_one_process_step(ranks, tmp_path, backbon
         assert s["row_exchanges"] == seen[0]["row_exchanges"] > 0
         assert s["again"] == {"collectives": s["collectives"], "row_exchanges": 0}
     assert held["step"]["fused_calls"] == {"blocks": 0, "stem": 0}
+
+
+# ---------------------- (i'') the fused stem and blocks under the split (Item 15)
+# the BatchNorms of FUSED's fused path at crop 32: the stem's, layer1.0's four,
+# three in each of layer1.{1,2} and layer2.{1,2,3}
+SPLIT_FUSED_BATCHNORMS = 1 + 4 + 5 * 3
+
+
+def test_spatial_fused_block_matches_jax_and_one_process(ranks):
+    """``layer1.0`` on 4 + 4 image rows of all 4 images: each rank runs the
+    fused block on the model group's whole map (one gather of the shards
+    forward, one all-reduce of the gathered rows' gradient backward) and
+    keeps its rows, in channels-last memory; its statistics go over the
+    data group, the rank alone at data 1, so no statistics all-reduce is
+    made; the JAX block's and the one-process block's results as (d')."""
+    seen = [s["spatial_fused_block"] for s in ranks["seen"]]
+    for s in seen:
+        assert s["all_reduces"] == 0
+        assert s["collectives"] == {"halo_gather": 1, "halo_reduce": 1, "group_sum": 0}
+        assert s["channels_last"]
+    _held_fused_block(seen, ranks["payload"]["fused_block"], 2, ranks["jax_fused"]["block"])
+
+
+def test_spatial_fused_block_on_uneven_shards(ranks):
+    """The fused block on an odd height split 5 + 4 (B * H * W = 144): the
+    one-process block's results, as above."""
+    seen = [s["spatial_uneven_fused_block"] for s in ranks["seen"]]
+    assert [tuple(s["out"].shape) for s in seen] == [(2, 256, 5, 8), (2, 256, 4, 8)]
+    for s in seen:
+        assert s["all_reduces"] == 0
+    _held_fused_block(seen, ranks["payload"]["uneven_fused_block"], 2, None)
+
+
+def test_spatial_fused_stem_matches_jax_and_one_process(ranks):
+    """``ResNet.stem`` with the fused stem on 8 + 8 rows of all 4 images:
+    each rank gathers the image (3 channels; it takes no gradient, so no
+    all-reduce backward), runs the fused stem on it and keeps its 2 of the
+    4 pooled rows; no statistics all-reduce at data 1; the JAX stem's and
+    the one-process stem's results as (d'), dgamma and dbeta each rank's
+    share."""
+    seen = [s["spatial_fused_stem"] for s in ranks["seen"]]
+    for s in seen:
+        assert s["calls"] == {"blocks": 0, "stem": 1}
+        assert s["all_reduces"] == 0
+        assert s["collectives"] == {"halo_gather": 1, "halo_reduce": 0, "group_sum": 0}
+        assert s["row_exchanges"] == 1  # the image's global height, once
+    _held_fused_stem(seen, ranks["payload"]["fused_stem"], 2, ranks["jax_fused"]["stem"])
+
+
+def test_spatial_fused_step_matches_one_process_fused_step(ranks, tmp_path, fused_references):
+    """(d')'s ``FUSED`` step at data 1 x model 2 (each rank on 16 of the 32
+    rows of all 8 images) against the one-process fused step, held by
+    ``_held_step`` with the data-axis step's references: the stem and the
+    same 6 bottlenecks fused (chosen on the global shape: a rank's 16 x 32
+    rows are not square, and layer2's 2 x 4 rows are under 3), equal
+    parameters on both ranks; two all-reduces for each unfused BatchNorm and
+    none for a fused one (its sums go over the data group, the rank alone)."""
+    from ._torch_dist import FUSED
+
+    steps = [seen["spatial_fused_step"] for seen in ranks["seen"]]
+    held = _held_step(ranks, tmp_path, "spatial_fused_step", FUSED, "fused_stem_pool",
+                      fused_references,
+                      2 * (steps[0]["batchnorms"] - SPLIT_FUSED_BATCHNORMS))
+    for s in steps:
+        assert s["fused_calls"] == {"blocks": 6, "stem": 1}
+        # a gather of the image and of each fused block's input; 17 row
+        # windows (layer2.0's strided 3x3, layer3's six 3x3s, layer4's three,
+        # 3 ASPP branches, 2 decoder 3x3s, 2 resizes); an all-reduce each in
+        # the backward but the image's; the pooling branch's group sum twice
+        assert s["collectives"] == {"halo_gather": 24, "halo_reduce": 23, "group_sum": 2}
+    assert held["step"]["count"] == 1
+
+
+def test_spatial_fused_remat_step_is_the_spatial_fused_step(ranks):
+    """Remat of the split fused step: each recomputed segment runs its
+    gather again under the split of its first forward (the stem's and the
+    six blocks' among the recomputed gathers) and updates no running
+    statistic again; the step is the split fused step bit for bit."""
+    for seen in ranks["seen"]:
+        remat, plain = seen["spatial_fused_remat"], seen["spatial_fused_step"]
+        assert remat["fused_calls"] == {"blocks": 12, "stem": 2}
+        assert remat["loss"] == plain["loss"] and remat["count"] == 1
+        assert remat["equal_to_like"] and remat["equal_to_rank_0"]
+        # every gather again but the final resize's (outside the segments)
+        assert remat["recomputed"] == {"halo_gather": 23, "halo_reduce": 0, "group_sum": 1}
+        assert remat["collectives"] == {
+            k: plain["collectives"][k] + remat["recomputed"][k] for k in plain["collectives"]}
+        assert remat["all_reduces"] == 3 * (remat["batchnorms"] - SPLIT_FUSED_BATCHNORMS)
 
 
 # ------------------------------------------------ (j) the scene-parallel engine

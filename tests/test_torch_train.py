@@ -367,10 +367,11 @@ def test_dropout_rate_and_scaling():
     torch.testing.assert_close(kept, torch.full_like(kept, 1 / 0.9))
 
 
-# the options refused under parallel.model_axis = 2, and the Config fields
-# they set; "devices" is the model axis alone, which is ported: one process
-# refuses it as the JAX package's make_mesh refuses a model axis that does not
-# divide the devices
+# the options once refused under parallel.model_axis = 2, and the Config
+# fields they set (the fused modes: ported to the split, where each fused
+# kernel runs on the model group's whole map); "devices" is the model axis
+# alone.  One process refuses each only as the JAX package's make_mesh
+# refuses a model axis that does not divide the devices
 REFUSED = {
     "devices": (),
     "fused_stem": (("model", "fused_stem", "always"),),
@@ -394,28 +395,24 @@ def test_spatial_options_pass_refuse_unported(name):
     for section, key, value in SPATIAL_OPTIONS[name]:
         setattr(getattr(cfg, section), key, value)
     refuse_unported(cfg)
-    cfg.model.fused_stem = "always"  # with a fused mode, the fused mode alone is named
-    with pytest.raises(NotImplementedError, match=r"^model\.fused_stem='always' under"):
-        refuse_unported(cfg)
+    cfg.model.fused_stem = cfg.model.fused_blocks = "always"  # and with the fused modes
+    refuse_unported(cfg)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_options_are_refused(name):
+    """Under a model axis of 2 nothing is refused as unported (the 2-rank
+    Trainers of tests/test_torch_parallel.py take a step with the fused
+    modes): one process builds no Trainer only because the model axis does
+    not divide its one device."""
     cfg = Config()
     refuse_unported(cfg)  # the defaults pass
     cfg.parallel.model_axis = 2
     refuse_unported(cfg)  # and the spatial model axis with them
     for section, key, value in REFUSED[name]:
         setattr(getattr(cfg, section), key, value)
-    if not REFUSED[name]:
-        with pytest.raises(ValueError, match=r"^model_axis 2 must divide device count 1$"):
-            Trainer(cfg, device="cpu")
-        return
-    item = "ROADMAP.md Queue 1, 'Spatial model axis: remaining options'"
-    with pytest.raises(NotImplementedError) as refused:
-        refuse_unported(cfg)
-    assert item in str(refused.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    refuse_unported(cfg)
+    with pytest.raises(ValueError, match=r"^model_axis 2 must divide device count 1$"):
         Trainer(cfg, device="cpu")
 
 
